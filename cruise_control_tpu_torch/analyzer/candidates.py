@@ -1,0 +1,411 @@
+"""Candidate action generation.
+
+Counterpart of ``cruise_control_tpu/analyzer/candidates.py``: a goal ranks
+every replica (``source_replica_relevance``) and every broker
+(``dest_room``); the top-S replicas cross the top-D destinations, the
+count goals add transport-matched legs, leadership candidates pair top
+leaders with their followers, and swap candidates cross top out-replicas
+with top in-replicas.  Legitimacy becomes a boolean mask over the batch.
+
+Every ``jax.lax.top_k`` of the JAX package is ``ops.order.top_k`` here and
+every ``jnp.argsort`` is ``ops.order.argsort``: both keep the JAX package's
+tie order, so a given model yields identical index sets.  The intra-broker
+builders (``intra_disk_candidates``, ``intra_swap_candidates``) wait for a
+later slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from cruise_control_tpu_torch.analyzer.actions import (ActionType, Candidates,
+                                                       make_candidates,
+                                                       make_swap_candidates)
+from cruise_control_tpu_torch.analyzer.goals import kernels
+from cruise_control_tpu_torch.analyzer.state import (BrokerArrays, OptimizationOptions,
+                                                     topic_counts)
+from cruise_control_tpu_torch.model.tensor_model import BrokerState, TensorClusterModel
+from cruise_control_tpu_torch.ops import order
+
+_NEG = -1e29  # "irrelevant" sentinel threshold (relevance uses -1e30)
+
+
+def default_num_sources(model: TensorClusterModel) -> int:
+    want = max(64, 4 * model.num_brokers)
+    return max(1, min(model.num_replicas_padded, min(want, 2048)))
+
+
+def default_num_dests(model: TensorClusterModel) -> int:
+    b = model.num_brokers
+    return max(1, min(b, max(32, min(b // 8, 1024))))
+
+
+def default_num_matched(model: TensorClusterModel, num_sources: int) -> int:
+    r = model.num_replicas_padded
+    return max(1, min(r, max(256, min(max(2048, r // 4), 16 * num_sources))))
+
+
+def default_num_swap_sources(model: TensorClusterModel) -> int:
+    return max(1, min(model.num_replicas_padded, 256))
+
+
+def default_num_swap_partners(model: TensorClusterModel) -> int:
+    return max(1, min(model.num_replicas_padded, 16))
+
+
+def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=like.device)
+
+
+def _recv_ok(arrays: BrokerArrays, options: OptimizationOptions) -> torch.Tensor:
+    """bool[B] — brokers able to receive replicas for this request."""
+    ok = arrays.alive & ~options.broker_excluded_replica_move
+    any_requested = options.requested_dest_only.any()
+    return ok & (~any_requested | options.requested_dest_only)
+
+
+def _finish_move_legs(model, arrays, options, replica, dest, ok) -> Candidates:
+    """One legitimacy mask + one make_candidates over concatenated move legs."""
+    k = replica.shape[0]
+    dev = replica.device
+    action_type = torch.full((k,), ActionType.INTER_BROKER_REPLICA_MOVEMENT,
+                             dtype=torch.int32, device=dev)
+    dest_replica = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    valid = ok & _legit_move_mask(model, arrays, options, replica, dest)
+    return make_candidates(model, replica, dest, action_type, dest_replica, valid)
+
+
+def _cross_move_legs(spec, model, arrays, constraint, options, num_sources: int,
+                     num_dests: int, relevance=None, bands=None):
+    """(replica, dest, ok), each [S·D] — the top-S × top-D cross legs."""
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays,
+                                                     constraint, bands=bands)
+    rel_vals, src_replicas = order.top_k(relevance, num_sources)
+    room = kernels.dest_room(spec, model, arrays, constraint, bands=bands)
+    room = torch.where(_recv_ok(arrays, options), room,
+                       torch.full((), -math.inf, device=room.device))
+    _, dest_brokers = order.top_k(room, num_dests)
+    replica = src_replicas.repeat_interleave(num_dests)
+    dest = dest_brokers.repeat(num_sources)
+    src_ok = (rel_vals > _NEG).repeat_interleave(num_dests)
+    return replica, dest, src_ok
+
+
+def move_candidates(spec, model, arrays, constraint, options, num_sources: int,
+                    num_dests: int, relevance=None, bands=None) -> Candidates:
+    """K = S·D inter-broker replica-move candidates for this goal."""
+    replica, dest, src_ok = _cross_move_legs(
+        spec, model, arrays, constraint, options, num_sources, num_dests,
+        relevance=relevance, bands=bands)
+    return _finish_move_legs(model, arrays, options, replica, dest, src_ok)
+
+
+def _matched_move_legs(spec, model, arrays, constraint, options, num_out: int,
+                       relevance=None, bands=None):
+    """(replica, dest, ok), each [2·num_out] — surplus replicas of
+    over-band brokers matched onto receivers' room by a prefix-sum
+    transport (replica-count distribution)."""
+    B = model.num_brokers
+    R = model.num_replicas_padded
+    num_out = max(1, min(num_out, R))
+    dev = model.device
+    metric = kernels.broker_metric(spec, model, arrays, constraint)
+    lower, upper = bands if bands is not None else \
+        kernels.limits(spec, model, arrays, constraint)
+    under_exists = (arrays.alive & (metric < lower)).any()
+    shed_to = torch.where(under_exists, (lower + upper) * 0.5, upper)
+    src_n = torch.ceil(torch.clamp(metric - shed_to, min=0.0)).to(torch.int32)
+    recv_ok = _recv_ok(arrays, options)
+    room_n = torch.where(recv_ok, torch.floor(torch.clamp(upper - metric, min=0.0)),
+                         torch.zeros((), device=dev)).to(torch.int32)
+    room_n = torch.where(src_n > 0, 0, room_n)
+
+    rb = model.replica_broker
+    key = torch.where(model.replica_valid, rb, B)
+    ordr = order.argsort(key)
+    sorted_key = key[ordr]
+    pos = _arange(R, rb)
+    start = torch.full((B + 1,), R, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, sorted_key.clamp(max=B).long(), pos, "amin")
+    rank = torch.zeros((R,), dtype=torch.int32, device=dev)
+    rank[ordr] = pos - start[sorted_key.clamp(max=B)]
+    is_src = model.replica_valid & (rank < src_n[rb])
+
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays,
+                                                     constraint, bands=bands)
+    rel = torch.where(is_src, relevance, torch.full((), -math.inf, device=dev))
+    rel_vals, src_replicas = order.top_k(rel, num_out)
+    src_ok = torch.isfinite(rel_vals)
+
+    room_vals, room_order = order.top_k(room_n, B)
+    cum = torch.cumsum(room_vals, dim=0, dtype=torch.int32)
+    slot = _arange(num_out, cum)
+    counts = torch.zeros((num_out + 1,), dtype=torch.int32, device=dev).index_add_(
+        0, cum.clamp(max=num_out), torch.ones_like(cum))
+    p = torch.cumsum(counts, dim=0, dtype=torch.int32)[:num_out]
+    dest1 = room_order[p.clamp(max=B - 1)]
+    dest_ok = slot < cum[B - 1]
+    dest2 = room_order[(p + 1).clamp(max=B - 1)]
+
+    replica = torch.cat([src_replicas, src_replicas])
+    dest = torch.cat([dest1, dest2])
+    ok = torch.cat([src_ok & dest_ok, src_ok & dest_ok & (dest2 != dest1)])
+    return replica, dest, ok
+
+
+def matched_move_candidates(spec, model, arrays, constraint, options, num_out: int,
+                            relevance=None, bands=None) -> Candidates:
+    replica, dest, ok = _matched_move_legs(
+        spec, model, arrays, constraint, options, num_out,
+        relevance=relevance, bands=bands)
+    return _finish_move_legs(model, arrays, options, replica, dest, ok)
+
+
+def _matched_topic_legs(spec, model, arrays, constraint, options, num_out: int,
+                        relevance=None):
+    """(replica, dest, ok), each [2·num_out] — per-topic transport legs for
+    TopicReplicaDistribution (topic-major [T, 2B] slot table, one global
+    cumsum + searchsorted)."""
+    B = model.num_brokers
+    T = model.num_topics
+    R = model.num_replicas_padded
+    num_out = max(1, min(num_out, R))
+    dev = model.device
+    tbc = topic_counts(model, arrays).to(torch.float32)
+    lower_t, upper_t = kernels._topic_limits(model, arrays, constraint)
+    recv = _recv_ok(arrays, options)[None, :]
+    fzero = torch.zeros((), device=dev)
+    surplus = torch.ceil(torch.clamp(tbc - upper_t[:, None], min=0.0)).to(torch.int32)
+    deficit = torch.where(recv, torch.ceil(torch.clamp(lower_t[:, None] - tbc, min=0.0)),
+                          fzero).to(torch.int32)
+    need_t = torch.clamp(deficit.sum(dim=1, dtype=torch.int32)
+                         - surplus.sum(dim=1, dtype=torch.int32), min=0)
+    mid_t = (lower_t + upper_t) * 0.5
+    donor_cap = torch.floor(torch.clamp(torch.minimum(tbc, upper_t[:, None])
+                                        - mid_t[:, None], min=0.0)).to(torch.int32)
+    d_order = order.argsort(-donor_cap, dim=1)
+    d_sorted = torch.gather(donor_cap, 1, d_order)
+    d_cum = torch.cumsum(d_sorted, dim=1, dtype=torch.int32)
+    prev_cum = d_cum - d_sorted
+    admit_sorted = torch.minimum(torch.clamp(need_t[:, None] - prev_cum, min=0), d_sorted)
+    donor_n = torch.zeros_like(donor_cap).scatter_(1, d_order, admit_sorted)
+    src_n = surplus + donor_n
+    spare = torch.where(recv, torch.floor(torch.clamp(
+        upper_t[:, None] - torch.maximum(tbc, lower_t[:, None]), min=0.0)),
+        fzero).to(torch.int32)
+
+    pair = model.replica_topic * B + model.replica_broker
+    key = torch.where(model.replica_valid, pair, T * B)
+    ordr = order.argsort(key)
+    sorted_key = key[ordr]
+    pos = _arange(R, pair)
+    start = torch.full((T * B + 1,), R, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, sorted_key.clamp(max=T * B).long(), pos, "amin")
+    rank = torch.zeros((R,), dtype=torch.int32, device=dev)
+    rank[ordr] = pos - start[sorted_key.clamp(max=T * B)]
+    is_src = model.replica_valid & (rank < src_n.reshape(-1)[pair.clamp(max=T * B - 1)])
+
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays, constraint)
+    rel = torch.where(is_src, relevance, torch.full((), -math.inf, device=dev))
+    rel_vals, src_replicas = order.top_k(rel, num_out)
+    src_ok = torch.isfinite(rel_vals)
+
+    t_src = model.replica_topic[src_replicas]
+    t_key = torch.where(src_ok, t_src, T)
+    s_order = order.argsort(t_key)
+    s_sorted_t = t_key[s_order]
+    opos = _arange(num_out, t_key)
+    t_start = torch.full((T + 1,), num_out, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, s_sorted_t.clamp(max=T).long(), opos, "amin")
+    p_in_topic = torch.zeros((num_out,), dtype=torch.int32, device=dev)
+    p_in_topic[s_order] = opos - t_start[s_sorted_t.clamp(max=T)]
+
+    def_order = order.argsort(-deficit, dim=1)
+    sp_order = order.argsort(-spare, dim=1)
+    slot_vals = torch.cat([torch.gather(deficit, 1, def_order),
+                           torch.gather(spare, 1, sp_order)], dim=1)
+    slot_broker = torch.cat([def_order, sp_order], dim=1).to(torch.int32)
+    W = 2 * B
+    cum = torch.cumsum(slot_vals.reshape(-1), dim=0, dtype=torch.int32)
+    base = torch.where(t_src > 0, cum[(t_src * W - 1).clamp(min=0)], 0)
+    total_t = cum[t_src * W + W - 1] - base
+    target = base + p_in_topic
+    j = torch.searchsorted(cum, target, right=True).to(torch.int32)
+    j = torch.minimum(j, t_src * W + W - 1)
+    dest1 = slot_broker.reshape(-1)[j]
+    j2 = torch.minimum(j + 1, t_src * W + W - 1)
+    dest2 = slot_broker.reshape(-1)[j2]
+    dest_ok = src_ok & (p_in_topic < total_t)
+
+    replica = torch.cat([src_replicas, src_replicas])
+    dest = torch.cat([dest1, dest2])
+    ok = torch.cat([dest_ok, dest_ok & (dest2 != dest1)])
+    return replica, dest, ok
+
+
+def matched_topic_candidates(spec, model, arrays, constraint, options, num_out: int,
+                             relevance=None) -> Candidates:
+    replica, dest, ok = _matched_topic_legs(
+        spec, model, arrays, constraint, options, num_out, relevance=relevance)
+    return _finish_move_legs(model, arrays, options, replica, dest, ok)
+
+
+def combined_move_candidates(spec, model, arrays, constraint, options,
+                             cross_sources: int, num_dests: int, num_matched: int = 0,
+                             relevance=None, bands=None) -> Candidates:
+    """One move batch: the cross legs plus the goal's matched legs."""
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays,
+                                                     constraint, bands=bands)
+    replica, dest, ok = _cross_move_legs(
+        spec, model, arrays, constraint, options, cross_sources, num_dests,
+        relevance=relevance, bands=bands)
+    legs = None
+    if num_matched > 0 and spec.kind == "replica_distribution":
+        legs = _matched_move_legs(spec, model, arrays, constraint, options,
+                                  num_matched, relevance=relevance, bands=bands)
+    elif num_matched > 0 and spec.kind == "topic_replica_distribution":
+        legs = _matched_topic_legs(spec, model, arrays, constraint, options,
+                                   num_matched, relevance=relevance)
+    if legs is not None:
+        replica = torch.cat([replica, legs[0]])
+        dest = torch.cat([dest, legs[1]])
+        ok = torch.cat([ok, legs[2]])
+    return _finish_move_legs(model, arrays, options, replica, dest, ok)
+
+
+def _legit_move_mask(model, arrays, options, replica, dest) -> torch.Tensor:
+    """bool[K] — GoalUtils.legitMove semantics for inter-broker moves."""
+    src = model.replica_broker[replica]
+    part = model.replica_partition[replica]
+    topic = model.replica_topic[replica]
+    dest_alive = arrays.alive[dest]
+    not_self = dest != src
+    sib = model.partition_replicas[part]
+    sib_valid = (sib >= 0) & (sib != replica[:, None])
+    sib_broker = model.replica_broker[torch.where(sib >= 0, sib, 0)]
+    already_there = (sib_valid & (sib_broker == dest[:, None])).any(dim=1)
+    offline = model.replica_offline_now()[replica] | (~arrays.alive[src])
+    topic_ok = ~options.topic_excluded[topic] | offline
+    immigrant = src != model.replica_original_broker[replica]
+    immigrant_ok = ~options.only_move_immigrants | immigrant | offline
+    dest_ok = ~options.broker_excluded_replica_move[dest]
+    any_requested = options.requested_dest_only.any()
+    requested_ok = ~any_requested | options.requested_dest_only[dest]
+    return (model.replica_valid[replica] & dest_alive & not_self & ~already_there
+            & topic_ok & immigrant_ok & dest_ok & requested_ok)
+
+
+def leadership_candidates(spec, model, arrays, constraint, options, num_sources: int,
+                          relevance=None, bands=None) -> Candidates:
+    """K = S·max_rf leadership-transfer candidates."""
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays,
+                                                     constraint, bands=bands)
+    dev = model.device
+    relevance = torch.where(model.replica_is_leader, relevance,
+                            torch.full((), -math.inf, device=dev))
+    rel_vals, src_replicas = order.top_k(relevance, num_sources)
+    part = model.replica_partition[src_replicas]
+    sib = model.partition_replicas[part]
+    max_rf = sib.shape[1]
+    replica = src_replicas.repeat_interleave(max_rf)
+    dest_replica = sib.reshape(-1)
+    src_ok = (rel_vals > _NEG).repeat_interleave(max_rf)
+    safe_dest = torch.where(dest_replica >= 0, dest_replica, 0)
+    dest_broker = model.replica_broker[safe_dest]
+    dest_state = model.broker_state[dest_broker]
+    dest_ok = ((dest_replica >= 0)
+               & (dest_replica != replica)
+               & model.replica_valid[safe_dest]
+               & ~model.replica_offline_now()[safe_dest]
+               & arrays.alive[dest_broker]
+               & (dest_state != BrokerState.DEMOTED)
+               & ~options.broker_excluded_leadership[dest_broker])
+    is_leader = model.replica_is_leader[replica]
+    k = replica.shape[0]
+    action_type = torch.full((k,), ActionType.LEADERSHIP_MOVEMENT, dtype=torch.int32,
+                             device=dev)
+    valid = src_ok & is_leader & dest_ok & model.replica_valid[replica]
+    return make_candidates(model, replica, torch.zeros((k,), dtype=torch.int32, device=dev),
+                           action_type, dest_replica, valid)
+
+
+def intra_disk_candidates(*args, **kwargs) -> Candidates:
+    raise NotImplementedError("intra-broker disk candidates are not ported yet")
+
+
+def intra_swap_candidates(*args, **kwargs) -> Candidates:
+    raise NotImplementedError("intra-broker swap candidates are not ported yet")
+
+
+def swap_candidates(spec, model, arrays, constraint, options, num_out: int,
+                    num_in: int, relevance=None, bands=None) -> Candidates:
+    """K = S_out·S_in inter-broker replica-SWAP candidates."""
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays,
+                                                     constraint, bands=bands)
+    dev = model.device
+    _, out_replicas = order.top_k(relevance, num_out)
+    out_vals = relevance[out_replicas]
+    room = kernels.dest_room(spec, model, arrays, constraint, bands=bands)
+    recv_ok = arrays.alive & ~options.broker_excluded_replica_move
+    ninf = torch.full((), -math.inf, device=dev)
+    room = torch.where(recv_ok, room, ninf)
+    metric_res = spec.resource if spec.resource >= 0 else 3
+    size = model.replica_load()[:, metric_res]
+    size_scale = size.max().clamp(min=1e-9)
+    in_rank = room[model.replica_broker] - size / size_scale
+    in_rank = torch.where(model.replica_valid, in_rank, ninf)
+    _, in_replicas = order.top_k(in_rank, num_in)
+    r1 = out_replicas.repeat_interleave(num_in)
+    r2 = in_replicas.repeat(num_out)
+    src_ok = (out_vals > _NEG).repeat_interleave(num_in)
+    valid = src_ok & _legit_swap_mask(model, arrays, options, r1, r2)
+    return make_swap_candidates(model, r1, r2, valid)
+
+
+def _legit_swap_mask(model, arrays, options, r1, r2) -> torch.Tensor:
+    """bool[K] — both swap legs are legit moves."""
+    b1 = model.replica_broker[r1]
+    b2 = model.replica_broker[r2]
+    p1 = model.replica_partition[r1]
+    p2 = model.replica_partition[r2]
+    both_alive = arrays.alive[b1] & arrays.alive[b2]
+    different = (b1 != b2) & (p1 != p2)
+
+    def no_sibling_on(replica, broker):
+        sib = model.partition_replicas[model.replica_partition[replica]]
+        sib_valid = (sib >= 0) & (sib != replica[:, None])
+        sib_broker = model.replica_broker[torch.where(sib >= 0, sib, 0)]
+        return ~(sib_valid & (sib_broker == broker[:, None])).any(dim=1)
+
+    topic_ok = ~options.topic_excluded[model.replica_topic[r1]] & \
+        ~options.topic_excluded[model.replica_topic[r2]]
+    dest_ok = ~options.broker_excluded_replica_move[b1] & \
+        ~options.broker_excluded_replica_move[b2]
+    any_requested = options.requested_dest_only.any()
+    requested_ok = ~any_requested | (options.requested_dest_only[b1] &
+                                     options.requested_dest_only[b2])
+    immigrant1 = b1 != model.replica_original_broker[r1]
+    immigrant2 = b2 != model.replica_original_broker[r2]
+    immigrants_ok = ~options.only_move_immigrants | (immigrant1 & immigrant2)
+    return (model.replica_valid[r1] & model.replica_valid[r2]
+            & both_alive & different
+            & no_sibling_on(r1, b2) & no_sibling_on(r2, b1)
+            & topic_ok & dest_ok & requested_ok & immigrants_ok)
+
+
+def concat_candidates(a: Candidates, b: Candidates) -> Candidates:
+    return Candidates(**{f: torch.cat([getattr(a, f), getattr(b, f)])
+                         for f in a.__dataclass_fields__})
+
+
+def take_candidates(cand: Candidates, idx: torch.Tensor) -> Candidates:
+    """Gather the candidate subset ``idx`` along the K axis."""
+    return cand.map(lambda x: x[idx])

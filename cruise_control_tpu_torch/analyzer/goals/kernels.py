@@ -1,0 +1,591 @@
+"""Vectorized goal semantics, and K3.
+
+Counterpart of ``cruise_control_tpu/analyzer/goals/kernels.py`` for the goal
+kinds of the default stack (``rack``, ``replica_capacity``, ``capacity``,
+``replica_distribution``, ``potential_nw_out``, ``resource_distribution``,
+``topic_replica_distribution``, ``leader_replica_distribution``,
+``leader_bytes_in``).  The other kinds (``rack_distribution``,
+``preferred_leader``, ``min_topic_leaders``, ``intra_disk_*``) raise
+``NotImplementedError``: they wait for a later slice.
+
+- ``broker_metric`` / ``limits`` / ``violated_brokers`` — per-broker balance
+  quantity and its [lower, upper] band.
+- ``self_feasible`` — may this goal apply a candidate while optimizing
+  itself.
+- ``accepts`` — would this already-optimized goal veto the candidate.
+- ``score`` — improvement the candidate brings (> 0 required to apply).
+- ``source_pressure`` / ``dest_room`` / ``source_replica_relevance`` —
+  candidate-generation rankings.
+- ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
+  ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from cruise_control_tpu_torch.analyzer.actions import Candidates
+from cruise_control_tpu_torch.analyzer.balancing_constraint import (BALANCE_MARGIN,
+                                                                    BalancingConstraint)
+from cruise_control_tpu_torch.analyzer.goals.specs import GoalSpec
+from cruise_control_tpu_torch.analyzer.state import BrokerArrays, topic_counts
+from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
+from cruise_control_tpu_torch.ops import cuda, order
+from cruise_control_tpu_torch.ops.segment import masked_segment_count
+
+_BIG = 1e30
+_OFFLINE_BONUS = 1e12  # healing moves (offline replicas off dead brokers) dominate
+
+SUPPORTED_KINDS = ("rack", "replica_capacity", "capacity", "replica_distribution",
+                   "potential_nw_out", "resource_distribution",
+                   "topic_replica_distribution", "leader_replica_distribution",
+                   "leader_bytes_in")
+
+_BAND_KINDS = ("capacity", "resource_distribution", "replica_capacity",
+               "replica_distribution", "leader_replica_distribution",
+               "potential_nw_out", "leader_bytes_in")
+
+
+def require_supported(spec: GoalSpec) -> None:
+    if spec.kind not in SUPPORTED_KINDS or spec.kafka_assigner_mode:
+        what = "kafka-assigner mode" if spec.kafka_assigner_mode else "goal kind"
+        raise NotImplementedError(
+            f"{what} {spec.kind!r} ({spec.name}) is not ported yet")
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _margin_pct(threshold: float) -> float:
+    return (threshold - 1.0) * BALANCE_MARGIN + 1.0
+
+
+def is_band_kind(spec: GoalSpec) -> bool:
+    return spec.kind in _BAND_KINDS
+
+
+# ---------------------------------------------------------------------------
+# Per-broker metric and limits
+# ---------------------------------------------------------------------------
+
+def broker_metric(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                  constraint: BalancingConstraint) -> torch.Tensor:
+    """f32[B] — the quantity the goal balances / caps."""
+    kind = spec.kind
+    if kind in ("capacity", "resource_distribution"):
+        return arrays.load[:, spec.resource]
+    if kind in ("replica_capacity", "replica_distribution"):
+        return arrays.replica_count.to(torch.float32)
+    if kind == "leader_replica_distribution":
+        return arrays.leader_count.to(torch.float32)
+    if kind == "potential_nw_out":
+        return arrays.potential_nw_out
+    if kind == "leader_bytes_in":
+        return arrays.leader_bytes_in
+    if kind == "rack":
+        conflict = _replica_rack_conflict(spec, model)
+        return masked_segment_count(model.replica_broker, model.num_brokers,
+                                    model.replica_valid & conflict).to(torch.float32)
+    if kind == "topic_replica_distribution":
+        tbc = topic_counts(model, arrays).to(torch.float32)
+        lower_t, upper_t = _topic_limits(model, arrays, constraint)
+        excess = torch.clamp(tbc - upper_t[:, None], min=0.0) + \
+            torch.clamp(lower_t[:, None] - tbc, min=0.0)
+        return excess.sum(dim=0)
+    raise NotImplementedError(f"goal kind {kind}")
+
+
+def limits(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+           constraint: BalancingConstraint):
+    """(lower f32[B], upper f32[B]) band for the goal metric."""
+    kind = spec.kind
+    B = arrays.load.shape[0]
+    dev = arrays.load.device
+    zero = torch.zeros((B,), dtype=torch.float32, device=dev)
+    if kind == "capacity":
+        upper = arrays.capacity[:, spec.resource] * constraint.capacity_threshold[spec.resource]
+        return zero, upper
+    if kind == "potential_nw_out":
+        upper = arrays.capacity[:, Resource.NW_OUT] * \
+            constraint.capacity_threshold[Resource.NW_OUT]
+        return zero, upper
+    if kind == "replica_capacity":
+        return zero, torch.full((B,), float(constraint.max_replicas_per_broker),
+                                dtype=torch.float32, device=dev)
+    if kind == "resource_distribution":
+        res = spec.resource
+        bp = constraint.balance_percentage(res)
+        total_util = torch.where(arrays.alive, arrays.load[:, res], 0.0).sum()
+        total_cap = torch.where(arrays.alive, arrays.capacity[:, res], 0.0).sum().clamp(min=1e-9)
+        avg_pct = total_util / total_cap
+        low = constraint.low_utilization_threshold[res]
+        gated = avg_pct <= low
+        upper = torch.where(gated, _f32(_BIG, zero), avg_pct * bp * arrays.capacity[:, res])
+        lower = torch.where(gated, zero, avg_pct * (2.0 - bp) * arrays.capacity[:, res])
+        return lower.clamp(min=0.0), upper
+    if kind == "replica_distribution":
+        bp = _margin_pct(constraint.replica_count_balance_threshold)
+        avg = torch.where(arrays.alive, arrays.replica_count, 0).sum().to(torch.float32) \
+            / arrays.num_alive.to(torch.float32)
+        return torch.floor(avg * (2.0 - bp)).expand(B), torch.ceil(avg * bp).expand(B)
+    if kind == "leader_replica_distribution":
+        bp = _margin_pct(constraint.leader_replica_count_balance_threshold)
+        avg = torch.where(arrays.alive, arrays.leader_count, 0).sum().to(torch.float32) \
+            / arrays.num_alive.to(torch.float32)
+        return torch.floor(avg * (2.0 - bp)).expand(B), torch.ceil(avg * bp).expand(B)
+    if kind == "leader_bytes_in":
+        bp = _margin_pct(constraint.resource_balance_threshold[Resource.NW_IN])
+        avg = torch.where(arrays.alive, arrays.leader_bytes_in, 0.0).sum() \
+            / arrays.num_alive.to(torch.float32)
+        return zero, (avg * bp).expand(B)
+    if kind in ("rack", "topic_replica_distribution"):
+        return zero, zero
+    raise NotImplementedError(f"goal kind {kind}")
+
+
+def violated_brokers(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                     constraint: BalancingConstraint) -> torch.Tensor:
+    """bool[B] brokers violating the goal (incl. dead brokers still hosting
+    replicas, for hard goals)."""
+    metric = broker_metric(spec, model, arrays, constraint)
+    lower, upper = limits(spec, model, arrays, constraint)
+    eps = _metric_epsilon(spec)
+    out_of_band = (metric > upper + eps) | (metric < lower - eps)
+    dead_with_replicas = (~arrays.alive) & arrays.valid & (arrays.replica_count > 0)
+    if spec.is_hard:
+        return (arrays.alive & out_of_band) | dead_with_replicas
+    return arrays.alive & out_of_band
+
+
+def goal_satisfied(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                   constraint: BalancingConstraint) -> torch.Tensor:
+    """bool scalar tensor (no host sync)."""
+    return ~violated_brokers(spec, model, arrays, constraint).any()
+
+
+def _metric_epsilon(spec: GoalSpec) -> float:
+    if spec.kind in ("capacity", "resource_distribution"):
+        return Resource(spec.resource).epsilon * 1e-3
+    if spec.kind in ("potential_nw_out", "leader_bytes_in"):
+        return Resource.NW_OUT.epsilon * 1e-3
+    return 1e-6  # count-based metrics are integral
+
+
+def _candidate_deltas(spec: GoalSpec, cand: Candidates):
+    """(d_src f32[K], d_dest f32[K]) — change of the goal metric on the
+    source / destination broker if the candidate applies."""
+    kind = spec.kind
+    if kind in ("capacity", "resource_distribution"):
+        return cand.delta_src[:, spec.resource], cand.delta_dest[:, spec.resource]
+    if kind in ("replica_capacity", "replica_distribution"):
+        d = cand.d_replica_count.to(torch.float32)
+        return -d, d
+    if kind == "leader_replica_distribution":
+        d = cand.d_leader_count.to(torch.float32)
+        return -d, d
+    if kind == "potential_nw_out":
+        return -cand.d_potential_nw_out, cand.d_potential_nw_out
+    if kind == "leader_bytes_in":
+        return -cand.d_leader_bytes_in_src, cand.d_leader_bytes_in_dest
+    raise NotImplementedError(f"goal kind {kind}")
+
+
+# ---------------------------------------------------------------------------
+# Rack machinery (RackAwareGoal.java:33)
+# ---------------------------------------------------------------------------
+
+def _sibling_info(model: TensorClusterModel, replica_ids: torch.Tensor):
+    """Siblings' replica ids / brokers / racks (i32[K, max_rf]) with a mask
+    excluding the replica itself and pads."""
+    parts = model.replica_partition[replica_ids]
+    sib = model.partition_replicas[parts]
+    sib_valid = (sib >= 0) & (sib != replica_ids[:, None])
+    sib_safe = torch.where(sib >= 0, sib, 0)
+    sib_broker = model.replica_broker[sib_safe]
+    sib_rack = model.broker_rack[sib_broker]
+    return sib, sib_broker, sib_rack, sib_valid
+
+
+def _replica_rack_conflict(spec: GoalSpec, model: TensorClusterModel) -> torch.Tensor:
+    """bool[R] — a sibling of the replica's partition shares its rack; only
+    the higher-id replica of each conflicting pair is flagged."""
+    if spec.kind != "rack":
+        raise NotImplementedError(f"goal kind {spec.kind}")
+    R = model.num_replicas_padded
+    r_idx = torch.arange(R, dtype=torch.int32, device=model.device)
+    sib, _, sib_rack, sib_valid = _sibling_info(model, r_idx)
+    own_rack = model.broker_rack[model.replica_broker]
+    same_rack = sib_valid & (sib_rack == own_rack[:, None])
+    conflict = (same_rack & (sib < r_idx[:, None])).any(dim=1)
+    return conflict & model.replica_valid
+
+
+def _rack_ok_for(spec: GoalSpec, model: TensorClusterModel, replica: torch.Tensor,
+                 dest: torch.Tensor) -> torch.Tensor:
+    """Rack legality of moving ``replica`` onto ``dest``."""
+    if spec.kind != "rack":
+        raise NotImplementedError(f"goal kind {spec.kind}")
+    _, _, sib_rack, sib_valid = _sibling_info(model, replica)
+    dest_rack = model.broker_rack[dest]
+    return ~(sib_valid & (sib_rack == dest_rack[:, None])).any(dim=1)
+
+
+def _swap_rack_ok(spec: GoalSpec, model: TensorClusterModel, cand: Candidates) -> torch.Tensor:
+    r2 = torch.where(cand.dest_replica >= 0, cand.dest_replica, 0)
+    return _rack_ok_for(spec, model, cand.replica, cand.dest) & \
+        _rack_ok_for(spec, model, r2, cand.src)
+
+
+# ---------------------------------------------------------------------------
+# Feasibility / acceptance / score
+# ---------------------------------------------------------------------------
+
+def _src_unhealthy(model: TensorClusterModel, cand: Candidates,
+                   arrays: BrokerArrays) -> torch.Tensor:
+    return (~arrays.alive[cand.src]) | model.replica_offline_now()[cand.replica]
+
+
+def self_feasible(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                  cand: Candidates, constraint: BalancingConstraint,
+                  bands=None) -> torch.Tensor:
+    """bool[K] — candidate is a legal self-improvement for this goal."""
+    require_supported(spec)
+    kind = spec.kind
+    unhealthy = _src_unhealthy(model, cand, arrays)
+    if kind == "rack":
+        conflict = _replica_rack_conflict(spec, model)[cand.replica]
+        ok_dest = _rack_ok_for(spec, model, cand.replica, cand.dest)
+        return cand.is_move() & (conflict | unhealthy) & ok_dest
+    if kind == "topic_replica_distribution":
+        lower_t, upper_t = _topic_limits(model, arrays, constraint)
+        tbc = topic_counts(model, arrays)
+        t = model.replica_topic[cand.replica]
+        c_src = tbc[t, cand.src].to(torch.float32)
+        c_dest = tbc[t, cand.dest].to(torch.float32)
+        up, lo = upper_t[t], lower_t[t]
+        helps = (c_src > up) | (c_dest < lo) | unhealthy
+        stays = (c_dest + 1 <= up) & ((c_src - 1 >= lo) | unhealthy)
+        return cand.is_move() & helps & stays
+    metric = broker_metric(spec, model, arrays, constraint)
+    lower, upper = bands if bands is not None else limits(spec, model, arrays, constraint)
+    d_src, d_dest = _candidate_deltas(spec, cand)
+    src_m, dest_m = metric[cand.src], metric[cand.dest]
+    src_after, dest_after = src_m + d_src, dest_m + d_dest
+    eps = _metric_epsilon(spec)
+    src_over = src_m > upper[cand.src] + eps
+    dest_under = dest_m < lower[cand.dest] - eps
+    helps = src_over | dest_under | unhealthy
+    dest_ok = dest_after <= upper[cand.dest]
+    src_ok = (src_after >= lower[cand.src]) | unhealthy
+    moves_something = d_dest.abs() > 0
+    return helps & dest_ok & src_ok & moves_something
+
+
+def accepts(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+            cand: Candidates, constraint: BalancingConstraint) -> torch.Tensor:
+    """bool[K] — this already-optimized goal does not veto the candidate."""
+    require_supported(spec)
+    kind = spec.kind
+    true = torch.ones((), dtype=torch.bool, device=cand.replica.device)
+    if kind == "rack":
+        return torch.where(cand.is_move(), _rack_ok_for(spec, model, cand.replica, cand.dest),
+                           torch.where(cand.is_swap(), _swap_rack_ok(spec, model, cand), true))
+    if kind == "topic_replica_distribution":
+        lower_t, upper_t = _topic_limits(model, arrays, constraint)
+        tbc = topic_counts(model, arrays)
+        t = model.replica_topic[cand.replica]
+        c_src = tbc[t, cand.src].to(torch.float32)
+        c_dest = tbc[t, cand.dest].to(torch.float32)
+        ok = (c_dest + 1 <= upper_t[t]) & (c_src - 1 >= lower_t[t])
+        r2 = torch.where(cand.dest_replica >= 0, cand.dest_replica, 0)
+        t2 = model.replica_topic[r2]
+        c2_src = tbc[t2, cand.src].to(torch.float32)
+        c2_dest = tbc[t2, cand.dest].to(torch.float32)
+        swap_ok = ok & (c2_src + 1 <= upper_t[t2]) & (c2_dest - 1 >= lower_t[t2])
+        return torch.where(cand.is_move(), ok, torch.where(cand.is_swap(), swap_ok, true))
+    metric = broker_metric(spec, model, arrays, constraint)
+    lower, upper = limits(spec, model, arrays, constraint)
+    d_src, d_dest = _candidate_deltas(spec, cand)
+    dest_after = metric[cand.dest] + d_dest
+    src_after = metric[cand.src] + d_src
+    dest_ok = (dest_after <= upper[cand.dest]) | (d_dest <= 0)
+    src_cap_ok = (src_after <= upper[cand.src]) | (d_src <= 0)
+    if spec.is_hard or kind in ("potential_nw_out", "leader_bytes_in"):
+        return dest_ok & src_cap_ok
+    src_ok = (src_after >= lower[cand.src]) | (d_src >= 0) | (~arrays.alive[cand.src])
+    dest_low_ok = (dest_after >= lower[cand.dest]) | (d_dest >= 0)
+    return dest_ok & src_cap_ok & src_ok & dest_low_ok
+
+
+def score(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+          cand: Candidates, constraint: BalancingConstraint,
+          bands=None) -> torch.Tensor:
+    """f32[K] — improvement of the goal objective (higher is better)."""
+    require_supported(spec)
+    kind = spec.kind
+    unhealthy = _src_unhealthy(model, cand, arrays)
+    fzero = torch.zeros((), dtype=torch.float32, device=cand.replica.device)
+    bonus = torch.where(unhealthy & cand.is_move(), _f32(_OFFLINE_BONUS, fzero), fzero)
+    if kind == "rack":
+        _, _, sib_rack, sib_valid = _sibling_info(model, cand.replica)
+        own_rack = model.broker_rack[cand.src]
+        dest_rack = model.broker_rack[cand.dest]
+        before = (sib_valid & (sib_rack == own_rack[:, None])).sum(dim=1)
+        after = (sib_valid & (sib_rack == dest_rack[:, None])).sum(dim=1)
+        return (before - after).to(torch.float32) + bonus
+    if kind == "topic_replica_distribution":
+        tbc = topic_counts(model, arrays).to(torch.float32)
+        t = model.replica_topic[cand.replica]
+        avg_t = _topic_avg(model, arrays)[t]
+        c_src = tbc[t, cand.src]
+        c_dest = tbc[t, cand.dest]
+        before = (c_src - avg_t) ** 2 + (c_dest - avg_t) ** 2
+        after = (c_src - 1 - avg_t) ** 2 + (c_dest + 1 - avg_t) ** 2
+        return (before - after) + bonus
+    metric = broker_metric(spec, model, arrays, constraint)
+    lower, upper = bands if bands is not None else limits(spec, model, arrays, constraint)
+    d_src, d_dest = _candidate_deltas(spec, cand)
+    src_m, dest_m = metric[cand.src], metric[cand.dest]
+    if kind in ("capacity", "potential_nw_out", "replica_capacity"):
+        def excess(m, b):
+            return torch.clamp(m - upper[b], min=0.0)
+        before = excess(src_m, cand.src) + excess(dest_m, cand.dest)
+        after = excess(src_m + d_src, cand.src) + excess(dest_m + d_dest, cand.dest)
+        return before - after + bonus
+    target = (lower + upper) * 0.5
+    target = torch.where(upper >= _BIG, metric, target)
+    before = (src_m - target[cand.src]) ** 2 + (dest_m - target[cand.dest]) ** 2
+    after = (src_m + d_src - target[cand.src]) ** 2 + \
+        (dest_m + d_dest - target[cand.dest]) ** 2
+    return before - after + bonus
+
+
+# ---------------------------------------------------------------------------
+# Candidate-generation hints
+# ---------------------------------------------------------------------------
+
+def source_pressure(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                    constraint: BalancingConstraint, bands=None) -> torch.Tensor:
+    """f32[B] — how urgently each broker needs to shed."""
+    metric = broker_metric(spec, model, arrays, constraint)
+    lower, upper = bands if bands is not None else limits(spec, model, arrays, constraint)
+    over = torch.clamp(metric - upper, min=0.0)
+    scale = upper.abs().clamp(min=1.0)
+    pressure = over / scale
+    eps = _metric_epsilon(spec)
+    under_exists = (arrays.alive & (metric < lower - eps)).any()
+    target = torch.where(upper >= _BIG, metric, (lower + upper) * 0.5)
+    donor = torch.clamp(metric - target, min=0.0) / scale * 0.01
+    pressure = pressure + torch.where(under_exists, donor, torch.zeros_like(donor))
+    dead = (~arrays.alive) & arrays.valid & (arrays.replica_count > 0)
+    big = _f32(_BIG, metric)
+    return torch.where(dead, big, torch.where(arrays.valid, pressure, -big))
+
+
+def dest_room(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+              constraint: BalancingConstraint, bands=None) -> torch.Tensor:
+    """f32[B] — headroom under the goal's upper limit (candidate dests)."""
+    require_supported(spec)
+    metric = broker_metric(spec, model, arrays, constraint)
+    lower, upper = bands if bands is not None else limits(spec, model, arrays, constraint)
+    room = torch.clamp(upper, max=_BIG) - metric
+    room = room + torch.clamp(lower - metric, min=0.0) * 10.0
+    return torch.where(arrays.alive, room, _f32(-_BIG, room))
+
+
+def source_replica_relevance(spec: GoalSpec, model: TensorClusterModel,
+                             arrays: BrokerArrays, constraint: BalancingConstraint,
+                             bands=None) -> torch.Tensor:
+    """f32[R] — ranking for choosing which replicas to propose moving."""
+    require_supported(spec)
+    kind = spec.kind
+    big = _f32(_BIG, arrays.load)
+    pressure = source_pressure(spec, model, arrays, constraint,
+                               bands=bands)[model.replica_broker]
+    if kind == "rack":
+        conflict = _replica_rack_conflict(spec, model)
+        base = torch.where(conflict, _f32(1.0, big), -big)
+    elif kind == "topic_replica_distribution":
+        lower_t, upper_t = _topic_limits(model, arrays, constraint)
+        tbc = topic_counts(model, arrays).to(torch.float32)
+        t, b = model.replica_topic, model.replica_broker
+        c = tbc[t, b]
+        over = c > upper_t[t]
+        under_exists = ((tbc < lower_t[:, None]) & arrays.alive[None, :]).any(dim=1)
+        avg_t = _topic_avg(model, arrays)
+        donor = under_exists[t] & (c > avg_t[t])
+        relevant = over | donor
+        pair = t * model.num_brokers + b
+        rank = _within_group_rank(pair, torch.where(relevant, c, -big))
+        overage = torch.where(over, c - upper_t[t], torch.clamp(c - avg_t[t], min=1.0))
+        pnorm = pressure / pressure.abs().max().clamp(min=1e-9)
+        base = torch.where(relevant,
+                           -(rank.to(torch.float32) + 1.0) / overage.clamp(min=1.0)
+                           + 0.25 * over.to(torch.float32) + 0.5 * pnorm,
+                           -big)
+    else:
+        relevant = pressure > 0
+        if kind in ("leader_replica_distribution", "leader_bytes_in"):
+            relevant = relevant & model.replica_is_leader
+        tiebreak = _replica_metric_contribution(spec, model)
+        scale = tiebreak.abs().max().clamp(min=1e-9)
+        rank = _within_group_rank(model.replica_broker,
+                                  torch.where(relevant, tiebreak, -big))
+        pnorm = pressure / pressure.abs().max().clamp(min=1e-9)
+        base = torch.where(relevant,
+                           -rank.to(torch.float32) + 0.5 * pnorm + 1e-3 * tiebreak / scale,
+                           -big)
+    offline = model.replica_offline_now() | (~arrays.alive[model.replica_broker])
+    base = torch.where(offline, big, base)
+    return torch.where(model.replica_valid, base, -big)
+
+
+def _within_group_rank(group: torch.Tensor, key_desc: torch.Tensor) -> torch.Tensor:
+    """i32[N] — each row's position among its group's rows when ordered by
+    descending ``key_desc`` (0 = group's best)."""
+    r = group.shape[0]
+    ordr = order.lexsort2(-key_desc, group)
+    g_sorted = group[ordr]
+    idx = torch.arange(r, dtype=torch.int32, device=group.device)
+    is_start = torch.ones(r, dtype=torch.bool, device=group.device)
+    is_start[1:] = g_sorted[1:] != g_sorted[:-1]
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    out = torch.zeros((r,), dtype=torch.int32, device=group.device)
+    out[ordr] = idx - seg_start
+    return out
+
+
+def _replica_metric_contribution(spec: GoalSpec, model: TensorClusterModel) -> torch.Tensor:
+    kind = spec.kind
+    load = model.replica_load()
+    if kind in ("capacity", "resource_distribution"):
+        return load[:, spec.resource]
+    if kind == "potential_nw_out":
+        return model.replica_load_leader[:, Resource.NW_OUT]
+    if kind == "leader_bytes_in":
+        return torch.where(model.replica_is_leader,
+                           model.replica_load_leader[:, Resource.NW_IN],
+                           torch.zeros((), device=load.device))
+    return torch.ones(load.shape[0], dtype=torch.float32, device=load.device)
+
+
+# ---------------------------------------------------------------------------
+# Topic-level helpers (TopicReplicaDistributionGoal.java:58)
+# ---------------------------------------------------------------------------
+
+def _topic_avg(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tensor:
+    totals = masked_segment_count(model.replica_topic, model.num_topics,
+                                  model.replica_valid).to(torch.float32)
+    return totals / arrays.num_alive.to(torch.float32)
+
+
+def _topic_limits(model: TensorClusterModel, arrays: BrokerArrays,
+                  constraint: BalancingConstraint):
+    bp = _margin_pct(constraint.topic_replica_count_balance_threshold)
+    avg = _topic_avg(model, arrays)
+    return torch.floor(avg * (2.0 - bp)), torch.ceil(avg * bp)
+
+
+# ---------------------------------------------------------------------------
+# K3 — bounded-depth exact repair
+# ---------------------------------------------------------------------------
+
+def _prefix_order(score: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Segment-grouped, score-descending order: the JAX function's two
+    stable argsorts (score descending, then segment)."""
+    o1 = order.argsort(-score)
+    o2 = order.argsort(seg[o1])
+    return o1[o2]
+
+
+def prefix_cut_admit_plain(score, seg, deltas, kept, cum_before, lo, hi,
+                           num_segments: int) -> torch.Tensor:
+    """The JAX package's ``_sorted_prefix_tables`` + ``prefix_cut_admit``:
+    a global cumsum minus each segment's base gives the running channel
+    totals; a position is admitted when no position up to and including it
+    in its segment fails the band test (the cut the bisection finds)."""
+    K = score.shape[0]
+    dev = score.device
+    ordr = _prefix_order(score, seg)
+    s_seg = seg[ordr]
+    s_deltas = torch.where(kept[ordr][:, None], deltas[ordr],
+                           torch.zeros((), dtype=deltas.dtype, device=dev))
+    cs = torch.cumsum(s_deltas, dim=0)
+    pos = torch.arange(K, dtype=torch.int32, device=dev)
+    seg_start = torch.full((num_segments,), K, dtype=torch.int32, device=dev)
+    seg_start = seg_start.scatter_reduce_(0, s_seg.long(), pos, "amin")
+    base = torch.where((seg_start > 0)[:, None], cs[(seg_start - 1).clamp(min=0)],
+                       torch.zeros((), dtype=cs.dtype, device=dev))
+    prefix = cum_before[s_seg] + cs - base[s_seg]
+    hi_s, lo_s = hi[s_seg], lo[s_seg]
+    zero = torch.zeros((), dtype=hi.dtype, device=dev)
+    scale = torch.clamp(torch.maximum(
+        torch.where(torch.isfinite(hi_s), hi_s.abs(), zero),
+        torch.where(torch.isfinite(lo_s), lo_s.abs(), zero)), min=1.0)
+    eps = 1e-6 * scale
+    ok = ((prefix <= hi_s + eps) & (prefix >= lo_s - eps)).all(dim=1)
+    badc = torch.cumsum((~ok).to(torch.int32), dim=0)
+    bad_base = torch.where(seg_start > 0, badc[(seg_start - 1).clamp(min=0)], 0)
+    admit_sorted = (badc - bad_base[s_seg]) == 0
+    admit = torch.zeros((K,), dtype=torch.bool, device=dev)
+    admit[ordr] = admit_sorted
+    return kept & admit
+
+
+def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tensor,
+                     kept: torch.Tensor, cum_before: torch.Tensor, lo: torch.Tensor,
+                     hi: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """K3.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:997,1031``
+    (``_sorted_prefix_tables`` + ``prefix_cut_admit``): per segment, keep the
+    longest score-ranked prefix of ``kept`` whose running totals
+    (``cum_before`` plus the kept deltas) stay inside [lo, hi] at every
+    position.  Bound on the card: bytes (K·(9+4C) + S·12C read, K written).
+    CPU tensors take ``prefix_cut_admit_plain``; CUDA tensors sort with two
+    stable ``torch.sort`` calls and launch one block per segment that scans
+    the segment and cuts at its first out-of-band position."""
+    dev = score.device
+    K = score.shape[0]
+    C = deltas.shape[1] if deltas.dim() == 2 else -1
+    cuda.check(score, "score", torch.float32, (K,), dev)
+    cuda.check(seg, "seg", torch.int32, (K,), dev)
+    cuda.check(deltas, "deltas", torch.float32, (K, C), dev)
+    cuda.check(kept, "kept", torch.bool, (K,), dev)
+    for name, t in (("cum_before", cum_before), ("lo", lo), ("hi", hi)):
+        cuda.check(t, name, torch.float32, (num_segments, C), dev)
+    cuda.record("prefix_cut", (score, seg, deltas, kept, cum_before, lo, hi,
+                               num_segments))
+    if cuda.on_cpu(score):
+        return prefix_cut_admit_plain(score, seg, deltas, kept, cum_before, lo,
+                                      hi, num_segments)
+    if not 1 <= C <= 16:
+        raise ValueError(f"prefix_cut takes 1..16 channels, got {C}")
+    out = torch.zeros((K,), dtype=torch.bool, device=dev)
+    if K > 0 and num_segments > 0:
+        ordr = _prefix_order(score, seg).to(torch.int32)
+        cuda.launch("prefix_cut", ordr, seg, deltas, kept, cum_before, lo, hi,
+                    out, K, num_segments, C)
+        prefix_cut_admit.launches += 1
+    return out
+
+
+prefix_cut_admit.launches = 0
+
+
+def prefix_admit_safe(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tensor,
+                      kept: torch.Tensor, cum_before: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Subset-closed prefix admit (``kernels.py:1062``): split every delta
+    into d+ and d- and bound each one-sided running sum separately, through
+    K3 on the 2C split channels."""
+    dpos = torch.clamp(deltas, min=0.0)
+    dneg = torch.clamp(deltas, max=0.0)
+    inf = torch.full_like(hi, math.inf)
+    return prefix_cut_admit(
+        score, seg, torch.cat([dpos, dneg], dim=1).contiguous(), kept,
+        torch.cat([cum_before, cum_before], dim=1).contiguous(),
+        torch.cat([-inf, lo], dim=1).contiguous(),
+        torch.cat([hi, inf], dim=1).contiguous(), num_segments)

@@ -1,0 +1,100 @@
+// K1 — per-broker aggregates of the replica axis, in one pass.
+//
+// Replaces cruise_control_tpu/ops/segment.py:22-42 (masked_segment_sum /
+// masked_segment_count) as reached through analyzer/state.py:37
+// BrokerArrays.from_model -> model/tensor_model.py:116-162 (broker_load,
+// potential_leadership_load, broker_replica_counts, broker_leader_counts,
+// broker_leader_bytes_in): five masked scatter-adds of replica rows into
+// brokers, run at every optimizer step and every satisfied check.
+//
+// Bound on the card: bytes.  The function reads R * 38 bytes (broker id,
+// two flags, two f32[4] load rows) and writes B * 32; at the mid rung that
+// is ~0.4 MB, well under a microsecond at 3.35 TB/s, so a launch costs more
+// than the work.
+//
+// Design: one block per broker.  Threads stride over the replica axis and
+// accumulate the rows of their broker in registers in a fixed order, then a
+// fixed shared-memory tree reduction combines them — no float atomics, so
+// the result is bit-identical run to run.  Each block re-reads the 4-byte
+// broker ids (B * R * 4 bytes: 2 MB at mid, 80 MB at the 200-broker rung),
+// which stay in the 50 MB L2 because the id array itself is R * 4 bytes.
+// Counts are exact int32.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kFloats = 6;  // load[0..3], potential NW_OUT, leader NW_IN
+
+__global__ void broker_aggregates_kernel(
+    const int32_t* __restrict__ replica_broker,
+    const uint8_t* __restrict__ valid,
+    const uint8_t* __restrict__ is_leader,
+    const float* __restrict__ load_leader,    // [R, 4]
+    const float* __restrict__ load_follower,  // [R, 4]
+    int64_t num_replicas,
+    float* __restrict__ load,                 // [B, 4]
+    int32_t* __restrict__ replica_count,
+    int32_t* __restrict__ leader_count,
+    float* __restrict__ potential_nw_out,
+    float* __restrict__ leader_bytes_in) {
+  __shared__ float s_f[kFloats][kThreads];
+  __shared__ int32_t s_i[2][kThreads];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  float acc[kFloats] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int32_t cnt = 0, lcnt = 0;
+  for (int64_t r = t; r < num_replicas; r += kThreads) {
+    if (!valid[r] || replica_broker[r] != b) continue;
+    const bool lead = is_leader[r] != 0;
+    const float* ll = load_leader + 4 * r;
+    const float* row = lead ? ll : load_follower + 4 * r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] += row[c];
+    acc[4] += ll[2];                 // Resource.NW_OUT
+    acc[5] += lead ? ll[1] : 0.f;    // Resource.NW_IN of leaders
+    cnt += 1;
+    lcnt += lead ? 1 : 0;
+  }
+#pragma unroll
+  for (int c = 0; c < kFloats; ++c) s_f[c][t] = acc[c];
+  s_i[0][t] = cnt;
+  s_i[1][t] = lcnt;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) {
+#pragma unroll
+      for (int c = 0; c < kFloats; ++c) s_f[c][t] += s_f[c][t + stride];
+      s_i[0][t] += s_i[0][t + stride];
+      s_i[1][t] += s_i[1][t + stride];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) load[4 * b + c] = s_f[c][0];
+    potential_nw_out[b] = s_f[4][0];
+    leader_bytes_in[b] = s_f[5][0];
+    replica_count[b] = s_i[0][0];
+    leader_count[b] = s_i[1][0];
+  }
+}
+
+}  // namespace
+
+extern "C" int cc_broker_aggregates(
+    const int32_t* replica_broker, const uint8_t* valid,
+    const uint8_t* is_leader, const float* load_leader,
+    const float* load_follower, int64_t num_replicas, float* load,
+    int32_t* replica_count, int32_t* leader_count, float* potential_nw_out,
+    float* leader_bytes_in, int64_t num_brokers, cudaStream_t stream) {
+  if (num_brokers <= 0) return 0;
+  broker_aggregates_kernel<<<static_cast<unsigned>(num_brokers), kThreads, 0,
+                             stream>>>(
+      replica_broker, valid, is_leader, load_leader, load_follower,
+      num_replicas, load, replica_count, leader_count, potential_nw_out,
+      leader_bytes_in);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,123 @@
+"""Segment reductions used by the tensor cluster model, and K1.
+
+Counterpart of ``cruise_control_tpu/ops/segment.py``.  The plain reductions
+are ``index_add_`` with the JAX package's padding+mask idiom: masked rows
+point at segment 0 and contribute zero.
+Integer counts stay int32 and exact on every backend.
+
+``broker_aggregates`` is kernel K1 (``csrc/broker_aggregates.cu``): the five
+per-broker aggregates ``analyzer.state.BrokerArrays`` needs, in one pass
+over the replica axis.  Its plain twin ``broker_aggregates_plain`` is the
+five ``masked_segment_*`` calls of ``model/tensor_model.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from cruise_control_tpu_torch.common.resources import NUM_RESOURCES, Resource
+from cruise_control_tpu_torch.ops import cuda
+
+
+def masked_segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum ``values`` rows into ``num_segments`` buckets, zeroing masked rows."""
+    if mask is not None:
+        m = mask.reshape((-1,) + (1,) * (values.dim() - 1))
+        values = torch.where(m, values, torch.zeros((), dtype=values.dtype,
+                                                    device=values.device))
+        segment_ids = torch.where(mask, segment_ids, 0)
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
+    return out.index_add_(0, segment_ids, values)
+
+
+def masked_segment_count(segment_ids: torch.Tensor, num_segments: int,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Count rows per segment. Returns i32[num_segments]."""
+    ones = torch.ones(segment_ids.shape[0], dtype=torch.int32,
+                      device=segment_ids.device)
+    if mask is not None:
+        ones = torch.where(mask, ones, 0)
+        segment_ids = torch.where(mask, segment_ids, 0)
+    out = torch.zeros((num_segments,), dtype=torch.int32,
+                      device=segment_ids.device)
+    return out.index_add_(0, segment_ids, ones)
+
+
+# ---------------------------------------------------------------------------
+# K1 — broker aggregates
+# ---------------------------------------------------------------------------
+
+BrokerAggregates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor, torch.Tensor]
+
+
+def broker_aggregates_plain(replica_broker: torch.Tensor,
+                            replica_valid: torch.Tensor,
+                            replica_is_leader: torch.Tensor,
+                            load_leader: torch.Tensor,
+                            load_follower: torch.Tensor,
+                            num_brokers: int) -> BrokerAggregates:
+    """(load f32[B,4], replica_count i32[B], leader_count i32[B],
+    potential_nw_out f32[B], leader_bytes_in f32[B]) — the JAX package's
+    ``broker_load``, ``broker_replica_counts``, ``broker_leader_counts``,
+    ``potential_leadership_load`` and ``broker_leader_bytes_in``."""
+    load = torch.where(replica_is_leader[:, None], load_leader, load_follower)
+    lbi = torch.where(replica_is_leader, load_leader[:, Resource.NW_IN],
+                      torch.zeros((), dtype=load_leader.dtype,
+                                  device=load_leader.device))
+    return (
+        masked_segment_sum(load, replica_broker, num_brokers, replica_valid),
+        masked_segment_count(replica_broker, num_brokers, replica_valid),
+        masked_segment_count(replica_broker, num_brokers,
+                             replica_valid & replica_is_leader),
+        masked_segment_sum(load_leader[:, Resource.NW_OUT], replica_broker,
+                           num_brokers, replica_valid),
+        masked_segment_sum(lbi, replica_broker, num_brokers, replica_valid),
+    )
+
+
+def broker_aggregates(replica_broker: torch.Tensor, replica_valid: torch.Tensor,
+                      replica_is_leader: torch.Tensor, load_leader: torch.Tensor,
+                      load_follower: torch.Tensor,
+                      num_brokers: int) -> BrokerAggregates:
+    """K1.  Replaces the masked segment sums/counts of
+    ``cruise_control_tpu/ops/segment.py:22-42`` as reached through
+    ``BrokerArrays.from_model`` (``analyzer/state.py:37``).  Bound on the
+    card: bytes (R·38 read, B·32 written).  CPU tensors take
+    ``broker_aggregates_plain``; CUDA tensors launch the kernel (one block
+    per broker, fixed-order register + tree reduction: deterministic, no
+    float atomics)."""
+    dev = replica_broker.device
+    r = replica_broker.shape[0]
+    cuda.check(replica_broker, "replica_broker", torch.int32, (r,), dev)
+    cuda.check(replica_valid, "replica_valid", torch.bool, (r,), dev)
+    cuda.check(replica_is_leader, "replica_is_leader", torch.bool, (r,), dev)
+    cuda.check(load_leader, "load_leader", torch.float32, (r, NUM_RESOURCES), dev)
+    cuda.check(load_follower, "load_follower", torch.float32,
+               (r, NUM_RESOURCES), dev)
+    cuda.record("broker_aggregates",
+                (replica_broker, replica_valid, replica_is_leader,
+                 load_leader, load_follower, num_brokers))
+    if cuda.on_cpu(replica_broker):
+        return broker_aggregates_plain(replica_broker, replica_valid,
+                                       replica_is_leader, load_leader,
+                                       load_follower, num_brokers)
+    load = torch.empty((num_brokers, NUM_RESOURCES), dtype=torch.float32, device=dev)
+    replica_count = torch.empty((num_brokers,), dtype=torch.int32, device=dev)
+    leader_count = torch.empty((num_brokers,), dtype=torch.int32, device=dev)
+    pnw = torch.empty((num_brokers,), dtype=torch.float32, device=dev)
+    lbi = torch.empty((num_brokers,), dtype=torch.float32, device=dev)
+    if num_brokers > 0:
+        cuda.launch("broker_aggregates", replica_broker, replica_valid,
+                    replica_is_leader, load_leader, load_follower, r, load,
+                    replica_count, leader_count, pnw, lbi, num_brokers)
+        broker_aggregates.launches += 1
+    return load, replica_count, leader_count, pnw, lbi
+
+
+broker_aggregates.launches = 0

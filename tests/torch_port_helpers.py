@@ -1,0 +1,120 @@
+"""Shared helpers of the ``test_torch_*`` parity tests: carry models and
+candidate batches between the JAX package and the PyTorch port as numpy."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cruise_control_tpu.analyzer import optimizer as jopt
+from cruise_control_tpu.analyzer import proposals as jprops
+from cruise_control_tpu.analyzer.verifier import verify_run as jax_verify_run
+from cruise_control_tpu.model.generator import ClusterSpec as JaxSpec
+from cruise_control_tpu.model.generator import generate_cluster as jax_generate
+from cruise_control_tpu.model.tensor_model import TensorClusterModel as JaxModel
+from cruise_control_tpu_torch.analyzer import optimizer as topt
+from cruise_control_tpu_torch.analyzer import proposals as tprops
+from cruise_control_tpu_torch.analyzer.verifier import verify_run
+from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
+from cruise_control_tpu_torch.analyzer.actions import Candidates as TorchCandidates
+from cruise_control_tpu_torch.convert import model_from_numpy, model_to_numpy
+from cruise_control_tpu_torch.model.tensor_model import STATIC_FIELDS, TENSOR_FIELDS
+
+STACK = [
+    "RackAwareGoal", "ReplicaCapacityGoal", "DiskCapacityGoal",
+    "NetworkInboundCapacityGoal", "NetworkOutboundCapacityGoal", "CpuCapacityGoal",
+    "ReplicaDistributionGoal", "PotentialNwOutGoal", "DiskUsageDistributionGoal",
+    "NetworkInboundUsageDistributionGoal", "NetworkOutboundUsageDistributionGoal",
+    "CpuUsageDistributionGoal", "TopicReplicaDistributionGoal",
+    "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal",
+]
+
+# The 6- and 12-broker specs of tests/test_optimizer.py:61,219, the 8-broker
+# spec of __graft_entry__.py:22 and bench.py's "small" rung.
+SPEC_6 = dict(num_brokers=6, num_racks=3, num_topics=4, mean_partitions_per_topic=10.0,
+              replication_factor=2, distribution="exponential", seed=7)
+SPEC_12 = dict(num_brokers=12, num_racks=4, num_topics=6, mean_partitions_per_topic=20.0,
+               replication_factor=2, distribution="exponential", seed=11)
+SPEC_ENTRY = dict(num_brokers=8, num_racks=4, num_topics=3, mean_partitions_per_topic=6.0,
+                  replication_factor=2, distribution="exponential", seed=0)
+SPEC_SMALL = dict(num_brokers=3, num_racks=3, num_topics=5, mean_partitions_per_topic=20.0,
+                  replication_factor=3, distribution="exponential", seed=2026)
+
+
+def to_torch(model: JaxModel):
+    """JAX model -> port model on the CPU."""
+    fields = {f: np.asarray(getattr(model, f)) for f in TENSOR_FIELDS}
+    static = {s: getattr(model, s) for s in STATIC_FIELDS}
+    return model_from_numpy(fields, static, device="cpu")
+
+
+def to_jax(model) -> JaxModel:
+    """Port model -> JAX model."""
+    fields, static = model_to_numpy(model)
+    return JaxModel(**{f: jnp.asarray(a) for f, a in fields.items()}, **static)
+
+
+def cand_to_torch(cand) -> TorchCandidates:
+    """JAX Candidates -> port Candidates (same field names)."""
+    return TorchCandidates(**{f.name: torch.from_numpy(np.array(getattr(cand, f.name)))
+                              for f in dataclasses.fields(TorchCandidates)})
+
+
+def assert_float_close(got, want, what: str, rtol: float = 1e-5) -> None:
+    """Floats within ``rtol`` of the largest finite |value| of the reference
+    (summation order differs between XLA and PyTorch; infinities must match
+    exactly)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, what
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin, err_msg=what)
+    np.testing.assert_array_equal(got[~fin], want[~fin], err_msg=what)
+    if fin.any():
+        scale = max(np.abs(want[fin]).max(), 1e-30)
+        err = np.abs(got[fin] - want[fin]).max() / scale
+        assert err <= rtol, f"{what}: {err:.3g} of max |value| > {rtol}"
+
+
+def _run_both(spec_kw):
+    jm = jax_generate(JaxSpec(**spec_kw))
+    tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
+    jrun = jopt.optimize(jm, STACK, raise_on_hard_failure=False, fused=False, frontier=False)
+    trun = topt.optimize(tm, STACK, raise_on_hard_failure=False, device="cpu")
+    return jm, tm, jrun, trun
+
+
+def check_stack(spec_kw):
+    """Equisatisfying per goal, the port's verify_run, and the JAX package's
+    verify_run on the port's final placement carried back."""
+    jm, tm, jrun, trun = _run_both(spec_kw)
+    assert [g.name for g in trun.goal_results] == STACK
+    for j, t in zip(jrun.goal_results, trun.goal_results):
+        assert (t.satisfied_before, t.satisfied_after) == \
+            (j.satisfied_before, j.satisfied_after), t.name
+        assert t.is_hard == j.is_hard
+    assert trun.balancedness_after == pytest.approx(jrun.balancedness_after)
+    proposals = tprops.diff(tm, trun.model)
+    verify_run(tm, trun, STACK, proposals=proposals)
+    assert proposals
+
+    final = to_jax(trun.model)
+    jax_results = [jopt.GoalResult(name=g.name, is_hard=g.is_hard,
+                                   satisfied_before=g.satisfied_before,
+                                   satisfied_after=g.satisfied_after, steps=g.steps,
+                                   actions_applied=g.actions_applied, duration_s=0.0)
+                   for g in trun.goal_results]
+    carried = jopt.OptimizerRun(model=final, goal_results=jax_results, stats_before=None,
+                                stats_after=None, num_candidates_scored=0)
+    jax_proposals = jprops.diff(jm, final)
+    jax_verify_run(jm, carried, STACK, proposals=jax_proposals)
+    assert proposals == [tprops.ExecutionProposal(
+        p.partition, p.topic, p.partition_size,
+        tprops.ReplicaPlacement(*p.old_leader),
+        tuple(tprops.ReplicaPlacement(*x) for x in p.old_replicas),
+        tuple(tprops.ReplicaPlacement(*x) for x in p.new_replicas)) for p in jax_proposals]
+    return jrun, trun
