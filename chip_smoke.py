@@ -7,30 +7,42 @@ CUDA device and the CUDA toolkit (``nvcc``); it fails at once without them.
 Phases, in order (any failure raises and the process exits non-zero):
 
 1. print the device name and ``nvidia-smi``'s name and power limit;
-2. build the four kernels from ``cruise_control_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+2. build every kernel from ``cruise_control_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together);
 3. mid rung (50 brokers, 10 racks, 40 topics, ~10.2k replicas, seed 2026),
-   full 15-goal stack, warm-up run; each kernel's inputs at its first
-   launch are captured;
-4. each kernel against its plain PyTorch version on the card, on seeded
-   fixtures and on the captured inputs, with timings (CUDA events, median
-   of 20) and the least time the card could take for the same bytes;
-5. mid rung, timed run with the launch counters set to 0 just before:
-   every hard goal satisfied, ``verify_run`` passes, every kernel launched;
-   then one more mid run under ``torch.profiler`` for the device's busy
-   share and the device ops per step;
-6. large rung (200 brokers, ~100k replicas), the first 7 goals, the same
-   checks;
-7. a 12-broker cluster and the mid rung solved on the card and on the CPU
+   full 15-goal stack, unfused warm-up run; each kernel's inputs at its
+   first launch are captured;
+4. each hand-written kernel against its plain PyTorch version on the card,
+   on seeded fixtures and on the captured inputs, with timings (CUDA
+   events, median of 20), the least time the card could take for the same
+   bytes and, where one PyTorch call computes the same function, its time;
+5. mid rung as the service runs it, ``optimize(fused=True,
+   donate_model=True)``: a warm-up run captures the step graphs, then a
+   timed run with the launch counters set to 0 just before: every hard goal
+   satisfied, ``verify_run`` passes, every kernel launched (graph replays
+   counted), graph captures, replays, gated-off replays and host fetches;
+   a second fused run gives identical proposals; the unfused timed run
+   gives the same placement; K8 (one replayed step against the same step
+   run eagerly) and K12 (the fused solve against the same solve with its
+   gated steps run eagerly) are timed and checked;
+6. a second snapshot of exactly the mid shape (brokers relabelled and
+   loads rescaled from seed 2027) goes through the cached graphs, with no
+   new capture, and equals an eager fused run of it, placement for
+   placement;
+7. profiles of the fused and of the unfused mid run under
+   ``torch.profiler``: device ops per step and the device's busy share;
+8. large rung (200 brokers, ~100k replicas), the first 7 goals as one
+   fused group, the same checks;
+9. a 12-broker cluster and the mid rung solved on the card and on the CPU
    plain path: per goal the same satisfied flags;
-8. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+10. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+    line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
 with the plain PyTorch versions at small sizes, without building, timing on
-the card or checking launch counts (the plain path launches no kernel), to
-find faults in this script without a GPU.  It prints no result line and
-exits with 3.
+the card, graphs or launch-count checks (the plain path launches no
+kernel), to find faults in this script without a GPU.  It prints no result
+line and exits with 3.
 """
 
 from __future__ import annotations
@@ -56,28 +68,53 @@ MID = (50, 10, 40, 84.0, 3)
 LARGE = (200, 20, 100, 333.0, 3)
 LARGE_GOALS = STACK[:7]  # the six hard goals and ReplicaDistributionGoal
 SEED = 2026
+SECOND_SEED = 2027  # the second snapshot of the mid shape (stale-buffer check)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 TIMED_RUNS = 20
+K13_RTOL = 1e-6  # of each column's largest |value|: the sums run in another order
+SEGSUM_RTOL = 1e-5
 
 # Device kernel names of each wrapper, as the profiler reports them.
 PROFILE_NAMES = {
     "broker_aggregates": ("broker_aggregates_kernel",),
+    "segment_sum": ("segment_sum_kernel",),
     "best_per_segment": ("segment_max_key", "segment_winner"),
     "prefix_cut": ("prefix_cut_kernel",),
+    "goal_masks": ("goal_masks_kernel",),
+    "transport_rank": ("transport_rank_kernel",),
+    "transport_lookup": ("transport_lookup_kernel",),
     "apply_actions": ("apply_actions_kernel",),
+    "cluster_stats": ("cluster_stats_kernel",),
 }
 
 KERNELS = {
     # name: (source, JAX function it replaces)
     "broker_aggregates": ("cruise_control_tpu_torch/csrc/broker_aggregates.cu",
                           "cruise_control_tpu/ops/segment.py:22"),
+    "segment_sum": ("cruise_control_tpu_torch/csrc/broker_aggregates.cu",
+                    "cruise_control_tpu/analyzer/optimizer.py:663"),
     "best_per_segment": ("cruise_control_tpu_torch/csrc/best_per_segment.cu",
                          "cruise_control_tpu/analyzer/optimizer.py:210"),
     "prefix_cut": ("cruise_control_tpu_torch/csrc/prefix_cut.cu",
                    "cruise_control_tpu/analyzer/goals/kernels.py:1031"),
+    "goal_masks": ("cruise_control_tpu_torch/csrc/goal_masks.cu",
+                   "cruise_control_tpu/analyzer/goals/kernels.py:550"),
+    "transport_rank": ("cruise_control_tpu_torch/csrc/transport_match.cu",
+                       "cruise_control_tpu/analyzer/candidates.py:136"),
+    "transport_lookup": ("cruise_control_tpu_torch/csrc/transport_match.cu",
+                         "cruise_control_tpu/analyzer/candidates.py:254"),
     "apply_actions": ("cruise_control_tpu_torch/csrc/apply_actions.cu",
                       "cruise_control_tpu/analyzer/actions.py:233"),
+    "cluster_stats": ("cruise_control_tpu_torch/csrc/cluster_stats.cu",
+                      "cruise_control_tpu/model/stats.py:79"),
 }
+GRAPH_KERNELS = {
+    "step_graph": ("cruise_control_tpu_torch/analyzer/graphs.py",
+                   "cruise_control_tpu/analyzer/optimizer.py:1572"),
+    "goal_chain": ("cruise_control_tpu_torch/analyzer/graphs.py",
+                   "cruise_control_tpu/analyzer/optimizer.py:2491"),
+}
+PLACEMENT = ("replica_broker", "replica_is_leader", "replica_disk")
 
 
 def log(msg: str) -> None:
@@ -94,21 +131,16 @@ def main(argv) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from cruise_control_tpu_torch.analyzer import graphs
     from cruise_control_tpu_torch.analyzer import optimizer as opt
     from cruise_control_tpu_torch.analyzer import proposals as props
-    from cruise_control_tpu_torch.analyzer.actions import apply_candidates
-    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
     from cruise_control_tpu_torch.analyzer.verifier import verify_run
     from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
     from cruise_control_tpu_torch.ops import cuda
-    from cruise_control_tpu_torch.ops.segment import broker_aggregates
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wrappers = {"broker_aggregates": broker_aggregates,
-                "best_per_segment": opt._best_per_segment,
-                "prefix_cut": gk.prefix_cut_admit,
-                "apply_actions": apply_candidates}
+    wrappers = {n: cuda.COUNTED[n] for n in KERNELS}
     dev = torch.device("cpu" if rehearse else "cuda")
     mid_rung, large_rung, timer = MID, LARGE, time_ms
     if rehearse:
@@ -134,24 +166,25 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    def spec_of(rung):
+    def spec_of(rung, seed=SEED):
         b, r, t, ppt, rf = rung
         return ClusterSpec(num_brokers=b, num_racks=r, num_topics=t,
                            mean_partitions_per_topic=ppt, replication_factor=rf,
-                           distribution="exponential", seed=SEED)
-
-    def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
+                           distribution="exponential", seed=seed)
 
     def read_counts():
         return {n: w.launches for n, w in wrappers.items()}
+
+    def check_launched(label, counts):
+        if not rehearse and min(counts.values()) == 0:
+            raise RuntimeError(f"a kernel was not launched on the {label} path: {counts}")
 
     def check_run(label, initial, run, goals):
         for g in run.goal_results:
             log(f"  {label} {g.name:38s} steps={g.steps:3d} actions={g.actions_applied:5d} "
                 f"satisfied {g.satisfied_before}->{g.satisfied_after} "
-                f"{g.duration_s:.3f}s")
+                f"{g.duration_s:.3f}s replays={g.replays} fetches={g.fetches} "
+                f"captured={g.fresh_compile}")
         bad = [g.name for g in run.goal_results if g.is_hard and not g.satisfied_after]
         if bad:
             raise RuntimeError(f"{label}: hard goals unsatisfied: {bad}")
@@ -159,7 +192,23 @@ def main(argv) -> int:
         verify_run(initial, run, goals, proposals=proposals)
         return proposals
 
-    # 3. mid rung warm-up, capturing each kernel's first inputs
+    def same_placement(a, b):
+        return all(torch.equal(getattr(a.model, f).cpu(), getattr(b.model, f).cpu())
+                   for f in PLACEMENT)
+
+    def timed(fn):
+        cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0, read_counts()
+
+    def fused_run(model, goals=STACK, **kw):
+        return opt.optimize(model, goals, fused=True, donate_model=True,
+                            raise_on_hard_failure=False, device=dev, **kw)
+
+    # 3. mid rung warm-up (unfused), capturing each kernel's first inputs
     mid = generate_cluster(spec_of(mid_rung), device=dev)
     log(f"mid rung: {int(mid.replica_valid.sum())} replicas, {mid.num_brokers} brokers, "
         f"{mid.num_partitions} partitions")
@@ -167,7 +216,7 @@ def main(argv) -> int:
     t0 = time.monotonic()
     run_warm = opt.optimize(mid, STACK, raise_on_hard_failure=False, device=dev)
     torch.cuda.synchronize()
-    log(f"mid warm-up run: {time.monotonic() - t0:.2f} s")
+    log(f"mid unfused warm-up run: {time.monotonic() - t0:.2f} s")
     captured, cuda.CAPTURE = cuda.CAPTURE, None
     missing = [n for n in wrappers if n not in captured]
     if missing:
@@ -177,44 +226,98 @@ def main(argv) -> int:
     # 4. kernels against their plain versions
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
 
-    # 5. mid rung, timed and counted
-    reset_counts()
-    torch.cuda.synchronize()
+    # 5. mid rung as the service runs it: fused, step graphs
+    graphs.GRAPHS.clear()
     t0 = time.monotonic()
-    run_mid = opt.optimize(mid, STACK, raise_on_hard_failure=False, device=dev)
+    run_capture = fused_run(mid)
     torch.cuda.synchronize()
-    mid_wall = time.monotonic() - t0
-    mid_counts = read_counts()
+    capture_s = time.monotonic() - t0
+    captures = sum(g.fresh_compile for g in run_capture.goal_results)
+    log(f"mid fused warm-up run (captures {captures} step graphs): {capture_s:.2f} s")
+    run_fused, fused_wall, fused_counts = timed(lambda: fused_run(mid))
+    fused_props = check_run("mid-fused", mid, run_fused, STACK)
+    fused_steps = sum(g.steps for g in run_fused.goal_results)
+    replays = sum(g.replays for g in run_fused.goal_results)
+    wasted = replays - fused_steps
+    fetches = sum(g.fetches for g in run_fused.goal_results)
+    log(f"mid fused timed run: {fused_wall:.3f} s wall, {fused_steps} steps, "
+        f"{len(fused_props)} proposals; graphs cached {len(graphs.GRAPHS)}, captured in "
+        f"this run {sum(g.fresh_compile for g in run_fused.goal_results)}, replays "
+        f"{replays}, gated-off replays {wasted}, host fetches {fetches}")
+    log(f"mid fused launches: {fused_counts}")
+    check_launched("fused mid", fused_counts)
+    run_again = fused_run(mid)
+    again_same = props.diff(mid, run_again.model) == fused_props and \
+        same_placement(run_again, run_fused)
+    log(f"mid fused repeat: identical proposals {again_same}")
+    if not again_same:
+        raise RuntimeError("two fused mid runs gave different proposals")
+
+    run_mid, mid_wall, mid_counts = timed(
+        lambda: opt.optimize(mid, STACK, raise_on_hard_failure=False, device=dev))
     mid_props = check_run("mid", mid, run_mid, STACK)
     mid_steps = sum(g.steps for g in run_mid.goal_results)
-    log(f"mid timed run: {mid_wall:.3f} s wall, {mid_steps} steps, "
+    log(f"mid unfused timed run: {mid_wall:.3f} s wall, {mid_steps} steps, "
         f"{len(mid_props)} proposals, identical to warm-up: {mid_props == warm_props}")
-    log(f"mid launches: {mid_counts}")
-    if not rehearse and min(mid_counts.values()) == 0:
-        raise RuntimeError(f"a kernel was not launched on the mid path: {mid_counts}")
-    device_ms = (profile_mid(torch, opt, mid, mid_wall, mid_steps, log) if not rehearse
-                 else {n: None for n in wrappers})
+    log(f"mid unfused launches: {mid_counts}")
+    check_launched("unfused mid", mid_counts)
+    if not same_placement(run_mid, run_fused):
+        raise RuntimeError("fused and unfused mid runs placed replicas differently")
+    log("mid fused vs unfused: identical placement True")
 
-    # 6. large rung, first 7 goals
+    run_eager, eager_wall, _ = timed(lambda: fused_run(mid, step_graphs=False))
+    if not same_placement(run_eager, run_fused):
+        raise RuntimeError("the fused mid run with eager gated steps placed replicas "
+                           "differently from the graph replays")
+    graph_results = check_graphs(torch, opt, graphs, dev, mid, run_fused, fused_wall,
+                                 eager_wall, replays, timer, log, rehearse)
+
+    # 6. a second snapshot of the same shape through the cached graphs
+    second = second_snapshot(torch, np, mid, SECOND_SEED)
+    n_graphs = len(graphs.GRAPHS)
+    run_second = fused_run(second)
+    run_second_eager = fused_run(second, step_graphs=False)
+    fresh = sum(g.fresh_compile for g in run_second.goal_results)
+    second_same = same_placement(run_second, run_second_eager)
+    log(f"second snapshot (seed {SECOND_SEED}): {sum(g.steps for g in run_second.goal_results)} "
+        f"steps, new captures {fresh} (cache {n_graphs} -> {len(graphs.GRAPHS)}); cached "
+        f"graphs equal the eager run: {second_same}; differs from the first run: "
+        f"{not same_placement(run_second, run_fused)}")
+    if not rehearse and (fresh or len(graphs.GRAPHS) != n_graphs):
+        raise RuntimeError("the second snapshot did not go through the cached graphs")
+    if not second_same:
+        raise RuntimeError("cached step graphs replayed a stale snapshot")
+    check_run("second", second, run_second, STACK)
+
+    # 7. profiles
+    if not rehearse:
+        prof_fused = profile_mid(torch, lambda: fused_run(mid), fused_wall, fused_steps,
+                                 "fused", log)
+        prof_unfused = profile_mid(
+            torch, lambda: opt.optimize(mid, STACK, raise_on_hard_failure=False,
+                                        device=dev), mid_wall, mid_steps, "unfused", log)
+        device_ms = {n: (prof_fused["per_launch"][n]
+                         if prof_fused["per_launch"][n] is not None
+                         else prof_unfused["per_launch"][n]) for n in wrappers}
+    else:
+        prof_fused = prof_unfused = {"ops": None, "ops_per_step": None, "busy": None}
+        device_ms = {n: None for n in wrappers}
+
+    # 8. large rung, first 7 goals as one fused group
     large = generate_cluster(spec_of(large_rung), device=dev)
     log(f"large rung: {int(large.replica_valid.sum())} replicas, {large.num_brokers} brokers")
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    run_large = opt.optimize(large, LARGE_GOALS, raise_on_hard_failure=False,
-                             device=dev)
-    torch.cuda.synchronize()
-    large_wall = time.monotonic() - t0
-    large_counts = read_counts()
+    fused_run(large, LARGE_GOALS, fuse_group_size=len(LARGE_GOALS))  # captures
+    run_large, large_wall, large_counts = timed(
+        lambda: fused_run(large, LARGE_GOALS, fuse_group_size=len(LARGE_GOALS)))
     large_props = check_run("large", large, run_large, LARGE_GOALS)
-    log(f"large run: {large_wall:.3f} s wall, "
+    log(f"large fused run: {large_wall:.3f} s wall, "
         f"{sum(g.steps for g in run_large.goal_results)} steps, "
+        f"{sum(g.replays for g in run_large.goal_results)} replays, "
         f"{len(large_props)} proposals")
     log(f"large launches: {large_counts}")
-    if not rehearse and min(large_counts.values()) == 0:
-        raise RuntimeError(f"a kernel was not launched on the large path: {large_counts}")
+    check_launched("large", large_counts)
 
-    # 7. the card against the CPU plain path: a 12-broker cluster and the mid rung
+    # 9. the card against the CPU plain path: a 12-broker cluster and the mid rung
     small_spec = ClusterSpec(num_brokers=12, num_racks=4, num_topics=6,
                              mean_partitions_per_topic=20.0, replication_factor=2,
                              distribution="exponential", seed=11)
@@ -227,29 +330,36 @@ def main(argv) -> int:
                                raise_on_hard_failure=False, device="cpu")
         flags_card = [(g.satisfied_before, g.satisfied_after) for g in run_card.goal_results]
         flags_cpu = [(g.satisfied_before, g.satisfied_after) for g in run_cpu.goal_results]
-        same_place = bool(torch.equal(run_card.model.replica_broker.cpu(),
-                                      run_cpu.model.replica_broker))
         log(f"{label} card vs CPU plain path: equisatisfying {flags_card == flags_cpu}, "
-            f"identical placement {same_place}")
+            f"identical placement {same_placement(run_card, run_cpu)}")
         if flags_card != flags_cpu:
             raise RuntimeError(f"{label}: card and CPU disagree per goal: "
                                f"{flags_card} vs {flags_cpu}")
 
-    # 8. results
-    log(f"summary: mid wall {mid_wall:.3f} s ({mid_steps} steps, "
-        f"{mid_wall / max(mid_steps, 1) * 1e3:.1f} ms/step), large wall "
-        f"{large_wall:.3f} s; card {smi}")
+    # 10. results
+    log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
+        f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
+        f"{fetches} fetches, ops/step {prof_fused['ops_per_step']}, ops/replay "
+        f"{prof_fused['ops'] / replays if prof_fused['ops'] else None}, busy "
+        f"{prof_fused['busy']}); mid unfused wall {mid_wall:.3f} s ({mid_steps} steps, "
+        f"ops/step {prof_unfused['ops_per_step']}, busy {prof_unfused['busy']}); "
+        f"large fused wall {large_wall:.3f} s; card {smi}")
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": mid_counts[name],
+                     "replaces": replaces, "launches": fused_counts[name],
+                     "launches_unfused": mid_counts[name],
                      "launches_large": large_counts[name],
-                     "launches_per_mid_step": mid_counts[name] / max(mid_steps, 1),
+                     "launches_per_mid_step": fused_counts[name] / max(fused_steps, 1),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms_per_launch": device_ms[name],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": r["library_ms"]})
+    for name, (source, replaces) in GRAPH_KERNELS.items():
+        line.append({"name": name, "route": "cuda_graph", "source": source,
+                     "replaces": replaces, **graph_results[name],
+                     "bound_by": "bytes", "library_ms": None})
     if rehearse:
         log(json.dumps({"kernels": line}))
         log("rehearsal complete on the CPU: no result line")
@@ -262,21 +372,23 @@ def main(argv) -> int:
     return 0
 
 
-def profile_mid(torch, opt, mid, mid_wall, mid_steps, log):
-    """One more mid run under ``torch.profiler``: device kernel time, kernel
-    launches per step and the device's busy share of the unprofiled wall,
-    with the device ops that take the most time."""
+def profile_mid(torch, run, wall, steps, label, log):
+    """One more run of ``run`` under ``torch.profiler``: device ops per step,
+    the device's busy share of the unprofiled ``wall``, the device ops that
+    take the most time, and each port kernel's device time per launch."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        opt.optimize(mid, STACK, raise_on_hard_failure=False)
+        run()
         torch.cuda.synchronize()
         prof_wall = time.monotonic() - t0
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    log(f"profile: {len(kernels)} device ops ({len(kernels) / max(mid_steps, 1):.0f} per "
-        f"step), {device_ms:.1f} ms device time; busy share {device_ms / 1e3 / mid_wall:.3f} "
-        f"of the unprofiled {mid_wall:.3f} s wall ({prof_wall:.3f} s under the profiler)")
+    ops_per_step = len(kernels) / max(steps, 1)
+    busy = device_ms / 1e3 / wall
+    log(f"profile {label}: {len(kernels)} device ops ({ops_per_step:.0f} per step), "
+        f"{device_ms:.1f} ms device time; busy share {busy:.3f} of the unprofiled "
+        f"{wall:.3f} s wall ({prof_wall:.3f} s under the profiler)")
     by_name = {}
     for e in kernels:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -290,8 +402,99 @@ def profile_mid(torch, opt, mid, mid_wall, mid_steps, log):
                 if any(k in name for k in names)]
         launches = max((n for n, _ in hits), default=0)
         per_launch[wrapper] = (sum(t for _, t in hits) / launches if launches else None)
-        log(f"  {wrapper}: device ms per launch {per_launch[wrapper]}")
-    return per_launch
+        log(f"  {label} {wrapper}: device ms per launch {per_launch[wrapper]}")
+    return {"per_launch": per_launch, "ops": len(kernels),
+            "ops_per_step": round(ops_per_step, 1),
+            "busy": round(busy, 4), "device_ms": device_ms}
+
+
+def second_snapshot(torch, np, model, seed):
+    """A snapshot of exactly ``model``'s shape with other data: the brokers
+    relabelled by a seeded permutation (racks and capacities stay with the
+    broker slots, so every replica lands on another rack and broker) and
+    every partition's loads scaled by a seeded factor in [0.5, 1.5) (one
+    factor for all its replicas: a leadership transfer must keep the
+    cluster's total load)."""
+    rng = np.random.default_rng(seed)
+    dev = model.device
+    perm = torch.from_numpy(rng.permutation(model.num_brokers).astype(np.int32)).to(dev)
+    scale = torch.from_numpy(
+        rng.uniform(0.5, 1.5, model.num_partitions).astype(np.float32)).to(dev)
+    scale = scale[model.replica_partition.long()][:, None]
+    rb = perm[model.replica_broker.long()]
+    return model.replace(replica_broker=rb, replica_original_broker=rb.clone(),
+                         replica_disk=model.broker_first_disk[rb.long()],
+                         replica_load_leader=model.replica_load_leader * scale,
+                         replica_load_follower=model.replica_load_follower * scale)
+
+
+def check_graphs(torch, opt, graphs, dev, mid, run_fused, fused_wall, eager_wall,
+                 replays, time_ms, log, rehearse):
+    """K8: one replay of a cached step graph against the same gated step run
+    eagerly on a copy of the same state (placement and counters equal), and
+    both timed with the step gated off (the same kernels run, nothing
+    changes).  K12: the fused mid solve against the same solve with eager
+    gated steps.  Bounds: the bytes a step must move (read the model's
+    replica and broker rows once, write the new placement) over the memory
+    rate; the chain's bound is that times its executed steps."""
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N,
+                                                         BrokerArrays, OptimizationOptions,
+                                                         StepState)
+    from cruise_control_tpu_torch.analyzer import candidates as cgen
+    specs = goals_by_priority(STACK)
+    i = STACK.index("TopicReplicaDistributionGoal")
+    spec, prev = specs[i], tuple(specs[:i])
+    con = BalancingConstraint.default()
+    ns, nd = cgen.default_num_sources(mid), cgen.default_num_dests(mid)
+    options = OptimizationOptions.none(mid)
+    inv = opt.compute_step_invariants(spec, prev, mid, BrokerArrays.from_model(mid), con)
+    eager = StepState.working(mid, options)
+    step = lambda st: opt._gated_step(st, inv, spec, prev, con, ns, nd)  # noqa: E731
+    cache = graphs.GRAPHS if not rehearse else None
+    if cache is not None:
+        st = cache.state(mid, options)
+        key = graphs.goal_key(spec, prev, con, ns, nd, st)
+        g = cache.get(key)
+        if g is None:
+            raise RuntimeError("the fused mid run left no cached graph for "
+                               f"{spec.name}")
+        g.load(inv)
+    else:
+        st = StepState.working(mid, options)
+    for state in (st, eager):
+        state.counters.zero_()
+        state.counters[CTR_LAST_N] = 1
+        state.counters[CTR_BUDGET] = 256
+    if cache is not None:
+        g.replay(1)
+    else:
+        step(st)
+    step(eager)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(st.model, f), getattr(eager.model, f)) for f in PLACEMENT)
+    same = same and torch.equal(st.counters, eager.counters)
+    log(f"K8 step graph ({spec.name}): one replay equals the eager gated step: {same}")
+    if not same:
+        raise RuntimeError("a replayed step graph disagrees with the eager gated step")
+    for state in (st, eager):
+        state.counters[CTR_LAST_N] = 0
+    step_ms = time_ms(torch, (lambda: g.replay(1)) if cache is not None else (lambda: step(st)))
+    plain_step_ms = time_ms(torch, lambda: step(eager))
+    R, B = mid.num_replicas_padded, mid.num_brokers
+    step_bytes = R * (4 + 4 + 4 + 1 + 32 + 1 + 4 + 1 + 4) + B * 60 + R * 9
+    steps = sum(r.steps for r in run_fused.goal_results)
+    out = {
+        "step_graph": dict(launches=replays, max_abs_err=0.0, ms=step_ms,
+                           plain_ms=plain_step_ms, bound_ms=bound_ms(step_bytes)),
+        "goal_chain": dict(launches=1, max_abs_err=0.0, ms=fused_wall * 1e3,
+                           plain_ms=eager_wall * 1e3,
+                           bound_ms=bound_ms(step_bytes * max(steps, 1))),
+    }
+    log(f"K8 step replay {step_ms:.4f} ms vs eager gated step {plain_step_ms:.4f} ms; "
+        f"K12 fused mid {fused_wall:.3f} s with graphs vs {eager_wall:.3f} s eager")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +537,8 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     from cruise_control_tpu_torch.analyzer.actions import (ActionType, Candidates,
                                                            apply_candidates_plain)
     from cruise_control_tpu_torch.analyzer.goals import kernels as gk
-    from cruise_control_tpu_torch.ops.segment import broker_aggregates_plain
+    from cruise_control_tpu_torch.ops.segment import (broker_aggregates_plain,
+                                                      masked_segment_sum)
 
     rng = np.random.default_rng(SEED)
     out = {}
@@ -455,10 +659,141 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         plain_ms=time_ms(torch, lambda: apply_candidates_plain(model, cand, mask)),
         library_ms=None, bound_ms=bound_ms(Kc * 29 + Bm * 4 + 2 * Rm * 9))
     log(f"K7 apply_actions: K={Kc} R={Rm} ok (exact)")
+    # ---- K1's segment_sum (the selection's round sums).  Within rtol of
+    # each column's max |value| of the plain index_add_ (another order), and
+    # bit-identical between two launches (no atomics).
+    ks = wrappers["segment_sum"]
+    cap = captured["segment_sum"]
+    N, C, S = cap[0].shape[0], cap[0].shape[1], cap[3]
+    fix = (t(rng.normal(0.0, 50.0, (9000, 8)).astype(np.float32)),
+           t(rng.integers(0, 64, 9000).astype(np.int32)), t(rng.random(9000) < 0.6), 64)
+    err = 0.0
+    for args in (cap, fix):
+        got, again = ks(*args), ks(*args)
+        if not torch.equal(got, again):
+            raise RuntimeError("segment_sum differs between two launches")
+        ref = masked_segment_sum(args[0], args[1], args[3], args[2])
+        scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+        rel = ((got - ref).abs() / scale).max().item()
+        if rel > SEGSUM_RTOL:
+            raise RuntimeError(f"segment_sum disagrees: {rel:.3g} of column max")
+        err = max(err, (got - ref).abs().max().item())
+    v0, s0, m0 = cap[0], torch.where(cap[2], cap[1], 0), cap[2]
+    vz = torch.where(m0[:, None], v0, 0.0)
+    acc_s = torch.zeros((S, C), device=dev)
+    out["segment_sum"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: ks(*cap)),
+        plain_ms=time_ms(torch, lambda: masked_segment_sum(cap[0], cap[1], cap[3], cap[2])),
+        library_ms=time_ms(torch, lambda: acc_s.zero_().index_add_(0, s0, vz)),
+        bound_ms=bound_ms(N * (4 * C + 5) + S * 4 * C))
+    log(f"K1 segment_sum: N={N} C={C} S={S} ok, deterministic, max |err| {err:.3g}")
+
+    # ---- K5: goal masks.  Exact (score bits and eligible), for every goal
+    # of the stack on the captured batch, healthy and with a dead broker.
+    k5 = wrappers["goal_masks"]
+    spec0, model, arrays, cand, con, bands, accepted = captured["goal_masks"]
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    from cruise_control_tpu_torch.model.tensor_model import BrokerState
+    dead = model.set_broker_state(2, BrokerState.DEAD)
+    acc_fix = t(rng.random(cand.k) < 0.8)
+    modes = set()
+    for m in (model, dead):
+        arr = BrokerArrays.from_model(m, with_topic_counts=True)
+        for spec in goals_by_priority(STACK):
+            for acc in (None, acc_fix):
+                got = k5(spec, m, arr, cand, con, accepted=acc)
+                ref = gk.goal_masks_plain(spec, m, arr, cand, con, accepted=acc)
+                if not (torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+                        and torch.equal(got[1], ref[1])):
+                    bad = int((got[0] != ref[0]).sum()) + int((got[1] != ref[1]).sum())
+                    raise RuntimeError(f"K5 disagrees with the plain version on "
+                                       f"{spec.name} ({bad} lanes)")
+            modes.add(spec.kind)
+    K, R, B = cand.k, model.num_replicas_padded, model.num_brokers
+    k5_args = (spec0, model, arrays, cand, con, bands, accepted)
+    out["goal_masks"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: k5(*k5_args)),
+        plain_ms=time_ms(torch, lambda: gk.goal_masks_plain(*k5_args)), library_ms=None,
+        bound_ms=bound_ms(_k5_bytes(spec0.kind, K, R, B, model.num_topics,
+                                    model.num_partitions, model.max_rf)))
+    log(f"K5 goal_masks: K={K} first kind {spec0.kind}; {len(modes)} kinds x healthy/dead "
+        "x accepted ok (exact)")
+
+    # ---- K6: transport rank and slot lookup.  Exact.
+    from cruise_control_tpu_torch.analyzer import candidates as cgen
+    k6r = wrappers["transport_rank"]
+    cap = captured["transport_rank"]
+    N = cap[1].shape[0]
+    key_f = rng.integers(0, 301, 20000).astype(np.int32)
+    fix = (t(np.argsort(key_f, kind="stable").astype(np.int64)), t(key_f), 300)
+    for args in (cap, fix):
+        if not torch.equal(k6r(*args), cgen.transport_rank_plain(*args)):
+            raise RuntimeError("K6 rank disagrees with the plain version")
+    out["transport_rank"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: k6r(*cap)),
+        plain_ms=time_ms(torch, lambda: cgen.transport_rank_plain(*cap)),
+        library_ms=None, bound_ms=bound_ms(N * 16))
+    log(f"K6 transport_rank: N={N} ok (exact)")
+    k6l = wrappers["transport_lookup"]
+    cap = captured["transport_lookup"]
+    L, W, NS = cap[4].shape[0], cap[2], cap[0].shape[0]
+    sizes = rng.integers(0, 4, 40 * 96).astype(np.int32)
+    fix = (t(np.cumsum(sizes).astype(np.int32)), t(rng.integers(0, 48, 40 * 96).astype(np.int32)),
+           96, t(rng.integers(0, 40, 8192).astype(np.int32)),
+           t(rng.integers(0, 200, 8192).astype(np.int32)))
+    for args in (cap, fix):
+        got, ref = k6l(*args), cgen.transport_lookup_plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise RuntimeError("K6 lookup disagrees with the plain version")
+    out["transport_lookup"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: k6l(*cap)),
+        plain_ms=time_ms(torch, lambda: cgen.transport_lookup_plain(*cap)),
+        library_ms=None, bound_ms=bound_ms(L * 8 + NS * 8 + L * 9))
+    log(f"K6 transport_lookup: L={L} width={W} slots={NS} ok (exact)")
+
+    # ---- K13: cluster stats.  Within K13_RTOL of each column's max |value|.
+    from cruise_control_tpu_torch.model.stats import column_stats_plain
+    k13 = wrappers["cluster_stats"]
+    cap = captured["cluster_stats"]
+    Bs, Cs = cap[0].shape
+    err = 0.0
+    for args in (cap, (t(rng.exponential(80.0, (333, 7)).astype(np.float32)),
+                       t(rng.random(333) < 0.9)),
+                 (cap[0], torch.zeros_like(cap[1]))):
+        got, ref = k13(*args), column_stats_plain(*args)
+        fin = torch.isfinite(ref)
+        if not torch.equal(torch.isfinite(got), fin) or not torch.equal(got[~fin], ref[~fin]):
+            raise RuntimeError("K13 disagrees on the empty-mask values")
+        scale = torch.where(fin, ref, 0.0).abs().amax(dim=0).clamp(min=1e-30)
+        diff = torch.where(fin, got - ref, 0.0).abs()
+        if (diff / scale).max().item() > K13_RTOL:
+            raise RuntimeError(f"K13 disagrees: {(diff / scale).max().item():.3g}")
+        err = max(err, diff.max().item())
+    out["cluster_stats"] = dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: k13(*cap)),
+        plain_ms=time_ms(torch, lambda: column_stats_plain(*cap)), library_ms=None,
+        bound_ms=bound_ms(Bs * (4 * Cs + 1) + 16 * Cs))
+    log(f"K13 cluster_stats: B={Bs} C={Cs} ok within rtol {K13_RTOL}, max |err| {err:.3g}")
+
     for name, r in out.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
     return out
+
+
+def _k5_bytes(kind, K, R, B, T, P, rf):
+    """Bytes K5 must move: each lane's own fields once (action, replica, src,
+    dest, valid, accepted, its delta pair), every table its mode reads once,
+    and the score and eligible flag written."""
+    lanes = K * (4 * 4 + 1 + 1 + 8) + K * 5 + R  # + offline flags
+    if kind == "rack":
+        tables = R * (4 + 4 + 1) + P * rf * 4 + B * 4
+    elif kind == "topic_replica_distribution":
+        tables = R * 4 + T * B * 4 + T * 12 + B
+    else:
+        tables = B * 13
+    return lanes + tables
 
 
 def _near_bound_segments(torch, gk, score, seg, deltas, kept, cum_before, lo, hi,

@@ -210,6 +210,7 @@ def apply_candidates_plain(model: TensorClusterModel, cand: Candidates,
     return model
 
 
+@cuda.counted("apply_actions")
 def apply_candidates(model: TensorClusterModel, cand: Candidates,
                      apply_mask: torch.Tensor) -> TensorClusterModel:
     """K7.  Replaces ``cruise_control_tpu/analyzer/actions.py:233``
@@ -239,6 +240,3 @@ def apply_candidates(model: TensorClusterModel, cand: Candidates,
                     model.num_replicas_padded, model.num_brokers, rb, rd, lead)
         apply_candidates.launches += 1
     return model.replace(replica_broker=rb, replica_disk=rd, replica_is_leader=lead)
-
-
-apply_candidates.launches = 0

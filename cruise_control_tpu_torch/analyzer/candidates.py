@@ -12,6 +12,13 @@ every ``jnp.argsort`` is ``ops.order.argsort``: both keep the JAX package's
 tie order, so a given model yields identical index sets.  The intra-broker
 builders (``intra_disk_candidates``, ``intra_swap_candidates``) wait for a
 later slice.
+
+The matched-transport legs run kernel K6 (``csrc/transport_match.cu``) for
+their two non-library parts: ``transport_rank`` (each row's rank inside its
+group, from a stable sort's order) and ``transport_lookup`` (each slot's
+destination by a binary search of its window's prefix sums), with the plain
+twins ``transport_rank_plain`` and ``transport_lookup_plain``.  The sorts
+and top-k stay ``ops.order``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from cruise_control_tpu_torch.analyzer.goals import kernels
 from cruise_control_tpu_torch.analyzer.state import (BrokerArrays, OptimizationOptions,
                                                      topic_counts)
 from cruise_control_tpu_torch.model.tensor_model import BrokerState, TensorClusterModel
-from cruise_control_tpu_torch.ops import order
+from cruise_control_tpu_torch.ops import cuda, order
 
 _NEG = -1e29  # "irrelevant" sentinel threshold (relevance uses -1e30)
 
@@ -59,6 +66,103 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=like.device)
 
 
+def _repeat_each(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x.repeat_interleave(n)`` for an int ``n`` as a view expansion
+    (no size computed on the host, so it can be recorded in a CUDA graph)."""
+    return x[:, None].expand(x.shape[0], n).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# K6 — matched-transport rank and slot lookup
+# ---------------------------------------------------------------------------
+
+def transport_rank_plain(ordr: torch.Tensor, key: torch.Tensor,
+                         num_groups: int) -> torch.Tensor:
+    """i32[N] — each row's position among the rows of its ``key`` group in
+    the stable order ``ordr`` (keys lie in [0, num_groups])."""
+    n = key.shape[0]
+    sorted_key = key[ordr]
+    pos = _arange(n, key)
+    start = torch.full((num_groups + 1,), n, dtype=torch.int32,
+                       device=key.device).scatter_reduce_(
+        0, sorted_key.clamp(max=num_groups).long(), pos, "amin")
+    rank = torch.zeros((n,), dtype=torch.int32, device=key.device)
+    rank[ordr] = pos - start[sorted_key.clamp(max=num_groups)]
+    return rank
+
+
+@cuda.counted("transport_rank")
+def transport_rank(ordr: torch.Tensor, key: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K6, rank part.  Replaces the segment-start scatter-min and rank
+    scatter of ``cruise_control_tpu/analyzer/candidates.py:136,254``
+    (``_matched_move_legs``, ``_matched_topic_legs``).  Bound on the card:
+    bytes (N·12 read, N·4 written; the binary searches hit L2).  CPU
+    tensors take ``transport_rank_plain``; CUDA tensors launch one thread
+    per sorted position that finds its group's first position by a binary
+    search of the sorted keys.  Integer output, exact."""
+    dev = key.device
+    n = key.shape[0]
+    cuda.check(ordr, "ordr", torch.int64, (n,), dev)
+    cuda.check(key, "key", torch.int32, (n,), dev)
+    cuda.record("transport_rank", (ordr, key, num_groups))
+    if cuda.on_cpu(key):
+        return transport_rank_plain(ordr, key, num_groups)
+    rank = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n > 0:
+        cuda.launch("transport_rank", ordr, key, n, rank)
+        transport_rank.launches += 1
+    return rank
+
+
+def transport_lookup_plain(cum: torch.Tensor, slot_broker: torch.Tensor, width: int,
+                           win: torch.Tensor, off: torch.Tensor):
+    """(dest1 i32[L], dest2 i32[L], ok bool[L]) — lane i takes slot
+    ``off[i]`` of window ``win[i]`` (``width`` slots each; ``cum`` is the
+    inclusive prefix sum of the slot sizes over all windows): the broker of
+    the slot it falls in, of the next slot of the window, and whether the
+    window holds that many units."""
+    base = torch.where(win > 0, cum[(win * width - 1).clamp(min=0)], 0)
+    last = win * width + width - 1
+    total = cum[last] - base
+    j = torch.searchsorted(cum, base + off, right=True).to(torch.int32)
+    j = torch.minimum(j, last)
+    dest1 = slot_broker[j]
+    dest2 = slot_broker[torch.minimum(j + 1, last)]
+    return dest1, dest2, off < total
+
+
+@cuda.counted("transport_lookup")
+def transport_lookup(cum: torch.Tensor, slot_broker: torch.Tensor, width: int,
+                     win: torch.Tensor, off: torch.Tensor):
+    """K6, lookup part.  Replaces the slot counting (``index_add_`` count +
+    cumsum, ``cruise_control_tpu/analyzer/candidates.py:136``) and the global
+    ``searchsorted`` (``:254``) of the matched legs.  Bound on the card:
+    bytes (L·8 read plus the window's prefix sums, L·9 written).  CPU
+    tensors take ``transport_lookup_plain``; CUDA tensors launch one thread
+    per lane with a binary search inside its window.  Integer output,
+    exact."""
+    dev = cum.device
+    n_slots = cum.shape[0]
+    n = off.shape[0]
+    cuda.check(cum, "cum", torch.int32, (n_slots,), dev)
+    cuda.check(slot_broker, "slot_broker", torch.int32, (n_slots,), dev)
+    cuda.check(win, "win", torch.int32, (n,), dev)
+    cuda.check(off, "off", torch.int32, (n,), dev)
+    if width <= 0 or n_slots % width:
+        raise ValueError(f"{n_slots} slots do not form windows of width {width}")
+    cuda.record("transport_lookup", (cum, slot_broker, width, win, off))
+    if cuda.on_cpu(cum):
+        return transport_lookup_plain(cum, slot_broker, width, win, off)
+    dest1 = torch.empty((n,), dtype=torch.int32, device=dev)
+    dest2 = torch.empty((n,), dtype=torch.int32, device=dev)
+    ok = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n > 0:
+        cuda.launch("transport_lookup", cum, slot_broker, win, off, n, width,
+                    dest1, dest2, ok)
+        transport_lookup.launches += 1
+    return dest1, dest2, ok
+
+
 def _recv_ok(arrays: BrokerArrays, options: OptimizationOptions) -> torch.Tensor:
     """bool[B] — brokers able to receive replicas for this request."""
     ok = arrays.alive & ~options.broker_excluded_replica_move
@@ -88,9 +192,9 @@ def _cross_move_legs(spec, model, arrays, constraint, options, num_sources: int,
     room = torch.where(_recv_ok(arrays, options), room,
                        torch.full((), -math.inf, device=room.device))
     _, dest_brokers = order.top_k(room, num_dests)
-    replica = src_replicas.repeat_interleave(num_dests)
+    replica = _repeat_each(src_replicas, num_dests)
     dest = dest_brokers.repeat(num_sources)
-    src_ok = (rel_vals > _NEG).repeat_interleave(num_dests)
+    src_ok = _repeat_each(rel_vals > _NEG, num_dests)
     return replica, dest, src_ok
 
 
@@ -125,13 +229,7 @@ def _matched_move_legs(spec, model, arrays, constraint, options, num_out: int,
 
     rb = model.replica_broker
     key = torch.where(model.replica_valid, rb, B)
-    ordr = order.argsort(key)
-    sorted_key = key[ordr]
-    pos = _arange(R, rb)
-    start = torch.full((B + 1,), R, dtype=torch.int32, device=dev).scatter_reduce_(
-        0, sorted_key.clamp(max=B).long(), pos, "amin")
-    rank = torch.zeros((R,), dtype=torch.int32, device=dev)
-    rank[ordr] = pos - start[sorted_key.clamp(max=B)]
+    rank = transport_rank(order.argsort(key), key, B)
     is_src = model.replica_valid & (rank < src_n[rb])
 
     if relevance is None:
@@ -143,13 +241,11 @@ def _matched_move_legs(spec, model, arrays, constraint, options, num_out: int,
 
     room_vals, room_order = order.top_k(room_n, B)
     cum = torch.cumsum(room_vals, dim=0, dtype=torch.int32)
-    slot = _arange(num_out, cum)
-    counts = torch.zeros((num_out + 1,), dtype=torch.int32, device=dev).index_add_(
-        0, cum.clamp(max=num_out), torch.ones_like(cum))
-    p = torch.cumsum(counts, dim=0, dtype=torch.int32)[:num_out]
-    dest1 = room_order[p.clamp(max=B - 1)]
-    dest_ok = slot < cum[B - 1]
-    dest2 = room_order[(p + 1).clamp(max=B - 1)]
+    # One window of B slots; slot i of the surplus lands where the running
+    # room first exceeds i.
+    dest1, dest2, dest_ok = transport_lookup(
+        cum, room_order, B, torch.zeros((num_out,), dtype=torch.int32, device=dev),
+        _arange(num_out, cum))
 
     replica = torch.cat([src_replicas, src_replicas])
     dest = torch.cat([dest1, dest2])
@@ -200,13 +296,7 @@ def _matched_topic_legs(spec, model, arrays, constraint, options, num_out: int,
 
     pair = model.replica_topic * B + model.replica_broker
     key = torch.where(model.replica_valid, pair, T * B)
-    ordr = order.argsort(key)
-    sorted_key = key[ordr]
-    pos = _arange(R, pair)
-    start = torch.full((T * B + 1,), R, dtype=torch.int32, device=dev).scatter_reduce_(
-        0, sorted_key.clamp(max=T * B).long(), pos, "amin")
-    rank = torch.zeros((R,), dtype=torch.int32, device=dev)
-    rank[ordr] = pos - start[sorted_key.clamp(max=T * B)]
+    rank = transport_rank(order.argsort(key), key, T * B)
     is_src = model.replica_valid & (rank < src_n.reshape(-1)[pair.clamp(max=T * B - 1)])
 
     if relevance is None:
@@ -217,30 +307,17 @@ def _matched_topic_legs(spec, model, arrays, constraint, options, num_out: int,
 
     t_src = model.replica_topic[src_replicas]
     t_key = torch.where(src_ok, t_src, T)
-    s_order = order.argsort(t_key)
-    s_sorted_t = t_key[s_order]
-    opos = _arange(num_out, t_key)
-    t_start = torch.full((T + 1,), num_out, dtype=torch.int32, device=dev).scatter_reduce_(
-        0, s_sorted_t.clamp(max=T).long(), opos, "amin")
-    p_in_topic = torch.zeros((num_out,), dtype=torch.int32, device=dev)
-    p_in_topic[s_order] = opos - t_start[s_sorted_t.clamp(max=T)]
+    p_in_topic = transport_rank(order.argsort(t_key), t_key, T)
 
     def_order = order.argsort(-deficit, dim=1)
     sp_order = order.argsort(-spare, dim=1)
     slot_vals = torch.cat([torch.gather(deficit, 1, def_order),
                            torch.gather(spare, 1, sp_order)], dim=1)
     slot_broker = torch.cat([def_order, sp_order], dim=1).to(torch.int32)
-    W = 2 * B
     cum = torch.cumsum(slot_vals.reshape(-1), dim=0, dtype=torch.int32)
-    base = torch.where(t_src > 0, cum[(t_src * W - 1).clamp(min=0)], 0)
-    total_t = cum[t_src * W + W - 1] - base
-    target = base + p_in_topic
-    j = torch.searchsorted(cum, target, right=True).to(torch.int32)
-    j = torch.minimum(j, t_src * W + W - 1)
-    dest1 = slot_broker.reshape(-1)[j]
-    j2 = torch.minimum(j + 1, t_src * W + W - 1)
-    dest2 = slot_broker.reshape(-1)[j2]
-    dest_ok = src_ok & (p_in_topic < total_t)
+    dest1, dest2, fits = transport_lookup(cum, slot_broker.reshape(-1), 2 * B,
+                                          t_src, p_in_topic)
+    dest_ok = src_ok & fits
 
     replica = torch.cat([src_replicas, src_replicas])
     dest = torch.cat([dest1, dest2])
@@ -314,9 +391,9 @@ def leadership_candidates(spec, model, arrays, constraint, options, num_sources:
     part = model.replica_partition[src_replicas]
     sib = model.partition_replicas[part]
     max_rf = sib.shape[1]
-    replica = src_replicas.repeat_interleave(max_rf)
+    replica = _repeat_each(src_replicas, max_rf)
     dest_replica = sib.reshape(-1)
-    src_ok = (rel_vals > _NEG).repeat_interleave(max_rf)
+    src_ok = _repeat_each(rel_vals > _NEG, max_rf)
     safe_dest = torch.where(dest_replica >= 0, dest_replica, 0)
     dest_broker = model.replica_broker[safe_dest]
     dest_state = model.broker_state[dest_broker]
@@ -363,9 +440,9 @@ def swap_candidates(spec, model, arrays, constraint, options, num_out: int,
     in_rank = room[model.replica_broker] - size / size_scale
     in_rank = torch.where(model.replica_valid, in_rank, ninf)
     _, in_replicas = order.top_k(in_rank, num_in)
-    r1 = out_replicas.repeat_interleave(num_in)
+    r1 = _repeat_each(out_replicas, num_in)
     r2 = in_replicas.repeat(num_out)
-    src_ok = (out_vals > _NEG).repeat_interleave(num_in)
+    src_ok = _repeat_each(out_vals > _NEG, num_in)
     valid = src_ok & _legit_swap_mask(model, arrays, options, r1, r2)
     return make_swap_candidates(model, r1, r2, valid)
 

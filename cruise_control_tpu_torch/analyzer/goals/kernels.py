@@ -16,6 +16,10 @@ kinds of the default stack (``rack``, ``replica_capacity``, ``capacity``,
 - ``score`` — improvement the candidate brings (> 0 required to apply).
 - ``source_pressure`` / ``dest_room`` / ``source_replica_relevance`` —
   candidate-generation rankings.
+- ``goal_masks`` — per-candidate score and eligibility in one pass (K5,
+  ``csrc/goal_masks.cu``), with the plain twin ``goal_masks_plain``.
+- ``frontier_active`` — the band goal's active broker set (the packed
+  ``PACKED_NUM_ACTIVE`` slot).
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
   ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
 """
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from cruise_control_tpu_torch.analyzer.actions import Candidates
@@ -38,6 +43,7 @@ from cruise_control_tpu_torch.ops.segment import masked_segment_count
 
 _BIG = 1e30
 _OFFLINE_BONUS = 1e12  # healing moves (offline replicas off dead brokers) dominate
+MIN_SCORE = 1e-9  # strictly-positive improvement required (greedy accept)
 
 SUPPORTED_KINDS = ("rack", "replica_capacity", "capacity", "replica_distribution",
                    "potential_nw_out", "resource_distribution",
@@ -57,7 +63,35 @@ def require_supported(spec: GoalSpec) -> None:
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """f32 scalar on ``like``'s device, made by a fill (no host-to-device
+    copy, so it can be recorded in a CUDA graph)."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors rounded once, as a fused multiply-add
+    (CUDA's ``__fmaf_rn``).  The product is exact in float64; the float64
+    sum is taken with round-to-odd (the TwoSum error picks the odd
+    neighbour), which makes the final rounding to f32 correct."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _sq_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x ** 2 + y ** 2`` as the JAX package's jitted CPU program computes
+    it: XLA's CPU code generator contracts the first square into an FMA,
+    ``fma(x, x, y * y)`` (the optimized HLO keeps multiply + add in one
+    loop fusion; LLVM fuses them).  Bit-identical to the jitted scores of
+    every squared-deviation kind."""
+    return fma_f32(x, x, y * y)
 
 
 def _margin_pct(threshold: float) -> float:
@@ -343,8 +377,8 @@ def score(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         avg_t = _topic_avg(model, arrays)[t]
         c_src = tbc[t, cand.src]
         c_dest = tbc[t, cand.dest]
-        before = (c_src - avg_t) ** 2 + (c_dest - avg_t) ** 2
-        after = (c_src - 1 - avg_t) ** 2 + (c_dest + 1 - avg_t) ** 2
+        before = _sq_sum(c_src - avg_t, c_dest - avg_t)
+        after = _sq_sum(c_src - 1 - avg_t, c_dest + 1 - avg_t)
         return (before - after) + bonus
     metric = broker_metric(spec, model, arrays, constraint)
     lower, upper = bands if bands is not None else limits(spec, model, arrays, constraint)
@@ -358,10 +392,101 @@ def score(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         return before - after + bonus
     target = (lower + upper) * 0.5
     target = torch.where(upper >= _BIG, metric, target)
-    before = (src_m - target[cand.src]) ** 2 + (dest_m - target[cand.dest]) ** 2
-    after = (src_m + d_src - target[cand.src]) ** 2 + \
-        (dest_m + d_dest - target[cand.dest]) ** 2
+    before = _sq_sum(src_m - target[cand.src], dest_m - target[cand.dest])
+    after = _sq_sum(src_m + d_src - target[cand.src], dest_m + d_dest - target[cand.dest])
     return before - after + bonus
+
+
+# ---------------------------------------------------------------------------
+# K5 — per-candidate masks and score
+# ---------------------------------------------------------------------------
+
+_THRESHOLD_KINDS = ("capacity", "potential_nw_out", "replica_capacity")
+# Which candidate delta a band kind reads: 0-3 a resource column of
+# delta_src / delta_dest, 4 replica count, 5 leader count, 6 potential
+# NW_OUT, 7 leader bytes-in (the order of ``_candidate_deltas``).
+_DELTA_OF_KIND = {"replica_capacity": 4, "replica_distribution": 4,
+                  "leader_replica_distribution": 5, "potential_nw_out": 6,
+                  "leader_bytes_in": 7}
+_MODE_THRESHOLD, _MODE_DISTRIBUTION, _MODE_TOPIC, _MODE_RACK = 0, 1, 2, 3
+
+
+def goal_masks_plain(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                     cand: Candidates, constraint: BalancingConstraint, bands=None,
+                     accepted=None):
+    """(score f32[K], eligible bool[K]) from the goal functions above:
+    ``eligible = valid & self_feasible & accepted & score > MIN_SCORE``
+    (``cruise_control_tpu/analyzer/optimizer.py:1154``)."""
+    feasible = self_feasible(spec, model, arrays, cand, constraint, bands=bands)
+    sc = score(spec, model, arrays, cand, constraint, bands=bands)
+    eligible = cand.valid & feasible & (sc > MIN_SCORE)
+    if accepted is not None:
+        eligible = eligible & accepted
+    return sc, eligible
+
+
+@cuda.counted("goal_masks")
+def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+               cand: Candidates, constraint: BalancingConstraint, bands=None,
+               accepted=None):
+    """K5.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:550``
+    ``score``, ``:354`` ``self_feasible`` and ``:256`` ``_candidate_deltas``
+    with the ``eligible`` line ``optimizer.py:1154``, for the band kinds,
+    ``topic_replica_distribution`` and ``rack``; ``accepted`` (the cross-goal
+    vetoes, K5b) comes in as a mask.  Bound on the card: bytes (about 80
+    bytes a lane read through the gathers, 5 written).  CPU tensors take
+    ``goal_masks_plain``; CUDA tensors launch one thread per lane that
+    gathers its broker, topic and sibling rows and does the arithmetic with
+    round-to-nearest intrinsics in the plain version's order (``fma`` only
+    where ``_sq_sum`` has it), so the two agree bit for bit."""
+    require_supported(spec)
+    dev = cand.replica.device
+    k = cand.k
+    for name in ("action_type", "replica", "src", "dest", "d_replica_count",
+                 "d_leader_count"):
+        cuda.check(getattr(cand, name), name, torch.int32, (k,), dev)
+    cuda.check(cand.valid, "valid", torch.bool, (k,), dev)
+    if accepted is not None:
+        cuda.check(accepted, "accepted", torch.bool, (k,), dev)
+    cuda.record("goal_masks", (spec, model, arrays, cand, constraint, bands, accepted))
+    if cuda.on_cpu(cand.replica):
+        return goal_masks_plain(spec, model, arrays, cand, constraint, bands, accepted)
+    kind = spec.kind
+    metric = lower = upper = tbc = lower_t = upper_t = avg_t = conflict = None
+    delta_sel = 0
+    if kind == "rack":
+        mode = _MODE_RACK
+        conflict = _replica_rack_conflict(spec, model)
+    elif kind == "topic_replica_distribution":
+        mode = _MODE_TOPIC
+        tbc = topic_counts(model, arrays).contiguous()
+        lower_t, upper_t = _topic_limits(model, arrays, constraint)
+        avg_t = _topic_avg(model, arrays)
+    else:
+        mode = _MODE_THRESHOLD if kind in _THRESHOLD_KINDS else _MODE_DISTRIBUTION
+        delta_sel = _DELTA_OF_KIND.get(kind, spec.resource)
+        metric = broker_metric(spec, model, arrays, constraint).contiguous()
+        lower, upper = bands if bands is not None else limits(spec, model, arrays,
+                                                              constraint)
+        lower = lower.expand(model.num_brokers).contiguous()
+        upper = upper.expand(model.num_brokers).contiguous()
+    score_out = torch.empty((k,), dtype=torch.float32, device=dev)
+    eligible = torch.empty((k,), dtype=torch.bool, device=dev)
+    if k > 0:
+        cuda.launch("goal_masks", mode, delta_sel, k, model.num_brokers, model.max_rf,
+                    float(np.float32(_metric_epsilon(spec))),
+                    cand.action_type, cand.replica, cand.src, cand.dest, cand.valid,
+                    accepted, cand.delta_src.contiguous(), cand.delta_dest.contiguous(),
+                    cand.d_replica_count, cand.d_leader_count,
+                    cand.d_potential_nw_out.contiguous(),
+                    cand.d_leader_bytes_in_src.contiguous(),
+                    cand.d_leader_bytes_in_dest.contiguous(),
+                    arrays.alive, metric, lower, upper, model.replica_offline_now(),
+                    model.replica_topic, model.replica_partition, model.replica_broker,
+                    conflict, tbc, lower_t, upper_t, avg_t,
+                    model.partition_replicas, model.broker_rack, score_out, eligible)
+        goal_masks.launches += 1
+    return score_out, eligible
 
 
 # ---------------------------------------------------------------------------
@@ -491,8 +616,60 @@ def _topic_limits(model: TensorClusterModel, arrays: BrokerArrays,
 
 
 # ---------------------------------------------------------------------------
+# Frontier population (the packed NUM_ACTIVE slot)
+# ---------------------------------------------------------------------------
+
+def frontier_active(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                    constraint: BalancingConstraint) -> torch.Tensor:
+    """bool[B] — ``cruise_control_tpu/analyzer/goals/kernels.py:842``: the
+    out-of-band and dead-with-replicas brokers, the biggest pull donors
+    until their surplus covers twice the under-band deficit, and the
+    roomiest receivers until their room covers twice the remaining
+    surplus.  Band kinds only."""
+    B = model.num_brokers
+    dev = arrays.load.device
+    metric = broker_metric(spec, model, arrays, constraint)
+    lower, upper = limits(spec, model, arrays, constraint)
+    eps = _metric_epsilon(spec)
+    alive = arrays.alive
+    over = alive & (metric > upper + eps)
+    under = alive & (metric < lower - eps)
+    dead = (~alive) & arrays.valid & (arrays.replica_count > 0)
+    under_exists = under.any()
+    target = torch.where(upper >= _BIG, metric, (lower + upper) * 0.5)
+    shed_to = torch.where(under_exists, torch.minimum(target, upper), upper)
+    donor = alive & (metric > shed_to + eps)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    surplus = torch.where(alive, torch.clamp(metric - shed_to, min=0.0), zero)
+    surplus = surplus + torch.where(dead, torch.clamp(metric, min=0.0), zero)
+    total_surplus = surplus.sum()
+    deficit = torch.where(under, torch.clamp(lower - metric, min=0.0), zero)
+    total_deficit = deficit.sum()
+
+    def leading(values, limit):
+        ordr = order.argsort(-values)
+        v_sorted = values[ordr]
+        before = torch.cumsum(v_sorted, dim=0) - v_sorted
+        out = torch.zeros((B,), dtype=torch.bool, device=dev)
+        out[ordr] = (before < 2.0 * limit) & (v_sorted > 0.0)
+        return out
+
+    donor = leading(torch.where(donor, surplus, zero), total_deficit)
+    room = torch.where(alive & ~over,
+                       torch.clamp(torch.clamp(upper, max=_BIG) - metric, min=0.0), zero)
+    receivers = leading(room, total_surplus) & (total_surplus > 0.0)
+    return over | under | dead | donor | receivers
+
+
+# ---------------------------------------------------------------------------
 # K3 — bounded-depth exact repair
 # ---------------------------------------------------------------------------
+
+def bisect_depth(n: int) -> int:
+    """``ceil(log2(n + 1))``: the JAX package's fixed bisection depth for a
+    prefix cut over ``n`` lanes (the packed ``PACKED_BISECT_DEPTH`` slot)."""
+    return max(1, math.ceil(math.log2(max(int(n), 1) + 1)))
+
 
 def _prefix_order(score: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """Segment-grouped, score-descending order: the JAX function's two
@@ -536,6 +713,7 @@ def prefix_cut_admit_plain(score, seg, deltas, kept, cum_before, lo, hi,
     return kept & admit
 
 
+@cuda.counted("prefix_cut")
 def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tensor,
                      kept: torch.Tensor, cum_before: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -570,9 +748,6 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
                     out, K, num_segments, C)
         prefix_cut_admit.launches += 1
     return out
-
-
-prefix_cut_admit.launches = 0
 
 
 def prefix_admit_safe(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tensor,

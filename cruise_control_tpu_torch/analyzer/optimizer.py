@@ -1,26 +1,39 @@
-"""The batched greedy goal optimizer, dense per-goal path, and K2.
+"""The batched greedy goal optimizer: the dense per-goal path, the fused
+grouped-stack path, and K2.
 
-Counterpart of the unfused dense path of
-``cruise_control_tpu/analyzer/optimizer.py`` (``optimize(..., fused=False)``):
+Counterpart of the dense paths of ``cruise_control_tpu/analyzer/optimizer.py``:
 each goal, in priority order, repeats ``_goal_step`` until no action applies.
-A step builds the candidate batches, scores and masks them, selects a
+A step builds the candidate batches, scores and masks them (K5), selects a
 conflict-free subset inside every optimized goal's band budgets
 (``select_batched``) and applies it (K7).
 
-The JAX package runs a goal's step loop on device (``lax.while_loop``);
-here it is a Python loop with one host read (the step's action count) per
-step.  ``_best_per_segment`` is kernel K2 (``csrc/best_per_segment.cu``)
-with the plain twin ``_best_per_segment_plain``.
+- ``optimize(fused=False)``: a Python loop per goal with one host read (the
+  step's action count) per step (``_goal_fixpoint``).
+- ``optimize(fused=True)`` at 64 brokers or fewer, or with an explicit
+  ``fuse_group_size`` > 1: the JAX package's grouped stack
+  (``_stack_fixpoint`` over ``_goal_fixpoint_budget``).  Every step is
+  ``_gated_step``, which updates the working state in place and turns into
+  a no-op once the goal has converged or spent its budget; the host reads
+  the counters once per chunk of steps.  On the CPU the gated step runs
+  eagerly; on the card it is captured once per goal as a CUDA graph and
+  replayed (K8, ``analyzer/graphs.py``), and a stack is its goals' graphs
+  replayed back to back (K12) with one fetch of the packed
+  ``i32[PACKED_WIDTH, G]`` stats per group.
 
-Not in this slice (``optimize`` raises on a non-default value): the fused
-stack programs, the chunked frontier driver, inter-goal pipelining, warm
-starts, meshes, the repair oracle, and multi-round selection
-(``moves_per_broker_step`` above ``SUBROUNDS``).
+``_best_per_segment`` is kernel K2 (``csrc/best_per_segment.cu``) with the
+plain twin ``_best_per_segment_plain``.
+
+Not in this slice (``optimize`` raises): the per-goal fused path (the
+chunked frontier driver, inter-goal pipelining and the stack sweep, which
+the JAX package runs above 64 brokers or with ``fuse_group_size=1``), warm
+starts, meshes, ``segment_steps``, the flight recorder, the repair oracle,
+and multi-round selection (``moves_per_broker_step`` above ``SUBROUNDS``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import List, Optional, Sequence, Tuple, Union
@@ -29,6 +42,7 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.analyzer import candidates as cgen
+from cruise_control_tpu_torch.analyzer import graphs
 from cruise_control_tpu_torch.analyzer.actions import Candidates, apply_candidates
 from cruise_control_tpu_torch.analyzer.balancedness import (balancedness_cost_by_goal,
                                                             balancedness_score)
@@ -37,25 +51,37 @@ from cruise_control_tpu_torch.analyzer.goals import kernels
 from cruise_control_tpu_torch.analyzer.goals.specs import GoalSpec, goals_by_priority
 from cruise_control_tpu_torch.analyzer.provisioning import (ProvisionResponse, host_view,
                                                             provision_verdict_for_goal)
-from cruise_control_tpu_torch.analyzer.state import (PACKED_ACTIONS, PACKED_AFTER,
-                                                     PACKED_BEFORE, PACKED_CAPPED,
-                                                     PACKED_STEPS, BrokerArrays,
-                                                     OptimizationOptions,
-                                                     StepInvariants, pow2_bucket,
-                                                     topic_counts)
+from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_DEPTH, CTR_LANES,
+                                                     CTR_LAST_N, CTR_REPAIR, CTR_STEPS,
+                                                     CTR_TOTAL, MUTABLE_FIELDS,
+                                                     PACKED_ACTIONS, PACKED_AFTER,
+                                                     PACKED_BEFORE, PACKED_BISECT_DEPTH,
+                                                     PACKED_CAPPED, PACKED_LANES_LIVE,
+                                                     PACKED_REPAIR_STEPS, PACKED_STEPS,
+                                                     BrokerArrays, OptimizationOptions,
+                                                     StepInvariants, StepState,
+                                                     pow2_bucket, topic_counts)
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
 from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda, order
-
-_MIN_SCORE = 1e-9  # strictly-positive improvement required (greedy accept)
+from cruise_control_tpu_torch.ops.segment import segment_sum
 
 # Lanes per selection round (see the JAX package's SUBROUNDS).
 SUBROUNDS = 128
 
 # Below this K the selection runs on the full lane axis.
 _LANE_DENSE_MIN = 4096
+
+# The JAX package's dense-stack floor: at or below this many brokers a fused
+# optimize runs the whole stack as one group (``optimizer.py:1385``).
+_FRONTIER_DENSE_MIN = 64
+
+# Gated steps run between two host reads of the counters grow 1, 2, 4, ...
+# up to this many: a goal that is already satisfied costs one gated-off
+# step, and a long one at most CHUNK_MAX - 1 steps past its fixpoint.
+CHUNK_MAX = 8
 
 _INF = math.inf
 
@@ -96,6 +122,7 @@ def _best_per_segment_plain(score: torch.Tensor, seg: torch.Tensor,
     return is_best & (idx == winner[seg_safe])
 
 
+@cuda.counted("best_per_segment")
 def _best_per_segment(score: torch.Tensor, seg: torch.Tensor, num_segments: int,
                       eligible: torch.Tensor) -> torch.Tensor:
     """K2.  Replaces ``cruise_control_tpu/analyzer/optimizer.py:210``
@@ -119,9 +146,6 @@ def _best_per_segment(score: torch.Tensor, seg: torch.Tensor, num_segments: int,
                     keys, keep)
         _best_per_segment.launches += 1
     return keep
-
-
-_best_per_segment.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -302,24 +326,37 @@ def _selection_hashes(k: int, subrounds: int):
     return factor, lane
 
 
+@functools.lru_cache(maxsize=64)
+def _selection_consts(k: int, subrounds: int, device: torch.device):
+    """``_selection_hashes`` as device tensors, uploaded once per shape: a
+    host-to-device copy inside the step would break its CUDA-graph
+    capture."""
+    factor, lane = _selection_hashes(k, subrounds)
+    return torch.from_numpy(factor).to(device), torch.from_numpy(lane).to(device)
+
+
 def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor,
                    model: TensorClusterModel, room_dest: torch.Tensor,
                    slack_src: torch.Tensor, topic_budgets, subrounds: int,
                    has_swaps: bool, compact_k: Optional[int] = None):
-    """keep bool[K] — one round of the JAX
-    package's greedy multi-accept selection: per-(broker, lane) and
-    per-partition segment argmax passes (K2), per-(topic, broker) key lanes,
-    then the bounded-depth exact repair (K3): two alternating dest/src
-    prefix cuts and one subset-closed safe admit."""
+    """(keep bool[K], sel_stats) — one round of the JAX package's greedy
+    multi-accept selection: per-(broker, lane) and per-partition segment
+    argmax passes (K2), per-(topic, broker) key lanes, then the
+    bounded-depth exact repair (K3): two alternating dest/src prefix cuts
+    and one subset-closed safe admit.  ``sel_stats`` is the JAX package's
+    (repair fired i32, lanes live i32, bisect depth) — the first two are
+    0-d tensors, the depth a Python int fixed by the shapes."""
     num_brokers, num_partitions = model.num_brokers, model.num_partitions
     dev = score.device
     k_full = score.shape[0]
     eps = 1e-6
-    factor_np, lane_np = _selection_hashes(k_full, subrounds)
-    score = score * torch.from_numpy(factor_np).to(dev)
-    lane = torch.from_numpy(lane_np).to(dev)
+    factor, lane = _selection_consts(k_full, subrounds, dev)
+    score = score * factor
     sel_idx = None
+    lanes_live = torch.zeros((), dtype=torch.int32, device=dev)
+    rep_fired = torch.zeros((), dtype=torch.int32, device=dev)
     if compact_k is not None and compact_k < k_full:
+        lanes_live = eligible.sum(dtype=torch.int32)
         _, sel_idx = order.top_k(torch.where(eligible, score, -_INF), compact_k)
         cand = cgen.take_candidates(cand, sel_idx)
         score = score[sel_idx]
@@ -385,11 +422,13 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
                                         keep.to(torch.int32), "amax") > 0
         keep = keep & ~((cand.partition2 != cand.partition) & claim1[cand.partition2])
 
+    # Per-broker sums of a round's kept deltas, dest legs then src legs, in
+    # lane order (fixed-order on the card: no float atomics).
+    d_both = torch.cat([d_dest, d_src], dim=0)
+    seg_both = torch.cat([dest_b, src_b])
+
     def round_net(k):
-        km = k[:, None]
-        s = torch.zeros_like(cum_net)
-        s = s.index_add_(0, torch.where(k, dest_b, 0), torch.where(km, d_dest, fzero))
-        return s.index_add_(0, torch.where(k, src_b, 0), torch.where(km, d_src, fzero))
+        return segment_sum(d_both, seg_both, torch.cat([k, k]), nb_sel)
 
     if topic_on:
         def round_tb(k, d):
@@ -417,6 +456,7 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
         lo_tb = torch.stack([-shed_rep, -shed_lead], 1)
         cum_tb = torch.zeros_like(hi_tb)
         vt = tb_viol(keep)
+        rep_fired = rep_fired + vt.any().to(torch.int32)
         for i in range(num_legs):
             contrib = leg_contrib(i, keep)
             admit = kernels.prefix_cut_admit(
@@ -434,6 +474,7 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
         return out
 
     v = net_viol(keep)
+    rep_fired = rep_fired + v.any().to(torch.int32)
     neg_slack = -slack_src
     for _ in range(2):
         admit_d = kernels.prefix_cut_admit(score, dest_b, d_dest, keep, cum_net,
@@ -466,7 +507,7 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
         full = torch.zeros((k_full,), dtype=torch.bool, device=dev)
         full[sel_idx] = keep
         keep = full
-    return keep
+    return keep, (rep_fired, lanes_live, kernels.bisect_depth(kk))
 
 
 # ---------------------------------------------------------------------------
@@ -496,11 +537,11 @@ def _goal_num_sources(spec: GoalSpec, model: TensorClusterModel,
     return num_sources
 
 
-def _goal_step(model: TensorClusterModel, options: OptimizationOptions,
-               spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
-               constraint: BalancingConstraint, num_sources: int, num_dests: int,
-               invariants: Optional[StepInvariants] = None):
-    """One optimization step for ``spec``: ``(new_model, keep bool[K])``."""
+def _step_select(model: TensorClusterModel, options: OptimizationOptions,
+                 spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
+                 constraint: BalancingConstraint, num_sources: int, num_dests: int,
+                 invariants: Optional[StepInvariants] = None):
+    """The selecting half of one step: ``(cand, keep bool[K], sel_stats)``."""
     all_specs = (spec,) + tuple(prev_specs)
     for s in all_specs:
         kernels.require_supported(s)
@@ -547,23 +588,60 @@ def _goal_step(model: TensorClusterModel, options: OptimizationOptions,
     for extra in batches[1:]:
         cand = cgen.concat_candidates(cand, extra)
 
-    feasible = kernels.self_feasible(spec, model, arrays, cand, constraint, bands=bands)
     # Band-kind prev goals' vetoes are subsumed by the channel budgets; the
-    # structural kinds keep their dedicated accepts.
-    accepted = torch.ones(cand.k, dtype=torch.bool, device=model.device)
+    # structural kinds keep their dedicated accepts (K5b, torch ops).
+    accepted = None
     for prev in prev_specs:
         if not kernels.is_band_kind(prev):
-            accepted = accepted & kernels.accepts(prev, model, arrays, cand, constraint)
-    score = kernels.score(spec, model, arrays, cand, constraint, bands=bands)
-    eligible = cand.valid & feasible & accepted & (score > _MIN_SCORE)
+            a = kernels.accepts(prev, model, arrays, cand, constraint)
+            accepted = a if accepted is None else accepted & a
+    score, eligible = kernels.goal_masks(spec, model, arrays, cand, constraint,
+                                         bands=bands, accepted=accepted)
     room_dest, slack_src = _channel_budgets(arrays, (inv.upper_min, inv.lower_max))
     topic_budgets = _topic_budgets(all_specs, model, arrays, inv)
     subrounds = min(SUBROUNDS, max(1, int(constraint.moves_per_broker_step)))
     compact_k = _lane_bucket(cand.k, model.num_brokers, subrounds)
-    keep = select_batched(score, cand, eligible, model, room_dest, slack_src,
-                          topic_budgets, subrounds, has_swaps=spec.uses_swaps,
-                          compact_k=compact_k)
-    return apply_candidates(model, cand, keep), keep
+    keep, sel_stats = select_batched(score, cand, eligible, model, room_dest, slack_src,
+                                     topic_budgets, subrounds,
+                                     has_swaps=spec.uses_swaps, compact_k=compact_k)
+    return cand, keep, sel_stats
+
+
+def _goal_step(model: TensorClusterModel, options: OptimizationOptions,
+               spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
+               constraint: BalancingConstraint, num_sources: int, num_dests: int,
+               invariants: Optional[StepInvariants] = None):
+    """One optimization step for ``spec``: ``(new_model, n_kept, sel_stats)``
+    as the JAX package's ``_goal_step`` (``optimizer.py:1205-1214``)."""
+    cand, keep, sel_stats = _step_select(model, options, spec, prev_specs, constraint,
+                                         num_sources, num_dests, invariants)
+    return apply_candidates(model, cand, keep), keep.sum(), sel_stats
+
+
+def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
+                prev_specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
+                num_sources: int, num_dests: int) -> None:
+    """One iteration of the JAX package's fixpoint ``lax.while_loop``
+    (``optimizer.py:1628-1651``) as an in-place update of ``st``: the step
+    runs while ``last_n > 0 and steps < budget`` and is a no-op after —
+    model and counters unchanged — so a chunk of them can run, or replay as
+    a CUDA graph, without a host read between steps."""
+    c = st.counters
+    steps, last_n = c[CTR_STEPS], c[CTR_LAST_N]
+    active = (last_n > 0) & (steps < c[CTR_BUDGET])
+    cand, keep, (rep, lanes, depth) = _step_select(
+        st.model, st.options, spec, prev_specs, constraint, num_sources, num_dests, inv)
+    keep = keep & active
+    new = apply_candidates(st.model, cand, keep)
+    for f in MUTABLE_FIELDS:
+        getattr(st.model, f).copy_(getattr(new, f))
+    n = keep.sum(dtype=torch.int32)
+    a = active.to(torch.int32)
+    c.copy_(torch.stack([
+        steps + a, c[CTR_TOTAL] + n, torch.where(active, n, last_n),
+        c[CTR_REPAIR] + a * rep,
+        torch.where(active, c[CTR_DEPTH].clamp(min=depth), c[CTR_DEPTH]),
+        c[CTR_LANES] + a * lanes, c[CTR_BUDGET]]))
 
 
 def _goal_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
@@ -581,9 +659,9 @@ def _goal_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
     steps = total = 0
     last_n = 0 if skip else 1
     while last_n > 0 and steps < max_steps:
-        model, keep = _goal_step(model, options, spec, prev_specs, constraint,
+        model, n, _ = _goal_step(model, options, spec, prev_specs, constraint,
                                  num_sources, num_dests, invariants=inv)
-        last_n = int(keep.sum())
+        last_n = int(n)
         steps += 1
         total += last_n
     after = kernels.goal_satisfied(spec, model, BrokerArrays.from_model(model),
@@ -596,6 +674,109 @@ def _goal_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
     packed[PACKED_AFTER] = int(after)
     packed[PACKED_CAPPED] = int(capped)
     return model, packed
+
+
+# ---------------------------------------------------------------------------
+# The fused grouped stack (K8 and K12)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _GoalRun:
+    """Host-side accounting of one goal of a fused group."""
+
+    wall_s: float
+    gated_steps: int  # gated steps run (graph replays on the card)
+    fetches: int      # host reads of the counters
+    captured: bool    # a step graph was captured for this goal
+
+
+def _goal_fixpoint_budget(st: StepState, spec: GoalSpec,
+                          prev_specs: Tuple[GoalSpec, ...],
+                          constraint: BalancingConstraint, num_sources: int,
+                          num_dests: int, max_steps: int,
+                          cache: Optional[graphs.GraphCache]):
+    """One goal of the fused stack on ``st``, in place: the JAX package's
+    ``_goal_fixpoint_budget`` (``optimizer.py:1572-1702``) with
+    ``frontier=None, touched=None, next_mask=None, flight_capacity=0``.
+    Returns ``(packed i32[PACKED_WIDTH] on the device, _GoalRun)``.
+
+    Gated steps run in chunks of 1, 2, 4, ... ``CHUNK_MAX``, each chunk
+    followed by one host read of (steps, last_n); the goal ends when the
+    last step applied nothing or the budget is spent.  With ``cache`` (the
+    card) a chunk is that many replays of the goal's step graph, captured
+    on first use; without it the gated step runs eagerly."""
+    t0 = time.monotonic()
+    model = st.model
+    arrays0 = BrokerArrays.from_model(model)
+    before = kernels.goal_satisfied(spec, model, arrays0, constraint)
+    any_offline = (model.replica_offline_now() & model.replica_valid).any()
+    skip = before & ~any_offline
+    inv = compute_step_invariants(spec, prev_specs, model, arrays0, constraint)
+    c = st.counters
+    c.zero_()
+    c[CTR_LAST_N] = (~skip).to(torch.int32)
+    c[CTR_BUDGET] = max_steps
+    step = functools.partial(_gated_step, spec=spec, prev_specs=prev_specs,
+                             constraint=constraint, num_sources=num_sources,
+                             num_dests=num_dests)
+    captured = False
+    if cache is None:
+        def advance(times):
+            for _ in range(times):
+                step(st, inv)
+    else:
+        key = graphs.goal_key(spec, prev_specs, constraint, num_sources, num_dests, st)
+        g = cache.get(key)
+        if g is None:
+            g = cache.capture(key, st, inv, step)
+            captured = True
+        g.load(inv)
+        advance = g.replay
+    gated = fetches = 0
+    chunk = 1
+    while True:
+        advance(chunk)
+        gated += chunk
+        steps, last_n = c[[CTR_STEPS, CTR_LAST_N]].tolist()
+        fetches += 1
+        if last_n == 0 or steps >= max_steps:
+            break
+        chunk = min(2 * chunk, CHUNK_MAX)
+    arrays1 = BrokerArrays.from_model(model)
+    after = kernels.goal_satisfied(spec, model, arrays1, constraint)
+    off_after = (model.replica_offline_now() & model.replica_valid).any()
+    capped = (c[CTR_STEPS] >= c[CTR_BUDGET]) & (c[CTR_LAST_N] > 0)
+    if kernels.is_band_kind(spec):
+        num_active = kernels.frontier_active(spec, model, arrays1, constraint).sum()
+    else:
+        num_active = torch.full((), -1, device=model.device)
+    i32 = torch.int32
+    packed = torch.stack([
+        c[CTR_STEPS], c[CTR_TOTAL], before.to(i32), after.to(i32), capped.to(i32),
+        c[CTR_REPAIR], c[CTR_DEPTH], c[CTR_LANES], num_active.to(i32),
+        off_after.to(i32), torch.zeros((), dtype=i32, device=model.device)])
+    return packed, _GoalRun(wall_s=time.monotonic() - t0, gated_steps=gated,
+                            fetches=fetches, captured=captured)
+
+
+def _stack_fixpoint(st: StepState, specs: Tuple[GoalSpec, ...],
+                    constraint: BalancingConstraint, num_sources: int, num_dests: int,
+                    max_steps: int, prev_specs: Tuple[GoalSpec, ...] = (),
+                    cache: Optional[graphs.GraphCache] = None):
+    """A group of goals chained in priority order on ``st`` (the JAX
+    package's ``_stack_fixpoint``, ``optimizer.py:2491``): each goal runs
+    under the acceptance of every goal before it.  Returns ``(packed
+    i32[PACKED_WIDTH, G] on the host — one fetch for the group —,
+    [_GoalRun])``."""
+    packed_l, runs = [], []
+    prev = tuple(prev_specs)
+    for spec in specs:
+        packed, run = _goal_fixpoint_budget(st, spec, prev, constraint, num_sources,
+                                            num_dests, max_steps, cache)
+        packed_l.append(packed)
+        runs.append(run)
+        prev = prev + (spec,)
+    return torch.stack(packed_l, dim=1).cpu().numpy(), runs
 
 
 # ---------------------------------------------------------------------------
@@ -612,6 +793,17 @@ class GoalResult:
     actions_applied: int
     duration_s: float
     capped: bool = False
+    # Fused path only (zeros on the unfused path): True when a step graph
+    # was captured for this goal in this run; the repair counters of the
+    # packed stats; host reads (counter reads, plus the group's packed
+    # fetch on its lead goal); gated steps run (graph replays on the card),
+    # of which ``replays - steps`` were gated off.
+    fresh_compile: bool = False
+    repair_steps: int = 0
+    bisect_depth: int = 0
+    lanes_live: int = 0
+    fetches: int = 0
+    replays: int = 0
 
 
 @dataclasses.dataclass
@@ -643,31 +835,77 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
              num_sources: Optional[int] = None, num_dests: Optional[int] = None,
              raise_on_hard_failure: bool = True,
              fused: bool = False,
-             mesh=None, frontier: Optional[bool] = None,
+             fuse_group_size: Optional[int] = None,
+             fast_mode: bool = False,
+             max_candidates_per_step: Optional[int] = None,
+             segment_steps: Optional[int] = None,
+             balancedness_priority_weight: float = 1.1,
+             balancedness_strictness_weight: float = 1.5,
+             mesh=None, donate_model: bool = False,
+             frontier: Optional[bool] = None,
              warm_start=None, pipeline: Optional[bool] = None,
-             device: Union[str, torch.device] = "cuda") -> OptimizerRun:
+             device: Union[str, torch.device] = "cuda",
+             step_graphs: bool = True) -> OptimizerRun:
     """Run the goal stack in priority order (GoalOptimizer.optimizations) on
     ``device`` (the model is moved there; raises when it names CUDA and
     none is present).  Each goal runs to its fixpoint under the acceptance
     of all previously optimized goals; a hard goal left unsatisfied raises
-    unless ``raise_on_hard_failure`` is False.  This is the JAX package's
-    unfused dense path; ``fused``, ``mesh``, ``frontier=True``,
-    ``warm_start`` and ``pipeline=True`` belong to later slices and raise."""
-    for name, value, default in (("fused", fused, False), ("mesh", mesh, None),
-                                 ("warm_start", warm_start, None)):
-        if value is not default:
+    unless ``raise_on_hard_failure`` is False.
+
+    ``fused=False`` is the JAX package's unfused dense path.  ``fused=True``
+    is its grouped stack: the whole stack as one group at 64 brokers or
+    fewer, or groups of ``fuse_group_size`` > 1 goals at any size, each
+    group's packed stats fetched once.  Above 64 brokers without such a
+    group size, and with ``fuse_group_size=1``, the JAX package runs its
+    per-goal frontier driver: not ported yet, so these raise
+    ``NotImplementedError``, as do ``frontier=True``, ``pipeline=True``,
+    ``warm_start``, ``mesh`` and ``segment_steps``.
+
+    ``fast_mode`` halves the candidate widths and quarters the step budget,
+    ``max_candidates_per_step`` caps the widths (the JAX package's host
+    arithmetic); the balancedness weights price violated goals.  The
+    caller's model is never written on either path: the fused path steps on
+    a working copy (on the card, the step graphs' static buffers), so
+    ``donate_model`` only records the caller's consent.  ``step_graphs=False``
+    runs the fused path's gated steps eagerly on the card instead of
+    replaying their CUDA graphs (the check that cached graphs see a new
+    snapshot)."""
+    for name, value in (("mesh", mesh), ("warm_start", warm_start),
+                        ("segment_steps", segment_steps)):
+        if value is not None:
             raise NotImplementedError(f"optimize({name}=...) is not ported yet")
     if frontier or pipeline:
         raise NotImplementedError("optimize(frontier=True / pipeline=True) is not ported yet")
-    model = model.to(resolve_device(device))
+    dev = resolve_device(device)
+    model = model.to(dev)
     constraint = constraint or BalancingConstraint.default()
     options = options if options is not None else OptimizationOptions.none(model)
     specs = goals_by_priority(goal_names)
     for s in specs:
         kernels.require_supported(s)
+    if fused:
+        if fuse_group_size is not None and fuse_group_size < 1:
+            raise ValueError(f"fuse_group_size must be positive, got {fuse_group_size}")
+        if fuse_group_size == 1 or (fuse_group_size is None
+                                    and model.num_brokers > _FRONTIER_DENSE_MIN):
+            raise NotImplementedError(
+                "optimize(fused=True) runs the per-goal frontier driver here "
+                f"({model.num_brokers} brokers, fuse_group_size={fuse_group_size}); "
+                "only the grouped stack (fuse_group_size > 1, or at most "
+                f"{_FRONTIER_DENSE_MIN} brokers) is ported yet")
+    if fast_mode:
+        num_sources = min(max(32, (num_sources or cgen.default_num_sources(model)) // 2),
+                          model.num_replicas_padded)
+        num_dests = max(min(8, model.num_brokers),
+                        min((num_dests or cgen.default_num_dests(model)) // 2,
+                            model.num_brokers))
+        max_steps_per_goal = max(max_steps_per_goal // 4, 16)
     stats_before = compute_stats(model)
     ns = num_sources or cgen.default_num_sources(model)
     nd = num_dests or cgen.default_num_dests(model)
+    if max_candidates_per_step:
+        ns = max(1, min(ns, max_candidates_per_step))
+        nd = max(1, min(nd, max_candidates_per_step // ns))
 
     def k_of(spec: GoalSpec) -> int:
         k = ns * nd * (1 if spec.uses_moves else 0)
@@ -681,31 +919,65 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
 
     results: List[GoalResult] = []
     scored = 0
-    prev: Tuple[GoalSpec, ...] = ()
-    for spec in specs:
-        t0 = time.monotonic()
-        model, packed = _goal_fixpoint(model, options, spec, prev, constraint,
-                                       ns, nd, max_steps_per_goal)
-        steps, actions = int(packed[PACKED_STEPS]), int(packed[PACKED_ACTIONS])
-        after = bool(packed[PACKED_AFTER])
-        scored += steps * k_of(spec)
-        results.append(GoalResult(name=spec.name, is_hard=spec.is_hard,
-                                  satisfied_before=bool(packed[PACKED_BEFORE]),
-                                  satisfied_after=after, steps=steps,
-                                  actions_applied=actions,
-                                  duration_s=time.monotonic() - t0,
-                                  capped=bool(packed[PACKED_CAPPED])))
-        if spec.is_hard and not after and raise_on_hard_failure:
-            raise OptimizationFailureException(
-                f"hard goal {spec.name} not satisfied after optimization")
-        prev = prev + (spec,)
+    if fused:
+        cache = graphs.GRAPHS if (dev.type == "cuda" and step_graphs) else None
+        st = cache.state(model, options) if cache is not None else \
+            StepState.working(model, options)
+        group = fuse_group_size or len(specs) or 1
+        prev: Tuple[GoalSpec, ...] = ()
+        for start in range(0, len(specs), group):
+            chunk = tuple(specs[start:start + group])
+            packed, runs = _stack_fixpoint(st, chunk, constraint, ns, nd,
+                                           max_steps_per_goal, prev_specs=prev,
+                                           cache=cache)
+            for i, (spec, run) in enumerate(zip(chunk, runs)):
+                col = packed[:, i]
+                steps = int(col[PACKED_STEPS])
+                scored += steps * k_of(spec)
+                results.append(GoalResult(
+                    name=spec.name, is_hard=spec.is_hard,
+                    satisfied_before=bool(col[PACKED_BEFORE]),
+                    satisfied_after=bool(col[PACKED_AFTER]), steps=steps,
+                    actions_applied=int(col[PACKED_ACTIONS]), duration_s=run.wall_s,
+                    capped=bool(col[PACKED_CAPPED]), fresh_compile=run.captured,
+                    repair_steps=int(col[PACKED_REPAIR_STEPS]),
+                    bisect_depth=int(col[PACKED_BISECT_DEPTH]),
+                    lanes_live=int(col[PACKED_LANES_LIVE]),
+                    fetches=run.fetches + (1 if i == 0 else 0),
+                    replays=run.gated_steps))
+            for spec, res in zip(chunk, results[-len(chunk):]):
+                if spec.is_hard and not res.satisfied_after and raise_on_hard_failure:
+                    raise OptimizationFailureException(
+                        f"hard goal {spec.name} not satisfied after optimization")
+            prev = prev + chunk
+        model = st.placement(model)
+    else:
+        prev = ()
+        for spec in specs:
+            t0 = time.monotonic()
+            model, packed = _goal_fixpoint(model, options, spec, prev, constraint,
+                                           ns, nd, max_steps_per_goal)
+            steps, actions = int(packed[PACKED_STEPS]), int(packed[PACKED_ACTIONS])
+            after = bool(packed[PACKED_AFTER])
+            scored += steps * k_of(spec)
+            results.append(GoalResult(name=spec.name, is_hard=spec.is_hard,
+                                      satisfied_before=bool(packed[PACKED_BEFORE]),
+                                      satisfied_after=after, steps=steps,
+                                      actions_applied=actions,
+                                      duration_s=time.monotonic() - t0,
+                                      capped=bool(packed[PACKED_CAPPED])))
+            if spec.is_hard and not after and raise_on_hard_failure:
+                raise OptimizationFailureException(
+                    f"hard goal {spec.name} not satisfied after optimization")
+            prev = prev + (spec,)
 
     provision = ProvisionResponse()
     view = host_view(model)
     for spec, res in zip(specs, results):
         provision.aggregate(provision_verdict_for_goal(spec, model, constraint,
                                                        res.satisfied_after, view))
-    costs = balancedness_cost_by_goal(specs)
+    costs = balancedness_cost_by_goal(specs, balancedness_priority_weight,
+                                      balancedness_strictness_weight)
     return OptimizerRun(model=model, goal_results=results, stats_before=stats_before,
                         stats_after=compute_stats(model), num_candidates_scored=scored,
                         provision_response=provision,

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
+from cruise_control_tpu_torch.model.tensor_model import TENSOR_FIELDS, TensorClusterModel
 from cruise_control_tpu_torch.ops.segment import broker_aggregates
 
 
@@ -83,13 +83,21 @@ def pow2_bucket(n: int, floor: int) -> int:
     return bucket
 
 
-# Packed per-goal stats layout of the JAX package (first slots), kept for
-# callers that read the same indices.
-PACKED_STEPS = 0
-PACKED_ACTIONS = 1
-PACKED_BEFORE = 2
-PACKED_AFTER = 3
-PACKED_CAPPED = 4
+# Packed per-goal stats layout of the JAX package (``state.py:130-143``): one
+# i32[PACKED_WIDTH] vector per goal; the fused stack stacks them into one
+# i32[PACKED_WIDTH, G] matrix fetched once per group.
+PACKED_STEPS = 0          # steps executed
+PACKED_ACTIONS = 1        # actions accepted
+PACKED_BEFORE = 2         # goal satisfied at entry (0/1)
+PACKED_AFTER = 3          # goal satisfied at exit (0/1)
+PACKED_CAPPED = 4         # hit the step budget while still applying (0/1)
+PACKED_REPAIR_STEPS = 5   # steps whose selection repair saw a violation
+PACKED_BISECT_DEPTH = 6   # max repair bisection depth
+PACKED_LANES_LIVE = 7     # live candidate lanes at compaction, summed
+PACKED_NUM_ACTIVE = 8     # frontier population at exit; -1 = non-band kind
+PACKED_ANY_OFFLINE = 9    # offline replicas remain at exit (0/1)
+PACKED_CONFLICT = 10      # inter-goal pipeline conflicts; 0 on the dense path
+PACKED_WIDTH = 11
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +124,70 @@ class OptimizationOptions:
             requested_dest_only=zeros(B),
             only_move_immigrants=zeros(),
         )
+
+
+# ---------------------------------------------------------------------------
+# The gated step's working state
+# ---------------------------------------------------------------------------
+
+# Slots of ``StepState.counters`` (i32[CTR_WIDTH]), the carry of the JAX
+# package's ``_goal_fixpoint_budget`` while loop.
+CTR_STEPS = 0     # steps executed
+CTR_TOTAL = 1     # actions accepted
+CTR_LAST_N = 2    # actions of the last executed step (1 before the first)
+CTR_REPAIR = 3    # steps whose repair saw a violation
+CTR_DEPTH = 4     # max repair bisection depth
+CTR_LANES = 5     # live lanes at compaction, summed
+CTR_BUDGET = 6    # step budget
+CTR_WIDTH = 7
+
+# The model fields a step changes; every other field is read only.
+MUTABLE_FIELDS = ("replica_broker", "replica_is_leader", "replica_disk")
+
+
+@dataclasses.dataclass
+class StepState:
+    """What the gated step reads and updates in place: the working model,
+    the request options and the counters.  On the CPU it is a working copy
+    of the placement (``working``); on the card it is a CUDA graph's static
+    buffers (``alloc_like`` once per shape, ``load`` per solve), which the
+    captured step reads and writes at fixed addresses."""
+
+    model: TensorClusterModel
+    options: "OptimizationOptions"
+    counters: torch.Tensor  # i32[CTR_WIDTH]
+
+    @classmethod
+    def working(cls, model: TensorClusterModel,
+                options: "OptimizationOptions") -> "StepState":
+        """A copy of ``model``'s placement to step on; the read-only fields
+        and ``options`` are shared, never written."""
+        mutable = {f: getattr(model, f).clone() for f in MUTABLE_FIELDS}
+        return cls(model=model.replace(**mutable), options=options,
+                   counters=torch.zeros((CTR_WIDTH,), dtype=torch.int32,
+                                        device=model.device))
+
+    @classmethod
+    def alloc_like(cls, model: TensorClusterModel,
+                   options: "OptimizationOptions") -> "StepState":
+        """Fresh buffers of every field's shape (contents undefined)."""
+        buf = {f: torch.empty_like(getattr(model, f),
+                                   memory_format=torch.contiguous_format)
+               for f in TENSOR_FIELDS}
+        opts = {f.name: torch.empty_like(getattr(options, f.name))
+                for f in dataclasses.fields(options)}
+        return cls(model=model.replace(**buf), options=OptimizationOptions(**opts),
+                   counters=torch.zeros((CTR_WIDTH,), dtype=torch.int32,
+                                        device=model.device))
+
+    def load(self, model: TensorClusterModel, options: "OptimizationOptions") -> None:
+        """Copy every field of ``model`` and ``options`` into these buffers."""
+        for f in TENSOR_FIELDS:
+            getattr(self.model, f).copy_(getattr(model, f))
+        for f in dataclasses.fields(options):
+            getattr(self.options, f.name).copy_(getattr(options, f.name))
+
+    def placement(self, model: TensorClusterModel) -> TensorClusterModel:
+        """``model`` with this state's current placement, copied out."""
+        return model.replace(**{f: getattr(self.model, f).clone()
+                                for f in MUTABLE_FIELDS})

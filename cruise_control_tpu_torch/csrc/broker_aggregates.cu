@@ -19,6 +19,15 @@
 // broker ids (B * R * 4 bytes: 2 MB at mid, 80 MB at the 200-broker rung),
 // which stay in the 50 MB L2 because the id array itself is R * 4 bytes.
 // Counts are exact int32.
+//
+// cc_segment_sum is the same design for any masked f32[N, C] rows (C <= 16)
+// into S segments: the per-broker round sums of the selection
+// (cruise_control_tpu/analyzer/optimizer.py:663-668, a float scatter-add
+// there).  Bound on the card: bytes (N * (4C + 5) read, S * 4C written; at
+// the mid rung N = 32,768 lanes, C = 8: ~1.2 MB, a few tenths of a
+// microsecond at 3.35 TB/s).  One block per segment, fixed-order strided
+// register sums and a fixed tree: deterministic, so a CUDA graph replays it
+// to the same bits every time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,7 +91,53 @@ __global__ void broker_aggregates_kernel(
   }
 }
 
+constexpr int kMaxChannels = 16;
+
+__global__ void segment_sum_kernel(const float* __restrict__ values,  // [N, C]
+                                   const int32_t* __restrict__ seg,
+                                   const uint8_t* __restrict__ mask,
+                                   int64_t n, int channels,
+                                   float* __restrict__ out) {          // [S, C]
+  __shared__ float s_f[kMaxChannels][kThreads];
+  const int s = blockIdx.x;
+  const int t = threadIdx.x;
+  float acc[kMaxChannels];
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.f;
+  for (int64_t i = t; i < n; i += kThreads) {
+    if (!mask[i] || seg[i] != s) continue;
+    const float* row = values + i * channels;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c)
+      if (c < channels) acc[c] = __fadd_rn(acc[c], row[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) s_f[c][t] = acc[c];
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) {
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c)
+        if (c < channels) s_f[c][t] = __fadd_rn(s_f[c][t], s_f[c][t + stride]);
+    }
+    __syncthreads();
+  }
+  if (t < channels) out[static_cast<int64_t>(s) * channels + t] = s_f[t][0];
+}
+
 }  // namespace
+
+extern "C" int cc_segment_sum(const float* values, const int32_t* seg,
+                              const uint8_t* mask, int64_t n, int64_t channels,
+                              int64_t num_segments, float* out,
+                              cudaStream_t stream) {
+  if (num_segments <= 0) return 0;
+  if (channels < 1 || channels > kMaxChannels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  segment_sum_kernel<<<static_cast<unsigned>(num_segments), kThreads, 0, stream>>>(
+      values, seg, mask, n, static_cast<int>(channels), out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int cc_broker_aggregates(
     const int32_t* replica_broker, const uint8_t* valid,

@@ -1,0 +1,231 @@
+// K5 — per-candidate score and eligibility of one goal, in one pass.
+//
+// Replaces cruise_control_tpu/analyzer/goals/kernels.py:550 score, :354
+// self_feasible and :256 _candidate_deltas, with the eligible line of
+// cruise_control_tpu/analyzer/optimizer.py:1154:
+//     eligible = valid & self_feasible & accepted & (score > 1e-9)
+// for the goal kinds of the default stack:
+//   mode 0, threshold bands (capacity, potential_nw_out, replica_capacity):
+//       score = reduction of the summed excess over the upper limit;
+//   mode 1, distribution bands (resource_distribution, replica_distribution,
+//       leader_replica_distribution, leader_bytes_in): score = reduction of
+//       the summed squared deviation from the band midpoint;
+//   mode 2, topic_replica_distribution: the same over (topic, broker)
+//       replica counts around the topic's average;
+//   mode 3, rack: siblings sharing the source rack minus those sharing the
+//       destination rack, with a sibling gather over max_rf.
+// The cross-goal vetoes of structural previous goals (K5b) arrive as the
+// ``accepted`` mask (null = all accepted).
+//
+// Bound on the card: bytes.  A lane reads ~80 bytes through its gathers
+// (its own fields, two broker rows, a topic row or max_rf sibling rows) and
+// writes 5; at the mid rung's 32,768 lanes that is ~2.7 MB, under a
+// microsecond at 3.35 TB/s — one launch instead of the ~60 elementwise
+// launches of the torch ops.
+//
+// Design: one thread per lane.  The arithmetic is the plain version's
+// (goal_masks_plain) in its order, with round-to-nearest intrinsics so that
+// nvcc contracts nothing on its own; the one fused multiply-add is where the
+// plain version has it (_sq_sum: fma(x, x, y * y), as XLA's CPU code
+// generator computes the JAX package's squares).  Scalar constants are the
+// Python doubles converted to float, as torch converts them.  So the kernel
+// and the plain version agree bit for bit.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kThreshold = 0, kDistribution = 1, kTopic = 2, kRack = 3;
+constexpr int32_t kMove = 0;  // ActionType.INTER_BROKER_REPLICA_MOVEMENT
+
+__device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
+
+// x * x + y * y rounded as fma(x, x, round(y * y)).
+__device__ __forceinline__ float sq_sum(float x, float y) {
+  return __fmaf_rn(x, x, __fmul_rn(y, y));
+}
+
+struct Args {
+  int mode, delta_sel;
+  int64_t k, num_brokers, max_rf;
+  float eps;
+  const int32_t *action_type, *replica, *src, *dest;
+  const uint8_t *valid, *accepted;
+  const float *delta_src, *delta_dest;
+  const int32_t *d_replica_count, *d_leader_count;
+  const float *d_pnw, *d_lbi_src, *d_lbi_dest;
+  const uint8_t* alive;
+  const float *metric, *lower, *upper;
+  const uint8_t* offline_now;
+  const int32_t *replica_topic, *replica_partition, *replica_broker;
+  const uint8_t* conflict;
+  const int32_t* tbc;
+  const float *lower_t, *upper_t, *avg_t;
+  const int32_t *partition_replicas, *broker_rack;
+  float* score;
+  uint8_t* eligible;
+};
+
+__global__ void goal_masks_kernel(const Args a) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= a.k) return;
+  const float kBig = static_cast<float>(1e30);
+  const float kBonus = static_cast<float>(1e12);
+  const float kMinScore = static_cast<float>(1e-9);
+  const int32_t r = a.replica[i];
+  const int32_t s = a.src[i];
+  const int32_t d = a.dest[i];
+  const bool is_move = a.action_type[i] == kMove;
+  const bool unhealthy = !a.alive[s] || a.offline_now[r];
+  const float bonus = (unhealthy && is_move) ? kBonus : 0.f;
+  bool feasible;
+  float score;
+  if (a.mode == kRack) {
+    const int32_t p = a.replica_partition[r];
+    const int32_t own_rack = a.broker_rack[s];
+    const int32_t dest_rack = a.broker_rack[d];
+    int before = 0, after = 0;
+    for (int64_t j = 0; j < a.max_rf; ++j) {
+      const int32_t sib = a.partition_replicas[p * a.max_rf + j];
+      if (sib < 0 || sib == r) continue;
+      const int32_t rack = a.broker_rack[a.replica_broker[sib]];
+      before += rack == own_rack;
+      after += rack == dest_rack;
+    }
+    feasible = is_move && (a.conflict[r] || unhealthy) && after == 0;
+    score = __fadd_rn(static_cast<float>(before - after), bonus);
+  } else if (a.mode == kTopic) {
+    const int64_t t = a.replica_topic[r];
+    const float cs = static_cast<float>(a.tbc[t * a.num_brokers + s]);
+    const float cd = static_cast<float>(a.tbc[t * a.num_brokers + d]);
+    const float up = a.upper_t[t], lo = a.lower_t[t], avg = a.avg_t[t];
+    const bool helps = cs > up || cd < lo || unhealthy;
+    const bool stays = __fadd_rn(cd, 1.f) <= up && (__fsub_rn(cs, 1.f) >= lo || unhealthy);
+    feasible = is_move && helps && stays;
+    const float before = sq_sum(__fsub_rn(cs, avg), __fsub_rn(cd, avg));
+    const float after = sq_sum(__fsub_rn(__fsub_rn(cs, 1.f), avg),
+                               __fsub_rn(__fadd_rn(cd, 1.f), avg));
+    score = __fadd_rn(__fsub_rn(before, after), bonus);
+  } else {
+    float d_src, d_dest;
+    switch (a.delta_sel) {
+      case 4: {
+        const float dc = static_cast<float>(a.d_replica_count[i]);
+        d_src = -dc;
+        d_dest = dc;
+        break;
+      }
+      case 5: {
+        const float dl = static_cast<float>(a.d_leader_count[i]);
+        d_src = -dl;
+        d_dest = dl;
+        break;
+      }
+      case 6:
+        d_src = -a.d_pnw[i];
+        d_dest = a.d_pnw[i];
+        break;
+      case 7:
+        d_src = -a.d_lbi_src[i];
+        d_dest = a.d_lbi_dest[i];
+        break;
+      default:
+        d_src = a.delta_src[4 * i + a.delta_sel];
+        d_dest = a.delta_dest[4 * i + a.delta_sel];
+    }
+    const float src_m = a.metric[s], dest_m = a.metric[d];
+    const float up_s = a.upper[s], up_d = a.upper[d];
+    const float lo_s = a.lower[s], lo_d = a.lower[d];
+    const float src_after = __fadd_rn(src_m, d_src);
+    const float dest_after = __fadd_rn(dest_m, d_dest);
+    const bool src_over = src_m > __fadd_rn(up_s, a.eps);
+    const bool dest_under = dest_m < __fsub_rn(lo_d, a.eps);
+    const bool helps = src_over || dest_under || unhealthy;
+    const bool dest_ok = dest_after <= up_d;
+    const bool src_ok = src_after >= lo_s || unhealthy;
+    feasible = helps && dest_ok && src_ok && fabsf(d_dest) > 0.f;
+    float before, after;
+    if (a.mode == kThreshold) {
+      before = __fadd_rn(clamp0(__fsub_rn(src_m, up_s)), clamp0(__fsub_rn(dest_m, up_d)));
+      after = __fadd_rn(clamp0(__fsub_rn(src_after, up_s)),
+                        clamp0(__fsub_rn(dest_after, up_d)));
+    } else {
+      const float t_s = up_s >= kBig ? src_m : __fmul_rn(__fadd_rn(lo_s, up_s), 0.5f);
+      const float t_d = up_d >= kBig ? dest_m : __fmul_rn(__fadd_rn(lo_d, up_d), 0.5f);
+      before = sq_sum(__fsub_rn(src_m, t_s), __fsub_rn(dest_m, t_d));
+      after = sq_sum(__fsub_rn(src_after, t_s), __fsub_rn(dest_after, t_d));
+    }
+    score = __fadd_rn(__fsub_rn(before, after), bonus);
+  }
+  a.score[i] = score;
+  a.eligible[i] = a.valid[i] && feasible && (a.accepted == nullptr || a.accepted[i]) &&
+                  score > kMinScore;
+}
+
+}  // namespace
+
+extern "C" int cc_goal_masks(
+    int64_t mode, int64_t delta_sel, int64_t k, int64_t num_brokers, int64_t max_rf,
+    float eps, const int32_t* action_type, const int32_t* replica, const int32_t* src,
+    const int32_t* dest, const uint8_t* valid, const uint8_t* accepted,
+    const float* delta_src, const float* delta_dest, const int32_t* d_replica_count,
+    const int32_t* d_leader_count, const float* d_pnw, const float* d_lbi_src,
+    const float* d_lbi_dest, const uint8_t* alive, const float* metric,
+    const float* lower, const float* upper, const uint8_t* offline_now,
+    const int32_t* replica_topic, const int32_t* replica_partition,
+    const int32_t* replica_broker, const uint8_t* conflict, const int32_t* tbc,
+    const float* lower_t, const float* upper_t, const float* avg_t,
+    const int32_t* partition_replicas, const int32_t* broker_rack, float* score,
+    uint8_t* eligible, cudaStream_t stream) {
+  if (k <= 0) return 0;
+  if (mode < kThreshold || mode > kRack || delta_sel < 0 || delta_sel > 7)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool band = mode == kThreshold || mode == kDistribution;
+  if ((band && (!metric || !lower || !upper)) ||
+      (mode == kTopic && (!tbc || !lower_t || !upper_t || !avg_t)) ||
+      (mode == kRack && !conflict))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.mode = static_cast<int>(mode);
+  a.delta_sel = static_cast<int>(delta_sel);
+  a.k = k;
+  a.num_brokers = num_brokers;
+  a.max_rf = max_rf;
+  a.eps = eps;
+  a.action_type = action_type;
+  a.replica = replica;
+  a.src = src;
+  a.dest = dest;
+  a.valid = valid;
+  a.accepted = accepted;
+  a.delta_src = delta_src;
+  a.delta_dest = delta_dest;
+  a.d_replica_count = d_replica_count;
+  a.d_leader_count = d_leader_count;
+  a.d_pnw = d_pnw;
+  a.d_lbi_src = d_lbi_src;
+  a.d_lbi_dest = d_lbi_dest;
+  a.alive = alive;
+  a.metric = metric;
+  a.lower = lower;
+  a.upper = upper;
+  a.offline_now = offline_now;
+  a.replica_topic = replica_topic;
+  a.replica_partition = replica_partition;
+  a.replica_broker = replica_broker;
+  a.conflict = conflict;
+  a.tbc = tbc;
+  a.lower_t = lower_t;
+  a.upper_t = upper_t;
+  a.avg_t = avg_t;
+  a.partition_replicas = partition_replicas;
+  a.broker_rack = broker_rack;
+  a.score = score;
+  a.eligible = eligible;
+  const unsigned blocks = static_cast<unsigned>((k + kThreads - 1) / kThreads);
+  goal_masks_kernel<<<blocks, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}

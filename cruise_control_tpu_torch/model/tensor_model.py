@@ -22,7 +22,9 @@ import torch
 
 from cruise_control_tpu_torch import native
 from cruise_control_tpu_torch.common.resources import Resource
-from cruise_control_tpu_torch.ops.segment import (masked_segment_count,
+from cruise_control_tpu_torch.ops import cuda
+from cruise_control_tpu_torch.ops.segment import (broker_aggregates,
+                                                  masked_segment_count,
                                                   masked_segment_sum)
 
 
@@ -111,13 +113,24 @@ class TensorClusterModel:
         return torch.where(self.replica_is_leader[:, None],
                            self.replica_load_leader, self.replica_load_follower)
 
+    def _card_aggregates(self):
+        """K1's per-broker sums on the card: fixed-order, no float atomics
+        (``index_add_`` would add the loads with atomics there)."""
+        return broker_aggregates(self.replica_broker, self.replica_valid,
+                                 self.replica_is_leader, self.replica_load_leader,
+                                 self.replica_load_follower, self.num_brokers)
+
     def broker_load(self) -> torch.Tensor:
         """f32[B, 4] per-broker utilization."""
+        if not cuda.on_cpu(self.replica_broker):
+            return self._card_aggregates()[0]
         return masked_segment_sum(self.replica_load(), self.replica_broker,
                                   self.num_brokers, self.replica_valid)
 
     def potential_leadership_load(self) -> torch.Tensor:
         """f32[B] potential NW_OUT per broker if all its replicas led."""
+        if not cuda.on_cpu(self.replica_broker):
+            return self._card_aggregates()[3]
         return masked_segment_sum(self.replica_load_leader[:, Resource.NW_OUT],
                                   self.replica_broker, self.num_brokers,
                                   self.replica_valid)
@@ -134,6 +147,8 @@ class TensorClusterModel:
 
     def broker_leader_bytes_in(self) -> torch.Tensor:
         """f32[B] leader NW_IN per broker."""
+        if not cuda.on_cpu(self.replica_broker):
+            return self._card_aggregates()[4]
         load = torch.where(self.replica_is_leader,
                            self.replica_load_leader[:, Resource.NW_IN],
                            torch.zeros((), device=self.device))

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
-           "apply_actions")
+           "apply_actions", "goal_masks", "transport_match", "cluster_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,20 +38,21 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas register / shared-memory report of each source's last build.
 BUILD_LOG: Dict[str, str] = {}
 
-# Argument layout of every C entry: "p" = device pointer, "i" = int64.
-# The stream pointer is appended to each.
-_SIGNATURES = {
-    "cc_broker_aggregates": "pppppipppppi",
-    "cc_best_per_segment": "pppiipp",
-    "cc_prefix_cut": "ppppppppiii",
-    "cc_apply_actions": "pppppppppiiippp",
+# Every C entry: kernel name -> (source, entry symbol, argument layout),
+# "p" = device pointer, "i" = int64, "f" = float.  The stream pointer is
+# appended to each.
+_ENTRIES = {
+    "broker_aggregates": ("broker_aggregates", "cc_broker_aggregates", "pppppipppppi"),
+    "segment_sum": ("broker_aggregates", "cc_segment_sum", "pppiiip"),
+    "best_per_segment": ("best_per_segment", "cc_best_per_segment", "pppiipp"),
+    "prefix_cut": ("prefix_cut", "cc_prefix_cut", "ppppppppiii"),
+    "apply_actions": ("apply_actions", "cc_apply_actions", "pppppppppiiippp"),
+    "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 5 + "f" + "p" * 30),
+    "transport_rank": ("transport_match", "cc_transport_rank", "ppip"),
+    "transport_lookup": ("transport_match", "cc_transport_lookup", "ppppiippp"),
+    "cluster_stats": ("cluster_stats", "cc_cluster_stats", "ppiip"),
 }
-_ENTRY_OF = {
-    "broker_aggregates": "cc_broker_aggregates",
-    "best_per_segment": "cc_best_per_segment",
-    "prefix_cut": "cc_prefix_cut",
-    "apply_actions": "cc_apply_actions",
-}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 
 
 def _nvcc() -> str:
@@ -103,32 +104,42 @@ def build_all(names: Sequence[str] = SOURCES) -> float:
     return time.monotonic() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it on first use."""
-    lib = _LIBS.get(name)
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu``, building it on first use."""
+    lib = _LIBS.get(source)
     if lib is not None:
         return lib
-    build_all((name,))
+    build_all((source,))
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(_so_path(name)))
-            entry = _ENTRY_OF[name]
-            fn = getattr(lib, entry)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int64
-                           for c in _SIGNATURES[entry]] + [ctypes.c_void_p]
-            _LIBS[name] = lib
+            lib = ctypes.CDLL(str(_so_path(source)))
+            for src, entry, sig in _ENTRIES.values():
+                if src == source:
+                    fn = getattr(lib, entry)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = [_CTYPE[c] for c in sig] + [ctypes.c_void_p]
+            _LIBS[source] = lib
     return lib
 
 
 def launch(name: str, *args) -> None:
     """Call the C entry of kernel ``name`` with ``args`` (tensors become
-    device pointers, ints stay ints) on PyTorch's current stream, and raise
-    on a non-zero ``cudaGetLastError``."""
-    fn = getattr(library(name), _ENTRY_OF[name])
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-            for a in args]
+    device pointers, ints and floats stay numbers; ``None`` is a null
+    pointer) on PyTorch's current stream, and raise on a non-zero
+    ``cudaGetLastError``."""
+    source, entry, sig = _ENTRIES[name]
+    fn = getattr(library(source), entry)
+    if len(args) != len(sig):
+        raise TypeError(f"{name}: {len(args)} arguments for layout {sig!r}")
+    conv = []
+    for a, c in zip(args, sig):
+        if c == "p":
+            conv.append(None if a is None else a.data_ptr())
+        elif c == "f":
+            conv.append(float(a))
+        else:
+            conv.append(int(a))
     rc = fn(*conv, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
@@ -168,6 +179,45 @@ CAPTURE: Optional[Dict[str, tuple]] = None
 
 
 def record(name: str, args: tuple) -> None:
-    if CAPTURE is not None and name not in CAPTURE:
+    """Keep clones of ``args`` as kernel ``name``'s first inputs while a
+    capture dict is set.  Never during a CUDA-graph capture: cloning there
+    would record copies into the graph instead of taking them."""
+    if (CAPTURE is not None and name not in CAPTURE
+            and not (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing())):
         CAPTURE[name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                               for a in args)
+
+
+# ---------------------------------------------------------------------------
+# Launch counters: every kernel wrapper carries a plain integer ``launches``
+# that it raises by one where it launches its kernel.  A CUDA-graph capture
+# runs the wrappers once without launching anything, so the graph cache
+# (``analyzer/graphs.py``) takes each capture's increments back off and
+# credits them once per replay instead.
+# ---------------------------------------------------------------------------
+
+COUNTED: Dict[str, object] = {}
+
+
+def counted(name: str):
+    """Register the decorated wrapper under ``name`` with ``launches = 0``."""
+    def wrap(fn):
+        fn.launches = 0
+        COUNTED[name] = fn
+        return fn
+    return wrap
+
+
+def launch_counts() -> Dict[str, int]:
+    return {n: fn.launches for n, fn in COUNTED.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    for n, d in delta.items():
+        COUNTED[n].launches += d * times

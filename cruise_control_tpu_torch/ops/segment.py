@@ -9,6 +9,10 @@ Integer counts stay int32 and exact on every backend.
 per-broker aggregates ``analyzer.state.BrokerArrays`` needs, in one pass
 over the replica axis.  Its plain twin ``broker_aggregates_plain`` is the
 five ``masked_segment_*`` calls of ``model/tensor_model.py``.
+``segment_sum`` is the same fixed-order design for any f32[N, C] rows (the
+selection's per-broker round sums); its plain twin is ``masked_segment_sum``.
+On the card neither adds floats with atomics, so both are run-to-run
+identical and safe to replay in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -52,6 +56,35 @@ def masked_segment_count(segment_ids: torch.Tensor, num_segments: int,
 # K1 — broker aggregates
 # ---------------------------------------------------------------------------
 
+@cuda.counted("segment_sum")
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """f32[S, C] — the rows of ``values`` whose ``mask`` is set, summed per
+    segment.  K1 family (``csrc/broker_aggregates.cu`` ``cc_segment_sum``);
+    replaces the float scatter-adds of ``select_batched``'s round sums
+    (``cruise_control_tpu/analyzer/optimizer.py:663-668``).  Bound on the
+    card: bytes (N·(4C+5) read, S·4C written).  CPU tensors take
+    ``masked_segment_sum`` (``index_add_`` in row order); CUDA tensors
+    launch one block per segment that sums its rows in a fixed order and
+    reduces with a fixed tree: deterministic, no float atomics."""
+    dev = values.device
+    n = values.shape[0]
+    c = values.shape[1] if values.dim() == 2 else -1
+    cuda.check(values, "values", torch.float32, (n, c), dev)
+    cuda.check(segment_ids, "segment_ids", torch.int32, (n,), dev)
+    cuda.check(mask, "mask", torch.bool, (n,), dev)
+    cuda.record("segment_sum", (values, segment_ids, mask, num_segments))
+    if cuda.on_cpu(values):
+        return masked_segment_sum(values, segment_ids, num_segments, mask)
+    if not 1 <= c <= 16:
+        raise ValueError(f"segment_sum takes 1..16 channels, got {c}")
+    out = torch.empty((num_segments, c), dtype=torch.float32, device=dev)
+    if num_segments > 0:
+        cuda.launch("segment_sum", values, segment_ids, mask, n, c, num_segments, out)
+        segment_sum.launches += 1
+    return out
+
+
 BrokerAggregates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor, torch.Tensor]
 
@@ -81,6 +114,7 @@ def broker_aggregates_plain(replica_broker: torch.Tensor,
     )
 
 
+@cuda.counted("broker_aggregates")
 def broker_aggregates(replica_broker: torch.Tensor, replica_valid: torch.Tensor,
                       replica_is_leader: torch.Tensor, load_leader: torch.Tensor,
                       load_follower: torch.Tensor,
@@ -118,6 +152,3 @@ def broker_aggregates(replica_broker: torch.Tensor, replica_valid: torch.Tensor,
                     replica_count, leader_count, pnw, lbi, num_brokers)
         broker_aggregates.launches += 1
     return load, replica_count, leader_count, pnw, lbi
-
-
-broker_aggregates.launches = 0

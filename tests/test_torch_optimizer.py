@@ -10,7 +10,8 @@
   placement, carried back into a JAX model, passes the JAX package's
   ``verify_run`` with the JAX package's own proposal diff, which equals the
   port's.  (The 12-broker cluster is in test_torch_stack.py.)
-- Options of later slices raise instead of being ignored.
+- Options of later slices raise instead of being ignored (``fused=True``
+  only where the JAX package runs its per-goal frontier driver).
 """
 
 import dataclasses
@@ -77,15 +78,16 @@ def test_entry_step_keep_mask_is_identical():
     jnew, jn, _ = jax.jit(fn)(jmodel, joptions)
     want = np.asarray(_jax_entry_keep(jmodel, joptions))
     tmodel = to_torch(jmodel)
-    tnew, keep = topt._goal_step(
-        tmodel, OptimizationOptions.none(tmodel), GOAL_SPECS[ENTRY_GOAL],
-        tuple(GOAL_SPECS[g] for g in ENTRY_PREV), BalancingConstraint.default(), 32, 8)
+    args = (tmodel, OptimizationOptions.none(tmodel), GOAL_SPECS[ENTRY_GOAL],
+            tuple(GOAL_SPECS[g] for g in ENTRY_PREV), BalancingConstraint.default(), 32, 8)
+    _, keep, _ = topt._step_select(*args)
+    tnew, n_kept, _ = topt._goal_step(*args)
     got = keep.numpy()
     assert got.shape == want.shape
     bad = np.nonzero(got != want)[0]
     assert bad.size == 0, (f"keep masks differ first at lane {bad[0]} "
                            f"(port {got[bad[0]]}, JAX {want[bad[0]]}); {bad.size} lanes")
-    assert int(keep.sum()) == int(jn) > 0
+    assert int(keep.sum()) == int(n_kept) == int(jn) > 0
     for f in ("replica_broker", "replica_is_leader", "replica_disk"):
         np.testing.assert_array_equal(getattr(tnew, f).numpy(), np.asarray(getattr(jnew, f)),
                                       err_msg=f)
@@ -95,7 +97,8 @@ def test_full_stack_6_brokers():
     check_stack(SPEC_6)
 
 
-@pytest.mark.parametrize("kwargs", [{"fused": True}, {"mesh": object()}, {"frontier": True},
+@pytest.mark.parametrize("kwargs", [{"fused": True, "fuse_group_size": 1},
+                                    {"mesh": object()}, {"frontier": True},
                                     {"pipeline": True}, {"warm_start": object()}],
                          ids=["fused", "mesh", "frontier", "pipeline", "warm_start"])
 def test_later_slice_options_raise(kwargs):

@@ -80,6 +80,65 @@ def assert_float_close(got, want, what: str, rtol: float = 1e-5) -> None:
         assert err <= rtol, f"{what}: {err:.3g} of max |value| > {rtol}"
 
 
+PLACEMENT = ("replica_broker", "replica_is_leader", "replica_disk")
+
+
+def goal_rows(run, width=8):
+    """Per goal, the integer packed slots a run reports: steps, actions,
+    satisfied before/after, capped, repair steps, bisect depth, lanes live
+    (the first ``width`` of them)."""
+    return [(g.steps, g.actions_applied, int(g.satisfied_before), int(g.satisfied_after),
+             int(g.capped), g.repair_steps, g.bisect_depth, g.lanes_live)[:width]
+            for g in run.goal_results]
+
+
+def check_fused(spec_kw, **kw):
+    """The port's ``optimize(fused=True)`` against the JAX package's on the
+    same cluster: per goal the same integer packed slots 0-7, and the same
+    final placement.  The port's unfused run gives the same placement and
+    slots 0-4, and the fused run passes the port's ``verify_run``."""
+    jm = jax_generate(JaxSpec(**spec_kw))
+    tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
+    jrun = jopt.optimize(jm, STACK, raise_on_hard_failure=False, fused=True, **kw)
+    trun = topt.optimize(tm, STACK, raise_on_hard_failure=False, fused=True, device="cpu",
+                         **kw)
+    urun = topt.optimize(tm, STACK, raise_on_hard_failure=False, device="cpu",
+                         **{k: v for k, v in kw.items() if k != "fuse_group_size"})
+    assert [g.name for g in trun.goal_results] == STACK
+    assert goal_rows(trun) == goal_rows(jrun)
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(getattr(trun.model, f).numpy(),
+                                      np.asarray(getattr(jrun.model, f)), err_msg=f)
+        assert torch.equal(getattr(trun.model, f), getattr(urun.model, f)), f
+    assert goal_rows(trun, 5) == goal_rows(urun, 5)
+    assert trun.balancedness_after == pytest.approx(jrun.balancedness_after)
+    verify_run(tm, trun, STACK, proposals=tprops.diff(tm, trun.model))
+    return jm, tm, jrun, trun
+
+
+def check_packed_matrix(jm, tm):
+    """The whole-stack packed i32[PACKED_WIDTH, G] matrix of the port's
+    ``_stack_fixpoint`` equals the JAX package's, slot for slot (the JAX
+    program is the one ``optimize(fused=True)`` compiled, from its cache)."""
+    from cruise_control_tpu.analyzer.balancing_constraint import BalancingConstraint as JaxBC
+    from cruise_control_tpu.analyzer.goals.specs import goals_by_priority as jax_goals
+    from cruise_control_tpu.analyzer.state import OptimizationOptions as JaxOptions
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions, StepState
+    from cruise_control_tpu_torch.analyzer import candidates as tc
+    ns, nd = tc.default_num_sources(tm), tc.default_num_dests(tm)
+    jfn = jopt._get_stack_fn(tuple(jax_goals(STACK)), JaxBC.default(), ns, nd, 256)
+    jmodel, jpacked = jfn(jm, JaxOptions.none(jm))
+    st = StepState.working(tm, OptimizationOptions.none(tm))
+    tpacked, _ = topt._stack_fixpoint(st, tuple(goals_by_priority(STACK)),
+                                      BalancingConstraint.default(), ns, nd, 256)
+    np.testing.assert_array_equal(tpacked, np.asarray(jpacked))
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(getattr(st.model, f).numpy(),
+                                      np.asarray(getattr(jmodel, f)), err_msg=f)
+
+
 def _run_both(spec_kw):
     jm = jax_generate(JaxSpec(**spec_kw))
     tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
