@@ -90,7 +90,8 @@ def _sq_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     it: XLA's CPU code generator contracts the first square into an FMA,
     ``fma(x, x, y * y)`` (the optimized HLO keeps multiply + add in one
     loop fusion; LLVM fuses them).  Bit-identical to the jitted scores of
-    every squared-deviation kind."""
+    every squared-deviation kind at XLA's default backend optimization
+    level, the one the service and bench.py run."""
     return fma_f32(x, x, y * y)
 
 

@@ -22,7 +22,9 @@ touches is a static buffer:
 
 All graphs capture into one memory pool.  That is safe because they leave
 no live outputs in it (the step writes its results into the static
-buffers) and never run concurrently.
+buffers) and never run concurrently: a solve holds ``GraphCache.lock``
+from loading its snapshot to copying its placement out, so two solves in
+one process take turns on the shared buffers.
 
 The kernel wrappers' launch counters run once per capture while nothing is
 launched, so a capture takes its increments back off and every replay
@@ -32,6 +34,7 @@ credits them again (``StepGraph.replay``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -77,6 +80,8 @@ class GraphCache:
         self._states: Dict[tuple, StepState] = {}
         self._graphs: Dict[tuple, StepGraph] = {}
         self._pool = None
+        # Held by a solve for as long as it uses the static buffers.
+        self.lock = threading.Lock()
 
     @staticmethod
     def shape_key(model, options) -> tuple:

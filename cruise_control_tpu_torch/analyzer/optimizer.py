@@ -32,6 +32,7 @@ and multi-round selection (``moves_per_broker_step`` above ``SUBROUNDS``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -828,6 +829,47 @@ class OptimizerRun:
         return [g.name for g in self.goal_results if not g.satisfied_after]
 
 
+def _optimize_fused(model: TensorClusterModel, options: OptimizationOptions,
+                    specs: Sequence[GoalSpec], constraint: BalancingConstraint,
+                    ns: int, nd: int, max_steps: int, group: int,
+                    raise_on_hard_failure: bool, k_of,
+                    cache: Optional[graphs.GraphCache]):
+    """The grouped stack (``optimizer.py:3480-3618``): groups of ``group``
+    goals in priority order over one working state, each group's packed
+    stats fetched once.  Returns ``(final model, [GoalResult], candidates
+    scored)``."""
+    st = cache.state(model, options) if cache is not None else \
+        StepState.working(model, options)
+    results: List[GoalResult] = []
+    scored = 0
+    prev: Tuple[GoalSpec, ...] = ()
+    for start in range(0, len(specs), group):
+        chunk = tuple(specs[start:start + group])
+        packed, runs = _stack_fixpoint(st, chunk, constraint, ns, nd, max_steps,
+                                       prev_specs=prev, cache=cache)
+        for i, (spec, run) in enumerate(zip(chunk, runs)):
+            col = packed[:, i]
+            steps = int(col[PACKED_STEPS])
+            scored += steps * k_of(spec)
+            results.append(GoalResult(
+                name=spec.name, is_hard=spec.is_hard,
+                satisfied_before=bool(col[PACKED_BEFORE]),
+                satisfied_after=bool(col[PACKED_AFTER]), steps=steps,
+                actions_applied=int(col[PACKED_ACTIONS]), duration_s=run.wall_s,
+                capped=bool(col[PACKED_CAPPED]), fresh_compile=run.captured,
+                repair_steps=int(col[PACKED_REPAIR_STEPS]),
+                bisect_depth=int(col[PACKED_BISECT_DEPTH]),
+                lanes_live=int(col[PACKED_LANES_LIVE]),
+                fetches=run.fetches + (1 if i == 0 else 0),
+                replays=run.gated_steps))
+        for spec, res in zip(chunk, results[-len(chunk):]):
+            if spec.is_hard and not res.satisfied_after and raise_on_hard_failure:
+                raise OptimizationFailureException(
+                    f"hard goal {spec.name} not satisfied after optimization")
+        prev = prev + chunk
+    return st.placement(model), results, scored
+
+
 def optimize(model: TensorClusterModel, goal_names: Sequence[str],
              constraint: Optional[BalancingConstraint] = None,
              options: Optional[OptimizationOptions] = None,
@@ -921,36 +963,10 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
     scored = 0
     if fused:
         cache = graphs.GRAPHS if (dev.type == "cuda" and step_graphs) else None
-        st = cache.state(model, options) if cache is not None else \
-            StepState.working(model, options)
-        group = fuse_group_size or len(specs) or 1
-        prev: Tuple[GoalSpec, ...] = ()
-        for start in range(0, len(specs), group):
-            chunk = tuple(specs[start:start + group])
-            packed, runs = _stack_fixpoint(st, chunk, constraint, ns, nd,
-                                           max_steps_per_goal, prev_specs=prev,
-                                           cache=cache)
-            for i, (spec, run) in enumerate(zip(chunk, runs)):
-                col = packed[:, i]
-                steps = int(col[PACKED_STEPS])
-                scored += steps * k_of(spec)
-                results.append(GoalResult(
-                    name=spec.name, is_hard=spec.is_hard,
-                    satisfied_before=bool(col[PACKED_BEFORE]),
-                    satisfied_after=bool(col[PACKED_AFTER]), steps=steps,
-                    actions_applied=int(col[PACKED_ACTIONS]), duration_s=run.wall_s,
-                    capped=bool(col[PACKED_CAPPED]), fresh_compile=run.captured,
-                    repair_steps=int(col[PACKED_REPAIR_STEPS]),
-                    bisect_depth=int(col[PACKED_BISECT_DEPTH]),
-                    lanes_live=int(col[PACKED_LANES_LIVE]),
-                    fetches=run.fetches + (1 if i == 0 else 0),
-                    replays=run.gated_steps))
-            for spec, res in zip(chunk, results[-len(chunk):]):
-                if spec.is_hard and not res.satisfied_after and raise_on_hard_failure:
-                    raise OptimizationFailureException(
-                        f"hard goal {spec.name} not satisfied after optimization")
-            prev = prev + chunk
-        model = st.placement(model)
+        with cache.lock if cache is not None else contextlib.nullcontext():
+            model, results, scored = _optimize_fused(
+                model, options, specs, constraint, ns, nd, max_steps_per_goal,
+                fuse_group_size or len(specs) or 1, raise_on_hard_failure, k_of, cache)
     else:
         prev = ()
         for spec in specs:

@@ -18,6 +18,7 @@ import torch
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda
+from cruise_control_tpu_torch.ops.segment import broker_aggregates
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,13 +99,14 @@ def column_stats(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def compute_stats(model: TensorClusterModel) -> ClusterModelStats:
     """Populate stats over alive brokers (ClusterModelStats.populate): one
-    K13 call over the columns util[4], replica count, leader count and
-    potential NW_OUT."""
+    K1 call for the per-broker columns util[4], replica count, leader count
+    and potential NW_OUT, one K13 call over them."""
     alive = model.alive_broker_mask()
-    cols = torch.cat([model.broker_load(),
-                      model.broker_replica_counts().to(torch.float32)[:, None],
-                      model.broker_leader_counts().to(torch.float32)[:, None],
-                      model.potential_leadership_load()[:, None]], dim=1).contiguous()
+    load, rc, lc, pnw, _ = broker_aggregates(
+        model.replica_broker, model.replica_valid, model.replica_is_leader,
+        model.replica_load_leader, model.replica_load_follower, model.num_brokers)
+    cols = torch.cat([load, rc.to(torch.float32)[:, None], lc.to(torch.float32)[:, None],
+                      pnw[:, None]], dim=1).contiguous()
     mean, vmax, vmin, std = column_stats(cols, alive)
     return ClusterModelStats(
         resource_util_mean=mean[:4], resource_util_max=vmax[:4],
