@@ -23,12 +23,14 @@ Phases, in order (any failure raises and the process exits non-zero):
    counted), graph captures, replays, gated-off replays and host fetches;
    a second fused run gives identical proposals; the unfused timed run
    gives the same placement; K8 (one replayed step against the same step
-   run eagerly) and K12 (the fused solve against the same solve with its
-   gated steps run eagerly) are timed and checked;
-6. a second snapshot of exactly the mid shape (brokers relabelled and
-   loads rescaled from seed 2027) goes through the cached graphs, with no
-   new capture, and equals an eager fused run of it, placement for
-   placement;
+   run eagerly) and K12 (the fused driver with its step graphs against the
+   same driver with its gated steps run eagerly) are timed and checked;
+6. a second snapshot of exactly the mid shape, in which every field but
+   the padding masks holds other data (from seed 2027: relabelled brokers,
+   partitions, topics and disks, new leaders, loads, capacities, racks and
+   hosts, a dead broker) and whose request options exclude a topic and two
+   brokers, goes through the cached graphs, with no new capture, and
+   equals the eager fused driver on it, placement for placement;
 7. profiles of the fused and of the unfused mid run under
    ``torch.profiler``: device ops per step and the device's busy share;
 8. large rung (200 brokers, ~100k replicas), the first 7 goals as one
@@ -47,6 +49,7 @@ line and exits with 3.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -208,6 +211,9 @@ def main(argv) -> int:
         return opt.optimize(model, goals, fused=True, donate_model=True,
                             raise_on_hard_failure=False, device=dev, **kw)
 
+    def solve_fused(model, cache, options=None):
+        return drive_fused(opt, model, STACK, options, cache)
+
     # 3. mid rung warm-up (unfused), capturing each kernel's first inputs
     mid = generate_cluster(spec_of(mid_rung), device=dev)
     log(f"mid rung: {int(mid.replica_valid.sum())} replicas, {mid.num_brokers} brokers, "
@@ -265,18 +271,22 @@ def main(argv) -> int:
         raise RuntimeError("fused and unfused mid runs placed replicas differently")
     log("mid fused vs unfused: identical placement True")
 
-    run_eager, eager_wall, _ = timed(lambda: fused_run(mid, step_graphs=False))
-    if not same_placement(run_eager, run_fused):
+    # K12: the fused driver with its step graphs against the same driver
+    # with the gated steps run eagerly (no graph), timed alike.
+    cache = None if rehearse else graphs.GRAPHS
+    chain, chain_wall, _ = timed(lambda: solve_fused(mid, cache))
+    chain_eager, eager_wall, _ = timed(lambda: solve_fused(mid, None))
+    if not (same_placement(chain, run_fused) and same_placement(chain_eager, run_fused)):
         raise RuntimeError("the fused mid run with eager gated steps placed replicas "
                            "differently from the graph replays")
-    graph_results = check_graphs(torch, opt, graphs, dev, mid, run_fused, fused_wall,
+    graph_results = check_graphs(torch, opt, graphs, dev, mid, run_fused, chain_wall,
                                  eager_wall, replays, timer, log, rehearse)
 
     # 6. a second snapshot of the same shape through the cached graphs
-    second = second_snapshot(torch, np, mid, SECOND_SEED)
+    second, second_opts = second_snapshot(torch, np, mid, SECOND_SEED)
     n_graphs = len(graphs.GRAPHS)
-    run_second = fused_run(second)
-    run_second_eager = fused_run(second, step_graphs=False)
+    run_second = fused_run(second, options=second_opts)
+    run_second_eager = solve_fused(second, None, second_opts)
     fresh = sum(g.fresh_compile for g in run_second.goal_results)
     second_same = same_placement(run_second, run_second_eager)
     log(f"second snapshot (seed {SECOND_SEED}): {sum(g.steps for g in run_second.goal_results)} "
@@ -288,6 +298,10 @@ def main(argv) -> int:
     if not second_same:
         raise RuntimeError("cached step graphs replayed a stale snapshot")
     check_run("second", second, run_second, STACK)
+    moved_off = int((run_second.model.replica_offline_now()
+                     & run_second.model.replica_valid).sum())
+    if moved_off:
+        raise RuntimeError(f"second snapshot: {moved_off} replicas left on the dead broker")
 
     # 7. profiles
     if not rehearse:
@@ -356,6 +370,9 @@ def main(argv) -> int:
                      "device_ms_per_launch": device_ms[name],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": r["library_ms"]})
+    # K12's device time is the whole fused solve's (its eager per-goal
+    # set-up included), from the fused profile.
+    graph_results["goal_chain"]["device_ms_per_launch"] = prof_fused.get("device_ms")
     for name, (source, replaces) in GRAPH_KERNELS.items():
         line.append({"name": name, "route": "cuda_graph", "source": source,
                      "replaces": replaces, **graph_results[name],
@@ -408,35 +425,112 @@ def profile_mid(torch, run, wall, steps, label, log):
             "busy": round(busy, 4), "device_ms": device_ms}
 
 
+def drive_fused(opt, model, goals, options, cache):
+    """``optimize(fused=True)``'s grouped-stack driver at the defaults the
+    timed runs use (whole stack one group, default widths and step budget),
+    without the before/after statistics: with ``cache`` the goals' step
+    graphs replay, with None the same gated steps run eagerly (no graph)."""
+    import contextlib
+    import inspect
+    import types
+    from cruise_control_tpu_torch.analyzer import candidates as cgen
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
+    specs = goals_by_priority(goals)
+    options = options if options is not None else OptimizationOptions.none(model)
+    max_steps = inspect.signature(opt.optimize).parameters["max_steps_per_goal"].default
+    with cache.lock if cache is not None else contextlib.nullcontext():
+        final, results, _ = opt._optimize_fused(
+            model, options, specs, BalancingConstraint.default(),
+            cgen.default_num_sources(model), cgen.default_num_dests(model), max_steps,
+            len(specs), False, lambda spec: 0, cache)
+    return types.SimpleNamespace(model=final, goal_results=results)
+
+
+# Fields a same-shape snapshot cannot change: the padding masks.
+SAME_SHAPE_FIXED = ("replica_valid", "broker_valid", "disk_valid", "partition_valid")
+# Options the second snapshot leaves unset: either would leave the hard
+# goals no way to heal the dead broker.
+OPTIONS_UNSET = ("requested_dest_only", "only_move_immigrants")
+
+
 def second_snapshot(torch, np, model, seed):
-    """A snapshot of exactly ``model``'s shape with other data: the brokers
-    relabelled by a seeded permutation (racks and capacities stay with the
-    broker slots, so every replica lands on another rack and broker) and
-    every partition's loads scaled by a seeded factor in [0.5, 1.5) (one
-    factor for all its replicas: a leadership transfer must keep the
-    cluster's total load)."""
+    """A snapshot of exactly ``model``'s shape in which every field but the
+    padding masks holds other data, and request options that exclude
+    something; returns ``(model, options)``.  From seeded draws: brokers,
+    partitions, topics and disks relabelled by permutations; each
+    partition's leader chosen anew and its loads scaled by a factor in
+    [0.5, 1.5); racks regrouped (consecutive brokers share a rack), hosts
+    permuted; each broker's capacities scaled by a factor in [0.75, 1.5);
+    one broker dead (its replicas offline); one topic excluded from
+    movement, one broker from receiving replicas and another from receiving
+    leadership.  Replicas must be partition-major with one replication
+    factor, as the generator lays them out."""
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
+    from cruise_control_tpu_torch.model.tensor_model import (TENSOR_FIELDS, BrokerState,
+                                                             build_model)
     rng = np.random.default_rng(seed)
-    dev = model.device
-    perm = torch.from_numpy(rng.permutation(model.num_brokers).astype(np.int32)).to(dev)
-    scale = torch.from_numpy(
-        rng.uniform(0.5, 1.5, model.num_partitions).astype(np.float32)).to(dev)
-    scale = scale[model.replica_partition.long()][:, None]
-    rb = perm[model.replica_broker.long()]
-    return model.replace(replica_broker=rb, replica_original_broker=rb.clone(),
-                         replica_disk=model.broker_first_disk[rb.long()],
-                         replica_load_leader=model.replica_load_leader * scale,
-                         replica_load_follower=model.replica_load_follower * scale)
+    h = {f: getattr(model, f).cpu().numpy() for f in TENSOR_FIELDS}
+    R = int(h["replica_valid"].sum())
+    B, P, T, rf = model.num_brokers, model.num_partitions, model.num_topics, model.max_rf
+    part = h["replica_partition"][:R]
+    if R != P * rf or not (part == np.repeat(np.arange(P), rf)).all():
+        raise RuntimeError("second_snapshot needs partition-major replicas")
+    bperm, pperm = rng.permutation(B), rng.permutation(P)
+    tperm, dperm = rng.permutation(T), rng.permutation(B)
+    leader_slot = rng.integers(0, rf, P)
+    scale = rng.uniform(0.5, 1.5, P).astype(np.float32)[part][:, None]
+    cap = h["broker_capacity"] * rng.uniform(0.75, 1.5, (B, 1)).astype(np.float32)
+    rb = bperm[h["replica_broker"][:R]].astype(np.int32)
+    rack_of = (np.arange(B) * model.num_racks // B).astype(np.int32)
+    # The excluded topic's replicas stay where they are (but those on the
+    # dead broker), so its partitions are placed on distinct racks: a rack
+    # conflict there would leave RackAwareGoal unsatisfiable.
+    excluded = rng.integers(0, T)
+    for p in np.flatnonzero(tperm[h["partition_topic"]] == excluded):
+        on = rng.choice(model.num_racks, rf, replace=False)
+        rb[p * rf:(p + 1) * rf] = [rng.choice(np.flatnonzero(rack_of == k)) for k in on]
+    first_disk = np.argsort(dperm).astype(np.int32)  # disk d belongs to broker dperm[d]
+    partition_topic = np.empty(P, np.int32)
+    partition_topic[pperm] = tperm[h["partition_topic"]]
+    new = build_model(
+        replica_broker=rb, replica_partition=pperm[part].astype(np.int32),
+        replica_topic=tperm[h["replica_topic"][:R]].astype(np.int32),
+        replica_is_leader=(np.arange(R) % rf) == leader_slot[part],
+        replica_load_leader=h["replica_load_leader"][:R] * scale,
+        replica_load_follower=h["replica_load_follower"][:R] * scale,
+        broker_capacity=cap, broker_rack=rack_of,
+        broker_host=rng.permutation(h["broker_host"]).astype(np.int32),
+        partition_topic=partition_topic, replica_disk=first_disk[rb],
+        disk_broker=dperm.astype(np.int32), disk_capacity=cap[dperm, 3].copy(),
+        pad_replicas_to=model.num_replicas_padded, device=model.device)
+    dead, no_move, no_lead = rng.choice(B, 3, replace=False)
+    new = new.set_broker_state(int(dead), BrokerState.DEAD)
+    options = OptimizationOptions.none(new)
+    options.topic_excluded[int(excluded)] = True
+    options.broker_excluded_replica_move[int(no_move)] = True
+    options.broker_excluded_leadership[int(no_lead)] = True
+    base = OptimizationOptions.none(model)
+    same = {f for f in TENSOR_FIELDS if torch.equal(getattr(new, f), getattr(model, f))}
+    same |= {f"options.{f.name}" for f in dataclasses.fields(options)
+             if torch.equal(getattr(options, f.name), getattr(base, f.name))}
+    if same != set(SAME_SHAPE_FIXED) | {f"options.{f}" for f in OPTIONS_UNSET}:
+        raise RuntimeError(f"second snapshot: fields left as in the first: {sorted(same)}")
+    return new, options
 
 
-def check_graphs(torch, opt, graphs, dev, mid, run_fused, fused_wall, eager_wall,
+def check_graphs(torch, opt, graphs, dev, mid, run_fused, chain_wall, eager_wall,
                  replays, time_ms, log, rehearse):
     """K8: one replay of a cached step graph against the same gated step run
     eagerly on a copy of the same state (placement and counters equal), and
     both timed with the step gated off (the same kernels run, nothing
-    changes).  K12: the fused mid solve against the same solve with eager
-    gated steps.  Bounds: the bytes a step must move (read the model's
-    replica and broker rows once, write the new placement) over the memory
-    rate; the chain's bound is that times its executed steps."""
+    changes); the replay's device time from a profile of replays alone.
+    K12: the fused mid driver with its step graphs (``chain_wall``) against
+    the same driver with eager gated steps (``eager_wall``).  Bounds: the
+    bytes a step must move (read the model's replica and broker rows once,
+    write the new placement) over the memory rate; the chain's bound is
+    that times its executed steps."""
     from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
     from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
     from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N,
@@ -482,18 +576,30 @@ def check_graphs(torch, opt, graphs, dev, mid, run_fused, fused_wall, eager_wall
         state.counters[CTR_LAST_N] = 0
     step_ms = time_ms(torch, (lambda: g.replay(1)) if cache is not None else (lambda: step(st)))
     plain_step_ms = time_ms(torch, lambda: step(eager))
+    replay_device_ms = None
+    if cache is not None:
+        from torch.profiler import ProfilerActivity, profile
+        n_prof = 10
+        with cache.lock, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            g.replay(n_prof)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        if ops:  # else the profiler saw no device op inside the replays
+            replay_device_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / n_prof
     R, B = mid.num_replicas_padded, mid.num_brokers
     step_bytes = R * (4 + 4 + 4 + 1 + 32 + 1 + 4 + 1 + 4) + B * 60 + R * 9
     steps = sum(r.steps for r in run_fused.goal_results)
     out = {
         "step_graph": dict(launches=replays, max_abs_err=0.0, ms=step_ms,
+                           device_ms_per_launch=replay_device_ms,
                            plain_ms=plain_step_ms, bound_ms=bound_ms(step_bytes)),
-        "goal_chain": dict(launches=1, max_abs_err=0.0, ms=fused_wall * 1e3,
+        "goal_chain": dict(launches=1, max_abs_err=0.0, ms=chain_wall * 1e3,
                            plain_ms=eager_wall * 1e3,
                            bound_ms=bound_ms(step_bytes * max(steps, 1))),
     }
-    log(f"K8 step replay {step_ms:.4f} ms vs eager gated step {plain_step_ms:.4f} ms; "
-        f"K12 fused mid {fused_wall:.3f} s with graphs vs {eager_wall:.3f} s eager")
+    log(f"K8 step replay {step_ms:.4f} ms (device {replay_device_ms} ms per replay, "
+        f"profiled alone, gated off) vs eager gated step {plain_step_ms:.4f} ms; "
+        f"K12 fused mid driver {chain_wall:.3f} s with graphs vs {eager_wall:.3f} s eager")
     return out
 
 
@@ -581,7 +687,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         max_abs_err=err, ms=time_ms(torch, lambda: k1(*cap)),
         plain_ms=time_ms(torch, lambda: broker_aggregates_plain(*cap)),
         library_ms=time_ms(torch, lambda: acc.zero_().index_add_(0, idx, stacked)),
-        bound_ms=bound_ms(R * 38 + B * 32))
+        bound_ms=bound_ms(_k1_bytes(valid, lead, B)))
     log(f"K1 broker_aggregates: R={R} B={B} ok, max |err| {err:.3g}")
 
     # ---- K2: best per segment.  Exact.
@@ -638,7 +744,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     out["prefix_cut"] = dict(
         max_abs_err=0.0, ms=time_ms(torch, lambda: k3(*cap)),
         plain_ms=time_ms(torch, lambda: gk.prefix_cut_admit_plain(*cap)),
-        library_ms=None, bound_ms=bound_ms(K * (9 + 4 * C) + S * 12 * C + K))
+        library_ms=None, bound_ms=bound_ms(K * 10 + int(cap[3].sum()) * 4 * C + S * 12 * C))
     log(f"K3 prefix_cut: K={K} C={C} S={S} ok; segments with a position within "
         f"2 eps of a bound: {near_total}")
 
@@ -657,7 +763,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     out["apply_actions"] = dict(
         max_abs_err=0.0, ms=time_ms(torch, lambda: k7(model, cand, mask)),
         plain_ms=time_ms(torch, lambda: apply_candidates_plain(model, cand, mask)),
-        library_ms=None, bound_ms=bound_ms(Kc * 29 + Bm * 4 + 2 * Rm * 9))
+        library_ms=None, bound_ms=bound_ms(_k7_bytes(cand, mask, Rm, Bm)))
     log(f"K7 apply_actions: K={Kc} R={Rm} ok (exact)")
     # ---- K1's segment_sum (the selection's round sums).  Within rtol of
     # each column's max |value| of the plain index_add_ (another order), and
@@ -685,7 +791,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         max_abs_err=err, ms=time_ms(torch, lambda: ks(*cap)),
         plain_ms=time_ms(torch, lambda: masked_segment_sum(cap[0], cap[1], cap[3], cap[2])),
         library_ms=time_ms(torch, lambda: acc_s.zero_().index_add_(0, s0, vz)),
-        bound_ms=bound_ms(N * (4 * C + 5) + S * 4 * C))
+        bound_ms=bound_ms(N + int(cap[2].sum()) * (4 + 4 * C) + S * 4 * C))
     log(f"K1 segment_sum: N={N} C={C} S={S} ok, deterministic, max |err| {err:.3g}")
 
     # ---- K5: goal masks.  Exact (score bits and eligible), for every goal
@@ -715,8 +821,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     out["goal_masks"] = dict(
         max_abs_err=0.0, ms=time_ms(torch, lambda: k5(*k5_args)),
         plain_ms=time_ms(torch, lambda: gk.goal_masks_plain(*k5_args)), library_ms=None,
-        bound_ms=bound_ms(_k5_bytes(spec0.kind, K, R, B, model.num_topics,
-                                    model.num_partitions, model.max_rf)))
+        bound_ms=bound_ms(_k5_bytes(spec0, model, K, accepted)))
     log(f"K5 goal_masks: K={K} first kind {spec0.kind}; {len(modes)} kinds x healthy/dead "
         "x accepted ok (exact)")
 
@@ -782,18 +887,52 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     return out
 
 
-def _k5_bytes(kind, K, R, B, T, P, rf):
-    """Bytes K5 must move: each lane's own fields once (action, replica, src,
-    dest, valid, accepted, its delta pair), every table its mode reads once,
-    and the score and eligible flag written."""
-    lanes = K * (4 * 4 + 1 + 1 + 8) + K * 5 + R  # + offline flags
-    if kind == "rack":
-        tables = R * (4 + 4 + 1) + P * rf * 4 + B * 4
-    elif kind == "topic_replica_distribution":
-        tables = R * 4 + T * B * 4 + T * 12 + B
+def _k1_bytes(valid, lead, B):
+    """Bytes K1 must move: every replica's valid flag; a valid replica's
+    broker id and leader flag, and a leader's load row (16 bytes: its NW_IN
+    and NW_OUT are in it) or a follower's row and its leader row's NW_OUT
+    (20 bytes); 32 bytes written per broker."""
+    leaders = int((valid & lead).sum())
+    followers = int((valid & ~lead).sum())
+    return valid.numel() + (leaders + followers) * 5 + leaders * 16 + followers * 20 + B * 32
+
+
+def _k5_bytes(spec, model, K, accepted):
+    """Bytes K5 must move for ``spec``'s kind, as its branch of the kernel
+    reads them: each lane's action, replica, source and destination (16),
+    its valid flag, its accepted flag when a mask is given, its delta (band
+    kinds only: 4 bytes for the count, potential NW_OUT and leader-count
+    kinds, 8 for the load pairs and leader bytes-in), the score and eligible
+    flag written (5); every table of the branch read once, whole: the
+    offline flags and alive brokers always, the band's metric and limits,
+    the topic counts and limits, or the rack branch's replica partitions,
+    brokers, conflict flags, partition rows and broker racks."""
+    from cruise_control_tpu_torch.analyzer.goals.kernels import _DELTA_OF_KIND
+    R, B = model.num_replicas_padded, model.num_brokers
+    lane = 16 + 1 + 5 + (1 if accepted is not None else 0)
+    tables = R + B
+    if spec.kind == "rack":
+        tables += R * (4 + 4 + 1) + model.partition_replicas.numel() * 4 + B * 4
+    elif spec.kind == "topic_replica_distribution":
+        T = model.num_topics
+        tables += R * 4 + T * B * 4 + T * 12
     else:
-        tables = B * 13
-    return lanes + tables
+        lane += 4 if _DELTA_OF_KIND.get(spec.kind, spec.resource) in (4, 5, 6) else 8
+        tables += B * 12
+    return K * lane + tables
+
+
+def _k7_bytes(cand, mask, R, B):
+    """Bytes K7 must move: every lane's apply flag; an applied lane's kind,
+    replica and partner (12) and what its kind reads (a move its
+    destination, a swap its source and destination, an intra-broker move
+    its destination disk, an intra-broker swap both disks); the first-disk
+    table once when a lane moves across brokers; and the placement copied
+    (9 bytes a replica read, 9 written)."""
+    kind = cand.action_type[mask]
+    n = [int((kind == a).sum()) for a in range(5)]  # ActionType order
+    lanes = mask.numel() + int(mask.sum()) * 12 + (n[0] + n[2]) * 4 + (n[3] + n[4]) * 8
+    return lanes + (B * 4 if n[0] + n[3] else 0) + 2 * R * 9
 
 
 def _near_bound_segments(torch, gk, score, seg, deltas, kept, cum_before, lo, hi,

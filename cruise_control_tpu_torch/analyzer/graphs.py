@@ -24,7 +24,15 @@ All graphs capture into one memory pool.  That is safe because they leave
 no live outputs in it (the step writes its results into the static
 buffers) and never run concurrently: a solve holds ``GraphCache.lock``
 from loading its snapshot to copying its placement out, so two solves in
-one process take turns on the shared buffers.
+one process take turns on the shared buffers and on the pool, whatever
+their shapes.
+
+Retention: the cache keeps the ``MAX_SHAPES`` most recently solved
+shapes.  A shape costs one copy of the model and the options on
+the device and at most one graph per (goal, previous goals, constraint,
+widths); one shape more evicts the least recently used one with all its
+graphs, so a service whose cluster shape drifts holds a bounded set.  The
+evicted graphs' blocks stay in the pool for later captures to reuse.
 
 The kernel wrappers' launch counters run once per capture while nothing is
 launched, so a capture takes its increments back off and every replay
@@ -33,6 +41,7 @@ credits them again (``StepGraph.replay``).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 from typing import Callable, Dict, Optional, Tuple
@@ -43,6 +52,9 @@ from cruise_control_tpu_torch.analyzer.state import (CTR_LAST_N, StepInvariants,
                                                      StepState)
 from cruise_control_tpu_torch.model.tensor_model import STATIC_FIELDS, TENSOR_FIELDS
 from cruise_control_tpu_torch.ops import cuda
+
+# Shapes whose static state and graphs the cache keeps.
+MAX_SHAPES = 4
 
 
 def _copy_invariants(inv: StepInvariants) -> StepInvariants:
@@ -77,7 +89,10 @@ class GraphCache:
     """Static step states per shape and step graphs per goal key."""
 
     def __init__(self):
-        self._states: Dict[tuple, StepState] = {}
+        # Shape key -> static state, least recently used first.
+        self._states: "collections.OrderedDict[tuple, StepState]" = \
+            collections.OrderedDict()
+        # Goal key (its last element is the shape key) -> graph.
         self._graphs: Dict[tuple, StepGraph] = {}
         self._pool = None
         # Held by a solve for as long as it uses the static buffers.
@@ -93,12 +108,19 @@ class GraphCache:
 
     def state(self, model, options) -> StepState:
         """The static state of ``model``'s shape, loaded with ``model`` and
-        ``options``."""
+        ``options``; evicts the least recently used shape beyond
+        ``MAX_SHAPES``."""
         key = self.shape_key(model, options)
         st = self._states.get(key)
         if st is None:
             st = StepState.alloc_like(model, options)
             self._states[key] = st
+            while len(self._states) > MAX_SHAPES:
+                old, _ = self._states.popitem(last=False)
+                for k in [k for k in self._graphs if k[-1] == old]:
+                    del self._graphs[k]
+        else:
+            self._states.move_to_end(key)
         st.load(model, options)
         return st
 

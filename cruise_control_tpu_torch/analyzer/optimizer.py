@@ -886,8 +886,7 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
              mesh=None, donate_model: bool = False,
              frontier: Optional[bool] = None,
              warm_start=None, pipeline: Optional[bool] = None,
-             device: Union[str, torch.device] = "cuda",
-             step_graphs: bool = True) -> OptimizerRun:
+             device: Union[str, torch.device] = "cuda") -> OptimizerRun:
     """Run the goal stack in priority order (GoalOptimizer.optimizations) on
     ``device`` (the model is moved there; raises when it names CUDA and
     none is present).  Each goal runs to its fixpoint under the acceptance
@@ -908,10 +907,8 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
     arithmetic); the balancedness weights price violated goals.  The
     caller's model is never written on either path: the fused path steps on
     a working copy (on the card, the step graphs' static buffers), so
-    ``donate_model`` only records the caller's consent.  ``step_graphs=False``
-    runs the fused path's gated steps eagerly on the card instead of
-    replaying their CUDA graphs (the check that cached graphs see a new
-    snapshot)."""
+    ``donate_model`` only records the caller's consent.  On the card the
+    fused path replays the gated steps' CUDA graphs (``graphs.GRAPHS``)."""
     for name, value in (("mesh", mesh), ("warm_start", warm_start),
                         ("segment_steps", segment_steps)):
         if value is not None:
@@ -962,7 +959,7 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
     results: List[GoalResult] = []
     scored = 0
     if fused:
-        cache = graphs.GRAPHS if (dev.type == "cuda" and step_graphs) else None
+        cache = graphs.GRAPHS if dev.type == "cuda" else None
         with cache.lock if cache is not None else contextlib.nullcontext():
             model, results, scored = _optimize_fused(
                 model, options, specs, constraint, ns, nd, max_steps_per_goal,

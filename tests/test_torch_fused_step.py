@@ -155,3 +155,34 @@ def test_fused_hard_goal_failure_raises():
     assert not run.goal_results[0].satisfied_after
     with pytest.raises(topt.OptimizationFailureException, match="CpuCapacityGoal"):
         topt.optimize(tm, ["CpuCapacityGoal"], constraint=con, fused=True, device="cpu")
+
+
+def test_graph_cache_keeps_the_most_recent_shapes():
+    """The cache holds the static state of at most ``MAX_SHAPES`` shapes;
+    a new shape evicts the least recently solved one with its graphs, and
+    a held shape is reloaded from each new snapshot.  (Capturing a graph
+    needs the card; the graph entries here stand in for captured ones.)"""
+    from cruise_control_tpu_torch.analyzer import graphs
+
+    cache = graphs.GraphCache()
+    n = graphs.MAX_SHAPES + 1
+    models = [generate_cluster(ClusterSpec(**dict(SPEC_6, num_topics=t)), device="cpu")
+              for t in range(2, 2 + n)]
+    opts = [OptimizationOptions.none(m) for m in models]
+    spec = GOAL_SPECS[GOAL]
+    states = []
+    for m, o in zip(models[:-1], opts):
+        st = cache.state(m, o)
+        assert torch.equal(st.model.replica_broker, m.replica_broker)
+        cache._graphs[graphs.goal_key(spec, (), None, 1, 1, st)] = object()
+        states.append(st)
+    # Solving the first shape again makes the second the oldest.
+    assert cache.state(models[0], opts[0]) is states[0]
+    last = cache.state(models[-1], opts[-1])
+    assert len(cache._states) == graphs.MAX_SHAPES and len(cache) == graphs.MAX_SHAPES - 1
+    assert cache.state(models[0], opts[0]) is states[0]
+    assert cache.state(models[-1], opts[-1]) is last
+    assert cache.state(models[1], opts[1]) is not states[1]  # evicted, allocated anew
+    moved = models[1].replace(replica_broker=torch.roll(models[1].replica_broker, 1))
+    assert torch.equal(cache.state(moved, opts[1]).model.replica_broker,
+                       moved.replica_broker)
