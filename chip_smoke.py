@@ -66,10 +66,13 @@ STACK = [
     "LeaderReplicaDistributionGoal", "LeaderBytesInDistributionGoal",
 ]
 # (brokers, racks, topics, mean partitions per topic, replication factor):
-# the mid and large rungs of bench.py.
+# the mid, large and xl250 rungs of bench.py, and the 100-broker cluster of
+# the card-against-CPU check.
 MID = (50, 10, 40, 84.0, 3)
 LARGE = (200, 20, 100, 333.0, 3)
-LARGE_GOALS = STACK[:7]  # the six hard goals and ReplicaDistributionGoal
+XL250 = (1000, 40, 200, 417.0, 3)
+HUNDRED = (100, 10, 40, 84.0, 3)
+XL_GOALS = STACK[:7]  # the six hard goals and ReplicaDistributionGoal
 SEED = 2026
 SECOND_SEED = 2027  # the second snapshot of the mid shape (stale-buffer check)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
@@ -88,6 +91,10 @@ PROFILE_NAMES = {
     "transport_lookup": ("transport_lookup_kernel",),
     "apply_actions": ("apply_actions_kernel",),
     "cluster_stats": ("cluster_stats_kernel",),
+    "structural_accepts": ("structural_accepts_kernel",),
+    "stack_sweep": ("stack_sweep_kernel",),
+    "frontier_active": ("frontier_active_kernel",),
+    "chunk_gate": ("chunk_gate_kernel",),
 }
 
 KERNELS = {
@@ -110,7 +117,19 @@ KERNELS = {
                       "cruise_control_tpu/analyzer/actions.py:233"),
     "cluster_stats": ("cruise_control_tpu_torch/csrc/cluster_stats.cu",
                       "cruise_control_tpu/model/stats.py:79"),
+    "structural_accepts": ("cruise_control_tpu_torch/csrc/goal_masks.cu",
+                           "cruise_control_tpu/analyzer/goals/kernels.py:464"),
+    "stack_sweep": ("cruise_control_tpu_torch/csrc/stack_sweep.cu",
+                    "cruise_control_tpu/analyzer/optimizer.py:2332"),
+    "frontier_active": ("cruise_control_tpu_torch/csrc/frontier_active.cu",
+                        "cruise_control_tpu/analyzer/goals/kernels.py:842"),
+    "chunk_gate": ("cruise_control_tpu_torch/csrc/chunk_gate.cu",
+                   "cruise_control_tpu/analyzer/optimizer.py:1489"),
 }
+# Kernels a path does not launch: the grouped and unfused paths have no
+# stack sweep and no chunk gate; the unfused path no frontier count.
+NOT_ON = {"grouped": ("stack_sweep", "chunk_gate"),
+          "unfused": ("stack_sweep", "chunk_gate", "frontier_active")}
 GRAPH_KERNELS = {
     "step_graph": ("cruise_control_tpu_torch/analyzer/graphs.py",
                    "cruise_control_tpu/analyzer/optimizer.py:1572"),
@@ -127,6 +146,7 @@ def log(msg: str) -> None:
 def main(argv) -> int:
     import torch
     rehearse = "--rehearse-cpu" in argv
+    kernels_only = "--kernels-only" in argv
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -137,6 +157,7 @@ def main(argv) -> int:
     from cruise_control_tpu_torch.analyzer import graphs
     from cruise_control_tpu_torch.analyzer import optimizer as opt
     from cruise_control_tpu_torch.analyzer import proposals as props
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
     from cruise_control_tpu_torch.analyzer.verifier import verify_run
     from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
     from cruise_control_tpu_torch.ops import cuda
@@ -145,10 +166,22 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     wrappers = {n: cuda.COUNTED[n] for n in KERNELS}
     dev = torch.device("cpu" if rehearse else "cuda")
-    mid_rung, large_rung, timer = MID, LARGE, time_ms
+    mid_rung, large_rung, hundred_rung, xl_rung = MID, LARGE, HUNDRED, XL250
+    timer = time_ms
+    # The per-goal path as the service asks for it above 64 brokers.
+    per_goal = dict(pipeline=False)
     if rehearse:
         mid_rung, large_rung, timer = (12, 4, 6, 20.0, 2), (16, 4, 8, 20.0, 3), host_time_ms
+        hundred_rung, xl_rung = (16, 4, 5, 30.0, 2), (20, 4, 6, 20.0, 2)
+        # Small clusters: ask for the per-goal path (below 100 brokers
+        # pipeline=False alone keeps the grouped stack); phase 8 lowers the
+        # dense floor so that its chunks compact.
+        per_goal = dict(pipeline=False, fuse_group_size=1)
         torch.cuda.synchronize = lambda: None
+    t_start = time.monotonic()
+
+    def phase(name):
+        log(f"--- {name} ({time.monotonic() - t_start:.1f} s)")
 
     # 1. device
     if rehearse:
@@ -178,9 +211,11 @@ def main(argv) -> int:
     def read_counts():
         return {n: w.launches for n, w in wrappers.items()}
 
-    def check_launched(label, counts):
-        if not rehearse and min(counts.values()) == 0:
-            raise RuntimeError(f"a kernel was not launched on the {label} path: {counts}")
+    def check_launched(label, counts, path=None):
+        skip = NOT_ON.get(path, ())
+        idle = [n for n, c in counts.items() if c == 0 and n not in skip]
+        if not rehearse and idle:
+            raise RuntimeError(f"kernels not launched on the {label} path: {idle}; {counts}")
 
     def check_run(label, initial, run, goals):
         for g in run.goal_results:
@@ -215,6 +250,7 @@ def main(argv) -> int:
         return drive_fused(opt, model, STACK, options, cache)
 
     # 3. mid rung warm-up (unfused), capturing each kernel's first inputs
+    phase("mid warm-up")
     mid = generate_cluster(spec_of(mid_rung), device=dev)
     log(f"mid rung: {int(mid.replica_valid.sum())} replicas, {mid.num_brokers} brokers, "
         f"{mid.num_partitions} partitions")
@@ -224,15 +260,25 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log(f"mid unfused warm-up run: {time.monotonic() - t0:.2f} s")
     captured, cuda.CAPTURE = cuda.CAPTURE, None
-    missing = [n for n in wrappers if n not in captured]
+    missing = [n for n in wrappers if n not in captured and n not in NOT_ON["unfused"]]
     if missing:
         raise RuntimeError(f"kernels never launched in the warm-up run: {missing}")
     warm_props = check_run("mid-warm", mid, run_warm, STACK)
 
     # 4. kernels against their plain versions
+    phase("kernels")
+    second, second_opts = second_snapshot(torch, np, mid, SECOND_SEED)
+    large = generate_cluster(spec_of(large_rung), device=dev)
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
+    results.update(check_frontier_kernels(torch, np, captured, wrappers, log, timer,
+                                          {"mid": mid, "second": second, "large": large}))
+    if kernels_only:
+        log(json.dumps({"kernels": results}))
+        log("kernels checked: no result line (--kernels-only)")
+        return 3
 
     # 5. mid rung as the service runs it: fused, step graphs
+    phase("mid fused")
     graphs.GRAPHS.clear()
     t0 = time.monotonic()
     run_capture = fused_run(mid)
@@ -251,7 +297,7 @@ def main(argv) -> int:
         f"this run {sum(g.fresh_compile for g in run_fused.goal_results)}, replays "
         f"{replays}, gated-off replays {wasted}, host fetches {fetches}")
     log(f"mid fused launches: {fused_counts}")
-    check_launched("fused mid", fused_counts)
+    check_launched("fused mid", fused_counts, "grouped")
     run_again = fused_run(mid)
     again_same = props.diff(mid, run_again.model) == fused_props and \
         same_placement(run_again, run_fused)
@@ -266,7 +312,7 @@ def main(argv) -> int:
     log(f"mid unfused timed run: {mid_wall:.3f} s wall, {mid_steps} steps, "
         f"{len(mid_props)} proposals, identical to warm-up: {mid_props == warm_props}")
     log(f"mid unfused launches: {mid_counts}")
-    check_launched("unfused mid", mid_counts)
+    check_launched("unfused mid", mid_counts, "unfused")
     if not same_placement(run_mid, run_fused):
         raise RuntimeError("fused and unfused mid runs placed replicas differently")
     log("mid fused vs unfused: identical placement True")
@@ -283,7 +329,7 @@ def main(argv) -> int:
                                  eager_wall, replays, timer, log, rehearse)
 
     # 6. a second snapshot of the same shape through the cached graphs
-    second, second_opts = second_snapshot(torch, np, mid, SECOND_SEED)
+    phase("mid second snapshot")
     n_graphs = len(graphs.GRAPHS)
     run_second = fused_run(second, options=second_opts)
     run_second_eager = solve_fused(second, None, second_opts)
@@ -304,34 +350,111 @@ def main(argv) -> int:
         raise RuntimeError(f"second snapshot: {moved_off} replicas left on the dead broker")
 
     # 7. profiles
+    phase("mid profiles")
     if not rehearse:
         prof_fused = profile_mid(torch, lambda: fused_run(mid), fused_wall, fused_steps,
                                  "fused", log)
         prof_unfused = profile_mid(
             torch, lambda: opt.optimize(mid, STACK, raise_on_hard_failure=False,
                                         device=dev), mid_wall, mid_steps, "unfused", log)
-        device_ms = {n: (prof_fused["per_launch"][n]
-                         if prof_fused["per_launch"][n] is not None
-                         else prof_unfused["per_launch"][n]) for n in wrappers}
     else:
-        prof_fused = prof_unfused = {"ops": None, "ops_per_step": None, "busy": None}
-        device_ms = {n: None for n in wrappers}
+        prof_fused = prof_unfused = {"ops": None, "ops_per_step": None, "busy": None,
+                                     "per_launch": {n: None for n in wrappers}}
 
-    # 8. large rung, first 7 goals as one fused group
-    large = generate_cluster(spec_of(large_rung), device=dev)
+    # 8. large rung, the full stack on the sequential per-goal path
+    phase("large per-goal")
+    if rehearse:
+        opt._FRONTIER_DENSE_MIN = 8
     log(f"large rung: {int(large.replica_valid.sum())} replicas, {large.num_brokers} brokers")
-    fused_run(large, LARGE_GOALS, fuse_group_size=len(LARGE_GOALS))  # captures
-    run_large, large_wall, large_counts = timed(
-        lambda: fused_run(large, LARGE_GOALS, fuse_group_size=len(LARGE_GOALS)))
-    large_props = check_run("large", large, run_large, LARGE_GOALS)
-    log(f"large fused run: {large_wall:.3f} s wall, "
-        f"{sum(g.steps for g in run_large.goal_results)} steps, "
-        f"{sum(g.replays for g in run_large.goal_results)} replays, "
-        f"{len(large_props)} proposals")
-    log(f"large launches: {large_counts}")
-    check_launched("large", large_counts)
+    torch.cuda.synchronize()
+    mem0 = (0, 0) if rehearse else (torch.cuda.memory_allocated(),
+                                    torch.cuda.memory_reserved())
+    n_graphs0 = len(graphs.GRAPHS)
+    # Every frontier mask the warm-up computes, by its inputs (the broker
+    # rows ``_frontier_inputs`` hands to K9's frontier mask).
+    frontier_inputs = []
+    real_inputs = gk._frontier_inputs
 
-    # 9. the card against the CPU plain path: a 12-broker cluster and the mid rung
+    def recording_inputs(*args):
+        out = real_inputs(*args)
+        frontier_inputs.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                     for a in out))
+        return out
+
+    gk._frontier_inputs = recording_inputs
+    try:
+        t0 = time.monotonic()
+        run_large_warm = fused_run(large, **per_goal)  # captures
+        torch.cuda.synchronize()
+        large_warm_s = time.monotonic() - t0
+    finally:
+        gk._frontier_inputs = real_inputs
+    mem1 = (0, 0) if rehearse else (torch.cuda.memory_allocated(),
+                                    torch.cuda.memory_reserved())
+    large_captures = sum(g.fresh_compile for g in run_large_warm.goal_results)
+    log(f"large per-goal warm-up run: {large_warm_s:.2f} s, {large_captures} goals "
+        f"captured graphs, graphs cached {n_graphs0} -> {len(graphs.GRAPHS)}, frontier "
+        f"buffer sets {graphs.GRAPHS.num_frontiers()}; device memory allocated "
+        f"+{(mem1[0] - mem0[0]) / 2**20:.1f} MiB, reserved +{(mem1[1] - mem0[1]) / 2**20:.1f} "
+        f"MiB")
+    sweeps0 = dict(opt.SWEEP_COUNTERS)
+    fetch0 = dict(opt.FETCH_COUNTERS)
+    run_large, large_wall, large_counts = timed(lambda: fused_run(large, **per_goal))
+    sweeps = {k: opt.SWEEP_COUNTERS[k] - sweeps0[k] for k in sweeps0}
+    fetch_c = {k: opt.FETCH_COUNTERS[k] - fetch0[k] for k in fetch0}
+    large_props = check_run("large", large, run_large, STACK)
+    large_summary = per_goal_report(run_large, log, "large")
+    log(f"large per-goal timed run: {large_wall:.3f} s wall, {large_summary}, "
+        f"{len(large_props)} proposals; sweeps {sweeps}; fetch counters {fetch_c}")
+    log(f"large launches: {large_counts}")
+    check_launched("large per-goal", large_counts)
+    if not rehearse and not (large_summary["compacted_chunks"] > 0
+                             and large_summary["speculative"] > 0):
+        raise RuntimeError("the large per-goal run neither compacted nor speculated: "
+                           f"{large_summary}")
+    run_large_again = fused_run(large, **per_goal)
+    large_again = props.diff(large, run_large_again.model) == large_props and \
+        same_placement(run_large_again, run_large)
+    log(f"large per-goal repeat: identical proposals {large_again}")
+    if not large_again:
+        raise RuntimeError("two large per-goal runs gave different proposals")
+    large_steps = large_summary["steps"]
+    if not rehearse:
+        prof_large = profile_mid(torch, lambda: fused_run(large, **per_goal), large_wall,
+                                 large_steps, "large-per-goal", log)
+    else:
+        prof_large = {"ops": None, "ops_per_step": None, "busy": None,
+                      "per_launch": {n: None for n in wrappers}}
+    frontier_checked = check_recorded_frontiers(torch, gk, frontier_inputs, log)
+
+    # 9. stale frontier buffers: a second large snapshot through the cached
+    # graphs (a warm-up first captures any bucket it needs that the first
+    # snapshot did not; the first snapshot then runs again, so that every
+    # static buffer holds its data), against the eager driver.
+    phase("large second snapshot")
+    second_l, second_l_opts = second_snapshot(torch, np, large, SECOND_SEED)
+    fused_run(second_l, options=second_l_opts, **per_goal)
+    fused_run(large, **per_goal)
+    n_graphs = len(graphs.GRAPHS)
+    run_second_l = fused_run(second_l, options=second_l_opts, **per_goal)
+    run_second_l_eager = drive_per_goal(opt, second_l, STACK, second_l_opts, None,
+                                        per_goal)
+    fresh_l = sum(g.fresh_compile for g in run_second_l.goal_results)
+    second_l_same = same_placement(run_second_l, run_second_l_eager)
+    per_goal_report(run_second_l, log, "large-second")
+    log(f"large second snapshot (seed {SECOND_SEED}): new captures {fresh_l} (cache "
+        f"{n_graphs} -> {len(graphs.GRAPHS)}); cached graphs equal the eager driver: "
+        f"{second_l_same}; differs from the first snapshot's run: "
+        f"{not same_placement(run_second_l, run_large)}")
+    if not rehearse and (fresh_l or len(graphs.GRAPHS) != n_graphs):
+        raise RuntimeError("the second large snapshot did not go through the cached graphs")
+    if not second_l_same:
+        raise RuntimeError("cached per-goal graphs replayed a stale snapshot or frontier")
+    check_run("large-second", second_l, run_second_l, STACK)
+
+    # 10. the card against the CPU plain path: a 12-broker cluster and the mid
+    # rung (unfused), and a 100-broker cluster on the per-goal path
+    phase("card vs CPU")
     small_spec = ClusterSpec(num_brokers=12, num_racks=4, num_topics=6,
                              mean_partitions_per_topic=20.0, replication_factor=2,
                              distribution="exponential", seed=11)
@@ -349,25 +472,55 @@ def main(argv) -> int:
         if flags_card != flags_cpu:
             raise RuntimeError(f"{label}: card and CPU disagree per goal: "
                                f"{flags_card} vs {flags_cpu}")
+    hundred_card = fused_run(generate_cluster(spec_of(hundred_rung), device=dev), **per_goal)
+    t0 = time.monotonic()
+    hundred_cpu = opt.optimize(generate_cluster(spec_of(hundred_rung), device="cpu"), STACK,
+                               fused=True, raise_on_hard_failure=False, device="cpu",
+                               **per_goal)
+    compare_card_cpu(hundred_card, hundred_cpu, same_placement, log,
+                     f"{hundred_rung[0]}-broker per-goal", time.monotonic() - t0)
 
-    # 10. results
+    # 11. xl250 rung on the per-goal path
+    phase("xl250")
+    xl = generate_cluster(spec_of(xl_rung), device=dev)
+    log(f"xl250 rung: {int(xl.replica_valid.sum())} replicas, {xl.num_brokers} brokers, "
+        f"goals {len(XL_GOALS)}")
+    t0 = time.monotonic()
+    fused_run(xl, XL_GOALS, **per_goal)
+    torch.cuda.synchronize()
+    xl_warm = time.monotonic() - t0
+    run_xl, xl_wall, xl_counts = timed(lambda: fused_run(xl, XL_GOALS, **per_goal))
+    check_run("xl250", xl, run_xl, XL_GOALS)
+    xl_summary = per_goal_report(run_xl, log, "xl250")
+    log(f"xl250 per-goal: warm-up {xl_warm:.2f} s, timed {xl_wall:.3f} s, {xl_summary}")
+    check_launched("xl250", xl_counts)
+    del xl, run_xl
+
+    # 12. results
+    phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
-        f"{fetches} fetches, ops/step {prof_fused['ops_per_step']}, ops/replay "
-        f"{prof_fused['ops'] / replays if prof_fused['ops'] else None}, busy "
+        f"{fetches} fetches, ops/step {prof_fused['ops_per_step']}, busy "
         f"{prof_fused['busy']}); mid unfused wall {mid_wall:.3f} s ({mid_steps} steps, "
         f"ops/step {prof_unfused['ops_per_step']}, busy {prof_unfused['busy']}); "
-        f"large fused wall {large_wall:.3f} s; card {smi}")
+        f"large per-goal wall {large_wall:.3f} s ({large_steps} steps, ops/step "
+        f"{prof_large['ops_per_step']}, busy {prof_large['busy']}); xl250 "
+        f"{len(XL_GOALS)} goals {xl_wall:.3f} s; frontier masks checked "
+        f"{frontier_checked}; card {smi}")
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
+        device_ms = prof_large["per_launch"].get(name)
+        if device_ms is None:
+            device_ms = prof_fused["per_launch"].get(name)
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": fused_counts[name],
-                     "launches_unfused": mid_counts[name],
-                     "launches_large": large_counts[name],
-                     "launches_per_mid_step": fused_counts[name] / max(fused_steps, 1),
+                     "replaces": replaces, "launches": large_counts[name],
+                     "launches_per_large_step": large_counts[name] / max(large_steps, 1),
+                     "launches_fused_mid": fused_counts[name],
+                     "launches_unfused_mid": mid_counts[name],
+                     "launches_xl250": xl_counts[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "device_ms_per_launch": device_ms[name],
+                     "device_ms_per_launch": device_ms,
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": r["library_ms"]})
     # K12's device time is the whole fused solve's (its eager per-goal
@@ -377,6 +530,7 @@ def main(argv) -> int:
         line.append({"name": name, "route": "cuda_graph", "source": source,
                      "replaces": replaces, **graph_results[name],
                      "bound_by": "bytes", "library_ms": None})
+    log(f"total {time.monotonic() - t_start:.1f} s")
     if rehearse:
         log(json.dumps({"kernels": line}))
         log("rehearsal complete on the CPU: no result line")
@@ -387,6 +541,78 @@ def main(argv) -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def per_goal_report(run, log, label):
+    """Per goal of a per-goal run: chunks, buckets, replays (gated off),
+    follow-ups (wasted), host fetches and wall; returns the run's totals."""
+    tot = dict(steps=0, chunks=0, compacted_chunks=0, replays=0, gated_off=0,
+               speculative=0, wasted=0, fetches=0, skipped=0)
+    for g in run.goal_results:
+        chunks = g.chunks or []
+        buckets = sorted({c["bucket"] for c in chunks if c["bucket"] is not None})
+        compacted = sum(c["bucket"] is not None for c in chunks)
+        log(f"  {label} {g.name:38s} chunks={len(chunks):2d} compacted={compacted:2d} "
+            f"buckets={buckets} steps={g.steps:3d} replays={g.replays:3d} "
+            f"(gated off {g.replays - g.steps:3d}) follow-ups={g.chunks_speculative} "
+            f"(wasted {g.chunks_wasted}) fetches={g.fetches} wall={g.duration_s:.3f}s "
+            f"fetch wait={g.fetch_wait_s:.3f}s")
+        tot["steps"] += g.steps
+        tot["chunks"] += len(chunks)
+        tot["compacted_chunks"] += compacted
+        tot["replays"] += g.replays
+        tot["gated_off"] += g.replays - g.steps
+        tot["speculative"] += g.chunks_speculative
+        tot["wasted"] += g.chunks_wasted
+        tot["fetches"] += g.fetches
+        tot["skipped"] += g.chunks is None
+    return tot
+
+
+def compare_card_cpu(card, cpu, same_placement, log, label, cpu_s):
+    """Per goal the same satisfied flags, steps and actions, and the same
+    placement; on a difference, the first goal and chunk that differ."""
+    rows = [[(g.satisfied_before, g.satisfied_after, g.steps, g.actions_applied)
+             for g in run.goal_results] for run in (card, cpu)]
+    same = same_placement(card, cpu)
+    log(f"{label} card vs CPU plain path ({cpu_s:.1f} s on the CPU): per-goal rows equal "
+        f"{rows[0] == rows[1]}, identical placement {same}")
+    if rows[0] != rows[1] or not same:
+        for a, b in zip(card.goal_results, cpu.goal_results):
+            ca, cb = a.chunks or [], b.chunks or []
+            keys = ("steps", "actions", "bucket", "ns", "nd", "speculative", "num_active")
+            for i, (x, y) in enumerate(zip(ca, cb)):
+                if [x[k] for k in keys] != [y[k] for k in keys]:
+                    log(f"  first differing chunk: {a.name} chunk {i}: card "
+                        f"{[x[k] for k in keys]} vs CPU {[y[k] for k in keys]}")
+                    break
+            else:
+                if len(ca) != len(cb) or (a.steps, a.actions_applied) != \
+                        (b.steps, b.actions_applied):
+                    log(f"  first differing goal: {a.name}: card {len(ca)} chunks, "
+                        f"CPU {len(cb)}")
+                else:
+                    continue
+            break
+        raise RuntimeError(f"{label}: the card and the CPU plain path disagree")
+
+
+def check_recorded_frontiers(torch, gk, inputs, log):
+    """K9's frontier mask on the card against the plain twin on CPU copies of
+    the same inputs, for every mask the large run's warm-up computed (each
+    band goal's first fetched mask among them).  Exact."""
+    if not inputs or inputs[0][0].device.type == "cpu":
+        return len(inputs)
+    for i, args in enumerate(inputs):
+        got, count = gk.frontier_mask(*args)
+        ref, ref_count = gk.frontier_mask_plain(
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        if not (torch.equal(got.cpu(), ref) and torch.equal(count.cpu(), ref_count)):
+            raise RuntimeError(f"K9 frontier mask disagrees with the plain version on "
+                               f"recorded input {i}")
+    log(f"K9 frontier_active: {len(inputs)} masks of the large run equal the plain "
+        "version on the CPU (exact)")
+    return len(inputs)
 
 
 def profile_mid(torch, run, wall, steps, label, log):
@@ -445,6 +671,33 @@ def drive_fused(opt, model, goals, options, cache):
             model, options, specs, BalancingConstraint.default(),
             cgen.default_num_sources(model), cgen.default_num_dests(model), max_steps,
             len(specs), False, lambda spec: 0, cache)
+    return types.SimpleNamespace(model=final, goal_results=results)
+
+
+def drive_per_goal(opt, model, goals, options, cache, kw):
+    """``optimize(fused=True, **kw)``'s sequential per-goal driver at the
+    defaults the runs use (default widths, step budget and chunk lengths),
+    without the before/after statistics: with ``cache`` the goals' step
+    graphs replay, with None the same gated steps run eagerly."""
+    import contextlib
+    import inspect
+    import types
+    from cruise_control_tpu_torch.analyzer import candidates as cgen
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
+    if kw.get("pipeline") is not False:
+        raise ValueError("drive_per_goal mirrors optimize(pipeline=False)")
+    specs = goals_by_priority(goals)
+    options = options if options is not None else OptimizationOptions.none(model)
+    max_steps = inspect.signature(opt.optimize).parameters["max_steps_per_goal"].default
+    b = model.num_brokers
+    with cache.lock if cache is not None else contextlib.nullcontext():
+        final, results, _ = opt._optimize_per_goal(
+            model, options, specs, BalancingConstraint.default(),
+            cgen.default_num_sources(model), cgen.default_num_dests(model), max_steps,
+            32 if b >= 500 else None, b > opt._FRONTIER_DENSE_MIN, False,
+            lambda *a: 0, cache)
     return types.SimpleNamespace(model=final, goal_results=results)
 
 
@@ -711,9 +964,9 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         library_ms=None, bound_ms=bound_ms(K * 10))
     log(f"K2 best_per_segment: K={K} S={S} ok (exact)")
 
-    # ---- K3: prefix cut.  Exact, except in segments holding a position
-    # whose running total lies within 2 eps of a bound (the kernel's
-    # segmented scan rounds differently from the global cumsum).
+    # ---- K3: prefix cut.  Exact (the kernel cuts on the plain version's
+    # running totals, ``ordered_cumsum``); segments holding a position whose
+    # running total lies within 2 eps of a bound are counted.
     k3 = wrappers["prefix_cut"]
     cap = captured["prefix_cut"]
     K, C, S = cap[0].shape[0], cap[2].shape[1], cap[7]
@@ -735,18 +988,15 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     for args in (cap, k3_fixture(8192, 64, 8), k3_fixture(8192, 64, 16)):
         got = k3(*args)
         ref = gk.prefix_cut_admit_plain(*args)
-        near_seg = _near_bound_segments(torch, gk, *args)
-        bad = (got != ref) & ~near_seg[args[1].long()]
-        if bad.any():
-            raise RuntimeError(f"K3 disagrees at {int(bad.sum())} positions "
-                               "away from a band edge")
-        near_total += int(near_seg.sum())
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"K3 disagrees at {int((got != ref).sum())} positions")
+        near_total += int(_near_bound_segments(torch, gk, *args).sum())
     out["prefix_cut"] = dict(
         max_abs_err=0.0, ms=time_ms(torch, lambda: k3(*cap)),
         plain_ms=time_ms(torch, lambda: gk.prefix_cut_admit_plain(*cap)),
         library_ms=None, bound_ms=bound_ms(K * 10 + int(cap[3].sum()) * 4 * C + S * 12 * C))
-    log(f"K3 prefix_cut: K={K} C={C} S={S} ok; segments with a position within "
-        f"2 eps of a bound: {near_total}")
+    log(f"K3 prefix_cut: K={K} C={C} S={S} ok (exact); segments with a position "
+        f"within 2 eps of a bound: {near_total}")
 
     # ---- K7: apply.  Exact.
     k7 = wrappers["apply_actions"]
@@ -885,6 +1135,183 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
     return out
+
+
+# K11 cases: (steps, budget, last_n, satisfied at exit, offline at exit,
+# gate) — capped, converged, satisfied, offline, host-decided.
+GATE_CASES = [(4, 4, 3, False, False, True), (2, 4, 0, False, False, True),
+              (4, 4, 0, True, False, True), (4, 4, 2, True, False, True),
+              (4, 4, 2, True, True, True), (0, 8, 0, True, False, False),
+              (3, 8, 5, False, True, False)]
+
+
+def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
+    """This slice's kernels against their plain versions: K5b on the captured
+    batch (and with a dead broker, for rack, topic and both), K9's sweep on
+    the full stack for the mid snapshot, the second mid snapshot (a dead
+    broker) and the large rung, K9's frontier mask for every band goal of
+    those clusters (against the plain version on CPU copies of the inputs:
+    the CPU cumsum is the order the kernel reproduces), K11 on its case
+    table.  All exact."""
+    from cruise_control_tpu_torch.analyzer import optimizer as opt
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS, goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    from cruise_control_tpu_torch.model.tensor_model import BrokerState
+
+    out = {}
+    con = BalancingConstraint.default()
+    specs = tuple(goals_by_priority(STACK))
+
+    def on_cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+    # ---- K5b: structural accepts.  Exact.
+    k5b = wrappers["structural_accepts"]
+    prevs, model, arrays, cand, con0 = captured["structural_accepts"]
+    rack, topic = (GOAL_SPECS["RackAwareGoal"],), (GOAL_SPECS["TopicReplicaDistributionGoal"],)
+    vetoes = 0
+    for m in (model, model.set_broker_state(2, BrokerState.DEAD)):
+        arr = BrokerArrays.from_model(m, with_topic_counts=True)
+        for prev in (rack, topic, rack + topic):
+            got = k5b(prev, m, arr, cand, con)
+            ref = gk.structural_accepts_plain(prev, m, arr, cand, con)
+            if not torch.equal(got, ref):
+                raise RuntimeError(f"K5b disagrees with the plain version on "
+                                   f"{[p.kind for p in prev]} ({int((got != ref).sum())} "
+                                   "lanes)")
+            vetoes += int((~ref).sum())
+    out["structural_accepts"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: k5b(prevs, model, arrays, cand, con0)),
+        plain_ms=time_ms(torch, lambda: gk.structural_accepts_plain(prevs, model, arrays,
+                                                                    cand, con0)),
+        library_ms=None, bound_ms=bound_ms(_k5b_bytes(prevs, model, cand)))
+    log(f"K5b structural_accepts: K={cand.k} captured {[p.kind for p in prevs]}; rack, "
+        f"topic, both x healthy/dead ok (exact), {vetoes} vetoes")
+
+    # ---- K9, sweep.  Exact booleans.
+    k9 = wrappers["stack_sweep"]
+    for label, m in models.items():
+        arr = BrokerArrays.from_model(m, with_topic_counts=True)
+        got = k9(specs, m, arr, con)
+        ref = gk.stack_satisfied_plain(specs, m, arr, con)
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise RuntimeError(f"K9 sweep disagrees with the plain version on {label}")
+        log(f"K9 stack_sweep {label}: satisfied {got[0].int().tolist()}, offline "
+            f"{bool(got[1][0])} (exact)")
+    large = models["large"]
+    arr_l = BrokerArrays.from_model(large, with_topic_counts=True)
+    out["stack_sweep"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: k9(specs, large, arr_l, con)),
+        plain_ms=time_ms(torch, lambda: gk.stack_satisfied_plain(specs, large, arr_l, con)),
+        library_ms=None, bound_ms=bound_ms(_k9_bytes(specs, large)))
+
+    # ---- K9, frontier mask.  Exact against the plain version on the CPU.
+    kf = wrappers["frontier_active"]
+    band = [s for s in specs if gk.is_band_kind(s)]
+    n = card_diff = 0
+    for label, m in models.items():
+        arr = BrokerArrays.from_model(m)
+        for spec in band:
+            inp = gk._frontier_inputs(spec, m, arr, con)
+            got, count = kf(*inp)
+            ref, ref_count = gk.frontier_mask_plain(*on_cpu(inp))
+            if not (torch.equal(got.cpu(), ref) and torch.equal(count.cpu(), ref_count)):
+                raise RuntimeError(f"K9 frontier mask disagrees with the plain version on "
+                                   f"{label} {spec.name}")
+            card_diff += int((gk.frontier_mask_plain(*inp)[0].cpu() != ref).sum())
+            n += 1
+    inp_l = gk._frontier_inputs(GOAL_SPECS["ReplicaDistributionGoal"], large,
+                                BrokerArrays.from_model(large), con)
+    B = large.num_brokers
+    out["frontier_active"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: kf(*inp_l)),
+        plain_ms=time_ms(torch, lambda: gk.frontier_mask_plain(*inp_l)), library_ms=None,
+        bound_ms=bound_ms(B * 18 + B + 4))
+    log(f"K9 frontier_active: {n} masks (band goals x mid, second, large) ok (exact); the "
+        f"plain version run on the card differs from it on the CPU in {card_diff} brokers")
+
+    # ---- K11: chunk gate.  Exact.
+    kg = wrappers["chunk_gate"]
+    dev = large.device
+
+    def gate_args(case):
+        steps, budget, last_n, sat, off, gate = case
+        return (torch.tensor([steps, 9, last_n, 2, 5, 77, budget], dtype=torch.int32,
+                             device=dev),
+                torch.tensor([1], dtype=torch.int32, device=dev),
+                torch.tensor([sat], device=dev), torch.tensor([off], device=dev),
+                torch.tensor([12], dtype=torch.int32, device=dev),
+                torch.full((11,), -7, dtype=torch.int32, device=dev), True, gate, 16)
+
+    for case in GATE_CASES:
+        a, b = gate_args(case), gate_args(case)
+        kg(*a)
+        opt.chunk_gate_plain(*b)
+        for x, y in zip(a[:6], b[:6]):
+            if not torch.equal(x, y):
+                raise RuntimeError(f"K11 disagrees with the plain version on case {case}")
+    a = gate_args(GATE_CASES[0])
+    out["chunk_gate"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: kg(*a)),
+        plain_ms=time_ms(torch, lambda: opt.chunk_gate_plain(*a)), library_ms=None,
+        bound_ms=bound_ms(8 * 4 + 2 + 4 + 11 * 4 + 8 * 4))
+    log(f"K11 chunk_gate: {len(GATE_CASES)} cases ok (exact)")
+    for name in ("structural_accepts", "stack_sweep", "frontier_active", "chunk_gate"):
+        r = out[name]
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
+    return out
+
+
+def _k5b_bytes(prevs, model, cand):
+    """Bytes K5b must move: each lane's action, replica, endpoints and
+    partner (20) and its flag written (1); the rack branch's replica
+    partitions and brokers, partition rows and broker racks, the topic
+    branch's replica topics, (topic, broker) counts and topic bands, each
+    read once, whole."""
+    R, B, T = model.num_replicas_padded, model.num_brokers, model.num_topics
+    kinds = {p.kind for p in prevs}
+    tables = 0
+    if "rack" in kinds:
+        tables += R * 8 + model.partition_replicas.numel() * 4 + B * 4
+    if "topic_replica_distribution" in kinds:
+        tables += R * 4 + T * B * 4 + T * 8
+    return cand.k * 21 + tables
+
+
+def _k9_bytes(specs, model):
+    """Bytes K9's sweep must move: the alive and valid flags, each broker
+    column the stack's kinds read (replica and leader counts, the load and
+    capacity columns, potential NW_OUT, leader bytes-in), the rack goal's
+    replica brokers, partitions and sibling rows and the broker racks, the
+    topic goal's [T, B] counts, every replica's offline and valid flags,
+    each read once; G + 1 flags written."""
+    R, B, T = model.num_replicas_padded, model.num_brokers, model.num_topics
+    cols = set()
+    extra = 0
+    for s in specs:
+        if s.is_hard:
+            cols.add("rc")
+        if s.kind in ("capacity", "resource_distribution"):
+            cols |= {f"load{s.resource}", f"cap{s.resource}"}
+        elif s.kind == "potential_nw_out":
+            cols |= {"pnw", "cap2"}
+        elif s.kind in ("replica_capacity", "replica_distribution"):
+            cols.add("rc")
+        elif s.kind == "leader_replica_distribution":
+            cols.add("lc")
+        elif s.kind == "leader_bytes_in":
+            cols.add("lbi")
+        elif s.kind == "rack" and "rack" not in cols:
+            cols.add("rack")
+            extra += R * 8 + model.partition_replicas.numel() * 4 + B * 4
+        elif s.kind == "topic_replica_distribution" and "topic" not in cols:
+            cols.add("topic")
+            extra += T * B * 4
+    per_broker = len(cols - {"rack", "topic"})
+    return 2 * B + 4 * B * per_broker + extra + 2 * R + len(specs) + 1
 
 
 def _k1_bytes(valid, lead, B):

@@ -182,15 +182,18 @@ def _finish_move_legs(model, arrays, options, replica, dest, ok) -> Candidates:
 
 
 def _cross_move_legs(spec, model, arrays, constraint, options, num_sources: int,
-                     num_dests: int, relevance=None, bands=None):
-    """(replica, dest, ok), each [S·D] — the top-S × top-D cross legs."""
+                     num_dests: int, relevance=None, bands=None, active=None):
+    """(replica, dest, ok), each [S·D] — the top-S × top-D cross legs;
+    ``active`` (the frontier mask, bool[B]) restricts the destinations."""
     if relevance is None:
         relevance = kernels.source_replica_relevance(spec, model, arrays,
                                                      constraint, bands=bands)
     rel_vals, src_replicas = order.top_k(relevance, num_sources)
     room = kernels.dest_room(spec, model, arrays, constraint, bands=bands)
-    room = torch.where(_recv_ok(arrays, options), room,
-                       torch.full((), -math.inf, device=room.device))
+    ninf = torch.full((), -math.inf, device=room.device)
+    room = torch.where(_recv_ok(arrays, options), room, ninf)
+    if active is not None:
+        room = torch.where(active, room, ninf)
     _, dest_brokers = order.top_k(room, num_dests)
     replica = _repeat_each(src_replicas, num_dests)
     dest = dest_brokers.repeat(num_sources)
@@ -208,10 +211,11 @@ def move_candidates(spec, model, arrays, constraint, options, num_sources: int,
 
 
 def _matched_move_legs(spec, model, arrays, constraint, options, num_out: int,
-                       relevance=None, bands=None):
+                       relevance=None, bands=None, active=None):
     """(replica, dest, ok), each [2·num_out] — surplus replicas of
     over-band brokers matched onto receivers' room by a prefix-sum
-    transport (replica-count distribution)."""
+    transport (replica-count distribution); under a frontier (``active``)
+    only active brokers shed or receive."""
     B = model.num_brokers
     R = model.num_replicas_padded
     num_out = max(1, min(num_out, R))
@@ -226,6 +230,9 @@ def _matched_move_legs(spec, model, arrays, constraint, options, num_out: int,
     room_n = torch.where(recv_ok, torch.floor(torch.clamp(upper - metric, min=0.0)),
                          torch.zeros((), device=dev)).to(torch.int32)
     room_n = torch.where(src_n > 0, 0, room_n)
+    if active is not None:
+        src_n = torch.where(active, src_n, 0)
+        room_n = torch.where(active, room_n, 0)
 
     rb = model.replica_broker
     key = torch.where(model.replica_valid, rb, B)
@@ -334,18 +341,22 @@ def matched_topic_candidates(spec, model, arrays, constraint, options, num_out: 
 
 def combined_move_candidates(spec, model, arrays, constraint, options,
                              cross_sources: int, num_dests: int, num_matched: int = 0,
-                             relevance=None, bands=None) -> Candidates:
-    """One move batch: the cross legs plus the goal's matched legs."""
+                             relevance=None, bands=None, active=None) -> Candidates:
+    """One move batch: the cross legs plus the goal's matched legs.
+    ``active`` (the frontier mask) restricts sources and destinations of
+    the cross and replica-count legs; topic legs never see it (topic goals
+    are not band kinds, so the frontier never engages there)."""
     if relevance is None:
         relevance = kernels.source_replica_relevance(spec, model, arrays,
                                                      constraint, bands=bands)
     replica, dest, ok = _cross_move_legs(
         spec, model, arrays, constraint, options, cross_sources, num_dests,
-        relevance=relevance, bands=bands)
+        relevance=relevance, bands=bands, active=active)
     legs = None
     if num_matched > 0 and spec.kind == "replica_distribution":
         legs = _matched_move_legs(spec, model, arrays, constraint, options,
-                                  num_matched, relevance=relevance, bands=bands)
+                                  num_matched, relevance=relevance, bands=bands,
+                                  active=active)
     elif num_matched > 0 and spec.kind == "topic_replica_distribution":
         legs = _matched_topic_legs(spec, model, arrays, constraint, options,
                                    num_matched, relevance=relevance)
@@ -422,8 +433,9 @@ def intra_swap_candidates(*args, **kwargs) -> Candidates:
 
 
 def swap_candidates(spec, model, arrays, constraint, options, num_out: int,
-                    num_in: int, relevance=None, bands=None) -> Candidates:
-    """K = S_out·S_in inter-broker replica-SWAP candidates."""
+                    num_in: int, relevance=None, bands=None, active=None) -> Candidates:
+    """K = S_out·S_in inter-broker replica-SWAP candidates; ``active`` (the
+    frontier mask) restricts the swap-in brokers."""
     if relevance is None:
         relevance = kernels.source_replica_relevance(spec, model, arrays,
                                                      constraint, bands=bands)
@@ -434,6 +446,8 @@ def swap_candidates(spec, model, arrays, constraint, options, num_out: int,
     recv_ok = arrays.alive & ~options.broker_excluded_replica_move
     ninf = torch.full((), -math.inf, device=dev)
     room = torch.where(recv_ok, room, ninf)
+    if active is not None:
+        room = torch.where(active, room, ninf)
     metric_res = spec.resource if spec.resource >= 0 else 3
     size = model.replica_load()[:, metric_res]
     size_scale = size.max().clamp(min=1e-9)

@@ -18,14 +18,21 @@ kinds of the default stack (``rack``, ``replica_capacity``, ``capacity``,
   candidate-generation rankings.
 - ``goal_masks`` — per-candidate score and eligibility in one pass (K5,
   ``csrc/goal_masks.cu``), with the plain twin ``goal_masks_plain``.
-- ``frontier_active`` — the band goal's active broker set (the packed
-  ``PACKED_NUM_ACTIVE`` slot).
+- ``stack_satisfied`` — every goal's satisfied flag and the offline flag in
+  one pass (K9 sweep, ``csrc/stack_sweep.cu``), with the plain twin
+  ``stack_satisfied_plain``.
+- ``structural_accepts`` — the vetoes of structural previous goals (K5b,
+  ``csrc/goal_masks.cu``), with the plain twin ``structural_accepts_plain``.
+- ``frontier_active`` / ``frontier_mask`` — the band goal's active broker
+  set (K9 frontier, ``csrc/frontier_active.cu``), with the plain twin
+  ``frontier_mask_plain``.
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
   ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -154,8 +161,9 @@ def limits(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
     if kind == "resource_distribution":
         res = spec.resource
         bp = constraint.balance_percentage(res)
-        total_util = torch.where(arrays.alive, arrays.load[:, res], 0.0).sum()
-        total_cap = torch.where(arrays.alive, arrays.capacity[:, res], 0.0).sum().clamp(min=1e-9)
+        total_util = order.ordered_sum(torch.where(arrays.alive, arrays.load[:, res], 0.0))
+        total_cap = order.ordered_sum(
+            torch.where(arrays.alive, arrays.capacity[:, res], 0.0)).clamp(min=1e-9)
         avg_pct = total_util / total_cap
         low = constraint.low_utilization_threshold[res]
         gated = avg_pct <= low
@@ -174,7 +182,7 @@ def limits(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         return torch.floor(avg * (2.0 - bp)).expand(B), torch.ceil(avg * bp).expand(B)
     if kind == "leader_bytes_in":
         bp = _margin_pct(constraint.resource_balance_threshold[Resource.NW_IN])
-        avg = torch.where(arrays.alive, arrays.leader_bytes_in, 0.0).sum() \
+        avg = order.ordered_sum(torch.where(arrays.alive, arrays.leader_bytes_in, 0.0)) \
             / arrays.num_alive.to(torch.float32)
         return zero, (avg * bp).expand(B)
     if kind in ("rack", "topic_replica_distribution"):
@@ -200,6 +208,106 @@ def goal_satisfied(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArra
                    constraint: BalancingConstraint) -> torch.Tensor:
     """bool scalar tensor (no host sync)."""
     return ~violated_brokers(spec, model, arrays, constraint).any()
+
+
+# K9 sweep goal kinds (the ``kind`` column of the parameter table).
+_SWEEP_KINDS = ("capacity", "potential_nw_out", "replica_capacity",
+                "resource_distribution", "replica_distribution",
+                "leader_replica_distribution", "leader_bytes_in", "rack",
+                "topic_replica_distribution")
+
+
+def _sweep_params(spec: GoalSpec, constraint: BalancingConstraint):
+    """(i32 [kind, resource, is_hard], f32 [eps, a, b, c]) of one goal: the
+    constants ``limits`` and ``violated_brokers`` use, as float32 (torch
+    converts a Python scalar to the tensor's float32 before the op)."""
+    kind = spec.kind
+    res = spec.resource
+    a = b = c = 0.0
+    if kind == "capacity":
+        a = constraint.capacity_threshold[res]
+    elif kind == "potential_nw_out":
+        res = Resource.NW_OUT
+        a = constraint.capacity_threshold[res]
+    elif kind == "replica_capacity":
+        a = float(constraint.max_replicas_per_broker)
+    elif kind == "resource_distribution":
+        bp = constraint.balance_percentage(res)
+        a, b, c = bp, 2.0 - bp, constraint.low_utilization_threshold[res]
+    elif kind in ("replica_distribution", "leader_replica_distribution"):
+        bp = _margin_pct(constraint.replica_count_balance_threshold
+                         if kind == "replica_distribution"
+                         else constraint.leader_replica_count_balance_threshold)
+        a, b = bp, 2.0 - bp
+    elif kind == "leader_bytes_in":
+        a = _margin_pct(constraint.resource_balance_threshold[Resource.NW_IN])
+    elif kind == "topic_replica_distribution":
+        bp = _margin_pct(constraint.topic_replica_count_balance_threshold)
+        a, b = bp, 2.0 - bp
+    ints = [_SWEEP_KINDS.index(kind), max(int(res), 0), int(spec.is_hard)]
+    return ints, [_metric_epsilon(spec), a, b, c]
+
+
+@functools.lru_cache(maxsize=64)
+def _sweep_table(specs, constraint: BalancingConstraint, device: torch.device):
+    """The K9 parameter table of ``specs`` on ``device``, uploaded once per
+    (stack, constraint)."""
+    rows = [_sweep_params(s, constraint) for s in specs]
+    ints = torch.tensor([r[0] for r in rows], dtype=torch.int32).reshape(-1, 3)
+    floats = torch.tensor([r[1] for r in rows], dtype=torch.float32).reshape(-1, 4)
+    return ints.to(device), floats.to(device)
+
+
+def stack_satisfied_plain(specs, model: TensorClusterModel, arrays: BrokerArrays,
+                          constraint: BalancingConstraint):
+    """(bool[G] every goal's ``goal_satisfied``, bool[1] offline replicas
+    remain) — the JAX package's ``_stack_satisfied``
+    (``optimizer.py:2332-2337``)."""
+    dev = arrays.load.device
+    sat = torch.stack([goal_satisfied(s, model, arrays, constraint) for s in specs]) \
+        if specs else torch.zeros((0,), dtype=torch.bool, device=dev)
+    off = (model.replica_offline_now() & model.replica_valid).any().reshape(1)
+    return sat, off
+
+
+@cuda.counted("stack_sweep")
+def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
+                    constraint: BalancingConstraint):
+    """K9, sweep.  Replaces ``cruise_control_tpu/analyzer/optimizer.py:2332``
+    ``_stack_satisfied`` (``goals/kernels.py:237`` ``goal_satisfied`` of G
+    goals, plus ``any_offline``): ``(sat bool[G], any_offline bool[1])``.
+    With G = 1 it gives a chunk's satisfied-at-entry and -exit flags.
+    Bound on the card: bytes (the broker rows once per goal; the rack
+    goal's replica and sibling rows; the topic goal's [T, B] counts; the
+    offline flags once).  CPU tensors take ``stack_satisfied_plain``;
+    CUDA tensors launch one block per goal, with a parameter table of
+    (kind, resource, is_hard, epsilon, thresholds), and one block for the
+    offline flag: band kinds reduce their alive sums in a fixed order and
+    test every broker against its band, the rack goal walks the replicas'
+    siblings, the topic goal reads the topic counts.  Exact booleans."""
+    specs = tuple(specs)
+    for s in specs:
+        require_supported(s)
+    dev = arrays.load.device
+    cuda.record("stack_sweep", (specs, model, arrays, constraint))
+    if cuda.on_cpu(arrays.load):
+        return stack_satisfied_plain(specs, model, arrays, constraint)
+    ints, floats = _sweep_table(specs, constraint, dev)
+    kinds = {s.kind for s in specs}
+    tbc = topic_counts(model, arrays).contiguous() \
+        if "topic_replica_distribution" in kinds else None
+    sat = torch.empty((len(specs),), dtype=torch.bool, device=dev)
+    off = torch.empty((1,), dtype=torch.bool, device=dev)
+    cuda.launch("stack_sweep", len(specs), model.num_brokers, model.num_replicas_padded,
+                model.num_topics, model.max_rf, ints, floats, arrays.alive, arrays.valid,
+                arrays.replica_count, arrays.leader_count, arrays.load.contiguous(),
+                arrays.capacity.contiguous(), arrays.potential_nw_out.contiguous(),
+                arrays.leader_bytes_in.contiguous(), arrays.num_alive.reshape(1), tbc,
+                model.replica_broker, model.replica_valid, model.replica_partition,
+                model.partition_replicas, model.broker_rack, model.replica_offline_now(),
+                sat, off)
+    stack_satisfied.launches += 1
+    return sat, off
 
 
 def _metric_epsilon(spec: GoalSpec) -> float:
@@ -354,6 +462,59 @@ def accepts(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
     src_ok = (src_after >= lower[cand.src]) | (d_src >= 0) | (~arrays.alive[cand.src])
     dest_low_ok = (dest_after >= lower[cand.dest]) | (d_dest >= 0)
     return dest_ok & src_cap_ok & src_ok & dest_low_ok
+
+
+_STRUCTURAL_KINDS = ("rack", "topic_replica_distribution")
+
+
+def structural_accepts_plain(prev_specs, model: TensorClusterModel, arrays: BrokerArrays,
+                             cand: Candidates, constraint: BalancingConstraint):
+    """bool[K] — ``accepts`` of every spec in ``prev_specs``, ANDed."""
+    out = torch.ones((cand.k,), dtype=torch.bool, device=cand.replica.device)
+    for spec in prev_specs:
+        out = out & accepts(spec, model, arrays, cand, constraint)
+    return out
+
+
+@cuda.counted("structural_accepts")
+def structural_accepts(prev_specs, model: TensorClusterModel, arrays: BrokerArrays,
+                       cand: Candidates, constraint: BalancingConstraint) -> torch.Tensor:
+    """K5b.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:464``
+    ``accepts`` of the structural previous goals (``rack``,
+    ``topic_replica_distribution``; the band kinds' vetoes are the channel
+    budgets of the selection): bool[K], False where an earlier goal vetoes
+    the candidate.  Bound on the card: bytes (a lane's action, replica,
+    endpoints and partner, its sibling rows and broker racks or its two
+    topic-count rows).  CPU tensors take ``structural_accepts_plain``;
+    CUDA tensors launch one thread per lane (``csrc/goal_masks.cu``,
+    ``cc_structural_accepts``) that walks the partition's siblings for the
+    rack test and reads the (topic, broker) counts for the topic test, for
+    moves and both legs of swaps.  Exact booleans."""
+    kinds = {s.kind for s in prev_specs}
+    if not kinds <= set(_STRUCTURAL_KINDS):
+        raise ValueError(f"structural_accepts takes {_STRUCTURAL_KINDS}, got {sorted(kinds)}")
+    dev = cand.replica.device
+    k = cand.k
+    for name in ("action_type", "replica", "src", "dest", "dest_replica"):
+        cuda.check(getattr(cand, name), name, torch.int32, (k,), dev)
+    cuda.record("structural_accepts", (tuple(prev_specs), model, arrays, cand, constraint))
+    if cuda.on_cpu(cand.replica):
+        return structural_accepts_plain(prev_specs, model, arrays, cand, constraint)
+    topic = "topic_replica_distribution" in kinds
+    tbc = lower_t = upper_t = None
+    if topic:
+        tbc = topic_counts(model, arrays).contiguous()
+        lower_t, upper_t = _topic_limits(model, arrays, constraint)
+    out = torch.empty((k,), dtype=torch.bool, device=dev)
+    if k > 0:
+        cuda.launch("structural_accepts", int("rack" in kinds), int(topic), k,
+                    model.num_brokers, model.max_rf, cand.action_type, cand.replica,
+                    cand.src, cand.dest, cand.dest_replica, model.replica_topic,
+                    model.replica_partition, model.replica_broker,
+                    model.partition_replicas, model.broker_rack, tbc, lower_t, upper_t,
+                    out)
+        structural_accepts.launches += 1
+    return out
 
 
 def score(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
@@ -620,22 +781,31 @@ def _topic_limits(model: TensorClusterModel, arrays: BrokerArrays,
 # Frontier population (the packed NUM_ACTIVE slot)
 # ---------------------------------------------------------------------------
 
-def frontier_active(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
-                    constraint: BalancingConstraint) -> torch.Tensor:
-    """bool[B] — ``cruise_control_tpu/analyzer/goals/kernels.py:842``: the
-    out-of-band and dead-with-replicas brokers, the biggest pull donors
-    until their surplus covers twice the under-band deficit, and the
-    roomiest receivers until their room covers twice the remaining
-    surplus.  Band kinds only."""
+def _frontier_inputs(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                     constraint: BalancingConstraint):
+    """(metric, lower, upper, alive, valid, replica_count, eps): the broker
+    rows ``frontier_mask`` reads for a band goal."""
     B = model.num_brokers
-    dev = arrays.load.device
     metric = broker_metric(spec, model, arrays, constraint)
     lower, upper = limits(spec, model, arrays, constraint)
-    eps = _metric_epsilon(spec)
-    alive = arrays.alive
+    return (metric.contiguous(), lower.expand(B).contiguous(),
+            upper.expand(B).contiguous(), arrays.alive, arrays.valid,
+            arrays.replica_count, float(np.float32(_metric_epsilon(spec))))
+
+
+def frontier_mask_plain(metric, lower, upper, alive, valid, replica_count, eps: float):
+    """(bool[B], i32[1] its population) — ``cruise_control_tpu/analyzer/
+    goals/kernels.py:842`` ``frontier_active`` on a band goal's broker rows:
+    the out-of-band and dead-with-replicas brokers, the biggest pull donors
+    until their surplus covers twice the under-band deficit, and the
+    roomiest receivers until their room covers twice the remaining surplus.
+    The totals and running sums are ``ordered_sum`` / ``ordered_cumsum``:
+    the JAX package's rounding, on any device."""
+    B = metric.shape[0]
+    dev = metric.device
     over = alive & (metric > upper + eps)
     under = alive & (metric < lower - eps)
-    dead = (~alive) & arrays.valid & (arrays.replica_count > 0)
+    dead = (~alive) & valid & (replica_count > 0)
     under_exists = under.any()
     target = torch.where(upper >= _BIG, metric, (lower + upper) * 0.5)
     shed_to = torch.where(under_exists, torch.minimum(target, upper), upper)
@@ -643,14 +813,14 @@ def frontier_active(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArr
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     surplus = torch.where(alive, torch.clamp(metric - shed_to, min=0.0), zero)
     surplus = surplus + torch.where(dead, torch.clamp(metric, min=0.0), zero)
-    total_surplus = surplus.sum()
+    total_surplus = order.ordered_sum(surplus)
     deficit = torch.where(under, torch.clamp(lower - metric, min=0.0), zero)
-    total_deficit = deficit.sum()
+    total_deficit = order.ordered_sum(deficit)
 
     def leading(values, limit):
         ordr = order.argsort(-values)
         v_sorted = values[ordr]
-        before = torch.cumsum(v_sorted, dim=0) - v_sorted
+        before = order.ordered_cumsum(v_sorted) - v_sorted
         out = torch.zeros((B,), dtype=torch.bool, device=dev)
         out[ordr] = (before < 2.0 * limit) & (v_sorted > 0.0)
         return out
@@ -659,7 +829,51 @@ def frontier_active(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArr
     room = torch.where(alive & ~over,
                        torch.clamp(torch.clamp(upper, max=_BIG) - metric, min=0.0), zero)
     receivers = leading(room, total_surplus) & (total_surplus > 0.0)
-    return over | under | dead | donor | receivers
+    active = over | under | dead | donor | receivers
+    return active, active.sum(dtype=torch.int32).reshape(1)
+
+
+@cuda.counted("frontier_active")
+def frontier_mask(metric, lower, upper, alive, valid, replica_count, eps: float):
+    """K9, frontier mask.  Replaces ``cruise_control_tpu/analyzer/goals/
+    kernels.py:842`` ``frontier_active``: ``(active bool[B], population
+    i32[1])`` from a band goal's metric, band and broker flags.  Bound on
+    the card: bytes (B rows of 18 bytes read, B + 4 written: a few
+    kilobytes, so a launch costs more than the work).  CPU tensors take
+    ``frontier_mask_plain``; CUDA tensors launch one block that sorts the
+    donor surpluses and the receiver rooms in shared memory on (value
+    descending, index ascending) — the permutation of the stable argsort —
+    and takes the totals and running sums in the order of ``ordered_sum``
+    and ``ordered_cumsum``.  Exact against the plain twin."""
+    B = metric.shape[0]
+    dev = metric.device
+    for name, t in (("metric", metric), ("lower", lower), ("upper", upper)):
+        cuda.check(t, name, torch.float32, (B,), dev)
+    cuda.check(alive, "alive", torch.bool, (B,), dev)
+    cuda.check(valid, "valid", torch.bool, (B,), dev)
+    cuda.check(replica_count, "replica_count", torch.int32, (B,), dev)
+    cuda.record("frontier_active", (metric, lower, upper, alive, valid, replica_count, eps))
+    if cuda.on_cpu(metric):
+        return frontier_mask_plain(metric, lower, upper, alive, valid, replica_count, eps)
+    if not 1 <= B <= FRONTIER_MAX_BROKERS:
+        raise ValueError(f"frontier_active takes 1..{FRONTIER_MAX_BROKERS} brokers, got {B}")
+    active = torch.empty((B,), dtype=torch.bool, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    cuda.launch("frontier_active", B, eps, metric, lower, upper, alive, valid,
+                replica_count, active, count)
+    frontier_mask.launches += 1
+    return active, count
+
+
+# Brokers one frontier-mask block sorts in shared memory.
+FRONTIER_MAX_BROKERS = 8192
+
+
+def frontier_active(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                    constraint: BalancingConstraint) -> torch.Tensor:
+    """bool[B] — the band goal's active broker set (``frontier_mask`` on
+    its broker rows).  Band kinds only."""
+    return frontier_mask(*_frontier_inputs(spec, model, arrays, constraint))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -683,16 +897,17 @@ def _prefix_order(score: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
 def prefix_cut_admit_plain(score, seg, deltas, kept, cum_before, lo, hi,
                            num_segments: int) -> torch.Tensor:
     """The JAX package's ``_sorted_prefix_tables`` + ``prefix_cut_admit``:
-    a global cumsum minus each segment's base gives the running channel
-    totals; a position is admitted when no position up to and including it
-    in its segment fails the band test (the cut the bisection finds)."""
+    a global cumsum (``ordered_cumsum``: the JAX package's rounding) minus
+    each segment's base gives the running channel totals; a position is
+    admitted when no position up to and including it in its segment fails
+    the band test (the cut the bisection finds)."""
     K = score.shape[0]
     dev = score.device
     ordr = _prefix_order(score, seg)
     s_seg = seg[ordr]
     s_deltas = torch.where(kept[ordr][:, None], deltas[ordr],
                            torch.zeros((), dtype=deltas.dtype, device=dev))
-    cs = torch.cumsum(s_deltas, dim=0)
+    cs = order.ordered_cumsum(s_deltas)
     pos = torch.arange(K, dtype=torch.int32, device=dev)
     seg_start = torch.full((num_segments,), K, dtype=torch.int32, device=dev)
     seg_start = seg_start.scatter_reduce_(0, s_seg.long(), pos, "amin")
@@ -724,8 +939,10 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
     (``cum_before`` plus the kept deltas) stay inside [lo, hi] at every
     position.  Bound on the card: bytes (K·(9+4C) + S·12C read, K written).
     CPU tensors take ``prefix_cut_admit_plain``; CUDA tensors sort with two
-    stable ``torch.sort`` calls and launch one block per segment that scans
-    the segment and cuts at its first out-of-band position."""
+    stable ``torch.sort`` calls, take the global running totals with
+    ``ordered_cumsum`` (elementwise adds: the plain version's bits) and
+    launch one block per segment that cuts at its first out-of-band
+    position."""
     dev = score.device
     K = score.shape[0]
     C = deltas.shape[1] if deltas.dim() == 2 else -1
@@ -744,9 +961,12 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
         raise ValueError(f"prefix_cut takes 1..16 channels, got {C}")
     out = torch.zeros((K,), dtype=torch.bool, device=dev)
     if K > 0 and num_segments > 0:
-        ordr = _prefix_order(score, seg).to(torch.int32)
-        cuda.launch("prefix_cut", ordr, seg, deltas, kept, cum_before, lo, hi,
-                    out, K, num_segments, C)
+        ordr = _prefix_order(score, seg)
+        s_deltas = torch.where(kept[ordr][:, None], deltas[ordr],
+                               torch.zeros((), dtype=deltas.dtype, device=dev))
+        cs = order.ordered_cumsum(s_deltas).contiguous()
+        cuda.launch("prefix_cut", ordr.to(torch.int32), seg, cs, kept, cum_before, lo,
+                    hi, out, K, num_segments, C)
         prefix_cut_admit.launches += 1
     return out
 

@@ -5,10 +5,12 @@ The Hopper form of the JAX package's device-resident loops — the
 (``cruise_control_tpu/analyzer/optimizer.py:1572``) and the goal chain of
 ``_stack_fixpoint`` (``:2491``) — and of its program caches
 (``_budget_cache``, ``_stack_cache``).  It has no JAX counterpart as a
-module.  Per (goal, previous goals, constraint, widths, shapes) the cache
-holds one ``torch.cuda.CUDAGraph`` of the gated step
+module.  Per (goal, previous goals, constraint, widths, shapes, frontier
+bucket) the cache holds one ``torch.cuda.CUDAGraph`` of the gated step
 (``optimizer._gated_step``), captured once and replayed a chunk of times
-between host reads; a stack runs its goals' graphs back to back.
+between host reads; a stack runs its goals' graphs back to back, and the
+per-goal frontier driver replays the graph of each chunk's bucket and
+compacted widths.
 
 A captured graph reads and writes fixed addresses, so everything the step
 touches is a static buffer:
@@ -18,7 +20,12 @@ touches is a static buffer:
   (``GraphCache.state``), so a cached graph never replays against an
   earlier snapshot's memory;
 - each graph's step invariants: its own buffers, refreshed before each
-  goal (``StepGraph.load``).
+  goal or chunk (``StepGraph.load``);
+- each bucket's frontier maps (``FrontierInvariants``): one set of buffers
+  per (shape, bucket), shared by every goal's graph of that bucket and
+  written when a chunk that uses a new frontier is dispatched
+  (``GraphCache.frontier``) — in stream order, so a chunk already queued
+  on the previous frontier still reads it.
 
 All graphs capture into one memory pool.  That is safe because they leave
 no live outputs in it (the step writes its results into the static
@@ -28,11 +35,12 @@ one process take turns on the shared buffers and on the pool, whatever
 their shapes.
 
 Retention: the cache keeps the ``MAX_SHAPES`` most recently solved
-shapes.  A shape costs one copy of the model and the options on
-the device and at most one graph per (goal, previous goals, constraint,
-widths); one shape more evicts the least recently used one with all its
-graphs, so a service whose cluster shape drifts holds a bounded set.  The
-evicted graphs' blocks stay in the pool for later captures to reuse.
+shapes.  A shape costs one copy of the model and the options on the
+device, at most one graph per (goal, previous goals, constraint, widths,
+bucket) and one set of frontier buffers per bucket; one shape more evicts
+the least recently used one with all its graphs and frontier buffers, so
+a service whose cluster shape drifts holds a bounded set.  The evicted
+graphs' blocks stay in the pool for later captures to reuse.
 
 The kernel wrappers' launch counters run once per capture while nothing is
 launched, so a capture takes its increments back off and every replay
@@ -48,8 +56,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from cruise_control_tpu_torch.analyzer.state import (CTR_LAST_N, StepInvariants,
-                                                     StepState)
+from cruise_control_tpu_torch.analyzer.state import (CTR_LAST_N, FrontierInvariants,
+                                                     StepInvariants, StepState)
 from cruise_control_tpu_torch.model.tensor_model import STATIC_FIELDS, TENSOR_FIELDS
 from cruise_control_tpu_torch.ops import cuda
 
@@ -94,6 +102,9 @@ class GraphCache:
             collections.OrderedDict()
         # Goal key (its last element is the shape key) -> graph.
         self._graphs: Dict[tuple, StepGraph] = {}
+        # (shape key, bucket) -> [static frontier buffers, the host frontier
+        # they hold].
+        self._frontiers: Dict[tuple, list] = {}
         self._pool = None
         # Held by a solve for as long as it uses the static buffers.
         self.lock = threading.Lock()
@@ -119,10 +130,34 @@ class GraphCache:
                 old, _ = self._states.popitem(last=False)
                 for k in [k for k in self._graphs if k[-1] == old]:
                     del self._graphs[k]
+                for k in [k for k in self._frontiers if k[0] == old]:
+                    del self._frontiers[k]
         else:
             self._states.move_to_end(key)
         st.load(model, options)
         return st
+
+    def frontier(self, st: StepState, fr: FrontierInvariants) -> FrontierInvariants:
+        """The static frontier buffers of ``st``'s shape and ``fr``'s
+        bucket, holding ``fr`` (host tensors), copied in on the stream when
+        they held another frontier."""
+        key = (self.shape_key(st.model, st.options), fr.bucket)
+        entry = self._frontiers.get(key)
+        if entry is None:
+            dev = st.model.device
+            bufs = FrontierInvariants(**{
+                f.name: torch.empty(getattr(fr, f.name).shape,
+                                    dtype=getattr(fr, f.name).dtype, device=dev)
+                for f in dataclasses.fields(fr)})
+            entry = self._frontiers[key] = [bufs, None]
+        if entry[1] is not fr:
+            for f in dataclasses.fields(fr):
+                getattr(entry[0], f.name).copy_(getattr(fr, f.name))
+            entry[1] = fr
+        return entry[0]
+
+    def num_frontiers(self) -> int:
+        return len(self._frontiers)
 
     def get(self, key: tuple) -> Optional[StepGraph]:
         return self._graphs.get(key)
@@ -160,6 +195,7 @@ class GraphCache:
 
     def clear(self) -> None:
         self._graphs.clear()
+        self._frontiers.clear()
         self._states.clear()
         self._pool = None
 
@@ -170,6 +206,8 @@ GRAPHS = GraphCache()
 
 
 def goal_key(spec, prev_specs: Tuple, constraint, num_sources: int, num_dests: int,
-             st: StepState) -> tuple:
-    return (spec, tuple(prev_specs), constraint, num_sources, num_dests,
+             st: StepState, bucket: Optional[int] = None) -> tuple:
+    """The graph key of a goal's gated step: ``bucket`` is the frontier's
+    compacted axis (None: dense); the shape key comes last."""
+    return (spec, tuple(prev_specs), constraint, num_sources, num_dests, bucket,
             GraphCache.shape_key(st.model, st.options))

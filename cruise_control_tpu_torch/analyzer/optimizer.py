@@ -1,15 +1,15 @@
-"""The batched greedy goal optimizer: the dense per-goal path, the fused
-grouped-stack path, and K2.
+"""The batched greedy goal optimizer: the dense path, the fused grouped
+stack, the fused per-goal frontier driver, and K2 and K11.
 
-Counterpart of the dense paths of ``cruise_control_tpu/analyzer/optimizer.py``:
-each goal, in priority order, repeats ``_goal_step`` until no action applies.
-A step builds the candidate batches, scores and masks them (K5), selects a
+Counterpart of ``cruise_control_tpu/analyzer/optimizer.py``: each goal, in
+priority order, repeats ``_goal_step`` until no action applies.  A step
+builds the candidate batches, scores and masks them (K5, K5b), selects a
 conflict-free subset inside every optimized goal's band budgets
 (``select_batched``) and applies it (K7).
 
 - ``optimize(fused=False)``: a Python loop per goal with one host read (the
   step's action count) per step (``_goal_fixpoint``).
-- ``optimize(fused=True)`` at 64 brokers or fewer, or with an explicit
+- ``optimize(fused=True)`` below 100 brokers, or with an explicit
   ``fuse_group_size`` > 1: the JAX package's grouped stack
   (``_stack_fixpoint`` over ``_goal_fixpoint_budget``).  Every step is
   ``_gated_step``, which updates the working state in place and turns into
@@ -19,15 +19,22 @@ conflict-free subset inside every optimized goal's band budgets
   replayed (K8, ``analyzer/graphs.py``), and a stack is its goals' graphs
   replayed back to back (K12) with one fetch of the packed
   ``i32[PACKED_WIDTH, G]`` stats per group.
+- ``optimize(fused=True)`` with ``fuse_group_size=1``, or at 100 brokers
+  or more with ``pipeline=False``: the sequential per-goal path — one K9
+  sweep of the stack's satisfied flags, then ``frontier_fixpoint`` per
+  unsatisfied goal: chunks of gated steps whose selection is compacted
+  onto the goal's active brokers (a power-of-two bucket, one step graph
+  per bucket and widths), speculative follow-up chunks gated on the
+  device by K11, one host fetch per chunk boundary.
 
 ``_best_per_segment`` is kernel K2 (``csrc/best_per_segment.cu``) with the
-plain twin ``_best_per_segment_plain``.
+plain twin ``_best_per_segment_plain``; ``chunk_gate`` is K11
+(``csrc/chunk_gate.cu``) with the plain twin ``chunk_gate_plain``.
 
-Not in this slice (``optimize`` raises): the per-goal fused path (the
-chunked frontier driver, inter-goal pipelining and the stack sweep, which
-the JAX package runs above 64 brokers or with ``fuse_group_size=1``), warm
-starts, meshes, ``segment_steps``, the flight recorder, the repair oracle,
-and multi-round selection (``moves_per_broker_step`` above ``SUBROUNDS``).
+Not in this slice (``optimize`` raises): the inter-goal pipeline (the JAX
+package's default above 64 brokers), warm starts, meshes, the flight
+recorder, the repair oracle, and multi-round selection
+(``moves_per_broker_step`` above ``SUBROUNDS``).
 """
 
 from __future__ import annotations
@@ -54,12 +61,13 @@ from cruise_control_tpu_torch.analyzer.provisioning import (ProvisionResponse, h
                                                             provision_verdict_for_goal)
 from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_DEPTH, CTR_LANES,
                                                      CTR_LAST_N, CTR_REPAIR, CTR_STEPS,
-                                                     CTR_TOTAL, MUTABLE_FIELDS,
+                                                     CTR_TOTAL, CTR_WIDTH, MUTABLE_FIELDS,
                                                      PACKED_ACTIONS, PACKED_AFTER,
                                                      PACKED_BEFORE, PACKED_BISECT_DEPTH,
                                                      PACKED_CAPPED, PACKED_LANES_LIVE,
                                                      PACKED_REPAIR_STEPS, PACKED_STEPS,
-                                                     BrokerArrays, OptimizationOptions,
+                                                     PACKED_WIDTH, BrokerArrays, FrontierInvariants,
+                                                     OptimizationOptions,
                                                      StepInvariants, StepState,
                                                      pow2_bucket, topic_counts)
 from cruise_control_tpu_torch.common.resources import Resource
@@ -224,8 +232,9 @@ def _band_sides(specs: Tuple[GoalSpec, ...], model: TensorClusterModel,
         bp = torch.tensor([constraint.balance_percentage(r) for r in range(4)],
                           dtype=torch.float32, device=dev)
         alive_col = arrays.alive[:, None]
-        total_util = torch.where(alive_col, arrays.load, 0.0).sum(dim=0)
-        total_cap = torch.where(alive_col, arrays.capacity, 0.0).sum(dim=0).clamp(min=1e-9)
+        total_util = order.ordered_sum(torch.where(alive_col, arrays.load, 0.0))
+        total_cap = order.ordered_sum(torch.where(alive_col, arrays.capacity, 0.0)).clamp(
+            min=1e-9)
         avg_pct = total_util / total_cap
         low = torch.tensor(constraint.low_utilization_threshold, dtype=torch.float32,
                            device=dev)
@@ -273,7 +282,7 @@ def _band_sides(specs: Tuple[GoalSpec, ...], model: TensorClusterModel,
         if "leader_bytes_in" in kinds:
             nw_in = Resource.NW_IN
             bp_b = kernels._margin_pct(constraint.resource_balance_threshold[nw_in])
-            avg_b = torch.where(arrays.alive, arrays.leader_bytes_in, 0.0).sum() \
+            avg_b = order.ordered_sum(torch.where(arrays.alive, arrays.leader_bytes_in, 0.0)) \
                 / arrays.num_alive.to(torch.float32)
             ups.append((7, (avg_b * bp_b).expand(B)))
         upper_min = upper_min.clone()
@@ -339,14 +348,21 @@ def _selection_consts(k: int, subrounds: int, device: torch.device):
 def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor,
                    model: TensorClusterModel, room_dest: torch.Tensor,
                    slack_src: torch.Tensor, topic_budgets, subrounds: int,
-                   has_swaps: bool, compact_k: Optional[int] = None):
+                   has_swaps: bool, compact_k: Optional[int] = None,
+                   frontier: Optional[FrontierInvariants] = None):
     """(keep bool[K], sel_stats) — one round of the JAX package's greedy
     multi-accept selection: per-(broker, lane) and per-partition segment
     argmax passes (K2), per-(topic, broker) key lanes, then the
     bounded-depth exact repair (K3): two alternating dest/src prefix cuts
     and one subset-closed safe admit.  ``sel_stats`` is the JAX package's
     (repair fired i32, lanes live i32, bisect depth) — the first two are
-    0-d tensors, the depth a Python int fixed by the shapes."""
+    0-d tensors, the depth a Python int fixed by the shapes.
+
+    ``frontier`` compacts every broker segment space and budget onto the
+    active set's bucket (the JAX package's ``optimizer.py:518-531``): the
+    candidates keep their full broker ids, inactive brokers alias compact
+    slot 0 and pad slots read broker 0's budgets — harmless, because no
+    eligible candidate has an inactive endpoint."""
     num_brokers, num_partitions = model.num_brokers, model.num_partitions
     dev = score.device
     k_full = score.shape[0]
@@ -363,8 +379,21 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
         score = score[sel_idx]
         eligible = eligible[sel_idx]
         lane = lane[sel_idx]
-    nb_sel = num_brokers
-    src_b, dest_b = cand.src, cand.dest
+    if frontier is not None:
+        nb_sel = frontier.bucket
+        c_of_f = torch.clamp(frontier.compact_of_full, min=0)
+        src_b = c_of_f[cand.src]
+        dest_b = c_of_f[cand.dest]
+        gather = torch.clamp(frontier.full_of_compact, min=0)
+        room_dest = room_dest[gather]
+        slack_src = slack_src[gather]
+        if topic_budgets is not None:
+            topic_budgets = tuple(
+                b.reshape(model.num_topics, num_brokers)[:, gather].reshape(-1)
+                for b in topic_budgets)
+    else:
+        nb_sel = num_brokers
+        src_b, dest_b = cand.src, cand.dest
     src_lane = src_b * subrounds + lane
     dest_lane = dest_b * subrounds + lane
     d_src, d_dest = _channel_deltas(cand)
@@ -541,8 +570,12 @@ def _goal_num_sources(spec: GoalSpec, model: TensorClusterModel,
 def _step_select(model: TensorClusterModel, options: OptimizationOptions,
                  spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
                  constraint: BalancingConstraint, num_sources: int, num_dests: int,
-                 invariants: Optional[StepInvariants] = None):
-    """The selecting half of one step: ``(cand, keep bool[K], sel_stats)``."""
+                 invariants: Optional[StepInvariants] = None,
+                 frontier: Optional[FrontierInvariants] = None):
+    """The selecting half of one step: ``(cand, keep bool[K], sel_stats)``.
+    With ``frontier`` the step is restricted to the active brokers (the JAX
+    package's ``optimizer.py:1050-1056,1155-1160``): sources and
+    destinations only there, and the selection on the compacted axis."""
     all_specs = (spec,) + tuple(prev_specs)
     for s in all_specs:
         kernels.require_supported(s)
@@ -559,6 +592,11 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     bands = (inv.spec_lower, inv.spec_upper)
     relevance = kernels.source_replica_relevance(spec, model, arrays, constraint,
                                                  bands=bands)
+    active = None
+    if frontier is not None:
+        active = frontier.active
+        relevance = torch.where(active[model.replica_broker], relevance,
+                                torch.full((), -_INF, device=relevance.device))
     batches = []
     if spec.uses_moves:
         num_matched = 0
@@ -571,7 +609,7 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
                     if spec.kind == "replica_distribution" else num_sources)
         batches.append(cgen.combined_move_candidates(
             spec, model, arrays, constraint, options, cross_ns, num_dests,
-            num_matched=num_matched, relevance=relevance, bands=bands))
+            num_matched=num_matched, relevance=relevance, bands=bands, active=active))
     if spec.uses_leadership:
         batches.append(cgen.leadership_candidates(spec, model, arrays, constraint,
                                                   options, num_sources,
@@ -584,44 +622,50 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     if spec.uses_swaps:
         batches.append(cgen.swap_candidates(spec, model, arrays, constraint, options,
                                             sw_s, sw_p, relevance=relevance,
-                                            bands=bands))
+                                            bands=bands, active=active))
     cand = batches[0]
     for extra in batches[1:]:
         cand = cgen.concat_candidates(cand, extra)
 
     # Band-kind prev goals' vetoes are subsumed by the channel budgets; the
-    # structural kinds keep their dedicated accepts (K5b, torch ops).
-    accepted = None
-    for prev in prev_specs:
-        if not kernels.is_band_kind(prev):
-            a = kernels.accepts(prev, model, arrays, cand, constraint)
-            accepted = a if accepted is None else accepted & a
+    # structural kinds keep their dedicated accepts (K5b).  Under a frontier
+    # both endpoints must be active: inactive brokers alias compact slot 0.
+    structural = tuple(p for p in prev_specs if not kernels.is_band_kind(p))
+    accepted = (kernels.structural_accepts(structural, model, arrays, cand, constraint)
+                if structural else None)
+    if active is not None:
+        both = active[cand.src] & active[cand.dest]
+        accepted = both if accepted is None else accepted & both
     score, eligible = kernels.goal_masks(spec, model, arrays, cand, constraint,
                                          bands=bands, accepted=accepted)
     room_dest, slack_src = _channel_budgets(arrays, (inv.upper_min, inv.lower_max))
     topic_budgets = _topic_budgets(all_specs, model, arrays, inv)
     subrounds = min(SUBROUNDS, max(1, int(constraint.moves_per_broker_step)))
-    compact_k = _lane_bucket(cand.k, model.num_brokers, subrounds)
+    nb_sel = frontier.bucket if frontier is not None else model.num_brokers
+    compact_k = _lane_bucket(cand.k, nb_sel, subrounds)
     keep, sel_stats = select_batched(score, cand, eligible, model, room_dest, slack_src,
                                      topic_budgets, subrounds,
-                                     has_swaps=spec.uses_swaps, compact_k=compact_k)
+                                     has_swaps=spec.uses_swaps, compact_k=compact_k,
+                                     frontier=frontier)
     return cand, keep, sel_stats
 
 
 def _goal_step(model: TensorClusterModel, options: OptimizationOptions,
                spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
                constraint: BalancingConstraint, num_sources: int, num_dests: int,
-               invariants: Optional[StepInvariants] = None):
+               invariants: Optional[StepInvariants] = None,
+               frontier: Optional[FrontierInvariants] = None):
     """One optimization step for ``spec``: ``(new_model, n_kept, sel_stats)``
     as the JAX package's ``_goal_step`` (``optimizer.py:1205-1214``)."""
     cand, keep, sel_stats = _step_select(model, options, spec, prev_specs, constraint,
-                                         num_sources, num_dests, invariants)
+                                         num_sources, num_dests, invariants, frontier)
     return apply_candidates(model, cand, keep), keep.sum(), sel_stats
 
 
 def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
                 prev_specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
-                num_sources: int, num_dests: int) -> None:
+                num_sources: int, num_dests: int,
+                frontier: Optional[FrontierInvariants] = None) -> None:
     """One iteration of the JAX package's fixpoint ``lax.while_loop``
     (``optimizer.py:1628-1651``) as an in-place update of ``st``: the step
     runs while ``last_n > 0 and steps < budget`` and is a no-op after —
@@ -631,7 +675,8 @@ def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
     steps, last_n = c[CTR_STEPS], c[CTR_LAST_N]
     active = (last_n > 0) & (steps < c[CTR_BUDGET])
     cand, keep, (rep, lanes, depth) = _step_select(
-        st.model, st.options, spec, prev_specs, constraint, num_sources, num_dests, inv)
+        st.model, st.options, spec, prev_specs, constraint, num_sources, num_dests, inv,
+        frontier)
     keep = keep & active
     new = apply_candidates(st.model, cand, keep)
     for f in MUTABLE_FIELDS:
@@ -781,6 +826,508 @@ def _stack_fixpoint(st: StepState, specs: Tuple[GoalSpec, ...],
 
 
 # ---------------------------------------------------------------------------
+# The per-goal frontier driver (K9, K11; K8 graphs per frontier bucket)
+# ---------------------------------------------------------------------------
+
+# A host-decided chunk of up to this many steps queues all its gated steps
+# at once, as the JAX package dispatches a chunk as one program; a longer
+# one (a goal's whole budget in one chunk) replays in sub-chunks of 1, 2,
+# 4, ... CHUNK_MAX with a counter read between, so it stops near its
+# fixpoint instead of paying a gated-off step for every unused step.
+QUEUE_MAX = 32
+
+# Dispatch and fetch accounting of the per-goal driver (the JAX package's
+# keys, ``optimizer.py:1459-1473``, that this path touches).
+FETCH_COUNTERS = {"device_fetches": 0, "chunks_dispatched": 0,
+                  "chunks_speculative": 0, "chunks_wasted": 0, "fetch_bytes": 0}
+# The fused satisfied-sweep (``optimizer.py:2329``).
+SWEEP_COUNTERS = {"dispatches": 0, "skipped_goals": 0}
+
+
+def _frontier_bucket(num_active: int, num_brokers: int) -> Optional[int]:
+    """The compacted broker-axis length for ``num_active`` active brokers,
+    or None for the dense path (``optimizer.py:1388``): powers of two from
+    the dense floor, dense when the bucket would not be smaller than B or
+    the active set covers over half the cluster."""
+    if num_brokers <= _FRONTIER_DENSE_MIN:
+        return None
+    bucket = pow2_bucket(num_active, _FRONTIER_DENSE_MIN)
+    if bucket >= num_brokers or 2 * num_active > num_brokers:
+        return None
+    return bucket
+
+
+def _frontier_widths(bucket: int, ns: int, nd: int) -> Tuple[int, int]:
+    """(ns, nd) of a compacted chunk (``optimizer.py:1404``): the candidate
+    widths shrink with the frontier, with exploration floors."""
+    return max(1, min(ns, max(32, 4 * bucket))), max(1, min(nd, bucket))
+
+
+def _build_frontier(active_np: np.ndarray, bucket: int) -> FrontierInvariants:
+    """Host-side index maps from a fetched bool[B] mask
+    (``optimizer.py:1423``), as CPU tensors: the driver copies them into
+    the bucket's buffers on the device when it dispatches a chunk that
+    uses them."""
+    active_np = np.asarray(active_np, dtype=bool)
+    idx = np.flatnonzero(active_np).astype(np.int32)
+    full_of_compact = np.full((bucket,), -1, np.int32)
+    full_of_compact[:idx.size] = idx
+    compact_of_full = np.full((active_np.shape[0],), -1, np.int32)
+    compact_of_full[idx] = np.arange(idx.size, dtype=np.int32)
+    return FrontierInvariants(active=torch.from_numpy(active_np.copy()),
+                              compact_of_full=torch.from_numpy(compact_of_full),
+                              full_of_compact=torch.from_numpy(full_of_compact))
+
+
+def chunk_gate_plain(counters: torch.Tensor, entry_before: torch.Tensor,
+                     sat: torch.Tensor, off: torch.Tensor,
+                     num_active: Optional[torch.Tensor], packed: Optional[torch.Tensor],
+                     do_open: bool, gate: bool, budget: int) -> None:
+    """K11's plain twin, in place: close the chunk whose step counters are
+    ``counters`` into ``packed`` (when given), then open the next chunk
+    (when ``do_open``).  See ``chunk_gate``."""
+    i32 = torch.int32
+    dev = counters.device
+    c = counters.clone()
+    capped = ((c[CTR_STEPS] >= c[CTR_BUDGET]) & (c[CTR_LAST_N] > 0)).to(i32)
+    s = sat.reshape(()).to(i32)
+    o = off.reshape(()).to(i32)
+    zero = torch.zeros((), dtype=i32, device=dev)
+    if packed is not None:
+        na = num_active.reshape(()) if num_active is not None else zero - 1
+        packed.copy_(torch.stack([c[CTR_STEPS], c[CTR_TOTAL], entry_before.reshape(()), s,
+                                  capped, c[CTR_REPAIR], c[CTR_DEPTH], c[CTR_LANES], na, o,
+                                  zero]))
+    if do_open:
+        bud = torch.full((), budget, dtype=i32, device=dev)
+        if gate:
+            bud = capped * bud
+        last_n = 1 - s * (1 - o)
+        counters.copy_(torch.stack([zero, zero, last_n, zero, zero, zero, bud]))
+        entry_before.copy_(s.reshape(1))
+
+
+@cuda.counted("chunk_gate")
+def chunk_gate(counters: torch.Tensor, entry_before: torch.Tensor, sat: torch.Tensor,
+               off: torch.Tensor, num_active: Optional[torch.Tensor],
+               packed: Optional[torch.Tensor], do_open: bool, gate: bool,
+               budget: int) -> None:
+    """K11.  Replaces ``cruise_control_tpu/analyzer/optimizer.py:1489``
+    ``_get_gate_fn`` (a follow-up chunk's budget ``packed[CAPPED] *
+    budget``, computed on the device) with the two ends of a chunk of
+    ``_goal_fixpoint_budget`` (``:1572``): at a chunk boundary it writes the
+    closing chunk's i32[PACKED_WIDTH] row from the step counters
+    (``counters`` i32[CTR_WIDTH]), its satisfied-at-entry flag
+    (``entry_before`` i32[1]) and the exit flags (``sat``, ``off`` bool[1],
+    ``num_active`` i32[1] or None for -1) into ``packed`` (None: no close),
+    then, with ``do_open``, resets the counters for the next chunk: budget
+    ``budget``, or with ``gate`` the closed chunk's capped flag times it;
+    last_n 0 if the entry state (``sat``, ``off``) is satisfied with nothing
+    offline.  In place, no host sync.  Bound: bytes (a few dozen).  CPU
+    tensors take ``chunk_gate_plain``; CUDA tensors launch one thread."""
+    dev = counters.device
+    cuda.check(counters, "counters", torch.int32, (CTR_WIDTH,), dev)
+    cuda.check(entry_before, "entry_before", torch.int32, (1,), dev)
+    cuda.check(sat, "sat", torch.bool, (1,), dev)
+    cuda.check(off, "off", torch.bool, (1,), dev)
+    if num_active is not None:
+        cuda.check(num_active, "num_active", torch.int32, (1,), dev)
+    if packed is not None:
+        cuda.check(packed, "packed", torch.int32, (PACKED_WIDTH,), dev)
+    if gate and packed is None:
+        raise ValueError("chunk_gate: a gated open needs the chunk it closes")
+    cuda.record("chunk_gate", (counters, entry_before, sat, off, num_active, packed,
+                               do_open, gate, budget))
+    if cuda.on_cpu(counters):
+        chunk_gate_plain(counters, entry_before, sat, off, num_active, packed, do_open,
+                         gate, budget)
+        return
+    cuda.launch("chunk_gate", counters, entry_before, sat, off, num_active, packed,
+                int(do_open), int(gate), int(budget))
+    chunk_gate.launches += 1
+
+
+def _stack_satisfied(model: TensorClusterModel, specs: Sequence[GoalSpec],
+                     constraint: BalancingConstraint) -> Tuple[np.ndarray, bool]:
+    """The fused "already satisfied?" sweep (``optimizer.py:2332``): K9 over
+    the whole stack, fetched in one transfer.  Returns (bool[G], offline
+    replicas remain)."""
+    arrays = BrokerArrays.from_model(
+        model, with_topic_counts=any(s.kind == "topic_replica_distribution" for s in specs))
+    sat, off = kernels.stack_satisfied(tuple(specs), model, arrays, constraint)
+    flags = torch.cat([sat, off]).cpu().numpy()
+    return flags[:-1], bool(flags[-1])
+
+
+@dataclasses.dataclass
+class _Chunk:
+    """One dispatched chunk of the per-goal driver."""
+
+    bucket: Optional[int]
+    fr: Optional[FrontierInvariants]  # host maps (CPU tensors), None = dense
+    ns: int
+    nd: int
+    blen: int
+    speculative: bool
+    confirm: bool
+    slot: int
+    fresh: bool = False
+    replays: int = 0    # gated steps run (graph replays on the card)
+    reads: int = 0      # counter reads between sub-chunks
+    host: Optional[tuple] = None  # (packed, active, event) once closed
+
+
+class _ChunkRunner:
+    """Dispatch and fetch of the chunks of one goal on the working state
+    ``st`` — what one ``_goal_fixpoint_budget`` program does in the JAX
+    package, as a sequence on the stream:
+
+    - entry of a host-decided chunk: K1, K9 (G = 1: satisfied, offline),
+      K11 opening the counters with the host's budget;
+    - the step invariants, then the gated steps: replays of the goal's step
+      graph for the chunk's (bucket, widths) on the card, the gated step
+      run eagerly without ``cache``;
+    - exit: K1, K9 (G = 1), K9's frontier mask (band kinds), and K11
+      closing the chunk into its packed slot — and, when a speculative
+      follow-up comes next, opening it in the same launch with the gated
+      budget, so the follow-up's steps queue behind it before the host has
+      read anything;
+    - one host transfer of the packed row and the active mask (pinned
+      buffers and an event on the card, so a follow-up queued after the
+      copies keeps running while the host waits).
+
+    Each bucket's frontier maps live in the graph cache's static buffers
+    and are written there when a chunk that uses them is dispatched."""
+
+    def __init__(self, st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
+                 constraint: BalancingConstraint, cache: Optional[graphs.GraphCache]):
+        self.st = st
+        self.spec = spec
+        self.prev = tuple(prev_specs)
+        self.constraint = constraint
+        self.cache = cache
+        self.band = kernels.is_band_kind(spec)
+        self.topic = any(s.kind == "topic_replica_distribution"
+                         for s in (spec,) + self.prev)
+        dev = st.model.device
+        self.slots = torch.zeros((2, PACKED_WIDTH), dtype=torch.int32, device=dev)
+        self.entry_before = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.open: Optional[_Chunk] = None  # the last queued chunk, not closed yet
+        self.count = 0
+
+    def _arrays(self) -> BrokerArrays:
+        return BrokerArrays.from_model(self.st.model, with_topic_counts=self.topic)
+
+    def _advance(self, chunk: _Chunk, inv: StepInvariants):
+        """``advance(times) -> steps run`` for the chunk's gated step."""
+        st = self.st
+        step = functools.partial(_gated_step, spec=self.spec, prev_specs=self.prev,
+                                 constraint=self.constraint, num_sources=chunk.ns,
+                                 num_dests=chunk.nd)
+        if self.cache is None:
+            fr = chunk.fr
+            if fr is not None and fr.active.device != st.model.device:
+                fr = FrontierInvariants(**{f.name: getattr(fr, f.name).to(st.model.device)
+                                           for f in dataclasses.fields(fr)})
+
+            def advance(times: int) -> int:
+                # Gated-off steps change nothing: stop at the first one.
+                for n in range(times):
+                    steps, last_n, budget = st.counters[
+                        [CTR_STEPS, CTR_LAST_N, CTR_BUDGET]].tolist()
+                    if last_n <= 0 or steps >= budget:
+                        return n
+                    step(st, inv, frontier=fr)
+                return times
+            return advance
+        fr = self.cache.frontier(st, chunk.fr) if chunk.fr is not None else None
+        key = graphs.goal_key(self.spec, self.prev, self.constraint, chunk.ns, chunk.nd,
+                              st, chunk.bucket)
+        g = self.cache.get(key)
+        if g is None:
+            g = self.cache.capture(key, st, inv, functools.partial(step, frontier=fr))
+            chunk.fresh = True
+        g.load(inv)
+
+        def replay(times: int) -> int:
+            g.replay(times)
+            return times
+        return replay
+
+    def dispatch(self, bucket: Optional[int], fr: Optional[FrontierInvariants],
+                 ns: int, nd: int, budget: int, speculative: bool,
+                 confirm: bool = False) -> _Chunk:
+        """Queue one chunk: ``budget`` steps at most, or for a speculative
+        follow-up of the open chunk, that chunk's capped flag times
+        ``budget`` (K11's gate)."""
+        st, spec = self.st, self.spec
+        chunk = _Chunk(bucket=bucket, fr=fr, ns=ns, nd=nd, blen=budget,
+                       speculative=speculative, confirm=confirm, slot=self.count % 2)
+        self.count += 1
+        if speculative:
+            arrays = self._close(self.open, open_next=True, budget=budget)
+        else:
+            if self.open is not None:
+                raise RuntimeError("a host-decided chunk needs the previous one read")
+            arrays = self._arrays()
+            sat, off = kernels.stack_satisfied((spec,), st.model, arrays, self.constraint)
+            chunk_gate(st.counters, self.entry_before, sat, off, None, None, True, False,
+                       budget)
+        inv = compute_step_invariants(spec, self.prev, st.model, arrays, self.constraint)
+        advance = self._advance(chunk, inv)
+        if speculative or budget <= QUEUE_MAX:
+            chunk.replays = advance(budget)
+        else:
+            sub = 1
+            while chunk.replays < budget:
+                chunk.replays += advance(min(sub, budget - chunk.replays))
+                steps, last_n = st.counters[[CTR_STEPS, CTR_LAST_N]].tolist()
+                chunk.reads += 1
+                if last_n == 0 or steps >= budget:
+                    break
+                sub = min(2 * sub, CHUNK_MAX)
+        self.open = chunk
+        FETCH_COUNTERS["chunks_dispatched"] += 1
+        if speculative:
+            FETCH_COUNTERS["chunks_speculative"] += 1
+        return chunk
+
+    def _close(self, chunk: _Chunk, open_next: bool, budget: int) -> BrokerArrays:
+        """Exit of the open ``chunk``: its packed row and active mask, with
+        the copies to the host queued; with ``open_next`` a gated follow-up
+        is opened from its exit state.  Returns the exit arrays."""
+        st, spec = self.st, self.spec
+        arrays = self._arrays()
+        sat, off = kernels.stack_satisfied((spec,), st.model, arrays, self.constraint)
+        active = count = None
+        if self.band:
+            active, count = kernels.frontier_mask(
+                *kernels._frontier_inputs(spec, st.model, arrays, self.constraint))
+        packed = self.slots[chunk.slot]
+        chunk_gate(st.counters, self.entry_before, sat, off, count, packed, open_next,
+                   open_next, budget)
+        chunk.host = _to_host(packed, active)
+        self.open = None
+        return arrays
+
+    def drop(self, chunk: _Chunk) -> None:
+        """Forget a follow-up the host discards: its steps were gated off
+        (a budget of 0, or a satisfied entry state), so nothing changed and
+        nothing needs closing; the next host-decided chunk reopens the
+        counters."""
+        if self.open is chunk:
+            self.open = None
+
+    def fetch(self, chunk: _Chunk):
+        """(packed i32[PACKED_WIDTH], active bool[B] or None) of ``chunk`` on
+        the host: one transfer."""
+        if self.open is chunk:
+            self._close(chunk, open_next=False, budget=0)
+        packed, active, event = chunk.host
+        if event is not None:
+            event.synchronize()
+        packed_np = packed.numpy().copy()
+        active_np = None
+        if active is not None:
+            active_np = active.numpy().copy()
+        if active_np is None:
+            active_np = np.zeros((self.st.model.num_brokers,), dtype=bool)
+        FETCH_COUNTERS["device_fetches"] += 1
+        FETCH_COUNTERS["fetch_bytes"] += packed_np.nbytes + (
+            active.numel() if active is not None else 0)
+        return packed_np, active_np
+
+
+def _to_host(*tensors):
+    """Queue copies of ``tensors`` (None stays None) to the host: into
+    pinned buffers with an event behind them on the card (the caller waits
+    on the event), plain copies on the CPU.  Returns the host tensors and
+    the event."""
+    if not tensors[0].is_cuda:
+        return tuple(None if t is None else t.clone() for t in tensors) + (None,)
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        out.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return tuple(out) + (event,)
+
+
+def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
+                     constraint: BalancingConstraint, ns: int, nd: int, max_steps: int,
+                     chunk_steps: int, frontier: bool, tail_threshold: float,
+                     min_chunk: int, speculate: Optional[bool],
+                     cache: Optional[graphs.GraphCache]) -> dict:
+    """The host control flow of the JAX package's ``frontier_fixpoint``
+    (``optimizer.py:1854-2323``, without the pipeline, the flight recorder,
+    seeds, callbacks or a mesh), line for line, on ``st`` in place; only
+    the dispatch and the fetch are the port's (``_ChunkRunner``)."""
+    B = st.model.num_brokers
+    use_frontier = bool(frontier) and kernels.is_band_kind(spec)
+    speculate = True if speculate is None else bool(speculate)
+    runner = _ChunkRunner(st, spec, prev_specs, constraint, cache)
+    chunks: List[dict] = []
+    buckets: set = set()
+    fresh = False
+    steps_done = actions_total = repair_total = bisect_depth = lanes_total = 0
+    fetches = counter_reads = replays = speculated = wasted = 0
+    fetch_wait = 0.0
+    before0: Optional[bool] = None
+    after = capped = False
+    grow = chunk_steps < max_steps
+    chunk = max(1, min(min_chunk if grow else chunk_steps, chunk_steps, max_steps))
+    peak_aps = 0.0
+    force_dense = not use_frontier
+    bucket: Optional[int] = None
+    fr: Optional[FrontierInvariants] = None
+    pending: Optional[_Chunk] = None
+    t_prev = time.monotonic()
+
+    def _dispatch(bucket, fr, blen, speculative, confirm=False) -> _Chunk:
+        nonlocal fresh, speculated, replays, counter_reads
+        cns, cnd = (ns, nd) if bucket is None else _frontier_widths(bucket, ns, nd)
+        rec = runner.dispatch(bucket, fr, cns, cnd, blen, speculative, confirm)
+        fresh = fresh or rec.fresh
+        replays += rec.replays
+        counter_reads += rec.reads
+        if speculative:
+            speculated += 1
+        return rec
+
+    while steps_done < max_steps:
+        if pending is not None:
+            cur, pending = pending, None
+        else:
+            blen = min(chunk, max_steps - steps_done)
+            cur = _dispatch(bucket, fr, blen, False, confirm=force_dense and use_frontier)
+        if speculate and not cur.confirm and (cur.bucket is not None or not use_frontier):
+            nxt = min(chunk * 2, chunk_steps) if grow else chunk
+            nxt = min(nxt, max_steps - steps_done - cur.blen)
+            if nxt > 0:
+                pending = _dispatch(cur.bucket, cur.fr, nxt, True)
+        t_f = time.monotonic()
+        packed_np, active_np = runner.fetch(cur)
+        fetches += 1
+        now = time.monotonic()
+        wait = now - t_f
+        fetch_wait += wait
+        wall = now - t_prev
+        t_prev = now
+        (s, a, b4, aft, cap, rep, dep, lan, na, off, _) = (int(x) for x in packed_np)
+        if before0 is None:
+            before0 = bool(b4)
+        after = bool(aft)
+        capped = bool(cap)
+        steps_done += s
+        actions_total += a
+        repair_total += rep
+        bisect_depth = max(bisect_depth, dep)
+        lanes_total += lan
+        if cur.bucket is not None:
+            buckets.add(cur.bucket)
+        chunks.append({"steps": s, "actions": a, "wall_s": wall, "fetch_wait_s": wait,
+                       "bucket": cur.bucket, "ns": cur.ns, "nd": cur.nd,
+                       "repair_steps": rep, "bisect_depth": dep, "lanes_live": lan,
+                       "fresh_compile": cur.fresh, "speculative": cur.speculative,
+                       "replays": cur.replays, "num_active": na})
+        aps = a / max(s, 1)
+        peak_aps = max(peak_aps, aps)
+        tail = peak_aps > 0 and aps < tail_threshold * peak_aps
+        if tail:
+            chunk = max(min_chunk, chunk // 2)
+        elif grow:
+            chunk = min(chunk * 2, chunk_steps)
+        if not capped and cur.fr is not None:
+            # A compacted convergence is confirmed by one dense chunk.
+            if pending is not None:
+                wasted += 1
+                FETCH_COUNTERS["chunks_wasted"] += 1
+                runner.drop(pending)
+                pending = None
+            force_dense = True
+            bucket, fr = None, None
+            continue
+        if after and not off:
+            if pending is not None:
+                wasted += 1
+                FETCH_COUNTERS["chunks_wasted"] += 1
+                runner.drop(pending)
+                pending = None
+            capped = False
+            break
+        if not capped:
+            if pending is not None:
+                wasted += 1
+                FETCH_COUNTERS["chunks_wasted"] += 1
+                runner.drop(pending)
+                pending = None
+            break  # dense convergence is authoritative
+        # Capped: the next host-decided chunk takes its frontier from the
+        # fetched mask; a follow-up already in flight stays on its
+        # predecessor's.
+        if use_frontier:
+            force_dense = False
+            bucket, fr = None, None
+            if not off:
+                nb = _frontier_bucket(na, B)
+                if nb is not None:
+                    fr = _build_frontier(active_np, nb)
+                    bucket = nb
+    if pending is not None:
+        runner.drop(pending)
+    return {"chunks": chunks, "buckets": sorted(buckets), "fresh_compile": fresh,
+            "steps": steps_done, "actions": actions_total,
+            "satisfied_before": bool(before0) if before0 is not None else after,
+            "satisfied_after": after, "capped": capped, "repair_steps": repair_total,
+            "bisect_depth": bisect_depth, "lanes_live": lanes_total, "fetches": fetches,
+            "fetch_wait_s": fetch_wait, "chunks_speculative": speculated,
+            "chunks_wasted": wasted, "replays": replays, "counter_reads": counter_reads}
+
+
+def frontier_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
+                      spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
+                      constraint: BalancingConstraint,
+                      num_sources: Optional[int] = None, num_dests: Optional[int] = None,
+                      max_steps: int = 256, chunk_steps: int = 32, frontier: bool = True,
+                      tail_threshold: float = 0.1, min_chunk: int = 4,
+                      speculate: Optional[bool] = None, cache="auto"):
+    """The chunked per-goal driver (the JAX package's ``frontier_fixpoint``,
+    ``optimizer.py:1854``) on ``model``'s device: ``(model, info)`` with
+    the JAX package's info keys plus ``replays`` (gated steps run,
+    discarded follow-ups included) and ``counter_reads``; every chunk
+    record also carries its ``replays`` and ``num_active``.
+
+    Chunks start at ``min_chunk`` steps and double toward ``chunk_steps``
+    while the actions per step stay above ``tail_threshold`` of the peak,
+    halving in the tail; the first chunk runs dense, a capped chunk's
+    fetched mask picks the next host-decided chunk's bucket and widths, a
+    compacted convergence is confirmed by a dense chunk, and a satisfied
+    state with nothing offline ends the goal.  With ``speculate`` (default
+    on) a compacted chunk, or any chunk under ``frontier=False``, is
+    followed by a speculative chunk on the same frontier whose budget K11
+    gates on the device, queued before the host reads its predecessor.
+
+    ``cache``: on the card the step graphs of ``graphs.GRAPHS`` ("auto") or
+    of the given cache replay; None runs the gated steps eagerly."""
+    if cache == "auto":
+        cache = graphs.GRAPHS if model.device.type == "cuda" else None
+    ns = num_sources or cgen.default_num_sources(model)
+    nd = num_dests or cgen.default_num_dests(model)
+    with cache.lock if cache is not None else contextlib.nullcontext():
+        st = cache.state(model, options) if cache is not None else \
+            StepState.working(model, options)
+        info = _frontier_driver(st, spec, tuple(prev_specs), constraint, ns, nd,
+                                max_steps, chunk_steps, frontier, tail_threshold,
+                                min_chunk, speculate, cache)
+        return st.placement(model), info
+
+
+# ---------------------------------------------------------------------------
 # Goal orchestration (priority order)
 # ---------------------------------------------------------------------------
 
@@ -805,6 +1352,13 @@ class GoalResult:
     lanes_live: int = 0
     fetches: int = 0
     replays: int = 0
+    # Per-goal frontier driver only: the fetched chunk records, the host's
+    # wait on the boundary fetches, speculative follow-ups dispatched and
+    # the ones discarded (their gated-off replays are in ``replays``).
+    chunks: Optional[List[dict]] = None
+    fetch_wait_s: float = 0.0
+    chunks_speculative: int = 0
+    chunks_wasted: int = 0
 
 
 @dataclasses.dataclass
@@ -870,6 +1424,69 @@ def _optimize_fused(model: TensorClusterModel, options: OptimizationOptions,
     return st.placement(model), results, scored
 
 
+def _optimize_per_goal(model: TensorClusterModel, options: OptimizationOptions,
+                       specs: Sequence[GoalSpec], constraint: BalancingConstraint,
+                       ns: int, nd: int, max_steps: int, segment_steps: Optional[int],
+                       use_frontier: bool, raise_on_hard_failure: bool, k_of,
+                       cache: Optional[graphs.GraphCache]):
+    """The sequential per-goal branch of the JAX package's ``_optimize``
+    (``optimizer.py:3382-3467``): one K9 sweep answers "already satisfied?"
+    for the whole stack and is re-run only after a goal applied actions;
+    every other goal runs ``_frontier_driver`` on one working state.
+    Returns ``(final model, [GoalResult], candidates scored)``."""
+    st = cache.state(model, options) if cache is not None else \
+        StepState.working(model, options)
+    results: List[GoalResult] = []
+    scored = 0
+    sat_v = None
+    sweep_off = False
+    prev: Tuple[GoalSpec, ...] = ()
+    B = model.num_brokers
+    for spec in specs:
+        tg = time.monotonic()
+        i = len(results)
+        sweep_fetch = 0
+        if sat_v is None:
+            SWEEP_COUNTERS["dispatches"] += 1
+            sat_v, sweep_off = _stack_satisfied(st.model, specs, constraint)
+            sweep_fetch = 1
+        if bool(sat_v[i]) and not sweep_off:
+            SWEEP_COUNTERS["skipped_goals"] += 1
+            results.append(GoalResult(name=spec.name, is_hard=spec.is_hard,
+                                      satisfied_before=True, satisfied_after=True, steps=0,
+                                      actions_applied=0, duration_s=time.monotonic() - tg,
+                                      fetches=sweep_fetch))
+            prev = prev + (spec,)
+            continue
+        chunk_len = segment_steps or (
+            32 if (use_frontier and kernels.is_band_kind(spec) and B > _FRONTIER_DENSE_MIN)
+            else max_steps)
+        info = _frontier_driver(st, spec, prev, constraint, ns, nd, max_steps, chunk_len,
+                                use_frontier, 0.1, 4, None, cache)
+        for ch in info["chunks"]:
+            scored += ch["steps"] * k_of(spec, ch["ns"], ch["nd"])
+        if info["actions"]:
+            sat_v = None  # the model changed: the sweep runs again
+        results.append(GoalResult(
+            name=spec.name, is_hard=spec.is_hard,
+            satisfied_before=info["satisfied_before"],
+            satisfied_after=info["satisfied_after"], steps=info["steps"],
+            actions_applied=info["actions"], duration_s=time.monotonic() - tg,
+            capped=info["capped"], fresh_compile=info["fresh_compile"],
+            repair_steps=info["repair_steps"], bisect_depth=info["bisect_depth"],
+            lanes_live=info["lanes_live"],
+            fetches=info["fetches"] + info["counter_reads"] + sweep_fetch,
+            replays=info["replays"], chunks=info["chunks"],
+            fetch_wait_s=info["fetch_wait_s"],
+            chunks_speculative=info["chunks_speculative"],
+            chunks_wasted=info["chunks_wasted"]))
+        if spec.is_hard and not info["satisfied_after"] and raise_on_hard_failure:
+            raise OptimizationFailureException(
+                f"hard goal {spec.name} not satisfied after optimization")
+        prev = prev + (spec,)
+    return st.placement(model), results, scored
+
+
 def optimize(model: TensorClusterModel, goal_names: Sequence[str],
              constraint: Optional[BalancingConstraint] = None,
              options: Optional[OptimizationOptions] = None,
@@ -894,27 +1511,45 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
     unless ``raise_on_hard_failure`` is False.
 
     ``fused=False`` is the JAX package's unfused dense path.  ``fused=True``
-    is its grouped stack: the whole stack as one group at 64 brokers or
-    fewer, or groups of ``fuse_group_size`` > 1 goals at any size, each
-    group's packed stats fetched once.  Above 64 brokers without such a
-    group size, and with ``fuse_group_size=1``, the JAX package runs its
-    per-goal frontier driver: not ported yet, so these raise
-    ``NotImplementedError``, as do ``frontier=True``, ``pipeline=True``,
-    ``warm_start``, ``mesh`` and ``segment_steps``.
+    follows the JAX package's policy (``optimizer.py:3086-3146``):
+
+    - the grouped stack: the whole stack as one group below 100 brokers,
+      or groups of ``fuse_group_size`` > 1 goals at any size, each group's
+      packed stats fetched once;
+    - the sequential per-goal path with ``fuse_group_size=1``, at 100
+      brokers or more without ``fuse_group_size``, or with
+      ``segment_steps``: one fused satisfied-sweep (K9) skips the goals
+      already satisfied, and every other goal runs the chunked frontier
+      driver (``frontier_fixpoint``), compacting onto the active brokers
+      above the 64-broker floor (``frontier``: None = auto, False = dense,
+      True = forced; ``segment_steps`` sets its chunk length, 32 by default
+      at 500 brokers or more).
+
+    Above 64 brokers without ``fuse_group_size`` the JAX package's default
+    (``pipeline=None``) pipelines the goals; the pipeline is not ported, so
+    that raises ``NotImplementedError`` and ``pipeline=False`` selects the
+    sequential path.  ``pipeline=True``, ``warm_start`` and ``mesh`` raise
+    too; ``frontier=True`` raises off the per-goal path and
+    ``segment_steps`` on the unfused path, where the JAX package ignores
+    them.
 
     ``fast_mode`` halves the candidate widths and quarters the step budget,
     ``max_candidates_per_step`` caps the widths (the JAX package's host
     arithmetic); the balancedness weights price violated goals.  The
-    caller's model is never written on either path: the fused path steps on
-    a working copy (on the card, the step graphs' static buffers), so
+    caller's model is never written on either path: the fused paths step
+    on a working copy (on the card, the step graphs' static buffers), so
     ``donate_model`` only records the caller's consent.  On the card the
-    fused path replays the gated steps' CUDA graphs (``graphs.GRAPHS``)."""
-    for name, value in (("mesh", mesh), ("warm_start", warm_start),
-                        ("segment_steps", segment_steps)):
+    fused paths replay the gated steps' CUDA graphs (``graphs.GRAPHS``)."""
+    for name, value in (("mesh", mesh), ("warm_start", warm_start)):
         if value is not None:
             raise NotImplementedError(f"optimize({name}=...) is not ported yet")
-    if frontier or pipeline:
-        raise NotImplementedError("optimize(frontier=True / pipeline=True) is not ported yet")
+    if pipeline:
+        raise NotImplementedError("optimize(pipeline=True): the inter-goal pipeline is "
+                                  "not ported yet; pipeline=False runs the sequential "
+                                  "per-goal driver")
+    if segment_steps is not None and not fused:
+        raise NotImplementedError("optimize(segment_steps=...) applies to the fused "
+                                  "per-goal path")
     dev = resolve_device(device)
     model = model.to(dev)
     constraint = constraint or BalancingConstraint.default()
@@ -922,16 +1557,32 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
     specs = goals_by_priority(goal_names)
     for s in specs:
         kernels.require_supported(s)
+    per_goal = False
     if fused:
         if fuse_group_size is not None and fuse_group_size < 1:
             raise ValueError(f"fuse_group_size must be positive, got {fuse_group_size}")
-        if fuse_group_size == 1 or (fuse_group_size is None
-                                    and model.num_brokers > _FRONTIER_DENSE_MIN):
+        manual_group = fuse_group_size
+        if fuse_group_size is None and model.num_brokers >= 100:
+            fuse_group_size = 1
+        group = fuse_group_size or len(specs) or 1
+        if pipeline is None and manual_group is None \
+                and model.num_brokers > _FRONTIER_DENSE_MIN:
             raise NotImplementedError(
-                "optimize(fused=True) runs the per-goal frontier driver here "
-                f"({model.num_brokers} brokers, fuse_group_size={fuse_group_size}); "
-                "only the grouped stack (fuse_group_size > 1, or at most "
-                f"{_FRONTIER_DENSE_MIN} brokers) is ported yet")
+                f"optimize(fused=True) pipelines the goals at {model.num_brokers} brokers "
+                f"(more than {_FRONTIER_DENSE_MIN}) by default, and the inter-goal "
+                "pipeline is not ported yet; pass pipeline=False for the sequential "
+                "per-goal driver, or a fuse_group_size")
+        if segment_steps is None and group == 1 and model.num_brokers >= 500:
+            segment_steps = 32
+        if segment_steps is not None and group > 1:
+            if fuse_group_size is not None and fuse_group_size > 1:
+                raise ValueError("segment_steps requires per-goal chunking; pass "
+                                 "fuse_group_size=1 (or omit it) when segmenting")
+            group = 1
+        per_goal = group == 1
+    if frontier and not per_goal:
+        raise NotImplementedError("optimize(frontier=True) engages only on the fused "
+                                  "per-goal path (fuse_group_size=1)")
     if fast_mode:
         num_sources = min(max(32, (num_sources or cgen.default_num_sources(model)) // 2),
                           model.num_replicas_padded)
@@ -946,24 +1597,33 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
         ns = max(1, min(ns, max_candidates_per_step))
         nd = max(1, min(nd, max_candidates_per_step // ns))
 
-    def k_of(spec: GoalSpec) -> int:
-        k = ns * nd * (1 if spec.uses_moves else 0)
+    def k_of(spec: GoalSpec, ns_k: Optional[int] = None, nd_k: Optional[int] = None) -> int:
+        ns_l = ns if ns_k is None else ns_k
+        nd_l = nd if nd_k is None else nd_k
+        k = ns_l * nd_l * (1 if spec.uses_moves else 0)
         if spec.uses_leadership:
-            k += ns * model.max_rf
+            k += ns_l * model.max_rf
         if spec.uses_swaps:
-            k += min(cgen.default_num_swap_sources(model), ns) * \
-                min(cgen.default_num_swap_partners(model), max(2, nd),
+            k += min(cgen.default_num_swap_sources(model), ns_l) * \
+                min(cgen.default_num_swap_partners(model), max(2, nd_l),
                     model.num_replicas_padded)
         return k
 
     results: List[GoalResult] = []
     scored = 0
-    if fused:
-        cache = graphs.GRAPHS if dev.type == "cuda" else None
+    cache = graphs.GRAPHS if fused and dev.type == "cuda" else None
+    if fused and per_goal:
+        use_frontier = (frontier if frontier is not None
+                        else model.num_brokers > _FRONTIER_DENSE_MIN)
+        with cache.lock if cache is not None else contextlib.nullcontext():
+            model, results, scored = _optimize_per_goal(
+                model, options, specs, constraint, ns, nd, max(max_steps_per_goal, 1),
+                segment_steps, use_frontier, raise_on_hard_failure, k_of, cache)
+    elif fused:
         with cache.lock if cache is not None else contextlib.nullcontext():
             model, results, scored = _optimize_fused(
                 model, options, specs, constraint, ns, nd, max_steps_per_goal,
-                fuse_group_size or len(specs) or 1, raise_on_hard_failure, k_of, cache)
+                group, raise_on_hard_failure, k_of, cache)
     else:
         prev = ()
         for spec in specs:

@@ -1,6 +1,7 @@
 """Per-step broker aggregate bundle, step invariants and request options.
 
-Counterpart of ``cruise_control_tpu/analyzer/state.py`` for the dense path.
+Counterpart of ``cruise_control_tpu/analyzer/state.py`` for the dense and
+per-goal frontier paths.
 ``BrokerArrays.from_model`` is where K1 (``ops.segment.broker_aggregates``)
 runs: once per optimizer step and once per satisfied check.
 """
@@ -72,6 +73,25 @@ class StepInvariants:
     spec_upper: torch.Tensor  # f32[B]
     topic_lower: Optional[torch.Tensor] = None  # f32[T] when a topic goal is in play
     topic_upper: Optional[torch.Tensor] = None  # f32[T]
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontierInvariants:
+    """The active frontier of one goal's chunked fixpoint (the JAX package's
+    ``FrontierInvariants``, ``state.py:91-115``, without the mesh's
+    ``shard_active``): the brokers that can still matter to the goal's next
+    steps and the index maps between the full broker axis and a compacted
+    axis bucketed to a power of two.  A compacted step runs its selection
+    segment spaces over the compacted axis while the candidates keep their
+    full broker ids.  The bucket is ``full_of_compact.shape[0]``."""
+
+    active: torch.Tensor           # bool[B] — full-axis membership mask
+    compact_of_full: torch.Tensor  # i32[B] — compact id per broker, -1 when inactive
+    full_of_compact: torch.Tensor  # i32[Bc] — full broker id per compact slot, -1 pad
+
+    @property
+    def bucket(self) -> int:
+        return self.full_of_compact.shape[0]
 
 
 def pow2_bucket(n: int, floor: int) -> int:

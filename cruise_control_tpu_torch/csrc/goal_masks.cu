@@ -14,8 +14,16 @@
 //       replica counts around the topic's average;
 //   mode 3, rack: siblings sharing the source rack minus those sharing the
 //       destination rack, with a sibling gather over max_rf.
-// The cross-goal vetoes of structural previous goals (K5b) arrive as the
-// ``accepted`` mask (null = all accepted).
+// The cross-goal vetoes of structural previous goals arrive as the
+// ``accepted`` mask (null = all accepted); K5b below computes them.
+//
+// K5b (cc_structural_accepts) replaces goals/kernels.py:464 accepts of the
+// structural previous goals: rack (a move may not land on a rack that holds
+// another replica of the partition; a swap checks both legs) and
+// topic_replica_distribution (a move or swap may not push a (topic, broker)
+// count out of the topic's band).  One thread per lane, the same sibling
+// walk as mode 3 and the same topic-count rows as mode 2; exact booleans.
+// Bound: bytes (~40 per lane through the gathers: 1.3 MB at 32,768 lanes).
 //
 // Bound on the card: bytes.  A lane reads ~80 bytes through its gathers
 // (its own fields, two broker rows, a topic row or max_rf sibling rows) and
@@ -165,7 +173,101 @@ __global__ void goal_masks_kernel(const Args a) {
                   score > kMinScore;
 }
 
+constexpr int32_t kSwap = 3;  // ActionType.INTER_BROKER_REPLICA_SWAP
+
+// No sibling of replica r's partition (other than r) sits on rack ``rack``.
+__device__ __forceinline__ bool rack_ok(int32_t r, int32_t rack, int64_t max_rf,
+                                        const int32_t* replica_partition,
+                                        const int32_t* partition_replicas,
+                                        const int32_t* replica_broker,
+                                        const int32_t* broker_rack) {
+  const int32_t* sib = partition_replicas + replica_partition[r] * max_rf;
+  for (int64_t j = 0; j < max_rf; ++j) {
+    const int32_t s = sib[j];
+    if (s >= 0 && s != r && broker_rack[replica_broker[s]] == rack) return false;
+  }
+  return true;
+}
+
+struct AcceptArgs {
+  int rack, topic;
+  int64_t k, num_brokers, max_rf;
+  const int32_t *action_type, *replica, *src, *dest, *dest_replica;
+  const int32_t *replica_topic, *replica_partition, *replica_broker;
+  const int32_t *partition_replicas, *broker_rack, *tbc;
+  const float *lower_t, *upper_t;
+  uint8_t* out;
+};
+
+__global__ void structural_accepts_kernel(const AcceptArgs a) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= a.k) return;
+  const int32_t at = a.action_type[i];
+  const bool is_move = at == kMove, is_swap = at == kSwap;
+  bool ok = true;
+  if (is_move || is_swap) {
+    const int32_t r = a.replica[i], s = a.src[i], d = a.dest[i];
+    const int32_t r2 = a.dest_replica[i] >= 0 ? a.dest_replica[i] : 0;
+    if (a.rack) {
+      ok = rack_ok(r, a.broker_rack[d], a.max_rf, a.replica_partition,
+                   a.partition_replicas, a.replica_broker, a.broker_rack);
+      if (is_swap)
+        ok = ok && rack_ok(r2, a.broker_rack[s], a.max_rf, a.replica_partition,
+                           a.partition_replicas, a.replica_broker, a.broker_rack);
+    }
+    if (a.topic) {
+      const int64_t t = a.replica_topic[r];
+      const float cs = static_cast<float>(a.tbc[t * a.num_brokers + s]);
+      const float cd = static_cast<float>(a.tbc[t * a.num_brokers + d]);
+      bool tok = __fadd_rn(cd, 1.f) <= a.upper_t[t] && __fsub_rn(cs, 1.f) >= a.lower_t[t];
+      if (is_swap) {
+        const int64_t t2 = a.replica_topic[r2];
+        const float c2s = static_cast<float>(a.tbc[t2 * a.num_brokers + s]);
+        const float c2d = static_cast<float>(a.tbc[t2 * a.num_brokers + d]);
+        tok = tok && __fadd_rn(c2s, 1.f) <= a.upper_t[t2] &&
+              __fsub_rn(c2d, 1.f) >= a.lower_t[t2];
+      }
+      ok = ok && tok;
+    }
+  }
+  a.out[i] = ok;
+}
+
 }  // namespace
+
+extern "C" int cc_structural_accepts(
+    int64_t rack, int64_t topic, int64_t k, int64_t num_brokers, int64_t max_rf,
+    const int32_t* action_type, const int32_t* replica, const int32_t* src,
+    const int32_t* dest, const int32_t* dest_replica, const int32_t* replica_topic,
+    const int32_t* replica_partition, const int32_t* replica_broker,
+    const int32_t* partition_replicas, const int32_t* broker_rack, const int32_t* tbc,
+    const float* lower_t, const float* upper_t, uint8_t* out, cudaStream_t stream) {
+  if (k <= 0) return 0;
+  if (topic && (!tbc || !lower_t || !upper_t)) return static_cast<int>(cudaErrorInvalidValue);
+  AcceptArgs a;
+  a.rack = static_cast<int>(rack);
+  a.topic = static_cast<int>(topic);
+  a.k = k;
+  a.num_brokers = num_brokers;
+  a.max_rf = max_rf;
+  a.action_type = action_type;
+  a.replica = replica;
+  a.src = src;
+  a.dest = dest;
+  a.dest_replica = dest_replica;
+  a.replica_topic = replica_topic;
+  a.replica_partition = replica_partition;
+  a.replica_broker = replica_broker;
+  a.partition_replicas = partition_replicas;
+  a.broker_rack = broker_rack;
+  a.tbc = tbc;
+  a.lower_t = lower_t;
+  a.upper_t = upper_t;
+  a.out = out;
+  const unsigned blocks = static_cast<unsigned>((k + kThreads - 1) / kThreads);
+  structural_accepts_kernel<<<blocks, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int cc_goal_masks(
     int64_t mode, int64_t delta_sel, int64_t k, int64_t num_brokers, int64_t max_rf,

@@ -11,22 +11,23 @@
 // bad-counts; the cut is the number of positions before the first bad one,
 // which is what this kernel computes directly.
 //
-// The caller supplies ``order``: the two stable sorts of the JAX function
-// (score descending, then segment), done by torch.sort.  Everything after
-// the sort happens here.
+// The caller supplies ``order``, the two stable sorts of the JAX function
+// (score descending, then segment), done by torch.sort, and ``cs``, the
+// running channel totals of the sorted kept deltas over the whole batch
+// (f32[K, C], ops/order.py ordered_cumsum: the JAX function's cumsum with
+// its rounding, from elementwise adds, so the CPU and the card hold the same
+// bits).  Everything after that happens here.
 //
 // Bound on the card: bytes (K * (9 + 4C) read, S * 12C read, K written);
 // well under a microsecond at the main path's shapes, so launch-bound.
 //
 // Design: one block per segment.  The block finds its range of sorted
-// positions by binary search over seg[order[.]], then walks it in chunks of
-// 256 positions: each thread loads its position's C channel deltas (zero
-// when not kept), a warp-shuffle scan plus a scan of the 8 warp totals gives
-// the block-inclusive prefix per channel, the carry from earlier chunks is
-// added, and every position (kept or not) is tested against the band.  The
-// first bad position of the segment ends the walk.  The segmented sum rounds
-// differently from the JAX function's global cumsum minus the segment base,
-// so a position within ~2 eps of a bound can test differently.
+// positions by binary search over seg[order[.]]; every thread tests its
+// positions: running total = cum_before + cs - the segment's base (cs at
+// the position before the segment), in the JAX function's order, against
+// [lo - eps, hi + eps] per channel; an atomicMin finds the first bad
+// position, and every kept lane before it is admitted.  The same
+// arithmetic as the plain version, so the two agree exactly.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -36,7 +37,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChannels = 16;
 
 __device__ __forceinline__ int32_t seg_at(const int32_t* order,
@@ -46,21 +46,17 @@ __device__ __forceinline__ int32_t seg_at(const int32_t* order,
 
 __global__ void prefix_cut_kernel(const int32_t* __restrict__ order,
                                   const int32_t* __restrict__ seg,
-                                  const float* __restrict__ deltas,   // [K, C]
+                                  const float* __restrict__ cs,       // [K, C]
                                   const uint8_t* __restrict__ kept,
                                   const float* __restrict__ cum_before,  // [S, C]
                                   const float* __restrict__ lo,          // [S, C]
                                   const float* __restrict__ hi,          // [S, C]
                                   uint8_t* __restrict__ out,
                                   int64_t k, int channels) {
-  __shared__ float s_warp[kMaxChannels][kWarps];
   __shared__ int s_first_bad;
   __shared__ int64_t s_range[2];
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-
   if (t == 0) {
     // lower_bound(b) and lower_bound(b + 1) over the sorted segment ids.
     int64_t lo_i = 0, hi_i = k;
@@ -75,76 +71,40 @@ __global__ void prefix_cut_kernel(const int32_t* __restrict__ order,
     }
     s_range[0] = lo_i;
     s_range[1] = lo_j;
+    s_first_bad = INT_MAX;
   }
   __syncthreads();
   const int64_t start = s_range[0];
   const int64_t end = s_range[1];
   if (start >= end) return;
-
-  float carry[kMaxChannels], hi_c[kMaxChannels], lo_c[kMaxChannels];
+  float before[kMaxChannels], base[kMaxChannels], hi_c[kMaxChannels], lo_c[kMaxChannels];
 #pragma unroll
   for (int c = 0; c < kMaxChannels; ++c) {
     if (c < channels) {
-      carry[c] = cum_before[b * channels + c];
+      before[c] = cum_before[b * channels + c];
+      base[c] = start > 0 ? cs[(start - 1) * channels + c] : 0.0f;
       const float h = hi[b * channels + c];
       const float l = lo[b * channels + c];
-      const float scale = fmaxf(1.0f, fmaxf(isfinite(h) ? fabsf(h) : 0.0f,
-                                            isfinite(l) ? fabsf(l) : 0.0f));
-      const float eps = 1e-6f * scale;
-      hi_c[c] = h + eps;
-      lo_c[c] = l - eps;
+      const float scale = fmaxf(fmaxf(isfinite(h) ? fabsf(h) : 0.0f,
+                                      isfinite(l) ? fabsf(l) : 0.0f), 1.0f);
+      const float eps = __fmul_rn(1e-6f, scale);
+      hi_c[c] = __fadd_rn(h, eps);
+      lo_c[c] = __fsub_rn(l, eps);
     }
   }
-
-  int64_t cut = end - start;
-  for (int64_t base = start; base < end; base += kThreads) {
-    const int64_t p = base + t;
-    const bool in = p < end;
-    const int32_t idx = in ? order[p] : 0;
-    const bool use = in && kept[idx];
-    float v[kMaxChannels];
-#pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c) {
-      if (c < channels) {
-        float x = use ? deltas[static_cast<int64_t>(idx) * channels + c] : 0.0f;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const float y = __shfl_up_sync(0xFFFFFFFFu, x, off);
-          if (lane >= off) x += y;
-        }
-        v[c] = x;
-        if (lane == 31) s_warp[c][warp] = x;
-      }
-    }
-    if (t == 0) s_first_bad = INT_MAX;
-    __syncthreads();
+  for (int64_t p = start + t; p < end; p += kThreads) {
     bool ok = true;
-    float total[kMaxChannels];
 #pragma unroll
     for (int c = 0; c < kMaxChannels; ++c) {
       if (c < channels) {
-        float before = 0.0f, sum = 0.0f;
-        for (int w = 0; w < kWarps; ++w) {
-          if (w < warp) before += s_warp[c][w];
-          sum += s_warp[c][w];
-        }
-        total[c] = sum;
-        const float prefix = carry[c] + (before + v[c]);
+        const float prefix = __fsub_rn(__fadd_rn(before[c], cs[p * channels + c]), base[c]);
         ok = ok && (prefix <= hi_c[c]) && (prefix >= lo_c[c]);
       }
     }
-    if (in && !ok) atomicMin(&s_first_bad, static_cast<int>(p - start));
-    __syncthreads();
-    const int first_bad = s_first_bad;
-    __syncthreads();  // s_warp / s_first_bad are rewritten next chunk
-    if (first_bad != INT_MAX) {
-      cut = first_bad;
-      break;
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c)
-      if (c < channels) carry[c] += total[c];
+    if (!ok) atomicMin(&s_first_bad, static_cast<int>(p - start));
   }
+  __syncthreads();
+  const int64_t cut = s_first_bad == INT_MAX ? end - start : s_first_bad;
   for (int64_t p = start + t; p < end; p += kThreads) {
     const int32_t idx = order[p];
     out[idx] = (kept[idx] && (p - start) < cut) ? 1 : 0;
@@ -154,7 +114,7 @@ __global__ void prefix_cut_kernel(const int32_t* __restrict__ order,
 }  // namespace
 
 extern "C" int cc_prefix_cut(const int32_t* order, const int32_t* seg,
-                             const float* deltas, const uint8_t* kept,
+                             const float* cs, const uint8_t* kept,
                              const float* cum_before, const float* lo,
                              const float* hi, uint8_t* out, int64_t k,
                              int64_t num_segments, int64_t channels,
@@ -163,7 +123,7 @@ extern "C" int cc_prefix_cut(const int32_t* order, const int32_t* seg,
   if (channels < 1 || channels > kMaxChannels || k > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   prefix_cut_kernel<<<static_cast<unsigned>(num_segments), kThreads, 0,
-                      stream>>>(order, seg, deltas, kept, cum_before, lo, hi,
+                      stream>>>(order, seg, cs, kept, cum_before, lo, hi,
                                 out, k, static_cast<int>(channels));
   return static_cast<int>(cudaGetLastError());
 }

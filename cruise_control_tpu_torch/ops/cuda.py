@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
-           "apply_actions", "goal_masks", "transport_match", "cluster_stats")
+           "apply_actions", "goal_masks", "transport_match", "cluster_stats",
+           "stack_sweep", "frontier_active", "chunk_gate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,10 @@ _ENTRIES = {
     "transport_rank": ("transport_match", "cc_transport_rank", "ppip"),
     "transport_lookup": ("transport_match", "cc_transport_lookup", "ppppiippp"),
     "cluster_stats": ("cluster_stats", "cc_cluster_stats", "ppiip"),
+    "structural_accepts": ("goal_masks", "cc_structural_accepts", "i" * 5 + "p" * 14),
+    "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 5 + "p" * 20),
+    "frontier_active": ("frontier_active", "cc_frontier_active", "if" + "p" * 8),
+    "chunk_gate": ("chunk_gate", "cc_chunk_gate", "p" * 6 + "iii"),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 

@@ -7,6 +7,18 @@
 - ``argsort`` matches ``jnp.argsort(..., stable=True)``: ascending, stable,
   -0.0 equal to +0.0 (float keys are canonicalised before the sort).
 - ``lexsort2`` matches ``jnp.lexsort((minor, major))``.
+- ``ordered_sum`` matches a float32 ``jnp.sum`` along the leading axis as
+  the JAX package's compiled CPU programs add: XLA splits a reduction over
+  more than 32 elements into windows of 32 (the input padded with zeros to
+  a multiple of 32, the padding split evenly before and after, the odd
+  element after), sums each window in order from 0 and reduces the window
+  sums the same way, down to one ordered sum of at most 32.  It is built
+  from elementwise adds only, so the CPU and the card give the same bits.
+- ``ordered_cumsum`` matches a float32 ``jnp.cumsum`` along the leading
+  axis the same way: XLA scans more than 16 elements as blocks of 16 (the
+  input padded with zeros at the end), each scanned in order, plus the
+  inclusive scan of the block totals — itself scanned so — shifted by one
+  block.  Elementwise adds only, the same bits on any device.
 """
 
 from __future__ import annotations
@@ -46,3 +58,49 @@ def lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
     o1 = argsort(minor)
     o2 = argsort(major[o1])
     return o1[o2]
+
+
+_SUM_WINDOW = 32
+
+
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` along dim 0, in XLA's windowed order (see the module
+    docstring); the result has ``x.shape[1:]``."""
+    rest = tuple(x.shape[1:])
+    while x.shape[0] > _SUM_WINDOW:
+        n = x.shape[0]
+        m = -(-n // _SUM_WINDOW) * _SUM_WINDOW
+        lo = (m - n) // 2
+        x = torch.cat([x.new_zeros((lo,) + rest), x, x.new_zeros((m - n - lo,) + rest)])
+        x = x.reshape((m // _SUM_WINDOW, _SUM_WINDOW) + rest)
+        acc = x.new_zeros((m // _SUM_WINDOW,) + rest)
+        for i in range(_SUM_WINDOW):
+            acc = acc + x[:, i]
+        x = acc
+    acc = x.new_zeros(rest)
+    for i in range(x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+_SCAN_BLOCK = 16
+
+
+def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of ``x`` along dim 0, in XLA's blocked order
+    (see the module docstring)."""
+    n = x.shape[0]
+    rest = tuple(x.shape[1:])
+    if n <= _SCAN_BLOCK:
+        out = x.clone()
+        for i in range(1, n):
+            out[i] += out[i - 1]
+        return out
+    m = -(-n // _SCAN_BLOCK) * _SCAN_BLOCK
+    xp = torch.cat([x, x.new_zeros((m - n,) + rest)]).reshape(
+        (m // _SCAN_BLOCK, _SCAN_BLOCK) + rest)
+    for j in range(1, _SCAN_BLOCK):
+        xp[:, j] += xp[:, j - 1]
+    totals = ordered_cumsum(xp[:, -1])
+    xp[1:] += totals[:-1].unsqueeze(1)
+    return xp.reshape((m,) + rest)[:n]

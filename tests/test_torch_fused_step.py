@@ -8,8 +8,10 @@
 - ``optimize(fused=True)`` never writes the caller's model, reports its
   host reads and gated steps, runs an explicit ``fuse_group_size`` above
   the 64-broker floor like the unfused path, and raises where the JAX
-  package would run its per-goal frontier driver or an option of a later
-  slice.
+  package would pipeline the goals (above 64 brokers by default, and on
+  request: the per-goal path's pipelined form, ``segment_steps`` there),
+  for ``frontier=True`` off the per-goal path, and for the options of
+  later slices.
 """
 
 import dataclasses
@@ -132,12 +134,12 @@ def test_explicit_groups_run_above_the_dense_floor():
 
 @pytest.mark.parametrize("spec_kw,kwargs", [
     (WIDE, {}),
-    (SPEC_6, {"fuse_group_size": 1}),
+    (SPEC_6, {"fuse_group_size": 1, "pipeline": True}),
     (SPEC_6, {"frontier": True}),
     (SPEC_6, {"pipeline": True}),
     (SPEC_6, {"warm_start": object()}),
     (SPEC_6, {"mesh": object()}),
-    (SPEC_6, {"segment_steps": 32}),
+    (WIDE, {"segment_steps": 32}),
 ], ids=["above-floor", "per-goal", "frontier", "pipeline", "warm_start", "mesh",
         "segment_steps"])
 def test_fused_paths_of_later_slices_raise(spec_kw, kwargs):

@@ -11,7 +11,7 @@
   ``verify_run`` with the JAX package's own proposal diff, which equals the
   port's.  (The 12-broker cluster is in test_torch_stack.py.)
 - Options of later slices raise instead of being ignored (``fused=True``
-  only where the JAX package runs its per-goal frontier driver).
+  only where it would pipeline the goals).
 """
 
 import dataclasses
@@ -97,7 +97,7 @@ def test_full_stack_6_brokers():
     check_stack(SPEC_6)
 
 
-@pytest.mark.parametrize("kwargs", [{"fused": True, "fuse_group_size": 1},
+@pytest.mark.parametrize("kwargs", [{"fused": True, "fuse_group_size": 1, "pipeline": True},
                                     {"mesh": object()}, {"frontier": True},
                                     {"pipeline": True}, {"warm_start": object()}],
                          ids=["fused", "mesh", "frontier", "pipeline", "warm_start"])

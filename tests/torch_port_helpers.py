@@ -177,3 +177,64 @@ def check_stack(spec_kw):
         tuple(tprops.ReplicaPlacement(*x) for x in p.old_replicas),
         tuple(tprops.ReplicaPlacement(*x) for x in p.new_replicas)) for p in jax_proposals]
     return jrun, trun
+
+
+# The JAX package's environment switches; the per-goal parity tests run with
+# all of them unset, as the port never reads them.
+CRUISE_ENV = ("CRUISE_PIPELINE", "CRUISE_PIPELINE_FUSE", "CRUISE_FLIGHT_RECORDER",
+              "CRUISE_AOT_PRELOWER", "CRUISE_REPAIR_ORACLE", "CRUISE_TPU_COMPILE_CEILING")
+
+
+def clear_cruise_env(monkeypatch) -> None:
+    for name in CRUISE_ENV:
+        monkeypatch.delenv(name, raising=False)
+
+
+def skewed_models(seed: int = 7, brokers: int = 16):
+    """The skewed model of tests/test_frontier.py:51 (one over-band broker,
+    every other broker in band: a small frontier) in both packages."""
+    from tests.test_frontier import _skewed_model
+    jm = _skewed_model(seed=seed, brokers=brokers)
+    return jm, to_torch(jm)
+
+
+def chunk_keys(info):
+    """A frontier driver's chunk records as (steps, actions, bucket, ns,
+    nd, speculative)."""
+    return [(c["steps"], c["actions"], c["bucket"], c["ns"], c["nd"], c["speculative"])
+            for c in info["chunks"]]
+
+
+def check_per_goal(spec_kw, **kw):
+    """The port's sequential per-goal path (``optimize(fused=True,
+    fuse_group_size=1)``) against the JAX package's on the same cluster: per
+    goal the same integer packed slots 0-7, the same goals skipped by the
+    satisfied-sweep, and the same final placement; the run passes the
+    port's ``verify_run``."""
+    jm = jax_generate(JaxSpec(**spec_kw))
+    tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
+    return compare_per_goal(jm, tm, STACK, fuse_group_size=1, **kw)
+
+
+def compare_per_goal(jm, tm, stack, verify=True, **kw):
+    jskip = jopt.SWEEP_COUNTERS["skipped_goals"]
+    jrun = jopt.optimize(jm, stack, raise_on_hard_failure=False, fused=True, **kw)
+    jskip = jopt.SWEEP_COUNTERS["skipped_goals"] - jskip
+    tskip = topt.SWEEP_COUNTERS["skipped_goals"]
+    trun = topt.optimize(tm, stack, raise_on_hard_failure=False, fused=True, device="cpu",
+                         **kw)
+    tskip = topt.SWEEP_COUNTERS["skipped_goals"] - tskip
+    assert [g.name for g in trun.goal_results] == list(stack)
+    assert goal_rows(trun) == goal_rows(jrun)
+    assert tskip == jskip
+    skipped = [g.name for g in trun.goal_results if g.chunks is None]
+    assert skipped == [g.name for g in jrun.goal_results if g.chunks is None]
+    for t, j in zip(trun.goal_results, jrun.goal_results):
+        if j.chunks is not None:
+            assert chunk_keys({"chunks": t.chunks}) == chunk_keys({"chunks": j.chunks}), t.name
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(getattr(trun.model, f).numpy(),
+                                      np.asarray(getattr(jrun.model, f)), err_msg=f)
+    if verify:
+        verify_run(tm, trun, list(stack), proposals=tprops.diff(tm, trun.model))
+    return jrun, trun
