@@ -13,18 +13,22 @@ Phases, in order (any failure raises and the process exits non-zero):
    full 15-goal stack, unfused warm-up run; each kernel's inputs at its
    first launch are captured;
 4. each hand-written kernel against its plain PyTorch version on the card,
-   on seeded fixtures and on the captured inputs, with timings (CUDA
-   events, median of 20), the least time the card could take for the same
-   bytes and, where one PyTorch call computes the same function, its time;
-5. mid rung as the service runs it, ``optimize(fused=True,
-   donate_model=True)``: a warm-up run captures the step graphs, then a
-   timed run with the launch counters set to 0 just before: every hard goal
-   satisfied, ``verify_run`` passes, every kernel launched (graph replays
-   counted), graph captures, replays, gated-off replays and host fetches;
-   a second fused run gives identical proposals; the unfused timed run
-   gives the same placement; K8 (one replayed step against the same step
-   run eagerly) and K12 (the fused driver with its step graphs against the
-   same driver with its gated steps run eagerly) are timed and checked;
+   on seeded fixtures and on the captured inputs (K9's sweep on the mid
+   rung, the second mid snapshot with its dead broker and the large rung;
+   K9's frontier mask for every band goal of those; K11 on its case table;
+   K5b on the captured batch), with timings (CUDA events, median of 20),
+   the least time the card could take for the same bytes and, where one
+   PyTorch call computes the same function, its time;
+5. mid rung on the grouped stack the service runs below 100 brokers,
+   ``optimize(fused=True, donate_model=True)``: a warm-up run captures the
+   step graphs, then a timed run with the launch counters set to 0 just
+   before: every hard goal satisfied, ``verify_run`` passes, every kernel
+   of the path launched (graph replays counted), graph captures, replays,
+   gated-off replays and host fetches; a second fused run gives identical
+   proposals; the unfused timed run gives the same placement; K8 (one
+   replayed step against the same step run eagerly) and K12 (the fused
+   driver with its step graphs against the same driver with its gated steps
+   run eagerly) are timed and checked;
 6. a second snapshot of exactly the mid shape, in which every field but
    the padding masks holds other data (from seed 2027: relabelled brokers,
    partitions, topics and disks, new leaders, loads, capacities, racks and
@@ -33,12 +37,29 @@ Phases, in order (any failure raises and the process exits non-zero):
    equals the eager fused driver on it, placement for placement;
 7. profiles of the fused and of the unfused mid run under
    ``torch.profiler``: device ops per step and the device's busy share;
-8. large rung (200 brokers, ~100k replicas), the first 7 goals as one
-   fused group, the same checks;
-9. a 12-broker cluster and the mid rung solved on the card and on the CPU
-   plain path: per goal the same satisfied flags;
-10. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+8. large rung (200 brokers, ~100k replicas), the full stack on the
+   sequential per-goal path, ``optimize(fused=True, pipeline=False,
+   donate_model=True)``: warm-up (captures), a timed run with the counters
+   set to 0 just before — every hard goal satisfied, ``verify_run``, every
+   kernel launched, at least one chunk compacted and one speculative
+   follow-up — per goal its chunks, buckets, replays (gated off),
+   follow-ups (wasted), host fetches and wall; a repeat gives identical
+   proposals; a profile gives the busy share and ops per step; every
+   frontier mask the warm-up computed is held against the plain version;
+9. a second large snapshot (the same changes as phase 6) through the
+   cached per-goal graphs and frontier buffers, with no new capture, equal
+   to the eager per-goal driver (stale-buffer check);
+10. a 12-broker cluster and the mid rung (unfused), and a 100-broker
+    cluster on the per-goal path, solved on the card and on the CPU plain
+    path: per goal the same flags (and for the 100-broker cluster the same
+    steps, actions and placement);
+11. xl250 rung (1000 brokers, ~250k replicas, ``segment_steps`` 32 by the
+    JAX package's rule) on the per-goal path, the stack of ``XL_GOALS``;
+12. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --kernels-only`` stops after phase 4 (no result
+line, exit code 3): the quick check of a kernel change.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
 with the plain PyTorch versions at small sizes, without building, timing on
@@ -72,7 +93,7 @@ MID = (50, 10, 40, 84.0, 3)
 LARGE = (200, 20, 100, 333.0, 3)
 XL250 = (1000, 40, 200, 417.0, 3)
 HUNDRED = (100, 10, 40, 84.0, 3)
-XL_GOALS = STACK[:7]  # the six hard goals and ReplicaDistributionGoal
+XL_GOALS = STACK  # the full stack: the whole script stays well inside its limit
 SEED = 2026
 SECOND_SEED = 2027  # the second snapshot of the mid shape (stale-buffer check)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)

@@ -939,10 +939,10 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
     (``cum_before`` plus the kept deltas) stay inside [lo, hi] at every
     position.  Bound on the card: bytes (K·(9+4C) + S·12C read, K written).
     CPU tensors take ``prefix_cut_admit_plain``; CUDA tensors sort with two
-    stable ``torch.sort`` calls, take the global running totals with
-    ``ordered_cumsum`` (elementwise adds: the plain version's bits) and
-    launch one block per segment that cuts at its first out-of-band
-    position."""
+    stable ``torch.sort`` calls, take the global running totals in the
+    order of ``ordered_cumsum`` (``cc_ordered_cumsum``: a scan of blocks of
+    16 rows per level, the plain version's bits) and launch one block per
+    segment that cuts at its first out-of-band position."""
     dev = score.device
     K = score.shape[0]
     C = deltas.shape[1] if deltas.dim() == 2 else -1
@@ -964,7 +964,9 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
         ordr = _prefix_order(score, seg)
         s_deltas = torch.where(kept[ordr][:, None], deltas[ordr],
                                torch.zeros((), dtype=deltas.dtype, device=dev))
-        cs = order.ordered_cumsum(s_deltas).contiguous()
+        cs = s_deltas.contiguous()
+        scratch = torch.empty(((K // 15 + 16) * C,), dtype=torch.float32, device=dev)
+        cuda.launch("ordered_cumsum", cs, scratch, K, C)
         cuda.launch("prefix_cut", ordr.to(torch.int32), seg, cs, kept, cum_before, lo,
                     hi, out, K, num_segments, C)
         prefix_cut_admit.launches += 1

@@ -66,8 +66,8 @@ from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_DEPTH, CTR_
                                                      PACKED_BEFORE, PACKED_BISECT_DEPTH,
                                                      PACKED_CAPPED, PACKED_LANES_LIVE,
                                                      PACKED_REPAIR_STEPS, PACKED_STEPS,
-                                                     PACKED_WIDTH, BrokerArrays, FrontierInvariants,
-                                                     OptimizationOptions,
+                                                     PACKED_WIDTH, BrokerArrays,
+                                                     FrontierInvariants, OptimizationOptions,
                                                      StepInvariants, StepState,
                                                      pow2_bucket, topic_counts)
 from cruise_control_tpu_torch.common.resources import Resource

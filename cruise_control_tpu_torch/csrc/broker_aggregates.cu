@@ -12,23 +12,22 @@
 // is ~0.4 MB, well under a microsecond at 3.35 TB/s, so a launch costs more
 // than the work.
 //
-// Design: one warp per broker, which walks the replica axis in order, 32
-// replicas at a time: a ballot finds the chunk's replicas of its broker,
-// and for each of them in index order lane c adds channel c (loads, NW_OUT,
-// leader NW_IN; lanes 6 and 7 count).  So every broker's sums are taken in
-// replica order, as the plain version's index_add_ on the CPU (and the JAX
-// package's scatter-add) adds them: the same bits, run to run and against
-// the CPU.  Each warp re-reads the broker ids and valid flags (B * R * 5
-// bytes: 100 MB at the 200-broker rung), from L2.  Counts are exact int32.
+// Design: one block per broker.  Threads stride over the replica axis and
+// accumulate the rows of their broker in registers in a fixed order, then a
+// fixed shared-memory tree reduction combines them — no float atomics, so
+// the result is bit-identical run to run.  Each block re-reads the 4-byte
+// broker ids (B * R * 4 bytes: 2 MB at mid, 80 MB at the 200-broker rung),
+// which stay in the 50 MB L2 because the id array itself is R * 4 bytes.
+// Counts are exact int32.
 //
 // cc_segment_sum is the same design for any masked f32[N, C] rows (C <= 16)
 // into S segments: the per-broker round sums of the selection
 // (cruise_control_tpu/analyzer/optimizer.py:663-668, a float scatter-add
 // there).  Bound on the card: bytes (N * (4C + 5) read, S * 4C written; at
 // the mid rung N = 32,768 lanes, C = 8: ~1.2 MB, a few tenths of a
-// microsecond at 3.35 TB/s).  One warp per segment, rows in index order,
-// lane c adding channel c: the CPU's order, deterministic, so a CUDA graph
-// replays it to the same bits every time.
+// microsecond at 3.35 TB/s).  One block per segment, fixed-order strided
+// register sums and a fixed tree: deterministic, so a CUDA graph replays it
+// to the same bits every time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,8 +35,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFloats = 6;  // load[0..3], potential NW_OUT, leader NW_IN
 
 __global__ void broker_aggregates_kernel(
     const int32_t* __restrict__ replica_broker,
@@ -45,43 +43,52 @@ __global__ void broker_aggregates_kernel(
     const uint8_t* __restrict__ is_leader,
     const float* __restrict__ load_leader,    // [R, 4]
     const float* __restrict__ load_follower,  // [R, 4]
-    int64_t num_replicas, int64_t num_brokers,
+    int64_t num_replicas,
     float* __restrict__ load,                 // [B, 4]
     int32_t* __restrict__ replica_count,
     int32_t* __restrict__ leader_count,
     float* __restrict__ potential_nw_out,
     float* __restrict__ leader_bytes_in) {
-  const int lane = threadIdx.x & 31;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (b >= num_brokers) return;  // whole warps only
-  float acc = 0.f;
-  int32_t cnt = 0;
-  for (int64_t base = 0; base < num_replicas; base += 32) {
-    const int64_t r = base + lane;
-    const bool mine = r < num_replicas && valid[r] && replica_broker[r] == b;
-    unsigned m = __ballot_sync(kFull, mine);
-    while (m) {
-      const int64_t rr = base + (__ffs(m) - 1);
-      m &= m - 1;
-      const bool lead = is_leader[rr] != 0;
-      if (lane < 4) {
-        acc = __fadd_rn(acc, (lead ? load_leader : load_follower)[4 * rr + lane]);
-      } else if (lane == 4) {
-        acc = __fadd_rn(acc, load_leader[4 * rr + 2]);  // Resource.NW_OUT
-      } else if (lane == 5) {
-        acc = __fadd_rn(acc, lead ? load_leader[4 * rr + 1] : 0.f);  // leaders' NW_IN
-      } else if (lane == 6) {
-        cnt += 1;
-      } else if (lane == 7) {
-        cnt += lead ? 1 : 0;
-      }
-    }
+  __shared__ float s_f[kFloats][kThreads];
+  __shared__ int32_t s_i[2][kThreads];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  float acc[kFloats] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int32_t cnt = 0, lcnt = 0;
+  for (int64_t r = t; r < num_replicas; r += kThreads) {
+    if (!valid[r] || replica_broker[r] != b) continue;
+    const bool lead = is_leader[r] != 0;
+    const float* ll = load_leader + 4 * r;
+    const float* row = lead ? ll : load_follower + 4 * r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] += row[c];
+    acc[4] += ll[2];                 // Resource.NW_OUT
+    acc[5] += lead ? ll[1] : 0.f;    // Resource.NW_IN of leaders
+    cnt += 1;
+    lcnt += lead ? 1 : 0;
   }
-  if (lane < 4) load[4 * b + lane] = acc;
-  else if (lane == 4) potential_nw_out[b] = acc;
-  else if (lane == 5) leader_bytes_in[b] = acc;
-  else if (lane == 6) replica_count[b] = cnt;
-  else if (lane == 7) leader_count[b] = cnt;
+#pragma unroll
+  for (int c = 0; c < kFloats; ++c) s_f[c][t] = acc[c];
+  s_i[0][t] = cnt;
+  s_i[1][t] = lcnt;
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) {
+#pragma unroll
+      for (int c = 0; c < kFloats; ++c) s_f[c][t] += s_f[c][t + stride];
+      s_i[0][t] += s_i[0][t + stride];
+      s_i[1][t] += s_i[1][t + stride];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) load[4 * b + c] = s_f[c][0];
+    potential_nw_out[b] = s_f[4][0];
+    leader_bytes_in[b] = s_f[5][0];
+    replica_count[b] = s_i[0][0];
+    leader_count[b] = s_i[1][0];
+  }
 }
 
 constexpr int kMaxChannels = 16;
@@ -89,22 +96,33 @@ constexpr int kMaxChannels = 16;
 __global__ void segment_sum_kernel(const float* __restrict__ values,  // [N, C]
                                    const int32_t* __restrict__ seg,
                                    const uint8_t* __restrict__ mask,
-                                   int64_t n, int channels, int64_t num_segments,
+                                   int64_t n, int channels,
                                    float* __restrict__ out) {          // [S, C]
-  const int lane = threadIdx.x & 31;
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (s >= num_segments) return;  // whole warps only
-  float acc = 0.f;
-  for (int64_t base = 0; base < n; base += 32) {
-    const int64_t i = base + lane;
-    unsigned m = __ballot_sync(kFull, i < n && mask[i] && seg[i] == s);
-    while (m) {
-      const int64_t ii = base + (__ffs(m) - 1);
-      m &= m - 1;
-      if (lane < channels) acc = __fadd_rn(acc, values[ii * channels + lane]);
-    }
+  __shared__ float s_f[kMaxChannels][kThreads];
+  const int s = blockIdx.x;
+  const int t = threadIdx.x;
+  float acc[kMaxChannels];
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.f;
+  for (int64_t i = t; i < n; i += kThreads) {
+    if (!mask[i] || seg[i] != s) continue;
+    const float* row = values + i * channels;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c)
+      if (c < channels) acc[c] = __fadd_rn(acc[c], row[c]);
   }
-  if (lane < channels) out[s * channels + lane] = acc;
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) s_f[c][t] = acc[c];
+  __syncthreads();
+  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
+    if (t < stride) {
+#pragma unroll
+      for (int c = 0; c < kMaxChannels; ++c)
+        if (c < channels) s_f[c][t] = __fadd_rn(s_f[c][t], s_f[c][t + stride]);
+    }
+    __syncthreads();
+  }
+  if (t < channels) out[static_cast<int64_t>(s) * channels + t] = s_f[t][0];
 }
 
 }  // namespace
@@ -116,9 +134,8 @@ extern "C" int cc_segment_sum(const float* values, const int32_t* seg,
   if (num_segments <= 0) return 0;
   if (channels < 1 || channels > kMaxChannels)
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((num_segments + kWarps - 1) / kWarps);
-  segment_sum_kernel<<<blocks, kThreads, 0, stream>>>(
-      values, seg, mask, n, static_cast<int>(channels), num_segments, out);
+  segment_sum_kernel<<<static_cast<unsigned>(num_segments), kThreads, 0, stream>>>(
+      values, seg, mask, n, static_cast<int>(channels), out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -129,10 +146,10 @@ extern "C" int cc_broker_aggregates(
     int32_t* replica_count, int32_t* leader_count, float* potential_nw_out,
     float* leader_bytes_in, int64_t num_brokers, cudaStream_t stream) {
   if (num_brokers <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((num_brokers + kWarps - 1) / kWarps);
-  broker_aggregates_kernel<<<blocks, kThreads, 0, stream>>>(
+  broker_aggregates_kernel<<<static_cast<unsigned>(num_brokers), kThreads, 0,
+                             stream>>>(
       replica_broker, valid, is_leader, load_leader, load_follower,
-      num_replicas, num_brokers, load, replica_count, leader_count,
-      potential_nw_out, leader_bytes_in);
+      num_replicas, load, replica_count, leader_count, potential_nw_out,
+      leader_bytes_in);
   return static_cast<int>(cudaGetLastError());
 }

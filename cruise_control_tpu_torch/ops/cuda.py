@@ -47,6 +47,7 @@ _ENTRIES = {
     "segment_sum": ("broker_aggregates", "cc_segment_sum", "pppiiip"),
     "best_per_segment": ("best_per_segment", "cc_best_per_segment", "pppiipp"),
     "prefix_cut": ("prefix_cut", "cc_prefix_cut", "ppppppppiii"),
+    "ordered_cumsum": ("prefix_cut", "cc_ordered_cumsum", "ppii"),
     "apply_actions": ("apply_actions", "cc_apply_actions", "pppppppppiiippp"),
     "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 5 + "f" + "p" * 30),
     "transport_rank": ("transport_match", "cc_transport_rank", "ppip"),

@@ -65,8 +65,8 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     (``cruise_control_tpu/analyzer/optimizer.py:663-668``).  Bound on the
     card: bytes (N·(4C+5) read, S·4C written).  CPU tensors take
     ``masked_segment_sum`` (``index_add_`` in row order); CUDA tensors
-    launch one warp per segment that adds its rows in row order too: the
-    same bits as the CPU, no float atomics."""
+    launch one block per segment that sums its rows in a fixed order and
+    reduces with a fixed tree: deterministic, no float atomics."""
     dev = values.device
     n = values.shape[0]
     c = values.shape[1] if values.dim() == 2 else -1
@@ -123,9 +123,9 @@ def broker_aggregates(replica_broker: torch.Tensor, replica_valid: torch.Tensor,
     ``cruise_control_tpu/ops/segment.py:22-42`` as reached through
     ``BrokerArrays.from_model`` (``analyzer/state.py:37``).  Bound on the
     card: bytes (R·38 read, B·32 written).  CPU tensors take
-    ``broker_aggregates_plain``; CUDA tensors launch the kernel (one warp
-    per broker adding its replicas' rows in replica order, as the CPU's
-    ``index_add_`` does: the same bits, no float atomics)."""
+    ``broker_aggregates_plain``; CUDA tensors launch the kernel (one block
+    per broker, fixed-order register + tree reduction: deterministic, no
+    float atomics)."""
     dev = replica_broker.device
     r = replica_broker.shape[0]
     cuda.check(replica_broker, "replica_broker", torch.int32, (r,), dev)

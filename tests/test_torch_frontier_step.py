@@ -186,3 +186,35 @@ def test_per_goal_refusals(spec_kw, kwargs):
     tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
     with pytest.raises(NotImplementedError):
         topt.optimize(tm, STACK, fused=True, device="cpu", **kwargs)
+
+
+def test_graph_cache_keeps_frontier_buffers_per_shape_and_bucket():
+    """Each (shape, bucket) holds one set of static frontier buffers, written
+    only when a chunk dispatches another frontier, keyed into the graph key
+    by bucket, and evicted with its shape.  (The buffers live on the
+    model's device; a capture needs the card, so no graph is made here.)"""
+    from cruise_control_tpu_torch.analyzer import graphs
+
+    cache = graphs.GraphCache()
+    models = [generate_cluster(ClusterSpec(**dict(SPEC_6, num_topics=t)), device="cpu")
+              for t in range(2, 3 + graphs.MAX_SHAPES)]
+    st = cache.state(models[0], OptimizationOptions.none(models[0]))
+    active = np.zeros(models[0].num_brokers, bool)
+    active[[1, 4]] = True
+    fr = topt._build_frontier(active, 2)
+    bufs = cache.frontier(st, fr)
+    assert cache.frontier(st, fr) is bufs and cache.num_frontiers() == 1
+    for f in ("active", "compact_of_full", "full_of_compact"):
+        assert torch.equal(getattr(bufs, f), getattr(fr, f)), f
+    active[1] = False
+    fr2 = topt._build_frontier(active, 2)
+    assert cache.frontier(st, fr2) is bufs  # same bucket: the buffers, rewritten
+    assert bufs.full_of_compact.tolist() == [4, -1]
+    cache.frontier(st, topt._build_frontier(active, 4))
+    assert cache.num_frontiers() == 2
+    spec = GOAL_SPECS["ReplicaDistributionGoal"]
+    assert graphs.goal_key(spec, (), None, 1, 1, st, 2) != graphs.goal_key(spec, (), None,
+                                                                             1, 1, st)
+    for m in models[1:]:  # MAX_SHAPES newer shapes evict the first with its buffers
+        cache.state(m, OptimizationOptions.none(m))
+    assert cache.num_frontiers() == 0

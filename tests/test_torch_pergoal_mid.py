@@ -42,4 +42,5 @@ def check_100():
     _, trun = compare_per_goal(jm, to_torch(jm), STACK, pipeline=False)
     buckets = {c["bucket"] for g in trun.goal_results for c in (g.chunks or [])}
     print("buckets", sorted(buckets, key=str))
-    print([(g.name, g.steps, g.actions_applied, len(g.chunks or [])) for g in trun.goal_results])
+    print([(g.name, g.steps, g.actions_applied, len(g.chunks or []))
+           for g in trun.goal_results])
