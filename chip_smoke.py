@@ -147,10 +147,9 @@ KERNELS = {
     "chunk_gate": ("cruise_control_tpu_torch/csrc/chunk_gate.cu",
                    "cruise_control_tpu/analyzer/optimizer.py:1489"),
 }
-# Kernels a path does not launch: the grouped and unfused paths have no
-# stack sweep and no chunk gate; the unfused path no frontier count.
-NOT_ON = {"grouped": ("stack_sweep", "chunk_gate"),
-          "unfused": ("stack_sweep", "chunk_gate", "frontier_active")}
+# Kernels a path does not launch: the unfused path has no stack sweep, no
+# chunk gate and no frontier count.
+NOT_ON = {"unfused": ("stack_sweep", "chunk_gate", "frontier_active")}
 GRAPH_KERNELS = {
     "step_graph": ("cruise_control_tpu_torch/analyzer/graphs.py",
                    "cruise_control_tpu/analyzer/optimizer.py:1572"),
@@ -318,7 +317,7 @@ def main(argv) -> int:
         f"this run {sum(g.fresh_compile for g in run_fused.goal_results)}, replays "
         f"{replays}, gated-off replays {wasted}, host fetches {fetches}")
     log(f"mid fused launches: {fused_counts}")
-    check_launched("fused mid", fused_counts, "grouped")
+    check_launched("fused mid", fused_counts)
     run_again = fused_run(mid)
     again_same = props.diff(mid, run_again.model) == fused_props and \
         same_placement(run_again, run_fused)
@@ -392,9 +391,9 @@ def main(argv) -> int:
                                     torch.cuda.memory_reserved())
     n_graphs0 = len(graphs.GRAPHS)
     # Every frontier mask the warm-up computes, by its inputs (the broker
-    # rows ``_frontier_inputs`` hands to K9's frontier mask).
+    # rows ``frontier_inputs`` hands to K9's frontier mask).
     frontier_inputs = []
-    real_inputs = gk._frontier_inputs
+    real_inputs = gk.frontier_inputs
 
     def recording_inputs(*args):
         out = real_inputs(*args)
@@ -402,14 +401,14 @@ def main(argv) -> int:
                                      for a in out))
         return out
 
-    gk._frontier_inputs = recording_inputs
+    gk.frontier_inputs = recording_inputs
     try:
         t0 = time.monotonic()
         run_large_warm = fused_run(large, **per_goal)  # captures
         torch.cuda.synchronize()
         large_warm_s = time.monotonic() - t0
     finally:
-        gk._frontier_inputs = real_inputs
+        gk.frontier_inputs = real_inputs
     mem1 = (0, 0) if rehearse else (torch.cuda.memory_allocated(),
                                     torch.cuda.memory_reserved())
     large_captures = sum(g.fresh_compile for g in run_large_warm.goal_results)
@@ -1235,7 +1234,7 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
     for label, m in models.items():
         arr = BrokerArrays.from_model(m)
         for spec in band:
-            inp = gk._frontier_inputs(spec, m, arr, con)
+            inp = gk.frontier_inputs(spec, m, arr, con)
             got, count = kf(*inp)
             ref, ref_count = gk.frontier_mask_plain(*on_cpu(inp))
             if not (torch.equal(got.cpu(), ref) and torch.equal(count.cpu(), ref_count)):
@@ -1243,7 +1242,7 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
                                    f"{label} {spec.name}")
             card_diff += int((gk.frontier_mask_plain(*inp)[0].cpu() != ref).sum())
             n += 1
-    inp_l = gk._frontier_inputs(GOAL_SPECS["ReplicaDistributionGoal"], large,
+    inp_l = gk.frontier_inputs(GOAL_SPECS["ReplicaDistributionGoal"], large,
                                 BrokerArrays.from_model(large), con)
     B = large.num_brokers
     out["frontier_active"] = dict(

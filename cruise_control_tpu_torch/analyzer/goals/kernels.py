@@ -23,9 +23,9 @@ kinds of the default stack (``rack``, ``replica_capacity``, ``capacity``,
   ``stack_satisfied_plain``.
 - ``structural_accepts`` — the vetoes of structural previous goals (K5b,
   ``csrc/goal_masks.cu``), with the plain twin ``structural_accepts_plain``.
-- ``frontier_active`` / ``frontier_mask`` — the band goal's active broker
-  set (K9 frontier, ``csrc/frontier_active.cu``), with the plain twin
-  ``frontier_mask_plain``.
+- ``frontier_inputs`` / ``frontier_mask`` — the band goal's active broker
+  set (the JAX package's ``frontier_active``; K9 frontier,
+  ``csrc/frontier_active.cu``), with the plain twin ``frontier_mask_plain``.
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
   ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
 """
@@ -781,7 +781,7 @@ def _topic_limits(model: TensorClusterModel, arrays: BrokerArrays,
 # Frontier population (the packed NUM_ACTIVE slot)
 # ---------------------------------------------------------------------------
 
-def _frontier_inputs(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+def frontier_inputs(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
                      constraint: BalancingConstraint):
     """(metric, lower, upper, alive, valid, replica_count, eps): the broker
     rows ``frontier_mask`` reads for a band goal."""
@@ -867,13 +867,6 @@ def frontier_mask(metric, lower, upper, alive, valid, replica_count, eps: float)
 
 # Brokers one frontier-mask block sorts in shared memory.
 FRONTIER_MAX_BROKERS = 8192
-
-
-def frontier_active(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
-                    constraint: BalancingConstraint) -> torch.Tensor:
-    """bool[B] — the band goal's active broker set (``frontier_mask`` on
-    its broker rows).  Band kinds only."""
-    return frontier_mask(*_frontier_inputs(spec, model, arrays, constraint))[0]
 
 
 # ---------------------------------------------------------------------------

@@ -202,6 +202,27 @@ def _channel_deltas(cand: Candidates):
     return d_src, d_dest
 
 
+@functools.lru_cache(maxsize=64)
+def _band_consts(constraint: BalancingConstraint, device: torch.device):
+    """(capacity thresholds, balance percentages, low-utilization
+    thresholds), each f32[4], on ``device``, uploaded once per constraint:
+    a host-to-device copy waits for the stream, and the per-goal driver
+    computes the band sides while a chunk may still be running."""
+    def up(values):
+        return torch.tensor(values, dtype=torch.float32).to(device)
+    return (up(constraint.capacity_threshold),
+            up([constraint.balance_percentage(r) for r in range(4)]),
+            up(constraint.low_utilization_threshold))
+
+
+@functools.lru_cache(maxsize=256)
+def _channel_mask(channels: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """bool[1, 8], True on ``channels`` (uploaded once, as ``_band_consts``)."""
+    sel = np.zeros((NUM_CHANNELS,), bool)
+    sel[np.asarray(channels)] = True
+    return torch.from_numpy(sel).to(device)[None, :]
+
+
 def _band_sides(specs: Tuple[GoalSpec, ...], model: TensorClusterModel,
                 arrays: BrokerArrays, constraint: BalancingConstraint):
     """(upper_min f32[B, 8], lower_max f32[B, 8]) — the folded band sides of
@@ -212,16 +233,14 @@ def _band_sides(specs: Tuple[GoalSpec, ...], model: TensorClusterModel,
     lower_max = torch.full((B, NUM_CHANNELS), -_INF, dtype=torch.float32, device=dev)
     pad = torch.full((B, 4), _INF, dtype=torch.float32, device=dev)
 
+    thresholds, bp, low = _band_consts(constraint, dev)
+
     def sel_of(channels):
-        sel = np.zeros((NUM_CHANNELS,), bool)
-        sel[np.asarray(channels)] = True
-        return torch.from_numpy(sel).to(dev)[None, :]
+        return _channel_mask(tuple(int(c) for c in channels), dev)
 
     cap_channels = [s.resource for s in specs if s.kind == "capacity"]
     if cap_channels:
-        thresh = torch.tensor(constraint.capacity_threshold, dtype=torch.float32,
-                              device=dev)
-        upper_cap = arrays.capacity * thresh[None, :]
+        upper_cap = arrays.capacity * thresholds[None, :]
         upper_min = torch.minimum(
             upper_min, torch.where(sel_of(cap_channels),
                                    torch.cat([upper_cap, pad], dim=1), _INF))
@@ -229,18 +248,14 @@ def _band_sides(specs: Tuple[GoalSpec, ...], model: TensorClusterModel,
     soft_dist_channels = [s.resource for s in specs
                           if s.kind == "resource_distribution" and not s.is_hard]
     if dist_channels:
-        bp = torch.tensor([constraint.balance_percentage(r) for r in range(4)],
-                          dtype=torch.float32, device=dev)
         alive_col = arrays.alive[:, None]
         total_util = order.ordered_sum(torch.where(alive_col, arrays.load, 0.0))
         total_cap = order.ordered_sum(torch.where(alive_col, arrays.capacity, 0.0)).clamp(
             min=1e-9)
         avg_pct = total_util / total_cap
-        low = torch.tensor(constraint.low_utilization_threshold, dtype=torch.float32,
-                           device=dev)
         gated = avg_pct <= low
         up_d = torch.where(gated[None, :],
-                           torch.tensor(kernels._BIG, dtype=torch.float32, device=dev),
+                           kernels._f32(kernels._BIG, avg_pct),
                            avg_pct[None, :] * bp[None, :] * arrays.capacity)
         upper_min = torch.minimum(
             upper_min, torch.where(sel_of(dist_channels),
@@ -743,66 +758,16 @@ def _goal_fixpoint_budget(st: StepState, spec: GoalSpec,
                           cache: Optional[graphs.GraphCache]):
     """One goal of the fused stack on ``st``, in place: the JAX package's
     ``_goal_fixpoint_budget`` (``optimizer.py:1572-1702``) with
-    ``frontier=None, touched=None, next_mask=None, flight_capacity=0``.
-    Returns ``(packed i32[PACKED_WIDTH] on the device, _GoalRun)``.
-
-    Gated steps run in chunks of 1, 2, 4, ... ``CHUNK_MAX``, each chunk
-    followed by one host read of (steps, last_n); the goal ends when the
-    last step applied nothing or the budget is spent.  With ``cache`` (the
-    card) a chunk is that many replays of the goal's step graph, captured
-    on first use; without it the gated step runs eagerly."""
+    ``frontier=None, touched=None, next_mask=None, flight_capacity=0`` — one
+    dense chunk of ``max_steps`` of the per-goal driver's ``_ChunkRunner``,
+    its packed row left on the device.  Returns ``(packed
+    i32[PACKED_WIDTH] on the device, _GoalRun)``."""
     t0 = time.monotonic()
-    model = st.model
-    arrays0 = BrokerArrays.from_model(model)
-    before = kernels.goal_satisfied(spec, model, arrays0, constraint)
-    any_offline = (model.replica_offline_now() & model.replica_valid).any()
-    skip = before & ~any_offline
-    inv = compute_step_invariants(spec, prev_specs, model, arrays0, constraint)
-    c = st.counters
-    c.zero_()
-    c[CTR_LAST_N] = (~skip).to(torch.int32)
-    c[CTR_BUDGET] = max_steps
-    step = functools.partial(_gated_step, spec=spec, prev_specs=prev_specs,
-                             constraint=constraint, num_sources=num_sources,
-                             num_dests=num_dests)
-    captured = False
-    if cache is None:
-        def advance(times):
-            for _ in range(times):
-                step(st, inv)
-    else:
-        key = graphs.goal_key(spec, prev_specs, constraint, num_sources, num_dests, st)
-        g = cache.get(key)
-        if g is None:
-            g = cache.capture(key, st, inv, step)
-            captured = True
-        g.load(inv)
-        advance = g.replay
-    gated = fetches = 0
-    chunk = 1
-    while True:
-        advance(chunk)
-        gated += chunk
-        steps, last_n = c[[CTR_STEPS, CTR_LAST_N]].tolist()
-        fetches += 1
-        if last_n == 0 or steps >= max_steps:
-            break
-        chunk = min(2 * chunk, CHUNK_MAX)
-    arrays1 = BrokerArrays.from_model(model)
-    after = kernels.goal_satisfied(spec, model, arrays1, constraint)
-    off_after = (model.replica_offline_now() & model.replica_valid).any()
-    capped = (c[CTR_STEPS] >= c[CTR_BUDGET]) & (c[CTR_LAST_N] > 0)
-    if kernels.is_band_kind(spec):
-        num_active = kernels.frontier_active(spec, model, arrays1, constraint).sum()
-    else:
-        num_active = torch.full((), -1, device=model.device)
-    i32 = torch.int32
-    packed = torch.stack([
-        c[CTR_STEPS], c[CTR_TOTAL], before.to(i32), after.to(i32), capped.to(i32),
-        c[CTR_REPAIR], c[CTR_DEPTH], c[CTR_LANES], num_active.to(i32),
-        off_after.to(i32), torch.zeros((), dtype=i32, device=model.device)])
-    return packed, _GoalRun(wall_s=time.monotonic() - t0, gated_steps=gated,
-                            fetches=fetches, captured=captured)
+    runner = _ChunkRunner(st, spec, tuple(prev_specs), constraint, cache)
+    chunk = runner.dispatch(None, None, num_sources, num_dests, max_steps, False)
+    packed = runner.close(chunk)
+    return packed, _GoalRun(wall_s=time.monotonic() - t0, gated_steps=chunk.replays,
+                            fetches=chunk.reads, captured=chunk.fresh)
 
 
 def _stack_fixpoint(st: StepState, specs: Tuple[GoalSpec, ...],
@@ -1031,13 +996,14 @@ class _ChunkRunner:
                                            for f in dataclasses.fields(fr)})
 
             def advance(times: int) -> int:
-                # Gated-off steps change nothing: stop at the first one.
+                # Gated-off steps change nothing: stop after the first one
+                # (a chunk's replays on the card run it too).
                 for n in range(times):
                     steps, last_n, budget = st.counters[
                         [CTR_STEPS, CTR_LAST_N, CTR_BUDGET]].tolist()
-                    if last_n <= 0 or steps >= budget:
-                        return n
                     step(st, inv, frontier=fr)
+                    if last_n <= 0 or steps >= budget:
+                        return n + 1
                 return times
             return advance
         fr = self.cache.frontier(st, chunk.fr) if chunk.fr is not None else None
@@ -1092,21 +1058,31 @@ class _ChunkRunner:
             FETCH_COUNTERS["chunks_speculative"] += 1
         return chunk
 
-    def _close(self, chunk: _Chunk, open_next: bool, budget: int) -> BrokerArrays:
+    def close(self, chunk: _Chunk) -> torch.Tensor:
+        """Close the open ``chunk`` without a host copy: its packed
+        i32[PACKED_WIDTH] row on the device (a grouped stack fetches its
+        goals' rows together)."""
+        self._close(chunk, open_next=False, budget=0, to_host=False)
+        return self.slots[chunk.slot]
+
+    def _close(self, chunk: _Chunk, open_next: bool, budget: int,
+               to_host: bool = True) -> BrokerArrays:
         """Exit of the open ``chunk``: its packed row and active mask, with
-        the copies to the host queued; with ``open_next`` a gated follow-up
-        is opened from its exit state.  Returns the exit arrays."""
+        the copies to the host queued (``to_host``); with ``open_next`` a
+        gated follow-up is opened from its exit state.  Returns the exit
+        arrays."""
         st, spec = self.st, self.spec
         arrays = self._arrays()
         sat, off = kernels.stack_satisfied((spec,), st.model, arrays, self.constraint)
         active = count = None
         if self.band:
             active, count = kernels.frontier_mask(
-                *kernels._frontier_inputs(spec, st.model, arrays, self.constraint))
+                *kernels.frontier_inputs(spec, st.model, arrays, self.constraint))
         packed = self.slots[chunk.slot]
         chunk_gate(st.counters, self.entry_before, sat, off, count, packed, open_next,
                    open_next, budget)
-        chunk.host = _to_host(packed, active)
+        if to_host:
+            chunk.host = _to_host(packed, active)
         self.open = None
         return arrays
 
@@ -1295,7 +1271,7 @@ def frontier_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
                       num_sources: Optional[int] = None, num_dests: Optional[int] = None,
                       max_steps: int = 256, chunk_steps: int = 32, frontier: bool = True,
                       tail_threshold: float = 0.1, min_chunk: int = 4,
-                      speculate: Optional[bool] = None, cache="auto"):
+                      speculate: Optional[bool] = None):
     """The chunked per-goal driver (the JAX package's ``frontier_fixpoint``,
     ``optimizer.py:1854``) on ``model``'s device: ``(model, info)`` with
     the JAX package's info keys plus ``replays`` (gated steps run,
@@ -1310,12 +1286,9 @@ def frontier_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
     state with nothing offline ends the goal.  With ``speculate`` (default
     on) a compacted chunk, or any chunk under ``frontier=False``, is
     followed by a speculative chunk on the same frontier whose budget K11
-    gates on the device, queued before the host reads its predecessor.
-
-    ``cache``: on the card the step graphs of ``graphs.GRAPHS`` ("auto") or
-    of the given cache replay; None runs the gated steps eagerly."""
-    if cache == "auto":
-        cache = graphs.GRAPHS if model.device.type == "cuda" else None
+    gates on the device, queued before the host reads its predecessor.  On
+    the card the chunks replay the step graphs of ``graphs.GRAPHS``."""
+    cache = graphs.GRAPHS if model.device.type == "cuda" else None
     ns = num_sources or cgen.default_num_sources(model)
     nd = num_dests or cgen.default_num_dests(model)
     with cache.lock if cache is not None else contextlib.nullcontext():

@@ -84,7 +84,7 @@ def test_frontier_mask_matches_frontier_active(clusters):
         arrays = BrokerArrays.from_model(tm)
         for g in BAND:
             want = np.asarray(jk.frontier_active(JAX_SPECS[g], jm, jarrays, jcon))
-            inputs = tk._frontier_inputs(GOAL_SPECS[g], tm, arrays, con)
+            inputs = tk.frontier_inputs(GOAL_SPECS[g], tm, arrays, con)
             got, count = tk.frontier_mask(*inputs)
             np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{label} {g}")
             assert int(count[0]) == int(want.sum())
