@@ -16,9 +16,10 @@ Phases, in order (any failure raises and the process exits non-zero):
    on seeded fixtures and on the captured inputs (K9's sweep on the mid
    rung, the second mid snapshot with its dead broker and the large rung;
    K9's frontier mask for every band goal of those; K11 on its case table;
-   K5b on the captured batch), with timings (CUDA events, median of 20),
-   the least time the card could take for the same bytes and, where one
-   PyTorch call computes the same function, its time;
+   K5b on the captured batch; the ordered sum of the band averages), with
+   timings (CUDA events, median of 20), the least time the card could take
+   for the same bytes and, where one PyTorch call computes the same
+   function, its time;
 5. mid rung on the grouped stack the service runs below 100 brokers,
    ``optimize(fused=True, donate_model=True)``: a warm-up run captures the
    step graphs, then a timed run with the launch counters set to 0 just
@@ -57,9 +58,6 @@ Phases, in order (any failure raises and the process exits non-zero):
     JAX package's rule) on the per-goal path, the stack of ``XL_GOALS``;
 12. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
-
-``python3 chip_smoke.py --kernels-only`` stops after phase 4 (no result
-line, exit code 3): the quick check of a kernel change.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
 with the plain PyTorch versions at small sizes, without building, timing on
@@ -106,7 +104,8 @@ PROFILE_NAMES = {
     "broker_aggregates": ("broker_aggregates_kernel",),
     "segment_sum": ("segment_sum_kernel",),
     "best_per_segment": ("segment_max_key", "segment_winner"),
-    "prefix_cut": ("prefix_cut_kernel",),
+    "prefix_cut": ("prefix_cut_kernel", "scan_blocks_kernel", "block_totals_kernel",
+                   "add_back_kernel"),
     "goal_masks": ("goal_masks_kernel",),
     "transport_rank": ("transport_rank_kernel",),
     "transport_lookup": ("transport_lookup_kernel",),
@@ -116,6 +115,7 @@ PROFILE_NAMES = {
     "stack_sweep": ("stack_sweep_kernel",),
     "frontier_active": ("frontier_active_kernel",),
     "chunk_gate": ("chunk_gate_kernel",),
+    "ordered_sum": ("ordered_sum_kernel",),
 }
 
 KERNELS = {
@@ -146,10 +146,12 @@ KERNELS = {
                         "cruise_control_tpu/analyzer/goals/kernels.py:842"),
     "chunk_gate": ("cruise_control_tpu_torch/csrc/chunk_gate.cu",
                    "cruise_control_tpu/analyzer/optimizer.py:1489"),
+    "ordered_sum": ("cruise_control_tpu_torch/csrc/ordered.cu",
+                    "cruise_control_tpu/analyzer/goals/kernels.py:190"),
 }
-# Kernels a path does not launch: the unfused path has no stack sweep, no
-# chunk gate and no frontier count.
-NOT_ON = {"unfused": ("stack_sweep", "chunk_gate", "frontier_active")}
+# Kernels a path does not launch: the unfused path has no chunk gate and no
+# frontier count.
+NOT_ON = {"unfused": ("chunk_gate", "frontier_active")}
 GRAPH_KERNELS = {
     "step_graph": ("cruise_control_tpu_torch/analyzer/graphs.py",
                    "cruise_control_tpu/analyzer/optimizer.py:1572"),
@@ -166,7 +168,6 @@ def log(msg: str) -> None:
 def main(argv) -> int:
     import torch
     rehearse = "--rehearse-cpu" in argv
-    kernels_only = "--kernels-only" in argv
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -292,10 +293,6 @@ def main(argv) -> int:
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
     results.update(check_frontier_kernels(torch, np, captured, wrappers, log, timer,
                                           {"mid": mid, "second": second, "large": large}))
-    if kernels_only:
-        log(json.dumps({"kernels": results}))
-        log("kernels checked: no result line (--kernels-only)")
-        return 3
 
     # 5. mid rung as the service runs it: fused, step graphs
     phase("mid fused")
@@ -658,13 +655,16 @@ def profile_mid(torch, run, wall, steps, label, log):
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f"  {t:8.2f} ms {n:6d}x  {name[:90]}")
-    # Device time per launch of each port kernel (K2 is two device kernels).
+    # Device time per launch of each port kernel: the time of all its device
+    # kernels over the count of the first (K2 is two device kernels, K3 its
+    # cut and the launches of its scan).
     per_launch = {}
     for wrapper, names in PROFILE_NAMES.items():
-        hits = [(n, t) for name, (n, t) in by_name.items()
-                if any(k in name for k in names)]
-        launches = max((n for n, _ in hits), default=0)
-        per_launch[wrapper] = (sum(t for _, t in hits) / launches if launches else None)
+        hits = {k: [(n, t) for name, (n, t) in by_name.items() if k in name]
+                for k in names}
+        launches = sum(n for n, _ in hits[names[0]])
+        total = sum(t for h in hits.values() for _, t in h)
+        per_launch[wrapper] = total / launches if launches else None
         log(f"  {label} {wrapper}: device ms per launch {per_launch[wrapper]}")
     return {"per_launch": per_launch, "ops": len(kernels),
             "ops_per_step": round(ops_per_step, 1),
@@ -1172,13 +1172,15 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
     broker) and the large rung, K9's frontier mask for every band goal of
     those clusters (against the plain version on CPU copies of the inputs:
     the CPU cumsum is the order the kernel reproduces), K11 on its case
-    table.  All exact."""
+    table, the ordered sum of the band averages on the captured input and on
+    seeded fixtures.  All exact."""
     from cruise_control_tpu_torch.analyzer import optimizer as opt
     from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
     from cruise_control_tpu_torch.analyzer.goals import kernels as gk
     from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS, goals_by_priority
     from cruise_control_tpu_torch.analyzer.state import BrokerArrays
     from cruise_control_tpu_torch.model.tensor_model import BrokerState
+    from cruise_control_tpu_torch.ops import order
 
     out = {}
     con = BalancingConstraint.default()
@@ -1278,7 +1280,34 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
         plain_ms=time_ms(torch, lambda: opt.chunk_gate_plain(*a)), library_ms=None,
         bound_ms=bound_ms(8 * 4 + 2 + 4 + 11 * 4 + 8 * 4))
     log(f"K11 chunk_gate: {len(GATE_CASES)} cases ok (exact)")
-    for name in ("structural_accepts", "stack_sweep", "frontier_active", "chunk_gate"):
+
+    # ---- The ordered sum of the band averages.  Exact, against the plain
+    # version on the card and on a CPU copy, on the captured input and on
+    # seeded vectors and [n, 4] tables around the window edges.
+    ks = wrappers["ordered_sum"]
+    (x_cap,) = captured["ordered_sum"]
+    rng = np.random.default_rng(SEED)
+    fixtures = [x_cap]
+    for n in (1, 31, 32, 33, 200, 1000, 1025, 16384):
+        for shape in ((n,), (n, 4)):
+            mag = rng.exponential(1.0, shape) * 10.0 ** rng.integers(-3, 5, shape)
+            fixtures.append(torch.from_numpy(
+                (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)).to(dev))
+    for x in fixtures:
+        got = ks(x)
+        if not (torch.equal(got, order.ordered_sum_plain(x))
+                and torch.equal(got.cpu(), order.ordered_sum_plain(x.cpu()))):
+            raise RuntimeError(f"ordered_sum disagrees with the plain version on "
+                               f"{tuple(x.shape)}")
+    out["ordered_sum"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: ks(x_cap)),
+        plain_ms=time_ms(torch, lambda: order.ordered_sum_plain(x_cap)),
+        library_ms=time_ms(torch, lambda: torch.sum(x_cap, dim=0)),
+        bound_ms=bound_ms(x_cap.numel() * 4 + max(x_cap[0].numel(), 1) * 4))
+    log(f"ordered_sum: captured {tuple(x_cap.shape)} and {len(fixtures) - 1} fixtures ok "
+        "(exact, against the plain version on the card and on the CPU)")
+    for name in ("structural_accepts", "stack_sweep", "frontier_active", "chunk_gate",
+                 "ordered_sum"):
         r = out[name]
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")

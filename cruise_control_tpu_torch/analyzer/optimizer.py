@@ -711,11 +711,12 @@ def _goal_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
                    num_dests: int, max_steps: int):
     """Run ``spec`` to its fixpoint: ``(model, packed i32[5])`` with the
     steps, actions, satisfied before/after and capped flags at the
-    ``PACKED_*`` slots.  The step loop reads one count per step."""
+    ``PACKED_*`` slots.  K9 with G = 1 gives the flags at entry and exit.
+    The step loop reads one count per step."""
     arrays0 = BrokerArrays.from_model(model)
-    before = kernels.goal_satisfied(spec, model, arrays0, constraint)
-    any_offline = (model.replica_offline_now() & model.replica_valid).any()
-    skip = bool(before & ~any_offline)
+    sat, any_offline = kernels.stack_satisfied((spec,), model, arrays0, constraint)
+    before = sat[0]
+    skip = bool(before & ~any_offline[0])
     inv = compute_step_invariants(spec, prev_specs, model, arrays0, constraint)
     steps = total = 0
     last_n = 0 if skip else 1
@@ -725,8 +726,8 @@ def _goal_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
         last_n = int(n)
         steps += 1
         total += last_n
-    after = kernels.goal_satisfied(spec, model, BrokerArrays.from_model(model),
-                                   constraint)
+    after = kernels.stack_satisfied((spec,), model, BrokerArrays.from_model(model),
+                                    constraint)[0][0]
     capped = steps >= max_steps and last_n > 0
     packed = torch.zeros((5,), dtype=torch.int32)
     packed[PACKED_STEPS] = steps

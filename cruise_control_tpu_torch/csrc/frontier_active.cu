@@ -17,13 +17,16 @@
 // Design: one block.  The donor surpluses and the receiver rooms are each
 // sorted in shared memory by a bitonic sort on (value descending, index
 // ascending), which is the permutation of the plain version's stable
-// argsort.  One thread takes the two totals and the running sums in the
-// orders of ops/order.py ordered_sum and ordered_cumsum (the JAX package's
-// rounding), as the plain version does, so the two agree bit for bit.
+// argsort.  The block takes the two totals, and one thread the running
+// sums, in the orders of ordered.cuh (ops/order.py ordered_sum and
+// ordered_cumsum: the JAX package's rounding), as the plain version does,
+// so the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "ordered.cuh"
 
 namespace {
 
@@ -62,68 +65,12 @@ __device__ void bitonic_sort(float* key, int32_t* idx, int p) {
   }
 }
 
-// Thread 0: sum of a[0..n) in the order of ops/order.py ordered_sum
-// (windows of 32 over the input padded evenly to a multiple of 32, each
-// summed in order from 0, then the same on the window sums).  ``tmp`` holds
-// n / 32 + 1 floats.
-__device__ float ordered_sum(const float* a, int64_t n, float* tmp) {
-  if (n <= 32) {
-    float acc = 0.f;
-    for (int64_t i = 0; i < n; ++i) acc = __fadd_rn(acc, a[i]);
-    return acc;
-  }
-  const float* src = a;
-  int64_t count = n;
-  while (count > 32) {
-    const int64_t w = (count + 31) / 32, lo = (w * 32 - count) / 2;
-    for (int64_t k = 0; k < w; ++k) {  // in place on tmp: window k reads indices >= k
-      float acc = 0.f;
-      for (int64_t i = k * 32 - lo; i < k * 32 - lo + 32; ++i)
-        if (i >= 0 && i < count) acc = __fadd_rn(acc, src[i]);
-      tmp[k] = acc;
-    }
-    src = tmp;
-    count = w;
-  }
-  float acc = 0.f;
-  for (int64_t i = 0; i < count; ++i) acc = __fadd_rn(acc, tmp[i]);
-  return acc;
-}
-
-// Thread 0: the inclusive scan of a[0..n), in place, in the order of
-// ops/order.py ordered_cumsum: blocks of 16 scanned in order, plus the scan
-// of the block totals (scanned the same way, in ``scratch``, n / 15 + 4
-// floats) shifted by one block.
-__device__ void ordered_cumsum(float* a, int64_t n, float* scratch) {
-  float* level[8];
-  int64_t size[8];
-  int depth = 0;
-  level[0] = a;
-  size[0] = n;
-  float* next = scratch;
-  while (true) {
-    float* x = level[depth];
-    const int64_t m = size[depth];
-    for (int64_t i = 1; i < m; ++i)
-      if (i % 16) x[i] = __fadd_rn(x[i], x[i - 1]);
-    if (m <= 16) break;
-    const int64_t blocks = (m + 15) / 16;
-    for (int64_t k = 0; k < blocks; ++k) next[k] = x[k * 16 + 15 < m ? k * 16 + 15 : m - 1];
-    level[++depth] = next;
-    size[depth] = blocks;
-    next += blocks;
-  }
-  for (int d = depth - 1; d >= 0; --d)
-    for (int64_t i = 16; i < size[d]; ++i)
-      level[d][i] = __fadd_rn(level[d][i], level[d + 1][i / 16 - 1]);
-}
-
 // Thread 0: mark the leading sorted entries whose running sum before them
 // stays under ``limit`` (and whose value is positive).
 __device__ void mark_leading(const float* key, const int32_t* idx, int64_t b, float limit,
                              uint8_t* flags, uint8_t bit, float* cs, float* scratch) {
   for (int64_t j = 0; j < b; ++j) cs[j] = key[j];
-  ordered_cumsum(cs, b, scratch);
+  ordered::serial_cumsum(cs, b, scratch);
   for (int64_t j = 0; j < b; ++j) {
     const float v = key[j];
     const float before = __fsub_rn(cs[j], v);
@@ -146,9 +93,9 @@ __global__ void frontier_active_kernel(int64_t b, int p, float eps,
   float* deficit = surplus + b;                             // [b]
   float* cs = deficit + b;                                  // [b]
   uint8_t* flags = reinterpret_cast<uint8_t*>(cs + b);      // [b]
-  __shared__ float scratch[kMaxBrokers / 15 + 8];
+  __shared__ float scratch[kMaxBrokers / 15 + 16];
   __shared__ int under_exists;
-  __shared__ float total_surplus, total_deficit;
+  __shared__ float sum_out[1];
   __shared__ int population;
   const int t = threadIdx.x;
   if (t == 0) {
@@ -189,10 +136,10 @@ __global__ void frontier_active_kernel(int64_t b, int p, float eps,
     idx[i] = static_cast<int32_t>(i);
   }
   __syncthreads();
-  if (t == 0) {
-    total_surplus = ordered_sum(surplus, b, scratch);
-    total_deficit = ordered_sum(deficit, b, scratch);
-  }
+  const float total_surplus =
+      ordered::block_sum(ordered::Array{surplus}, b, scratch, sum_out);
+  const float total_deficit =
+      ordered::block_sum(ordered::Array{deficit}, b, scratch, sum_out);
   bitonic_sort(key, idx, p);
   if (t == 0)
     mark_leading(key, idx, b, __fmul_rn(2.f, total_deficit), flags, kDonor, cs, scratch);

@@ -15,11 +15,9 @@
 // (score descending, then segment), done by torch.sort, and ``cs``, the
 // running channel totals of the sorted kept deltas over the whole batch
 // (f32[K, C]): the JAX function's cumsum with its rounding, taken by
-// cc_ordered_cumsum below in the order of ops/order.py ordered_cumsum
-// (XLA's: blocks of 16 rows scanned in order, plus the scan of the block
-// totals, taken the same way, shifted by one block), so the CPU and the
-// card hold the same bits.  Everything after that happens in
-// prefix_cut_kernel.
+// cc_ordered_cumsum (ordered.cu) in the order of ops/order.py
+// ordered_cumsum, so the CPU and the card hold the same bits.  Everything
+// after that happens in prefix_cut_kernel.
 //
 // Bound on the card: bytes (K * (9 + 4C) read, S * 12C read, K written);
 // well under a microsecond at the main path's shapes, so launch-bound.
@@ -114,76 +112,7 @@ __global__ void prefix_cut_kernel(const int32_t* __restrict__ order,
   }
 }
 
-// One thread per (block of 16 rows, channel): the inclusive scan of the
-// block, in place, in row order.
-__global__ void scan_blocks_kernel(float* __restrict__ x, int64_t n, int c) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t blocks = (n + 15) / 16;
-  if (t >= blocks * c) return;
-  const int64_t b = t / c, ch = t % c;
-  float acc = x[16 * b * c + ch];
-  for (int64_t j = 1; j < 16 && 16 * b + j < n; ++j) {
-    const int64_t i = (16 * b + j) * c + ch;
-    acc = __fadd_rn(x[i], acc);
-    x[i] = acc;
-  }
-}
-
-// The last row of every block of 16 (the block's total after the scan).
-__global__ void block_totals_kernel(const float* __restrict__ x, int64_t n, int c,
-                                    float* __restrict__ totals) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t blocks = (n + 15) / 16;
-  if (t >= blocks * c) return;
-  const int64_t b = t / c, ch = t % c;
-  const int64_t last = 16 * b + 15 < n ? 16 * b + 15 : n - 1;
-  totals[t] = x[last * c + ch];
-}
-
-// Rows of block b >= 1 add the scanned total of block b - 1.
-__global__ void add_back_kernel(float* __restrict__ x, int64_t n, int c,
-                                const float* __restrict__ scanned) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n * c) return;
-  const int64_t i = t / c, ch = t % c;
-  if (i >= 16) x[t] = __fadd_rn(x[t], scanned[(i / 16 - 1) * c + ch]);
-}
-
-unsigned grid_of(int64_t threads) {
-  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-}
-
 }  // namespace
-
-// XLA's cumsum of f32[n, c] along the rows, in place; ``scratch`` holds
-// (n / 15 + 16) * c floats for the block totals of every level.
-extern "C" int cc_ordered_cumsum(float* x, float* scratch, int64_t n, int64_t c,
-                                 cudaStream_t stream) {
-  if (n <= 0 || c <= 0) return 0;
-  float* level[12];
-  int64_t size[12];
-  int depth = 0;
-  level[0] = x;
-  size[0] = n;
-  float* next = scratch;
-  const int ci = static_cast<int>(c);
-  while (true) {
-    const int64_t blocks = (size[depth] + 15) / 16;
-    scan_blocks_kernel<<<grid_of(blocks * c), kThreads, 0, stream>>>(level[depth],
-                                                                    size[depth], ci);
-    if (size[depth] <= 16 || depth == 11) break;
-    block_totals_kernel<<<grid_of(blocks * c), kThreads, 0, stream>>>(
-        level[depth], size[depth], ci, next);
-    level[depth + 1] = next;
-    size[depth + 1] = blocks;
-    next += blocks * c;
-    ++depth;
-  }
-  for (int d = depth - 1; d >= 0; --d)
-    add_back_kernel<<<grid_of(size[d] * c), kThreads, 0, stream>>>(level[d], size[d], ci,
-                                                                   level[d + 1]);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int cc_prefix_cut(const int32_t* order, const int32_t* seg,
                              const float* cs, const uint8_t* kept,

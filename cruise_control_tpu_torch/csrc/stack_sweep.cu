@@ -31,14 +31,16 @@
 //
 // Design: one block per goal and one more for the offline flag.  A block
 // reduces the alive sums its kind needs — float sums in the windowed order
-// of ops/order.py ordered_sum, as the plain version does, so the band edges
-// are the same bits; integer sums exactly — then every thread tests its
-// brokers (or replicas, or (topic, broker) cells) and ORs into a shared
-// flag.
+// of ordered.cuh (ops/order.py ordered_sum), as the plain version does, so
+// the band edges are the same bits; integer sums exactly — then every
+// thread tests its brokers (or replicas, or (topic, broker) cells) and ORs
+// into a shared flag.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "ordered.cuh"
 
 namespace {
 
@@ -75,49 +77,6 @@ struct AliveColumn {
     return alive[i] ? x[stride * i + col] : 0.f;
   }
 };
-
-// Sum of v(0..n-1) in the order of ops/order.py ordered_sum (XLA's CPU
-// reduction: windows of 32 over the input padded evenly to a multiple of
-// 32, each summed in order from 0, then the same on the window sums).  The
-// first level runs one window per thread; the rest, at most 16384 / 32
-// window sums, in thread 0.  All threads call it; ``sh`` holds kThreads
-// floats (n <= 32 * kThreads).
-__device__ float ordered_sum(const AliveColumn& v, int64_t n, float* sh, float* out) {
-  const int t = threadIdx.x;
-  int64_t count = n;
-  if (n > 32) {
-    const int64_t w = (n + 31) / 32, lo = (w * 32 - n) / 2;
-    for (int64_t k = t; k < w; k += blockDim.x) {
-      float acc = 0.f;
-      for (int64_t i = k * 32 - lo; i < k * 32 - lo + 32; ++i)
-        if (i >= 0 && i < n) acc = __fadd_rn(acc, v(i));
-      sh[k] = acc;
-    }
-    count = w;
-  } else {
-    for (int64_t k = t; k < n; k += blockDim.x) sh[k] = v(k);
-  }
-  __syncthreads();
-  if (t == 0) {
-    while (count > 32) {
-      const int64_t w = (count + 31) / 32, lo = (w * 32 - count) / 2;
-      for (int64_t k = 0; k < w; ++k) {  // in place: window k reads only indices >= k
-        float acc = 0.f;
-        for (int64_t i = k * 32 - lo; i < k * 32 - lo + 32; ++i)
-          if (i >= 0 && i < count) acc = __fadd_rn(acc, sh[i]);
-        sh[k] = acc;
-      }
-      count = w;
-    }
-    float acc = 0.f;
-    for (int64_t i = 0; i < count; ++i) acc = __fadd_rn(acc, sh[i]);
-    out[0] = acc;
-  }
-  __syncthreads();
-  const float r = out[0];
-  __syncthreads();
-  return r;
-}
 
 __device__ long long block_sum_i(long long v, long long* sh) {
   const int t = threadIdx.x;
@@ -202,14 +161,17 @@ __global__ void stack_sweep_kernel(const Args a) {
     float avg_pct = 0.f, avg = 0.f;
     bool gated = false;
     if (kind == kResourceDist) {
-      const float util = ordered_sum(AliveColumn{a.load, 4, res, a.alive}, a.b, shf, sum_out);
-      const float capsum =
-          fmaxf(ordered_sum(AliveColumn{a.cap, 4, res, a.alive}, a.b, shf, sum_out), 1e-9f);
+      const float util =
+          ordered::block_sum(AliveColumn{a.load, 4, res, a.alive}, a.b, shf, sum_out);
+      const float capsum = fmaxf(
+          ordered::block_sum(AliveColumn{a.cap, 4, res, a.alive}, a.b, shf, sum_out),
+          1e-9f);
       avg_pct = __fdiv_rn(util, capsum);
       gated = avg_pct <= pc;
     } else if (kind == kLeaderBytesIn) {
-      avg = __fdiv_rn(ordered_sum(AliveColumn{a.lbi, 1, 0, a.alive}, a.b, shf, sum_out),
-                      num_alive);
+      avg = __fdiv_rn(
+          ordered::block_sum(AliveColumn{a.lbi, 1, 0, a.alive}, a.b, shf, sum_out),
+          num_alive);
     } else if (kind == kReplicaDist || kind == kLeaderDist) {
       avg = __fdiv_rn(static_cast<float>(block_sum_i(si, shi)), num_alive);
     }

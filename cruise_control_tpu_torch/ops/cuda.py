@@ -3,9 +3,10 @@
 Each source exposes a plain C entry point and is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
 under ``build/cuda/`` at the root of the checkout, named by a hash of the
-source and the flags, and loaded with ``ctypes``.  ``build_all`` starts one
-``nvcc`` per source at once.  Nothing here runs at import time: the CPU
-tests import every module of the package on a machine without ``nvcc``.
+source, the shared headers (``csrc/*.cuh``) and the flags, and loaded with
+``ctypes``.  ``build_all`` starts one ``nvcc`` per source at once.  Nothing
+here runs at import time: the CPU tests import every module of the package
+on a machine without ``nvcc``.
 
 The C entries take device pointers as ``void*``, sizes as ``int64_t`` and
 PyTorch's current stream last, and return ``cudaGetLastError()``;
@@ -30,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
-           "stack_sweep", "frontier_active", "chunk_gate")
+           "stack_sweep", "frontier_active", "chunk_gate", "ordered")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,7 +48,8 @@ _ENTRIES = {
     "segment_sum": ("broker_aggregates", "cc_segment_sum", "pppiiip"),
     "best_per_segment": ("best_per_segment", "cc_best_per_segment", "pppiipp"),
     "prefix_cut": ("prefix_cut", "cc_prefix_cut", "ppppppppiii"),
-    "ordered_cumsum": ("prefix_cut", "cc_ordered_cumsum", "ppii"),
+    "ordered_sum": ("ordered", "cc_ordered_sum", "ppii"),
+    "ordered_cumsum": ("ordered", "cc_ordered_cumsum", "ppii"),
     "apply_actions": ("apply_actions", "cc_apply_actions", "pppppppppiiippp"),
     "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 5 + "f" + "p" * 30),
     "transport_rank": ("transport_match", "cc_transport_rank", "ppip"),
@@ -72,7 +74,10 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    headers of ``csrc`` and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

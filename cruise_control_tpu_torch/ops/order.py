@@ -14,18 +14,24 @@
   element after), sums each window in order from 0 and reduces the window
   sums the same way, down to one ordered sum of at most 32.  It is built
   from elementwise adds only, so the CPU and the card give the same bits.
+  On CUDA tensors it launches ``cc_ordered_sum`` (``csrc/ordered.cu``,
+  the order of ``csrc/ordered.cuh``): the same adds in one launch.
 - ``ordered_cumsum`` matches a float32 ``jnp.cumsum`` along the leading
   axis the same way: XLA scans more than 16 elements as blocks of 16 (the
   input padded with zeros at the end), each scanned in order, plus the
   inclusive scan of the block totals — itself scanned so — shifted by one
-  block.  Elementwise adds only, the same bits on any device.
+  block.  Elementwise adds only, the same bits on any device; K3 takes it
+  on the card as ``cc_ordered_cumsum`` (``csrc/ordered.cu``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+from cruise_control_tpu_torch.ops import cuda
 
 _I32_MAX = 0x7FFFFFFF
 
@@ -61,11 +67,34 @@ def lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
 
 
 _SUM_WINDOW = 32
+_SUM_MAX_ROWS = 32 * 512  # cc_ordered_sum: one window per thread of a block
 
 
+@cuda.counted("ordered_sum")
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum of ``x`` along dim 0, in XLA's windowed order (see the module
-    docstring); the result has ``x.shape[1:]``."""
+    docstring); the result has ``x.shape[1:]``.  Replaces the alive-broker
+    sums of the band averages (``cruise_control_tpu/analyzer/goals/
+    kernels.py:190``, ``analyzer/optimizer.py:311``).  Bound on the card:
+    bytes (the input once).  CPU tensors take ``ordered_sum_plain``; CUDA
+    tensors (float32, at most 16,384 rows) launch one block per column."""
+    cuda.record("ordered_sum", (x,))
+    if cuda.on_cpu(x):
+        return ordered_sum_plain(x)
+    n, rest = x.shape[0], tuple(x.shape[1:])
+    if x.dtype != torch.float32 or n > _SUM_MAX_ROWS:
+        raise ValueError(f"ordered_sum takes float32 with at most {_SUM_MAX_ROWS} rows, "
+                         f"got {x.dtype} with {n}")
+    out = torch.empty(rest, dtype=torch.float32, device=x.device)
+    cuda.launch("ordered_sum", x.reshape(n, math.prod(rest)).contiguous(), out, n,
+                math.prod(rest))
+    ordered_sum.launches += 1
+    return out
+
+
+def ordered_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """``ordered_sum`` in elementwise torch ops: the CPU path and the
+    kernel's plain twin."""
     rest = tuple(x.shape[1:])
     while x.shape[0] > _SUM_WINDOW:
         n = x.shape[0]
