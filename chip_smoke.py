@@ -13,14 +13,14 @@ Phases, in order (any failure raises and the process exits non-zero):
    full 15-goal stack, unfused warm-up run; each kernel's inputs at its
    first launch are captured;
 4. each hand-written kernel against its plain PyTorch version on the card,
-   on seeded fixtures and on the captured inputs (K9's sweep on the mid
-   rung, the second mid snapshot with its dead broker and the large rung;
-   K9's frontier mask for every band goal of those; K11 on its case table;
-   K5b on the captured batch; the ordered sum of the band averages), with
-   timings (CUDA events, median of 20), the least time the card could take
-   for the same bytes and, where one PyTorch call computes the same
-   function, its time;
-5. mid rung on the grouped stack the service runs below 100 brokers,
+   on seeded fixtures and on the captured inputs (K9's sweep, frontier mask
+   and batch on the mid rung, the second mid snapshot with its dead broker
+   and the large rung; K11 and K11 cross's gate on their case tables; K11
+   cross's touched pass on seeded placement changes; K5b on the captured
+   batch; the ordered sum of the band averages), with timings (CUDA events,
+   median of 20), the least time the card could take for the same bytes
+   and, where one PyTorch call computes the same function, its time;
+5. mid rung on the grouped stack the service runs below 65 brokers,
    ``optimize(fused=True, donate_model=True)``: a warm-up run captures the
    step graphs, then a timed run with the launch counters set to 0 just
    before: every hard goal satisfied, ``verify_run`` passes, every kernel
@@ -42,21 +42,47 @@ Phases, in order (any failure raises and the process exits non-zero):
    sequential per-goal path, ``optimize(fused=True, pipeline=False,
    donate_model=True)``: warm-up (captures), a timed run with the counters
    set to 0 just before — every hard goal satisfied, ``verify_run``, every
-   kernel launched, at least one chunk compacted and one speculative
-   follow-up — per goal its chunks, buckets, replays (gated off),
-   follow-ups (wasted), host fetches and wall; a repeat gives identical
-   proposals; a profile gives the busy share and ops per step; every
-   frontier mask the warm-up computed is held against the plain version;
-9. a second large snapshot (the same changes as phase 6) through the
-   cached per-goal graphs and frontier buffers, with no new capture, equal
-   to the eager per-goal driver (stale-buffer check);
-10. a 12-broker cluster and the mid rung (unfused), and a 100-broker
-    cluster on the per-goal path, solved on the card and on the CPU plain
-    path: per goal the same flags (and for the 100-broker cluster the same
-    steps, actions and placement);
-11. xl250 rung (1000 brokers, ~250k replicas, ``segment_steps`` 32 by the
-    JAX package's rule) on the per-goal path, the stack of ``XL_GOALS``;
-12. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+   kernel of the path launched, at least one chunk compacted and one
+   speculative follow-up — per goal its chunks, buckets, replays (gated
+   off), follow-ups (wasted), host fetches and wall; a repeat gives
+   identical proposals; a profile gives the busy share and ops per step;
+   every frontier mask the warm-up computed is held against the plain
+   version;
+9. large rung, the service's call: the full stack through
+   ``optimize(fused=True, donate_model=True)`` with no ``pipeline``
+   argument — the inter-goal pipeline: warm-up, then a timed run with the
+   counters set to 0 just before — every hard goal satisfied,
+   ``verify_run``, every kernel of the path launched (K9 batch and K11
+   cross included), at least one opener dispatched; per goal whether it
+   adopted an opener, its boundary gap, openers dispatched and wasted,
+   their replays (gated off), fused group, chunks, replays and wall; a
+   repeat gives identical proposals; a profile; the sequential and the
+   pipelined walls timed in turns in this call (and the pipeline with one
+   gated step queued behind each opener), and whether their placements
+   agree;
+10. the skewed 16-broker model (tests/test_pipeline.py's recipe), dense
+    floor 8, fusion off: pipelined equals sequential in placement and per
+    goal steps and actions, with a goal boundary overlapped, and the card
+    equals the CPU plain path;
+11. a second large snapshot (the same changes as phase 6) through the
+    cached per-goal graphs and frontier buffers, with no new capture, equal
+    to the eager per-goal driver, and the same on the pipelined path
+    against the eager pipelined driver (stale-buffer checks);
+12. a 12-broker cluster and the mid rung (unfused), and a 100-broker
+    cluster on the sequential per-goal path and on the default pipelined
+    path, solved on the card and on the CPU plain path: per goal the same
+    flags (and for the 100-broker cluster the same steps, actions,
+    ``pipelined`` and fused group, and placement);
+13. warm starts: at the large rung a cold default solve, a load-only
+    change of a few partitions, ``model_delta``, and the warm solve —
+    ``warm``, ``verify_run``, the hard goals, at least as many goals
+    skipped as the cold solve of the changed snapshot, the seed's size and
+    whether a first chunk ran compacted on it; at 100 brokers the same
+    warm solve on the card and on the CPU agree per goal and in placement;
+14. xl250 rung (1000 brokers, ~250k replicas, ``segment_steps`` 32 by the
+    JAX package's rule) on the default pipelined path, the stack of
+    ``XL_GOALS``;
+15. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -114,7 +140,10 @@ PROFILE_NAMES = {
     "structural_accepts": ("structural_accepts_kernel",),
     "stack_sweep": ("stack_sweep_kernel",),
     "frontier_active": ("frontier_active_kernel",),
+    "frontier_active_batch": ("frontier_active_batch_kernel",),
     "chunk_gate": ("chunk_gate_kernel",),
+    "cross_gate": ("cross_gate_kernel",),
+    "chunk_touched": ("chunk_touched_kernel",),
     "ordered_sum": ("ordered_sum_kernel",),
 }
 
@@ -144,14 +173,23 @@ KERNELS = {
                     "cruise_control_tpu/analyzer/optimizer.py:2332"),
     "frontier_active": ("cruise_control_tpu_torch/csrc/frontier_active.cu",
                         "cruise_control_tpu/analyzer/goals/kernels.py:842"),
+    "frontier_active_batch": ("cruise_control_tpu_torch/csrc/frontier_active.cu",
+                              "cruise_control_tpu/analyzer/goals/kernels.py:912"),
     "chunk_gate": ("cruise_control_tpu_torch/csrc/chunk_gate.cu",
                    "cruise_control_tpu/analyzer/optimizer.py:1489"),
+    "cross_gate": ("cruise_control_tpu_torch/csrc/chunk_gate.cu",
+                   "cruise_control_tpu/analyzer/optimizer.py:1514"),
+    "chunk_touched": ("cruise_control_tpu_torch/csrc/chunk_gate.cu",
+                      "cruise_control_tpu/analyzer/optimizer.py:1671"),
     "ordered_sum": ("cruise_control_tpu_torch/csrc/ordered.cu",
                     "cruise_control_tpu/analyzer/goals/kernels.py:190"),
 }
 # Kernels a path does not launch: the unfused path has no chunk gate and no
-# frontier count.
-NOT_ON = {"unfused": ("chunk_gate", "frontier_active")}
+# frontier count; only the pipelined path sweeps every goal's frontier (K9
+# batch) and queues the next goal's openers (K11 cross).
+PIPELINE_ONLY = ("frontier_active_batch", "cross_gate", "chunk_touched")
+NOT_ON = {"unfused": ("chunk_gate", "frontier_active") + PIPELINE_ONLY,
+          "grouped": PIPELINE_ONLY, "sequential": PIPELINE_ONLY}
 GRAPH_KERNELS = {
     "step_graph": ("cruise_control_tpu_torch/analyzer/graphs.py",
                    "cruise_control_tpu/analyzer/optimizer.py:1572"),
@@ -293,6 +331,8 @@ def main(argv) -> int:
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
     results.update(check_frontier_kernels(torch, np, captured, wrappers, log, timer,
                                           {"mid": mid, "second": second, "large": large}))
+    results.update(check_pipeline_kernels(torch, np, wrappers, log, timer,
+                                          {"mid": mid, "second": second, "large": large}))
 
     # 5. mid rung as the service runs it: fused, step graphs
     phase("mid fused")
@@ -314,7 +354,7 @@ def main(argv) -> int:
         f"this run {sum(g.fresh_compile for g in run_fused.goal_results)}, replays "
         f"{replays}, gated-off replays {wasted}, host fetches {fetches}")
     log(f"mid fused launches: {fused_counts}")
-    check_launched("fused mid", fused_counts)
+    check_launched("fused mid", fused_counts, "grouped")
     run_again = fused_run(mid)
     again_same = props.diff(mid, run_again.model) == fused_props and \
         same_placement(run_again, run_fused)
@@ -424,7 +464,7 @@ def main(argv) -> int:
     log(f"large per-goal timed run: {large_wall:.3f} s wall, {large_summary}, "
         f"{len(large_props)} proposals; sweeps {sweeps}; fetch counters {fetch_c}")
     log(f"large launches: {large_counts}")
-    check_launched("large per-goal", large_counts)
+    check_launched("large per-goal", large_counts, "sequential")
     if not rehearse and not (large_summary["compacted_chunks"] > 0
                              and large_summary["speculative"] > 0):
         raise RuntimeError("the large per-goal run neither compacted nor speculated: "
@@ -444,33 +484,109 @@ def main(argv) -> int:
                       "per_launch": {n: None for n in wrappers}}
     frontier_checked = check_recorded_frontiers(torch, gk, frontier_inputs, log)
 
-    # 9. stale frontier buffers: a second large snapshot through the cached
+    # 9. large rung, the service's call: the inter-goal pipeline
+    phase("large pipelined")
+    n_graphs0 = len(graphs.GRAPHS)
+    t0 = time.monotonic()
+    run_pipe_warm = fused_run(large)  # captures what the sequential run did not
+    torch.cuda.synchronize()
+    log(f"large pipelined warm-up run: {time.monotonic() - t0:.2f} s, "
+        f"{sum(g.fresh_compile for g in run_pipe_warm.goal_results)} goals captured "
+        f"graphs, graphs cached {n_graphs0} -> {len(graphs.GRAPHS)}")
+    sweeps0 = dict(opt.SWEEP_COUNTERS)
+    fetch0 = dict(opt.FETCH_COUNTERS)
+    run_pipe, pipe_wall, pipe_counts = timed(lambda: fused_run(large))
+    sweeps = {k: opt.SWEEP_COUNTERS[k] - sweeps0[k] for k in sweeps0}
+    fetch_c = {k: opt.FETCH_COUNTERS[k] - fetch0[k] for k in fetch0}
+    pipe_props = check_run("large-pipelined", large, run_pipe, STACK)
+    pipe_summary = pipeline_report(run_pipe, log, "large-pipelined")
+    log(f"large pipelined timed run: {pipe_wall:.3f} s wall, pipelined {run_pipe.pipelined}, "
+        f"goals overlapped {run_pipe.goals_overlapped}, fused {run_pipe.goals_fused}, "
+        f"skipped {run_pipe.goals_skipped}; {pipe_summary}; {len(pipe_props)} proposals; "
+        f"sweeps {sweeps}; fetch counters {fetch_c}")
+    log(f"large pipelined launches: {pipe_counts}")
+    check_launched("large pipelined", pipe_counts)
+    if not run_pipe.pipelined or pipe_summary["openers"] < 1:
+        raise RuntimeError(f"the large service call dispatched no opener: {pipe_summary}")
+    run_pipe_again = fused_run(large)
+    pipe_again = props.diff(large, run_pipe_again.model) == pipe_props and \
+        same_placement(run_pipe_again, run_pipe)
+    log(f"large pipelined repeat: identical proposals {pipe_again}")
+    if not pipe_again:
+        raise RuntimeError("two large pipelined runs gave different proposals")
+    pipe_steps = pipe_summary["steps"]
+    if not rehearse:
+        prof_pipe = profile_mid(torch, lambda: fused_run(large), pipe_wall, pipe_steps,
+                                "large-pipelined", log)
+    else:
+        prof_pipe = {"ops": None, "ops_per_step": None, "busy": None,
+                     "per_launch": {n: None for n in wrappers}}
+    # The sequential and the pipelined walls in turns, in this call, and the
+    # pipeline with one gated step queued behind each opener
+    # (opt.OPENER_QUEUE = 1) beside its default.
+    walls = {"sequential": [], "pipelined": [], "opener step queued": []}
+    queue = opt.OPENER_QUEUE
+    try:
+        for label in ("sequential", "pipelined", "opener step queued") * 2 + \
+                ("opener step queued", "pipelined", "sequential") * 2:
+            opt.OPENER_QUEUE = 1 if label == "opener step queued" else queue
+            kw = per_goal if label == "sequential" else {}
+            out, wall, _ = timed(lambda: fused_run(large, **kw))
+            walls[label].append(wall)
+            if not same_placement(out, run_large):
+                raise RuntimeError(f"the large {label} run placed replicas differently")
+    finally:
+        opt.OPENER_QUEUE = queue
+    rows_agree = [(g.steps, g.actions_applied) for g in run_pipe.goal_results] == \
+        [(g.steps, g.actions_applied) for g in run_large.goal_results]
+    log(f"large walls in turns: " + "; ".join(
+        f"{label} median {statistics.median(w):.4f} s {[round(x, 4) for x in w]}"
+        for label, w in walls.items()) + f"; placements agree "
+        f"{same_placement(run_pipe, run_large)}, per-goal steps and actions agree "
+        f"{rows_agree}")
+
+    # 10. the skewed 16-broker model on the pipelined path, card and CPU
+    phase("small pipelined")
+    check_small_pipeline(torch, np, opt, generate_cluster, ClusterSpec, dev,
+                         same_placement, log)
+
+    # 11. stale frontier buffers: a second large snapshot through the cached
     # graphs (a warm-up first captures any bucket it needs that the first
     # snapshot did not; the first snapshot then runs again, so that every
-    # static buffer holds its data), against the eager driver.
+    # static buffer holds its data), against the eager driver, on the
+    # sequential path and on the pipelined path.
     phase("large second snapshot")
     second_l, second_l_opts = second_snapshot(torch, np, large, SECOND_SEED)
-    fused_run(second_l, options=second_l_opts, **per_goal)
-    fused_run(large, **per_goal)
-    n_graphs = len(graphs.GRAPHS)
-    run_second_l = fused_run(second_l, options=second_l_opts, **per_goal)
-    run_second_l_eager = drive_per_goal(opt, second_l, STACK, second_l_opts, None,
-                                        per_goal)
-    fresh_l = sum(g.fresh_compile for g in run_second_l.goal_results)
-    second_l_same = same_placement(run_second_l, run_second_l_eager)
-    per_goal_report(run_second_l, log, "large-second")
-    log(f"large second snapshot (seed {SECOND_SEED}): new captures {fresh_l} (cache "
-        f"{n_graphs} -> {len(graphs.GRAPHS)}); cached graphs equal the eager driver: "
-        f"{second_l_same}; differs from the first snapshot's run: "
-        f"{not same_placement(run_second_l, run_large)}")
-    if not rehearse and (fresh_l or len(graphs.GRAPHS) != n_graphs):
-        raise RuntimeError("the second large snapshot did not go through the cached graphs")
-    if not second_l_same:
-        raise RuntimeError("cached per-goal graphs replayed a stale snapshot or frontier")
-    check_run("large-second", second_l, run_second_l, STACK)
+    for label, kw, eager in (
+            ("per-goal", per_goal,
+             lambda: drive_per_goal(opt, second_l, STACK, second_l_opts, None, per_goal)),
+            ("pipelined", {},
+             lambda: drive_pipelined(opt, second_l, STACK, second_l_opts, None))):
+        fused_run(second_l, options=second_l_opts, **kw)
+        fused_run(large, **kw)
+        n_graphs = len(graphs.GRAPHS)
+        run_second_l = fused_run(second_l, options=second_l_opts, **kw)
+        run_second_l_eager = eager()
+        fresh_l = sum(g.fresh_compile for g in run_second_l.goal_results)
+        second_l_same = same_placement(run_second_l, run_second_l_eager) and \
+            [(g.steps, g.actions_applied) for g in run_second_l.goal_results] == \
+            [(g.steps, g.actions_applied) for g in run_second_l_eager.goal_results]
+        per_goal_report(run_second_l, log, f"large-second-{label}")
+        log(f"large second snapshot {label} (seed {SECOND_SEED}): new captures {fresh_l} "
+            f"(cache {n_graphs} -> {len(graphs.GRAPHS)}); cached graphs equal the eager "
+            f"driver: {second_l_same}; differs from the first snapshot's run: "
+            f"{not same_placement(run_second_l, run_large)}")
+        if not rehearse and (fresh_l or len(graphs.GRAPHS) != n_graphs):
+            raise RuntimeError(f"the second large snapshot ({label}) did not go through "
+                               "the cached graphs")
+        if not second_l_same:
+            raise RuntimeError(f"cached {label} graphs replayed a stale snapshot or "
+                               "frontier")
+        check_run(f"large-second-{label}", second_l, run_second_l, STACK)
 
-    # 10. the card against the CPU plain path: a 12-broker cluster and the mid
-    # rung (unfused), and a 100-broker cluster on the per-goal path
+    # 12. the card against the CPU plain path: a 12-broker cluster and the mid
+    # rung (unfused), and a 100-broker cluster on the per-goal and on the
+    # default pipelined path
     phase("card vs CPU")
     small_spec = ClusterSpec(num_brokers=12, num_racks=4, num_topics=6,
                              mean_partitions_per_topic=20.0, replication_factor=2,
@@ -489,31 +605,45 @@ def main(argv) -> int:
         if flags_card != flags_cpu:
             raise RuntimeError(f"{label}: card and CPU disagree per goal: "
                                f"{flags_card} vs {flags_cpu}")
-    hundred_card = fused_run(generate_cluster(spec_of(hundred_rung), device=dev), **per_goal)
-    t0 = time.monotonic()
-    hundred_cpu = opt.optimize(generate_cluster(spec_of(hundred_rung), device="cpu"), STACK,
-                               fused=True, raise_on_hard_failure=False, device="cpu",
-                               **per_goal)
-    compare_card_cpu(hundred_card, hundred_cpu, same_placement, log,
-                     f"{hundred_rung[0]}-broker per-goal", time.monotonic() - t0)
+    hundred_runs = {}
+    for label, kw in (("per-goal", per_goal), ("pipelined", {})):
+        run_card = fused_run(generate_cluster(spec_of(hundred_rung), device=dev), **kw)
+        t0 = time.monotonic()
+        run_cpu = opt.optimize(generate_cluster(spec_of(hundred_rung), device="cpu"), STACK,
+                               fused=True, raise_on_hard_failure=False, device="cpu", **kw)
+        compare_card_cpu(run_card, run_cpu, same_placement, log,
+                         f"{hundred_rung[0]}-broker {label}", time.monotonic() - t0)
+        hundred_runs[label] = (run_card, run_cpu)
+    if not hundred_runs["pipelined"][0].pipelined:
+        raise RuntimeError("the 100-broker default solve did not pipeline")
 
-    # 11. xl250 rung on the per-goal path
+    # 13. warm starts: at the large rung, and at 100 brokers card against CPU
+    phase("warm start")
+    warm_summary = check_warm_large(torch, np, opt, large, run_pipe, fused_run, timed,
+                                    check_run, log)
+    check_warm_card_cpu(torch, np, opt, hundred_runs["pipelined"], fused_run,
+                        same_placement, log, f"{hundred_rung[0]}-broker")
+
+    # 14. xl250 rung on the default pipelined path
     phase("xl250")
     xl = generate_cluster(spec_of(xl_rung), device=dev)
     log(f"xl250 rung: {int(xl.replica_valid.sum())} replicas, {xl.num_brokers} brokers, "
         f"goals {len(XL_GOALS)}")
     t0 = time.monotonic()
-    fused_run(xl, XL_GOALS, **per_goal)
+    fused_run(xl, XL_GOALS)
     torch.cuda.synchronize()
     xl_warm = time.monotonic() - t0
-    run_xl, xl_wall, xl_counts = timed(lambda: fused_run(xl, XL_GOALS, **per_goal))
+    run_xl, xl_wall, xl_counts = timed(lambda: fused_run(xl, XL_GOALS))
     check_run("xl250", xl, run_xl, XL_GOALS)
-    xl_summary = per_goal_report(run_xl, log, "xl250")
-    log(f"xl250 per-goal: warm-up {xl_warm:.2f} s, timed {xl_wall:.3f} s, {xl_summary}")
+    xl_summary = pipeline_report(run_xl, log, "xl250")
+    log(f"xl250 pipelined {run_xl.pipelined}: warm-up {xl_warm:.2f} s, timed {xl_wall:.3f} "
+        f"s, {xl_summary}")
     check_launched("xl250", xl_counts)
+    if not run_xl.pipelined:
+        raise RuntimeError("the xl250 default solve did not pipeline")
     del xl, run_xl
 
-    # 12. results
+    # 15. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -521,18 +651,21 @@ def main(argv) -> int:
         f"{prof_fused['busy']}); mid unfused wall {mid_wall:.3f} s ({mid_steps} steps, "
         f"ops/step {prof_unfused['ops_per_step']}, busy {prof_unfused['busy']}); "
         f"large per-goal wall {large_wall:.3f} s ({large_steps} steps, ops/step "
-        f"{prof_large['ops_per_step']}, busy {prof_large['busy']}); xl250 "
-        f"{len(XL_GOALS)} goals {xl_wall:.3f} s; frontier masks checked "
-        f"{frontier_checked}; card {smi}")
+        f"{prof_large['ops_per_step']}, busy {prof_large['busy']}); large pipelined wall "
+        f"{pipe_wall:.3f} s ({pipe_steps} steps, ops/step {prof_pipe['ops_per_step']}, "
+        f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
+        f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; card {smi}")
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
-        device_ms = prof_large["per_launch"].get(name)
-        if device_ms is None:
-            device_ms = prof_fused["per_launch"].get(name)
+        device_ms = None
+        for prof in (prof_pipe, prof_large, prof_fused):
+            if device_ms is None:
+                device_ms = prof["per_launch"].get(name)
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": large_counts[name],
-                     "launches_per_large_step": large_counts[name] / max(large_steps, 1),
+                     "replaces": replaces, "launches": pipe_counts[name],
+                     "launches_per_large_step": pipe_counts[name] / max(pipe_steps, 1),
+                     "launches_large_sequential": large_counts[name],
                      "launches_fused_mid": fused_counts[name],
                      "launches_unfused_mid": mid_counts[name],
                      "launches_xl250": xl_counts[name],
@@ -558,6 +691,181 @@ def main(argv) -> int:
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0
+
+
+def pipeline_report(run, log, label):
+    """Per goal of a pipelined run: whether it adopted the opener queued for
+    it, its boundary gap, the openers it queued for the next goal and the
+    discarded ones, their gated steps (gated off), its fused group, chunks,
+    replays (gated off) and wall; returns the run's totals."""
+    tot = dict(steps=0, chunks=0, compacted_chunks=0, replays=0, gated_off=0, openers=0,
+               openers_wasted=0, opener_replays=0, opener_gated_off=0, adopted=0,
+               fused=0, skipped=0)
+    for g in run.goal_results:
+        chunks = g.chunks or []
+        compacted = sum(c["bucket"] is not None for c in chunks)
+        log(f"  {label} {g.name:38s} adopted={int(g.pipelined)} "
+            f"gap={g.boundary_gap_s * 1e3:8.2f}ms openers={g.chunks_cross_goal} "
+            f"(wasted {g.chunks_cross_wasted}) opener replays={g.cross_replays} (gated off "
+            f"{g.cross_replays_wasted}) group={g.fused_group} chunks={len(chunks):2d} "
+            f"compacted={compacted:2d} steps={g.steps:3d} replays={g.replays:3d} (gated off "
+            f"{g.replays - g.steps:3d}) wall={g.duration_s:.3f}s")
+        tot["steps"] += g.steps
+        tot["chunks"] += len(chunks)
+        tot["compacted_chunks"] += compacted
+        tot["replays"] += g.replays
+        tot["gated_off"] += g.replays - g.steps
+        tot["openers"] += g.chunks_cross_goal
+        tot["openers_wasted"] += g.chunks_cross_wasted
+        tot["opener_replays"] += g.cross_replays
+        tot["opener_gated_off"] += g.cross_replays_wasted
+        tot["adopted"] += g.pipelined
+        tot["fused"] += g.fused_group > 1
+        tot["skipped"] += g.chunks is None and g.fused_group == 1
+    return tot
+
+
+SMALL_PIPE_GOALS = ["RackAwareGoal", "ReplicaDistributionGoal",
+                    "LeaderReplicaDistributionGoal"]
+
+
+def skewed_small(torch, np, generate_cluster, ClusterSpec, dev):
+    """The skewed 16-broker model of tests/test_pipeline.py:53-75, built in
+    the port: one broker over its replica-count band, every other one in
+    it."""
+    m = generate_cluster(ClusterSpec(num_brokers=16, num_racks=4, num_topics=5,
+                                     mean_partitions_per_topic=40.0, replication_factor=2,
+                                     distribution="exponential", seed=7), device="cpu")
+    rb = m.replica_broker.numpy()
+    rv = m.replica_valid.numpy()
+    cnt = np.bincount(rb[rv], minlength=16)
+    total = int(cnt.sum())
+    target = np.full(16, total // 16)
+    target[0] += total % 16
+    pool = [list(np.nonzero(rv & (rb == b))[0]) for b in range(16)]
+    moves, dests = [], []
+    for b in range(16):
+        moves += [pool[b].pop() for _ in range(max(cnt[b] - target[b], 0))]
+        dests += [b] * max(target[b] - cnt[b], 0)
+    m = m.relocate_replicas(torch.tensor(moves, dtype=torch.int32),
+                            torch.tensor(dests, dtype=torch.int32),
+                            torch.ones(len(moves), dtype=torch.bool))
+    return m.to(dev)
+
+
+def check_small_pipeline(torch, np, opt, generate_cluster, ClusterSpec, dev, same_placement,
+                         log):
+    """The skewed 16-broker model with the dense floor lowered to 8 and
+    fusion off: on the card pipelined equals sequential in placement and per
+    goal steps and actions and overlaps a goal boundary (the JAX package's
+    tests/test_pipeline.py:174-204), and the pipelined run equals the CPU
+    plain path's."""
+    floor, fuse = opt._FRONTIER_DENSE_MIN, os.environ.get("CRUISE_PIPELINE_FUSE")
+    opt._FRONTIER_DENSE_MIN = 8
+    os.environ["CRUISE_PIPELINE_FUSE"] = "0"
+    try:
+        runs = {(str(d), pipe): opt.optimize(
+                    skewed_small(torch, np, generate_cluster, ClusterSpec, d),
+                    SMALL_PIPE_GOALS, fused=True, pipeline=pipe, raise_on_hard_failure=False,
+                    device=d)
+                for d in (dev, "cpu") for pipe in (True, False)}
+    finally:
+        opt._FRONTIER_DENSE_MIN = floor
+        if fuse is None:
+            os.environ.pop("CRUISE_PIPELINE_FUSE", None)
+        else:
+            os.environ["CRUISE_PIPELINE_FUSE"] = fuse
+    card, seq, cpu = runs[(str(dev), True)], runs[(str(dev), False)], runs[("cpu", True)]
+
+    def rows(r):
+        return [(g.name, g.steps, g.actions_applied) for g in r.goal_results]
+
+    def pipe_rows(r):
+        return [(g.name, g.steps, g.actions_applied, g.satisfied_after, g.pipelined,
+                 g.chunks_cross_goal, g.chunks_cross_wasted) for g in r.goal_results]
+
+    ok_seq = same_placement(card, seq) and rows(card) == rows(seq)
+    ok_cpu = same_placement(card, cpu) and pipe_rows(card) == pipe_rows(cpu)
+    log(f"small pipelined (16 brokers, floor 8, fusion off): {pipe_rows(card)}, goals "
+        f"overlapped {card.goals_overlapped}; equals sequential {ok_seq}; card equals CPU "
+        f"{ok_cpu}")
+    if not (ok_seq and ok_cpu and card.pipelined and card.goals_overlapped >= 1):
+        raise RuntimeError("the small pipelined check failed")
+
+
+def perturb_partitions(torch, np, model, seed):
+    """A load-only change (the replica axis and placement unchanged):
+    the leader and follower loads of up to 64 partitions whose replicas all
+    lie on the first 16 brokers (or the first quarter) scale by a seeded
+    factor in [2, 3), as a traffic tick of a few hot partitions does."""
+    rng = np.random.default_rng(seed)
+    rb = model.replica_broker.cpu().numpy()
+    rp = model.replica_partition.cpu().numpy()
+    rv = model.replica_valid.cpu().numpy()
+    near = model.partition_valid.cpu().numpy().copy()
+    np.logical_and.at(near, rp[rv], rb[rv] < min(16, max(model.num_brokers // 4, 2)))
+    hot = np.flatnonzero(near)[:64]
+    factor = np.ones((model.num_partitions, 1), np.float32)
+    factor[hot] = rng.uniform(2.0, 3.0, (hot.size, 1)).astype(np.float32)
+    f = torch.from_numpy(factor[rp]).to(model.device)
+    return model.replace(replica_load_leader=model.replica_load_leader * f,
+                         replica_load_follower=model.replica_load_follower * f)
+
+
+def check_warm_large(torch, np, opt, large, cold, fused_run, timed, check_run, log):
+    """The warm start at the large rung: the cold default solve ``cold``'s
+    placement with a load-only change, its ``model_delta``, a cold solve of
+    the changed snapshot, a warm-up warm solve (captures) and the timed warm
+    solve.  Fails unless the run is warm, ``verify_run`` passes, the hard
+    goals hold and it skips at least as many goals as the cold solve."""
+    from cruise_control_tpu_torch.analyzer.state import WarmStart, model_delta
+    changed = perturb_partitions(torch, np, cold.model, SEED)
+    delta = model_delta(cold.model, changed)
+    warm_start = WarmStart(prev_model=cold.model, active_mask=delta.changed_mask)
+    run_cold, cold_wall, _ = timed(lambda: fused_run(changed))
+    fused_run(changed, warm_start=warm_start)
+    run_warm, warm_wall, _ = timed(lambda: fused_run(changed, warm_start=warm_start))
+    check_run("large-warm", changed, run_warm, STACK)
+    driven = [g for g in run_warm.goal_results if g.chunks]
+    first = driven[0].chunks[0]["bucket"] if driven else None
+    out = dict(changed=delta.num_changed, magnitude=round(delta.magnitude, 6),
+               seed=run_warm.seed_frontier_size, skipped_warm=run_warm.goals_skipped,
+               skipped_cold=run_cold.goals_skipped,
+               steps_warm=sum(g.steps for g in run_warm.goal_results),
+               steps_cold=sum(g.steps for g in run_cold.goal_results),
+               first_chunk_bucket=first, wall_warm=round(warm_wall, 4),
+               wall_cold=round(cold_wall, 4))
+    log(f"large warm start: {out}")
+    if not run_warm.warm or run_warm.goals_skipped < run_cold.goals_skipped:
+        raise RuntimeError(f"the large warm start failed its checks: {out}")
+    return out
+
+
+def check_warm_card_cpu(torch, np, opt, runs, fused_run, same_placement, log, label):
+    """The same warm solve on the card and on the CPU plain path, from the
+    two equal cold default solves ``runs`` (card, CPU): the same load-only
+    change, the seed mask of the CPU's ``model_delta``; per goal and in
+    placement equal."""
+    from cruise_control_tpu_torch.analyzer.state import WarmStart, model_delta
+    card, cpu = runs
+    changed = {"card": perturb_partitions(torch, np, card.model, SEED),
+               "cpu": perturb_partitions(torch, np, cpu.model, SEED)}
+    delta = model_delta(cpu.model, changed["cpu"])
+    delta_card = model_delta(card.model, changed["card"])
+    warm_card = fused_run(changed["card"], warm_start=WarmStart(
+        prev_model=card.model, active_mask=delta.changed_mask))
+    t0 = time.monotonic()
+    warm_cpu = opt.optimize(changed["cpu"], STACK, fused=True, raise_on_hard_failure=False,
+                            device="cpu", warm_start=WarmStart(
+                                prev_model=cpu.model, active_mask=delta.changed_mask))
+    log(f"{label} warm start: seed {warm_card.seed_frontier_size} brokers (the card's "
+        f"model_delta equals the CPU's: "
+        f"{bool((delta_card.changed_mask == delta.changed_mask).all())}), skipped "
+        f"{warm_card.goals_skipped}")
+    compare_card_cpu(warm_card, warm_cpu, same_placement, log, f"{label} warm",
+                     time.monotonic() - t0)
+    if not (warm_card.warm and warm_cpu.warm):
+        raise RuntimeError(f"{label}: the warm solves were not warm")
 
 
 def per_goal_report(run, log, label):
@@ -587,10 +895,10 @@ def per_goal_report(run, log, label):
 
 
 def compare_card_cpu(card, cpu, same_placement, log, label, cpu_s):
-    """Per goal the same satisfied flags, steps and actions, and the same
-    placement; on a difference, the first goal and chunk that differ."""
-    rows = [[(g.satisfied_before, g.satisfied_after, g.steps, g.actions_applied)
-             for g in run.goal_results] for run in (card, cpu)]
+    """Per goal the same satisfied flags, steps, actions, ``pipelined`` and
+    fused group, and the same placement; on a difference, the first goal and chunk that differ."""
+    rows = [[(g.satisfied_before, g.satisfied_after, g.steps, g.actions_applied,
+              g.pipelined, g.fused_group) for g in run.goal_results] for run in (card, cpu)]
     same = same_placement(card, cpu)
     log(f"{label} card vs CPU plain path ({cpu_s:.1f} s on the CPU): per-goal rows equal "
         f"{rows[0] == rows[1]}, identical placement {same}")
@@ -713,12 +1021,38 @@ def drive_per_goal(opt, model, goals, options, cache, kw):
     max_steps = inspect.signature(opt.optimize).parameters["max_steps_per_goal"].default
     b = model.num_brokers
     with cache.lock if cache is not None else contextlib.nullcontext():
-        final, results, _ = opt._optimize_per_goal(
+        final, results, _, _ = opt._optimize_per_goal(
             model, options, specs, BalancingConstraint.default(),
             cgen.default_num_sources(model), cgen.default_num_dests(model), max_steps,
             32 if b >= 500 else None, b > opt._FRONTIER_DENSE_MIN, False,
             lambda *a: 0, cache)
     return types.SimpleNamespace(model=final, goal_results=results)
+
+
+def drive_pipelined(opt, model, goals, options, cache):
+    """``optimize(fused=True)``'s pipelined driver at the defaults the runs
+    use above the dense floor (default widths, step budget and chunk
+    lengths, auto-fusion as the environment says), without the before/after
+    statistics: with ``cache`` the goals' step graphs replay, with None the
+    same gated steps run eagerly."""
+    import contextlib
+    import inspect
+    import types
+    from cruise_control_tpu_torch.analyzer import candidates as cgen
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
+    specs = goals_by_priority(goals)
+    options = options if options is not None else OptimizationOptions.none(model)
+    max_steps = inspect.signature(opt.optimize).parameters["max_steps_per_goal"].default
+    b = model.num_brokers
+    with cache.lock if cache is not None else contextlib.nullcontext():
+        final, results, _, counts = opt._optimize_pipelined(
+            model, options, specs, BalancingConstraint.default(),
+            cgen.default_num_sources(model), cgen.default_num_dests(model), max_steps,
+            32 if b >= 500 else None, b > opt._FRONTIER_DENSE_MIN, False,
+            lambda *a: 0, cache)
+    return types.SimpleNamespace(model=final, goal_results=results, **counts)
 
 
 # Fields a same-shape snapshot cannot change: the padding masks.
@@ -1308,6 +1642,148 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
         "(exact, against the plain version on the card and on the CPU)")
     for name in ("structural_accepts", "stack_sweep", "frontier_active", "chunk_gate",
                  "ordered_sum"):
+        r = out[name]
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
+    return out
+
+
+# K11 cross's gate cases: (satisfied, capped, offline, conflict) of the
+# closed row it reads — done, unsatisfied, capped, offline, conflict.
+CROSS_CASES = [(1, 0, 0, 0), (0, 0, 0, 0), (1, 1, 0, 0), (1, 0, 1, 0), (1, 0, 0, 3)]
+
+
+def check_pipeline_kernels(torch, np, wrappers, log, time_ms, models):
+    """The pipeline's kernels against their plain versions, all exact: K9
+    batch for the full stack on the mid snapshot, the second mid snapshot
+    (its dead broker) and the large rung, every row, against the plain
+    version on CPU copies of the inputs (the CPU running sums are the order
+    the kernel reproduces); K11 cross's gate on its case table with each
+    entry state; its touched pass on seeded placement changes of the large
+    rung (broker only, leadership only, disk only, invalid replicas,
+    replicas moved away and back, out-of-range brokers) OR-ed into a seeded
+    mask; K11's close with a conflict count and its open gated from an
+    earlier closed row."""
+    from cruise_control_tpu_torch.analyzer import optimizer as opt
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+
+    out = {}
+    con = BalancingConstraint.default()
+    specs = tuple(goals_by_priority(STACK))
+
+    def on_cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+    # ---- K9 batch.
+    kb = wrappers["frontier_active_batch"]
+    for label, m in models.items():
+        inp = gk.frontier_inputs_batch(specs, m, BrokerArrays.from_model(m), con)
+        got, count = kb(*inp)
+        ref, ref_count = gk.frontier_active_batch_plain(*on_cpu(inp))
+        if not (torch.equal(got.cpu(), ref) and torch.equal(count.cpu(), ref_count)):
+            raise RuntimeError(f"K9 batch disagrees with the plain version on {label}")
+        log(f"K9 frontier_active_batch {label}: populations {ref_count.tolist()} (exact)")
+    large = models["large"]
+    inp_l = gk.frontier_inputs_batch(specs, large, BrokerArrays.from_model(large), con)
+    G, B = inp_l[0].shape
+    n_band = int(inp_l[3].sum())
+    out["frontier_active_batch"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: kb(*inp_l)),
+        plain_ms=time_ms(torch, lambda: gk.frontier_active_batch_plain(*inp_l)),
+        library_ms=None, bound_ms=bound_ms(n_band * B * 12 + B * 6 + G * 5 + G * B + G * 4))
+
+    # ---- K11 cross, the gate.
+    kc = wrappers["cross_gate"]
+    dev = large.device
+
+    def cross_args(case, sat, off):
+        packed = torch.zeros((11,), dtype=torch.int32, device=dev)
+        packed[3], packed[4], packed[9], packed[10] = case
+        return (torch.tensor([5, 9, 3, 2, 5, 77, 64], dtype=torch.int32, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev),
+                torch.tensor([sat], device=dev), torch.tensor([off], device=dev), packed, 7)
+
+    n_cases = 0
+    for case in CROSS_CASES:
+        for sat, off in ((False, False), (True, False), (True, True)):
+            a, b = cross_args(case, sat, off), cross_args(case, sat, off)
+            kc(*a)
+            opt.cross_gate_plain(*b)
+            if not all(torch.equal(x, y) for x, y in zip(a[:2], b[:2])):
+                raise RuntimeError(f"K11 cross gate disagrees on case {case} {sat} {off}")
+            n_cases += 1
+    a = cross_args(CROSS_CASES[0], False, False)
+    out["cross_gate"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: kc(*a)),
+        plain_ms=time_ms(torch, lambda: opt.cross_gate_plain(*a)), library_ms=None,
+        bound_ms=bound_ms(2 + 4 * 4 + 7 * 4 + 4))
+    log(f"K11 cross_gate: {n_cases} cases ok (exact)")
+
+    # ---- K11 cross, the touched pass.
+    kt = wrappers["chunk_touched"]
+    rng = np.random.default_rng(SEED)
+    R = large.num_replicas_padded
+    valid = large.replica_valid
+    rb0, rl0, rd0 = (large.replica_broker.clone(), large.replica_is_leader.clone(),
+                     large.replica_disk.clone())
+    per = min(512, int(valid.sum()) // 6)
+    rows = rng.permutation(np.flatnonzero(valid.cpu().numpy()))[:6 * per]
+    groups = [torch.from_numpy(g).to(dev) for g in np.split(rows, 6)]
+    rb, rl, rd = rb0.clone(), rl0.clone(), rd0.clone()
+    rb[groups[0]] = (rb0[groups[0]] + 1 + torch.from_numpy(
+        rng.integers(0, B - 1, per).astype(np.int32)).to(dev)) % B     # broker only
+    rl[groups[1]] = ~rl0[groups[1]]                                       # leadership only
+    rd[groups[2]] = rd0[groups[2]] + 1                                    # disk only
+    rb[groups[3]] = rb0[groups[3]]                                        # away and back
+    rb[groups[4][:per // 2]] = -3                                         # out of range
+    rb[groups[4][per // 2:]] = B + 5
+    rb[groups[5]] = (rb0[groups[5]] + 7) % B                              # broker and disk
+    rd[groups[5]] = rd0[groups[5]] + 7
+    invalid = torch.from_numpy(np.flatnonzero(~valid.cpu().numpy())).to(dev)  # mark nothing
+    if invalid.numel():
+        rb[invalid] = (rb0[invalid] + 3) % B
+    touched0 = torch.from_numpy(rng.random(B) < 0.05).to(dev)
+    args = (rb0, rl0, rd0, rb, rl, rd, valid)
+    got = touched0.clone()
+    kt(*args, got)
+    ref = touched0.cpu().clone()
+    opt.chunk_touched_plain(*on_cpu(args), ref)
+    if not torch.equal(got.cpu(), ref):
+        raise RuntimeError("K11 cross touched pass disagrees with the plain version")
+    scratch = touched0.clone()
+    out["chunk_touched"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: kt(*args, scratch)),
+        plain_ms=time_ms(torch, lambda: opt.chunk_touched_plain(*args, scratch)),
+        library_ms=None, bound_ms=bound_ms(R * 19 + B))
+    log(f"K11 cross chunk_touched: R={R} B={B}, {rows.size} changed rows and "
+        f"{invalid.numel()} invalid rows, {int(ref.sum())} brokers touched (exact)")
+
+    # ---- K11: the close's conflict count, the open gated from an earlier row.
+    kg = wrappers["chunk_gate"]
+    n_gate = 0
+    for capped_src in (0, 1):
+        for conflict in (False, True):
+            outs = []
+            mask = torch.from_numpy(rng.random(B) < 0.3).to(dev) if conflict else None
+            for fn in (kg, opt.chunk_gate_plain):
+                c = torch.tensor([4, 9, 3, 2, 5, 77, 4], dtype=torch.int32, device=dev)
+                e = torch.ones((1,), dtype=torch.int32, device=dev)
+                packed = torch.full((11,), -7, dtype=torch.int32, device=dev)
+                src = torch.zeros((11,), dtype=torch.int32, device=dev)
+                src[4] = capped_src
+                fn(c, e, torch.tensor([False], device=dev), torch.tensor([True], device=dev),
+                   torch.tensor([12], dtype=torch.int32, device=dev), packed, True, True, 16,
+                   touched=ref.to(dev) if conflict else None, mask=mask, gate_src=src)
+                outs.append((c.cpu(), e.cpu(), packed.cpu()))
+            if not all(torch.equal(x, y) for x, y in zip(*outs)):
+                raise RuntimeError(f"K11 disagrees with its conflict count or source gate "
+                                   f"({capped_src}, {conflict})")
+            n_gate += 1
+    log(f"K11 chunk_gate conflict count and source gate: {n_gate} cases ok (exact)")
+    for name in ("frontier_active_batch", "cross_gate", "chunk_touched"):
         r = out[name]
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")

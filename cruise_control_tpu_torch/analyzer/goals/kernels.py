@@ -26,6 +26,10 @@ kinds of the default stack (``rack``, ``replica_capacity``, ``capacity``,
 - ``frontier_inputs`` / ``frontier_mask`` — the band goal's active broker
   set (the JAX package's ``frontier_active``; K9 frontier,
   ``csrc/frontier_active.cu``), with the plain twin ``frontier_mask_plain``.
+- ``frontier_inputs_batch`` / ``frontier_active_batch`` — every goal's
+  active set of a stack in one launch, all-false rows for the goals that
+  are not of a band kind (K9 batch, same source), with the plain twin
+  ``frontier_active_batch_plain``.
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
   ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
 """
@@ -867,6 +871,88 @@ def frontier_mask(metric, lower, upper, alive, valid, replica_count, eps: float)
 
 # Brokers one frontier-mask block sorts in shared memory.
 FRONTIER_MAX_BROKERS = 8192
+
+
+@functools.lru_cache(maxsize=64)
+def _batch_table(specs, device: torch.device):
+    """(band bool[G], eps f32[G]) of ``specs`` on ``device``, uploaded once
+    per stack: a goal's row is computed when it is of a band kind, with its
+    metric epsilon."""
+    band = torch.tensor([is_band_kind(s) for s in specs], dtype=torch.bool)
+    eps = torch.tensor([float(np.float32(_metric_epsilon(s))) for s in specs],
+                       dtype=torch.float32)
+    return band.to(device), eps.to(device)
+
+
+def frontier_inputs_batch(specs, model: TensorClusterModel, arrays: BrokerArrays,
+                          constraint: BalancingConstraint):
+    """(metric, lower, upper f32[G, B], band bool[G], eps f32[G], alive,
+    valid, replica_count): the rows ``frontier_active_batch`` reads, each
+    band goal's row from ``frontier_inputs`` and zeros for the others."""
+    specs = tuple(specs)
+    B = model.num_brokers
+    zero = torch.zeros((B,), dtype=torch.float32, device=arrays.load.device)
+    rows = [frontier_inputs(s, model, arrays, constraint)[:3] if is_band_kind(s)
+            else (zero, zero, zero) for s in specs]
+    band, eps = _batch_table(specs, arrays.load.device)
+    return (torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows]),
+            torch.stack([r[2] for r in rows]), band, eps, arrays.alive, arrays.valid,
+            arrays.replica_count)
+
+
+def frontier_active_batch_plain(metric, lower, upper, band, eps, alive, valid,
+                                replica_count):
+    """(bool[G, B], i32[G] populations) — ``cruise_control_tpu/analyzer/
+    goals/kernels.py:912`` ``frontier_active_batch``: ``frontier_mask_plain``
+    on each band row, all false with a population of 0 on the others."""
+    G, B = metric.shape
+    dev = metric.device
+    active = torch.zeros((G, B), dtype=torch.bool, device=dev)
+    count = torch.zeros((G,), dtype=torch.int32, device=dev)
+    for g, (on, e) in enumerate(zip(band.tolist(), eps.tolist())):
+        if on:
+            row, n = frontier_mask_plain(metric[g], lower[g], upper[g], alive, valid,
+                                         replica_count, e)
+            active[g] = row
+            count[g] = n[0]
+    return active, count
+
+
+@cuda.counted("frontier_active_batch")
+def frontier_active_batch(metric, lower, upper, band, eps, alive, valid, replica_count):
+    """K9, batch.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:912``
+    ``frontier_active_batch`` (inside the pipeline's stack sweep,
+    ``optimizer.py:2340`` ``_stack_frontiers``): ``(active bool[G, B],
+    populations i32[G])`` from the stacked rows of ``frontier_inputs_batch``.
+    Bound on the card: bytes (G rows of 13 bytes a broker and the shared
+    broker rows read, G x (B + 4) written: tens of kilobytes, so the launch
+    and each block's serial running sums cost more than the traffic).  CPU
+    tensors take ``frontier_active_batch_plain``; CUDA tensors launch one
+    block per goal, each running the frontier mask's body on its row (a
+    non-band row is written all false).  Exact against the plain twin."""
+    G, B = metric.shape
+    dev = metric.device
+    for name, t in (("metric", metric), ("lower", lower), ("upper", upper)):
+        cuda.check(t, name, torch.float32, (G, B), dev)
+    cuda.check(band, "band", torch.bool, (G,), dev)
+    cuda.check(eps, "eps", torch.float32, (G,), dev)
+    cuda.check(alive, "alive", torch.bool, (B,), dev)
+    cuda.check(valid, "valid", torch.bool, (B,), dev)
+    cuda.check(replica_count, "replica_count", torch.int32, (B,), dev)
+    cuda.record("frontier_active_batch", (metric, lower, upper, band, eps, alive, valid,
+                                          replica_count))
+    if cuda.on_cpu(metric):
+        return frontier_active_batch_plain(metric, lower, upper, band, eps, alive, valid,
+                                           replica_count)
+    if not 1 <= B <= FRONTIER_MAX_BROKERS or not 1 <= G <= 65535:
+        raise ValueError(f"frontier_active_batch takes 1..{FRONTIER_MAX_BROKERS} brokers "
+                         f"and 1..65535 goals, got {B} and {G}")
+    active = torch.empty((G, B), dtype=torch.bool, device=dev)
+    count = torch.empty((G,), dtype=torch.int32, device=dev)
+    cuda.launch("frontier_active_batch", G, B, band, eps, metric, lower, upper, alive,
+                valid, replica_count, active, count)
+    frontier_active_batch.launches += 1
+    return active, count
 
 
 # ---------------------------------------------------------------------------

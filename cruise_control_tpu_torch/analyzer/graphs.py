@@ -24,8 +24,14 @@ touches is a static buffer:
 - each bucket's frontier maps (``FrontierInvariants``): one set of buffers
   per (shape, bucket), shared by every goal's graph of that bucket and
   written when a chunk that uses a new frontier is dispatched
-  (``GraphCache.frontier``) — in stream order, so a chunk already queued
-  on the previous frontier still reads it.
+  (``GraphCache.frontier``) — in stream order, from pinned host memory
+  without a host sync, so a chunk already queued on the previous frontier
+  still reads it.  The buffer set remembers the frontier it was last
+  given, whichever goal's driver gave it: the inter-goal pipeline's opener
+  of the next goal, compacted onto its seed frontier, writes the buffers
+  behind the current goal's queued chunks, and replays the next goal's own
+  graph for its (bucket, widths), so the pipeline keys no graph of its
+  own.
 
 All graphs capture into one memory pool.  That is safe because they leave
 no live outputs in it (the step writes its results into the static
@@ -152,7 +158,11 @@ class GraphCache:
             entry = self._frontiers[key] = [bufs, None]
         if entry[1] is not fr:
             for f in dataclasses.fields(fr):
-                getattr(entry[0], f.name).copy_(getattr(fr, f.name))
+                buf, src = getattr(entry[0], f.name), getattr(fr, f.name)
+                if buf.is_cuda:
+                    buf.copy_(src.pin_memory(), non_blocking=True)
+                else:
+                    buf.copy_(src)
             entry[1] = fr
         return entry[0]
 

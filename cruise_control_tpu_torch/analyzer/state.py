@@ -1,16 +1,20 @@
-"""Per-step broker aggregate bundle, step invariants and request options.
+"""Per-step broker aggregate bundle, step invariants, request options, the
+inter-goal pipeline's next-goal descriptor and warm-start seeding.
 
-Counterpart of ``cruise_control_tpu/analyzer/state.py`` for the dense and
-per-goal frontier paths.
+Counterpart of ``cruise_control_tpu/analyzer/state.py`` for the dense,
+per-goal and pipelined paths.
 ``BrokerArrays.from_model`` is where K1 (``ops.segment.broker_aggregates``)
 runs: once per optimizer step and once per satisfied check.
+``WarmStart``, ``ModelDelta`` and ``model_delta`` are host code (numpy over
+host copies of the models), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from cruise_control_tpu_torch.model.tensor_model import TENSOR_FIELDS, TensorClusterModel
@@ -116,8 +120,31 @@ PACKED_BISECT_DEPTH = 6   # max repair bisection depth
 PACKED_LANES_LIVE = 7     # live candidate lanes at compaction, summed
 PACKED_NUM_ACTIVE = 8     # frontier population at exit; -1 = non-band kind
 PACKED_ANY_OFFLINE = 9    # offline replicas remain at exit (0/1)
-PACKED_CONFLICT = 10      # inter-goal pipeline conflicts; 0 on the dense path
+PACKED_CONFLICT = 10      # brokers touched since the frontier sweep that lie
+                          # inside the next goal's predicted seed frontier; 0
+                          # when the chunk ran without pipeline accounting
 PACKED_WIDTH = 11
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineNextGoal:
+    """Host-side descriptor of the next goal of a pipelined stack run (the
+    JAX package's ``state.py:151-172``).  The chunk driver
+    (``optimizer.frontier_fixpoint``) uses it to dispatch the next goal's
+    opening chunk while the current goal's tail drains: ``seed_active`` is
+    the next goal's frontier as the stack sweep predicted it, and the
+    packed ``PACKED_CONFLICT`` slot (|touched ∩ seed_active|) discards the
+    opener on the device when the current goal touched a broker inside it.
+    ``chunk_len`` / ``max_steps`` / ``min_chunk`` give the first-chunk
+    length policy of the next goal's own driver, so an adopted opener is
+    the chunk a sequential driver would have dispatched."""
+
+    spec: object                        # GoalSpec of the next goal
+    prev_specs: tuple                   # the goals it runs under
+    seed_active: Optional[np.ndarray]   # bool[B] predicted frontier, or None
+    chunk_len: int                      # the next goal's chunk_steps
+    max_steps: int                      # the next goal's step budget
+    min_chunk: int = 4                  # the next goal's min_chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,3 +238,96 @@ class StepState:
         """``model`` with this state's current placement, copied out."""
         return model.replace(**{f: getattr(self.model, f).clone()
                                 for f in MUTABLE_FIELDS})
+
+
+# ---------------------------------------------------------------------------
+# Warm-start seeding (the JAX package's ``state.py:225-327``)
+# ---------------------------------------------------------------------------
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDelta:
+    """Host-side diff of a previous converged model against a fresh one.
+
+    ``changed_mask`` flags every broker whose aggregate load moved by more
+    than a relative epsilon, whose replica set or leadership differs
+    between the fresh placement and the previous converged one, or whose
+    state changed.  ``magnitude`` is the relative L1 load delta over the
+    whole cluster."""
+
+    changed_mask: np.ndarray  # bool[B]
+    magnitude: float
+    num_changed: int
+
+    @property
+    def is_zero(self) -> bool:
+        return self.num_changed == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class WarmStart:
+    """Seed of a warm-started solve: ``prev_model`` is the previous
+    converged model (an ``OptimizerRun``'s ``model``), whose placement the
+    solve starts from; ``active_mask`` (bool[B], host numpy) restricts each
+    goal's first frontier to the changed and previously active brokers (a
+    compacted convergence is still confirmed by a dense chunk, so a mask
+    that misses a broker costs steps, never correctness);
+    ``per_goal_satisfied`` carries the previous run's verdicts for the
+    record."""
+
+    prev_model: TensorClusterModel
+    active_mask: Optional[np.ndarray] = None
+    per_goal_satisfied: Optional[Dict[str, bool]] = None
+
+    def compatible_with(self, model: TensorClusterModel) -> bool:
+        """Seeding is sound only on an identical replica axis: the same
+        padded shapes and the same replica -> partition identity and
+        padding."""
+        p = self.prev_model
+        if (p.num_brokers != model.num_brokers
+                or p.num_replicas_padded != model.num_replicas_padded
+                or p.num_partitions != model.num_partitions
+                or p.max_rf != model.max_rf):
+            return False
+        return bool(np.array_equal(_host(p.replica_partition),
+                                   _host(model.replica_partition))
+                    and np.array_equal(_host(p.replica_valid), _host(model.replica_valid)))
+
+
+def model_delta(prev_model: TensorClusterModel, fresh_model: TensorClusterModel,
+                rel_epsilon: float = 1e-3) -> Optional[ModelDelta]:
+    """Diff the previous converged model against a fresh one into a
+    changed-broker mask and a relative load-delta magnitude, or None when
+    the two are not ``WarmStart.compatible_with`` each other (the caller
+    then solves cold).  Numpy over host copies of the per-broker loads and
+    the placement."""
+    if not WarmStart(prev_model=prev_model).compatible_with(fresh_model):
+        return None
+    prev_load = _host(prev_model.broker_load()).astype(np.float64)
+    new_load = _host(fresh_model.broker_load()).astype(np.float64)
+    diff = np.abs(new_load - prev_load).sum(axis=1)
+    total = max(float(np.abs(prev_load).sum()), 1e-9)
+    load_changed = diff > rel_epsilon * max(total / max(prev_load.shape[0], 1), 1e-9)
+    magnitude = float(diff.sum() / total)
+    prev_rb = _host(prev_model.replica_broker)
+    new_rb = _host(fresh_model.replica_broker)
+    valid = _host(fresh_model.replica_valid)
+    moved = (prev_rb != new_rb) & valid
+    B = fresh_model.num_brokers
+    placement_changed = np.zeros(B, bool)
+    if moved.any():
+        placement_changed[np.unique(prev_rb[moved])] = True
+        placement_changed[np.unique(new_rb[moved])] = True
+    lead_moved = (_host(prev_model.replica_is_leader)
+                  != _host(fresh_model.replica_is_leader)) & valid
+    if lead_moved.any():
+        placement_changed[np.unique(new_rb[lead_moved])] = True
+    # Dead brokers always join the mask: healing moves must see them.
+    state_changed = _host(prev_model.broker_state) != _host(fresh_model.broker_state)
+    changed = (load_changed | placement_changed | state_changed) & \
+        _host(fresh_model.broker_valid)
+    return ModelDelta(changed_mask=changed, magnitude=magnitude,
+                      num_changed=int(changed.sum()))

@@ -1,6 +1,8 @@
-// K9, frontier mask — the active broker set of one band goal.
+// K9, frontier mask — the active broker set of one band goal — and K9,
+// batch — every goal's frontier of a stack in one launch.
 //
-// Replaces cruise_control_tpu/analyzer/goals/kernels.py:842 frontier_active:
+// cc_frontier_active replaces cruise_control_tpu/analyzer/goals/kernels.py:842
+// frontier_active:
 // from a band goal's metric and band per broker, the set of brokers that can
 // matter to the goal's next steps —
 //   the out-of-band brokers and the dead brokers still hosting replicas;
@@ -14,7 +16,18 @@
 // under 20 KB at 1000 brokers, nanoseconds at 3.35 TB/s).  The launch and
 // the block's sequential scan dominate.
 //
-// Design: one block.  The donor surpluses and the receiver rooms are each
+// cc_frontier_active_batch replaces goals/kernels.py:912
+// frontier_active_batch inside the pipeline's stack sweep
+// (cruise_control_tpu/analyzer/optimizer.py:2340 _stack_frontiers): the
+// stacked [G, B] metric and band rows of a goal stack, one row per goal,
+// with a band flag per row; the non-band rows come out all false with a
+// population of 0.  Bound: bytes (G x B rows of 13 bytes and the shared
+// broker rows read, G x B + 4 G bytes written: about 40 KB for 15 goals of
+// 200 brokers), so the launch and each block's serial running sums are
+// the cost.
+//
+// Design: one block per mask (the batch: one block per row, each running
+// the single mask's body on its row).  The donor surpluses and the receiver rooms are each
 // sorted in shared memory by a bitonic sort on (value descending, index
 // ascending), which is the permutation of the plain version's stable
 // argsort.  The block takes the two totals, and one thread the running
@@ -78,14 +91,14 @@ __device__ void mark_leading(const float* key, const int32_t* idx, int64_t b, fl
   }
 }
 
-__global__ void frontier_active_kernel(int64_t b, int p, float eps,
-                                       const float* __restrict__ metric,
-                                       const float* __restrict__ lower,
-                                       const float* __restrict__ upper,
-                                       const uint8_t* __restrict__ alive,
-                                       const uint8_t* __restrict__ valid,
-                                       const int32_t* __restrict__ rc, uint8_t* active,
-                                       int32_t* count) {
+// One block computes the mask of one row.
+__device__ void frontier_row(int64_t b, int p, float eps, const float* __restrict__ metric,
+                             const float* __restrict__ lower,
+                             const float* __restrict__ upper,
+                             const uint8_t* __restrict__ alive,
+                             const uint8_t* __restrict__ valid,
+                             const int32_t* __restrict__ rc, uint8_t* active,
+                             int32_t* count) {
   extern __shared__ unsigned char smem[];
   float* key = reinterpret_cast<float*>(smem);              // [p]
   int32_t* idx = reinterpret_cast<int32_t*>(key + p);       // [p]
@@ -172,6 +185,56 @@ __global__ void frontier_active_kernel(int64_t b, int p, float eps,
   if (t == 0) count[0] = population;
 }
 
+__global__ void frontier_active_kernel(int64_t b, int p, float eps,
+                                       const float* __restrict__ metric,
+                                       const float* __restrict__ lower,
+                                       const float* __restrict__ upper,
+                                       const uint8_t* __restrict__ alive,
+                                       const uint8_t* __restrict__ valid,
+                                       const int32_t* __restrict__ rc, uint8_t* active,
+                                       int32_t* count) {
+  frontier_row(b, p, eps, metric, lower, upper, alive, valid, rc, active, count);
+}
+
+// Block g: row g of the stacked [G, B] inputs, or an all-false row for a
+// goal that is not of a band kind.
+__global__ void frontier_active_batch_kernel(int64_t b, int p,
+                                             const uint8_t* __restrict__ band,
+                                             const float* __restrict__ eps,
+                                             const float* __restrict__ metric,
+                                             const float* __restrict__ lower,
+                                             const float* __restrict__ upper,
+                                             const uint8_t* __restrict__ alive,
+                                             const uint8_t* __restrict__ valid,
+                                             const int32_t* __restrict__ rc,
+                                             uint8_t* active, int32_t* count) {
+  const int64_t g = blockIdx.x;
+  const int64_t off = g * b;
+  if (!band[g]) {
+    for (int64_t i = threadIdx.x; i < b; i += blockDim.x) active[off + i] = 0;
+    if (threadIdx.x == 0) count[g] = 0;
+    return;
+  }
+  frontier_row(b, p, eps[g], metric + off, lower + off, upper + off, alive, valid, rc,
+               active + off, count + g);
+}
+
+// Dynamic shared memory of one block (sort keys and indices over the
+// power-of-two p, the surplus, deficit and running sums and the flags over
+// b), raising the kernel's limit when it is above the 48 KB default.
+template <typename K>
+cudaError_t shared_for(K kernel, int64_t b, int* p_out, size_t* smem_out) {
+  int p = 1;
+  while (p < b) p <<= 1;
+  const size_t smem = static_cast<size_t>(p) * 8 + static_cast<size_t>(b) * 13;
+  *p_out = p;
+  *smem_out = smem;
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int cc_frontier_active(int64_t b, float eps, const float* metric,
@@ -180,16 +243,28 @@ extern "C" int cc_frontier_active(int64_t b, float eps, const float* metric,
                                   const int32_t* rc, uint8_t* active, int32_t* count,
                                   cudaStream_t stream) {
   if (b <= 0 || b > kMaxBrokers) return static_cast<int>(cudaErrorInvalidValue);
-  int p = 1;
-  while (p < b) p <<= 1;
-  const size_t smem = static_cast<size_t>(p) * 8 + static_cast<size_t>(b) * 13;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc_attr = cudaFuncSetAttribute(
-        frontier_active_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc_attr != cudaSuccess) return static_cast<int>(rc_attr);
-  }
+  int p;
+  size_t smem;
+  const cudaError_t rc_attr = shared_for(frontier_active_kernel, b, &p, &smem);
+  if (rc_attr != cudaSuccess) return static_cast<int>(rc_attr);
   frontier_active_kernel<<<1, kThreads, smem, stream>>>(b, p, eps, metric, lower, upper,
                                                         alive, valid, rc, active, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cc_frontier_active_batch(int64_t g, int64_t b, const uint8_t* band,
+                                        const float* eps, const float* metric,
+                                        const float* lower, const float* upper,
+                                        const uint8_t* alive, const uint8_t* valid,
+                                        const int32_t* rc, uint8_t* active,
+                                        int32_t* count, cudaStream_t stream) {
+  if (g <= 0 || g > 65535 || b <= 0 || b > kMaxBrokers)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int p;
+  size_t smem;
+  const cudaError_t rc_attr = shared_for(frontier_active_batch_kernel, b, &p, &smem);
+  if (rc_attr != cudaSuccess) return static_cast<int>(rc_attr);
+  frontier_active_batch_kernel<<<static_cast<unsigned>(g), kThreads, smem, stream>>>(
+      b, p, band, eps, metric, lower, upper, alive, valid, rc, active, count);
   return static_cast<int>(cudaGetLastError());
 }

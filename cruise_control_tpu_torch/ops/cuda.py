@@ -58,7 +58,11 @@ _ENTRIES = {
     "structural_accepts": ("goal_masks", "cc_structural_accepts", "i" * 5 + "p" * 14),
     "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 5 + "p" * 20),
     "frontier_active": ("frontier_active", "cc_frontier_active", "if" + "p" * 8),
-    "chunk_gate": ("chunk_gate", "cc_chunk_gate", "p" * 6 + "iii"),
+    "frontier_active_batch": ("frontier_active", "cc_frontier_active_batch",
+                              "ii" + "p" * 10),
+    "chunk_gate": ("chunk_gate", "cc_chunk_gate", "p" * 9 + "iiii"),
+    "cross_gate": ("chunk_gate", "cc_cross_gate", "p" * 5 + "i"),
+    "chunk_touched": ("chunk_gate", "cc_chunk_touched", "ii" + "p" * 8),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 

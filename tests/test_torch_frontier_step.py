@@ -31,8 +31,8 @@ from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingCons
 from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS
 from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-from tests.torch_port_helpers import (PLACEMENT, SPEC_6, STACK, clear_cruise_env,
-                                      skewed_models)
+from tests.torch_port_helpers import (PLACEMENT, SPEC_6, STACK, check_like_jax,
+                                      clear_cruise_env, skewed_models)
 
 PREV = ("RackAwareGoal",)
 
@@ -178,14 +178,27 @@ HUNDRED = dict(num_brokers=100, num_racks=10, num_topics=4, mean_partitions_per_
     (SPEC_6, {"fuse_group_size": 1, "pipeline": True}),
     (HUNDRED, {}),
     (HUNDRED, {"pipeline": None, "frontier": True}),
-    (SPEC_6, {"fuse_group_size": 1, "warm_start": object()}),
+    (SPEC_6, {"fuse_group_size": 1, "warm_start": "compatible"}),
     (SPEC_6, {"fuse_group_size": 1, "mesh": object()}),
 ], ids=["pipeline", "auto-pipelined-100", "auto-pipelined-frontier", "warm_start",
         "mesh"])
-def test_per_goal_refusals(spec_kw, kwargs):
-    tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        topt.optimize(tm, STACK, fused=True, device="cpu", **kwargs)
+def test_per_goal_refusals(spec_kw, kwargs, monkeypatch):
+    """What the later slices ported runs as the JAX package runs it — the
+    pipeline forced, the pipeline by default at 100 brokers (one goal pins
+    the policy), a warm start — and only a mesh is refused."""
+    clear_cruise_env(monkeypatch)
+    if "mesh" in kwargs:
+        tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
+        with pytest.raises(NotImplementedError):
+            topt.optimize(tm, STACK, fused=True, device="cpu", **kwargs)
+        return
+    kwargs = dict(kwargs)
+    warm = kwargs.pop("warm_start", None) is not None
+    goals = STACK[:2] if spec_kw is SPEC_6 else ["ReplicaDistributionGoal"]
+    runs = check_like_jax(spec_kw, goals, warm=warm, fused=True, **kwargs)
+    assert runs is not None
+    assert runs[1].pipelined == ("pipeline" in kwargs or spec_kw is HUNDRED)
+    assert runs[1].warm == warm
 
 
 def test_graph_cache_keeps_frontier_buffers_per_shape_and_bucket():

@@ -28,7 +28,8 @@ from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N, CTR
                                                      BrokerArrays, OptimizationOptions,
                                                      StepState)
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-from tests.torch_port_helpers import PLACEMENT, SPEC_6, SPEC_12, STACK, goal_rows
+from tests.torch_port_helpers import (PLACEMENT, SPEC_6, SPEC_12, STACK, check_like_jax,
+                                      clear_cruise_env, goal_rows)
 
 PREV = ("RackAwareGoal",)
 GOAL = "ReplicaDistributionGoal"
@@ -137,15 +138,27 @@ def test_explicit_groups_run_above_the_dense_floor():
     (SPEC_6, {"fuse_group_size": 1, "pipeline": True}),
     (SPEC_6, {"frontier": True}),
     (SPEC_6, {"pipeline": True}),
-    (SPEC_6, {"warm_start": object()}),
+    (SPEC_6, {"warm_start": "compatible"}),
     (SPEC_6, {"mesh": object()}),
     (WIDE, {"segment_steps": 32}),
 ], ids=["above-floor", "per-goal", "frontier", "pipeline", "warm_start", "mesh",
         "segment_steps"])
-def test_fused_paths_of_later_slices_raise(spec_kw, kwargs):
-    tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        topt.optimize(tm, SHORT, fused=True, device="cpu", **kwargs)
+def test_fused_paths_of_later_slices_raise(spec_kw, kwargs, monkeypatch):
+    """The fused calls later slices ported — above the floor (pipelined by
+    default), the pipeline forced, a warm start, segments above the floor
+    — do what the JAX package does; a mesh, and ``frontier=True`` off the
+    per-goal paths (which the JAX package ignores), are still refused."""
+    clear_cruise_env(monkeypatch)
+    if "mesh" in kwargs or "frontier" in kwargs:
+        tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
+        with pytest.raises(NotImplementedError):
+            topt.optimize(tm, SHORT, fused=True, device="cpu", **kwargs)
+        return
+    kwargs = dict(kwargs)
+    warm = kwargs.pop("warm_start", None) is not None
+    runs = check_like_jax(spec_kw, SHORT, warm=warm, fused=True, **kwargs)
+    assert runs is not None and runs[1].warm == warm
+    assert runs[1].pipelined == ("pipeline" in kwargs or spec_kw is WIDE)
 
 
 def test_fused_hard_goal_failure_raises():

@@ -33,7 +33,8 @@ from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingCons
 from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS
 from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-from tests.torch_port_helpers import SPEC_6, check_stack, to_torch
+from tests.torch_port_helpers import (SPEC_6, check_like_jax, check_stack, clear_cruise_env,
+                                      to_torch)
 
 ENTRY_GOAL = "ReplicaDistributionGoal"
 ENTRY_PREV = ("RackAwareGoal", "DiskCapacityGoal")
@@ -99,12 +100,27 @@ def test_full_stack_6_brokers():
 
 @pytest.mark.parametrize("kwargs", [{"fused": True, "fuse_group_size": 1, "pipeline": True},
                                     {"mesh": object()}, {"frontier": True},
-                                    {"pipeline": True}, {"warm_start": object()}],
+                                    {"pipeline": True}, {"warm_start": "compatible"}],
                          ids=["fused", "mesh", "frontier", "pipeline", "warm_start"])
-def test_later_slice_options_raise(kwargs):
-    tm = generate_cluster(ClusterSpec(**SPEC_6), device="cpu")
-    with pytest.raises(NotImplementedError):
-        topt.optimize(tm, ["ReplicaDistributionGoal"], device="cpu", **kwargs)
+def test_later_slice_options_raise(kwargs, monkeypatch):
+    """Options of later slices do what the JAX package does on the same
+    call: the forced pipeline runs, ``pipeline=True`` on the unfused path
+    raises ValueError, a warm start re-bases the unfused solve; a mesh and
+    ``frontier=True`` off the per-goal paths are still refused."""
+    clear_cruise_env(monkeypatch)
+    goals = ["ReplicaDistributionGoal"]
+    if "mesh" in kwargs or "frontier" in kwargs:
+        tm = generate_cluster(ClusterSpec(**SPEC_6), device="cpu")
+        with pytest.raises(NotImplementedError):
+            topt.optimize(tm, goals, device="cpu", **kwargs)
+        return
+    kwargs = dict(kwargs)
+    warm = kwargs.pop("warm_start", None) is not None
+    runs = check_like_jax(SPEC_6, goals, warm=warm, **kwargs)
+    if kwargs.get("pipeline") and not kwargs.get("fused"):
+        assert runs is None  # ValueError in both packages
+    else:
+        assert runs is not None and runs[1].warm == warm
 
 
 def test_multi_round_selection_raises():

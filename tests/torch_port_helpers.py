@@ -179,8 +179,40 @@ def check_stack(spec_kw):
     return jrun, trun
 
 
-# The JAX package's environment switches; the per-goal parity tests run with
-# all of them unset, as the port never reads them.
+def check_like_jax(spec_kw, goals, warm: bool = False, **kw):
+    """The port's ``optimize(**kw)`` does what the JAX package's does on the
+    same call and cluster: it raises the same exception type, or it gives
+    the same per-goal packed slots 0-7 and ``pipelined`` flags, the same
+    run accounting and the same placement.  With ``warm`` both take a warm
+    start from the cluster itself (compatible, no seed mask).  Returns the
+    two runs, or None when both raised."""
+    from cruise_control_tpu.analyzer.state import WarmStart as JaxWarm
+    from cruise_control_tpu_torch.analyzer.state import WarmStart
+    jm = jax_generate(JaxSpec(**spec_kw))
+    tm = to_torch(jm)
+    jkw, tkw = dict(kw), dict(kw)
+    if warm:
+        jkw["warm_start"], tkw["warm_start"] = JaxWarm(prev_model=jm), WarmStart(prev_model=tm)
+    try:
+        jrun = jopt.optimize(jm, goals, raise_on_hard_failure=False, **jkw)
+    except Exception as exc:  # the port must raise the same type
+        with pytest.raises(type(exc)):
+            topt.optimize(tm, goals, raise_on_hard_failure=False, device="cpu", **tkw)
+        return None
+    trun = topt.optimize(tm, goals, raise_on_hard_failure=False, device="cpu", **tkw)
+    assert goal_rows(trun) == goal_rows(jrun)
+    assert [g.pipelined for g in trun.goal_results] == [g.pipelined for g in jrun.goal_results]
+    summary = ("pipelined", "warm", "goals_skipped", "goals_overlapped", "goals_fused")
+    assert [getattr(trun, k) for k in summary] == [getattr(jrun, k) for k in summary]
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(getattr(trun.model, f).numpy(),
+                                      np.asarray(getattr(jrun.model, f)), err_msg=f)
+    return jrun, trun
+
+
+# The JAX package's environment switches.  The port reads CRUISE_PIPELINE
+# and CRUISE_PIPELINE_FUSE (the pipeline and its auto-fusion) and none of
+# the others; the parity tests clear all six and set the two they mean.
 CRUISE_ENV = ("CRUISE_PIPELINE", "CRUISE_PIPELINE_FUSE", "CRUISE_FLIGHT_RECORDER",
               "CRUISE_AOT_PRELOWER", "CRUISE_REPAIR_ORACLE", "CRUISE_TPU_COMPILE_CEILING")
 
