@@ -79,10 +79,25 @@ Phases, in order (any failure raises and the process exits non-zero):
     skipped as the cold solve of the changed snapshot, the seed's size and
     whether a first chunk ran compacted on it; at 100 brokers the same
     warm solve on the card and on the CPU agree per goal and in placement;
-14. xl250 rung (1000 brokers, ~250k replicas, ``segment_steps`` 32 by the
+14. execution (``bench.py --execute`` in the port): the mid rung's fused
+    solve of ``donation_copy(mid)`` (the cached step graphs, after other
+    shapes': the proposals of phase 5), its proposals and bench.py's throttle
+    rule, ``run_simulated_execution`` with the balancedness scorer, the
+    launch counters set to 0 just before: the result ok with no dead or
+    aborted task, the ledger's totals reconciled, off-target bytes never
+    growing and ending at 0, the first and last scores equal to the run's
+    balancedness before and after within 1e-6, K10 launched once per
+    ``score_checkpoints`` flush; the same proposals on the CPU path give
+    the same result and checkpoints (scores within 1e-9); the host wall,
+    the wall inside ``score_checkpoints``, flushes and checkpoints.  K10's
+    two launches are held exactly against their plain twins on 256 blends
+    of the mid solve (here), of the large pipelined solve (phase 9) and of
+    the xl250 solve (phase 15), and timed;
+15. xl250 rung (1000 brokers, ~250k replicas, ``segment_steps`` 32 by the
     JAX package's rule) on the default pipelined path, the stack of
-    ``XL_GOALS``;
-15. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+    ``XL_GOALS``; then the mid fused solve again (the graph cache past its
+    four shapes): the proposals of phase 5;
+16. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -145,6 +160,8 @@ PROFILE_NAMES = {
     "cross_gate": ("cross_gate_kernel",),
     "chunk_touched": ("chunk_touched_kernel",),
     "ordered_sum": ("ordered_sum_kernel",),
+    "blend_aggregates": ("blend_aggregates_kernel",),
+    "stack_sweep_batch": ("stack_sweep_batch_kernel",),
 }
 
 KERNELS = {
@@ -183,6 +200,10 @@ KERNELS = {
                       "cruise_control_tpu/analyzer/optimizer.py:1671"),
     "ordered_sum": ("cruise_control_tpu_torch/csrc/ordered.cu",
                     "cruise_control_tpu/analyzer/goals/kernels.py:190"),
+    "blend_aggregates": ("cruise_control_tpu_torch/csrc/placement_score.cu",
+                         "cruise_control_tpu/analyzer/optimizer.py:2392"),
+    "stack_sweep_batch": ("cruise_control_tpu_torch/csrc/placement_score.cu",
+                          "cruise_control_tpu/analyzer/optimizer.py:2392"),
 }
 # Kernels a path does not launch: the unfused path has no chunk gate and no
 # frontier count; only the pipelined path sweeps every goal's frontier (K9
@@ -190,6 +211,9 @@ KERNELS = {
 PIPELINE_ONLY = ("frontier_active_batch", "cross_gate", "chunk_touched")
 NOT_ON = {"unfused": ("chunk_gate", "frontier_active") + PIPELINE_ONLY,
           "grouped": PIPELINE_ONLY, "sequential": PIPELINE_ONLY}
+# K10 scores the checkpoints of an execution: no solve launches it.
+EXECUTION_ONLY = ("blend_aggregates", "stack_sweep_batch")
+K10_BATCH = 256  # checkpoints per K10 check: the mid execution's 187 pad to 256
 GRAPH_KERNELS = {
     "step_graph": ("cruise_control_tpu_torch/analyzer/graphs.py",
                    "cruise_control_tpu/analyzer/optimizer.py:1572"),
@@ -271,7 +295,7 @@ def main(argv) -> int:
         return {n: w.launches for n, w in wrappers.items()}
 
     def check_launched(label, counts, path=None):
-        skip = NOT_ON.get(path, ())
+        skip = NOT_ON.get(path, ()) + EXECUTION_ONLY
         idle = [n for n, c in counts.items() if c == 0 and n not in skip]
         if not rehearse and idle:
             raise RuntimeError(f"kernels not launched on the {label} path: {idle}; {counts}")
@@ -319,7 +343,8 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log(f"mid unfused warm-up run: {time.monotonic() - t0:.2f} s")
     captured, cuda.CAPTURE = cuda.CAPTURE, None
-    missing = [n for n in wrappers if n not in captured and n not in NOT_ON["unfused"]]
+    missing = [n for n in wrappers
+               if n not in captured and n not in NOT_ON["unfused"] + EXECUTION_ONLY]
     if missing:
         raise RuntimeError(f"kernels never launched in the warm-up run: {missing}")
     warm_props = check_run("mid-warm", mid, run_warm, STACK)
@@ -544,6 +569,9 @@ def main(argv) -> int:
         for label, w in walls.items()) + f"; placements agree "
         f"{same_placement(run_pipe, run_large)}, per-goal steps and actions agree "
         f"{rows_agree}")
+    # K10 on blends of the large rung and its pipelined solve.
+    k10 = {"large": check_placement_kernels(torch, np, wrappers, log, timer, large,
+                                            run_pipe.model, "large", rehearse)}
 
     # 10. the skewed 16-broker model on the pipelined path, card and CPU
     phase("small pipelined")
@@ -624,7 +652,15 @@ def main(argv) -> int:
     check_warm_card_cpu(torch, np, opt, hundred_runs["pipelined"], fused_run,
                         same_placement, log, f"{hundred_rung[0]}-broker")
 
-    # 14. xl250 rung on the default pipelined path
+    # 14. the mid solve's proposals executed on the simulated fleet, the
+    # ledger's balancedness curve scored by K10; the same on the CPU
+    phase("execution")
+    exec_summary, exec_counts, exec_run = check_execution(
+        torch, np, opt, props, mid, dev, wrappers, log, smi, rehearse, fused_props)
+    k10["mid"] = check_placement_kernels(torch, np, wrappers, log, timer, mid,
+                                         exec_run.model, "mid", rehearse)
+
+    # 15. xl250 rung on the default pipelined path
     phase("xl250")
     xl = generate_cluster(spec_of(xl_rung), device=dev)
     log(f"xl250 rung: {int(xl.replica_valid.sum())} replicas, {xl.num_brokers} brokers, "
@@ -641,9 +677,17 @@ def main(argv) -> int:
     check_launched("xl250", xl_counts)
     if not run_xl.pipelined:
         raise RuntimeError("the xl250 default solve did not pipeline")
+    k10["xl250"] = check_placement_kernels(torch, np, wrappers, log, timer, xl,
+                                           run_xl.model, "xl250", rehearse)
     del xl, run_xl
+    # The mid shape once more, after the xl250 shape pushed the cache past
+    # its four shapes: the same proposals as in phase 5.
+    again_after = props.diff(mid, fused_run(mid).model) == fused_props
+    log(f"mid fused after the xl250 rung: identical proposals {again_after}")
+    if not again_after:
+        raise RuntimeError("the mid fused solve after the xl250 rung differs from phase 5's")
 
-    # 15. results
+    # 16. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -654,21 +698,32 @@ def main(argv) -> int:
         f"{prof_large['ops_per_step']}, busy {prof_large['busy']}); large pipelined wall "
         f"{pipe_wall:.3f} s ({pipe_steps} steps, ops/step {prof_pipe['ops_per_step']}, "
         f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
-        f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; card {smi}")
+        f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; execution "
+        f"{exec_summary}; card {smi}")
+    for name in EXECUTION_ONLY:
+        # The mid shape is the execution's; the large and xl250 numbers beside.
+        results[name] = dict(k10["mid"][name])
+        for rung in ("large", "xl250"):
+            results[name].update({f"{k}_{rung}": v for k, v in k10[rung][name].items()
+                                  if k != "max_abs_err"})
     line = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
-        device_ms = None
+        device_ms = r.get("device_ms")
         for prof in (prof_pipe, prof_large, prof_fused):
             if device_ms is None:
                 device_ms = prof["per_launch"].get(name)
+        launches = exec_counts[name] if name in EXECUTION_ONLY else pipe_counts[name]
+        extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
+                 or k == "shape"}
         line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": pipe_counts[name],
+                     "replaces": replaces, "launches": launches, **extra,
                      "launches_per_large_step": pipe_counts[name] / max(pipe_steps, 1),
                      "launches_large_sequential": large_counts[name],
                      "launches_fused_mid": fused_counts[name],
                      "launches_unfused_mid": mid_counts[name],
                      "launches_xl250": xl_counts[name],
+                     "launches_execution": exec_counts[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms_per_launch": device_ms,
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -866,6 +921,297 @@ def check_warm_card_cpu(torch, np, opt, runs, fused_run, same_placement, log, la
                      time.monotonic() - t0)
     if not (warm_card.warm and warm_cpu.warm):
         raise RuntimeError(f"{label}: the warm solves were not warm")
+
+
+def k10_masks(torch, np, before, after, c, seed):
+    """bool[c, P] landed masks on the models' device: the landed sets of a
+    seeded prefix order over the partitions whose replicas the solve moved
+    (row 0 lands none of them, row c - 1 all)."""
+    moved = ((before.replica_broker != after.replica_broker)
+             | (before.replica_is_leader != after.replica_is_leader)
+             | (before.replica_disk != after.replica_disk)) & before.replica_valid
+    parts = np.unique(before.replica_partition[moved].cpu().numpy())
+    order = np.random.default_rng(seed).permutation(parts)
+    m = np.zeros((c, before.num_partitions), bool)
+    for i in range(c):
+        m[i, order[:(i * len(order)) // max(c - 1, 1)]] = True
+    return torch.from_numpy(m).to(before.device), len(order)
+
+
+def device_ms(torch, fn, names, log, runs: int = 5):
+    """Device time per launch of the kernel named ``names[0]`` over ``runs``
+    calls of ``fn`` under ``torch.profiler``: the time of its device kernels
+    whose names contain one of ``names`` over the count of the first; None
+    (and the device ops seen, logged) when three sessions saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):  # a session now and then records no device op
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        hits = [e for e in ops if any(n in e.name for n in names)]
+        launches = sum(names[0] in e.name for e in hits)
+        if launches:
+            return sum(e.time_range.elapsed_us() for e in hits) / 1e3 / launches
+        log(f"  profiler, attempt {attempt + 1}: no {names[0]} among {len(ops)} device "
+            f"ops {sorted({e.name[:60] for e in ops})[:6]}")
+    return None
+
+
+def _k10_bytes(before, c, topic, g=None):
+    """Bytes K10 must move for ``c`` blends.  The aggregates: the masks
+    (c x P), both placements (broker id and leader flag, 5 bytes each), the
+    replica partitions, valid flags, topics and both load rows, each read
+    once; c x B x 32 bytes of aggregates and the c x T x B topic counts
+    written.  The sweep (``g`` goals): those aggregates and the masks read,
+    both placements' broker ids, the replica partitions and valid flags,
+    the sibling rows and the broker columns (alive, valid, capacity, rack)
+    once; c x G flags written."""
+    R, P, B, T = (before.num_replicas_padded, before.num_partitions, before.num_brokers,
+                  before.num_topics)
+    aggs = c * B * 32 + (c * T * B * 4 if topic else 0)
+    if g is None:
+        return c * P + R * (2 * 5 + 4 + 1 + 32 + (4 if topic else 0)) + aggs
+    return (aggs + c * P + R * (2 * 4 + 4 + 1) + before.partition_replicas.numel() * 4
+            + B * (1 + 1 + 16 + 4) + c * g)
+
+
+def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, label,
+                            rehearse):
+    """K10's two launches against their plain twins on the card, on K10_BATCH
+    blends of ``before`` and ``after`` (``k10_masks``): the aggregates bit for
+    bit (and an all-false row equal to K1's), the flags exactly.  Then each
+    launch timed (CUDA events, median; device time under the profiler), its
+    plain twin timed (3 runs), the bound, and for the aggregates one
+    ``index_add_`` over flattened (blend, broker) segments of the blended
+    rows (the library call)."""
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+
+    specs, con = tuple(goals_by_priority(STACK)), BalancingConstraint.default()
+    masks, moved = k10_masks(torch, np, before, after, K10_BATCH, SEED)
+    ka, ks = wrappers["blend_aggregates"], wrappers["stack_sweep_batch"]
+    got = ka(before, after, masks, True)
+    ref = gk.blend_aggregates_plain(before, after, masks, True)
+    k1 = BrokerArrays.from_model(before, with_topic_counts=True)
+    k1 = (k1.load, k1.replica_count, k1.leader_count, k1.potential_nw_out,
+          k1.leader_bytes_in, k1.topic_counts)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    fields = ("load", "replica_count", "leader_count", "potential_nw_out",
+              "leader_bytes_in", "topic_counts")
+    for f, g, r, k in zip(fields, got, ref, k1):
+        if not torch.equal(bits(g), bits(r)):
+            raise RuntimeError(f"K10 aggregates ({label}): {f} differs from the plain twin")
+        if not torch.equal(bits(g[0]), bits(k)):
+            raise RuntimeError(f"K10 aggregates ({label}): the all-false blend's {f} "
+                               "differs from K1's")
+    sat = ks(specs, before, after, masks, got, con)
+    sat_ref = gk.stack_sweep_batch_plain(specs, before, after, masks, ref, con)
+    if not torch.equal(sat, sat_ref):
+        bad = torch.nonzero(sat != sat_ref)[:5].tolist()
+        raise RuntimeError(f"K10 sweep ({label}) differs from the plain twin at "
+                           f"(blend, goal) {bad}")
+    C, R, B, T = masks.shape[0], before.num_replicas_padded, before.num_brokers, \
+        before.num_topics
+    shape = dict(C=C, P=before.num_partitions, R=R, B=B, G=len(specs), T=T,
+                 moved_partitions=moved)
+    # The library call: the blended rows of every (blend, replica) summed
+    # into (blend, broker) segments by one index_add_.
+    part = before.replica_partition.clamp(0, before.num_partitions - 1).long()
+    rmask = masks[:, part]
+    rb = torch.where(rmask, after.replica_broker, before.replica_broker).long()
+    lead = torch.where(rmask, after.replica_is_leader, before.replica_is_leader)
+    ll, lf = before.replica_load_leader, before.replica_load_follower
+    rows = torch.cat([torch.where(lead[..., None], ll, lf), torch.ones_like(rb[..., None],
+                      dtype=torch.float32), lead[..., None].float(),
+                      ll[:, 2:3].expand(C, R, 1), torch.where(lead, ll[:, 1], 0.0)[..., None]],
+                     -1)
+    rows = torch.where(before.replica_valid[None, :, None], rows, 0.0).reshape(-1, 8)
+    seg = (torch.arange(C, device=rb.device)[:, None] * B + rb).reshape(-1)
+    acc = torch.zeros((C * B, 8), device=rb.device)
+    fast = 5 if T * B * C > 1 << 24 else TIMED_RUNS
+    out = {
+        "blend_aggregates": dict(
+            max_abs_err=0.0, shape=shape,
+            ms=time_ms(torch, lambda: ka(before, after, masks, True), fast),
+            plain_ms=time_ms(torch, lambda: gk.blend_aggregates_plain(before, after, masks,
+                                                                       True), 3),
+            library_ms=time_ms(torch, lambda: acc.zero_().index_add_(0, seg, rows), fast),
+            bound_ms=bound_ms(_k10_bytes(before, C, True)),
+            device_ms=None if rehearse else device_ms(
+                torch, lambda: ka(before, after, masks, True), ("blend_aggregates_kernel",),
+                log)),
+        "stack_sweep_batch": dict(
+            max_abs_err=0.0, shape=shape,
+            ms=time_ms(torch, lambda: ks(specs, before, after, masks, got, con), fast),
+            plain_ms=time_ms(torch, lambda: gk.stack_sweep_batch_plain(
+                specs, before, after, masks, ref, con), 3),
+            library_ms=None,
+            bound_ms=bound_ms(_k10_bytes(before, C, True, len(specs))),
+            device_ms=None if rehearse else device_ms(
+                torch, lambda: ks(specs, before, after, masks, got, con),
+                ("stack_sweep_batch_kernel",), log)),
+    }
+    del rows, seg, acc, rmask
+    log(f"K10 {label}: C={C} P={before.num_partitions} R={R} B={B} G={len(specs)} T={T}, "
+        f"{moved} partitions moved; aggregates bit-equal to the plain twin (all-false "
+        f"blend = K1), flags exact, {int((~sat).sum())} of {sat.numel()} flags violated")
+    for name, r in out.items():
+        log(f"  K10 {label} {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']}), "
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.6f} ms")
+    return out
+
+
+def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehearse,
+                    fused_props):
+    """``bench.py --execute`` in the port: the mid rung's fused solve of a
+    copy (through the step graphs cached since phase 5, after other shapes'
+    captures: its proposals must be ``fused_props``, phase 5's), its
+    proposals, bench.py's throttle rule, and the simulated
+    execution with the balancedness scorer, the launch counters set to 0
+    just before and read just after.  Fails unless the result is ok with no
+    dead or aborted task, the ledger's totals reconcile, off-target bytes
+    never grow and end at 0, the first and last scores are the run's
+    balancedness before and after (within 1e-6) and K10 launched once per
+    flush; then the same proposals on the CPU path must give the same
+    result and checkpoints, field for field, the scores within 1e-9.
+    Returns (summary, launch counts, run)."""
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    from cruise_control_tpu_torch.executor import simulate as sim
+    from cruise_control_tpu_torch.executor.ledger import ExecutionLedger
+    from cruise_control_tpu_torch.ops import cuda
+
+    run = opt.optimize(opt.donation_copy(mid), STACK, fused=True, donate_model=True,
+                       raise_on_hard_failure=False, device=dev)
+    proposals = props.diff(mid, run.model)
+    log(f"mid execution's solve: {len(proposals)} proposals, equal to the mid fused run's "
+        f"{proposals == fused_props}; selection constants cached "
+        f"{opt._selection_consts.cache_info().currsize}")
+    if proposals != fused_props:
+        raise RuntimeError("the mid solve through the cached step graphs differs from "
+                           "the same solve in phase 5")
+    inter_bytes = sum(int(p.partition_size * 1e6) * len(p.replicas_to_add) for p in proposals)
+    rate = max(1_000_000.0, inter_bytes / max(mid.num_brokers, 1) / 300.0)
+    goals = [g.name for g in run.goal_results]
+    flushes = []  # per flush that scored: (wall s, its landed sets)
+    real_flush = ExecutionLedger.score_checkpoints
+
+    def timed_flush(ledger):
+        pending = [cp["_landed_set"] for cp in ledger.checkpoints
+                   if cp["balancedness"] is None and "_landed_set" in cp]
+        t0 = time.monotonic()
+        real_flush(ledger)
+        if pending:
+            flushes.append((time.monotonic() - t0, pending))
+
+    def execute(before, after):
+        flushes.clear()
+        cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        result, ex, admin = sim.run_simulated_execution(
+            before, proposals, model_after=after, goal_names=goals, tick_ms=1000,
+            rate_bytes_per_sec=rate)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+        return result, ex.progress(verbose=True), wall, counts, list(flushes)
+
+    ExecutionLedger.score_checkpoints = timed_flush
+    try:
+        result, prog, wall, counts, card_flushes = execute(mid, run.model)
+        cpu_result, cpu_prog, cpu_wall, _, cpu_flushes = execute(mid.to("cpu"),
+                                                                 run.model.to("cpu"))
+    finally:
+        ExecutionLedger.score_checkpoints = real_flush
+    cps = prog["checkpoints"]
+    scored = [c["balancedness"] for c in cps if c["balancedness"] is not None]
+    off = [c["offTargetBytes"] for c in cps]
+    n_flush = len(card_flushes)
+    n_scored = sum(len(f[1]) for f in card_flushes)
+    summary = dict(proposals=len(proposals), tasks=prog["totalTasks"], polls=result.polls,
+                   checkpoints=len(cps), checkpoints_scored=n_scored, flushes=n_flush,
+                   host_wall_s=round(wall, 4),
+                   score_wall_s=round(sum(f[0] for f in card_flushes), 4),
+                   cpu_host_wall_s=round(cpu_wall, 4),
+                   cpu_score_wall_s=round(sum(f[0] for f in cpu_flushes), 4),
+                   fleet_s=prog["elapsedMs"] / 1000.0, rate_bytes_per_sec=rate,
+                   balancedness_before=run.balancedness_before,
+                   balancedness_after=run.balancedness_after,
+                   first_score=scored[0] if scored else None,
+                   last_score=scored[-1] if scored else None,
+                   k10_launches={n: counts[n] for n in EXECUTION_ONLY})
+    log(f"mid execution on {smi}: {summary}")
+    log(f"mid execution launches: {counts}")
+    checks = {
+        "ok": result.ok and result.dead == 0 and result.aborted == 0,
+        "totals": (prog["taskCounts"]["completed"] == result.completed
+                   and prog["taskCounts"]["dead"] == result.dead
+                   and prog["taskCounts"]["aborted"] == result.aborted
+                   and prog["totalTasks"] == result.completed
+                   and prog["bytesMoved"] == prog["totalBytes"] > 0
+                   and prog["bytesInFlight"] == 0),
+        "off-target": all(b <= a for a, b in zip(off, off[1:])) and off[-1] == 0,
+        "scores": (len(scored) >= 2
+                   and abs(scored[0] - run.balancedness_before) < 1e-6
+                   and abs(scored[-1] - run.balancedness_after) < 1e-6),
+        "launches": rehearse or (n_flush >= 1 and all(counts[n] == n_flush
+                                                      for n in EXECUTION_ONLY)),
+    }
+    # The CPU path: the same result and checkpoints, field for field.
+    same_result = dataclasses.asdict(result) == dataclasses.asdict(cpu_result)
+    cpu_cps = cpu_prog["checkpoints"]
+    flipped = []
+    same_cps = len(cps) == len(cpu_cps)
+    for a, b in zip(cps, cpu_cps):
+        keys = set(a) | set(b)
+        if any(a.get(k) != b.get(k) for k in keys - {"balancedness"}):
+            same_cps = False
+        sa, sb = a.get("balancedness"), b.get("balancedness")
+        if (sa is None) != (sb is None) or (sa is not None and abs(sa - sb) > 1e-9):
+            same_cps = False
+            flipped.append((a["poll"], sa, sb))
+    if flipped:
+        # Name each flipped goal and its margin: the distance of the metric
+        # closest to its band edge on the CPU's blend.
+        specs, con = tuple(goals_by_priority(goals)), BalancingConstraint.default()
+        before_c, after_c = mid.to("cpu"), run.model.to("cpu")
+        fn = opt._get_placement_score_fn(specs, con, 1)
+        for (_, landed_sets), _ in zip(card_flushes, range(4)):
+            for landed in landed_sets:
+                mask = np.zeros((1, mid.num_partitions), bool)
+                mask[0, list(landed)] = True
+                m_card = torch.from_numpy(mask).to(dev)
+                card_sat = fn(mid, run.model, m_card).cpu()[0]
+                cpu_sat = fn(before_c, after_c, torch.from_numpy(mask))[0]
+                for j in torch.nonzero(card_sat != cpu_sat).flatten().tolist():
+                    spec = specs[j]
+                    blend = gk.blend_placement(before_c, after_c, torch.from_numpy(mask[0]))
+                    arr = BrokerArrays.from_model(blend, with_topic_counts=True)
+                    metric = gk.broker_metric(spec, blend, arr, con)
+                    lower, upper = gk.limits(spec, blend, arr, con)
+                    margin = torch.minimum((metric - upper).abs(), (metric - lower).abs())
+                    log(f"  flipped flag: {spec.name} card {bool(card_sat[j])} CPU "
+                        f"{bool(cpu_sat[j])}, margin {float(margin[arr.alive].min()):.6g}")
+    log(f"mid execution card vs CPU: result equal {same_result}, checkpoints equal "
+        f"{same_cps} ({len(cps)} vs {len(cpu_cps)}), flipped scores {flipped[:5]}; "
+        f"checks {checks}")
+    if not all(checks.values()) or not (same_result and same_cps):
+        raise RuntimeError(f"the mid execution failed its checks: {checks}, result equal "
+                           f"{same_result}, checkpoints equal {same_cps}")
+    return summary, counts, run
 
 
 def per_goal_report(run, log, label):

@@ -32,12 +32,17 @@ kinds of the default stack (``rack``, ``replica_capacity``, ``capacity``,
   ``frontier_active_batch_plain``.
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
   ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
+- ``blend_aggregates`` / ``stack_sweep_batch`` — every goal's satisfied
+  flag for a batch of blends of two placements, as the executor's
+  balancedness scorer asks for it (K10, ``csrc/placement_score.cu``), with
+  the plain twins ``blend_aggregates_plain`` and ``stack_sweep_batch_plain``.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -252,7 +257,9 @@ def _sweep_params(spec: GoalSpec, constraint: BalancingConstraint):
     return ints, [_metric_epsilon(spec), a, b, c]
 
 
-@functools.lru_cache(maxsize=64)
+# Never evicted: the captured step graphs read these tensors by address, so
+# they must outlive every graph (a freed block would be reused under them).
+@functools.lru_cache(maxsize=None)
 def _sweep_table(specs, constraint: BalancingConstraint, device: torch.device):
     """The K9 parameter table of ``specs`` on ``device``, uploaded once per
     (stack, constraint)."""
@@ -312,6 +319,177 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
                 sat, off)
     stack_satisfied.launches += 1
     return sat, off
+
+
+# ---------------------------------------------------------------------------
+# K10: the goal stack's satisfied flags for a batch of placement blends
+# ---------------------------------------------------------------------------
+
+# (load f32[C, B, 4], replica_count i32[C, B], leader_count i32[C, B],
+# potential_nw_out f32[C, B], leader_bytes_in f32[C, B], topic counts
+# i32[C, T, B] or None) — BrokerArrays' aggregates of C blends.
+BlendAggregates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor, Optional[torch.Tensor]]
+
+
+def blend_placement(before: TensorClusterModel, after: TensorClusterModel,
+                    mask: torch.Tensor) -> TensorClusterModel:
+    """``before`` with the replicas of the partitions set in ``mask``
+    (bool[P]) at ``after``'s broker, leadership and disk
+    (``optimizer.py:2398-2406``).  The partition index is clamped into
+    range, as the JAX package's gather clamps."""
+    rmask = mask[before.replica_partition.clamp(0, mask.shape[0] - 1).long()]
+    return before.with_placement(
+        torch.where(rmask, after.replica_broker, before.replica_broker),
+        torch.where(rmask, after.replica_is_leader, before.replica_is_leader),
+        torch.where(rmask, after.replica_disk, before.replica_disk))
+
+
+def _blend_arrays(before: TensorClusterModel, aggs: BlendAggregates, c: int) -> BrokerArrays:
+    """BrokerArrays of blend ``c`` from its slice of the batched aggregates
+    (liveness, capacity and validity are the broker axis's, which a blend
+    leaves as they are)."""
+    load, rc, lc, pnw, lbi, tbc = aggs
+    alive = before.alive_broker_mask()
+    return BrokerArrays(load=load[c], replica_count=rc[c], leader_count=lc[c],
+                        potential_nw_out=pnw[c], leader_bytes_in=lbi[c], alive=alive,
+                        capacity=before.broker_capacity, valid=before.broker_valid,
+                        num_alive=alive.sum().clamp(min=1).to(torch.int32),
+                        topic_counts=None if tbc is None else tbc[c])
+
+
+def blend_aggregates_plain(before: TensorClusterModel, after: TensorClusterModel,
+                           masks: torch.Tensor, with_topic_counts: bool) -> BlendAggregates:
+    """K10's aggregates, one blend at a time: ``BrokerArrays.from_model`` of
+    each blend, stacked."""
+    rows = [BrokerArrays.from_model(blend_placement(before, after, m), with_topic_counts)
+            for m in masks]
+    stack = [torch.stack([getattr(a, f) for a in rows])
+             for f in ("load", "replica_count", "leader_count", "potential_nw_out",
+                       "leader_bytes_in")]
+    tbc = torch.stack([a.topic_counts for a in rows]) if with_topic_counts else None
+    return (*stack, tbc)
+
+
+def _check_blend_inputs(before: TensorClusterModel, after: TensorClusterModel,
+                        masks: torch.Tensor) -> None:
+    dev = before.device
+    R, P = before.num_replicas_padded, before.num_partitions
+    cuda.check(masks, "masks", torch.bool, (masks.shape[0], P), dev)
+    for f, dtype in (("replica_broker", torch.int32), ("replica_is_leader", torch.bool)):
+        cuda.check(getattr(before, f), f"before.{f}", dtype, (R,), dev)
+        cuda.check(getattr(after, f), f"after.{f}", dtype, (R,), dev)
+    if P < 1:
+        raise ValueError("placement blends need at least one partition")
+
+
+@cuda.counted("blend_aggregates")
+def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
+                     masks: torch.Tensor, with_topic_counts: bool,
+                     out: Optional[BlendAggregates] = None) -> BlendAggregates:
+    """K10, aggregates.  Replaces the ``BrokerArrays.from_model`` of every
+    blend that ``cruise_control_tpu/analyzer/optimizer.py:2392``
+    ``_get_placement_score_fn`` maps over its masks: each blend's per-broker
+    sums, and its (topic, broker) replica counts when ``with_topic_counts``.
+    Bound on the card: bytes (the masks, both placements and the load rows
+    once; C x B x 32 bytes and the C x T x B counts written).  CPU tensors
+    take ``blend_aggregates_plain``; CUDA tensors launch one block per
+    (broker, blend) running K1's block body on the blend read through the
+    mask, in K1's fixed order (an all-false mask gives K1's bits), with
+    exact integer atomics for the topic counts.  ``out`` takes the output
+    tensors to write (the scorer's buffers of this shape)."""
+    dev = before.device
+    C, B, T = masks.shape[0], before.num_brokers, before.num_topics
+    R = before.num_replicas_padded
+    _check_blend_inputs(before, after, masks)
+    cuda.record("blend_aggregates", (before, after, masks, with_topic_counts))
+    if cuda.on_cpu(masks):
+        return blend_aggregates_plain(before, after, masks, with_topic_counts)
+    if out is None:
+        out = (torch.empty((C, B, 4), dtype=torch.float32, device=dev),
+               torch.empty((C, B), dtype=torch.int32, device=dev),
+               torch.empty((C, B), dtype=torch.int32, device=dev),
+               torch.empty((C, B), dtype=torch.float32, device=dev),
+               torch.empty((C, B), dtype=torch.float32, device=dev),
+               torch.empty((C, T, B), dtype=torch.int32, device=dev)
+               if with_topic_counts else None)
+    load, rc, lc, pnw, lbi, tbc = out
+    if tbc is not None:
+        tbc.zero_()
+    if C > 0 and B > 0:
+        cuda.launch("blend_aggregates", C, B, R, before.num_partitions, T, masks,
+                    before.replica_partition, before.replica_broker, after.replica_broker,
+                    before.replica_is_leader, after.replica_is_leader, before.replica_valid,
+                    before.replica_load_leader, before.replica_load_follower,
+                    before.replica_topic if tbc is not None else None, load, rc, lc, pnw,
+                    lbi, tbc)
+        blend_aggregates.launches += 1
+    return out
+
+
+def stack_sweep_batch_plain(specs, before: TensorClusterModel, after: TensorClusterModel,
+                            masks: torch.Tensor, aggs: BlendAggregates,
+                            constraint: BalancingConstraint) -> torch.Tensor:
+    """K10's sweep, one blend at a time: ``stack_satisfied_plain`` of each
+    blend on its slice of the aggregates; bool[C, G]."""
+    specs = tuple(specs)
+    rows = [stack_satisfied_plain(specs, blend_placement(before, after, m),
+                                  _blend_arrays(before, aggs, c), constraint)[0]
+            for c, m in enumerate(masks)]
+    if not rows:
+        return torch.zeros((0, len(specs)), dtype=torch.bool, device=masks.device)
+    return torch.stack(rows)
+
+
+@cuda.counted("stack_sweep_batch")
+def stack_sweep_batch(specs, before: TensorClusterModel, after: TensorClusterModel,
+                      masks: torch.Tensor, aggs: BlendAggregates,
+                      constraint: BalancingConstraint,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10, sweep.  Replaces the ``_stack_satisfied`` (``optimizer.py:2331``)
+    of every blend that ``cruise_control_tpu/analyzer/optimizer.py:2392``
+    ``_get_placement_score_fn`` maps over its masks: bool[C, G], every
+    goal's satisfied flag for each blend.  Bound on the card: bytes (each
+    blend's aggregates, the rack goal's replica rows and the masks, the
+    topic goal's counts, once).  CPU tensors take
+    ``stack_sweep_batch_plain``; CUDA tensors launch one block per (goal,
+    blend) running K9's per-goal body on the blend's slice of ``aggs``
+    (``blend_aggregates``), the rack goal reading blended brokers through
+    the mask.  Exact booleans."""
+    specs = tuple(specs)
+    for s in specs:
+        require_supported(s)
+    dev = before.device
+    C, G, B = masks.shape[0], len(specs), before.num_brokers
+    _check_blend_inputs(before, after, masks)
+    load, rc, lc, pnw, lbi, tbc = aggs
+    cuda.check(load, "load", torch.float32, (C, B, 4), dev)
+    for t, what, dtype in ((rc, "replica_count", torch.int32),
+                           (lc, "leader_count", torch.int32),
+                           (pnw, "potential_nw_out", torch.float32),
+                           (lbi, "leader_bytes_in", torch.float32)):
+        cuda.check(t, what, dtype, (C, B), dev)
+    if any(s.kind == "topic_replica_distribution" for s in specs):
+        if tbc is None:
+            raise ValueError("the topic goal needs the blends' topic counts")
+        cuda.check(tbc, "topic_counts", torch.int32, (C, before.num_topics, B), dev)
+    cuda.record("stack_sweep_batch", (specs, before, after, masks, aggs, constraint))
+    if cuda.on_cpu(masks):
+        return stack_sweep_batch_plain(specs, before, after, masks, aggs, constraint)
+    sat = out if out is not None else torch.empty((C, G), dtype=torch.bool, device=dev)
+    cuda.check(sat, "sat", torch.bool, (C, G), dev)
+    if C > 0 and G > 0:
+        ints, floats = _sweep_table(specs, constraint, dev)
+        alive = before.alive_broker_mask()
+        cuda.launch("stack_sweep_batch", C, G, B, before.num_replicas_padded,
+                    before.num_topics, before.num_partitions, before.max_rf, ints, floats,
+                    alive, before.broker_valid, rc, lc, load, before.broker_capacity.contiguous(),
+                    pnw, lbi, alive.sum().clamp(min=1).to(torch.int32).reshape(1), tbc,
+                    masks, before.replica_broker, after.replica_broker, before.replica_valid,
+                    before.replica_partition, before.partition_replicas, before.broker_rack,
+                    sat)
+        stack_sweep_batch.launches += 1
+    return sat
 
 
 def _metric_epsilon(spec: GoalSpec) -> float:
@@ -873,7 +1051,9 @@ def frontier_mask(metric, lower, upper, alive, valid, replica_count, eps: float)
 FRONTIER_MAX_BROKERS = 8192
 
 
-@functools.lru_cache(maxsize=64)
+# Never evicted: the captured step graphs read these tensors by address, so
+# they must outlive every graph (a freed block would be reused under them).
+@functools.lru_cache(maxsize=None)
 def _batch_table(specs, device: torch.device):
     """(band bool[G], eps f32[G]) of ``specs`` on ``device``, uploaded once
     per stack: a goal's row is computed when it is of a band kind, with its

@@ -45,6 +45,13 @@ plain twin ``_best_per_segment_plain``; ``chunk_gate`` is K11 and
 with the plain twins ``chunk_gate_plain``, ``cross_gate_plain`` and
 ``chunk_touched_plain``.
 
+``optimize`` runs inside an ``analyzer.optimize`` span of the port's
+``TRACE`` and pushes the dispatch, warm-start and pipeline sensors into its
+``SENSORS``.  ``PlacementScorer`` scores an execution's checkpoints (blends
+of the before and after placements) with K10 (``kernels.blend_aggregates``
+and ``kernels.stack_sweep_batch``, ``csrc/placement_score.cu``);
+``donation_copy`` clones a model for a solve that donates it.
+
 Not ported (``optimize`` raises): meshes, the flight recorder, the repair
 oracle, and multi-round selection (``moves_per_broker_step`` above
 ``SUBROUNDS``).
@@ -87,6 +94,8 @@ from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_DEPTH, CTR_
                                                      StepState, WarmStart, pow2_bucket,
                                                      topic_counts)
 from cruise_control_tpu_torch.common.resources import Resource
+from cruise_control_tpu_torch.common.sensors import SENSORS
+from cruise_control_tpu_torch.common.tracing import TRACE
 from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
 from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
@@ -218,7 +227,9 @@ def _channel_deltas(cand: Candidates):
     return d_src, d_dest
 
 
-@functools.lru_cache(maxsize=64)
+# Never evicted: the captured step graphs read these tensors by address, so
+# they must outlive every graph (a freed block would be reused under them).
+@functools.lru_cache(maxsize=None)
 def _band_consts(constraint: BalancingConstraint, device: torch.device):
     """(capacity thresholds, balance percentages, low-utilization
     thresholds), each f32[4], on ``device``, uploaded once per constraint:
@@ -231,7 +242,9 @@ def _band_consts(constraint: BalancingConstraint, device: torch.device):
             up(constraint.low_utilization_threshold))
 
 
-@functools.lru_cache(maxsize=256)
+# Never evicted: the captured step graphs read these tensors by address, so
+# they must outlive every graph (a freed block would be reused under them).
+@functools.lru_cache(maxsize=None)
 def _channel_mask(channels: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """bool[1, 8], True on ``channels`` (uploaded once, as ``_band_consts``)."""
     sel = np.zeros((NUM_CHANNELS,), bool)
@@ -367,7 +380,9 @@ def _selection_hashes(k: int, subrounds: int):
     return factor, lane
 
 
-@functools.lru_cache(maxsize=64)
+# Never evicted: the captured step graphs read these tensors by address, so
+# they must outlive every graph (a freed block would be reused under them).
+@functools.lru_cache(maxsize=None)
 def _selection_consts(k: int, subrounds: int, device: torch.device):
     """``_selection_hashes`` as device tensors, uploaded once per shape: a
     host-to-device copy inside the step would break its CUDA-graph
@@ -1088,6 +1103,155 @@ def _get_frontier_sweep_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingCon
     return sweep
 
 
+def donation_copy(model: TensorClusterModel) -> TensorClusterModel:
+    """A copy of ``model`` with every tensor cloned (``optimizer.py:1242``).
+    A caller that still needs the pre-optimization state — ``proposals.diff``
+    reads both sides — optimizes a copy and keeps the original:
+    ``optimize(donation_copy(model), ..., donate_model=True)``."""
+    return model.replace(**{f.name: getattr(model, f.name).clone()
+                            for f in dataclasses.fields(model)
+                            if isinstance(getattr(model, f.name), torch.Tensor)})
+
+
+# Execution-time balancedness re-scoring (``optimizer.py:2383-2412``): the
+# executor's ledger asks "how far from the optimized placement are we?" for
+# a batch of checkpoints at once, in the units of balancedness_before/after.
+# One scoring function per (stack, constraint, padded batch), with its
+# output buffers per (brokers, topics, device).
+_placement_score_cache: dict = {}
+
+# Above this many bytes of topic counts a scoring call runs its batch in
+# slices of _SCORE_SLICE checkpoints, each slice K10's two launches.
+_SCORE_SLICE_BYTES = 1 << 28
+_SCORE_SLICE = 64
+
+
+def _get_placement_score_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
+                            batch: int):
+    """``(before, after, masks bool[batch, P]) -> bool[batch, G]`` on the
+    models' device: every goal's satisfied flag for each blend of the two
+    placements — the replicas of the partitions set in a mask row at
+    ``after``'s placement, the others at ``before``'s.  K10: the blends'
+    aggregates (``kernels.blend_aggregates``), then the stack's sweep over
+    them (``kernels.stack_sweep_batch``), in slices when the topic counts
+    would be large.  On the card the result is the function's own buffer,
+    which its next call overwrites: fetch it first."""
+    key = (specs, constraint, batch)
+    fn = _placement_score_cache.get(key)
+    if fn is not None:
+        return fn
+    topic = any(s.kind == "topic_replica_distribution" for s in specs)
+    buffers: dict = {}
+
+    def slice_buffers(before: TensorClusterModel, c: int):
+        B, T, dev = before.num_brokers, before.num_topics, before.device
+        if dev.type == "cpu":
+            return None, None
+        bkey = (c, B, T, dev)
+        if bkey not in buffers:
+            buffers[bkey] = (
+                (torch.empty((c, B, 4), dtype=torch.float32, device=dev),
+                 torch.empty((c, B), dtype=torch.int32, device=dev),
+                 torch.empty((c, B), dtype=torch.int32, device=dev),
+                 torch.empty((c, B), dtype=torch.float32, device=dev),
+                 torch.empty((c, B), dtype=torch.float32, device=dev),
+                 torch.empty((c, T, B), dtype=torch.int32, device=dev) if topic else None),
+                torch.empty((batch, len(specs)), dtype=torch.bool, device=dev))
+        return buffers[bkey]
+
+    def run(before: TensorClusterModel, after: TensorClusterModel,
+            masks: torch.Tensor) -> torch.Tensor:
+        step = batch
+        if topic and batch * before.num_topics * before.num_brokers * 4 > _SCORE_SLICE_BYTES:
+            step = min(batch, _SCORE_SLICE)
+        aggs_out, sat_out = slice_buffers(before, step)
+        rows = []
+        for lo in range(0, batch, step):
+            part = masks[lo:lo + step]
+            aggs = kernels.blend_aggregates(before, after, part, topic, out=aggs_out)
+            sat = None if sat_out is None else sat_out[lo:lo + step]
+            rows.append(kernels.stack_sweep_batch(specs, before, after, part, aggs,
+                                                  constraint, out=sat))
+        return rows[0] if len(rows) == 1 else torch.cat(rows)
+    _placement_score_cache[key] = run
+    return run
+
+
+class PlacementScorer:
+    """Balancedness of execution checkpoints, batched (``optimizer.py:2415``).
+
+    A checkpoint is a set of *landed* partitions (all tasks completed); the
+    hypothetical cluster at that instant places landed partitions at the
+    optimized (after) placement and the rest at the pre-execution (before)
+    placement.  ``score`` runs the goal-stack satisfaction sweep over the
+    whole batch of checkpoints in one dispatch (K10's two launches on the
+    card; the batch padded to a power of two, so each padded size keeps its
+    buffers across flushes) and one fetch, and converts violations to the
+    optimizer's balancedness scale: 100 minus each violated goal's
+    priority/strictness cost.  It scores on the models' device.
+    """
+
+    def __init__(self, model_before: TensorClusterModel,
+                 model_after: TensorClusterModel,
+                 goal_names: Sequence[str],
+                 constraint: Optional[BalancingConstraint] = None,
+                 priority_weight: float = 1.1,
+                 strictness_weight: float = 1.5):
+        if model_after.device != model_before.device:
+            raise ValueError(f"the models lie on {model_before.device} and "
+                             f"{model_after.device}")
+        self._specs = tuple(goals_by_priority(list(goal_names)))
+        for s in self._specs:
+            kernels.require_supported(s)
+        self._constraint = constraint or BalancingConstraint.default()
+        self._before = model_before
+        self._after = model_after
+        costs = balancedness_cost_by_goal(self._specs, priority_weight, strictness_weight)
+        self._costs = np.array([costs[s.name] for s in self._specs], np.float64)
+        self.dispatches = 0
+
+    @classmethod
+    def for_run(cls, model_before: TensorClusterModel, run: "OptimizerRun",
+                constraint: Optional[BalancingConstraint] = None,
+                priority_weight: float = 1.1,
+                strictness_weight: float = 1.5) -> "PlacementScorer":
+        """Scorer from an optimization result: before = the model the run
+        started from, after = the optimized placement, goals = the run's
+        stack."""
+        return cls(model_before, run.model, [g.name for g in run.goal_results],
+                   constraint, priority_weight, strictness_weight)
+
+    @property
+    def num_partitions(self) -> int:
+        return int(self._before.partition_valid.shape[0])
+
+    def score_landed(self, landed_sets: Sequence) -> np.ndarray:
+        """Scores for a batch of landed-partition id sets (the ledger's
+        checkpoint representation)."""
+        masks = np.zeros((len(landed_sets), self.num_partitions), bool)
+        for i, landed in enumerate(landed_sets):
+            if landed:
+                masks[i, np.fromiter(landed, int, len(landed))] = True
+        return self.score(masks)
+
+    def score(self, masks: np.ndarray) -> np.ndarray:
+        """f64[C] balancedness for bool[C, P] landed masks (one dispatch,
+        one fetch)."""
+        masks = np.asarray(masks, bool)
+        c = masks.shape[0]
+        if c == 0:
+            return np.zeros((0,), np.float64)
+        c_pad = 1 << (c - 1).bit_length()
+        padded = np.zeros((c_pad, masks.shape[1]), bool)
+        padded[:c] = masks
+        fn = _get_placement_score_fn(self._specs, self._constraint, c_pad)
+        dev_masks = torch.from_numpy(padded).to(self._before.device)
+        sat = fn(self._before, self._after, dev_masks).cpu().numpy()
+        self.dispatches += 1
+        violated = ~sat[:c]
+        return 100.0 - violated.astype(np.float64) @ self._costs
+
+
 @dataclasses.dataclass
 class _Chunk:
     """One dispatched chunk of the per-goal driver."""
@@ -1553,7 +1717,9 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
             cross_dispatched += 1
             cross_replays += cross_rec.replays
         t_f = time.monotonic()
+        bytes0 = FETCH_COUNTERS["fetch_bytes"]
         packed_np, active_np = runner.fetch(cur)
+        fetch_bytes = FETCH_COUNTERS["fetch_bytes"] - bytes0
         if cur.cross:
             # The adopted opener: its queued steps, and the rest replayed
             # before its close.
@@ -1581,7 +1747,8 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
                        "bucket": cur.bucket, "ns": cur.ns, "nd": cur.nd,
                        "repair_steps": rep, "bisect_depth": dep, "lanes_live": lan,
                        "fresh_compile": cur.fresh, "speculative": cur.speculative,
-                       "replays": cur.replays, "num_active": na, "cross": cur.cross})
+                       "replays": cur.replays, "num_active": na, "cross": cur.cross,
+                       "fetch_bytes": fetch_bytes})
         aps = a / max(s, 1)
         peak_aps = max(peak_aps, aps)
         tail = peak_aps > 0 and aps < tail_threshold * peak_aps
@@ -1822,6 +1989,7 @@ def _optimize_fused(model: TensorClusterModel, options: OptimizationOptions,
             steps = int(col[PACKED_STEPS])
             scored += steps * k_of(spec)
             results.append(_group_result(spec, col, run, run.wall_s, i == 0))
+        _push_dispatch_sensors(chunk[0].name, 1, 0, 0)
         _raise_on_hard(results[-len(chunk):], chunk, raise_on_hard_failure)
         prev = prev + chunk
     return st.placement(model), results, scored
@@ -1923,9 +2091,91 @@ def _optimize_per_goal(model: TensorClusterModel, options: OptimizationOptions,
         if info["actions"]:
             sat_v = None  # the model changed: the sweep runs again
         results.append(_driver_result(spec, info, time.monotonic() - tg, sweep_fetch))
+        _push_driver_sensors(spec, info)
         _raise_on_hard(results[-1:], (spec,), raise_on_hard_failure)
         prev = prev + (spec,)
     return st.placement(model), results, scored, {"goals_skipped": skipped}
+
+
+def _push_dispatch_sensors(goal_name: str, fetches: int, chunks_speculative: int,
+                           chunks_wasted: int, fetch_bytes: int = 0) -> None:
+    """Dispatch counters into the sensor registry (``optimizer.py:2559``):
+    how often the chunk driver blocked on the device, how much speculative
+    dispatch bought (launched) and burned (gated to zero), and the bytes
+    each boundary fetch moved.  The JAX package's mesh-collective counter is
+    not reported: the port runs on one device."""
+    labels = {"goal": goal_name}
+    SENSORS.counter(
+        "GoalOptimizer.device-fetches", labels=labels,
+        help="Blocking host fetches at chunk boundaries",
+    ).inc(fetches)
+    SENSORS.counter(
+        "GoalOptimizer.chunks-speculative", labels=labels,
+        help="Chunks dispatched before the predecessor's stats were fetched",
+    ).inc(chunks_speculative)
+    SENSORS.counter(
+        "GoalOptimizer.chunks-wasted", labels=labels,
+        help="Speculative chunks whose on-device budget gate zeroed them",
+    ).inc(chunks_wasted)
+    SENSORS.counter(
+        "GoalOptimizer.boundary-fetch-bytes", labels=labels,
+        help="Bytes moved hostward by chunk-boundary fetches",
+    ).inc(fetch_bytes)
+
+
+def _push_driver_sensors(spec: GoalSpec, info: dict) -> None:
+    """The dispatch counters of one goal the per-goal driver ran."""
+    _push_dispatch_sensors(spec.name, info.get("fetches", 0),
+                           info.get("chunks_speculative", 0), info.get("chunks_wasted", 0),
+                           fetch_bytes=sum(c.get("fetch_bytes", 0) for c in info["chunks"]))
+
+
+def _push_warm_sensors(seed_frontier_size: int, goals_skipped: int) -> None:
+    """Warm-start counters into the sensor registry (``optimizer.py:2642``)
+    — one report per warm pass."""
+    SENSORS.counter(
+        "GoalOptimizer.warm-start-solves",
+        help="Optimization passes seeded from a previously-converged "
+             "placement",
+    ).inc(1)
+    SENSORS.counter(
+        "GoalOptimizer.warm-start-goals-skipped",
+        help="Goals skipped outright because the seeded placement still "
+             "passed their fused satisfaction sweep",
+    ).inc(goals_skipped)
+    SENSORS.histogram(
+        "GoalOptimizer.warm-start-seed-frontier-size",
+        buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+        help="Brokers in the warm seed frontier mask (changed union "
+             "previously-active); 0 when the solve ran dense",
+    ).observe(seed_frontier_size)
+
+
+def _push_pipeline_sensors(goals_overlapped: int, cross_wasted: int,
+                           fill_ratio: float, goals_fused: int) -> None:
+    """Inter-goal pipelining counters into the sensor registry
+    (``optimizer.py:2663``) — one report per pipelined pass."""
+    SENSORS.counter(
+        "GoalOptimizer.goals-overlapped",
+        help="Goal transitions whose first chunk was already in flight "
+             "when the previous goal finished (adopted cross-goal openers)",
+    ).inc(goals_overlapped)
+    SENSORS.counter(
+        "GoalOptimizer.speculative-goal-chunks-wasted",
+        help="Cross-goal opener chunks discarded because the gating goal "
+             "capped, left offline replicas, or touched the next goal's "
+             "predicted seed frontier",
+    ).inc(cross_wasted)
+    SENSORS.gauge(
+        "GoalOptimizer.pipeline-fill-ratio",
+        help="Adopted cross-goal openers over goal transitions in the "
+             "last pipelined optimization pass",
+    ).set(fill_ratio)
+    SENSORS.counter(
+        "GoalOptimizer.goals-fused",
+        help="Goals that ran inside an auto-fused disjoint-frontier stack "
+             "program instead of their own per-goal driver",
+    ).inc(goals_fused)
 
 
 # Most adjacent goals one auto-fused group holds (``optimizer.py:2694``).
@@ -1977,7 +2227,7 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
     fr_sweep = _get_frontier_sweep_fn(tuple(specs), constraint)
     allow_fuse = _fusion_allowed(use_frontier, segment_steps)
     results: List[GoalResult] = []
-    scored = skipped = overlapped = fused = 0
+    scored = skipped = overlapped = fused = attempted = cross_wasted = 0
     sat_v = fronts_v = None
     sweep_off = False
     handoff: Optional[dict] = None
@@ -2049,6 +2299,7 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
                 results.extend(group)
                 _raise_on_hard(group, fuse_specs, raise_on_hard_failure)
                 fused += len(fuse_specs)
+                attempted += len(fuse_specs)
                 if packed_np[PACKED_ACTIONS].any():
                     sat_v = None
                 t_goal_end = now
@@ -2056,6 +2307,7 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
                 continue
         # The per-goal driver, queuing its successor's opener.  With a
         # handoff in hand its first chunk is already queued: no sweep.
+        attempted += 1
         info = _frontier_driver(st, spec, prev, constraint, ns, nd, max_steps,
                                 _chunk_len(spec, use_frontier, B, max_steps, segment_steps),
                                 use_frontier, 0.1, 4, None, cache,
@@ -2065,6 +2317,7 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
         handoff = info.get("handoff")
         if handoff is not None:
             overlapped += 1
+        cross_wasted += info.get("cross_wasted", 0)
         for ch in info["chunks"]:
             scored += ch["steps"] * k_of(spec, ch["ns"], ch["nd"])
         if info["actions"]:
@@ -2079,13 +2332,71 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
             cross_replays=info.get("cross_replays", 0),
             cross_replays_wasted=info.get("cross_replays_wasted", 0)))
         t_goal_end = time.monotonic()
+        _push_driver_sensors(spec, info)
         _raise_on_hard(results[-1:], (spec,), raise_on_hard_failure)
         idx += 1
+    _push_pipeline_sensors(overlapped, cross_wasted,
+                           overlapped / (attempted - 1) if attempted > 1 else 0.0, fused)
     return st.placement(model), results, scored, {
         "goals_skipped": skipped, "goals_overlapped": overlapped, "goals_fused": fused}
 
 
 def optimize(model: TensorClusterModel, goal_names: Sequence[str],
+             constraint: Optional[BalancingConstraint] = None,
+             options: Optional[OptimizationOptions] = None,
+             max_steps_per_goal: int = 256,
+             num_sources: Optional[int] = None, num_dests: Optional[int] = None,
+             raise_on_hard_failure: bool = True,
+             fused: bool = False,
+             fuse_group_size: Optional[int] = None,
+             fast_mode: bool = False,
+             max_candidates_per_step: Optional[int] = None,
+             segment_steps: Optional[int] = None,
+             balancedness_priority_weight: float = 1.1,
+             balancedness_strictness_weight: float = 1.5,
+             mesh=None, donate_model: bool = False,
+             frontier: Optional[bool] = None,
+             warm_start: Optional[WarmStart] = None, pipeline: Optional[bool] = None,
+             device: Union[str, torch.device] = "cuda") -> OptimizerRun:
+    """Traced entry point around ``_optimize`` (see its docstring for the
+    optimization semantics; ``optimizer.py:2837``): the whole pass runs
+    inside an ``analyzer.optimize`` span, and each goal's stats (steps,
+    actions, wall seconds, graph capture) land as an ``analyzer.goal``
+    child span, recorded after the pass because the fused paths learn the
+    per-goal numbers from their packed fetches."""
+    with TRACE.span("analyzer.optimize", fused=fused, goals=len(list(goal_names))) as sp:
+        run = _optimize(model, goal_names, constraint=constraint, options=options,
+                        max_steps_per_goal=max_steps_per_goal, num_sources=num_sources,
+                        num_dests=num_dests, raise_on_hard_failure=raise_on_hard_failure,
+                        fused=fused, fuse_group_size=fuse_group_size, fast_mode=fast_mode,
+                        max_candidates_per_step=max_candidates_per_step,
+                        segment_steps=segment_steps,
+                        balancedness_priority_weight=balancedness_priority_weight,
+                        balancedness_strictness_weight=balancedness_strictness_weight,
+                        mesh=mesh, donate_model=donate_model, frontier=frontier,
+                        warm_start=warm_start, pipeline=pipeline, device=device)
+        warm_attrs = ({"warm": True, "seed_frontier_size": run.seed_frontier_size,
+                       "goals_skipped": run.goals_skipped} if run.warm else {})
+        for g in run.goal_results:
+            pipe_attrs = ({"pipelined": g.pipelined, "boundary_gap_s": g.boundary_gap_s,
+                           "chunks_cross_goal": g.chunks_cross_goal,
+                           "chunks_cross_wasted": g.chunks_cross_wasted,
+                           "fused_group": g.fused_group} if run.pipelined else {})
+            TRACE.record("analyzer.goal", g.duration_s, goal=g.name, steps=g.steps,
+                         actions=g.actions_applied, satisfied_after=g.satisfied_after,
+                         capped=g.capped, fresh_compile=g.fresh_compile,
+                         repair_steps=g.repair_steps, bisect_depth=g.bisect_depth,
+                         lanes_live=g.lanes_live, fetches=g.fetches,
+                         chunks_speculative=g.chunks_speculative,
+                         chunks_wasted=g.chunks_wasted, **warm_attrs, **pipe_attrs)
+        sp.annotate(actions=sum(g.actions_applied for g in run.goal_results),
+                    steps=sum(g.steps for g in run.goal_results),
+                    candidates_scored=run.num_candidates_scored, pipelined=run.pipelined,
+                    goals_overlapped=run.goals_overlapped, goals_fused=run.goals_fused)
+        return run
+
+
+def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
              constraint: Optional[BalancingConstraint] = None,
              options: Optional[OptimizationOptions] = None,
              max_steps_per_goal: int = 256,
@@ -2132,11 +2443,12 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
     On the per-goal paths the driver compacts onto the active brokers
     above the 64-broker floor (``frontier``: None = auto, False = dense,
     True = forced; ``segment_steps`` sets the chunk length, 32 by default
-    at 500 brokers or more).  ``pipeline=True`` with ``fused=False`` or a
-    ``fuse_group_size`` above 1 raises ``ValueError``, as in the JAX
-    package; ``mesh`` raises ``NotImplementedError``, and so do
-    ``frontier=True`` off the per-goal paths and ``segment_steps`` on the
-    unfused path, where the JAX package ignores them.
+    at 500 brokers or more).  As in the JAX package, ``frontier`` is read
+    only on the per-goal paths and ``segment_steps`` only on the fused
+    ones: elsewhere they are ignored.  ``pipeline=True`` with
+    ``fused=False`` or a ``fuse_group_size`` above 1 raises
+    ``ValueError``, as in the JAX package; ``mesh`` raises
+    ``NotImplementedError``.
 
     ``warm_start`` (a ``WarmStart``) re-bases the model onto its
     ``prev_model``'s placement (copied) when it is ``compatible_with`` the
@@ -2154,9 +2466,6 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
         raise NotImplementedError("optimize(mesh=...) is not ported yet")
     if pipeline and not fused:
         raise ValueError("pipeline=True requires fused=True (the fused per-goal path)")
-    if segment_steps is not None and not fused:
-        raise NotImplementedError("optimize(segment_steps=...) applies to the fused "
-                                  "per-goal path")
     dev = resolve_device(device)
     model = model.to(dev)
     warm = False
@@ -2199,9 +2508,6 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
                                  "fuse_group_size=1 (or omit it) when segmenting")
             group = 1
         per_goal = group == 1
-    if frontier and not per_goal:
-        raise NotImplementedError("optimize(frontier=True) engages only on the fused "
-                                  "per-goal path (fuse_group_size=1)")
     if fast_mode:
         num_sources = min(max(32, (num_sources or cgen.default_num_sources(model)) // 2),
                           model.num_replicas_padded)
@@ -2272,6 +2578,9 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
                                                        res.satisfied_after, view))
     costs = balancedness_cost_by_goal(specs, balancedness_priority_weight,
                                       balancedness_strictness_weight)
+    if warm:
+        _push_warm_sensors(int(seed_mask.sum()) if seed_mask is not None else 0,
+                           counts.get("goals_skipped", 0))
     return OptimizerRun(model=model, goal_results=results, stats_before=stats_before,
                         stats_after=compute_stats(model), num_candidates_scored=scored,
                         provision_response=provision,

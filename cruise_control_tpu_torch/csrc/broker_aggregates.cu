@@ -15,7 +15,9 @@
 // Design: one block per broker.  Threads stride over the replica axis and
 // accumulate the rows of their broker in registers in a fixed order, then a
 // fixed shared-memory tree reduction combines them — no float atomics, so
-// the result is bit-identical run to run.  Each block re-reads the 4-byte
+// the result is bit-identical run to run.  The block's body is
+// k1::aggregate_block (broker_aggregates.cuh), which K10's blended
+// aggregates (placement_score.cu) call with a batch axis.  Each block re-reads the 4-byte
 // broker ids (B * R * 4 bytes: 2 MB at mid, 80 MB at the 200-broker rung),
 // which stay in the 50 MB L2 because the id array itself is R * 4 bytes.
 // Counts are exact int32.
@@ -32,10 +34,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "broker_aggregates.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFloats = 6;  // load[0..3], potential NW_OUT, leader NW_IN
+constexpr int kThreads = k1::kThreads;
 
 __global__ void broker_aggregates_kernel(
     const int32_t* __restrict__ replica_broker,
@@ -49,46 +52,11 @@ __global__ void broker_aggregates_kernel(
     int32_t* __restrict__ leader_count,
     float* __restrict__ potential_nw_out,
     float* __restrict__ leader_bytes_in) {
-  __shared__ float s_f[kFloats][kThreads];
-  __shared__ int32_t s_i[2][kThreads];
   const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  float acc[kFloats] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int32_t cnt = 0, lcnt = 0;
-  for (int64_t r = t; r < num_replicas; r += kThreads) {
-    if (!valid[r] || replica_broker[r] != b) continue;
-    const bool lead = is_leader[r] != 0;
-    const float* ll = load_leader + 4 * r;
-    const float* row = lead ? ll : load_follower + 4 * r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] += row[c];
-    acc[4] += ll[2];                 // Resource.NW_OUT
-    acc[5] += lead ? ll[1] : 0.f;    // Resource.NW_IN of leaders
-    cnt += 1;
-    lcnt += lead ? 1 : 0;
-  }
-#pragma unroll
-  for (int c = 0; c < kFloats; ++c) s_f[c][t] = acc[c];
-  s_i[0][t] = cnt;
-  s_i[1][t] = lcnt;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) {
-#pragma unroll
-      for (int c = 0; c < kFloats; ++c) s_f[c][t] += s_f[c][t + stride];
-      s_i[0][t] += s_i[0][t + stride];
-      s_i[1][t] += s_i[1][t + stride];
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) load[4 * b + c] = s_f[c][0];
-    potential_nw_out[b] = s_f[4][0];
-    leader_bytes_in[b] = s_f[5][0];
-    replica_count[b] = s_i[0][0];
-    leader_count[b] = s_i[1][0];
-  }
+  k1::aggregate_block(k1::Direct{replica_broker, is_leader}, k1::NoTopics{}, b, valid,
+                      load_leader, load_follower, num_replicas, load + 4 * b,
+                      replica_count + b, leader_count + b, potential_nw_out + b,
+                      leader_bytes_in + b);
 }
 
 constexpr int kMaxChannels = 16;

@@ -1,0 +1,180 @@
+// K10 — the balancedness of execution checkpoints: every goal's satisfied
+// flag for a batch of C blends of two placements, in two launches.
+//
+// Replaces cruise_control_tpu/analyzer/optimizer.py:2392
+// _get_placement_score_fn (called by PlacementScorer.score, :2474): for each
+// landed-partition mask m[c, P], the replicas of landed partitions take the
+// after model's broker and leader flag and every other replica the before
+// model's, then _stack_satisfied (:2331) runs on the blend —
+// BrokerArrays.from_model and goal_satisfied for each of the G goals.  The
+// result is bool[C, G]; the offline flag is dropped there, so it is not
+// computed here.
+//
+// cc_blend_aggregates is K1 with a batch axis: grid (B, C), block (b, c)
+// runs K1's block body (broker_aggregates.cuh) over the blend of checkpoint
+// c, reading the blend through the mask — rmask = m[c, replica_partition[r]]
+// picks after[r] or before[r] — so no copy of the model is ever built.  The
+// float adds run in K1's fixed order, so an all-false mask gives K1's bits.
+// With a topic goal in the stack it also counts replicas per (c, topic,
+// broker) into i32[C, T, B] with integer atomics (exact, in any order; the
+// caller zeroes the buffer).
+//
+// cc_stack_sweep_batch is K9's sweep with a batch axis: grid (G, C), block
+// (g, c) runs K9's per-goal body (stack_sweep.cuh) on checkpoint c's slice
+// of the aggregates; the rack kind reads the blended broker of each replica
+// and of each sibling through the mask.  Band averages use ordered.cuh's
+// windowed sums, as K9 does, so the band edges are the bits of the plain
+// version.
+//
+// A partition index is clamped into [0, P) before it indexes a mask row, as
+// the JAX package's gather clamps (padded replicas hold partition 0 and are
+// not valid, so they count nowhere).
+//
+// Bound on the card: bytes.  The function must read the C x P masks, the
+// two placements (broker ids and leader flags), the replica partitions,
+// valid flags, topics and load rows once, and write C x B x 32 bytes of
+// aggregates, the C x T x B topic counts and C x G flags: at the mid rung
+// (C = 256, P ~ 3.4k, R ~ 10k, B = 50) ~1.7 MB, half a microsecond at
+// 3.35 TB/s.  This simple design is far from it: every (b, c) block
+// re-reads the replica axis (B x C x R x ~14 bytes, from L2), which is what
+// a later, faster version has to remove.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "broker_aggregates.cuh"
+#include "stack_sweep.cuh"
+
+namespace {
+
+// The placement of checkpoint c: replica r takes the after placement when
+// its partition landed.
+struct Blend {
+  const uint8_t* mask;  // m[c, :], P entries
+  const int32_t* partition;
+  int64_t p;
+  const int32_t *before, *after;
+  const uint8_t *before_lead, *after_lead;  // null in the sweep
+  __device__ __forceinline__ bool landed(int64_t r) const {
+    int64_t q = partition[r];
+    q = q < 0 ? 0 : (q >= p ? p - 1 : q);
+    return mask[q] != 0;
+  }
+  __device__ __forceinline__ int32_t broker(int64_t r) const {
+    return landed(r) ? after[r] : before[r];
+  }
+  __device__ __forceinline__ bool leader(int64_t r) const {
+    return (landed(r) ? after_lead[r] : before_lead[r]) != 0;
+  }
+};
+
+// Replicas per (topic, broker) of one checkpoint (null: none wanted).
+struct TopicCounts {
+  const int32_t* topic;
+  int32_t* counts;  // [T, B] of checkpoint c
+  int64_t b_total;
+  int b;
+  __device__ __forceinline__ void add(int64_t r) const {
+    if (counts != nullptr) atomicAdd(counts + topic[r] * b_total + b, 1);
+  }
+};
+
+__global__ void blend_aggregates_kernel(
+    const uint8_t* __restrict__ masks, const int32_t* __restrict__ partition,
+    int64_t p, const int32_t* __restrict__ before_rb, const int32_t* __restrict__ after_rb,
+    const uint8_t* __restrict__ before_lead, const uint8_t* __restrict__ after_lead,
+    const uint8_t* __restrict__ valid, const float* __restrict__ load_leader,
+    const float* __restrict__ load_follower, const int32_t* __restrict__ topic,
+    int64_t num_replicas, int64_t num_brokers, int64_t num_topics, float* load,
+    int32_t* replica_count, int32_t* leader_count, float* potential_nw_out,
+    float* leader_bytes_in, int32_t* topic_counts) {
+  const int b = blockIdx.x;
+  const int64_t c = blockIdx.y;
+  const int64_t cb = c * num_brokers + b;
+  const Blend pl{masks + c * p, partition, p, before_rb, after_rb, before_lead, after_lead};
+  const TopicCounts topics{
+      topic, topic_counts == nullptr ? nullptr : topic_counts + c * num_topics * num_brokers,
+      num_brokers, b};
+  k1::aggregate_block(pl, topics, b, valid, load_leader, load_follower, num_replicas,
+                      load + 4 * cb, replica_count + cb, leader_count + cb,
+                      potential_nw_out + cb, leader_bytes_in + cb);
+}
+
+__global__ void stack_sweep_batch_kernel(const k9::Args a, const uint8_t* __restrict__ masks,
+                                         int64_t p, const int32_t* __restrict__ before_rb,
+                                         const int32_t* __restrict__ after_rb) {
+  const int64_t g = blockIdx.x;
+  const int64_t c = blockIdx.y;
+  k9::Args ac = a;
+  ac.rc = a.rc + c * a.b;
+  ac.lc = a.lc + c * a.b;
+  ac.load = a.load + c * a.b * 4;
+  ac.pnw = a.pnw + c * a.b;
+  ac.lbi = a.lbi + c * a.b;
+  if (a.tbc != nullptr) ac.tbc = a.tbc + c * a.t * a.b;
+  const Blend pl{masks + c * p, a.replica_partition, p, before_rb, after_rb, nullptr,
+                 nullptr};
+  k9::sweep_goal(ac, g, pl, a.sat + c * a.g + g);
+}
+
+}  // namespace
+
+extern "C" int cc_blend_aggregates(
+    int64_t c, int64_t b, int64_t r, int64_t p, int64_t t, const uint8_t* masks,
+    const int32_t* partition, const int32_t* before_rb, const int32_t* after_rb,
+    const uint8_t* before_lead, const uint8_t* after_lead, const uint8_t* valid,
+    const float* load_leader, const float* load_follower, const int32_t* topic,
+    float* load, int32_t* replica_count, int32_t* leader_count, float* potential_nw_out,
+    float* leader_bytes_in, int32_t* topic_counts, cudaStream_t stream) {
+  if (c <= 0 || b <= 0) return 0;
+  if (p <= 0 || c > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  blend_aggregates_kernel<<<dim3(static_cast<unsigned>(b), static_cast<unsigned>(c)),
+                            k1::kThreads, 0, stream>>>(
+      masks, partition, p, before_rb, after_rb, before_lead, after_lead, valid, load_leader,
+      load_follower, topic, r, b, t, load, replica_count, leader_count, potential_nw_out,
+      leader_bytes_in, topic_counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cc_stack_sweep_batch(
+    int64_t c, int64_t g, int64_t b, int64_t r, int64_t t, int64_t p, int64_t max_rf,
+    const int32_t* ints, const float* floats, const uint8_t* alive, const uint8_t* valid,
+    const int32_t* rc, const int32_t* lc, const float* load, const float* cap,
+    const float* pnw, const float* lbi, const int32_t* num_alive, const int32_t* tbc,
+    const uint8_t* masks, const int32_t* before_rb, const int32_t* after_rb,
+    const uint8_t* replica_valid, const int32_t* replica_partition,
+    const int32_t* partition_replicas, const int32_t* broker_rack, uint8_t* sat,
+    cudaStream_t stream) {
+  if (c <= 0 || g <= 0) return 0;
+  if (b <= 0 || b > 32 * k9::kThreads || p <= 0 || c > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  k9::Args a;
+  a.g = g;
+  a.b = b;
+  a.r = r;
+  a.t = t;
+  a.max_rf = max_rf;
+  a.ints = ints;
+  a.floats = floats;
+  a.alive = alive;
+  a.valid = valid;
+  a.rc = rc;
+  a.lc = lc;
+  a.load = load;
+  a.cap = cap;
+  a.pnw = pnw;
+  a.lbi = lbi;
+  a.num_alive = num_alive;
+  a.tbc = tbc;
+  a.replica_broker = nullptr;  // the blend is read through the mask
+  a.replica_valid = replica_valid;
+  a.replica_partition = replica_partition;
+  a.partition_replicas = partition_replicas;
+  a.broker_rack = broker_rack;
+  a.offline = nullptr;
+  a.sat = sat;
+  a.off = nullptr;
+  stack_sweep_batch_kernel<<<dim3(static_cast<unsigned>(g), static_cast<unsigned>(c)),
+                             k9::kThreads, 0, stream>>>(a, masks, p, before_rb, after_rb);
+  return static_cast<int>(cudaGetLastError());
+}

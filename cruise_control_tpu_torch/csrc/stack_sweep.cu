@@ -34,73 +34,27 @@
 // of ordered.cuh (ops/order.py ordered_sum), as the plain version does, so
 // the band edges are the same bits; integer sums exactly — then every
 // thread tests its brokers (or replicas, or (topic, broker) cells) and ORs
-// into a shared flag.
+// into a shared flag.  The per-goal body is k9::sweep_goal
+// (stack_sweep.cuh), which K10's batched sweep (placement_score.cu) calls
+// with a batch axis.
 
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-#include "ordered.cuh"
+#include "stack_sweep.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr float kBig = 1e30f;
-enum Kind {
-  kCapacity = 0, kPotentialNwOut = 1, kReplicaCapacity = 2, kResourceDist = 3,
-  kReplicaDist = 4, kLeaderDist = 5, kLeaderBytesIn = 6, kRack = 7, kTopic = 8
-};
-constexpr int kNwOut = 2;  // Resource.NW_OUT
-
-struct Args {
-  int64_t g, b, r, t, max_rf;
-  const int32_t* ints;   // [G, 3]: kind, resource, is_hard
-  const float* floats;   // [G, 4]: eps, a, b, c
-  const uint8_t *alive, *valid;
-  const int32_t *rc, *lc;
-  const float *load, *cap, *pnw, *lbi;
-  const int32_t* num_alive;
-  const int32_t* tbc;  // [T, B] or null
-  const int32_t *replica_broker;
-  const uint8_t* replica_valid;
-  const int32_t *replica_partition, *partition_replicas, *broker_rack;
-  const uint8_t* offline;  // replica_offline_now
-  uint8_t *sat, *off;
-};
-
-// alive[i] ? x[stride * i + col] : 0 — a masked column of a broker table.
-struct AliveColumn {
-  const float* x;
-  int64_t stride, col;
-  const uint8_t* alive;
-  __device__ float operator()(int64_t i) const {
-    return alive[i] ? x[stride * i + col] : 0.f;
-  }
-};
-
-__device__ long long block_sum_i(long long v, long long* sh) {
-  const int t = threadIdx.x;
-  sh[t] = v;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) sh[t] += sh[t + stride];
-    __syncthreads();
-  }
-  const long long out = sh[0];
-  __syncthreads();
-  return out;
-}
+using k9::Args;
+constexpr int kThreads = k9::kThreads;
 
 __global__ void stack_sweep_kernel(const Args a) {
-  __shared__ float shf[kThreads];
-  __shared__ float sum_out[1];
-  __shared__ long long shi[kThreads];
-  __shared__ int violated;
-  const int t = threadIdx.x;
-  if (t == 0) violated = 0;
-  __syncthreads();
   const int64_t g = blockIdx.x;
   if (g == a.g) {  // the offline block
+    __shared__ int violated;
+    const int t = threadIdx.x;
+    if (t == 0) violated = 0;
+    __syncthreads();
     bool any = false;
     for (int64_t i = t; i < a.r; i += kThreads) any |= a.offline[i] && a.replica_valid[i];
     if (any) violated = 1;
@@ -108,112 +62,7 @@ __global__ void stack_sweep_kernel(const Args a) {
     if (t == 0) a.off[0] = violated != 0;
     return;
   }
-  const int kind = a.ints[3 * g];
-  const int res = a.ints[3 * g + 1];
-  const bool hard = a.ints[3 * g + 2] != 0;
-  const float eps = a.floats[4 * g];
-  const float pa = a.floats[4 * g + 1], pb = a.floats[4 * g + 2], pc = a.floats[4 * g + 3];
-  const float num_alive = static_cast<float>(a.num_alive[0]);
-  bool any = false;
-  // Dead brokers still hosting replicas violate every hard goal.
-  if (hard) {
-    for (int64_t i = t; i < a.b; i += kThreads)
-      any |= !a.alive[i] && a.valid[i] && a.rc[i] > 0;
-  }
-  if (kind == kRack) {
-    for (int64_t i = t; i < a.r; i += kThreads) {
-      if (!a.replica_valid[i]) continue;
-      const int32_t own = a.replica_broker[i];
-      if (!a.alive[own]) continue;
-      const int32_t rack = a.broker_rack[own];
-      const int32_t* sib = a.partition_replicas + a.replica_partition[i] * a.max_rf;
-      for (int64_t j = 0; j < a.max_rf; ++j) {
-        const int32_t s = sib[j];
-        if (s >= 0 && s < i && a.broker_rack[a.replica_broker[s]] == rack) any = true;
-      }
-    }
-  } else if (kind == kTopic) {
-    // Topic totals are the row sums of the counts (every valid replica is
-    // counted at its broker); the excess of a broker is an integer sum, so
-    // "metric > 1e-6" is "some topic out of its band".
-    for (int64_t tp = 0; tp < a.t; ++tp) {
-      long long part = 0;
-      for (int64_t i = t; i < a.b; i += kThreads) part += a.tbc[tp * a.b + i];
-      const float total = static_cast<float>(block_sum_i(part, shi));
-      const float avg = __fdiv_rn(total, num_alive);
-      const float upper = ceilf(__fmul_rn(avg, pa));
-      const float lower = floorf(__fmul_rn(avg, pb));
-      for (int64_t i = t; i < a.b; i += kThreads) {
-        const float c = static_cast<float>(a.tbc[tp * a.b + i]);
-        any |= a.alive[i] && (c > upper || c < lower);
-      }
-    }
-  } else {
-    long long si = 0;
-    for (int64_t i = t; i < a.b; i += kThreads) {
-      if (!a.alive[i]) continue;
-      if (kind == kReplicaDist) {
-        si += a.rc[i];
-      } else if (kind == kLeaderDist) {
-        si += a.lc[i];
-      }
-    }
-    float avg_pct = 0.f, avg = 0.f;
-    bool gated = false;
-    if (kind == kResourceDist) {
-      const float util =
-          ordered::block_sum(AliveColumn{a.load, 4, res, a.alive}, a.b, shf, sum_out);
-      const float capsum = fmaxf(
-          ordered::block_sum(AliveColumn{a.cap, 4, res, a.alive}, a.b, shf, sum_out),
-          1e-9f);
-      avg_pct = __fdiv_rn(util, capsum);
-      gated = avg_pct <= pc;
-    } else if (kind == kLeaderBytesIn) {
-      avg = __fdiv_rn(
-          ordered::block_sum(AliveColumn{a.lbi, 1, 0, a.alive}, a.b, shf, sum_out),
-          num_alive);
-    } else if (kind == kReplicaDist || kind == kLeaderDist) {
-      avg = __fdiv_rn(static_cast<float>(block_sum_i(si, shi)), num_alive);
-    }
-    for (int64_t i = t; i < a.b; i += kThreads) {
-      float metric, lower = 0.f, upper;
-      switch (kind) {
-        case kCapacity:
-          metric = a.load[4 * i + res];
-          upper = __fmul_rn(a.cap[4 * i + res], pa);
-          break;
-        case kPotentialNwOut:
-          metric = a.pnw[i];
-          upper = __fmul_rn(a.cap[4 * i + kNwOut], pa);
-          break;
-        case kReplicaCapacity:
-          metric = static_cast<float>(a.rc[i]);
-          upper = pa;
-          break;
-        case kResourceDist: {
-          metric = a.load[4 * i + res];
-          const float c = a.cap[4 * i + res];
-          upper = gated ? kBig : __fmul_rn(__fmul_rn(avg_pct, pa), c);
-          lower = gated ? 0.f : fmaxf(__fmul_rn(__fmul_rn(avg_pct, pb), c), 0.f);
-          break;
-        }
-        case kReplicaDist:
-        case kLeaderDist:
-          metric = static_cast<float>(kind == kReplicaDist ? a.rc[i] : a.lc[i]);
-          upper = ceilf(__fmul_rn(avg, pa));
-          lower = floorf(__fmul_rn(avg, pb));
-          break;
-        default:  // kLeaderBytesIn
-          metric = a.lbi[i];
-          upper = __fmul_rn(avg, pa);
-      }
-      const bool out = metric > __fadd_rn(upper, eps) || metric < __fsub_rn(lower, eps);
-      any |= a.alive[i] && out;
-    }
-  }
-  if (any) violated = 1;
-  __syncthreads();
-  if (t == 0) a.sat[g] = violated == 0;
+  k9::sweep_goal(a, g, k9::Direct{a.replica_broker}, a.sat + g);
 }
 
 }  // namespace

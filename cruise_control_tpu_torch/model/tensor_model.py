@@ -259,6 +259,18 @@ class TensorClusterModel:
             new_offline = self.replica_offline | on_broker
         return self.replace(broker_state=new_state, replica_offline=new_offline)
 
+    def with_placement(self, replica_broker: torch.Tensor, replica_is_leader: torch.Tensor,
+                       replica_disk: Optional[torch.Tensor] = None) -> "TensorClusterModel":
+        """Swap in a hypothetical replica placement (broker assignment,
+        leadership, optionally disks) keeping every other axis untouched —
+        the executor's balancedness scorer evaluates blends of the
+        before/after placements this way.  Nothing is copied or written:
+        the new model holds the given tensors."""
+        kwargs = dict(replica_broker=replica_broker, replica_is_leader=replica_is_leader)
+        if replica_disk is not None:
+            kwargs["replica_disk"] = replica_disk
+        return self.replace(**kwargs)
+
     # ------------------------------------------------------------------
     # Sanity (reference: ClusterModel.sanityCheck, ClusterModel.java:1144)
     # ------------------------------------------------------------------

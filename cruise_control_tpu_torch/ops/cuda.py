@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
-           "stack_sweep", "frontier_active", "chunk_gate", "ordered")
+           "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +63,8 @@ _ENTRIES = {
     "chunk_gate": ("chunk_gate", "cc_chunk_gate", "p" * 9 + "iiii"),
     "cross_gate": ("chunk_gate", "cc_cross_gate", "p" * 5 + "i"),
     "chunk_touched": ("chunk_gate", "cc_chunk_touched", "ii" + "p" * 8),
+    "blend_aggregates": ("placement_score", "cc_blend_aggregates", "i" * 5 + "p" * 16),
+    "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch", "i" * 7 + "p" * 20),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 

@@ -31,7 +31,7 @@ from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingCons
 from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS
 from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-from tests.torch_port_helpers import (PLACEMENT, SPEC_6, STACK, check_like_jax,
+from tests.torch_port_helpers import (PLACEMENT, SPEC_6, SPEC_ENTRY, STACK, check_like_jax,
                                       clear_cruise_env, skewed_models)
 
 PREV = ("RackAwareGoal",)
@@ -180,12 +180,16 @@ HUNDRED = dict(num_brokers=100, num_racks=10, num_topics=4, mean_partitions_per_
     (HUNDRED, {"pipeline": None, "frontier": True}),
     (SPEC_6, {"fuse_group_size": 1, "warm_start": "compatible"}),
     (SPEC_6, {"fuse_group_size": 1, "mesh": object()}),
+    (SPEC_ENTRY, {"fused": False, "segment_steps": 4}),
+    (SPEC_ENTRY, {"fuse_group_size": 2, "frontier": True}),
 ], ids=["pipeline", "auto-pipelined-100", "auto-pipelined-frontier", "warm_start",
-        "mesh"])
+        "mesh", "unfused-segment_steps", "grouped-frontier"])
 def test_per_goal_refusals(spec_kw, kwargs, monkeypatch):
     """What the later slices ported runs as the JAX package runs it — the
     pipeline forced, the pipeline by default at 100 brokers (one goal pins
-    the policy), a warm start — and only a mesh is refused."""
+    the policy), a warm start, and ``segment_steps`` on the unfused path
+    and ``frontier=True`` on the grouped one, which the JAX package ignores
+    — and only a mesh is refused."""
     clear_cruise_env(monkeypatch)
     if "mesh" in kwargs:
         tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
@@ -193,9 +197,10 @@ def test_per_goal_refusals(spec_kw, kwargs, monkeypatch):
             topt.optimize(tm, STACK, fused=True, device="cpu", **kwargs)
         return
     kwargs = dict(kwargs)
+    kwargs.setdefault("fused", True)
     warm = kwargs.pop("warm_start", None) is not None
-    goals = STACK[:2] if spec_kw is SPEC_6 else ["ReplicaDistributionGoal"]
-    runs = check_like_jax(spec_kw, goals, warm=warm, fused=True, **kwargs)
+    goals = STACK[:2] if spec_kw is not HUNDRED else ["ReplicaDistributionGoal"]
+    runs = check_like_jax(spec_kw, goals, warm=warm, **kwargs)
     assert runs is not None
     assert runs[1].pipelined == ("pipeline" in kwargs or spec_kw is HUNDRED)
     assert runs[1].warm == warm

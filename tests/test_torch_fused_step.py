@@ -7,11 +7,10 @@
   and the counters bit-unchanged.
 - ``optimize(fused=True)`` never writes the caller's model, reports its
   host reads and gated steps, runs an explicit ``fuse_group_size`` above
-  the 64-broker floor like the unfused path, and raises where the JAX
-  package would pipeline the goals (above 64 brokers by default, and on
-  request: the per-goal path's pipelined form, ``segment_steps`` there),
-  for ``frontier=True`` off the per-goal path, and for the options of
-  later slices.
+  the 64-broker floor like the unfused path, does what the JAX package
+  does where it pipelines the goals (above 64 brokers by default, and on
+  request) and where it ignores ``frontier=True`` (off the per-goal path),
+  and refuses a mesh.
 """
 
 import dataclasses
@@ -28,8 +27,8 @@ from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N, CTR
                                                      BrokerArrays, OptimizationOptions,
                                                      StepState)
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-from tests.torch_port_helpers import (PLACEMENT, SPEC_6, SPEC_12, STACK, check_like_jax,
-                                      clear_cruise_env, goal_rows)
+from tests.torch_port_helpers import (PLACEMENT, SPEC_6, SPEC_12, SPEC_ENTRY, STACK,
+                                      check_like_jax, clear_cruise_env, goal_rows)
 
 PREV = ("RackAwareGoal",)
 GOAL = "ReplicaDistributionGoal"
@@ -136,7 +135,7 @@ def test_explicit_groups_run_above_the_dense_floor():
 @pytest.mark.parametrize("spec_kw,kwargs", [
     (WIDE, {}),
     (SPEC_6, {"fuse_group_size": 1, "pipeline": True}),
-    (SPEC_6, {"frontier": True}),
+    (SPEC_ENTRY, {"frontier": True}),
     (SPEC_6, {"pipeline": True}),
     (SPEC_6, {"warm_start": "compatible"}),
     (SPEC_6, {"mesh": object()}),
@@ -145,11 +144,11 @@ def test_explicit_groups_run_above_the_dense_floor():
         "segment_steps"])
 def test_fused_paths_of_later_slices_raise(spec_kw, kwargs, monkeypatch):
     """The fused calls later slices ported — above the floor (pipelined by
-    default), the pipeline forced, a warm start, segments above the floor
-    — do what the JAX package does; a mesh, and ``frontier=True`` off the
-    per-goal paths (which the JAX package ignores), are still refused."""
+    default), the pipeline forced, a warm start, segments above the floor,
+    ``frontier=True`` off the per-goal paths (which the JAX package
+    ignores) — do what the JAX package does; a mesh is still refused."""
     clear_cruise_env(monkeypatch)
-    if "mesh" in kwargs or "frontier" in kwargs:
+    if "mesh" in kwargs:
         tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
         with pytest.raises(NotImplementedError):
             topt.optimize(tm, SHORT, fused=True, device="cpu", **kwargs)

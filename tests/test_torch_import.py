@@ -107,3 +107,25 @@ def test_chip_smoke_refuses_without_cuda_and_alone(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_the_ports_registries_are_its_own():
+    """The port's sensor, trace and telemetry registries are separate
+    objects from the JAX package's when both are imported in one process:
+    what one records, the other does not see."""
+    from cruise_control_tpu.common.sensors import SENSORS as JAX_SENSORS
+    from cruise_control_tpu.common.timeseries import TELEMETRY as JAX_TELEMETRY
+    from cruise_control_tpu.common.tracing import TRACE as JAX_TRACE
+    from cruise_control_tpu_torch.common.sensors import SENSORS
+    from cruise_control_tpu_torch.common.timeseries import TELEMETRY
+    from cruise_control_tpu_torch.common.tracing import TRACE
+    assert SENSORS is not JAX_SENSORS
+    assert TRACE is not JAX_TRACE
+    assert TELEMETRY is not JAX_TELEMETRY
+    assert type(SENSORS) is not type(JAX_SENSORS)
+    SENSORS.counter("PortOnly.registry-probe").inc(1)
+    assert "PortOnly.registry-probe" in SENSORS.snapshot()
+    assert "PortOnly.registry-probe" not in JAX_SENSORS.snapshot()
+    TRACE.record("port.registry-probe", 0.0)
+    assert any(s["name"] == "port.registry-probe" for s in TRACE.recent(5))
+    assert not any(s["name"] == "port.registry-probe" for s in JAX_TRACE.recent(50))

@@ -100,16 +100,19 @@ def test_full_stack_6_brokers():
 
 @pytest.mark.parametrize("kwargs", [{"fused": True, "fuse_group_size": 1, "pipeline": True},
                                     {"mesh": object()}, {"frontier": True},
-                                    {"pipeline": True}, {"warm_start": "compatible"}],
-                         ids=["fused", "mesh", "frontier", "pipeline", "warm_start"])
+                                    {"pipeline": True}, {"warm_start": "compatible"},
+                                    {"segment_steps": 4}],
+                         ids=["fused", "mesh", "frontier", "pipeline", "warm_start",
+                              "segment_steps"])
 def test_later_slice_options_raise(kwargs, monkeypatch):
     """Options of later slices do what the JAX package does on the same
     call: the forced pipeline runs, ``pipeline=True`` on the unfused path
-    raises ValueError, a warm start re-bases the unfused solve; a mesh and
-    ``frontier=True`` off the per-goal paths are still refused."""
+    raises ValueError, a warm start re-bases the unfused solve, and
+    ``frontier=True`` and ``segment_steps``, which the unfused path does
+    not read, are ignored; only a mesh is refused."""
     clear_cruise_env(monkeypatch)
     goals = ["ReplicaDistributionGoal"]
-    if "mesh" in kwargs or "frontier" in kwargs:
+    if "mesh" in kwargs:
         tm = generate_cluster(ClusterSpec(**SPEC_6), device="cpu")
         with pytest.raises(NotImplementedError):
             topt.optimize(tm, goals, device="cpu", **kwargs)
