@@ -97,7 +97,28 @@ Phases, in order (any failure raises and the process exits non-zero):
     JAX package's rule) on the default pipelined path, the stack of
     ``XL_GOALS``; then the mid fused solve again (the graph cache past its
     four shapes): the proposals of phase 5;
-16. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+16. the goal kinds beyond the 15-goal stack (``check_goal_kinds``), each
+    timed run with the launch counters set to 0 just before and each new
+    mode's own counter read after it: the facade's default order
+    (``DEFAULT_GOAL_ORDER``, MinTopicLeadersPerBrokerGoal second) with the
+    rung's four topics of the most partitions designated — mid on the
+    grouped path, card against CPU; large on the sequential and on the
+    pipelined path, placements equal, walls, per-goal rows, openers and
+    busy share — and with none designated (K3's topic cuts still run: the
+    mid window of goals before the topic goal, and large pipelined); the
+    demote path at large (every tenth broker DEMOTED, its leadership
+    excluded, PreferredLeaderElectionGoal: no movable leader left on a
+    demoted broker, no replica moved) and the broken-preference recipe
+    (every preferred replica leads after); the kafka-assigner pair at mid
+    (at most one replica of a partition a rack) and RackAwareDistributionGoal
+    on a 50-broker, 2-rack, RF-3 cluster with a third of its partitions on
+    one rack, each card against CPU; the default order with designated
+    topics at 100 brokers, pipelined, card against CPU; the ledgers of
+    executing the mid default-order solve, a mid demote and the 2-rack
+    solve (K10 scoring the new kinds); and K5's, K5b's and K9's new modes
+    against their plain twins on the inputs the runs gave them, healthy and
+    with a dead broker, exactly, each timed;
+17. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -250,12 +271,14 @@ def main(argv) -> int:
     wrappers = {n: cuda.COUNTED[n] for n in KERNELS}
     dev = torch.device("cpu" if rehearse else "cuda")
     mid_rung, large_rung, hundred_rung, xl_rung = MID, LARGE, HUNDRED, XL250
+    two_racks_rung = TWO_RACKS
     timer = time_ms
     # The per-goal path as the service asks for it above 64 brokers.
     per_goal = dict(pipeline=False)
     if rehearse:
         mid_rung, large_rung, timer = (12, 4, 6, 20.0, 2), (16, 4, 8, 20.0, 3), host_time_ms
         hundred_rung, xl_rung = (16, 4, 5, 30.0, 2), (20, 4, 6, 20.0, 2)
+        two_racks_rung = (12, 2, 6, 20.0, 3)
         # Small clusters: ask for the per-goal path (below 100 brokers
         # pipeline=False alone keeps the grouped stack); phase 8 lowers the
         # dense floor so that its chunks compact.
@@ -687,7 +710,23 @@ def main(argv) -> int:
     if not again_after:
         raise RuntimeError("the mid fused solve after the xl250 rung differs from phase 5's")
 
-    # 16. results
+    # 16. the goal kinds beyond the 15-goal stack
+    phase("goal kinds")
+    import types
+    cx = types.SimpleNamespace(
+        torch=torch, np=np, opt=opt, props=props, gk=gk, cuda=cuda, log=log, dev=dev,
+        rehearse=rehearse, timer=timer, fused_run=fused_run, mid=mid, mid_rung=mid_rung,
+        large=large, hundred_rung=hundred_rung, two_racks_rung=two_racks_rung,
+        spec_of=spec_of, generate_cluster=generate_cluster,
+        compare_card_cpu=compare_card_cpu, same_placement=same_placement,
+        per_goal=per_goal, pipeline_report=pipeline_report, per_goal_report=per_goal_report,
+        profile_mid=profile_mid, check_run=check_run,
+        execute=lambda before, run, con, label: execute_proposals(
+            torch, np, opt, before, run, props.diff(before, run.model), con, log, smi,
+            rehearse, label, cpu_twin=False))
+    mode_rows, kind_counts, kinds_summary = check_goal_kinds(cx)
+
+    # 17. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -699,7 +738,7 @@ def main(argv) -> int:
         f"{pipe_wall:.3f} s ({pipe_steps} steps, ops/step {prof_pipe['ops_per_step']}, "
         f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
         f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; execution "
-        f"{exec_summary}; card {smi}")
+        f"{exec_summary}; goal kinds {kinds_summary}; card {smi}")
     for name in EXECUTION_ONLY:
         # The mid shape is the execution's; the large and xl250 numbers beside.
         results[name] = dict(k10["mid"][name])
@@ -728,6 +767,28 @@ def main(argv) -> int:
                      "device_ms_per_launch": device_ms,
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": r["library_ms"]})
+    # The new goal kinds' modes, each with the launches of the run that
+    # needs it (and K3's topic cuts, which the min-leaders budgets run).
+    # K10's kinds: the mid blends, the large and xl250 numbers beside.
+    for goal_kind in NEW_KINDS:
+        name = f"stack_sweep_batch[{goal_kind}]"
+        mode_rows[name] = dict(k10["mid"][name])
+        for rung in ("large", "xl250"):
+            mode_rows[name].update({f"{k}_{rung}": v for k, v in k10[rung][name].items()
+                                    if k != "max_abs_err"})
+    for name, (source, replaces, run_label) in MODE_KERNELS.items():
+        r = mode_rows[name]
+        extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
+                 or k == "shape"}
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": kind_counts[run_label].get(name, 0),
+                     "launches_run": run_label, **extra,
+                     "launches_large_designated": kind_counts["large designated"].get(name, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms_per_launch": r["device_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": "bytes", "library_ms": None})
     # K12's device time is the whole fused solve's (its eager per-goal
     # set-up included), from the fused profile.
     graph_results["goal_chain"]["device_ms_per_launch"] = prof_fused.get("device_ms")
@@ -961,52 +1022,61 @@ def device_ms(torch, fn, names, log, runs: int = 5):
     return None
 
 
-def _k10_bytes(before, c, topic, g=None):
+def _k10_bytes(before, c, topic, g=None, leaders=False, preferred=False):
     """Bytes K10 must move for ``c`` blends.  The aggregates: the masks
     (c x P), both placements (broker id and leader flag, 5 bytes each), the
     replica partitions, valid flags, topics and both load rows, each read
-    once; c x B x 32 bytes of aggregates and the c x T x B topic counts
-    written.  The sweep (``g`` goals): those aggregates and the masks read,
-    both placements' broker ids, the replica partitions and valid flags,
-    the sibling rows and the broker columns (alive, valid, capacity, rack)
-    once; c x G flags written."""
+    once; c x B x 32 bytes of aggregates, the c x T x B topic counts and
+    (``leaders``) topic leader counts written.  The sweep (``g`` goals):
+    those aggregates and the masks read, both placements' broker ids, the
+    replica partitions and valid flags, the sibling rows and the broker
+    columns (alive, valid, capacity, rack) once, the replication factors,
+    and for the preferred-leader goal both placements' leader flags and
+    disks, the offline flags, original brokers, broker states and disk
+    capacities; c x G flags written."""
     R, P, B, T = (before.num_replicas_padded, before.num_partitions, before.num_brokers,
                   before.num_topics)
-    aggs = c * B * 32 + (c * T * B * 4 if topic else 0)
+    aggs = c * B * 32 + (c * T * B * 4 if topic else 0) + (c * T * B * 4 if leaders else 0)
     if g is None:
-        return c * P + R * (2 * 5 + 4 + 1 + 32 + (4 if topic else 0)) + aggs
+        return c * P + R * (2 * 5 + 4 + 1 + 32 + (4 if topic or leaders else 0)) + aggs
+    extra = P * 4 + (T if leaders else 0)
+    if preferred:
+        extra += R * (2 * 1 + 2 * 4 + 1 + 4) + B + before.num_disks * 4
     return (aggs + c * P + R * (2 * 4 + 4 + 1) + before.partition_replicas.numel() * 4
-            + B * (1 + 1 + 16 + 4) + c * g)
+            + B * (1 + 1 + 16 + 4) + extra + c * g)
 
 
 def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, label,
                             rehearse):
     """K10's two launches against their plain twins on the card, on K10_BATCH
-    blends of ``before`` and ``after`` (``k10_masks``): the aggregates bit for
-    bit (and an all-false row equal to K1's), the flags exactly.  Then each
+    blends of ``before`` and ``after`` (``k10_masks``), for the goals of
+    ``K10_GOALS`` (every inter-broker kind) with the four topics of the most
+    partitions designated: the aggregates bit for bit (and an all-false row
+    equal to K1's), topic leader counts included, the flags exactly.  Then each
     launch timed (CUDA events, median; device time under the profiler), its
     plain twin timed (3 runs), the bound, and for the aggregates one
     ``index_add_`` over flattened (blend, broker) segments of the blended
     rows (the library call)."""
-    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
     from cruise_control_tpu_torch.analyzer.goals import kernels as gk
     from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
     from cruise_control_tpu_torch.analyzer.state import BrokerArrays
 
-    specs, con = tuple(goals_by_priority(STACK)), BalancingConstraint.default()
+    # Every inter-broker goal kind, with the rung's designated topics.
+    specs = tuple(goals_by_priority(K10_GOALS))
+    con, _ = designated_constraint(torch, before)
     masks, moved = k10_masks(torch, np, before, after, K10_BATCH, SEED)
     ka, ks = wrappers["blend_aggregates"], wrappers["stack_sweep_batch"]
-    got = ka(before, after, masks, True)
-    ref = gk.blend_aggregates_plain(before, after, masks, True)
-    k1 = BrokerArrays.from_model(before, with_topic_counts=True)
+    got = ka(before, after, masks, True, with_topic_leaders=True)
+    ref = gk.blend_aggregates_plain(before, after, masks, True, True)
+    k1 = BrokerArrays.from_model(before, True, True)
     k1 = (k1.load, k1.replica_count, k1.leader_count, k1.potential_nw_out,
-          k1.leader_bytes_in, k1.topic_counts)
+          k1.leader_bytes_in, k1.topic_counts, k1.topic_leader_counts)
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
 
     fields = ("load", "replica_count", "leader_count", "potential_nw_out",
-              "leader_bytes_in", "topic_counts")
+              "leader_bytes_in", "topic_counts", "topic_leader_counts")
     for f, g, r, k in zip(fields, got, ref, k1):
         if not torch.equal(bits(g), bits(r)):
             raise RuntimeError(f"K10 aggregates ({label}): {f} differs from the plain twin")
@@ -1019,6 +1089,16 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
         bad = torch.nonzero(sat != sat_ref)[:5].tolist()
         raise RuntimeError(f"K10 sweep ({label}) differs from the plain twin at "
                            f"(blend, goal) {bad}")
+    # The scorer's own call: in slices of 64 blends above 256 MiB of topic
+    # tables (two [C, T, B] tables here), the same flags.
+    from cruise_control_tpu_torch.analyzer import optimizer as opt
+    sliced = 2 * masks.shape[0] * before.num_topics * before.num_brokers * 4 > \
+        opt._SCORE_SLICE_BYTES
+    scored = opt._get_placement_score_fn(specs, con, masks.shape[0])(before, after, masks)
+    if not torch.equal(scored, sat):
+        raise RuntimeError(f"K10 ({label}): the scorer's call (sliced {sliced}) differs "
+                           "from one launch")
+    log(f"K10 {label}: the scorer's call, sliced {sliced}, equals one launch")
     C, R, B, T = masks.shape[0], before.num_replicas_padded, before.num_brokers, \
         before.num_topics
     shape = dict(C=C, P=before.num_partitions, R=R, B=B, G=len(specs), T=T,
@@ -1041,25 +1121,46 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
     out = {
         "blend_aggregates": dict(
             max_abs_err=0.0, shape=shape,
-            ms=time_ms(torch, lambda: ka(before, after, masks, True), fast),
+            ms=time_ms(torch, lambda: ka(before, after, masks, True,
+                                         with_topic_leaders=True), fast),
             plain_ms=time_ms(torch, lambda: gk.blend_aggregates_plain(before, after, masks,
-                                                                       True), 3),
+                                                                       True, True), 3),
             library_ms=time_ms(torch, lambda: acc.zero_().index_add_(0, seg, rows), fast),
-            bound_ms=bound_ms(_k10_bytes(before, C, True)),
+            bound_ms=bound_ms(_k10_bytes(before, C, True, leaders=True)),
             device_ms=None if rehearse else device_ms(
-                torch, lambda: ka(before, after, masks, True), ("blend_aggregates_kernel",),
-                log)),
+                torch, lambda: ka(before, after, masks, True, with_topic_leaders=True),
+                ("blend_aggregates_kernel",), log)),
         "stack_sweep_batch": dict(
             max_abs_err=0.0, shape=shape,
             ms=time_ms(torch, lambda: ks(specs, before, after, masks, got, con), fast),
             plain_ms=time_ms(torch, lambda: gk.stack_sweep_batch_plain(
                 specs, before, after, masks, ref, con), 3),
             library_ms=None,
-            bound_ms=bound_ms(_k10_bytes(before, C, True, len(specs))),
+            bound_ms=bound_ms(_k10_bytes(before, C, True, len(specs), leaders=True,
+                                         preferred=True)),
             device_ms=None if rehearse else device_ms(
                 torch, lambda: ks(specs, before, after, masks, got, con),
                 ("stack_sweep_batch_kernel",), log)),
     }
+    # Each new kind's sweep alone (one goal of the kind), exact and timed.
+    for kind in NEW_KINDS:
+        sk = tuple(sp for sp in specs if sp.kind == kind)[:1]
+        got_k = ks(sk, before, after, masks, got, con)
+        if not torch.equal(got_k, gk.stack_sweep_batch_plain(sk, before, after, masks, ref,
+                                                             con)):
+            raise RuntimeError(f"K10 sweep ({label}, {kind}) differs from the plain twin")
+        out[f"stack_sweep_batch[{kind}]"] = dict(
+            max_abs_err=0.0, shape=dict(shape, G=1),
+            ms=time_ms(torch, lambda: ks(sk, before, after, masks, got, con), fast),
+            plain_ms=time_ms(torch, lambda: gk.stack_sweep_batch_plain(
+                sk, before, after, masks, ref, con), 3),
+            library_ms=None,
+            bound_ms=bound_ms(_k10_bytes(before, C, False, 1,
+                                         leaders=kind == "min_topic_leaders",
+                                         preferred=kind == "preferred_leader")),
+            device_ms=None if rehearse else device_ms(
+                torch, lambda: ks(sk, before, after, masks, got, con),
+                ("stack_sweep_batch_kernel",), log))
     del rows, seg, acc, rmask
     log(f"K10 {label}: C={C} P={before.num_partitions} R={R} B={B} G={len(specs)} T={T}, "
         f"{moved} partitions moved; aggregates bit-equal to the plain twin (all-false "
@@ -1085,14 +1186,6 @@ def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehears
     flush; then the same proposals on the CPU path must give the same
     result and checkpoints, field for field, the scores within 1e-9.
     Returns (summary, launch counts, run)."""
-    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
-    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
-    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
-    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
-    from cruise_control_tpu_torch.executor import simulate as sim
-    from cruise_control_tpu_torch.executor.ledger import ExecutionLedger
-    from cruise_control_tpu_torch.ops import cuda
-
     run = opt.optimize(opt.donation_copy(mid), STACK, fused=True, donate_model=True,
                        raise_on_hard_failure=False, device=dev)
     proposals = props.diff(mid, run.model)
@@ -1102,6 +1195,26 @@ def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehears
     if proposals != fused_props:
         raise RuntimeError("the mid solve through the cached step graphs differs from "
                            "the same solve in phase 5")
+    summary, counts = execute_proposals(torch, np, opt, mid, run, proposals, None, log, smi,
+                                        rehearse, "mid", cpu_twin=True)
+    return summary, counts, run
+
+
+def execute_proposals(torch, np, opt, mid, run, proposals, con, log, smi, rehearse, label,
+                      cpu_twin):
+    """``proposals`` of ``run`` (solved from ``mid`` under constraint ``con``)
+    executed on the simulated fleet with bench.py's throttle rule and the
+    balancedness scorer, the launch counters set to 0 just before and read
+    just after: the checks of ``check_execution``, and with ``cpu_twin`` the
+    same on the CPU path.  Returns (summary, every launch count)."""
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    from cruise_control_tpu_torch.executor import simulate as sim
+    from cruise_control_tpu_torch.executor.ledger import ExecutionLedger
+    from cruise_control_tpu_torch.ops import cuda
+
     inter_bytes = sum(int(p.partition_size * 1e6) * len(p.replicas_to_add) for p in proposals)
     rate = max(1_000_000.0, inter_bytes / max(mid.num_brokers, 1) / 300.0)
     goals = [g.name for g in run.goal_results]
@@ -1122,18 +1235,18 @@ def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehears
         torch.cuda.synchronize()
         t0 = time.monotonic()
         result, ex, admin = sim.run_simulated_execution(
-            before, proposals, model_after=after, goal_names=goals, tick_ms=1000,
-            rate_bytes_per_sec=rate)
+            before, proposals, model_after=after, goal_names=goals, constraint=con,
+            tick_ms=1000, rate_bytes_per_sec=rate)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-        counts = {n: w.launches for n, w in wrappers.items()}
-        return result, ex.progress(verbose=True), wall, counts, list(flushes)
+        return result, ex.progress(verbose=True), wall, cuda.launch_counts(), list(flushes)
 
     ExecutionLedger.score_checkpoints = timed_flush
     try:
         result, prog, wall, counts, card_flushes = execute(mid, run.model)
-        cpu_result, cpu_prog, cpu_wall, _, cpu_flushes = execute(mid.to("cpu"),
-                                                                 run.model.to("cpu"))
+        if cpu_twin:
+            cpu_result, cpu_prog, cpu_wall, _, cpu_flushes = execute(mid.to("cpu"),
+                                                                     run.model.to("cpu"))
     finally:
         ExecutionLedger.score_checkpoints = real_flush
     cps = prog["checkpoints"]
@@ -1145,31 +1258,41 @@ def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehears
                    checkpoints=len(cps), checkpoints_scored=n_scored, flushes=n_flush,
                    host_wall_s=round(wall, 4),
                    score_wall_s=round(sum(f[0] for f in card_flushes), 4),
-                   cpu_host_wall_s=round(cpu_wall, 4),
-                   cpu_score_wall_s=round(sum(f[0] for f in cpu_flushes), 4),
                    fleet_s=prog["elapsedMs"] / 1000.0, rate_bytes_per_sec=rate,
                    balancedness_before=run.balancedness_before,
                    balancedness_after=run.balancedness_after,
                    first_score=scored[0] if scored else None,
                    last_score=scored[-1] if scored else None,
                    k10_launches={n: counts[n] for n in EXECUTION_ONLY})
-    log(f"mid execution on {smi}: {summary}")
-    log(f"mid execution launches: {counts}")
+    if cpu_twin:
+        summary.update(cpu_host_wall_s=round(cpu_wall, 4),
+                       cpu_score_wall_s=round(sum(f[0] for f in cpu_flushes), 4))
+    log(f"{label} execution on {smi}: {summary}")
+    log(f"{label} execution launches: { {n: c for n, c in counts.items() if c} }")
     checks = {
         "ok": result.ok and result.dead == 0 and result.aborted == 0,
         "totals": (prog["taskCounts"]["completed"] == result.completed
                    and prog["taskCounts"]["dead"] == result.dead
                    and prog["taskCounts"]["aborted"] == result.aborted
                    and prog["totalTasks"] == result.completed
-                   and prog["bytesMoved"] == prog["totalBytes"] > 0
+                   and prog["bytesMoved"] == prog["totalBytes"]
+                   and (prog["totalBytes"] > 0) == (inter_bytes > 0)
                    and prog["bytesInFlight"] == 0),
         "off-target": all(b <= a for a, b in zip(off, off[1:])) and off[-1] == 0,
-        "scores": (len(scored) >= 2
-                   and abs(scored[0] - run.balancedness_before) < 1e-6
+        # A leadership-only execution lands in one phase: its one checkpoint
+        # is the run's balancedness after.
+        "scores": (len(scored) >= (2 if inter_bytes > 0 else 1)
+                   and (len(scored) < 2
+                        or abs(scored[0] - run.balancedness_before) < 1e-6)
                    and abs(scored[-1] - run.balancedness_after) < 1e-6),
         "launches": rehearse or (n_flush >= 1 and all(counts[n] == n_flush
                                                       for n in EXECUTION_ONLY)),
     }
+    if not cpu_twin:
+        log(f"{label} execution: checks {checks}")
+        if not all(checks.values()):
+            raise RuntimeError(f"the {label} execution failed its checks: {checks}")
+        return summary, counts
     # The CPU path: the same result and checkpoints, field for field.
     same_result = dataclasses.asdict(result) == dataclasses.asdict(cpu_result)
     cpu_cps = cpu_prog["checkpoints"]
@@ -1186,7 +1309,8 @@ def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehears
     if flipped:
         # Name each flipped goal and its margin: the distance of the metric
         # closest to its band edge on the CPU's blend.
-        specs, con = tuple(goals_by_priority(goals)), BalancingConstraint.default()
+        specs = tuple(goals_by_priority(goals))
+        con = con or BalancingConstraint.default()
         before_c, after_c = mid.to("cpu"), run.model.to("cpu")
         fn = opt._get_placement_score_fn(specs, con, 1)
         for (_, landed_sets), _ in zip(card_flushes, range(4)):
@@ -1205,13 +1329,13 @@ def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehears
                     margin = torch.minimum((metric - upper).abs(), (metric - lower).abs())
                     log(f"  flipped flag: {spec.name} card {bool(card_sat[j])} CPU "
                         f"{bool(cpu_sat[j])}, margin {float(margin[arr.alive].min()):.6g}")
-    log(f"mid execution card vs CPU: result equal {same_result}, checkpoints equal "
+    log(f"{label} execution card vs CPU: result equal {same_result}, checkpoints equal "
         f"{same_cps} ({len(cps)} vs {len(cpu_cps)}), flipped scores {flipped[:5]}; "
         f"checks {checks}")
     if not all(checks.values()) or not (same_result and same_cps):
-        raise RuntimeError(f"the mid execution failed its checks: {checks}, result equal "
-                           f"{same_result}, checkpoints equal {same_cps}")
-    return summary, counts, run
+        raise RuntimeError(f"the {label} execution failed its checks: {checks}, result "
+                           f"equal {same_result}, checkpoints equal {same_cps}")
+    return summary, counts
 
 
 def per_goal_report(run, log, label):
@@ -1605,9 +1729,20 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    # ---- K1: broker aggregates.  Floats within rtol 1e-5 of each column's
-    # max |value| (the kernel sums in another order than index_add_);
-    # counts exact.
+    # ---- K1: broker aggregates.  Exact against the plain version on CPU
+    # copies of the same inputs (the kernel adds each broker's rows in the
+    # CPU index_add_'s row order); the plain version on the card (float
+    # atomics, in no fixed order) within rtol 1e-5 of each column's max.
+
+    def cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+    def same_bits(g, r):
+        g, r = g.cpu(), r.cpu()
+        if g.dtype == torch.float32:
+            return torch.equal(g.view(torch.int32), r.view(torch.int32))
+        return torch.equal(g, r)
+
     k1 = wrappers["broker_aggregates"]
     cap = captured["broker_aggregates"]
     R, B = cap[0].shape[0], cap[5]
@@ -1618,6 +1753,8 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     err = 0.0
     for args in (cap, fix):
         got = k1(*args)
+        if not all(same_bits(g, r) for g, r in zip(got, broker_aggregates_plain(*cpu(args)))):
+            raise RuntimeError("K1 differs from the plain version on the CPU")
         ref = broker_aggregates_plain(*args)
         for g, r in zip(got, ref):
             if g.dtype == torch.int32:
@@ -1641,7 +1778,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         plain_ms=time_ms(torch, lambda: broker_aggregates_plain(*cap)),
         library_ms=time_ms(torch, lambda: acc.zero_().index_add_(0, idx, stacked)),
         bound_ms=bound_ms(_k1_bytes(valid, lead, B)))
-    log(f"K1 broker_aggregates: R={R} B={B} ok, max |err| {err:.3g}")
+    log(f"K1 broker_aggregates: R={R} B={B} equal to the plain version on the CPU (exact); card twin max |err| {err:.3g}")
 
     # ---- K2: best per segment.  Exact.
     k2 = wrappers["best_per_segment"]
@@ -1668,7 +1805,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     # running totals, ``ordered_cumsum``); segments holding a position whose
     # running total lies within 2 eps of a bound are counted.
     k3 = wrappers["prefix_cut"]
-    cap = captured["prefix_cut"]
+    cap = captured["prefix_cut"][:8]  # without the segments' name
     K, C, S = cap[0].shape[0], cap[2].shape[1], cap[7]
 
     def k3_fixture(Kf, Sf, Cf):
@@ -1728,6 +1865,9 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         got, again = ks(*args), ks(*args)
         if not torch.equal(got, again):
             raise RuntimeError("segment_sum differs between two launches")
+        ca = cpu(args)
+        if not same_bits(got, masked_segment_sum(ca[0], ca[1], ca[3], ca[2])):
+            raise RuntimeError("segment_sum differs from the plain version on the CPU")
         ref = masked_segment_sum(args[0], args[1], args[3], args[2])
         scale = ref.abs().amax(dim=0).clamp(min=1e-30)
         rel = ((got - ref).abs() / scale).max().item()
@@ -1742,7 +1882,7 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         plain_ms=time_ms(torch, lambda: masked_segment_sum(cap[0], cap[1], cap[3], cap[2])),
         library_ms=time_ms(torch, lambda: acc_s.zero_().index_add_(0, s0, vz)),
         bound_ms=bound_ms(N + int(cap[2].sum()) * (4 + 4 * C) + S * 4 * C))
-    log(f"K1 segment_sum: N={N} C={C} S={S} ok, deterministic, max |err| {err:.3g}")
+    log(f"K1 segment_sum: N={N} C={C} S={S} equal to the plain version on the CPU (exact), deterministic; card twin max |err| {err:.3g}")
 
     # ---- K5: goal masks.  Exact (score bits and eligible), for every goal
     # of the stack on the captured batch, healthy and with a dead broker.
@@ -2138,27 +2278,36 @@ def check_pipeline_kernels(torch, np, wrappers, log, time_ms, models):
 
 def _k5b_bytes(prevs, model, cand):
     """Bytes K5b must move: each lane's action, replica, endpoints and
-    partner (20) and its flag written (1); the rack branch's replica
-    partitions and brokers, partition rows and broker racks, the topic
-    branch's replica topics, (topic, broker) counts and topic bands, each
-    read once, whole."""
+    partner (20) and its flag written (1); the rack branches' replica
+    partitions and brokers, partition rows and broker racks (and the
+    replication factors for the quota), the topic branch's replica topics,
+    (topic, broker) counts and topic bands, the min-leaders branch's replica
+    topics and leader flags, alive brokers, (topic, broker) leader counts
+    and designated flags, each read once, whole."""
     R, B, T = model.num_replicas_padded, model.num_brokers, model.num_topics
     kinds = {p.kind for p in prevs}
     tables = 0
-    if "rack" in kinds:
+    if kinds & {"rack", "rack_distribution"}:
         tables += R * 8 + model.partition_replicas.numel() * 4 + B * 4
+    if "rack_distribution" in kinds:
+        tables += model.num_partitions * 4
     if "topic_replica_distribution" in kinds:
         tables += R * 4 + T * B * 4 + T * 8
+    if "min_topic_leaders" in kinds:
+        tables += R * 5 + B + T * B * 4 + T
     return cand.k * 21 + tables
 
 
 def _k9_bytes(specs, model):
     """Bytes K9's sweep must move: the alive and valid flags, each broker
     column the stack's kinds read (replica and leader counts, the load and
-    capacity columns, potential NW_OUT, leader bytes-in), the rack goal's
-    replica brokers, partitions and sibling rows and the broker racks, the
-    topic goal's [T, B] counts, every replica's offline and valid flags,
-    each read once; G + 1 flags written."""
+    capacity columns, potential NW_OUT, leader bytes-in), the rack goals'
+    replica brokers, partitions and sibling rows and the broker racks (and
+    the replication factors), the preferred-leader goal's leader, broker,
+    partition and offline rows, preferred column and broker states, the
+    topic goal's [T, B] counts, the min-leaders goal's [T, B] leader counts
+    and designated flags, every replica's offline and valid flags, each read
+    once; G + 1 flags written."""
     R, B, T = model.num_replicas_padded, model.num_brokers, model.num_topics
     cols = set()
     extra = 0
@@ -2175,13 +2324,24 @@ def _k9_bytes(specs, model):
             cols.add("lc")
         elif s.kind == "leader_bytes_in":
             cols.add("lbi")
-        elif s.kind == "rack" and "rack" not in cols:
+        if s.kind in ("rack", "rack_distribution") and "rack" not in cols:
             cols.add("rack")
             extra += R * 8 + model.partition_replicas.numel() * 4 + B * 4
+        if s.kind == "rack_distribution" and "rf" not in cols:
+            cols.add("rf")
+            extra += model.num_partitions * 4
         elif s.kind == "topic_replica_distribution" and "topic" not in cols:
             cols.add("topic")
             extra += T * B * 4
-    per_broker = len(cols - {"rack", "topic"})
+        elif s.kind == "preferred_leader" and "preferred" not in cols:
+            # Leader flags, brokers, partitions and offline flags of the
+            # replicas, the preferred column and the broker states.
+            cols.add("preferred")
+            extra += R * 10 + model.num_partitions * 4 + B
+        elif s.kind == "min_topic_leaders" and "leaders" not in cols:
+            cols.add("leaders")
+            extra += T * B * 4 + T
+    per_broker = len(cols - {"rack", "rf", "topic", "preferred", "leaders"})
     return 2 * B + 4 * B * per_broker + extra + 2 * R + len(specs) + 1
 
 
@@ -2203,17 +2363,29 @@ def _k5_bytes(spec, model, K, accepted):
     kinds, 8 for the load pairs and leader bytes-in), the score and eligible
     flag written (5); every table of the branch read once, whole: the
     offline flags and alive brokers always, the band's metric and limits,
-    the topic counts and limits, or the rack branch's replica partitions,
-    brokers, conflict flags, partition rows and broker racks."""
+    the topic counts and limits, the rack branches' replica partitions,
+    brokers, conflict flags, partition rows and broker racks (and the
+    replication factors), the preferred-leader branch's partner, partition,
+    broker, leader and valid rows, preferred column and broker states, or
+    the min-leaders branch's replica topics and leader flags, (topic,
+    broker) leader counts and designated flags."""
     from cruise_control_tpu_torch.analyzer.goals.kernels import _DELTA_OF_KIND
-    R, B = model.num_replicas_padded, model.num_brokers
+    R, B, T = model.num_replicas_padded, model.num_brokers, model.num_topics
     lane = 16 + 1 + 5 + (1 if accepted is not None else 0)
     tables = R + B
-    if spec.kind == "rack":
+    if spec.kind in ("rack", "rack_distribution"):
         tables += R * (4 + 4 + 1) + model.partition_replicas.numel() * 4 + B * 4
+        if spec.kind == "rack_distribution":
+            tables += model.num_partitions * 4
     elif spec.kind == "topic_replica_distribution":
-        T = model.num_topics
         tables += R * 4 + T * B * 4 + T * 12
+    elif spec.kind == "preferred_leader":
+        # The lane's partner; the replicas' partitions, brokers, leader and
+        # valid flags, the preferred column and the broker states.
+        lane += 4
+        tables += R * 10 + model.num_partitions * 4 + B
+    elif spec.kind == "min_topic_leaders":
+        tables += R * 5 + T * B * 4 + T
     else:
         lane += 4 if _DELTA_OF_KIND.get(spec.kind, spec.resource) in (4, 5, 6) else 8
         tables += B * 12
@@ -2301,6 +2473,520 @@ def _k7_fixture(torch, np, rng, model, ActionType, Candidates):
                       d_leader_bytes_in_src=z, d_leader_bytes_in_dest=z,
                       src_disk=t(src_disk.astype(np.int32)), dest_disk=t(dest_disk))
     return model, cand, t(mask)
+
+
+# ---------------------------------------------------------------------------
+# The goal kinds beyond the 15-goal stack (phase 16)
+# ---------------------------------------------------------------------------
+
+# The facade's default stack when no goals are configured
+# (cruise_control_tpu/analyzer/goals/specs.py:122-139, api/facade.py:146).
+DEFAULT_GOAL_ORDER = STACK[:1] + ["MinTopicLeadersPerBrokerGoal"] + STACK[1:]
+KAFKA_ASSIGNER = ["KafkaAssignerEvenRackAwareGoal", "KafkaAssignerDiskUsageDistributionGoal"]
+# RackAwareDistributionGoal and a goal after it (so that its veto runs).
+RACK_DIST_GOALS = ["RackAwareDistributionGoal", "ReplicaDistributionGoal"]
+# The default order's first goals with no topic goal: the (topic, broker)
+# budgets, and K3's topic cuts, come from MinTopicLeaders alone.
+WINDOW_GOALS = DEFAULT_GOAL_ORDER[:2] + ["ReplicaDistributionGoal"]
+# Every inter-broker goal kind and flag: K10's stack in its kernel checks.
+K10_GOALS = DEFAULT_GOAL_ORDER + ["PreferredLeaderElectionGoal",
+                                  "RackAwareDistributionGoal"] + KAFKA_ASSIGNER
+# 50 brokers on 2 racks at RF 3 (a quota of 2 replicas a rack), seed 2026.
+TWO_RACKS = (50, 2, 40, 84.0, 3)
+DESIGNATED_TOPICS = 4  # the rung's topics with the most partitions
+NEW_KINDS = ("preferred_leader", "min_topic_leaders", "rack_distribution")
+# The new modes' launch counters: name -> (source, JAX function it replaces,
+# the run whose launches the kernel line reports).
+_JK = "cruise_control_tpu/analyzer/goals/kernels.py"
+MODE_KERNELS = {
+    "goal_masks[preferred_leader]": ("cruise_control_tpu_torch/csrc/goal_masks.cu",
+                                     f"{_JK}:560", "demote"),
+    "goal_masks[min_topic_leaders]": ("cruise_control_tpu_torch/csrc/goal_masks.cu",
+                                      f"{_JK}:569", "large designated"),
+    "goal_masks[rack_distribution]": ("cruise_control_tpu_torch/csrc/goal_masks.cu",
+                                      f"{_JK}:599", "rack distribution"),
+    "structural_accepts[min_topic_leaders]": ("cruise_control_tpu_torch/csrc/goal_masks.cu",
+                                              f"{_JK}:476", "large designated"),
+    "structural_accepts[rack_distribution]": ("cruise_control_tpu_torch/csrc/goal_masks.cu",
+                                              f"{_JK}:511", "rack distribution"),
+    "stack_sweep[preferred_leader]": ("cruise_control_tpu_torch/csrc/stack_sweep.cu",
+                                      "cruise_control_tpu/analyzer/optimizer.py:2332",
+                                      "demote"),
+    "stack_sweep[min_topic_leaders]": ("cruise_control_tpu_torch/csrc/stack_sweep.cu",
+                                       "cruise_control_tpu/analyzer/optimizer.py:2332",
+                                       "large designated"),
+    "stack_sweep[rack_distribution]": ("cruise_control_tpu_torch/csrc/stack_sweep.cu",
+                                       "cruise_control_tpu/analyzer/optimizer.py:2332",
+                                       "rack distribution"),
+    "stack_sweep_batch[preferred_leader]": ("cruise_control_tpu_torch/csrc/placement_score.cu",
+                                            "cruise_control_tpu/analyzer/optimizer.py:2392",
+                                            "demote execution"),
+    "stack_sweep_batch[min_topic_leaders]": (
+        "cruise_control_tpu_torch/csrc/placement_score.cu",
+        "cruise_control_tpu/analyzer/optimizer.py:2392", "default order execution"),
+    "stack_sweep_batch[rack_distribution]": (
+        "cruise_control_tpu_torch/csrc/placement_score.cu",
+        "cruise_control_tpu/analyzer/optimizer.py:2392", "rack distribution execution"),
+    "prefix_cut[topic]": ("cruise_control_tpu_torch/csrc/prefix_cut.cu", f"{_JK}:1031",
+                          "window"),
+}
+
+
+def designated_constraint(torch, model, n=DESIGNATED_TOPICS):
+    """The default constraint with the ``n`` topics of ``model`` that have the
+    most partitions designated for MinTopicLeadersPerBrokerGoal (one leader
+    each per broker)."""
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    valid = model.partition_valid.cpu()
+    counts = torch.bincount(model.partition_topic.cpu()[valid].long(),
+                            minlength=model.num_topics)
+    top = torch.argsort(-counts, stable=True)[:n].tolist()
+    return dataclasses.replace(BalancingConstraint.default(), min_leader_topic_ids=tuple(top),
+                               min_topic_leaders_per_broker=1), counts[top].tolist()
+
+
+def demoted(torch, model, brokers):
+    """``model`` with ``brokers`` DEMOTED, and request options excluding them
+    from leadership: what the facade's demote_brokers hands the optimizer."""
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
+    from cruise_control_tpu_torch.model.tensor_model import BrokerState
+    for b in brokers:
+        model = model.set_broker_state(b, BrokerState.DEMOTED)
+    mask = torch.zeros((model.num_brokers,), dtype=torch.bool, device=model.device)
+    mask[list(brokers)] = True
+    options = dataclasses.replace(OptimizationOptions.none(model),
+                                  broker_excluded_leadership=mask)
+    return model, options
+
+
+def broken_preference(torch, model):
+    """The second replica leads every partition of RF >= 2
+    (tests/test_goals_extended.py:30-41)."""
+    pr = model.partition_replicas
+    rows = pr[:, 1] >= 0
+    lead = model.replica_is_leader.clone()
+    lead[pr[rows, 0].long()] = False
+    lead[pr[rows, 1].long()] = True
+    return model.replace(replica_is_leader=lead)
+
+
+def one_rack(torch, np, model, every=3):
+    """Every ``every``-th partition's replicas moved onto distinct brokers of
+    rack 0: over the quota of a 2-rack, RF-3 cluster."""
+    rb = model.replica_broker.cpu().numpy().copy()
+    on_rack0 = np.nonzero(model.broker_rack.cpu().numpy() == 0)[0]
+    pr = model.partition_replicas.cpu().numpy()
+    for p in range(0, pr.shape[0], every):
+        reps = pr[p][pr[p] >= 0]
+        if len(reps) <= len(on_rack0):
+            rb[reps] = on_rack0[(p + np.arange(len(reps))) % len(on_rack0)]
+    first = model.broker_first_disk.cpu().numpy()
+    t = torch.from_numpy(rb.astype(np.int32)).to(model.device)
+    disk = torch.from_numpy(first[rb].astype(np.int32)).to(model.device)
+    return model.replace(replica_broker=t, replica_original_broker=t, replica_disk=disk)
+
+
+def movable_leaders_on(model, brokers):
+    """Leaders on ``brokers`` with a valid, online sibling on an alive,
+    non-demoted broker (api/facade.py:890-909 ``_movable_leaders_on``)."""
+    import numpy as np
+    from cruise_control_tpu_torch.model.tensor_model import BrokerState
+    rb = model.replica_broker.cpu().numpy()
+    lead = model.replica_is_leader.cpu().numpy()
+    valid = model.replica_valid.cpu().numpy()
+    part = model.replica_partition.cpu().numpy()
+    pr = model.partition_replicas.cpu().numpy()
+    state = model.broker_state.cpu().numpy()
+    offline = model.replica_offline_now().cpu().numpy()
+    count = 0
+    for r in np.nonzero(lead & valid & np.isin(rb, list(brokers)))[0]:
+        for s in pr[part[r]]:
+            if s < 0 or s == r or not valid[s] or offline[s]:
+                continue
+            if state[rb[s]] not in (BrokerState.DEAD, BrokerState.DEMOTED):
+                count += 1
+                break
+    return count
+
+
+def _clone(torch, x):
+    """A deep copy of a kernel argument: tensors cloned, dataclasses of
+    tensors (models, arrays, candidates) field by field."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(torch, a) for a in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _clone(torch, getattr(x, f.name))
+                                         for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+class ModeCapture:
+    """While entered, keeps a deep copy of the inputs of the first launch of
+    K5, K5b and K9's sweep that computes each new goal kind, and of K3's
+    first topic cut (outside CUDA graph captures: a graph's eager warm-up
+    run calls every wrapper with its real inputs)."""
+
+    def __init__(self, torch, cuda):
+        self.torch, self.cuda, self.inputs = torch, cuda, {}
+        self.real = cuda.record
+
+    def __enter__(self):
+        self.cuda.record = self.record
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda.record = self.real
+
+    def record(self, name, args):
+        self.real(name, args)
+        if name == "goal_masks":
+            kinds = {args[0].kind}
+        elif name in ("structural_accepts", "stack_sweep"):
+            kinds = {s.kind for s in args[0]}
+        elif name == "prefix_cut":
+            kinds = {args[-1]}
+        else:
+            return
+        torch = self.torch
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            return
+        for kind in kinds & set(NEW_KINDS + ("topic",)):
+            if (name, kind) not in self.inputs:
+                self.inputs[(name, kind)] = _clone(torch, args)
+
+
+def log_goals(log, label, run, kinds=("MinTopicLeadersPerBrokerGoal",
+                                      "PreferredLeaderElectionGoal",
+                                      "RackAwareDistributionGoal")):
+    """One line per goal of ``run`` (flags, steps, actions, wall), and the
+    new goals' flags before and after."""
+    for g in run.goal_results:
+        log(f"  {label} {g.name:38s} steps={g.steps:3d} actions={g.actions_applied:5d} "
+            f"satisfied {g.satisfied_before}->{g.satisfied_after} {g.duration_s:.3f}s "
+            f"pipelined={g.pipelined} fused={g.fused_group}")
+    return {g.name: (g.satisfied_before, g.satisfied_after) for g in run.goal_results
+            if g.name in kinds}
+
+
+def leaders_moved(before, after):
+    """Partitions whose leader replica changed."""
+    changed = (before.replica_is_leader != after.replica_is_leader) & before.replica_valid
+    return int(changed.sum()) // 2
+
+
+def verify_if_hard_held(log, label, initial, run, goals, con):
+    """``verify_run`` when every hard goal ended satisfied (a solve may leave
+    one unsatisfied, as ``facade._optimize``'s raise_on_hard_failure=False
+    allows); the unsatisfied hard goals otherwise, logged."""
+    from cruise_control_tpu_torch.analyzer import proposals as props
+    from cruise_control_tpu_torch.analyzer.verifier import verify_run
+    bad = [g.name for g in run.goal_results if g.is_hard and not g.satisfied_after]
+    if bad:
+        log(f"  {label}: hard goals left unsatisfied {bad}; verify_run skipped")
+        return False
+    verify_run(initial, run, goals, constraint=con, proposals=props.diff(initial, run.model))
+    return True
+
+
+def check_goal_kinds(cx):
+    """Phase 16: the goal kinds beyond the 15-goal stack on their paths.
+    ``cx`` carries main's helpers.  Returns (kernel rows of the new modes,
+    launch counts per run, summary)."""
+    torch, np, opt, props, gk, cuda = cx.torch, cx.np, cx.opt, cx.props, cx.gk, cx.cuda
+    log, dev, rehearse = cx.log, cx.dev, cx.rehearse
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    counts, summary = {}, {}
+
+    def run_all_counts(fn):
+        cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0, cuda.launch_counts()
+
+    def need_launched(label, c, names):
+        idle = [n for n in names if c.get(n, 0) == 0]
+        if not rehearse and idle:
+            raise RuntimeError(f"{label}: kernels not launched: {idle}")
+
+    def card_cpu(label, make, goals, con, **kw):
+        """``goals`` on the card (a warm-up that captures, then a timed run
+        with the counters set to 0 just before) and on the CPU plain path:
+        per-goal rows and placement equal."""
+        model = make(dev)
+        cx.fused_run(model, goals, constraint=con, **kw)
+        run, wall, c = run_all_counts(lambda: cx.fused_run(model, goals, constraint=con, **kw))
+        t0 = time.monotonic()
+        cpu_model = make("cpu")
+        run_cpu = opt.optimize(cpu_model, goals, constraint=con, fused=True,
+                               raise_on_hard_failure=False, device="cpu", **kw)
+        cx.compare_card_cpu(run, run_cpu, cx.same_placement, log, label,
+                            time.monotonic() - t0)
+        return model, run, wall, c
+
+    capture = ModeCapture(torch, cuda)
+    with capture:
+        # 1. The default order with designated topics: mid on the grouped
+        # path (card against CPU), large on the sequential and the pipelined
+        # path; then the order with no designated topic.
+        mid_con, mid_top = designated_constraint(torch, cx.mid)
+        log(f"designated topics (mid): {mid_con.min_leader_topic_ids}, partitions {mid_top}")
+        mid_d, run_mid, mid_wall, c = card_cpu(
+            "mid default order (designated)",
+            lambda d: cx.generate_cluster(cx.spec_of(cx.mid_rung), device=d),
+            DEFAULT_GOAL_ORDER, mid_con)
+        counts["mid designated"] = c
+        need_launched("mid default order", c, ["goal_masks[min_topic_leaders]",
+                                                "structural_accepts[min_topic_leaders]",
+                                                "stack_sweep[min_topic_leaders]",
+                                                "prefix_cut[topic]"])
+        flags = log_goals(log, "mid-designated", run_mid)
+        verify_if_hard_held(log, "mid-designated", mid_d, run_mid, DEFAULT_GOAL_ORDER, mid_con)
+        summary["mid designated"] = dict(
+            wall_s=round(mid_wall, 4), steps=sum(g.steps for g in run_mid.goal_results),
+            min_leaders=flags.get("MinTopicLeadersPerBrokerGoal"),
+            leaders_moved=leaders_moved(mid_d, run_mid.model))
+        log(f"mid default order (designated): {summary['mid designated']}")
+
+        # The window of goals before the topic goal, no designated topic:
+        # the topic cuts come from the min-leaders budgets alone.
+        _, win_wall, c = run_all_counts(lambda: cx.fused_run(cx.mid, WINDOW_GOALS))
+        counts["window"] = c
+        log(f"mid {WINDOW_GOALS} (no designated topic): {win_wall:.3f} s, K3 topic cuts "
+            f"{c['prefix_cut[topic]']}, broker cuts {c['prefix_cut[broker]']}")
+        need_launched("window", c, ["prefix_cut[topic]"])
+
+        large = cx.large
+        con_l, top_l = designated_constraint(torch, large)
+        log(f"designated topics (large): {con_l.min_leader_topic_ids}, partitions {top_l}")
+        runs_l = {}
+        for label, kw in (("sequential", cx.per_goal), ("pipelined", {})):
+            cx.fused_run(large, DEFAULT_GOAL_ORDER, constraint=con_l, **kw)  # captures
+            sweeps0 = dict(opt.SWEEP_COUNTERS)
+            run, wall, c = run_all_counts(
+                lambda: cx.fused_run(large, DEFAULT_GOAL_ORDER, constraint=con_l, **kw))
+            runs_l[label] = run
+            counts[f"large designated {label}"] = c
+            flags = log_goals(log, f"large-designated-{label}", run)
+            report = (cx.pipeline_report if label == "pipelined" else cx.per_goal_report)(
+                run, log, f"large-designated-{label}")
+            summary[f"large designated {label}"] = dict(
+                wall_s=round(wall, 4), pipelined=run.pipelined,
+                goals_overlapped=run.goals_overlapped, goals_fused=run.goals_fused,
+                goals_skipped=run.goals_skipped, min_leaders=flags.get(
+                    "MinTopicLeadersPerBrokerGoal"),
+                leaders_moved=leaders_moved(large, run.model),
+                sweeps={k: opt.SWEEP_COUNTERS[k] - sweeps0[k] for k in sweeps0}, **report)
+            log(f"large default order (designated) {label}: "
+                f"{summary[f'large designated {label}']}")
+        counts["large designated"] = counts["large designated pipelined"]
+        need_launched("large designated pipelined", counts["large designated"],
+                      [n for n, v in MODE_KERNELS.items() if v[2] == "large designated"])
+        if not cx.same_placement(runs_l["pipelined"], runs_l["sequential"]):
+            raise RuntimeError("the large default order (designated): the pipelined run "
+                               "placed replicas otherwise than the sequential one")
+        verify_if_hard_held(log, "large-designated", large, runs_l["pipelined"],
+                            DEFAULT_GOAL_ORDER, con_l)
+        if not rehearse:
+            prof = cx.profile_mid(torch, lambda: cx.fused_run(large, DEFAULT_GOAL_ORDER,
+                                                              constraint=con_l),
+                                  summary["large designated pipelined"]["wall_s"],
+                                  summary["large designated pipelined"]["steps"],
+                                  "large-designated-pipelined", log)
+            summary["large designated pipelined"]["busy"] = prof["busy"]
+        cx.fused_run(large, DEFAULT_GOAL_ORDER)  # captures
+        run_free, free_wall, c = run_all_counts(lambda: cx.fused_run(large, DEFAULT_GOAL_ORDER))
+        counts["large no designated"] = c
+        cx.check_run("large-no-designated", large, run_free, DEFAULT_GOAL_ORDER)
+        summary["large no designated"] = dict(
+            wall_s=round(free_wall, 4), steps=sum(g.steps for g in run_free.goal_results),
+            pipelined=run_free.pipelined, topic_cuts=c["prefix_cut[topic]"])
+        log(f"large default order (no designated topic): {summary['large no designated']}")
+        need_launched("large no designated", c, ["prefix_cut[topic]"])
+
+        # 2. Demote: every tenth broker DEMOTED with its leadership excluded,
+        # PreferredLeaderElectionGoal as facade.demote_brokers runs it; then
+        # the broken-preference recipe.
+        brokers = list(range(0, large.num_brokers, 10))
+        model_d, opts_d = demoted(torch, large, brokers)
+        before_left = movable_leaders_on(model_d, brokers)
+        cx.fused_run(model_d, ["PreferredLeaderElectionGoal"], options=opts_d)
+        run_d, wall_d, c = run_all_counts(lambda: cx.fused_run(
+            model_d, ["PreferredLeaderElectionGoal"], options=opts_d))
+        counts["demote"] = c
+        left = movable_leaders_on(run_d.model, brokers)
+        moved = int((run_d.model.replica_broker != model_d.replica_broker).sum())
+        summary["demote"] = dict(brokers=len(brokers), movable_leaders_before=before_left,
+                                 movable_leaders_after=left, replicas_moved=moved,
+                                 leaders_moved=leaders_moved(model_d, run_d.model),
+                                 wall_s=round(wall_d, 4),
+                                 steps=sum(g.steps for g in run_d.goal_results))
+        log_goals(log, "demote", run_d)
+        log(f"demote at {large.num_brokers} brokers: {summary['demote']}")
+        if left or moved or not before_left:
+            raise RuntimeError(f"demote: {left} movable leaders left on demoted brokers, "
+                               f"{moved} replicas moved ({before_left} before)")
+        need_launched("demote", c, [n for n, v in MODE_KERNELS.items() if v[2] == "demote"])
+        model_p = broken_preference(torch, large)
+        run_p = cx.fused_run(model_p, ["PreferredLeaderElectionGoal"])
+        pref = run_p.model.partition_replicas[:, 0]
+        led = bool(run_p.model.replica_is_leader[pref[pref >= 0].long()].all())
+        summary["broken preference"] = dict(
+            leaders_moved=leaders_moved(model_p, run_p.model), preferred_lead=led,
+            replicas_moved=int((run_p.model.replica_broker != model_p.replica_broker).sum()))
+        log(f"broken preference at {large.num_brokers} brokers: {summary['broken preference']}")
+        if not led or summary["broken preference"]["replicas_moved"]:
+            raise RuntimeError("broken preference: a preferred replica does not lead, or a "
+                               "replica moved")
+
+        # 3. The kafka-assigner pair on mid, and rack distribution on the
+        # 2-rack cluster; each card against CPU.
+        con0 = BalancingConstraint.default()
+        _, run_k, wall_k, c = card_cpu(
+            "mid kafka-assigner",
+            lambda d: cx.generate_cluster(cx.spec_of(cx.mid_rung), device=d),
+            KAFKA_ASSIGNER, con0)
+        counts["kafka-assigner"] = c
+        racks = int(run_k.model.partition_rack_counts().max())
+        log_goals(log, "kafka-assigner", run_k)
+        summary["kafka-assigner"] = dict(wall_s=round(wall_k, 4), max_replicas_a_rack=racks)
+        log(f"mid kafka-assigner: {summary['kafka-assigner']}")
+        if racks > 1:
+            raise RuntimeError(f"kafka-assigner: {racks} replicas of a partition on a rack")
+        two_racks = cx.two_racks_rung
+        rd_model, run_rd, wall_rd, c = card_cpu(
+            f"{two_racks[0]}-broker 2-rack rack distribution",
+            lambda d: one_rack(torch, np, cx.generate_cluster(cx.spec_of(two_racks), device=d)),
+            RACK_DIST_GOALS, con0)
+        counts["rack distribution"] = c
+        flags = log_goals(log, "rack-distribution", run_rd)
+        summary["rack distribution"] = dict(wall_s=round(wall_rd, 4),
+                                            flags=flags.get("RackAwareDistributionGoal"))
+        log(f"2-rack rack distribution: {summary['rack distribution']}")
+        if flags.get("RackAwareDistributionGoal") != (False, True):
+            raise RuntimeError(f"rack distribution: flags {flags}")
+        need_launched("rack distribution", c,
+                      [n for n, v in MODE_KERNELS.items() if v[2] == "rack distribution"])
+
+        # 4. The default order with designated topics at 100 brokers,
+        # pipelined: card against CPU.
+        h_con, _ = designated_constraint(torch, cx.generate_cluster(
+            cx.spec_of(cx.hundred_rung), device="cpu"))
+        card_cpu(f"{cx.hundred_rung[0]}-broker default order (designated) pipelined",
+                 lambda d: cx.generate_cluster(cx.spec_of(cx.hundred_rung), device=d),
+                 DEFAULT_GOAL_ORDER, h_con)
+
+    # 5. The ledger of executing such solves scores the new kinds in K10.
+    mid_dem, opts_m = demoted(torch, cx.mid, list(range(0, cx.mid.num_brokers, 10)))
+    run_md = cx.fused_run(mid_dem, ["PreferredLeaderElectionGoal"], options=opts_m)
+    for label, before, run, con in (
+            ("default order", mid_d, run_mid, mid_con),
+            ("demote", mid_dem, run_md, con0),
+            ("rack distribution", rd_model, run_rd, con0)):
+        s, c = cx.execute(before, run, con, f"mid {label}" if label != "rack distribution"
+                          else f"{two_racks[0]}-broker {label}")
+        counts[f"{label} execution"] = c
+        summary[f"{label} execution"] = s
+        need_launched(f"{label} execution", c,
+                      [n for n, v in MODE_KERNELS.items() if v[2] == f"{label} execution"])
+
+    # 6. The new modes against their plain twins on the captured inputs,
+    # healthy and with a dead broker.
+    rows = check_mode_kernels(torch, np, gk, cuda, capture.inputs, log, cx.timer, rehearse)
+    for name, (_, _, run_label) in MODE_KERNELS.items():
+        if name in rows:
+            rows[name]["launches"] = counts[run_label].get(name, 0)
+            rows[name]["launches_run"] = run_label
+    return rows, counts, summary
+
+
+def check_mode_kernels(torch, np, gk, cuda, inputs, log, time_ms, rehearse):
+    """K5's, K5b's and K9's new modes on the inputs ``ModeCapture`` kept,
+    and on the same inputs with broker 2 dead: the kernel against its plain
+    twin, exactly (score bits, flags).  Each timed (CUDA events, median;
+    device time under the profiler) beside its plain twin and its bound.
+    K3's topic cuts were held against their twin in phase 4's K3 check (the
+    same kernel); their row reports the launches only."""
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    from cruise_control_tpu_torch.model.tensor_model import BrokerState
+    wrappers = {"goal_masks": (gk.goal_masks, gk.goal_masks_plain),
+                "structural_accepts": (gk.structural_accepts, gk.structural_accepts_plain),
+                "stack_sweep": (gk.stack_satisfied, gk.stack_satisfied_plain)}
+    rows = {}
+    topic_cut = inputs.pop(("prefix_cut", "topic"), None)
+    if topic_cut is not None:
+        args = topic_cut[:8]
+        got = gk.prefix_cut_admit(*topic_cut)
+        if not torch.equal(got, gk.prefix_cut_admit_plain(*args)):
+            raise RuntimeError("K3's topic cut disagrees with its plain twin")
+        K, C, S = args[0].shape[0], args[2].shape[1], args[7]
+        rows["prefix_cut[topic]"] = dict(
+            max_abs_err=0.0, ms=time_ms(torch, lambda: gk.prefix_cut_admit(*topic_cut)),
+            plain_ms=time_ms(torch, lambda: gk.prefix_cut_admit_plain(*args)),
+            library_ms=None,
+            bound_ms=bound_ms(K * 10 + int(args[3].sum()) * 4 * C + S * 12 * C),
+            device_ms=None if rehearse else device_ms(
+                torch, lambda: gk.prefix_cut_admit(*topic_cut), ("prefix_cut_kernel",
+                                                                 "scan_blocks_kernel",
+                                                                 "block_totals_kernel",
+                                                                 "add_back_kernel"), log),
+            shape=dict(K=K, C=C, S=S))
+        log(f"prefix_cut[topic]: K={K} C={C} S={S} equal to the plain twin (exact)")
+    elif not rehearse:
+        raise RuntimeError("no captured input for K3's topic cut")
+    for (name, kind), args in sorted(inputs.items()):
+        kernel, plain = wrappers[name]
+        specs = (args[0],) if name == "goal_masks" else tuple(args[0])
+        model = args[1]
+        checked = 0
+        for m in (model, model.set_broker_state(2, BrokerState.DEAD)):
+            arr = BrokerArrays.for_specs(m, specs)
+            call = (args[0], m, arr) + tuple(args[3:])
+            got, ref = kernel(*call), plain(*call)
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for g, r in zip(got, ref):
+                g = g.view(torch.int32) if g.dtype == torch.float32 else g
+                r = r.view(torch.int32) if r.dtype == torch.float32 else r
+                if not torch.equal(g, r):
+                    raise RuntimeError(f"{name}[{kind}] disagrees with its plain twin "
+                                       f"({int((g != r).sum())} entries)")
+            checked += 1
+        # Time the mode alone: K9 on the goals of this kind only.
+        if name == "stack_sweep":
+            timed = (tuple(s for s in args[0] if s.kind == kind),) + tuple(args[1:])
+        else:
+            timed = args
+        names = {"goal_masks": ("goal_masks_kernel",),
+                 "structural_accepts": ("structural_accepts_kernel",),
+                 "stack_sweep": ("stack_sweep_kernel",)}[name]
+        nbytes = {"goal_masks": lambda: _k5_bytes(args[0], model, args[3].k, args[6]),
+                  "structural_accepts": lambda: _k5b_bytes(
+                      [s for s in args[0] if s.kind == kind], model, args[3]),
+                  "stack_sweep": lambda: _k9_bytes(timed[0], model)}[name]()
+        rows[f"{name}[{kind}]"] = dict(
+            max_abs_err=0.0, ms=time_ms(torch, lambda: kernel(*timed)),
+            plain_ms=time_ms(torch, lambda: plain(*timed)), library_ms=None,
+            bound_ms=bound_ms(nbytes),
+            device_ms=None if rehearse else device_ms(torch, lambda: kernel(*timed), names,
+                                                      log),
+            shape=dict(K=args[3].k if name != "stack_sweep" else None,
+                       G=len(timed[0]) if name == "stack_sweep" else None,
+                       R=model.num_replicas_padded, B=model.num_brokers,
+                       T=model.num_topics))
+        r = rows[f"{name}[{kind}]"]
+        log(f"{name}[{kind}]: healthy and dead broker equal to the plain twin (exact, "
+            f"{checked} inputs); kernel {r['ms']:.4f} ms (device {r['device_ms']}), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms; {r['shape']}")
+    missing = [f"{n}[{k}]" for n in wrappers for k in NEW_KINDS
+               if (n, k) not in inputs and not (n == "structural_accepts"
+                                                and k == "preferred_leader")]
+    if missing and not rehearse:
+        raise RuntimeError(f"no captured input for {missing}")
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Vectorized goal semantics, and K3.
 
-Counterpart of ``cruise_control_tpu/analyzer/goals/kernels.py`` for the goal
-kinds of the default stack (``rack``, ``replica_capacity``, ``capacity``,
-``replica_distribution``, ``potential_nw_out``, ``resource_distribution``,
+Counterpart of ``cruise_control_tpu/analyzer/goals/kernels.py`` for every
+inter-broker goal kind: the default stack's (``rack``,
+``replica_capacity``, ``capacity``, ``replica_distribution``,
+``potential_nw_out``, ``resource_distribution``,
 ``topic_replica_distribution``, ``leader_replica_distribution``,
-``leader_bytes_in``).  The other kinds (``rack_distribution``,
-``preferred_leader``, ``min_topic_leaders``, ``intra_disk_*``) raise
-``NotImplementedError``: they wait for a later slice.
+``leader_bytes_in``), ``rack_distribution``, ``preferred_leader`` and
+``min_topic_leaders``, kafka-assigner mode included.  The intra-broker disk
+kinds (``intra_disk_*``) raise ``NotImplementedError``: they wait for a
+later slice.
 
 - ``broker_metric`` / ``limits`` / ``violated_brokers`` — per-broker balance
   quantity and its [lower, upper] band.
@@ -51,9 +53,9 @@ from cruise_control_tpu_torch.analyzer.actions import Candidates
 from cruise_control_tpu_torch.analyzer.balancing_constraint import (BALANCE_MARGIN,
                                                                     BalancingConstraint)
 from cruise_control_tpu_torch.analyzer.goals.specs import GoalSpec
-from cruise_control_tpu_torch.analyzer.state import BrokerArrays, topic_counts
+from cruise_control_tpu_torch.analyzer.state import BrokerArrays, topic_counts, topic_leaders
 from cruise_control_tpu_torch.common.resources import Resource
-from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
+from cruise_control_tpu_torch.model.tensor_model import BrokerState, TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda, order
 from cruise_control_tpu_torch.ops.segment import masked_segment_count
 
@@ -64,7 +66,8 @@ MIN_SCORE = 1e-9  # strictly-positive improvement required (greedy accept)
 SUPPORTED_KINDS = ("rack", "replica_capacity", "capacity", "replica_distribution",
                    "potential_nw_out", "resource_distribution",
                    "topic_replica_distribution", "leader_replica_distribution",
-                   "leader_bytes_in")
+                   "leader_bytes_in", "rack_distribution", "preferred_leader",
+                   "min_topic_leaders")
 
 _BAND_KINDS = ("capacity", "resource_distribution", "replica_capacity",
                "replica_distribution", "leader_replica_distribution",
@@ -72,10 +75,9 @@ _BAND_KINDS = ("capacity", "resource_distribution", "replica_capacity",
 
 
 def require_supported(spec: GoalSpec) -> None:
-    if spec.kind not in SUPPORTED_KINDS or spec.kafka_assigner_mode:
-        what = "kafka-assigner mode" if spec.kafka_assigner_mode else "goal kind"
+    if spec.kind not in SUPPORTED_KINDS:
         raise NotImplementedError(
-            f"{what} {spec.kind!r} ({spec.name}) is not ported yet")
+            f"goal kind {spec.kind!r} ({spec.name}) is not ported yet")
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -137,7 +139,7 @@ def broker_metric(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArray
         return arrays.potential_nw_out
     if kind == "leader_bytes_in":
         return arrays.leader_bytes_in
-    if kind == "rack":
+    if kind in ("rack", "rack_distribution"):
         conflict = _replica_rack_conflict(spec, model)
         return masked_segment_count(model.replica_broker, model.num_brokers,
                                     model.replica_valid & conflict).to(torch.float32)
@@ -147,7 +149,66 @@ def broker_metric(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArray
         excess = torch.clamp(tbc - upper_t[:, None], min=0.0) + \
             torch.clamp(lower_t[:, None] - tbc, min=0.0)
         return excess.sum(dim=0)
+    if kind == "preferred_leader":
+        # Wrongly-led partitions whose current leader sits on the broker.
+        return masked_segment_count(model.replica_broker, model.num_brokers,
+                                    _wrong_leader_mask(model)).to(torch.float32)
+    if kind == "min_topic_leaders":
+        return _min_topic_leader_shortfall(model, arrays, constraint)
     raise NotImplementedError(f"goal kind {kind}")
+
+
+def _wrong_leader_mask(model: TensorClusterModel) -> torch.Tensor:
+    """bool[R] — the replica leads a partition whose preferred replica is a
+    different, online, non-demoted replica, or leads from a DEMOTED broker
+    (the demote path).  Pad partitions (preferred -1) read replica 0 behind
+    the ``preferred >= 0`` guard."""
+    preferred = model.preferred_leader_replica()[model.replica_partition]
+    r_idx = torch.arange(model.num_replicas_padded, dtype=torch.int32, device=model.device)
+    safe_pref = torch.clamp(preferred, min=0)
+    pref_broker = model.replica_broker[safe_pref]
+    pref_ok = (model.replica_valid[safe_pref]
+               & ~model.replica_offline_now()[safe_pref]
+               & (model.broker_state[pref_broker] != BrokerState.DEMOTED)
+               & (preferred >= 0))
+    on_demoted = model.broker_state[model.replica_broker] == BrokerState.DEMOTED
+    return (model.replica_is_leader & model.replica_valid
+            & (((preferred != r_idx) & pref_ok) | on_demoted))
+
+
+# Never evicted: the captured step graphs read these tensors by address, so
+# they must outlive every graph (a freed block would be reused under them).
+@functools.lru_cache(maxsize=None)
+def _designated_table(num_topics: int, ids: Tuple[int, ...],
+                      device: torch.device) -> torch.Tensor:
+    """bool[T] with the listed topic ids set, uploaded once per (topics,
+    ids, device).  Ids at or past ``num_topics`` are dropped and negative
+    ones count from the end, as the JAX package's scatter takes them."""
+    mask = np.zeros((num_topics,), dtype=bool)
+    for t in ids:
+        if t < num_topics and t >= -num_topics:
+            mask[t] = True
+    return torch.from_numpy(mask).to(device)
+
+
+def _designated_topic_mask(model: TensorClusterModel,
+                           constraint: BalancingConstraint) -> torch.Tensor:
+    """bool[T] — topics designated for min-leader enforcement (the
+    constraint's config-static ``min_leader_topic_ids``)."""
+    return _designated_table(model.num_topics, tuple(constraint.min_leader_topic_ids),
+                             model.device)
+
+
+def _min_topic_leader_shortfall(model: TensorClusterModel, arrays: BrokerArrays,
+                                constraint: BalancingConstraint) -> torch.Tensor:
+    """f32[B] — sum over designated topics of max(0, min - leaders(t, b))
+    for alive brokers (an integer-valued sum, so exact in any order)."""
+    tlc = topic_leaders(model, arrays).to(torch.float32)
+    need = float(constraint.min_topic_leaders_per_broker)
+    designated = _designated_topic_mask(model, constraint)[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=tlc.device)
+    shortfall = torch.where(designated, torch.clamp(need - tlc, min=0.0), zero).sum(dim=0)
+    return torch.where(arrays.alive, shortfall, zero)
 
 
 def limits(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
@@ -194,7 +255,8 @@ def limits(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         avg = order.ordered_sum(torch.where(arrays.alive, arrays.leader_bytes_in, 0.0)) \
             / arrays.num_alive.to(torch.float32)
         return zero, (avg * bp).expand(B)
-    if kind in ("rack", "topic_replica_distribution"):
+    if kind in ("rack", "rack_distribution", "topic_replica_distribution",
+                "preferred_leader", "min_topic_leaders"):
         return zero, zero
     raise NotImplementedError(f"goal kind {kind}")
 
@@ -223,7 +285,10 @@ def goal_satisfied(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArra
 _SWEEP_KINDS = ("capacity", "potential_nw_out", "replica_capacity",
                 "resource_distribution", "replica_distribution",
                 "leader_replica_distribution", "leader_bytes_in", "rack",
-                "topic_replica_distribution")
+                "topic_replica_distribution", "rack_distribution", "preferred_leader",
+                "min_topic_leaders")
+_SWEEP_COUNTS = cuda.mode_counters("stack_sweep", _SWEEP_KINDS)
+_BATCH_SWEEP_COUNTS = cuda.mode_counters("stack_sweep_batch", _SWEEP_KINDS)
 
 
 def _sweep_params(spec: GoalSpec, constraint: BalancingConstraint):
@@ -253,6 +318,8 @@ def _sweep_params(spec: GoalSpec, constraint: BalancingConstraint):
     elif kind == "topic_replica_distribution":
         bp = _margin_pct(constraint.topic_replica_count_balance_threshold)
         a, b = bp, 2.0 - bp
+    elif kind == "min_topic_leaders":
+        a = float(constraint.min_topic_leaders_per_broker)
     ints = [_SWEEP_KINDS.index(kind), max(int(res), 0), int(spec.is_hard)]
     return ints, [_metric_epsilon(spec), a, b, c]
 
@@ -289,13 +356,17 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
     goals, plus ``any_offline``): ``(sat bool[G], any_offline bool[1])``.
     With G = 1 it gives a chunk's satisfied-at-entry and -exit flags.
     Bound on the card: bytes (the broker rows once per goal; the rack
-    goal's replica and sibling rows; the topic goal's [T, B] counts; the
-    offline flags once).  CPU tensors take ``stack_satisfied_plain``;
-    CUDA tensors launch one block per goal, with a parameter table of
-    (kind, resource, is_hard, epsilon, thresholds), and one block for the
-    offline flag: band kinds reduce their alive sums in a fixed order and
-    test every broker against its band, the rack goal walks the replicas'
-    siblings, the topic goal reads the topic counts.  Exact booleans."""
+    goals' replica and sibling rows; the preferred-leader goal's leader,
+    preferred-replica and broker-state rows; the topic goal's [T, B]
+    counts, the min-leaders goal's [T, B] leader counts; the offline flags
+    once).  CPU tensors take ``stack_satisfied_plain``; CUDA tensors launch
+    one block per goal, with a parameter table of (kind, resource, is_hard,
+    epsilon, thresholds), and one block for the offline flag: band kinds
+    reduce their alive sums in a fixed order and test every broker against
+    its band, the rack goals walk the replicas' siblings (against "no
+    sibling on the rack" or the ceil(rf / racks) quota), the preferred-
+    leader goal tests every leader, the topic goals read their counts.
+    Exact booleans."""
     specs = tuple(specs)
     for s in specs:
         require_supported(s)
@@ -304,21 +375,36 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
     if cuda.on_cpu(arrays.load):
         return stack_satisfied_plain(specs, model, arrays, constraint)
     ints, floats = _sweep_table(specs, constraint, dev)
-    kinds = {s.kind for s in specs}
-    tbc = topic_counts(model, arrays).contiguous() \
-        if "topic_replica_distribution" in kinds else None
+    tables = _sweep_tables(specs, model, arrays, constraint)
     sat = torch.empty((len(specs),), dtype=torch.bool, device=dev)
     off = torch.empty((1,), dtype=torch.bool, device=dev)
     cuda.launch("stack_sweep", len(specs), model.num_brokers, model.num_replicas_padded,
-                model.num_topics, model.max_rf, ints, floats, arrays.alive, arrays.valid,
-                arrays.replica_count, arrays.leader_count, arrays.load.contiguous(),
-                arrays.capacity.contiguous(), arrays.potential_nw_out.contiguous(),
-                arrays.leader_bytes_in.contiguous(), arrays.num_alive.reshape(1), tbc,
-                model.replica_broker, model.replica_valid, model.replica_partition,
-                model.partition_replicas, model.broker_rack, model.replica_offline_now(),
-                sat, off)
+                model.num_topics, model.max_rf, model.num_racks, ints, floats, arrays.alive,
+                arrays.valid, arrays.replica_count, arrays.leader_count,
+                arrays.load.contiguous(), arrays.capacity.contiguous(),
+                arrays.potential_nw_out.contiguous(), arrays.leader_bytes_in.contiguous(),
+                arrays.num_alive.reshape(1), *tables, model.replica_broker,
+                model.replica_valid, model.replica_partition, model.partition_replicas,
+                model.broker_rack, model.broker_state, model.replica_is_leader,
+                model.replica_offline_now(), sat, off)
     stack_satisfied.launches += 1
+    for kind in {s.kind for s in specs}:
+        _SWEEP_COUNTS[kind].launches += 1
     return sat, off
+
+
+def _sweep_tables(specs, model: TensorClusterModel, arrays: BrokerArrays,
+                  constraint: BalancingConstraint):
+    """(topic counts i32[T, B], topic leader counts i32[T, B], designated
+    bool[T], replication factors i32[P]) as K9's sweep reads them, each
+    None unless a goal of ``specs`` reads it."""
+    kinds = {s.kind for s in specs}
+    leaders = "min_topic_leaders" in kinds
+    return (topic_counts(model, arrays).contiguous()
+            if "topic_replica_distribution" in kinds else None,
+            topic_leaders(model, arrays).contiguous() if leaders else None,
+            _designated_topic_mask(model, constraint) if leaders else None,
+            model.partition_replication_factor() if "rack_distribution" in kinds else None)
 
 
 # ---------------------------------------------------------------------------
@@ -327,9 +413,10 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
 
 # (load f32[C, B, 4], replica_count i32[C, B], leader_count i32[C, B],
 # potential_nw_out f32[C, B], leader_bytes_in f32[C, B], topic counts
-# i32[C, T, B] or None) — BrokerArrays' aggregates of C blends.
+# i32[C, T, B] or None, topic leader counts i32[C, T, B] or None) —
+# BrokerArrays' aggregates of C blends.
 BlendAggregates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                        torch.Tensor, Optional[torch.Tensor]]
+                        torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
 def blend_placement(before: TensorClusterModel, after: TensorClusterModel,
@@ -349,26 +436,30 @@ def _blend_arrays(before: TensorClusterModel, aggs: BlendAggregates, c: int) -> 
     """BrokerArrays of blend ``c`` from its slice of the batched aggregates
     (liveness, capacity and validity are the broker axis's, which a blend
     leaves as they are)."""
-    load, rc, lc, pnw, lbi, tbc = aggs
+    load, rc, lc, pnw, lbi, tbc, tlc = aggs
     alive = before.alive_broker_mask()
     return BrokerArrays(load=load[c], replica_count=rc[c], leader_count=lc[c],
                         potential_nw_out=pnw[c], leader_bytes_in=lbi[c], alive=alive,
                         capacity=before.broker_capacity, valid=before.broker_valid,
                         num_alive=alive.sum().clamp(min=1).to(torch.int32),
-                        topic_counts=None if tbc is None else tbc[c])
+                        topic_counts=None if tbc is None else tbc[c],
+                        topic_leader_counts=None if tlc is None else tlc[c])
 
 
 def blend_aggregates_plain(before: TensorClusterModel, after: TensorClusterModel,
-                           masks: torch.Tensor, with_topic_counts: bool) -> BlendAggregates:
+                           masks: torch.Tensor, with_topic_counts: bool,
+                           with_topic_leaders: bool = False) -> BlendAggregates:
     """K10's aggregates, one blend at a time: ``BrokerArrays.from_model`` of
     each blend, stacked."""
-    rows = [BrokerArrays.from_model(blend_placement(before, after, m), with_topic_counts)
+    rows = [BrokerArrays.from_model(blend_placement(before, after, m), with_topic_counts,
+                                    with_topic_leaders)
             for m in masks]
     stack = [torch.stack([getattr(a, f) for a in rows])
              for f in ("load", "replica_count", "leader_count", "potential_nw_out",
                        "leader_bytes_in")]
     tbc = torch.stack([a.topic_counts for a in rows]) if with_topic_counts else None
-    return (*stack, tbc)
+    tlc = torch.stack([a.topic_leader_counts for a in rows]) if with_topic_leaders else None
+    return (*stack, tbc, tlc)
 
 
 def _check_blend_inputs(before: TensorClusterModel, after: TensorClusterModel,
@@ -376,7 +467,8 @@ def _check_blend_inputs(before: TensorClusterModel, after: TensorClusterModel,
     dev = before.device
     R, P = before.num_replicas_padded, before.num_partitions
     cuda.check(masks, "masks", torch.bool, (masks.shape[0], P), dev)
-    for f, dtype in (("replica_broker", torch.int32), ("replica_is_leader", torch.bool)):
+    for f, dtype in (("replica_broker", torch.int32), ("replica_is_leader", torch.bool),
+                     ("replica_disk", torch.int32)):
         cuda.check(getattr(before, f), f"before.{f}", dtype, (R,), dev)
         cuda.check(getattr(after, f), f"after.{f}", dtype, (R,), dev)
     if P < 1:
@@ -386,25 +478,29 @@ def _check_blend_inputs(before: TensorClusterModel, after: TensorClusterModel,
 @cuda.counted("blend_aggregates")
 def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
                      masks: torch.Tensor, with_topic_counts: bool,
-                     out: Optional[BlendAggregates] = None) -> BlendAggregates:
+                     out: Optional[BlendAggregates] = None,
+                     with_topic_leaders: bool = False) -> BlendAggregates:
     """K10, aggregates.  Replaces the ``BrokerArrays.from_model`` of every
     blend that ``cruise_control_tpu/analyzer/optimizer.py:2392``
     ``_get_placement_score_fn`` maps over its masks: each blend's per-broker
-    sums, and its (topic, broker) replica counts when ``with_topic_counts``.
-    Bound on the card: bytes (the masks, both placements and the load rows
-    once; C x B x 32 bytes and the C x T x B counts written).  CPU tensors
-    take ``blend_aggregates_plain``; CUDA tensors launch one block per
-    (broker, blend) running K1's block body on the blend read through the
-    mask, in K1's fixed order (an all-false mask gives K1's bits), with
-    exact integer atomics for the topic counts.  ``out`` takes the output
-    tensors to write (the scorer's buffers of this shape)."""
+    sums, its (topic, broker) replica counts when ``with_topic_counts`` and
+    its (topic, broker) leader counts when ``with_topic_leaders``.  Bound
+    on the card: bytes (the masks, both placements and the load rows once;
+    C x B x 32 bytes and the C x T x B counts written).  CPU tensors take
+    ``blend_aggregates_plain``; CUDA tensors launch one block per (broker,
+    blend) running K1's block body on the blend read through the mask, in
+    K1's fixed order (an all-false mask gives K1's bits), with exact
+    integer atomics for the topic counts.  ``out`` takes the output tensors
+    to write (the scorer's buffers of this shape)."""
     dev = before.device
     C, B, T = masks.shape[0], before.num_brokers, before.num_topics
     R = before.num_replicas_padded
     _check_blend_inputs(before, after, masks)
-    cuda.record("blend_aggregates", (before, after, masks, with_topic_counts))
+    cuda.record("blend_aggregates", (before, after, masks, with_topic_counts, None,
+                                     with_topic_leaders))
     if cuda.on_cpu(masks):
-        return blend_aggregates_plain(before, after, masks, with_topic_counts)
+        return blend_aggregates_plain(before, after, masks, with_topic_counts,
+                                      with_topic_leaders)
     if out is None:
         out = (torch.empty((C, B, 4), dtype=torch.float32, device=dev),
                torch.empty((C, B), dtype=torch.int32, device=dev),
@@ -412,17 +508,20 @@ def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
                torch.empty((C, B), dtype=torch.float32, device=dev),
                torch.empty((C, B), dtype=torch.float32, device=dev),
                torch.empty((C, T, B), dtype=torch.int32, device=dev)
-               if with_topic_counts else None)
-    load, rc, lc, pnw, lbi, tbc = out
-    if tbc is not None:
-        tbc.zero_()
+               if with_topic_counts else None,
+               torch.empty((C, T, B), dtype=torch.int32, device=dev)
+               if with_topic_leaders else None)
+    load, rc, lc, pnw, lbi, tbc, tlc = out
+    for t in (tbc, tlc):
+        if t is not None:
+            t.zero_()
     if C > 0 and B > 0:
         cuda.launch("blend_aggregates", C, B, R, before.num_partitions, T, masks,
                     before.replica_partition, before.replica_broker, after.replica_broker,
                     before.replica_is_leader, after.replica_is_leader, before.replica_valid,
                     before.replica_load_leader, before.replica_load_follower,
-                    before.replica_topic if tbc is not None else None, load, rc, lc, pnw,
-                    lbi, tbc)
+                    before.replica_topic if tbc is not None or tlc is not None else None,
+                    load, rc, lc, pnw, lbi, tbc, tlc)
         blend_aggregates.launches += 1
     return out
 
@@ -454,25 +553,29 @@ def stack_sweep_batch(specs, before: TensorClusterModel, after: TensorClusterMod
     topic goal's counts, once).  CPU tensors take
     ``stack_sweep_batch_plain``; CUDA tensors launch one block per (goal,
     blend) running K9's per-goal body on the blend's slice of ``aggs``
-    (``blend_aggregates``), the rack goal reading blended brokers through
+    (``blend_aggregates``), the rack goals reading blended brokers, and the
+    preferred-leader goal blended leader flags and offline flags, through
     the mask.  Exact booleans."""
     specs = tuple(specs)
     for s in specs:
         require_supported(s)
     dev = before.device
-    C, G, B = masks.shape[0], len(specs), before.num_brokers
+    C, G, B, T = masks.shape[0], len(specs), before.num_brokers, before.num_topics
     _check_blend_inputs(before, after, masks)
-    load, rc, lc, pnw, lbi, tbc = aggs
+    load, rc, lc, pnw, lbi, tbc, tlc = aggs
     cuda.check(load, "load", torch.float32, (C, B, 4), dev)
     for t, what, dtype in ((rc, "replica_count", torch.int32),
                            (lc, "leader_count", torch.int32),
                            (pnw, "potential_nw_out", torch.float32),
                            (lbi, "leader_bytes_in", torch.float32)):
         cuda.check(t, what, dtype, (C, B), dev)
-    if any(s.kind == "topic_replica_distribution" for s in specs):
-        if tbc is None:
-            raise ValueError("the topic goal needs the blends' topic counts")
-        cuda.check(tbc, "topic_counts", torch.int32, (C, before.num_topics, B), dev)
+    kinds = {s.kind for s in specs}
+    for kind, table, what in (("topic_replica_distribution", tbc, "topic counts"),
+                              ("min_topic_leaders", tlc, "topic leader counts")):
+        if kind in kinds:
+            if table is None:
+                raise ValueError(f"the {kind} goal needs the blends' {what}")
+            cuda.check(table, what, torch.int32, (C, T, B), dev)
     cuda.record("stack_sweep_batch", (specs, before, after, masks, aggs, constraint))
     if cuda.on_cpu(masks):
         return stack_sweep_batch_plain(specs, before, after, masks, aggs, constraint)
@@ -481,14 +584,25 @@ def stack_sweep_batch(specs, before: TensorClusterModel, after: TensorClusterMod
     if C > 0 and G > 0:
         ints, floats = _sweep_table(specs, constraint, dev)
         alive = before.alive_broker_mask()
-        cuda.launch("stack_sweep_batch", C, G, B, before.num_replicas_padded,
-                    before.num_topics, before.num_partitions, before.max_rf, ints, floats,
+        leaders = "min_topic_leaders" in kinds
+        cuda.launch("stack_sweep_batch", C, G, B, before.num_replicas_padded, T,
+                    before.num_partitions, before.max_rf, before.num_racks, ints, floats,
                     alive, before.broker_valid, rc, lc, load, before.broker_capacity.contiguous(),
-                    pnw, lbi, alive.sum().clamp(min=1).to(torch.int32).reshape(1), tbc,
-                    masks, before.replica_broker, after.replica_broker, before.replica_valid,
+                    pnw, lbi, alive.sum().clamp(min=1).to(torch.int32).reshape(1),
+                    tbc if "topic_replica_distribution" in kinds else None,
+                    tlc if leaders else None,
+                    _designated_topic_mask(before, constraint) if leaders else None,
+                    masks, before.replica_broker, after.replica_broker,
+                    before.replica_is_leader, after.replica_is_leader, before.replica_disk,
+                    after.replica_disk, before.disk_capacity, before.replica_offline,
+                    before.replica_original_broker, before.broker_state, before.replica_valid,
                     before.replica_partition, before.partition_replicas, before.broker_rack,
+                    before.partition_replication_factor()
+                    if "rack_distribution" in kinds else None,
                     sat)
         stack_sweep_batch.launches += 1
+        for kind in kinds:
+            _BATCH_SWEEP_COUNTS[kind].launches += 1
     return sat
 
 
@@ -520,7 +634,7 @@ def _candidate_deltas(spec: GoalSpec, cand: Candidates):
 
 
 # ---------------------------------------------------------------------------
-# Rack machinery (RackAwareGoal.java:33)
+# Rack machinery (RackAwareGoal.java:33, RackAwareDistributionGoal.java:65)
 # ---------------------------------------------------------------------------
 
 def _sibling_info(model: TensorClusterModel, replica_ids: torch.Tensor):
@@ -535,34 +649,50 @@ def _sibling_info(model: TensorClusterModel, replica_ids: torch.Tensor):
     return sib, sib_broker, sib_rack, sib_valid
 
 
+def _rack_quota(model: TensorClusterModel, partition: torch.Tensor) -> torch.Tensor:
+    """f32 ceil(rf / num_racks) of each partition: an i32 divided by a
+    Python int is f32 in the JAX package too."""
+    return torch.ceil(model.partition_replication_factor()[partition] / model.num_racks)
+
+
 def _replica_rack_conflict(spec: GoalSpec, model: TensorClusterModel) -> torch.Tensor:
-    """bool[R] — a sibling of the replica's partition shares its rack; only
-    the higher-id replica of each conflicting pair is flagged."""
-    if spec.kind != "rack":
+    """bool[R] — ``rack``: a sibling of the replica's partition shares its
+    rack, and only the higher-id replica of each conflicting pair is
+    flagged; ``rack_distribution``: the replica ranks at or past its
+    (partition, rack) quota ceil(rf / num_racks) among the lower-id
+    replicas on its rack."""
+    if spec.kind not in ("rack", "rack_distribution"):
         raise NotImplementedError(f"goal kind {spec.kind}")
     R = model.num_replicas_padded
     r_idx = torch.arange(R, dtype=torch.int32, device=model.device)
     sib, _, sib_rack, sib_valid = _sibling_info(model, r_idx)
     own_rack = model.broker_rack[model.replica_broker]
     same_rack = sib_valid & (sib_rack == own_rack[:, None])
-    conflict = (same_rack & (sib < r_idx[:, None])).any(dim=1)
+    if spec.kind == "rack":
+        conflict = (same_rack & (sib < r_idx[:, None])).any(dim=1)
+    else:
+        rank_in_rack = (same_rack & (sib < r_idx[:, None])).sum(dim=1)
+        conflict = rank_in_rack >= _rack_quota(model, model.replica_partition)
     return conflict & model.replica_valid
 
 
 def _rack_ok_for(spec: GoalSpec, model: TensorClusterModel, replica: torch.Tensor,
-                 dest: torch.Tensor) -> torch.Tensor:
-    """Rack legality of moving ``replica`` onto ``dest``."""
-    if spec.kind != "rack":
+                 dest: torch.Tensor, partition: torch.Tensor) -> torch.Tensor:
+    """Rack legality of moving ``replica`` (of ``partition``) onto ``dest``."""
+    if spec.kind not in ("rack", "rack_distribution"):
         raise NotImplementedError(f"goal kind {spec.kind}")
     _, _, sib_rack, sib_valid = _sibling_info(model, replica)
     dest_rack = model.broker_rack[dest]
-    return ~(sib_valid & (sib_rack == dest_rack[:, None])).any(dim=1)
+    same_as_dest = sib_valid & (sib_rack == dest_rack[:, None])
+    if spec.kind == "rack":
+        return ~same_as_dest.any(dim=1)
+    return (1 + same_as_dest.sum(dim=1)) <= _rack_quota(model, partition)
 
 
 def _swap_rack_ok(spec: GoalSpec, model: TensorClusterModel, cand: Candidates) -> torch.Tensor:
     r2 = torch.where(cand.dest_replica >= 0, cand.dest_replica, 0)
-    return _rack_ok_for(spec, model, cand.replica, cand.dest) & \
-        _rack_ok_for(spec, model, r2, cand.src)
+    return _rack_ok_for(spec, model, cand.replica, cand.dest, cand.partition) & \
+        _rack_ok_for(spec, model, r2, cand.src, cand.partition2)
 
 
 # ---------------------------------------------------------------------------
@@ -581,9 +711,20 @@ def self_feasible(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArray
     require_supported(spec)
     kind = spec.kind
     unhealthy = _src_unhealthy(model, cand, arrays)
-    if kind == "rack":
+    if kind == "preferred_leader":
+        # A transfer to the partition's preferred replica, or off a DEMOTED
+        # source to any eligible sibling (the candidate generator already excludes
+        # demoted, dead and excluded destinations).
+        preferred = model.preferred_leader_replica()[cand.partition]
+        wrong = _wrong_leader_mask(model)[cand.replica]
+        src_demoted = model.broker_state[cand.src] == BrokerState.DEMOTED
+        return (cand.is_leadership() & wrong
+                & ((cand.dest_replica == preferred) | src_demoted))
+    if kind == "min_topic_leaders":
+        return _min_leader_feasible(model, arrays, cand, constraint, unhealthy)
+    if kind in ("rack", "rack_distribution"):
         conflict = _replica_rack_conflict(spec, model)[cand.replica]
-        ok_dest = _rack_ok_for(spec, model, cand.replica, cand.dest)
+        ok_dest = _rack_ok_for(spec, model, cand.replica, cand.dest, cand.partition)
         return cand.is_move() & (conflict | unhealthy) & ok_dest
     if kind == "topic_replica_distribution":
         lower_t, upper_t = _topic_limits(model, arrays, constraint)
@@ -610,14 +751,50 @@ def self_feasible(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArray
     return helps & dest_ok & src_ok & moves_something
 
 
+def _min_leader_feasible(model: TensorClusterModel, arrays: BrokerArrays,
+                         cand: Candidates, constraint: BalancingConstraint,
+                         unhealthy: torch.Tensor) -> torch.Tensor:
+    """A leadership transfer or leader-replica move of a designated topic
+    into a broker short of its leaders, without starving the source."""
+    designated = _designated_topic_mask(model, constraint)
+    t = model.replica_topic[cand.replica]
+    tlc = topic_leaders(model, arrays)
+    need = constraint.min_topic_leaders_per_broker
+    gains_leader = cand.is_leadership() | (cand.is_move() & model.replica_is_leader[cand.replica])
+    dest_short = tlc[t, cand.dest] < need
+    src_ok = (tlc[t, cand.src] - 1 >= need) | unhealthy
+    return designated[t] & gains_leader & dest_short & src_ok
+
+
 def accepts(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
             cand: Candidates, constraint: BalancingConstraint) -> torch.Tensor:
     """bool[K] — this already-optimized goal does not veto the candidate."""
     require_supported(spec)
     kind = spec.kind
     true = torch.ones((), dtype=torch.bool, device=cand.replica.device)
-    if kind == "rack":
-        return torch.where(cand.is_move(), _rack_ok_for(spec, model, cand.replica, cand.dest),
+    if kind == "preferred_leader":
+        # PreferredLeaderElectionGoal.actionAcceptance accepts everything: a
+        # one-shot election pass, not a standing constraint.
+        return torch.ones((cand.k,), dtype=torch.bool, device=cand.replica.device)
+    if kind == "min_topic_leaders":
+        # Veto actions that starve a designated topic's source broker, and
+        # a swap whose reverse leg takes a designated leader off ``dest``.
+        designated = _designated_topic_mask(model, constraint)
+        t = model.replica_topic[cand.replica]
+        loses_leader = cand.is_leadership() | \
+            ((cand.is_move() | cand.is_swap()) & model.replica_is_leader[cand.replica])
+        tlc = topic_leaders(model, arrays)
+        need = constraint.min_topic_leaders_per_broker
+        starves = designated[t] & loses_leader & \
+            (tlc[t, cand.src] - 1 < need) & arrays.alive[cand.src]
+        r2 = torch.where(cand.dest_replica >= 0, cand.dest_replica, 0)
+        t2 = model.replica_topic[r2]
+        starves2 = cand.is_swap() & designated[t2] & model.replica_is_leader[r2] & \
+            (tlc[t2, cand.dest] - 1 < need) & arrays.alive[cand.dest]
+        return ~(starves | starves2)
+    if kind in ("rack", "rack_distribution"):
+        return torch.where(cand.is_move(),
+                           _rack_ok_for(spec, model, cand.replica, cand.dest, cand.partition),
                            torch.where(cand.is_swap(), _swap_rack_ok(spec, model, cand), true))
     if kind == "topic_replica_distribution":
         lower_t, upper_t = _topic_limits(model, arrays, constraint)
@@ -646,7 +823,9 @@ def accepts(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
     return dest_ok & src_cap_ok & src_ok & dest_low_ok
 
 
-_STRUCTURAL_KINDS = ("rack", "topic_replica_distribution")
+_STRUCTURAL_KINDS = ("rack", "topic_replica_distribution", "rack_distribution",
+                     "min_topic_leaders")
+_ACCEPT_COUNTS = cuda.mode_counters("structural_accepts", _STRUCTURAL_KINDS)
 
 
 def structural_accepts_plain(prev_specs, model: TensorClusterModel, arrays: BrokerArrays,
@@ -663,15 +842,19 @@ def structural_accepts(prev_specs, model: TensorClusterModel, arrays: BrokerArra
                        cand: Candidates, constraint: BalancingConstraint) -> torch.Tensor:
     """K5b.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:464``
     ``accepts`` of the structural previous goals (``rack``,
-    ``topic_replica_distribution``; the band kinds' vetoes are the channel
-    budgets of the selection): bool[K], False where an earlier goal vetoes
-    the candidate.  Bound on the card: bytes (a lane's action, replica,
-    endpoints and partner, its sibling rows and broker racks or its two
-    topic-count rows).  CPU tensors take ``structural_accepts_plain``;
-    CUDA tensors launch one thread per lane (``csrc/goal_masks.cu``,
-    ``cc_structural_accepts``) that walks the partition's siblings for the
-    rack test and reads the (topic, broker) counts for the topic test, for
-    moves and both legs of swaps.  Exact booleans."""
+    ``rack_distribution``, ``topic_replica_distribution``,
+    ``min_topic_leaders``; the band kinds' vetoes are the channel budgets of
+    the selection, and ``preferred_leader`` vetoes nothing): bool[K], False
+    where an earlier goal vetoes the candidate.  Bound on the card: bytes (a
+    lane's action, replica, endpoints and partner, its sibling rows and
+    broker racks, its topic-count or leader-count rows).  CPU tensors take
+    ``structural_accepts_plain``; CUDA tensors launch one thread per lane
+    (``csrc/goal_masks.cu``, ``cc_structural_accepts``) that walks the
+    partition's siblings for the rack tests (no sibling on the destination
+    rack, or the ceil(rf / racks) quota), reads the (topic, broker) counts
+    for the topic test, for moves and both legs of swaps, and the (topic,
+    broker) leader counts for the min-leaders test of every action that
+    takes a designated leader off a broker.  Exact booleans."""
     kinds = {s.kind for s in prev_specs}
     if not kinds <= set(_STRUCTURAL_KINDS):
         raise ValueError(f"structural_accepts takes {_STRUCTURAL_KINDS}, got {sorted(kinds)}")
@@ -683,19 +866,29 @@ def structural_accepts(prev_specs, model: TensorClusterModel, arrays: BrokerArra
     if cuda.on_cpu(cand.replica):
         return structural_accepts_plain(prev_specs, model, arrays, cand, constraint)
     topic = "topic_replica_distribution" in kinds
-    tbc = lower_t = upper_t = None
+    leaders = "min_topic_leaders" in kinds
+    rack_dist = "rack_distribution" in kinds
+    tbc = lower_t = upper_t = tlc = designated = prf = None
     if topic:
         tbc = topic_counts(model, arrays).contiguous()
         lower_t, upper_t = _topic_limits(model, arrays, constraint)
+    if leaders:
+        tlc = topic_leaders(model, arrays).contiguous()
+        designated = _designated_topic_mask(model, constraint)
+    if rack_dist:
+        prf = model.partition_replication_factor()
     out = torch.empty((k,), dtype=torch.bool, device=dev)
     if k > 0:
-        cuda.launch("structural_accepts", int("rack" in kinds), int(topic), k,
-                    model.num_brokers, model.max_rf, cand.action_type, cand.replica,
-                    cand.src, cand.dest, cand.dest_replica, model.replica_topic,
-                    model.replica_partition, model.replica_broker,
+        cuda.launch("structural_accepts", int("rack" in kinds), int(rack_dist), int(topic),
+                    int(leaders), k, model.num_brokers, model.max_rf,
+                    constraint.min_topic_leaders_per_broker, model.num_racks,
+                    cand.action_type, cand.replica, cand.src, cand.dest, cand.dest_replica,
+                    model.replica_topic, model.replica_partition, model.replica_broker,
                     model.partition_replicas, model.broker_rack, tbc, lower_t, upper_t,
-                    out)
+                    model.replica_is_leader, arrays.alive, tlc, designated, prf, out)
         structural_accepts.launches += 1
+        for kind in kinds:
+            _ACCEPT_COUNTS[kind].launches += 1
     return out
 
 
@@ -708,7 +901,26 @@ def score(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
     unhealthy = _src_unhealthy(model, cand, arrays)
     fzero = torch.zeros((), dtype=torch.float32, device=cand.replica.device)
     bonus = torch.where(unhealthy & cand.is_move(), _f32(_OFFLINE_BONUS, fzero), fzero)
-    if kind == "rack":
+    if kind == "preferred_leader":
+        preferred = model.preferred_leader_replica()[cand.partition]
+        wrong = _wrong_leader_mask(model)[cand.replica]
+        src_demoted = model.broker_state[cand.src] == BrokerState.DEMOTED
+        to_pref = cand.dest_replica == preferred
+        fixes = cand.is_leadership() & wrong & (to_pref | src_demoted)
+        # The preferred replica first; any other sibling still fixes a
+        # demoted source.
+        return torch.where(fixes, torch.where(to_pref, _f32(1.0, fzero), _f32(0.5, fzero)),
+                           fzero)
+    if kind == "min_topic_leaders":
+        tlc = topic_leaders(model, arrays).to(torch.float32)
+        t = model.replica_topic[cand.replica]
+        need = float(constraint.min_topic_leaders_per_broker)
+        designated = _designated_topic_mask(model, constraint)[t]
+        gain = torch.clamp(torch.clamp(need - tlc[t, cand.dest], min=0.0), max=1.0)
+        c_src = tlc[t, cand.src]
+        loss = torch.clamp(need - (c_src - 1.0), min=0.0) - torch.clamp(need - c_src, min=0.0)
+        return torch.where(designated, gain - torch.clamp(loss, max=1.0), fzero) + bonus
+    if kind in ("rack", "rack_distribution"):
         _, _, sib_rack, sib_valid = _sibling_info(model, cand.replica)
         own_rack = model.broker_rack[cand.src]
         dest_rack = model.broker_rack[cand.dest]
@@ -752,7 +964,9 @@ _THRESHOLD_KINDS = ("capacity", "potential_nw_out", "replica_capacity")
 _DELTA_OF_KIND = {"replica_capacity": 4, "replica_distribution": 4,
                   "leader_replica_distribution": 5, "potential_nw_out": 6,
                   "leader_bytes_in": 7}
-_MODE_THRESHOLD, _MODE_DISTRIBUTION, _MODE_TOPIC, _MODE_RACK = 0, 1, 2, 3
+(_MODE_THRESHOLD, _MODE_DISTRIBUTION, _MODE_TOPIC, _MODE_RACK, _MODE_PREFERRED,
+ _MODE_MIN_LEADERS, _MODE_RACK_DIST) = range(7)
+_MASK_COUNTS = cuda.mode_counters("goal_masks", SUPPORTED_KINDS)
 
 
 def goal_masks_plain(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
@@ -775,19 +989,21 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
                accepted=None):
     """K5.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:550``
     ``score``, ``:354`` ``self_feasible`` and ``:256`` ``_candidate_deltas``
-    with the ``eligible`` line ``optimizer.py:1154``, for the band kinds,
-    ``topic_replica_distribution`` and ``rack``; ``accepted`` (the cross-goal
-    vetoes, K5b) comes in as a mask.  Bound on the card: bytes (about 80
-    bytes a lane read through the gathers, 5 written).  CPU tensors take
-    ``goal_masks_plain``; CUDA tensors launch one thread per lane that
-    gathers its broker, topic and sibling rows and does the arithmetic with
+    with the ``eligible`` line ``optimizer.py:1154``, for every inter-broker
+    kind (the band kinds, ``topic_replica_distribution``, ``rack``,
+    ``preferred_leader``, ``min_topic_leaders`` and ``rack_distribution``);
+    ``accepted`` (the cross-goal vetoes, K5b) comes in as a mask.  Bound on
+    the card: bytes (about 40-80 bytes a lane read through the gathers, 5
+    written).  CPU tensors take ``goal_masks_plain``; CUDA tensors launch
+    one thread per lane that gathers its broker, topic, leader-count,
+    preferred-replica or sibling rows and does the arithmetic with
     round-to-nearest intrinsics in the plain version's order (``fma`` only
     where ``_sq_sum`` has it), so the two agree bit for bit."""
     require_supported(spec)
     dev = cand.replica.device
     k = cand.k
-    for name in ("action_type", "replica", "src", "dest", "d_replica_count",
-                 "d_leader_count"):
+    for name in ("action_type", "replica", "src", "dest", "dest_replica",
+                 "d_replica_count", "d_leader_count"):
         cuda.check(getattr(cand, name), name, torch.int32, (k,), dev)
     cuda.check(cand.valid, "valid", torch.bool, (k,), dev)
     if accepted is not None:
@@ -797,15 +1013,24 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         return goal_masks_plain(spec, model, arrays, cand, constraint, bands, accepted)
     kind = spec.kind
     metric = lower = upper = tbc = lower_t = upper_t = avg_t = conflict = None
+    tlc = designated = prf = None
     delta_sel = 0
-    if kind == "rack":
-        mode = _MODE_RACK
+    if kind in ("rack", "rack_distribution"):
+        mode = _MODE_RACK if kind == "rack" else _MODE_RACK_DIST
         conflict = _replica_rack_conflict(spec, model)
+        if kind == "rack_distribution":
+            prf = model.partition_replication_factor()
     elif kind == "topic_replica_distribution":
         mode = _MODE_TOPIC
         tbc = topic_counts(model, arrays).contiguous()
         lower_t, upper_t = _topic_limits(model, arrays, constraint)
         avg_t = _topic_avg(model, arrays)
+    elif kind == "preferred_leader":
+        mode = _MODE_PREFERRED
+    elif kind == "min_topic_leaders":
+        mode = _MODE_MIN_LEADERS
+        tlc = topic_leaders(model, arrays).contiguous()
+        designated = _designated_topic_mask(model, constraint)
     else:
         mode = _MODE_THRESHOLD if kind in _THRESHOLD_KINDS else _MODE_DISTRIBUTION
         delta_sel = _DELTA_OF_KIND.get(kind, spec.resource)
@@ -818,6 +1043,7 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
     eligible = torch.empty((k,), dtype=torch.bool, device=dev)
     if k > 0:
         cuda.launch("goal_masks", mode, delta_sel, k, model.num_brokers, model.max_rf,
+                    constraint.min_topic_leaders_per_broker, model.num_racks,
                     float(np.float32(_metric_epsilon(spec))),
                     cand.action_type, cand.replica, cand.src, cand.dest, cand.valid,
                     accepted, cand.delta_src.contiguous(), cand.delta_dest.contiguous(),
@@ -828,8 +1054,11 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
                     arrays.alive, metric, lower, upper, model.replica_offline_now(),
                     model.replica_topic, model.replica_partition, model.replica_broker,
                     conflict, tbc, lower_t, upper_t, avg_t,
-                    model.partition_replicas, model.broker_rack, score_out, eligible)
+                    model.partition_replicas, model.broker_rack, score_out, eligible,
+                    cand.dest_replica, model.broker_state, model.replica_is_leader,
+                    model.replica_valid, tlc, designated, prf)
         goal_masks.launches += 1
+        _MASK_COUNTS[kind].launches += 1
     return score_out, eligible
 
 
@@ -859,6 +1088,10 @@ def dest_room(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
               constraint: BalancingConstraint, bands=None) -> torch.Tensor:
     """f32[B] — headroom under the goal's upper limit (candidate dests)."""
     require_supported(spec)
+    if spec.kind == "min_topic_leaders":
+        # Destinations are exactly the brokers short of designated leaders.
+        shortfall = _min_topic_leader_shortfall(model, arrays, constraint)
+        return torch.where(arrays.alive, shortfall, _f32(-_BIG, shortfall))
     metric = broker_metric(spec, model, arrays, constraint)
     lower, upper = bands if bands is not None else limits(spec, model, arrays, constraint)
     room = torch.clamp(upper, max=_BIG) - metric
@@ -873,9 +1106,23 @@ def source_replica_relevance(spec: GoalSpec, model: TensorClusterModel,
     require_supported(spec)
     kind = spec.kind
     big = _f32(_BIG, arrays.load)
+    one = _f32(1.0, big)
+    if kind == "preferred_leader":
+        return torch.where(_wrong_leader_mask(model) & model.replica_valid, one, -big)
+    if kind == "min_topic_leaders":
+        # Donor leaders of designated topics on brokers above the minimum
+        # (plus any designated leader on a dead broker).
+        designated = _designated_topic_mask(model, constraint)[model.replica_topic]
+        cnt = topic_leaders(model, arrays)[model.replica_topic, model.replica_broker]
+        donor = model.replica_is_leader & designated & \
+            (cnt > constraint.min_topic_leaders_per_broker)
+        dead_src = ~arrays.alive[model.replica_broker]
+        base = torch.where(donor | (designated & model.replica_is_leader & dead_src), one,
+                           -big)
+        return torch.where(model.replica_valid, base, -big)
     pressure = source_pressure(spec, model, arrays, constraint,
                                bands=bands)[model.replica_broker]
-    if kind == "rack":
+    if kind in ("rack", "rack_distribution"):
         conflict = _replica_rack_conflict(spec, model)
         base = torch.where(conflict, _f32(1.0, big), -big)
     elif kind == "topic_replica_distribution":
@@ -1188,10 +1435,15 @@ def prefix_cut_admit_plain(score, seg, deltas, kept, cum_before, lo, hi,
     return kept & admit
 
 
+# The segments a cut runs over: brokers, or (topic, broker) keys.
+_CUT_COUNTS = cuda.mode_counters("prefix_cut", ("broker", "topic"))
+
+
 @cuda.counted("prefix_cut")
 def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tensor,
                      kept: torch.Tensor, cum_before: torch.Tensor, lo: torch.Tensor,
-                     hi: torch.Tensor, num_segments: int) -> torch.Tensor:
+                     hi: torch.Tensor, num_segments: int,
+                     segments: str = "broker") -> torch.Tensor:
     """K3.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:997,1031``
     (``_sorted_prefix_tables`` + ``prefix_cut_admit``): per segment, keep the
     longest score-ranked prefix of ``kept`` whose running totals
@@ -1201,7 +1453,9 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
     stable ``torch.sort`` calls, take the global running totals in the
     order of ``ordered_cumsum`` (``cc_ordered_cumsum``: a scan of blocks of
     16 rows per level, the plain version's bits) and launch one block per
-    segment that cuts at its first out-of-band position."""
+    segment that cuts at its first out-of-band position.  ``segments``
+    names what the segments are ("broker" or "topic"), for the launch
+    counts."""
     dev = score.device
     K = score.shape[0]
     C = deltas.shape[1] if deltas.dim() == 2 else -1
@@ -1212,7 +1466,7 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
     for name, t in (("cum_before", cum_before), ("lo", lo), ("hi", hi)):
         cuda.check(t, name, torch.float32, (num_segments, C), dev)
     cuda.record("prefix_cut", (score, seg, deltas, kept, cum_before, lo, hi,
-                               num_segments))
+                               num_segments, segments))
     if cuda.on_cpu(score):
         return prefix_cut_admit_plain(score, seg, deltas, kept, cum_before, lo,
                                       hi, num_segments)
@@ -1229,12 +1483,14 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
         cuda.launch("prefix_cut", ordr.to(torch.int32), seg, cs, kept, cum_before, lo,
                     hi, out, K, num_segments, C)
         prefix_cut_admit.launches += 1
+        _CUT_COUNTS[segments].launches += 1
     return out
 
 
 def prefix_admit_safe(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tensor,
                       kept: torch.Tensor, cum_before: torch.Tensor, lo: torch.Tensor,
-                      hi: torch.Tensor, num_segments: int) -> torch.Tensor:
+                      hi: torch.Tensor, num_segments: int,
+                      segments: str = "broker") -> torch.Tensor:
     """Subset-closed prefix admit (``kernels.py:1062``): split every delta
     into d+ and d- and bound each one-sided running sum separately, through
     K3 on the 2C split channels."""
@@ -1245,4 +1501,4 @@ def prefix_admit_safe(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tens
         score, seg, torch.cat([dpos, dneg], dim=1).contiguous(), kept,
         torch.cat([cum_before, cum_before], dim=1).contiguous(),
         torch.cat([-inf, lo], dim=1).contiguous(),
-        torch.cat([hi, inf], dim=1).contiguous(), num_segments)
+        torch.cat([hi, inf], dim=1).contiguous(), num_segments, segments)

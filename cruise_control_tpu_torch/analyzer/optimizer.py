@@ -92,7 +92,7 @@ from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_DEPTH, CTR_
                                                      FrontierInvariants, OptimizationOptions,
                                                      PipelineNextGoal, StepInvariants,
                                                      StepState, WarmStart, pow2_bucket,
-                                                     topic_counts)
+                                                     topic_counts, topic_leaders)
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.common.sensors import SENSORS
 from cruise_control_tpu_torch.common.tracing import TRACE
@@ -350,19 +350,34 @@ def _channel_budgets(arrays: BrokerArrays, sides):
 
 
 def _topic_budgets(all_specs: Tuple[GoalSpec, ...], model: TensorClusterModel,
-                   arrays: BrokerArrays, inv: StepInvariants):
-    """(gain_rep, shed_rep, shed_lead), each f32[T*B], or None when no
-    topic-metric goal is in play."""
-    if not any(s.kind == "topic_replica_distribution" for s in all_specs):
+                   arrays: BrokerArrays, inv: StepInvariants,
+                   constraint: BalancingConstraint):
+    """(gain_rep, shed_rep, shed_lead), each f32[T*B] — how much each (topic,
+    broker) pair may gain and shed in replicas and shed in leaders this
+    step inside every optimized topic band and above every designated
+    topic's leader minimum (``optimizer.py:878-917``) — or None when no
+    topic-metric or min-leaders goal is in play."""
+    has_topic = any(s.kind == "topic_replica_distribution" for s in all_specs)
+    has_min_leaders = any(s.kind == "min_topic_leaders" for s in all_specs)
+    if not has_topic and not has_min_leaders:
         return None
     n_tb = model.num_topics * model.num_brokers
     dev = model.device
     inf = torch.full((n_tb,), _INF, dtype=torch.float32, device=dev)
-    tbc = topic_counts(model, arrays).to(torch.float32)
-    gain = torch.clamp(inv.topic_upper[:, None] - tbc, min=0.0)
-    shed = torch.clamp(tbc - inv.topic_lower[:, None], min=0.0)
-    shed = torch.where(arrays.alive[None, :], shed, _INF)
-    return gain.reshape(-1), shed.reshape(-1), inf
+    gain_rep = shed_rep = shed_lead = inf
+    alive_row = arrays.alive[None, :]
+    if has_topic:
+        tbc = topic_counts(model, arrays).to(torch.float32)
+        gain = torch.clamp(inv.topic_upper[:, None] - tbc, min=0.0)
+        shed = torch.clamp(tbc - inv.topic_lower[:, None], min=0.0)
+        shed = torch.where(alive_row, shed, _INF)
+        gain_rep, shed_rep = gain.reshape(-1), shed.reshape(-1)
+    if has_min_leaders:
+        tlc = topic_leaders(model, arrays).to(torch.float32)
+        need = float(constraint.min_topic_leaders_per_broker)
+        shed = torch.where(inv.designated[:, None], torch.clamp(tlc - need, min=0.0), _INF)
+        shed_lead = torch.where(alive_row, shed, _INF).reshape(-1)
+    return gain_rep, shed_rep, shed_lead
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +552,7 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
             contrib = leg_contrib(i, keep)
             admit = kernels.prefix_cut_admit(
                 score, leg_keys[i], torch.stack([d_rep[i], d_lead[i]], 1),
-                contrib, cum_tb, lo_tb, hi_tb, n_tb)
+                contrib, cum_tb, lo_tb, hi_tb, n_tb, "topic")
             keep = keep & (~(contrib & vt[leg_keys[i]]) | admit)
 
     def net_viol(k):
@@ -575,7 +590,7 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
             torch.cat([leg_keys[i] for i in range(num_legs)]),
             torch.cat([torch.stack([d_rep[i], d_lead[i]], 1)
                        for i in range(num_legs)], dim=0),
-            torch.cat(contribs), cum_tb, lo_tb, hi_tb, n_tb).reshape(num_legs, kk)
+            torch.cat(contribs), cum_tb, lo_tb, hi_tb, n_tb, "topic").reshape(num_legs, kk)
         for i in range(num_legs):
             safe = safe & (~contribs[i] | safe_t[i])
     keep = torch.where(any_left, keep & safe, keep)
@@ -597,18 +612,21 @@ def compute_step_invariants(spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
     all_specs = (spec,) + tuple(prev_specs)
     upper_min, lower_max = _band_sides(all_specs, model, arrays, constraint)
     spec_lower, spec_upper = kernels.limits(spec, model, arrays, constraint)
-    topic_lower = topic_upper = None
+    topic_lower = topic_upper = designated = None
     if any(s.kind == "topic_replica_distribution" for s in all_specs):
         topic_lower, topic_upper = kernels._topic_limits(model, arrays, constraint)
+    if any(s.kind == "min_topic_leaders" for s in all_specs):
+        designated = kernels._designated_topic_mask(model, constraint)
     return StepInvariants(upper_min=upper_min, lower_max=lower_max,
                           spec_lower=spec_lower, spec_upper=spec_upper,
-                          topic_lower=topic_lower, topic_upper=topic_upper)
+                          topic_lower=topic_lower, topic_upper=topic_upper,
+                          designated=designated)
 
 
 def _goal_num_sources(spec: GoalSpec, model: TensorClusterModel,
                       num_sources: int) -> int:
     """Rack healing is source-bound, so it gets a wide batch."""
-    if spec.kind == "rack":
+    if spec.kind in ("rack", "rack_distribution"):
         return max(1, min(model.num_replicas_padded, max(4 * num_sources, 1024)))
     return num_sources
 
@@ -628,9 +646,7 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     if constraint.moves_per_broker_step > SUBROUNDS:
         raise NotImplementedError("multi-round selection (moves_per_broker_step > "
                                   f"{SUBROUNDS}) is not ported yet")
-    arrays = BrokerArrays.from_model(
-        model, with_topic_counts=any(s.kind == "topic_replica_distribution"
-                                     for s in all_specs))
+    arrays = BrokerArrays.for_specs(model, all_specs)
     num_sources = _goal_num_sources(spec, model, num_sources)
     inv = invariants
     if inv is None:
@@ -673,10 +689,12 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     for extra in batches[1:]:
         cand = cgen.concat_candidates(cand, extra)
 
-    # Band-kind prev goals' vetoes are subsumed by the channel budgets; the
-    # structural kinds keep their dedicated accepts (K5b).  Under a frontier
-    # both endpoints must be active: inactive brokers alias compact slot 0.
-    structural = tuple(p for p in prev_specs if not kernels.is_band_kind(p))
+    # Band-kind prev goals' vetoes are subsumed by the channel budgets and
+    # the preferred-leader goal vetoes nothing; the structural kinds keep
+    # their dedicated accepts (K5b).  Under a frontier both endpoints must
+    # be active: inactive brokers alias compact slot 0.
+    structural = tuple(p for p in prev_specs
+                       if not kernels.is_band_kind(p) and p.kind != "preferred_leader")
     accepted = (kernels.structural_accepts(structural, model, arrays, cand, constraint)
                 if structural else None)
     if active is not None:
@@ -685,7 +703,7 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     score, eligible = kernels.goal_masks(spec, model, arrays, cand, constraint,
                                          bands=bands, accepted=accepted)
     room_dest, slack_src = _channel_budgets(arrays, (inv.upper_min, inv.lower_max))
-    topic_budgets = _topic_budgets(all_specs, model, arrays, inv)
+    topic_budgets = _topic_budgets(all_specs, model, arrays, inv, constraint)
     subrounds = min(SUBROUNDS, max(1, int(constraint.moves_per_broker_step)))
     nb_sel = frontier.bucket if frontier is not None else model.num_brokers
     compact_k = _lane_bucket(cand.k, nb_sel, subrounds)
@@ -1067,8 +1085,7 @@ def _stack_satisfied(model: TensorClusterModel, specs: Sequence[GoalSpec],
     """The fused "already satisfied?" sweep (``optimizer.py:2332``): K9 over
     the whole stack, fetched in one transfer.  Returns (bool[G], offline
     replicas remain)."""
-    arrays = BrokerArrays.from_model(
-        model, with_topic_counts=any(s.kind == "topic_replica_distribution" for s in specs))
+    arrays = BrokerArrays.for_specs(model, specs)
     sat, off = kernels.stack_satisfied(tuple(specs), model, arrays, constraint)
     flags = torch.cat([sat, off]).cpu().numpy()
     return flags[:-1], bool(flags[-1])
@@ -1082,8 +1099,7 @@ def _stack_frontiers(model: TensorClusterModel, specs: Sequence[GoalSpec],
     batch), on the device: ``(sat bool[G], off bool[1], fronts bool[G,
     B])``."""
     specs = tuple(specs)
-    arrays = BrokerArrays.from_model(
-        model, with_topic_counts=any(s.kind == "topic_replica_distribution" for s in specs))
+    arrays = BrokerArrays.for_specs(model, specs)
     sat, off = kernels.stack_satisfied(specs, model, arrays, constraint)
     fronts, _ = kernels.frontier_active_batch(
         *kernels.frontier_inputs_batch(specs, model, arrays, constraint))
@@ -1141,6 +1157,7 @@ def _get_placement_score_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingCo
     if fn is not None:
         return fn
     topic = any(s.kind == "topic_replica_distribution" for s in specs)
+    leaders = any(s.kind == "min_topic_leaders" for s in specs)
     buffers: dict = {}
 
     def slice_buffers(before: TensorClusterModel, c: int):
@@ -1155,20 +1172,23 @@ def _get_placement_score_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingCo
                  torch.empty((c, B), dtype=torch.int32, device=dev),
                  torch.empty((c, B), dtype=torch.float32, device=dev),
                  torch.empty((c, B), dtype=torch.float32, device=dev),
-                 torch.empty((c, T, B), dtype=torch.int32, device=dev) if topic else None),
+                 torch.empty((c, T, B), dtype=torch.int32, device=dev) if topic else None,
+                 torch.empty((c, T, B), dtype=torch.int32, device=dev) if leaders else None),
                 torch.empty((batch, len(specs)), dtype=torch.bool, device=dev))
         return buffers[bkey]
 
     def run(before: TensorClusterModel, after: TensorClusterModel,
             masks: torch.Tensor) -> torch.Tensor:
         step = batch
-        if topic and batch * before.num_topics * before.num_brokers * 4 > _SCORE_SLICE_BYTES:
+        tables = int(topic) + int(leaders)
+        if tables * batch * before.num_topics * before.num_brokers * 4 > _SCORE_SLICE_BYTES:
             step = min(batch, _SCORE_SLICE)
         aggs_out, sat_out = slice_buffers(before, step)
         rows = []
         for lo in range(0, batch, step):
             part = masks[lo:lo + step]
-            aggs = kernels.blend_aggregates(before, after, part, topic, out=aggs_out)
+            aggs = kernels.blend_aggregates(before, after, part, topic, out=aggs_out,
+                                            with_topic_leaders=leaders)
             sat = None if sat_out is None else sat_out[lo:lo + step]
             rows.append(kernels.stack_sweep_batch(specs, before, after, part, aggs,
                                                   constraint, out=sat))
@@ -1353,15 +1373,14 @@ class _ChunkRunner:
         self.cache = cache
         self.lane = lane if lane is not None else _Lane(st)
         self.band = kernels.is_band_kind(spec)
-        self.topic = any(s.kind == "topic_replica_distribution"
-                         for s in (spec,) + self.prev)
+        self.all_specs = (spec,) + self.prev
         dev = st.model.device
         self.slots = torch.zeros((3, PACKED_WIDTH), dtype=torch.int32, device=dev)
         self.entry_before = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.count = 0
 
     def _arrays(self) -> BrokerArrays:
-        return BrokerArrays.from_model(self.st.model, with_topic_counts=self.topic)
+        return BrokerArrays.for_specs(self.st.model, self.all_specs)
 
     def _entry_flags(self, arrays: BrokerArrays):
         return kernels.stack_satisfied((self.spec,), self.st.model, arrays, self.constraint)

@@ -37,10 +37,13 @@ class BrokerArrays:
     # jit XLA folds the JAX package's seven recomputations into one, eager
     # torch would pay each of them.
     topic_counts: Optional[torch.Tensor] = None
+    # i32[T, B] leaders per (topic, broker), computed once per step when a
+    # min-topic-leaders goal is in play, for the same reason.
+    topic_leader_counts: Optional[torch.Tensor] = None
 
     @classmethod
-    def from_model(cls, model: TensorClusterModel,
-                   with_topic_counts: bool = False) -> "BrokerArrays":
+    def from_model(cls, model: TensorClusterModel, with_topic_counts: bool = False,
+                   with_topic_leaders: bool = False) -> "BrokerArrays":
         alive = model.alive_broker_mask()
         load, rc, lc, pnw, lbi = broker_aggregates(
             model.replica_broker, model.replica_valid, model.replica_is_leader,
@@ -55,7 +58,18 @@ class BrokerArrays:
             num_alive=alive.sum().clamp(min=1).to(torch.int32),
             topic_counts=(model.topic_broker_replica_counts()
                           if with_topic_counts else None),
+            topic_leader_counts=(model.topic_leader_counts()
+                                 if with_topic_leaders else None),
         )
+
+    @classmethod
+    def for_specs(cls, model: TensorClusterModel, specs) -> "BrokerArrays":
+        """``from_model`` with the (topic, broker) tables that ``specs``
+        read: replica counts for a topic goal, leader counts for a
+        min-topic-leaders goal."""
+        kinds = {s.kind for s in specs}
+        return cls.from_model(model, "topic_replica_distribution" in kinds,
+                              "min_topic_leaders" in kinds)
 
 
 def topic_counts(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tensor:
@@ -63,6 +77,14 @@ def topic_counts(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tenso
     if arrays.topic_counts is not None:
         return arrays.topic_counts
     return model.topic_broker_replica_counts()
+
+
+def topic_leaders(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tensor:
+    """i32[T, B] — the step's shared topic×broker leader counts when
+    present."""
+    if arrays.topic_leader_counts is not None:
+        return arrays.topic_leader_counts
+    return model.topic_leader_counts()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +99,7 @@ class StepInvariants:
     spec_upper: torch.Tensor  # f32[B]
     topic_lower: Optional[torch.Tensor] = None  # f32[T] when a topic goal is in play
     topic_upper: Optional[torch.Tensor] = None  # f32[T]
+    designated: Optional[torch.Tensor] = None  # bool[T] when a min-leaders goal is in play
 
 
 @dataclasses.dataclass(frozen=True)

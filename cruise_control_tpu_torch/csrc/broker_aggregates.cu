@@ -12,24 +12,33 @@
 // is ~0.4 MB, well under a microsecond at 3.35 TB/s, so a launch costs more
 // than the work.
 //
-// Design: one block per broker.  Threads stride over the replica axis and
-// accumulate the rows of their broker in registers in a fixed order, then a
-// fixed shared-memory tree reduction combines them — no float atomics, so
-// the result is bit-identical run to run.  The block's body is
+// Design: one block per broker.  The float sums must be the plain
+// version's bits: its index_add_ on the CPU (and the JAX package's
+// scatter-add) adds each broker's rows one after the other in increasing
+// replica index, and a broker's band edge can fall between two roundings
+// (the mid rung's default goal order parted the card from the CPU at
+// CpuUsageDistributionGoal when K1 summed in its own order).  So the block
+// walks the replica axis in passes of 1,024 rows; the threads holding a
+// row of its broker stage the row's values in shared memory at the row's
+// place in row order (warp ballots and an ordered prefix of their counts),
+// and thread c adds column c of each staged row in turn: one chain of adds
+// per column, in the CPU's order, reading only shared memory — no float
+// atomics, so the result is also bit-identical run to run.  The block's body is
 // k1::aggregate_block (broker_aggregates.cuh), which K10's blended
-// aggregates (placement_score.cu) call with a batch axis.  Each block re-reads the 4-byte
-// broker ids (B * R * 4 bytes: 2 MB at mid, 80 MB at the 200-broker rung),
-// which stay in the 50 MB L2 because the id array itself is R * 4 bytes.
-// Counts are exact int32.
+// aggregates (placement_score.cu) call with a batch axis.  Each block
+// re-reads the 4-byte broker ids (B * R * 4 bytes: 2 MB at mid, 80 MB at
+// the 200-broker rung), which stay in the 50 MB L2 because the id array
+// itself is R * 4 bytes.  Counts are exact int32.
 //
 // cc_segment_sum is the same design for any masked f32[N, C] rows (C <= 16)
 // into S segments: the per-broker round sums of the selection
 // (cruise_control_tpu/analyzer/optimizer.py:663-668, a float scatter-add
-// there).  Bound on the card: bytes (N * (4C + 5) read, S * 4C written; at
-// the mid rung N = 32,768 lanes, C = 8: ~1.2 MB, a few tenths of a
-// microsecond at 3.35 TB/s).  One block per segment, fixed-order strided
-// register sums and a fixed tree: deterministic, so a CUDA graph replays it
-// to the same bits every time.
+// there, masked_segment_sum's index_add_ in the plain version).  Bound on
+// the card: bytes (N * (4C + 5) read, S * 4C written; at the mid rung N =
+// 32,768 lanes, C = 8: ~1.2 MB, a few tenths of a microsecond at 3.35
+// TB/s).  One block per segment, its rows compacted in row order and each
+// channel added by one thread in that order: the plain version's bits,
+// and a CUDA graph replays it to the same bits every time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,36 +70,41 @@ __global__ void broker_aggregates_kernel(
 
 constexpr int kMaxChannels = 16;
 
+// Rows a thread looks at in one pass of segment_sum's row-order walk: with
+// 16 channels a pass's values fill 32 KB of shared memory.
+constexpr int kSegChunks = 2;
+
 __global__ void segment_sum_kernel(const float* __restrict__ values,  // [N, C]
                                    const int32_t* __restrict__ seg,
                                    const uint8_t* __restrict__ mask,
                                    int64_t n, int channels,
                                    float* __restrict__ out) {          // [S, C]
-  __shared__ float s_f[kMaxChannels][kThreads];
+  __shared__ float s_val[kMaxChannels][kThreads * kSegChunks];
+  __shared__ int32_t s_cnt[kSegChunks * k1::kWarps];
   const int s = blockIdx.x;
   const int t = threadIdx.x;
-  float acc[kMaxChannels];
+  float acc = 0.f;  // channel t (t < channels)
+  for (int64_t base = 0; base < n; base += kThreads * kSegChunks) {
+    bool flags[kSegChunks];
 #pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.f;
-  for (int64_t i = t; i < n; i += kThreads) {
-    if (!mask[i] || seg[i] != s) continue;
-    const float* row = values + i * channels;
+    for (int k = 0; k < kSegChunks; ++k) {
+      const int64_t i = base + k * kThreads + t;
+      flags[k] = i < n && mask[i] && seg[i] == s;
+    }
+    int pos[kSegChunks];
+    const int total = k1::compact_pass<kSegChunks>(flags, pos, s_cnt);
 #pragma unroll
-    for (int c = 0; c < kMaxChannels; ++c)
-      if (c < channels) acc[c] = __fadd_rn(acc[c], row[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) s_f[c][t] = acc[c];
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (t < stride) {
-#pragma unroll
-      for (int c = 0; c < kMaxChannels; ++c)
-        if (c < channels) s_f[c][t] = __fadd_rn(s_f[c][t], s_f[c][t + stride]);
+    for (int k = 0; k < kSegChunks; ++k) {
+      if (pos[k] < 0) continue;
+      const float* row = values + (base + k * kThreads + t) * channels;
+      for (int c = 0; c < channels; ++c) s_val[c][pos[k]] = row[c];
     }
     __syncthreads();
+    if (t < channels)
+      for (int j = 0; j < total; ++j) acc = __fadd_rn(acc, s_val[t][j]);
+    __syncthreads();  // s_val and s_cnt are rewritten by the next pass
   }
-  if (t < channels) out[static_cast<int64_t>(s) * channels + t] = s_f[t][0];
+  if (t < channels) out[static_cast<int64_t>(s) * channels + t] = acc;
 }
 
 }  // namespace

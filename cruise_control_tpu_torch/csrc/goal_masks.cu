@@ -13,17 +13,31 @@
 //   mode 2, topic_replica_distribution: the same over (topic, broker)
 //       replica counts around the topic's average;
 //   mode 3, rack: siblings sharing the source rack minus those sharing the
-//       destination rack, with a sibling gather over max_rf.
+//       destination rack, with a sibling gather over max_rf;
+//   mode 4, preferred_leader: a leadership transfer of a wrong leader (a
+//       leader whose preferred replica is another valid, online replica
+//       off a DEMOTED broker, or any leader on a DEMOTED broker) to the
+//       preferred replica (score 1) or off a DEMOTED source (score 0.5);
+//   mode 5, min_topic_leaders: a transfer or leader move of a designated
+//       topic into a broker short of its leaders without starving the
+//       source; the gain into dest and the loss on src, each clamped to 1,
+//       from two cells of the [T, B] topic leader counts;
+//   mode 6, rack_distribution: mode 3's sibling walk, with the quota
+//       ceil(rf / num_racks) in place of "no sibling on the dest rack".
 // The cross-goal vetoes of structural previous goals arrive as the
 // ``accepted`` mask (null = all accepted); K5b below computes them.
 //
 // K5b (cc_structural_accepts) replaces goals/kernels.py:464 accepts of the
 // structural previous goals: rack (a move may not land on a rack that holds
-// another replica of the partition; a swap checks both legs) and
+// another replica of the partition; a swap checks both legs),
+// rack_distribution (the same against the ceil(rf / num_racks) quota),
 // topic_replica_distribution (a move or swap may not push a (topic, broker)
-// count out of the topic's band).  One thread per lane, the same sibling
-// walk as mode 3 and the same topic-count rows as mode 2; exact booleans.
-// Bound: bytes (~40 per lane through the gathers: 1.3 MB at 32,768 lanes).
+// count out of the topic's band) and min_topic_leaders (no transfer, move
+// or swap may take a designated leader off an alive broker at the minimum,
+// the swap's reverse leg included).  One thread per lane, the same sibling
+// walk as modes 3 and 6, the same topic-count rows as mode 2 and the
+// leader-count rows of mode 5; exact booleans.  Bound: bytes (~40 per lane
+// through the gathers: 1.3 MB at 32,768 lanes).
 //
 // Bound on the card: bytes.  A lane reads ~80 bytes through its gathers
 // (its own fields, two broker rows, a topic row or max_rf sibling rows) and
@@ -46,8 +60,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kThreshold = 0, kDistribution = 1, kTopic = 2, kRack = 3;
-constexpr int32_t kMove = 0;  // ActionType.INTER_BROKER_REPLICA_MOVEMENT
+constexpr int kThreshold = 0, kDistribution = 1, kTopic = 2, kRack = 3, kPreferred = 4,
+              kMinLeaders = 5, kRackDist = 6;
+constexpr int32_t kMove = 0;        // ActionType.INTER_BROKER_REPLICA_MOVEMENT
+constexpr int32_t kLeadership = 1;  // ActionType.LEADERSHIP_MOVEMENT
+constexpr int32_t kSwap = 3;        // ActionType.INTER_BROKER_REPLICA_SWAP
+constexpr int8_t kDemoted = 3;      // BrokerState.DEMOTED
 
 __device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
 
@@ -56,9 +74,15 @@ __device__ __forceinline__ float sq_sum(float x, float y) {
   return __fmaf_rn(x, x, __fmul_rn(y, y));
 }
 
+// ceil(rf / num_racks) as the plain version computes it: an i32 divided by
+// a Python int is f32.
+__device__ __forceinline__ float rack_quota(int32_t rf, int64_t num_racks) {
+  return ceilf(__fdiv_rn(static_cast<float>(rf), static_cast<float>(num_racks)));
+}
+
 struct Args {
   int mode, delta_sel;
-  int64_t k, num_brokers, max_rf;
+  int64_t k, num_brokers, max_rf, need, num_racks;
   float eps;
   const int32_t *action_type, *replica, *src, *dest;
   const uint8_t *valid, *accepted;
@@ -75,7 +99,24 @@ struct Args {
   const int32_t *partition_replicas, *broker_rack;
   float* score;
   uint8_t* eligible;
+  const int32_t* dest_replica;
+  const int8_t* broker_state;
+  const uint8_t *is_leader, *replica_valid;
+  const int32_t* tlc;         // [T, B] topic leader counts (mode 5)
+  const uint8_t* designated;  // [T] (mode 5)
+  const int32_t* partition_rf;  // [P] replication factors (mode 6)
 };
+
+// Replica r leads wrongly (goals/kernels.py:105 _wrong_leader_mask): it is a
+// valid leader and its partition's preferred replica is another valid,
+// online replica off a DEMOTED broker, or r itself sits on a DEMOTED broker.
+__device__ __forceinline__ bool wrong_leader(const Args& a, int32_t r, int32_t preferred) {
+  if (!a.is_leader[r] || !a.replica_valid[r]) return false;
+  const int32_t sp = preferred > 0 ? preferred : 0;
+  const bool pref_ok = preferred >= 0 && a.replica_valid[sp] && !a.offline_now[sp] &&
+                       a.broker_state[a.replica_broker[sp]] != kDemoted;
+  return (preferred != r && pref_ok) || a.broker_state[a.replica_broker[r]] == kDemoted;
+}
 
 __global__ void goal_masks_kernel(const Args a) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -91,7 +132,7 @@ __global__ void goal_masks_kernel(const Args a) {
   const float bonus = (unhealthy && is_move) ? kBonus : 0.f;
   bool feasible;
   float score;
-  if (a.mode == kRack) {
+  if (a.mode == kRack || a.mode == kRackDist) {
     const int32_t p = a.replica_partition[r];
     const int32_t own_rack = a.broker_rack[s];
     const int32_t dest_rack = a.broker_rack[d];
@@ -103,8 +144,30 @@ __global__ void goal_masks_kernel(const Args a) {
       before += rack == own_rack;
       after += rack == dest_rack;
     }
-    feasible = is_move && (a.conflict[r] || unhealthy) && after == 0;
+    const bool dest_ok = a.mode == kRack
+                             ? after == 0
+                             : static_cast<float>(1 + after) <=
+                                   rack_quota(a.partition_rf[p], a.num_racks);
+    feasible = is_move && (a.conflict[r] || unhealthy) && dest_ok;
     score = __fadd_rn(static_cast<float>(before - after), bonus);
+  } else if (a.mode == kPreferred) {
+    const int32_t preferred = a.partition_replicas[a.replica_partition[r] * a.max_rf];
+    const bool to_pref = a.dest_replica[i] == preferred;
+    feasible = a.action_type[i] == kLeadership && wrong_leader(a, r, preferred) &&
+               (to_pref || a.broker_state[s] == kDemoted);
+    score = feasible ? (to_pref ? 1.f : 0.5f) : 0.f;
+  } else if (a.mode == kMinLeaders) {
+    const int64_t t = a.replica_topic[r];
+    const bool designated = a.designated[t] != 0;
+    const int32_t ls = a.tlc[t * a.num_brokers + s], ld = a.tlc[t * a.num_brokers + d];
+    const bool gains = a.action_type[i] == kLeadership || (is_move && a.is_leader[r]);
+    feasible = designated && gains && ld < a.need && (ls - 1 >= a.need || unhealthy);
+    const float need = static_cast<float>(a.need);
+    const float fs = static_cast<float>(ls), fd = static_cast<float>(ld);
+    const float gain = fminf(clamp0(__fsub_rn(need, fd)), 1.f);
+    const float loss = __fsub_rn(clamp0(__fsub_rn(need, __fsub_rn(fs, 1.f))),
+                                 clamp0(__fsub_rn(need, fs)));
+    score = __fadd_rn(designated ? __fsub_rn(gain, fminf(loss, 1.f)) : 0.f, bonus);
   } else if (a.mode == kTopic) {
     const int64_t t = a.replica_topic[r];
     const float cs = static_cast<float>(a.tbc[t * a.num_brokers + s]);
@@ -173,47 +236,66 @@ __global__ void goal_masks_kernel(const Args a) {
                   score > kMinScore;
 }
 
-constexpr int32_t kSwap = 3;  // ActionType.INTER_BROKER_REPLICA_SWAP
-
-// No sibling of replica r's partition (other than r) sits on rack ``rack``.
-__device__ __forceinline__ bool rack_ok(int32_t r, int32_t rack, int64_t max_rf,
-                                        const int32_t* replica_partition,
-                                        const int32_t* partition_replicas,
-                                        const int32_t* replica_broker,
-                                        const int32_t* broker_rack) {
-  const int32_t* sib = partition_replicas + replica_partition[r] * max_rf;
-  for (int64_t j = 0; j < max_rf; ++j) {
-    const int32_t s = sib[j];
-    if (s >= 0 && s != r && broker_rack[replica_broker[s]] == rack) return false;
-  }
-  return true;
-}
-
 struct AcceptArgs {
-  int rack, topic;
-  int64_t k, num_brokers, max_rf;
+  int rack, rack_dist, topic, min_leaders;
+  int64_t k, num_brokers, max_rf, need, num_racks;
   const int32_t *action_type, *replica, *src, *dest, *dest_replica;
   const int32_t *replica_topic, *replica_partition, *replica_broker;
   const int32_t *partition_replicas, *broker_rack, *tbc;
   const float *lower_t, *upper_t;
+  const uint8_t *is_leader, *alive;
+  const int32_t* tlc;
+  const uint8_t* designated;
+  const int32_t* partition_rf;
   uint8_t* out;
 };
+
+// Siblings of replica r's partition (other than r) on rack ``rack``.
+__device__ __forceinline__ int siblings_on(const AcceptArgs& a, int32_t r, int32_t rack) {
+  const int32_t* sib = a.partition_replicas + a.replica_partition[r] * a.max_rf;
+  int n = 0;
+  for (int64_t j = 0; j < a.max_rf; ++j) {
+    const int32_t s = sib[j];
+    n += s >= 0 && s != r && a.broker_rack[a.replica_broker[s]] == rack;
+  }
+  return n;
+}
+
+// Moving replica r onto rack ``rack`` keeps the rack goals of the stack:
+// no sibling there (rack), at most the quota with r (rack_distribution).
+__device__ __forceinline__ bool rack_leg_ok(const AcceptArgs& a, int32_t r, int32_t rack) {
+  const int n = siblings_on(a, r, rack);
+  bool ok = !a.rack || n == 0;
+  if (a.rack_dist)
+    ok = ok && static_cast<float>(1 + n) <=
+                   rack_quota(a.partition_rf[a.replica_partition[r]], a.num_racks);
+  return ok;
+}
 
 __global__ void structural_accepts_kernel(const AcceptArgs a) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.k) return;
   const int32_t at = a.action_type[i];
   const bool is_move = at == kMove, is_swap = at == kSwap;
+  const int32_t r = a.replica[i], s = a.src[i], d = a.dest[i];
+  const int32_t r2 = a.dest_replica[i] >= 0 ? a.dest_replica[i] : 0;
   bool ok = true;
+  if (a.min_leaders) {
+    // A designated leader leaving an alive broker at the minimum: r off
+    // src (a transfer, or a move or swap of a leader), r2 off dest (the
+    // swap's reverse leg).
+    const int64_t t = a.replica_topic[r], t2 = a.replica_topic[r2];
+    const bool loses = at == kLeadership || ((is_move || is_swap) && a.is_leader[r]);
+    const bool starves = a.designated[t] && loses &&
+                         a.tlc[t * a.num_brokers + s] - 1 < a.need && a.alive[s];
+    const bool starves2 = is_swap && a.designated[t2] && a.is_leader[r2] &&
+                          a.tlc[t2 * a.num_brokers + d] - 1 < a.need && a.alive[d];
+    ok = !(starves || starves2);
+  }
   if (is_move || is_swap) {
-    const int32_t r = a.replica[i], s = a.src[i], d = a.dest[i];
-    const int32_t r2 = a.dest_replica[i] >= 0 ? a.dest_replica[i] : 0;
-    if (a.rack) {
-      ok = rack_ok(r, a.broker_rack[d], a.max_rf, a.replica_partition,
-                   a.partition_replicas, a.replica_broker, a.broker_rack);
-      if (is_swap)
-        ok = ok && rack_ok(r2, a.broker_rack[s], a.max_rf, a.replica_partition,
-                           a.partition_replicas, a.replica_broker, a.broker_rack);
+    if (a.rack || a.rack_dist) {
+      ok = ok && rack_leg_ok(a, r, a.broker_rack[d]);
+      if (is_swap) ok = ok && rack_leg_ok(a, r2, a.broker_rack[s]);
     }
     if (a.topic) {
       const int64_t t = a.replica_topic[r];
@@ -236,20 +318,30 @@ __global__ void structural_accepts_kernel(const AcceptArgs a) {
 }  // namespace
 
 extern "C" int cc_structural_accepts(
-    int64_t rack, int64_t topic, int64_t k, int64_t num_brokers, int64_t max_rf,
+    int64_t rack, int64_t rack_dist, int64_t topic, int64_t min_leaders, int64_t k,
+    int64_t num_brokers, int64_t max_rf, int64_t need, int64_t num_racks,
     const int32_t* action_type, const int32_t* replica, const int32_t* src,
     const int32_t* dest, const int32_t* dest_replica, const int32_t* replica_topic,
     const int32_t* replica_partition, const int32_t* replica_broker,
     const int32_t* partition_replicas, const int32_t* broker_rack, const int32_t* tbc,
-    const float* lower_t, const float* upper_t, uint8_t* out, cudaStream_t stream) {
+    const float* lower_t, const float* upper_t, const uint8_t* is_leader,
+    const uint8_t* alive, const int32_t* tlc, const uint8_t* designated,
+    const int32_t* partition_rf, uint8_t* out, cudaStream_t stream) {
   if (k <= 0) return 0;
-  if (topic && (!tbc || !lower_t || !upper_t)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((topic && (!tbc || !lower_t || !upper_t)) ||
+      (min_leaders && (!tlc || !designated || !is_leader || !alive)) ||
+      (rack_dist && (!partition_rf || num_racks < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   AcceptArgs a;
   a.rack = static_cast<int>(rack);
+  a.rack_dist = static_cast<int>(rack_dist);
   a.topic = static_cast<int>(topic);
+  a.min_leaders = static_cast<int>(min_leaders);
   a.k = k;
   a.num_brokers = num_brokers;
   a.max_rf = max_rf;
+  a.need = need;
+  a.num_racks = num_racks;
   a.action_type = action_type;
   a.replica = replica;
   a.src = src;
@@ -263,6 +355,11 @@ extern "C" int cc_structural_accepts(
   a.tbc = tbc;
   a.lower_t = lower_t;
   a.upper_t = upper_t;
+  a.is_leader = is_leader;
+  a.alive = alive;
+  a.tlc = tlc;
+  a.designated = designated;
+  a.partition_rf = partition_rf;
   a.out = out;
   const unsigned blocks = static_cast<unsigned>((k + kThreads - 1) / kThreads);
   structural_accepts_kernel<<<blocks, kThreads, 0, stream>>>(a);
@@ -271,7 +368,7 @@ extern "C" int cc_structural_accepts(
 
 extern "C" int cc_goal_masks(
     int64_t mode, int64_t delta_sel, int64_t k, int64_t num_brokers, int64_t max_rf,
-    float eps, const int32_t* action_type, const int32_t* replica, const int32_t* src,
+    int64_t need, int64_t num_racks, float eps, const int32_t* action_type, const int32_t* replica, const int32_t* src,
     const int32_t* dest, const uint8_t* valid, const uint8_t* accepted,
     const float* delta_src, const float* delta_dest, const int32_t* d_replica_count,
     const int32_t* d_leader_count, const float* d_pnw, const float* d_lbi_src,
@@ -281,14 +378,18 @@ extern "C" int cc_goal_masks(
     const int32_t* replica_broker, const uint8_t* conflict, const int32_t* tbc,
     const float* lower_t, const float* upper_t, const float* avg_t,
     const int32_t* partition_replicas, const int32_t* broker_rack, float* score,
-    uint8_t* eligible, cudaStream_t stream) {
+    uint8_t* eligible, const int32_t* dest_replica, const int8_t* broker_state,
+    const uint8_t* is_leader, const uint8_t* replica_valid, const int32_t* tlc,
+    const uint8_t* designated, const int32_t* partition_rf, cudaStream_t stream) {
   if (k <= 0) return 0;
-  if (mode < kThreshold || mode > kRack || delta_sel < 0 || delta_sel > 7)
+  if (mode < kThreshold || mode > kRackDist || delta_sel < 0 || delta_sel > 7)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool band = mode == kThreshold || mode == kDistribution;
   if ((band && (!metric || !lower || !upper)) ||
       (mode == kTopic && (!tbc || !lower_t || !upper_t || !avg_t)) ||
-      (mode == kRack && !conflict))
+      ((mode == kRack || mode == kRackDist) && !conflict) ||
+      (mode == kRackDist && (!partition_rf || num_racks < 1)) ||
+      (mode == kMinLeaders && (!tlc || !designated)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.mode = static_cast<int>(mode);
@@ -296,6 +397,8 @@ extern "C" int cc_goal_masks(
   a.k = k;
   a.num_brokers = num_brokers;
   a.max_rf = max_rf;
+  a.need = need;
+  a.num_racks = num_racks;
   a.eps = eps;
   a.action_type = action_type;
   a.replica = replica;
@@ -327,6 +430,13 @@ extern "C" int cc_goal_masks(
   a.broker_rack = broker_rack;
   a.score = score;
   a.eligible = eligible;
+  a.dest_replica = dest_replica;
+  a.broker_state = broker_state;
+  a.is_leader = is_leader;
+  a.replica_valid = replica_valid;
+  a.tlc = tlc;
+  a.designated = designated;
+  a.partition_rf = partition_rf;
   const unsigned blocks = static_cast<unsigned>((k + kThreads - 1) / kThreads);
   goal_masks_kernel<<<blocks, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -16,15 +16,19 @@
 // picks after[r] or before[r] — so no copy of the model is ever built.  The
 // float adds run in K1's fixed order, so an all-false mask gives K1's bits.
 // With a topic goal in the stack it also counts replicas per (c, topic,
-// broker) into i32[C, T, B] with integer atomics (exact, in any order; the
-// caller zeroes the buffer).
+// broker) into i32[C, T, B], and with a min-topic-leaders goal leaders per
+// (c, topic, broker) into another i32[C, T, B], with integer atomics
+// (exact, in any order; the caller zeroes the buffers).
 //
 // cc_stack_sweep_batch is K9's sweep with a batch axis: grid (G, C), block
 // (g, c) runs K9's per-goal body (stack_sweep.cuh) on checkpoint c's slice
-// of the aggregates; the rack kind reads the blended broker of each replica
-// and of each sibling through the mask.  Band averages use ordered.cuh's
-// windowed sums, as K9 does, so the band edges are the bits of the plain
-// version.
+// of the aggregates; the rack kinds read the blended broker of each replica
+// and of each sibling through the mask, the preferred-leader kind the
+// blended leader flags and brokers and each preferred replica's blended
+// offline flag (replica_offline_now of the blend: on a dead broker or a
+// dead disk, or reported offline and still on its original broker).  Band
+// averages use ordered.cuh's windowed sums, as K9 does, so the band edges
+// are the bits of the plain version.
 //
 // A partition index is clamped into [0, P) before it indexes a mask row, as
 // the JAX package's gather clamps (padded replicas hold partition 0 and are
@@ -33,7 +37,8 @@
 // Bound on the card: bytes.  The function must read the C x P masks, the
 // two placements (broker ids and leader flags), the replica partitions,
 // valid flags, topics and load rows once, and write C x B x 32 bytes of
-// aggregates, the C x T x B topic counts and C x G flags: at the mid rung
+// aggregates, the C x T x B topic (and topic leader) counts and C x G
+// flags: at the mid rung
 // (C = 256, P ~ 3.4k, R ~ 10k, B = 50) ~1.7 MB, half a microsecond at
 // 3.35 TB/s.  This simple design is far from it: every (b, c) block
 // re-reads the replica axis (B x C x R x ~14 bytes, from L2), which is what
@@ -54,7 +59,13 @@ struct Blend {
   const int32_t* partition;
   int64_t p;
   const int32_t *before, *after;
-  const uint8_t *before_lead, *after_lead;  // null in the sweep
+  const uint8_t *before_lead, *after_lead;
+  // The offline flags of the blend (the sweep's preferred-leader kind).
+  const int32_t *before_disk, *after_disk;
+  const float* disk_capacity;
+  const uint8_t *reported_offline, *valid;
+  const int32_t* original;
+  const int8_t* state;
   __device__ __forceinline__ bool landed(int64_t r) const {
     int64_t q = partition[r];
     q = q < 0 ? 0 : (q >= p ? p - 1 : q);
@@ -66,16 +77,28 @@ struct Blend {
   __device__ __forceinline__ bool leader(int64_t r) const {
     return (landed(r) ? after_lead[r] : before_lead[r]) != 0;
   }
+  // TensorClusterModel.replica_offline_now of the blend.
+  __device__ __forceinline__ bool offline_now(int64_t r) const {
+    if (!valid[r]) return false;
+    const int32_t b = broker(r);
+    const int32_t disk = landed(r) ? after_disk[r] : before_disk[r];
+    const bool dead_disk = disk >= 0 && disk_capacity[disk] < 0.f;
+    const bool sticky = reported_offline[r] && b == original[r];
+    return state[b] == k9::kDead || dead_disk || sticky;
+  }
 };
 
-// Replicas per (topic, broker) of one checkpoint (null: none wanted).
+// Replicas and leaders per (topic, broker) of one checkpoint (null: not
+// wanted).
 struct TopicCounts {
   const int32_t* topic;
-  int32_t* counts;  // [T, B] of checkpoint c
+  int32_t* counts;   // [T, B] of checkpoint c
+  int32_t* leaders;  // [T, B] of checkpoint c
   int64_t b_total;
   int b;
-  __device__ __forceinline__ void add(int64_t r) const {
+  __device__ __forceinline__ void add(int64_t r, bool lead) const {
     if (counts != nullptr) atomicAdd(counts + topic[r] * b_total + b, 1);
+    if (leaders != nullptr && lead) atomicAdd(leaders + topic[r] * b_total + b, 1);
   }
 };
 
@@ -87,22 +110,28 @@ __global__ void blend_aggregates_kernel(
     const float* __restrict__ load_follower, const int32_t* __restrict__ topic,
     int64_t num_replicas, int64_t num_brokers, int64_t num_topics, float* load,
     int32_t* replica_count, int32_t* leader_count, float* potential_nw_out,
-    float* leader_bytes_in, int32_t* topic_counts) {
+    float* leader_bytes_in, int32_t* topic_counts, int32_t* topic_leaders) {
   const int b = blockIdx.x;
   const int64_t c = blockIdx.y;
   const int64_t cb = c * num_brokers + b;
-  const Blend pl{masks + c * p, partition, p, before_rb, after_rb, before_lead, after_lead};
-  const TopicCounts topics{
-      topic, topic_counts == nullptr ? nullptr : topic_counts + c * num_topics * num_brokers,
-      num_brokers, b};
+  Blend pl{};
+  pl.mask = masks + c * p;
+  pl.partition = partition;
+  pl.p = p;
+  pl.before = before_rb;
+  pl.after = after_rb;
+  pl.before_lead = before_lead;
+  pl.after_lead = after_lead;
+  const int64_t tb = c * num_topics * num_brokers;
+  const TopicCounts topics{topic, topic_counts == nullptr ? nullptr : topic_counts + tb,
+                           topic_leaders == nullptr ? nullptr : topic_leaders + tb,
+                           num_brokers, b};
   k1::aggregate_block(pl, topics, b, valid, load_leader, load_follower, num_replicas,
                       load + 4 * cb, replica_count + cb, leader_count + cb,
                       potential_nw_out + cb, leader_bytes_in + cb);
 }
 
-__global__ void stack_sweep_batch_kernel(const k9::Args a, const uint8_t* __restrict__ masks,
-                                         int64_t p, const int32_t* __restrict__ before_rb,
-                                         const int32_t* __restrict__ after_rb) {
+__global__ void stack_sweep_batch_kernel(const k9::Args a, const Blend blend) {
   const int64_t g = blockIdx.x;
   const int64_t c = blockIdx.y;
   k9::Args ac = a;
@@ -112,8 +141,9 @@ __global__ void stack_sweep_batch_kernel(const k9::Args a, const uint8_t* __rest
   ac.pnw = a.pnw + c * a.b;
   ac.lbi = a.lbi + c * a.b;
   if (a.tbc != nullptr) ac.tbc = a.tbc + c * a.t * a.b;
-  const Blend pl{masks + c * p, a.replica_partition, p, before_rb, after_rb, nullptr,
-                 nullptr};
+  if (a.tlc != nullptr) ac.tlc = a.tlc + c * a.t * a.b;
+  Blend pl = blend;
+  pl.mask = blend.mask + c * blend.p;
   k9::sweep_goal(ac, g, pl, a.sat + c * a.g + g);
 }
 
@@ -125,26 +155,32 @@ extern "C" int cc_blend_aggregates(
     const uint8_t* before_lead, const uint8_t* after_lead, const uint8_t* valid,
     const float* load_leader, const float* load_follower, const int32_t* topic,
     float* load, int32_t* replica_count, int32_t* leader_count, float* potential_nw_out,
-    float* leader_bytes_in, int32_t* topic_counts, cudaStream_t stream) {
+    float* leader_bytes_in, int32_t* topic_counts, int32_t* topic_leaders,
+    cudaStream_t stream) {
   if (c <= 0 || b <= 0) return 0;
-  if (p <= 0 || c > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (p <= 0 || c > 65535 || ((topic_counts || topic_leaders) && !topic))
+    return static_cast<int>(cudaErrorInvalidValue);
   blend_aggregates_kernel<<<dim3(static_cast<unsigned>(b), static_cast<unsigned>(c)),
                             k1::kThreads, 0, stream>>>(
       masks, partition, p, before_rb, after_rb, before_lead, after_lead, valid, load_leader,
       load_follower, topic, r, b, t, load, replica_count, leader_count, potential_nw_out,
-      leader_bytes_in, topic_counts);
+      leader_bytes_in, topic_counts, topic_leaders);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int cc_stack_sweep_batch(
     int64_t c, int64_t g, int64_t b, int64_t r, int64_t t, int64_t p, int64_t max_rf,
-    const int32_t* ints, const float* floats, const uint8_t* alive, const uint8_t* valid,
-    const int32_t* rc, const int32_t* lc, const float* load, const float* cap,
-    const float* pnw, const float* lbi, const int32_t* num_alive, const int32_t* tbc,
+    int64_t num_racks, const int32_t* ints, const float* floats, const uint8_t* alive,
+    const uint8_t* valid, const int32_t* rc, const int32_t* lc, const float* load,
+    const float* cap, const float* pnw, const float* lbi, const int32_t* num_alive,
+    const int32_t* tbc, const int32_t* tlc, const uint8_t* designated,
     const uint8_t* masks, const int32_t* before_rb, const int32_t* after_rb,
+    const uint8_t* before_lead, const uint8_t* after_lead, const int32_t* before_disk,
+    const int32_t* after_disk, const float* disk_capacity, const uint8_t* replica_offline,
+    const int32_t* original_broker, const int8_t* broker_state,
     const uint8_t* replica_valid, const int32_t* replica_partition,
-    const int32_t* partition_replicas, const int32_t* broker_rack, uint8_t* sat,
-    cudaStream_t stream) {
+    const int32_t* partition_replicas, const int32_t* broker_rack,
+    const int32_t* partition_rf, uint8_t* sat, cudaStream_t stream) {
   if (c <= 0 || g <= 0) return 0;
   if (b <= 0 || b > 32 * k9::kThreads || p <= 0 || c > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -154,6 +190,7 @@ extern "C" int cc_stack_sweep_batch(
   a.r = r;
   a.t = t;
   a.max_rf = max_rf;
+  a.num_racks = num_racks;
   a.ints = ints;
   a.floats = floats;
   a.alive = alive;
@@ -166,15 +203,35 @@ extern "C" int cc_stack_sweep_batch(
   a.lbi = lbi;
   a.num_alive = num_alive;
   a.tbc = tbc;
+  a.tlc = tlc;
+  a.designated = designated;
+  a.partition_rf = partition_rf;
   a.replica_broker = nullptr;  // the blend is read through the mask
   a.replica_valid = replica_valid;
   a.replica_partition = replica_partition;
   a.partition_replicas = partition_replicas;
   a.broker_rack = broker_rack;
+  a.broker_state = broker_state;
+  a.is_leader = nullptr;  // the blend is read through the mask
   a.offline = nullptr;
   a.sat = sat;
   a.off = nullptr;
+  Blend blend{};
+  blend.mask = masks;
+  blend.partition = replica_partition;
+  blend.p = p;
+  blend.before = before_rb;
+  blend.after = after_rb;
+  blend.before_lead = before_lead;
+  blend.after_lead = after_lead;
+  blend.before_disk = before_disk;
+  blend.after_disk = after_disk;
+  blend.disk_capacity = disk_capacity;
+  blend.reported_offline = replica_offline;
+  blend.valid = replica_valid;
+  blend.original = original_broker;
+  blend.state = broker_state;
   stack_sweep_batch_kernel<<<dim3(static_cast<unsigned>(g), static_cast<unsigned>(c)),
-                             k9::kThreads, 0, stream>>>(a, masks, p, before_rb, after_rb);
+                             k9::kThreads, 0, stream>>>(a, blend);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,14 +20,25 @@
 //                         sibling of their partition (must be none)
 //   8 topic_replica_distribution  per (topic, broker) replica counts
 //                         against floor / ceil(topic average * {b, a})
+//   9 rack_distribution   replicas with at least ceil(rf / num_racks)
+//                         lower-id siblings of their partition on their
+//                         rack (must be none)
+//  10 preferred_leader    wrong leaders (must be none): a valid leader
+//                         whose partition's preferred replica is another
+//                         valid, online replica off a DEMOTED broker, or
+//                         any leader on a DEMOTED broker
+//  11 min_topic_leaders   (topic, broker) leader counts of designated
+//                         topics on alive brokers against a (the minimum)
 // ``floats`` holds (eps, a, b, c) per goal as float32, which is how torch
 // applies the Python constants of the plain version.
 //
 // Bound on the card: bytes.  A band goal reads its broker rows once (B x
 // ~40 bytes), the rack goal every replica's broker, partition and sibling
-// rows (~R x 24 bytes, 2.4 MB at the large rung), the topic goal the [T, B]
-// counts, the offline block R flags: the stack's 15 goals move ~3 MB, about
-// a microsecond at 3.35 TB/s — the launch costs more than the work.
+// rows (~R x 24 bytes, 2.4 MB at the large rung), the preferred-leader goal
+// every leader's preferred replica, its broker state and offline flag (~R x
+// 12 bytes), the topic goals the [T, B] counts, the offline block R flags:
+// the stack's 16 goals move ~3-5 MB, about a microsecond at 3.35 TB/s — the
+// launch costs more than the work.
 //
 // Design: one block per goal and one more for the offline flag.  A block
 // reduces the alive sums its kind needs — float sums in the windowed order
@@ -62,20 +73,21 @@ __global__ void stack_sweep_kernel(const Args a) {
     if (t == 0) a.off[0] = violated != 0;
     return;
   }
-  k9::sweep_goal(a, g, k9::Direct{a.replica_broker}, a.sat + g);
+  k9::sweep_goal(a, g, k9::Direct{a.replica_broker, a.is_leader, a.offline}, a.sat + g);
 }
 
 }  // namespace
 
 extern "C" int cc_stack_sweep(
-    int64_t g, int64_t b, int64_t r, int64_t t, int64_t max_rf, const int32_t* ints,
-    const float* floats, const uint8_t* alive, const uint8_t* valid, const int32_t* rc,
-    const int32_t* lc, const float* load, const float* cap, const float* pnw,
-    const float* lbi, const int32_t* num_alive, const int32_t* tbc,
+    int64_t g, int64_t b, int64_t r, int64_t t, int64_t max_rf, int64_t num_racks,
+    const int32_t* ints, const float* floats, const uint8_t* alive, const uint8_t* valid,
+    const int32_t* rc, const int32_t* lc, const float* load, const float* cap,
+    const float* pnw, const float* lbi, const int32_t* num_alive, const int32_t* tbc,
+    const int32_t* tlc, const uint8_t* designated, const int32_t* partition_rf,
     const int32_t* replica_broker, const uint8_t* replica_valid,
     const int32_t* replica_partition, const int32_t* partition_replicas,
-    const int32_t* broker_rack, const uint8_t* offline, uint8_t* sat, uint8_t* off,
-    cudaStream_t stream) {
+    const int32_t* broker_rack, const int8_t* broker_state, const uint8_t* is_leader,
+    const uint8_t* offline, uint8_t* sat, uint8_t* off, cudaStream_t stream) {
   if (g < 0 || b <= 0 || b > 32 * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.g = g;
@@ -83,6 +95,7 @@ extern "C" int cc_stack_sweep(
   a.r = r;
   a.t = t;
   a.max_rf = max_rf;
+  a.num_racks = num_racks;
   a.ints = ints;
   a.floats = floats;
   a.alive = alive;
@@ -95,11 +108,16 @@ extern "C" int cc_stack_sweep(
   a.lbi = lbi;
   a.num_alive = num_alive;
   a.tbc = tbc;
+  a.tlc = tlc;
+  a.designated = designated;
+  a.partition_rf = partition_rf;
   a.replica_broker = replica_broker;
   a.replica_valid = replica_valid;
   a.replica_partition = replica_partition;
   a.partition_replicas = partition_replicas;
   a.broker_rack = broker_rack;
+  a.broker_state = broker_state;
+  a.is_leader = is_leader;
   a.offline = offline;
   a.sat = sat;
   a.off = off;

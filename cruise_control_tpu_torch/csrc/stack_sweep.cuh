@@ -18,12 +18,14 @@ constexpr int kThreads = 512;
 constexpr float kBig = 1e30f;
 enum Kind {
   kCapacity = 0, kPotentialNwOut = 1, kReplicaCapacity = 2, kResourceDist = 3,
-  kReplicaDist = 4, kLeaderDist = 5, kLeaderBytesIn = 6, kRack = 7, kTopic = 8
+  kReplicaDist = 4, kLeaderDist = 5, kLeaderBytesIn = 6, kRack = 7, kTopic = 8,
+  kRackDist = 9, kPreferred = 10, kMinLeaders = 11
 };
 constexpr int kNwOut = 2;  // Resource.NW_OUT
+constexpr int8_t kDead = 1, kDemoted = 3;  // BrokerState
 
 struct Args {
-  int64_t g, b, r, t, max_rf;
+  int64_t g, b, r, t, max_rf, num_racks;
   const int32_t* ints;   // [G, 3]: kind, resource, is_hard
   const float* floats;   // [G, 4]: eps, a, b, c
   const uint8_t *alive, *valid;
@@ -31,9 +33,14 @@ struct Args {
   const float *load, *cap, *pnw, *lbi;
   const int32_t* num_alive;
   const int32_t* tbc;  // [T, B] or null
+  const int32_t* tlc;  // [T, B] topic leader counts or null
+  const uint8_t* designated;  // [T] or null
+  const int32_t* partition_rf;  // [P] replication factors or null
   const int32_t *replica_broker;
   const uint8_t* replica_valid;
   const int32_t *replica_partition, *partition_replicas, *broker_rack;
+  const int8_t* broker_state;
+  const uint8_t* is_leader;
   const uint8_t* offline;  // replica_offline_now
   uint8_t *sat, *off;
 };
@@ -61,15 +68,26 @@ __device__ inline long long block_sum_i(long long v, long long* sh) {
   return out;
 }
 
-// The model's own placement (K9): replica r sits on replica_broker[r].
+// The model's own placement (K9): replica r sits on replica_broker[r],
+// leads when is_leader[r] and is offline when offline[r]
+// (replica_offline_now).
 struct Direct {
   const int32_t* replica_broker;
+  const uint8_t *is_leader, *offline;
   __device__ __forceinline__ int32_t broker(int64_t r) const { return replica_broker[r]; }
+  __device__ __forceinline__ bool leader(int64_t r) const { return is_leader[r] != 0; }
+  __device__ __forceinline__ bool offline_now(int64_t r) const { return offline[r] != 0; }
 };
 
-// Goal ``g``'s satisfied flag under placement ``pl`` (read by the rack
-// kind; every other kind reads the aggregates in ``a``), written to
-// ``sat[0]`` by thread 0.  Every thread of the block calls it.
+// ceil(rf / num_racks) as the plain version computes it (f32).
+__device__ __forceinline__ float rack_quota(int32_t rf, int64_t num_racks) {
+  return ceilf(__fdiv_rn(static_cast<float>(rf), static_cast<float>(num_racks)));
+}
+
+// Goal ``g``'s satisfied flag under placement ``pl`` (read by the rack,
+// rack-distribution and preferred-leader kinds; every other kind reads the
+// aggregates in ``a``), written to ``sat[0]`` by thread 0.  Every thread
+// of the block calls it.
 template <class Placement>
 __device__ void sweep_goal(const Args& a, int64_t g, const Placement& pl, uint8_t* sat) {
   __shared__ float shf[kThreads];
@@ -91,17 +109,45 @@ __device__ void sweep_goal(const Args& a, int64_t g, const Placement& pl, uint8_
     for (int64_t i = t; i < a.b; i += kThreads)
       any |= !a.alive[i] && a.valid[i] && a.rc[i] > 0;
   }
-  if (kind == kRack) {
+  if (kind == kRack || kind == kRackDist) {
+    // A replica conflicts when it has a lower-id sibling on its rack
+    // (rack), or at least the quota of them (rack_distribution).
     for (int64_t i = t; i < a.r; i += kThreads) {
       if (!a.replica_valid[i]) continue;
       const int32_t own = pl.broker(i);
       if (!a.alive[own]) continue;
       const int32_t rack = a.broker_rack[own];
-      const int32_t* sib = a.partition_replicas + a.replica_partition[i] * a.max_rf;
+      const int64_t p = a.replica_partition[i];
+      const int32_t* sib = a.partition_replicas + p * a.max_rf;
+      int rank = 0;
       for (int64_t j = 0; j < a.max_rf; ++j) {
         const int32_t s = sib[j];
-        if (s >= 0 && s < i && a.broker_rack[pl.broker(s)] == rack) any = true;
+        rank += s >= 0 && s < i && a.broker_rack[pl.broker(s)] == rack;
       }
+      any |= kind == kRack ? rank > 0
+                           : static_cast<float>(rank) >= rack_quota(a.partition_rf[p],
+                                                                    a.num_racks);
+    }
+  } else if (kind == kPreferred) {
+    // A wrong leader on an alive broker: a valid leader whose partition's
+    // preferred replica is another valid, online replica off a DEMOTED
+    // broker, or any leader on a DEMOTED broker.
+    for (int64_t i = t; i < a.r; i += kThreads) {
+      if (!a.replica_valid[i] || !pl.leader(i)) continue;
+      const int32_t own = pl.broker(i);
+      if (!a.alive[own]) continue;
+      const int32_t preferred = a.partition_replicas[a.replica_partition[i] * a.max_rf];
+      const int32_t sp = preferred > 0 ? preferred : 0;
+      const bool pref_ok = preferred >= 0 && a.replica_valid[sp] && !pl.offline_now(sp) &&
+                           a.broker_state[pl.broker(sp)] != kDemoted;
+      any |= (preferred != i && pref_ok) || a.broker_state[own] == kDemoted;
+    }
+  } else if (kind == kMinLeaders) {
+    // An alive broker short of leaders in a designated topic: its
+    // shortfall is an integer-valued sum, positive when any term is.
+    for (int64_t i = t; i < a.t * a.b; i += kThreads) {
+      const int64_t b = i % a.b;
+      any |= a.alive[b] && a.designated[i / a.b] && static_cast<float>(a.tlc[i]) < pa;
     }
   } else if (kind == kTopic) {
     // Topic totals are the row sums of the counts (every valid replica is

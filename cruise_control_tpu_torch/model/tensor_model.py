@@ -162,6 +162,19 @@ class TensorClusterModel:
                                       self.replica_valid)
         return counts.reshape(self.num_topics, self.num_brokers)
 
+    def topic_leader_counts(self) -> torch.Tensor:
+        """i32[T, B] leaders of each topic on each broker
+        (MinTopicLeadersPerBrokerGoal's input)."""
+        flat = self.replica_topic * self.num_brokers + self.replica_broker
+        counts = masked_segment_count(flat, self.num_topics * self.num_brokers,
+                                      self.replica_valid & self.replica_is_leader)
+        return counts.reshape(self.num_topics, self.num_brokers)
+
+    def preferred_leader_replica(self) -> torch.Tensor:
+        """i32[P] the preferred (first-listed) replica of each partition
+        (PreferredLeaderElectionGoal: replica[0] should lead)."""
+        return self.partition_replicas[:, 0]
+
     # ------------------------------------------------------------------
     # Topology / placement queries
     # ------------------------------------------------------------------
@@ -201,6 +214,12 @@ class TensorClusterModel:
     def alive_broker_mask(self) -> torch.Tensor:
         """bool[B] brokers that can receive replicas (DEAD excluded)."""
         return self.broker_valid & (self.broker_state != BrokerState.DEAD)
+
+    def new_broker_mask(self) -> torch.Tensor:
+        return self.broker_valid & (self.broker_state == BrokerState.NEW)
+
+    def demoted_broker_mask(self) -> torch.Tensor:
+        return self.broker_valid & (self.broker_state == BrokerState.DEMOTED)
 
     # ------------------------------------------------------------------
     # Mutations (pure; return a new model)

@@ -51,20 +51,20 @@ _ENTRIES = {
     "ordered_sum": ("ordered", "cc_ordered_sum", "ppii"),
     "ordered_cumsum": ("ordered", "cc_ordered_cumsum", "ppii"),
     "apply_actions": ("apply_actions", "cc_apply_actions", "pppppppppiiippp"),
-    "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 5 + "f" + "p" * 30),
+    "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 7 + "f" + "p" * 37),
     "transport_rank": ("transport_match", "cc_transport_rank", "ppip"),
     "transport_lookup": ("transport_match", "cc_transport_lookup", "ppppiippp"),
     "cluster_stats": ("cluster_stats", "cc_cluster_stats", "ppiip"),
-    "structural_accepts": ("goal_masks", "cc_structural_accepts", "i" * 5 + "p" * 14),
-    "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 5 + "p" * 20),
+    "structural_accepts": ("goal_masks", "cc_structural_accepts", "i" * 9 + "p" * 19),
+    "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 6 + "p" * 25),
     "frontier_active": ("frontier_active", "cc_frontier_active", "if" + "p" * 8),
     "frontier_active_batch": ("frontier_active", "cc_frontier_active_batch",
                               "ii" + "p" * 10),
     "chunk_gate": ("chunk_gate", "cc_chunk_gate", "p" * 9 + "iiii"),
     "cross_gate": ("chunk_gate", "cc_cross_gate", "p" * 5 + "i"),
     "chunk_touched": ("chunk_gate", "cc_chunk_touched", "ii" + "p" * 8),
-    "blend_aggregates": ("placement_score", "cc_blend_aggregates", "i" * 5 + "p" * 16),
-    "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch", "i" * 7 + "p" * 20),
+    "blend_aggregates": ("placement_score", "cc_blend_aggregates", "i" * 5 + "p" * 17),
+    "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch", "i" * 8 + "p" * 31),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 
@@ -224,6 +224,24 @@ def counted(name: str):
         COUNTED[name] = fn
         return fn
     return wrap
+
+
+class ModeCounter:
+    """The launches of one mode of a kernel (one goal kind of K5, K5b, K9 or
+    K10), counted beside its wrapper's own count."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def mode_counters(kernel: str, modes: Sequence[str]) -> Dict[str, ModeCounter]:
+    """Register a counter ``<kernel>[<mode>]`` for each of ``modes``; the
+    wrapper adds one to a mode's counter where a launch computes that
+    mode."""
+    out = {}
+    for m in modes:
+        out[m] = COUNTED[f"{kernel}[{m}]"] = ModeCounter()
+    return out
 
 
 def launch_counts() -> Dict[str, int]:

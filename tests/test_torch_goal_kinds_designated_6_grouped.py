@@ -1,0 +1,13 @@
+"""The facade's default goal order (``DEFAULT_GOAL_ORDER``, 16 goals with
+MinTopicLeadersPerBrokerGoal second) at 6 brokers on the grouped path, with
+topics 0 and 1 designated for min leaders: the port's
+``optimize(fused=True)`` against the JAX package's, per goal the same
+packed slots and the same placement, and ``verify_run``. (One JAX compile
+family per file, so the compiles land on different test workers.)"""
+
+from tests.torch_port_helpers import SPEC_6, check_goal_kinds
+
+
+def test_default_goal_order_designated_6_brokers_grouped():
+    _, trun = check_goal_kinds(SPEC_6, "default-designated", "grouped")
+    assert sum(g.actions_applied for g in trun.goal_results) > 0

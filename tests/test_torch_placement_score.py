@@ -22,8 +22,9 @@ from cruise_control_tpu_torch.analyzer.goals import kernels as gk
 from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
 from cruise_control_tpu_torch.analyzer.state import BrokerArrays
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-from tests.torch_port_helpers import (SPEC_6, SPEC_12, SPEC_ENTRY, STACK, JaxSpec,
-                                      jax_generate, jopt, to_torch)
+from tests.torch_port_helpers import (DEFAULT_GOAL_ORDER, DESIGNATED, KAFKA_ASSIGNER_GOALS,
+                                      SPEC_6, SPEC_12, SPEC_ENTRY, STACK, JaxSpec,
+                                      break_preference, jax_generate, jopt, to_torch)
 
 SOLVE_GOALS = ["ReplicaDistributionGoal", "LeaderReplicaDistributionGoal"]
 SIZES = {"6": SPEC_6, "8": SPEC_ENTRY, "12": SPEC_12}
@@ -75,6 +76,35 @@ def test_score_matches_jax(solved, size, c):
                                        BalancingConstraint.default(), c_pad)
     np.testing.assert_array_equal(tfn(tm, ta, torch.from_numpy(padded)).numpy(),
                                   np.asarray(jfn(jm, ja, padded)))
+
+
+def test_score_with_every_goal_kind_matches_jax(solved):
+    """Every inter-broker goal kind in the stack (the default order, the
+    preferred-leader, rack-distribution and kafka-assigner goals), topics
+    designated for min leaders, a demoted broker and broken preferences in
+    the before placement: the port's scores equal the JAX package's, flag
+    for flag, and the blends' topic leader counts are their models'."""
+    from cruise_control_tpu.model.tensor_model import BrokerState
+    jm, ja, _, _ = solved("8")
+    jb = break_preference(jm, every=2).set_broker_state(3, BrokerState.DEMOTED)
+    tb, ta = to_torch(jb), to_torch(ja)
+    goals = DEFAULT_GOAL_ORDER + ["PreferredLeaderElectionGoal",
+                                  "RackAwareDistributionGoal"] + KAFKA_ASSIGNER_GOALS
+    jcon = dataclasses.replace(JaxBC.default(), min_leader_topic_ids=DESIGNATED)
+    tcon = dataclasses.replace(BalancingConstraint.default(), min_leader_topic_ids=DESIGNATED)
+    masks = _masks(tb.num_partitions, 8, seed=17)
+    jscorer = jopt.PlacementScorer(jb, ja, goals, jcon)
+    tscorer = topt.PlacementScorer(tb, ta, goals, tcon)
+    np.testing.assert_array_equal(tscorer.score(masks), jscorer.score(masks))
+    flags = topt._get_placement_score_fn(tuple(goals_by_priority(goals)), tcon, 8)(
+        tb, ta, torch.from_numpy(masks))
+    assert not bool(flags.all()) and bool(flags.any())
+    aggs = gk.blend_aggregates(tb, ta, torch.from_numpy(masks), False,
+                               with_topic_leaders=True)
+    assert aggs[5] is None
+    for c in (0, 7):
+        model = tb if c == 0 else gk.blend_placement(tb, ta, torch.from_numpy(masks[c]))
+        assert torch.equal(aggs[6][c], model.topic_leader_counts())
 
 
 def test_score_landed_sets_and_for_run(solved):

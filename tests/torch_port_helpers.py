@@ -21,6 +21,8 @@ from cruise_control_tpu_torch.analyzer import proposals as tprops
 from cruise_control_tpu_torch.analyzer.verifier import verify_run
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
 from cruise_control_tpu_torch.analyzer.actions import Candidates as TorchCandidates
+from cruise_control_tpu_torch.analyzer.goals.specs import (DEFAULT_GOAL_ORDER,
+                                                           KAFKA_ASSIGNER_GOALS)
 from cruise_control_tpu_torch.convert import model_from_numpy, model_to_numpy
 from cruise_control_tpu_torch.model.tensor_model import STATIC_FIELDS, TENSOR_FIELDS
 
@@ -270,3 +272,160 @@ def compare_per_goal(jm, tm, stack, verify=True, **kw):
     if verify:
         verify_run(tm, trun, list(stack), proposals=tprops.diff(tm, trun.model))
     return jrun, trun
+
+
+# ---------------------------------------------------------------------------
+# Goal kinds beyond the default 15-goal stack
+# ---------------------------------------------------------------------------
+
+# Topics designated for MinTopicLeadersPerBrokerGoal in the parity tests.
+DESIGNATED = (0, 1)
+
+
+def break_preference(jm, every: int = 1):
+    """The second replica leads every ``every``-th partition of RF >= 2
+    (tests/test_goals_extended.py:30-41's recipe when ``every`` is 1)."""
+    pr = np.asarray(jm.partition_replicas)
+    lead = np.asarray(jm.replica_is_leader).copy()
+    rows = np.nonzero(pr[:, 1] >= 0)[0][::every]
+    lead[pr[rows, 0]] = False
+    lead[pr[rows, 1]] = True
+    return jm.replace(replica_is_leader=jnp.asarray(lead))
+
+
+def one_rack(jm, every: int = 3):
+    """Every ``every``-th partition moved onto brokers of rack 0 (over the
+    ceil(rf / racks) quota of a 2-rack cluster at RF 3)."""
+    rb = np.asarray(jm.replica_broker).copy()
+    rack = np.asarray(jm.broker_rack)
+    pr = np.asarray(jm.partition_replicas)
+    on_rack0 = np.nonzero(rack == 0)[0]
+    for p in range(0, pr.shape[0], every):
+        reps = pr[p][pr[p] >= 0]
+        if len(reps) <= len(on_rack0):
+            rb[reps] = on_rack0[(p + np.arange(len(reps))) % len(on_rack0)]
+    return jm.replace(replica_broker=jnp.asarray(rb), replica_disk=jnp.asarray(rb))
+
+
+def demoted_brokers(num_brokers: int):
+    """Brokers 1, 4, 7, ...: a third of the cluster demoted."""
+    return list(range(1, num_brokers, 3))
+
+
+def goal_kind_case(spec_kw, case: str):
+    """``(goals, JAX model, JAX constraint, port constraint, JAX options,
+    port options)`` of a parity case on the cluster of ``spec_kw``:
+    ``default`` / ``default-designated`` (DEFAULT_GOAL_ORDER, without and
+    with designated topics), ``preferred`` (the broken-preference recipe),
+    ``demote`` (a third of the brokers DEMOTED with their leadership
+    excluded, as the facade's demote_brokers does), ``kafka-assigner`` (the
+    two kafka-assigner goals) and ``rack-distribution`` (the cluster on 2
+    racks at RF 3, a third of its partitions on one rack)."""
+    from cruise_control_tpu.analyzer.balancing_constraint import BalancingConstraint as JaxBC
+    from cruise_control_tpu.analyzer.state import OptimizationOptions as JaxOptions
+    from cruise_control_tpu.model.tensor_model import BrokerState
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
+    jcon, tcon = JaxBC.default(), BalancingConstraint.default()
+    goals = {"default": DEFAULT_GOAL_ORDER, "default-designated": DEFAULT_GOAL_ORDER,
+             "preferred": ["PreferredLeaderElectionGoal"],
+             "demote": ["PreferredLeaderElectionGoal"], "kafka-assigner": KAFKA_ASSIGNER_GOALS,
+             "rack-distribution": ["RackAwareDistributionGoal"]}[case]
+    if case == "rack-distribution":
+        spec_kw = dict(spec_kw, num_racks=2, replication_factor=3)
+    jm = jax_generate(JaxSpec(**spec_kw))
+    jopts = None
+    if case == "default-designated":
+        jcon = dataclasses.replace(jcon, min_leader_topic_ids=DESIGNATED)
+        tcon = dataclasses.replace(tcon, min_leader_topic_ids=DESIGNATED)
+    elif case == "preferred":
+        jm = break_preference(jm)
+    elif case == "demote":
+        mask = np.zeros(jm.num_brokers, bool)
+        for b in demoted_brokers(jm.num_brokers):
+            jm = jm.set_broker_state(b, BrokerState.DEMOTED)
+            mask[b] = True
+        jopts = dataclasses.replace(JaxOptions.none(jm),
+                                    broker_excluded_leadership=jnp.asarray(mask))
+    elif case == "rack-distribution":
+        jm = one_rack(jm)
+    topts = None
+    if jopts is not None:
+        tm = to_torch(jm)
+        topts = dataclasses.replace(
+            OptimizationOptions.none(tm),
+            broker_excluded_leadership=torch.from_numpy(
+                np.array(jopts.broker_excluded_leadership)))
+    return goals, jm, jcon, tcon, jopts, topts
+
+
+def check_goal_kinds(spec_kw, case: str, path: str):
+    """The port's ``optimize(fused=True)`` on the grouped (``path`` =
+    "grouped") or the sequential per-goal path ("per-goal",
+    ``fuse_group_size=1``) against the JAX package's on the cluster of
+    ``goal_kind_case``: per goal the same integer packed slots 0-7 and the
+    same placement, and the run passes the port's ``verify_run`` over its
+    goals but the hard goals both packages left unsatisfied (the 8-broker
+    cluster's topics have fewer partitions than it has brokers, so no
+    placement gives every broker a leader of a designated topic there)."""
+    goals, jm, jcon, tcon, jopts, topts = goal_kind_case(spec_kw, case)
+    tm = to_torch(jm)
+    kw = dict(fused=True)
+    if path == "per-goal":
+        kw["fuse_group_size"] = 1
+    jrun = jopt.optimize(jm, goals, constraint=jcon, options=jopts,
+                         raise_on_hard_failure=False, **kw)
+    trun = topt.optimize(tm, goals, constraint=tcon, options=topts,
+                         raise_on_hard_failure=False, device="cpu", **kw)
+    assert [g.name for g in trun.goal_results] == list(goals)
+    assert goal_rows(trun) == goal_rows(jrun)
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(getattr(trun.model, f).numpy(),
+                                      np.asarray(getattr(jrun.model, f)), err_msg=f)
+    held = [(name, g) for name, g in zip(goals, trun.goal_results)
+            if not (g.is_hard and not g.satisfied_after)]
+    verify_run(tm, dataclasses.replace(trun, goal_results=[g for _, g in held]),
+               [name for name, _ in held], constraint=tcon,
+               proposals=tprops.diff(tm, trun.model))
+    return tm, trun
+
+
+def movable_leaders_on(model, brokers) -> int:
+    """Leaders on ``brokers`` that have a valid, online sibling on an alive,
+    non-demoted broker (the facade's ``_movable_leaders_on``)."""
+    from cruise_control_tpu_torch.model.tensor_model import BrokerState
+    rb = model.replica_broker.cpu().numpy()
+    lead = model.replica_is_leader.cpu().numpy()
+    valid = model.replica_valid.cpu().numpy()
+    part = model.replica_partition.cpu().numpy()
+    pr = model.partition_replicas.cpu().numpy()
+    state = model.broker_state.cpu().numpy()
+    offline = model.replica_offline_now().cpu().numpy()
+    count = 0
+    for r in np.nonzero(lead & valid & np.isin(rb, list(brokers)))[0]:
+        for s in pr[part[r]]:
+            if s < 0 or s == r or not valid[s] or offline[s]:
+                continue
+            if state[rb[s]] not in (BrokerState.DEAD, BrokerState.DEMOTED):
+                count += 1
+                break
+    return count
+
+
+def check_goal_kind_outcome(case: str, tm, trun) -> None:
+    """What each case must achieve, beyond parity with the JAX package."""
+    final = trun.model
+    moved = not torch.equal(final.replica_broker, tm.replica_broker)
+    if case in ("preferred", "demote"):
+        assert not moved, "leadership goals move no replica"
+    if case == "preferred":
+        pr = final.partition_replicas[:, 0]
+        assert bool(final.replica_is_leader[pr[pr >= 0].long()].all())
+    elif case == "demote":
+        assert movable_leaders_on(tm, demoted_brokers(tm.num_brokers)) > 0
+        assert movable_leaders_on(final, demoted_brokers(tm.num_brokers)) == 0
+    elif case == "kafka-assigner":
+        assert int(final.partition_rack_counts().max()) <= 1
+    elif case == "rack-distribution":
+        assert trun.goal_results[0].satisfied_after
+        assert not trun.goal_results[0].satisfied_before
