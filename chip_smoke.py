@@ -118,7 +118,23 @@ Phases, in order (any failure raises and the process exits non-zero):
     solve (K10 scoring the new kinds); and K5's, K5b's and K9's new modes
     against their plain twins on the inputs the runs gave them, healthy and
     with a dead broker, exactly, each timed;
-17. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+17. the intra-broker disk path (``check_jbod``, JBOD: the mid rung with 4
+    disks a broker, every DISK capacity scaled so that the fullest broker
+    sits at 70 %): ``INTRA_BROKER_GOAL_ORDER`` on the grouped path, card
+    against CPU, replica brokers unchanged and ``verify_run`` — healthy and
+    with the first disk of brokers 0, 10, 20, 30 and 40 dead (no replica
+    left on a dead disk); the mixed stack IntraBrokerDiskCapacityGoal,
+    DiskCapacityGoal, DiskUsageDistributionGoal (the disk veto on
+    inter-broker moves), card against CPU; the large rung with 4 disks a
+    broker on the pipelined and the sequential path, timed in turns,
+    placed alike, with its busy share; the mid solve's proposals executed
+    (the intra-broker phase), the ledger scored by K10's disk kinds, card
+    against CPU; K5's mode 7, K5b's disk veto, K9's kinds 12-13 and
+    ``segment_sum``'s disk modes against their plain twins on the inputs
+    of the healthy and the dead-disk runs, exactly, each timed; K10's disk
+    loads and disk kinds against their twins on 256 blends at mid (healthy
+    and dead disks), large and xl250 with 4 disks a broker, timed;
+18. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -131,6 +147,7 @@ line and exits with 3.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -716,17 +733,21 @@ def main(argv) -> int:
     cx = types.SimpleNamespace(
         torch=torch, np=np, opt=opt, props=props, gk=gk, cuda=cuda, log=log, dev=dev,
         rehearse=rehearse, timer=timer, fused_run=fused_run, mid=mid, mid_rung=mid_rung,
-        large=large, hundred_rung=hundred_rung, two_racks_rung=two_racks_rung,
-        spec_of=spec_of, generate_cluster=generate_cluster,
+        large=large, large_rung=large_rung, hundred_rung=hundred_rung, xl_rung=xl_rung,
+        two_racks_rung=two_racks_rung, spec_of=spec_of, generate_cluster=generate_cluster,
         compare_card_cpu=compare_card_cpu, same_placement=same_placement,
         per_goal=per_goal, pipeline_report=pipeline_report, per_goal_report=per_goal_report,
         profile_mid=profile_mid, check_run=check_run,
-        execute=lambda before, run, con, label: execute_proposals(
+        execute=lambda before, run, con, label, cpu_twin=False: execute_proposals(
             torch, np, opt, before, run, props.diff(before, run.model), con, log, smi,
-            rehearse, label, cpu_twin=False))
+            rehearse, label, cpu_twin=cpu_twin))
     mode_rows, kind_counts, kinds_summary = check_goal_kinds(cx)
 
-    # 17. results
+    # 17. the intra-broker disk path (JBOD)
+    phase("JBOD")
+    jbod_rows, jbod_counts, jbod_summary = check_jbod(cx)
+
+    # 18. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -738,7 +759,7 @@ def main(argv) -> int:
         f"{pipe_wall:.3f} s ({pipe_steps} steps, ops/step {prof_pipe['ops_per_step']}, "
         f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
         f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; execution "
-        f"{exec_summary}; goal kinds {kinds_summary}; card {smi}")
+        f"{exec_summary}; goal kinds {kinds_summary}; JBOD {jbod_summary}; card {smi}")
     for name in EXECUTION_ONLY:
         # The mid shape is the execution's; the large and xl250 numbers beside.
         results[name] = dict(k10["mid"][name])
@@ -789,6 +810,21 @@ def main(argv) -> int:
                      "device_ms_per_launch": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": None})
+    # The disk path's modes, each with the launches of its JBOD run; K10's
+    # disk kinds on the mid blends, the large and xl250 numbers beside.
+    for name, (source, replaces, run_label) in JBOD_MODES.items():
+        r = jbod_rows[name]
+        extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
+                 or k == "shape"}
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": r["launches"],
+                     "launches_run": run_label, **extra,
+                     "launches_large_jbod_pipelined":
+                         jbod_counts["large jbod pipelined"].get(name, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms_per_launch": r["device_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": "bytes", "library_ms": r["library_ms"]})
     # K12's device time is the whole fused solve's (its eager per-goal
     # set-up included), from the fused profile.
     graph_results["goal_chain"]["device_ms_per_launch"] = prof_fused.get("device_ms")
@@ -1216,6 +1252,8 @@ def execute_proposals(torch, np, opt, mid, run, proposals, con, log, smi, rehear
     from cruise_control_tpu_torch.ops import cuda
 
     inter_bytes = sum(int(p.partition_size * 1e6) * len(p.replicas_to_add) for p in proposals)
+    intra_moves = sum(len(p._intra_broker_moves()) for p in proposals)
+    moves_bytes = inter_bytes > 0 or intra_moves > 0
     rate = max(1_000_000.0, inter_bytes / max(mid.num_brokers, 1) / 300.0)
     goals = [g.name for g in run.goal_results]
     flushes = []  # per flush that scored: (wall s, its landed sets)
@@ -1276,12 +1314,12 @@ def execute_proposals(torch, np, opt, mid, run, proposals, con, log, smi, rehear
                    and prog["taskCounts"]["aborted"] == result.aborted
                    and prog["totalTasks"] == result.completed
                    and prog["bytesMoved"] == prog["totalBytes"]
-                   and (prog["totalBytes"] > 0) == (inter_bytes > 0)
+                   and (prog["totalBytes"] > 0) == moves_bytes
                    and prog["bytesInFlight"] == 0),
         "off-target": all(b <= a for a, b in zip(off, off[1:])) and off[-1] == 0,
         # A leadership-only execution lands in one phase: its one checkpoint
         # is the run's balancedness after.
-        "scores": (len(scored) >= (2 if inter_bytes > 0 else 1)
+        "scores": (len(scored) >= (2 if moves_bytes else 1)
                    and (len(scored) < 2
                         or abs(scored[0] - run.balancedness_before) < 1e-6)
                    and abs(scored[-1] - run.balancedness_after) < 1e-6),
@@ -2295,6 +2333,11 @@ def _k5b_bytes(prevs, model, cand):
         tables += R * 4 + T * B * 4 + T * 8
     if "min_topic_leaders" in kinds:
         tables += R * 5 + B + T * B * 4 + T
+    intra = kinds & set(INTRA_KINDS)
+    if intra:
+        # The lanes' disks; the replicas' leader flags and DISK columns;
+        # the disk loads and each earlier disk goal's upper band.
+        tables += cand.k * 8 + R * 9 + model.num_disks * 4 * (1 + len(intra))
     return cand.k * 21 + tables
 
 
@@ -2341,7 +2384,12 @@ def _k9_bytes(specs, model):
         elif s.kind == "min_topic_leaders" and "leaders" not in cols:
             cols.add("leaders")
             extra += T * B * 4 + T
-    per_broker = len(cols - {"rack", "rf", "topic", "preferred", "leaders"})
+        elif s.kind in INTRA_KINDS and "disks" not in cols:
+            # The disk loads, capacities and valid flags, each broker's
+            # disk list.
+            cols.add("disks")
+            extra += model.num_disks * 9 + model.broker_disks.numel() * 4
+    per_broker = len(cols - {"rack", "rf", "topic", "preferred", "leaders", "disks"})
     return 2 * B + 4 * B * per_broker + extra + 2 * R + len(specs) + 1
 
 
@@ -2386,6 +2434,12 @@ def _k5_bytes(spec, model, K, accepted):
         tables += R * 10 + model.num_partitions * 4 + B
     elif spec.kind == "min_topic_leaders":
         tables += R * 5 + T * B * 4 + T
+    elif spec.kind in INTRA_KINDS:
+        # The lane's partner and disks; the replicas' leader flags and the
+        # DISK columns of both load rows; the disks' loads, bands,
+        # capacities and brokers.
+        lane += 12
+        tables += R * 9 + model.num_disks * 20
     else:
         lane += 4 if _DELTA_OF_KIND.get(spec.kind, spec.resource) in (4, 5, 6) else 8
         tables += B * 12
@@ -2624,12 +2678,17 @@ def _clone(torch, x):
 
 class ModeCapture:
     """While entered, keeps a deep copy of the inputs of the first launch of
-    K5, K5b and K9's sweep that computes each new goal kind, and of K3's
-    first topic cut (outside CUDA graph captures: a graph's eager warm-up
-    run calls every wrapper with its real inputs)."""
+    K5, K5b and K9's sweep that computes each goal kind of ``kinds``, and of
+    K3's first cut and K1's first segment sum of each segment mode of
+    ``kinds`` (outside CUDA graph captures: a graph's eager warm-up run
+    calls every wrapper with its real inputs); with ``device``, only of
+    launches on that device's type (a model built on the CPU first sums its
+    disks there)."""
 
-    def __init__(self, torch, cuda):
+    def __init__(self, torch, cuda, kinds=NEW_KINDS + ("topic",), device=None):
         self.torch, self.cuda, self.inputs = torch, cuda, {}
+        self.kinds = set(kinds)
+        self.device = device
         self.real = cuda.record
 
     def __enter__(self):
@@ -2645,14 +2704,17 @@ class ModeCapture:
             kinds = {args[0].kind}
         elif name in ("structural_accepts", "stack_sweep"):
             kinds = {s.kind for s in args[0]}
-        elif name == "prefix_cut":
+        elif name in ("prefix_cut", "segment_sum"):
             kinds = {args[-1]}
         else:
             return
         torch = self.torch
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
             return
-        for kind in kinds & set(NEW_KINDS + ("topic",)):
+        on = args[0].device if name in ("prefix_cut", "segment_sum") else args[1].device
+        if self.device is not None and on.type != torch.device(self.device).type:
+            return
+        for kind in kinds & self.kinds:
             if (name, kind) not in self.inputs:
                 self.inputs[(name, kind)] = _clone(torch, args)
 
@@ -2690,42 +2752,50 @@ def verify_if_hard_held(log, label, initial, run, goals, con):
     return True
 
 
+def all_counts(cx, fn):
+    """``fn()`` with every launch counter set to 0 just before: (its result,
+    its wall, every counter read just after)."""
+    cx.cuda.reset_launch_counts()
+    cx.torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    cx.torch.cuda.synchronize()
+    return out, time.monotonic() - t0, cx.cuda.launch_counts()
+
+
+def need_launched_in(cx, label, c, names):
+    idle = [n for n in names if c.get(n, 0) == 0]
+    if not cx.rehearse and idle:
+        raise RuntimeError(f"{label}: kernels not launched: {idle}")
+
+
+def card_against_cpu(cx, label, make, goals, con, **kw):
+    """``goals`` on the card (a warm-up that captures, then a timed run with
+    the counters set to 0 just before) and on the CPU plain path: per-goal
+    rows and placement equal.  Returns (card model, card run, wall,
+    counts, CPU run)."""
+    model = make(cx.dev)
+    cx.fused_run(model, goals, constraint=con, **kw)
+    run, wall, c = all_counts(cx, lambda: cx.fused_run(model, goals, constraint=con, **kw))
+    t0 = time.monotonic()
+    run_cpu = cx.opt.optimize(make("cpu"), goals, constraint=con, fused=True,
+                              raise_on_hard_failure=False, device="cpu", **kw)
+    cx.compare_card_cpu(run, run_cpu, cx.same_placement, cx.log, label,
+                        time.monotonic() - t0)
+    return model, run, wall, c
+
+
 def check_goal_kinds(cx):
     """Phase 16: the goal kinds beyond the 15-goal stack on their paths.
     ``cx`` carries main's helpers.  Returns (kernel rows of the new modes,
     launch counts per run, summary)."""
-    torch, np, opt, props, gk, cuda = cx.torch, cx.np, cx.opt, cx.props, cx.gk, cx.cuda
-    log, dev, rehearse = cx.log, cx.dev, cx.rehearse
+    torch, np, opt, gk, cuda = cx.torch, cx.np, cx.opt, cx.gk, cx.cuda
+    log, rehearse = cx.log, cx.rehearse
     from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
     counts, summary = {}, {}
-
-    def run_all_counts(fn):
-        cuda.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.monotonic() - t0, cuda.launch_counts()
-
-    def need_launched(label, c, names):
-        idle = [n for n in names if c.get(n, 0) == 0]
-        if not rehearse and idle:
-            raise RuntimeError(f"{label}: kernels not launched: {idle}")
-
-    def card_cpu(label, make, goals, con, **kw):
-        """``goals`` on the card (a warm-up that captures, then a timed run
-        with the counters set to 0 just before) and on the CPU plain path:
-        per-goal rows and placement equal."""
-        model = make(dev)
-        cx.fused_run(model, goals, constraint=con, **kw)
-        run, wall, c = run_all_counts(lambda: cx.fused_run(model, goals, constraint=con, **kw))
-        t0 = time.monotonic()
-        cpu_model = make("cpu")
-        run_cpu = opt.optimize(cpu_model, goals, constraint=con, fused=True,
-                               raise_on_hard_failure=False, device="cpu", **kw)
-        cx.compare_card_cpu(run, run_cpu, cx.same_placement, log, label,
-                            time.monotonic() - t0)
-        return model, run, wall, c
+    run_all_counts = functools.partial(all_counts, cx)
+    need_launched = functools.partial(need_launched_in, cx)
+    card_cpu = functools.partial(card_against_cpu, cx)
 
     capture = ModeCapture(torch, cuda)
     with capture:
@@ -2987,6 +3057,435 @@ def check_mode_kernels(torch, np, gk, cuda, inputs, log, time_ms, rehearse):
     if missing and not rehearse:
         raise RuntimeError(f"no captured input for {missing}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the intra-broker disk path (rebalance_disk=true, JBOD)
+# ---------------------------------------------------------------------------
+
+# The facade's stack for rebalance_disk=true (specs.INTRA_BROKER_GOAL_ORDER),
+# and a goals= request mixing the intra-broker capacity goal with the
+# inter-broker disk goals (the intra goal's disk veto judges their moves).
+INTRA_GOALS = ["IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal"]
+MIXED_GOALS = ["IntraBrokerDiskCapacityGoal", "DiskCapacityGoal", "DiskUsageDistributionGoal"]
+INTRA_KINDS = ("intra_disk_capacity", "intra_disk_distribution")
+JBOD_DISKS = 4  # disks per broker
+# Every disk and broker DISK capacity scaled by one factor so that the
+# fullest broker's disks sit at 70 % together: at a 50 % mean disk the
+# exponential rung's 12 fullest brokers (mid) are over the 0.8 threshold
+# as a whole, where no intra-broker move can satisfy the hard goal.
+JBOD_FULLEST = 0.7
+DEAD_DISK_BROKERS = (0, 10, 20, 30, 40)  # their first disk dead (capacity -1)
+_JT = "cruise_control_tpu/model/tensor_model.py"
+_PS = "cruise_control_tpu_torch/csrc/placement_score.cu"
+_GM = "cruise_control_tpu_torch/csrc/goal_masks.cu"
+JBOD_MODES = {
+    "goal_masks[intra_disk_capacity]": (_GM, f"{_JK}:578", "mid jbod"),
+    "goal_masks[intra_disk_distribution]": (_GM, f"{_JK}:578", "mid jbod"),
+    "structural_accepts[intra_disk_capacity]": (_GM, f"{_JK}:492", "mid jbod"),
+    "stack_sweep[intra_disk_capacity]": ("cruise_control_tpu_torch/csrc/stack_sweep.cu",
+                                         "cruise_control_tpu/analyzer/optimizer.py:2332",
+                                         "mid jbod"),
+    "stack_sweep[intra_disk_distribution]": ("cruise_control_tpu_torch/csrc/stack_sweep.cu",
+                                             "cruise_control_tpu/analyzer/optimizer.py:2332",
+                                             "mid jbod"),
+    "segment_sum[disk]": ("cruise_control_tpu_torch/csrc/broker_aggregates.cu", f"{_JT}:170",
+                          "mid jbod"),
+    "segment_sum[disk_broker]": ("cruise_control_tpu_torch/csrc/broker_aggregates.cu",
+                                 f"{_JK}:163", "mid jbod"),
+    "blend_aggregates[disk]": (_PS, "cruise_control_tpu/analyzer/optimizer.py:2392",
+                               "jbod execution"),
+    "stack_sweep_batch[intra_disk_capacity]": (
+        _PS, "cruise_control_tpu/analyzer/optimizer.py:2392", "jbod execution"),
+    "stack_sweep_batch[intra_disk_distribution]": (
+        _PS, "cruise_control_tpu/analyzer/optimizer.py:2392", "jbod execution"),
+}
+
+
+def jbod_model(torch, generate_cluster, spec, device, dead=()):
+    """``spec``'s cluster with JBOD_DISKS disks a broker, every DISK capacity
+    scaled so that the fullest broker sits at JBOD_FULLEST, and the first
+    disk of each broker in ``dead`` dead (capacity -1); built on the CPU and
+    moved to ``device``, so that the card and the CPU get the same bits."""
+    from cruise_control_tpu_torch.common.resources import Resource
+    m = generate_cluster(dataclasses.replace(spec, disks_per_broker=JBOD_DISKS), device="cpu")
+    seg = m.disk_broker.long()
+    load = torch.zeros(m.num_brokers, dtype=torch.float64).index_add_(
+        0, seg, m.disk_load().double())
+    cap = torch.zeros(m.num_brokers, dtype=torch.float64).index_add_(
+        0, seg, m.disk_capacity.double())
+    f = float((load / cap.clamp(min=1e-30)).max()) / JBOD_FULLEST
+    disk_cap = (m.disk_capacity.double() * f).float()
+    broker_cap = m.broker_capacity.clone()
+    broker_cap[:, Resource.DISK] = (broker_cap[:, Resource.DISK].double() * f).float()
+    for b in dead:
+        if b < m.num_brokers:
+            disk_cap[int(m.broker_disks[b, 0])] = -1.0
+    return m.replace(disk_capacity=disk_cap, broker_capacity=broker_cap).to(device)
+
+
+def intra_shuffle(torch, np, model, seed, frac=0.3):
+    """``model`` with a seeded ``frac`` of its replicas on another disk of
+    their broker: an intra-broker placement to blend with (K10's timings at
+    large and xl250)."""
+    rng = np.random.default_rng(seed)
+    rb = model.replica_broker.cpu().numpy()
+    rd = model.replica_disk.cpu().numpy().copy()
+    disks = model.broker_disks.cpu().numpy()
+    pick = np.nonzero(model.replica_valid.cpu().numpy() & (rng.random(rd.shape[0]) < frac))[0]
+    rd[pick] = disks[rb[pick], rng.integers(0, disks.shape[1], pick.shape[0])]
+    return model.replace(replica_disk=torch.from_numpy(rd).to(model.device))
+
+
+def disks_left_dead(model) -> int:
+    """Valid replicas on a dead disk."""
+    rd = model.replica_disk
+    dead = model.disk_capacity[rd.clamp(min=0).long()] < 0
+    return int((dead & (rd >= 0) & model.replica_valid).sum())
+
+
+def check_jbod(cx):
+    """Phase 17: the intra-broker disk path.  ``cx`` carries main's helpers.
+    Returns (kernel rows of the new modes, launch counts per run, summary)."""
+    torch, np, opt, gk, cuda = cx.torch, cx.np, cx.opt, cx.gk, cx.cuda
+    log, rehearse = cx.log, cx.rehearse
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    con = BalancingConstraint.default()
+    counts, summary = {}, {}
+    mid_spec = cx.spec_of(cx.mid_rung)
+
+    def make(dead=()):
+        return lambda d: jbod_model(torch, cx.generate_cluster, mid_spec, d, dead)
+
+    def solved(label, model, run, wall, goals, intra_only=True):
+        steps = sum(g.steps for g in run.goal_results)
+        moved_disks = int(((run.model.replica_disk != model.replica_disk)
+                           & model.replica_valid).sum())
+        same_broker = torch.equal(run.model.replica_broker, model.replica_broker)
+        summary[label] = dict(wall_s=round(wall, 4), steps=steps,
+                              actions=sum(g.actions_applied for g in run.goal_results),
+                              replicas_moved_disk=moved_disks, broker_unchanged=same_broker,
+                              left_on_dead_disks=disks_left_dead(run.model),
+                              flags=[(g.satisfied_before, g.satisfied_after)
+                                     for g in run.goal_results])
+        for g in run.goal_results:
+            log(f"  {label} {g.name:38s} steps={g.steps:3d} actions={g.actions_applied:5d} "
+                f"satisfied {g.satisfied_before}->{g.satisfied_after} {g.duration_s:.3f}s "
+                f"pipelined={g.pipelined}")
+        log(f"{label}: {summary[label]}")
+        if intra_only and not same_broker:
+            raise RuntimeError(f"{label}: the intra-broker stack moved a replica across "
+                               "brokers")
+        if not intra_only:
+            return
+        # The rehearsal's small clusters hold replicas too big for a
+        # broker's other disks; the rung's must drain every dead disk and
+        # satisfy the hard goal.
+        if rehearse:
+            verify_if_hard_held(log, label, model, run, goals, con)
+            return
+        if summary[label]["left_on_dead_disks"]:
+            raise RuntimeError(f"{label}: replicas left on dead disks")
+        cx.check_run(label, model, run, goals)
+
+    capture = ModeCapture(torch, cuda, INTRA_KINDS + ("disk", "disk_broker"), cx.dev)
+    capture_dead = ModeCapture(torch, cuda, INTRA_KINDS + ("disk", "disk_broker"), cx.dev)
+    mid_names = [n for n, v in JBOD_MODES.items() if v[2] == "mid jbod"]
+    with capture:
+        # 1. mid JBOD on the grouped path, card against CPU.
+        mid_j, run_j, wall, c = card_against_cpu(cx, "mid JBOD", make(), INTRA_GOALS, con)
+        counts["mid jbod"] = c
+        need_launched_in(cx, "mid JBOD", c, mid_names)
+        solved("mid JBOD", mid_j, run_j, wall, INTRA_GOALS)
+    # The dead-disk model has the healthy one's shape: without its cached
+    # step graphs the run's eager warm-ups hand the wrappers its inputs.
+    opt.graphs.GRAPHS.clear()
+    with capture_dead:
+        # 2. the same model with disk 0 of brokers 0, 10, 20, 30, 40 dead.
+        dead = tuple(b for b in DEAD_DISK_BROKERS if b < cx.mid_rung[0])
+        mid_d, run_d, wall_d, c = card_against_cpu(cx, "mid JBOD dead disks", make(dead),
+                                                   INTRA_GOALS, con)
+        counts["mid jbod dead"] = c
+        if disks_left_dead(mid_d) == 0:
+            raise RuntimeError("mid JBOD dead disks: no replica on a dead disk to heal")
+        log(f"mid JBOD dead disks: {disks_left_dead(mid_d)} replicas on {len(dead)} dead "
+            "disks before")
+        solved("mid JBOD dead disks", mid_d, run_d, wall_d, INTRA_GOALS)
+    # 3. the mixed stack: the intra goal's disk veto on inter-broker moves.
+    mid_m, run_m, wall_m, c = card_against_cpu(cx, "mid JBOD mixed", make(), MIXED_GOALS, con)
+    counts["mid jbod mixed"] = c
+    need_launched_in(cx, "mid JBOD mixed", c, ["structural_accepts[intra_disk_capacity]"])
+    solved("mid JBOD mixed", mid_m, run_m, wall_m, MIXED_GOALS, intra_only=False)
+    # The inter-broker goals after it may leave the hard intra goal
+    # violated at the end, in the JAX package as on the CPU (the same
+    # placement, tests/test_torch_intra_disk_8.py): logged, not verified.
+    from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    end = bool(gk.goal_satisfied(GOAL_SPECS[MIXED_GOALS[0]], run_m.model,
+                                 BrokerArrays.from_model(run_m.model), con))
+    summary["mid JBOD mixed"]["intra_capacity_held_at_end"] = end
+    log(f"mid JBOD mixed: IntraBrokerDiskCapacityGoal satisfied at the end {end}")
+
+    # 4. large JBOD: the facade's default (pipelined) and the sequential
+    # path, timed in turns; the pipelined run must place as the sequential.
+    large_j = jbod_model(torch, cx.generate_cluster, cx.spec_of(cx.large_rung), cx.dev)
+    log(f"large JBOD: {int(large_j.replica_valid.sum())} replicas, {large_j.num_disks} disks")
+    paths = {"sequential": cx.per_goal, "pipelined": {}}
+    for kw in paths.values():
+        cx.fused_run(large_j, INTRA_GOALS, **kw)  # captures
+    walls = {k: [] for k in paths}
+    runs_l = {}
+    for label in ("sequential", "pipelined", "pipelined", "sequential"):
+        run, w, c = all_counts(cx, lambda: cx.fused_run(large_j, INTRA_GOALS, **paths[label]))
+        walls[label].append(w)
+        runs_l[label] = run
+        counts[f"large jbod {label}"] = c
+    if not cx.same_placement(runs_l["pipelined"], runs_l["sequential"]):
+        raise RuntimeError("large JBOD: the pipelined run placed replicas otherwise than "
+                           "the sequential one")
+    if not rehearse and not runs_l["pipelined"].pipelined:
+        raise RuntimeError("large JBOD: the facade's default solve did not pipeline")
+    for label in paths:
+        solved(f"large JBOD {label}", large_j, runs_l[label], min(walls[label]), INTRA_GOALS)
+        summary[f"large JBOD {label}"].update(
+            walls_s=[round(w, 4) for w in walls[label]], pipelined=runs_l[label].pipelined)
+    if not rehearse:
+        prof = cx.profile_mid(torch, lambda: cx.fused_run(large_j, INTRA_GOALS),
+                              min(walls["pipelined"]),
+                              summary["large JBOD pipelined"]["steps"],
+                              "large-jbod-pipelined", log)
+        summary["large JBOD pipelined"]["busy"] = prof["busy"]
+    log(f"large JBOD in turns: {walls}")
+
+    # 5. the mid JBOD solve's proposals executed (the intra-broker phase),
+    # the ledger scored by K10's disk kinds; the same on the CPU.
+    s, c = cx.execute(mid_j, run_j, con, "mid JBOD", True)
+    counts["jbod execution"] = c
+    summary["jbod execution"] = s
+    need_launched_in(cx, "mid JBOD execution", c,
+                     [n for n, v in JBOD_MODES.items() if v[2] == "jbod execution"])
+
+    # 6. the new modes against their plain twins, healthy and dead disks.
+    rows = check_jbod_modes(cx, capture.inputs, capture_dead.inputs)
+    # 7. K10's disk kinds at mid, large and xl250 JBOD.
+    k10 = {"mid": check_jbod_placement(cx, mid_j, run_j.model, "mid JBOD"),
+           "mid_dead": check_jbod_placement(cx, mid_d, run_d.model, "mid JBOD dead disks"),
+           "large": check_jbod_placement(cx, large_j, intra_shuffle(torch, np, large_j, SEED),
+                                         "large JBOD")}
+    del large_j, runs_l
+    xl_j = jbod_model(torch, cx.generate_cluster, cx.spec_of(cx.xl_rung), cx.dev)
+    k10["xl250"] = check_jbod_placement(cx, xl_j, intra_shuffle(torch, np, xl_j, SEED),
+                                        "xl250 JBOD")
+    del xl_j
+    for name in k10["mid"]:
+        rows[name] = dict(k10["mid"][name])
+        for rung in ("large", "xl250"):
+            rows[name].update({f"{k}_{rung}": v for k, v in k10[rung][name].items()
+                               if k != "max_abs_err"})
+    for name, (_, _, run_label) in JBOD_MODES.items():
+        rows[name]["launches"] = counts[run_label].get(name, 0)
+        rows[name]["launches_run"] = run_label
+    return rows, counts, summary
+
+
+def _exact(torch, got, ref):
+    """Tensors (or tuples of them) equal bit for bit (floats by their bits)."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        if g is None and r is None:
+            continue
+        g = g.view(torch.int32) if g.dtype == torch.float32 else g
+        r = r.view(torch.int32) if r.dtype == torch.float32 else r
+        if not torch.equal(g.cpu(), r.cpu()):
+            return False
+    return True
+
+
+def check_jbod_modes(cx, healthy, dead):
+    """K5 mode 7, K5b's disk veto, K9's kinds 12-13 and ``segment_sum``'s
+    disk modes on the inputs the healthy and the dead-disk mid JBOD runs
+    gave them: the kernel against its plain twin, exactly; K5b also with
+    both disk goals as earlier goals.  Each timed on the healthy inputs."""
+    torch, gk, log, rehearse = cx.torch, cx.gk, cx.log, cx.rehearse
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    from cruise_control_tpu_torch.ops.segment import masked_segment_sum, segment_sum
+    wrappers = {"goal_masks": (gk.goal_masks, gk.goal_masks_plain),
+                "structural_accepts": (gk.structural_accepts, gk.structural_accepts_plain),
+                "stack_sweep": (gk.stack_satisfied, gk.stack_satisfied_plain)}
+    names = {"goal_masks": ("goal_masks_kernel",),
+             "structural_accepts": ("structural_accepts_kernel",),
+             "stack_sweep": ("stack_sweep_kernel",), "segment_sum": ("segment_sum_kernel",)}
+    both = tuple(goals_by_priority(INTRA_GOALS))
+    rows = {}
+    keys = [(n, k) for n in ("goal_masks", "stack_sweep") for k in INTRA_KINDS] + \
+        [("structural_accepts", "intra_disk_capacity"), ("segment_sum", "disk"),
+         ("segment_sum", "disk_broker")]
+    for name, kind in keys:
+        if (name, kind) not in healthy or (name, kind) not in dead:
+            if rehearse:
+                continue
+            raise RuntimeError(f"no captured input for {name}[{kind}]")
+        args = healthy[(name, kind)]
+        if name != "segment_sum" and not bool((dead[(name, kind)][1].disk_capacity < 0).any()):
+            raise RuntimeError(f"{name}[{kind}]: the dead-disk run's inputs have no dead disk")
+        checked = 0
+        for inputs in (healthy[(name, kind)], dead[(name, kind)]):
+            if name == "segment_sum":
+                got = segment_sum(*inputs)
+                cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in inputs)
+                ref = masked_segment_sum(cpu[0], cpu[1], cpu[3], cpu[2])
+                calls = [(got, ref)]
+            else:
+                kernel, plain = wrappers[name]
+                calls = [(kernel(*inputs), plain(*inputs))]
+                if name == "structural_accepts":
+                    # Both disk goals as earlier goals: both upper bands.
+                    call = (both,) + tuple(inputs[1:])
+                    calls.append((kernel(*call), plain(*call)))
+            for got, ref in calls:
+                if not _exact(torch, got, ref):
+                    raise RuntimeError(f"{name}[{kind}] disagrees with its plain twin")
+                checked += 1
+        model = None if name == "segment_sum" else args[1]
+        if name == "segment_sum":
+            values, ids, mask, n = args[:4]
+            timed = lambda: segment_sum(*args)  # noqa: E731
+            plain = lambda: masked_segment_sum(values, ids, n, mask)  # noqa: E731
+            keep = torch.where(mask, ids, 0).long()
+            rows_v = torch.where(mask[:, None], values, 0.0)
+            acc = torch.zeros((n, values.shape[1]), device=values.device)
+            library = lambda: acc.zero_().index_add_(0, keep, rows_v)  # noqa: E731
+            nbytes = mask.numel() + int(mask.sum()) * (4 + 4 * values.shape[1]) + \
+                n * 4 * values.shape[1]
+            shape = dict(N=values.shape[0], C=values.shape[1], S=n)
+        else:
+            kernel, plain_fn = wrappers[name]
+            call = args
+            if name == "stack_sweep":
+                call = (tuple(s for s in args[0] if s.kind == kind),) + tuple(args[1:])
+            timed = lambda: kernel(*call)  # noqa: E731
+            plain = lambda: plain_fn(*call)  # noqa: E731
+            library = None
+            nbytes = {"goal_masks": lambda: _k5_bytes(args[0], model, args[3].k, args[6]),
+                      "structural_accepts": lambda: _k5b_bytes(args[0], model, args[3]),
+                      "stack_sweep": lambda: _k9_bytes(call[0], model)}[name]()
+            shape = dict(K=args[3].k if name != "stack_sweep" else None,
+                         R=model.num_replicas_padded, B=model.num_brokers,
+                         D=model.num_disks)
+        rows[f"{name}[{kind}]"] = r = dict(
+            max_abs_err=0.0, ms=cx.timer(torch, timed), plain_ms=cx.timer(torch, plain),
+            library_ms=None if library is None else cx.timer(torch, library),
+            bound_ms=bound_ms(nbytes),
+            device_ms=None if rehearse else device_ms(torch, timed, names[name], log),
+            shape=shape)
+        log(f"{name}[{kind}]: healthy and dead disks equal to the plain twin (exact, "
+            f"{checked} calls); kernel {r['ms']:.4f} ms (device {r['device_ms']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} "
+            f"ms; {shape}")
+    return rows
+
+
+def _k10_disk_bytes(before, c):
+    """Bytes K10's disk loads must move for ``c`` blends: the masks, both
+    placements' disks and leader flags, the replica partitions, valid flags
+    and both DISK columns, the disk brokers and each broker's disk list,
+    once; c x D disk loads written."""
+    R, D = before.num_replicas_padded, before.num_disks
+    return (c * before.num_partitions + R * (2 * 4 + 2 + 4 + 1 + 8) + D * 4
+            + before.broker_disks.numel() * 4 + c * D * 4)
+
+
+def check_jbod_placement(cx, before, after, label):
+    """K10 with the disk goals on K10_BATCH blends of ``before`` and
+    ``after``: the aggregates with the blends' disk loads bit for bit
+    against the plain twin (an all-false blend's disk loads are
+    ``segment_sum[disk]``'s, and the disk loads' launch alone equals
+    them), each disk kind's sweep alone and both together exactly; each
+    timed beside its plain twin and its bound, the disk loads' launch alone
+    beside one ``index_add_`` over (blend, disk) segments."""
+    torch, np, gk, log, rehearse = cx.torch, cx.np, cx.gk, cx.log, cx.rehearse
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
+    con = BalancingConstraint.default()
+    specs = tuple(goals_by_priority(INTRA_GOALS))
+    masks, moved = k10_masks(torch, np, before, after, K10_BATCH, SEED)
+    C, R, D = masks.shape[0], before.num_replicas_padded, before.num_disks
+    ka, ks = gk.blend_aggregates, gk.stack_sweep_batch
+    got = ka(before, after, masks, False, with_disk_load=True)
+    ref = gk.blend_aggregates_plain(before, after, masks, False, False, True)
+    if not _exact(torch, tuple(got), tuple(ref)):
+        raise RuntimeError(f"K10 aggregates ({label}): differ from the plain twin")
+    # The disk loads alone, and against the plain version on the CPU copies.
+    if not _exact(torch, gk.blend_disk_load(before, after, masks), got[7]):
+        raise RuntimeError(f"K10 ({label}): the disk loads' launch alone differs from "
+                           "blend_aggregates'")
+    b_cpu, a_cpu = before.to("cpu"), after.to("cpu")
+    cpu_dl = gk.blend_disk_load_plain(b_cpu, a_cpu, masks.cpu())
+    if not _exact(torch, got[7], cpu_dl):
+        raise RuntimeError(f"K10 ({label}): the blends' disk loads differ from the plain "
+                           "version on the CPU")
+    del b_cpu, a_cpu, cpu_dl
+    if not _exact(torch, got[7][0], before.disk_load()):
+        raise RuntimeError(f"K10 ({label}): the all-false blend's disk loads differ from "
+                           "segment_sum[disk]'s")
+    for sk in ((specs[0],), (specs[1],), specs):
+        if not torch.equal(ks(sk, before, after, masks, got, con),
+                           gk.stack_sweep_batch_plain(sk, before, after, masks, ref, con)):
+            raise RuntimeError(f"K10 sweep ({label}, {[s.kind for s in sk]}) differs from "
+                               "the plain twin")
+    scored = cx.opt._get_placement_score_fn(specs, con, C)(before, after, masks)
+    if not torch.equal(scored, ks(specs, before, after, masks, got, con)):
+        raise RuntimeError(f"K10 ({label}): the scorer's call differs from one launch")
+    shape = dict(C=C, P=before.num_partitions, R=R, B=before.num_brokers, D=D,
+                 moved_partitions=moved)
+    part = before.replica_partition.clamp(0, before.num_partitions - 1).long()
+    rmask = masks[:, part]
+    rd = torch.where(rmask, after.replica_disk, before.replica_disk)
+    lead = torch.where(rmask, after.replica_is_leader, before.replica_is_leader)
+    disk = torch.where(lead, before.replica_load_leader[:, 3],
+                       before.replica_load_follower[:, 3])
+    keep = before.replica_valid[None, :] & (rd >= 0)
+    seg = (torch.arange(C, device=rd.device)[:, None] * D + rd.clamp(min=0)).reshape(-1)
+    vals = torch.where(keep, disk, 0.0).reshape(-1)
+    acc = torch.zeros((C * D,), device=rd.device)
+    fast = 5 if R * C > 1 << 24 else TIMED_RUNS
+    # The disk loads' launch alone: its event and device time, its plain
+    # version in torch ops, its bound and one index_add_.
+    dl_out = torch.empty_like(got[7])
+    out = {"blend_aggregates[disk]": dict(
+        max_abs_err=0.0, shape=shape,
+        ms=cx.timer(torch, lambda: gk.blend_disk_load(before, after, masks, dl_out), fast),
+        plain_ms=cx.timer(torch, lambda: gk.blend_disk_load_plain(before, after, masks), 3),
+        library_ms=cx.timer(torch, lambda: acc.zero_().index_add_(0, seg, vals), fast),
+        bound_ms=bound_ms(_k10_disk_bytes(before, C)),
+        device_ms=None if rehearse else device_ms(
+            torch, lambda: gk.blend_disk_load(before, after, masks, dl_out),
+            ("blend_disk_load_kernel",), log))}
+    for kind, spec in zip(INTRA_KINDS, specs):
+        sk = (spec,)
+        # The sweep reads the disk loads, capacities and valid flags, the
+        # disk lists and the alive and valid brokers (and replica counts
+        # for the hard goal) of each blend; C flags written.
+        nbytes = C * D * 4 + D * 5 + before.broker_disks.numel() * 4 + \
+            before.num_brokers * (2 + (4 * C if spec.is_hard else 0)) + C
+        out[f"stack_sweep_batch[{kind}]"] = dict(
+            max_abs_err=0.0, shape=dict(shape, G=1),
+            ms=cx.timer(torch, lambda: ks(sk, before, after, masks, got, con), fast),
+            plain_ms=cx.timer(torch, lambda: gk.stack_sweep_batch_plain(
+                sk, before, after, masks, ref, con), 3),
+            library_ms=None, bound_ms=bound_ms(nbytes),
+            device_ms=None if rehearse else device_ms(
+                torch, lambda: ks(sk, before, after, masks, got, con),
+                ("stack_sweep_batch_kernel",), log))
+    del rmask, rd, lead, seg, vals, acc, dl_out
+    log(f"K10 {label}: C={C} R={R} D={D}, {moved} partitions moved; disk loads bit-equal "
+        f"to the plain twin and to the plain version on the CPU (all-false blend = "
+        f"segment_sum[disk]), flags exact")
+    for name, r in out.items():
+        log(f"  K10 {label} {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
+    return out
 
 
 if __name__ == "__main__":

@@ -146,11 +146,12 @@ def make_candidates(model: TensorClusterModel, replica_ids: torch.Tensor,
 def make_swap_candidates(model: TensorClusterModel, replica_out: torch.Tensor,
                          replica_in: torch.Tensor, valid: torch.Tensor,
                          intra: bool = False) -> Candidates:
-    """K-batch of inter-broker replica SWAPS: ``replica_out`` (on src) trades
-    places with ``replica_in`` (on dest); delta fields carry the net effect.
-    Intra-broker swaps are outside this slice."""
-    if intra:
-        raise NotImplementedError("intra-broker swaps (INTRA_BROKER_REPLICA_SWAP)")
+    """K-batch of replica SWAPS: ``replica_out`` (on src) trades places with
+    ``replica_in`` (on dest), INTER_BROKER_REPLICA_SWAP, or with ``intra``
+    the two exchange disks on one broker, INTRA_BROKER_REPLICA_SWAP (the
+    disk goals read the exchange through src_disk / dest_disk and the
+    partner).  Broker-axis delta fields carry the net effect: zero for an
+    intra-broker swap."""
     r1 = replica_out
     r2 = torch.where(replica_in >= 0, replica_in, 0)
     k = r1.shape[0]
@@ -163,11 +164,22 @@ def make_swap_candidates(model: TensorClusterModel, replica_out: torch.Tensor,
     l1 = torch.where(lead1[:, None], ll1, model.replica_load_follower[r1])
     l2 = torch.where(lead2[:, None], ll2, model.replica_load_follower[r2])
     fzero = torch.zeros((), dtype=torch.float32, device=dev)
-    lbi1 = torch.where(lead1, ll1[:, Resource.NW_IN], fzero)
-    lbi2 = torch.where(lead2, ll2[:, Resource.NW_IN], fzero)
+    if intra:
+        zeros = torch.zeros((k,), dtype=torch.float32, device=dev)
+        delta_src = delta_dest = torch.zeros_like(l1)
+        action = ActionType.INTRA_BROKER_REPLICA_SWAP
+        d_leader = torch.zeros((k,), dtype=torch.int32, device=dev)
+        d_pot = d_lbi = zeros
+    else:
+        lbi1 = torch.where(lead1, ll1[:, Resource.NW_IN], fzero)
+        lbi2 = torch.where(lead2, ll2[:, Resource.NW_IN], fzero)
+        delta_src, delta_dest = l2 - l1, l1 - l2
+        action = ActionType.INTER_BROKER_REPLICA_SWAP
+        d_leader = lead1.to(torch.int32) - lead2.to(torch.int32)
+        d_pot = ll1[:, Resource.NW_OUT] - ll2[:, Resource.NW_OUT]
+        d_lbi = lbi1 - lbi2
     return Candidates(
-        action_type=torch.full((k,), ActionType.INTER_BROKER_REPLICA_SWAP,
-                               dtype=torch.int32, device=dev),
+        action_type=torch.full((k,), action, dtype=torch.int32, device=dev),
         replica=r1.to(torch.int32),
         src=src.to(torch.int32),
         dest=dest.to(torch.int32),
@@ -175,13 +187,13 @@ def make_swap_candidates(model: TensorClusterModel, replica_out: torch.Tensor,
         partition=model.replica_partition[r1],
         partition2=model.replica_partition[r2],
         valid=valid & (replica_in >= 0),
-        delta_src=l2 - l1,
-        delta_dest=l1 - l2,
+        delta_src=delta_src,
+        delta_dest=delta_dest,
         d_replica_count=torch.zeros((k,), dtype=torch.int32, device=dev),
-        d_leader_count=lead1.to(torch.int32) - lead2.to(torch.int32),
-        d_potential_nw_out=ll1[:, Resource.NW_OUT] - ll2[:, Resource.NW_OUT],
-        d_leader_bytes_in_src=lbi1 - lbi2,
-        d_leader_bytes_in_dest=lbi1 - lbi2,
+        d_leader_count=d_leader,
+        d_potential_nw_out=d_pot,
+        d_leader_bytes_in_src=d_lbi,
+        d_leader_bytes_in_dest=d_lbi,
         src_disk=model.replica_disk[r1],
         dest_disk=model.replica_disk[r2],
     )

@@ -10,8 +10,8 @@ with top in-replicas.  Legitimacy becomes a boolean mask over the batch.
 Every ``jax.lax.top_k`` of the JAX package is ``ops.order.top_k`` here and
 every ``jnp.argsort`` is ``ops.order.argsort``: both keep the JAX package's
 tie order, so a given model yields identical index sets.  The intra-broker
-builders (``intra_disk_candidates``, ``intra_swap_candidates``) wait for a
-later slice.
+builders (``intra_disk_candidates``, ``intra_swap_candidates``) pair replicas
+with the other disks of their own broker.
 
 The matched-transport legs run kernel K6 (``csrc/transport_match.cu``) for
 their two non-library parts: ``transport_rank`` (each row's rank inside its
@@ -32,7 +32,7 @@ from cruise_control_tpu_torch.analyzer.actions import (ActionType, Candidates,
                                                        make_swap_candidates)
 from cruise_control_tpu_torch.analyzer.goals import kernels
 from cruise_control_tpu_torch.analyzer.state import (BrokerArrays, OptimizationOptions,
-                                                     topic_counts)
+                                                     disk_loads, topic_counts)
 from cruise_control_tpu_torch.model.tensor_model import BrokerState, TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda, order
 
@@ -424,12 +424,62 @@ def leadership_candidates(spec, model, arrays, constraint, options, num_sources:
                            action_type, dest_replica, valid)
 
 
-def intra_disk_candidates(*args, **kwargs) -> Candidates:
-    raise NotImplementedError("intra-broker disk candidates are not ported yet")
+def intra_disk_candidates(spec, model, arrays, constraint, options, num_sources: int,
+                          relevance=None, bands=None) -> Candidates:
+    """K = S·max_disks_per_broker intra-broker disk moves: each top-ranked
+    replica paired with every disk of its own broker (the JAX package's
+    ``candidates.py:496``)."""
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays,
+                                                     constraint, bands=bands)
+    dev = model.device
+    rel_vals, src_replicas = order.top_k(relevance, num_sources)
+    disks = model.broker_disks[model.replica_broker[src_replicas]]
+    max_dpb = disks.shape[1]
+    replica = _repeat_each(src_replicas, max_dpb)
+    dest_disk = disks.reshape(-1)
+    src_ok = _repeat_each(rel_vals > _NEG, max_dpb)
+    safe_disk = torch.where(dest_disk >= 0, dest_disk, 0)
+    dest_alive = (dest_disk >= 0) & (model.disk_capacity[safe_disk] > 0.0) & \
+        model.disk_valid[safe_disk]
+    not_self = dest_disk != model.replica_disk[replica]
+    k = replica.shape[0]
+    action_type = torch.full((k,), ActionType.INTRA_BROKER_REPLICA_MOVEMENT,
+                             dtype=torch.int32, device=dev)
+    dest_replica = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    valid = src_ok & dest_alive & not_self & model.replica_valid[replica]
+    return make_candidates(model, replica, model.replica_broker[replica], action_type,
+                           dest_replica, valid, dest_disks=dest_disk)
 
 
-def intra_swap_candidates(*args, **kwargs) -> Candidates:
-    raise NotImplementedError("intra-broker swap candidates are not ported yet")
+def intra_swap_candidates(spec, model, arrays, constraint, options, num_out: int,
+                          num_in: int, relevance=None, bands=None) -> Candidates:
+    """K = S_out·S_in intra-broker disk swaps: the top out-replicas cross
+    partners ranked by their disk's load and their size (smallest on the
+    least-loaded disks first), masked to the same broker and another disk
+    (the JAX package's ``candidates.py:621``)."""
+    if relevance is None:
+        relevance = kernels.source_replica_relevance(spec, model, arrays,
+                                                     constraint, bands=bands)
+    dev = model.device
+    _, out_replicas = order.top_k(relevance, num_out)
+    out_vals = relevance[out_replicas]
+    disk_load = disk_loads(model, arrays)
+    rd = model.replica_disk
+    size = model.replica_load()[:, 3]
+    size_scale = size.max().clamp(min=1e-9)
+    in_rank = -disk_load[rd.clamp(min=0)] - size / size_scale
+    in_rank = torch.where(model.replica_valid & (rd >= 0), in_rank,
+                          torch.full((), -math.inf, device=dev))
+    _, in_replicas = order.top_k(in_rank, num_in)
+    r1 = _repeat_each(out_replicas, num_in)
+    r2 = in_replicas.repeat(num_out)
+    src_ok = _repeat_each(out_vals > _NEG, num_in)
+    same_broker = model.replica_broker[r1] == model.replica_broker[r2]
+    diff_disk = (rd[r1] != rd[r2]) & (rd[r1] >= 0) & (rd[r2] >= 0)
+    valid = src_ok & same_broker & diff_disk & \
+        model.replica_valid[r1] & model.replica_valid[r2] & (r1 != r2)
+    return make_swap_candidates(model, r1, r2, valid, intra=True)
 
 
 def swap_candidates(spec, model, arrays, constraint, options, num_out: int,

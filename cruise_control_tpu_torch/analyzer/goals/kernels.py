@@ -1,14 +1,14 @@
 """Vectorized goal semantics, and K3.
 
 Counterpart of ``cruise_control_tpu/analyzer/goals/kernels.py`` for every
-inter-broker goal kind: the default stack's (``rack``,
-``replica_capacity``, ``capacity``, ``replica_distribution``,
-``potential_nw_out``, ``resource_distribution``,
-``topic_replica_distribution``, ``leader_replica_distribution``,
-``leader_bytes_in``), ``rack_distribution``, ``preferred_leader`` and
-``min_topic_leaders``, kafka-assigner mode included.  The intra-broker disk
-kinds (``intra_disk_*``) raise ``NotImplementedError``: they wait for a
-later slice.
+goal kind: the default stack's (``rack``, ``replica_capacity``,
+``capacity``, ``replica_distribution``, ``potential_nw_out``,
+``resource_distribution``, ``topic_replica_distribution``,
+``leader_replica_distribution``, ``leader_bytes_in``),
+``rack_distribution``, ``preferred_leader`` and ``min_topic_leaders``,
+kafka-assigner mode included, and the intra-broker disk kinds
+(``intra_disk_capacity``, ``intra_disk_distribution``: each disk of a JBOD
+broker against its band, ``_disk_limits``).
 
 - ``broker_metric`` / ``limits`` / ``violated_brokers`` — per-broker balance
   quantity and its [lower, upper] band.
@@ -53,11 +53,14 @@ from cruise_control_tpu_torch.analyzer.actions import Candidates
 from cruise_control_tpu_torch.analyzer.balancing_constraint import (BALANCE_MARGIN,
                                                                     BalancingConstraint)
 from cruise_control_tpu_torch.analyzer.goals.specs import GoalSpec
-from cruise_control_tpu_torch.analyzer.state import BrokerArrays, topic_counts, topic_leaders
+from cruise_control_tpu_torch.analyzer.state import (INTRA_DISK_KINDS, BrokerArrays,
+                                                     disk_loads, disk_means,
+                                                     disk_sum_per_broker, topic_counts,
+                                                     topic_leaders)
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.model.tensor_model import BrokerState, TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda, order
-from cruise_control_tpu_torch.ops.segment import masked_segment_count
+from cruise_control_tpu_torch.ops.segment import masked_segment_count, masked_segment_sum
 
 _BIG = 1e30
 _OFFLINE_BONUS = 1e12  # healing moves (offline replicas off dead brokers) dominate
@@ -67,7 +70,7 @@ SUPPORTED_KINDS = ("rack", "replica_capacity", "capacity", "replica_distribution
                    "potential_nw_out", "resource_distribution",
                    "topic_replica_distribution", "leader_replica_distribution",
                    "leader_bytes_in", "rack_distribution", "preferred_leader",
-                   "min_topic_leaders")
+                   "min_topic_leaders") + INTRA_DISK_KINDS
 
 _BAND_KINDS = ("capacity", "resource_distribution", "replica_capacity",
                "replica_distribution", "leader_replica_distribution",
@@ -155,7 +158,35 @@ def broker_metric(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArray
                                     _wrong_leader_mask(model)).to(torch.float32)
     if kind == "min_topic_leaders":
         return _min_topic_leader_shortfall(model, arrays, constraint)
+    if kind in INTRA_DISK_KINDS:
+        # Per broker: the total excess of its disks over their bands, and
+        # everything still on a dead disk (capacity < 0), so the hard goal
+        # never reads satisfied while replicas are stranded there.
+        disk_load = disk_loads(model, arrays)
+        lo_d, up_d = _disk_limits(spec, model, constraint, disk_load, arrays)
+        excess = torch.clamp(disk_load - up_d, min=0.0) + torch.clamp(lo_d - disk_load, min=0.0)
+        excess = torch.where(model.disk_capacity < 0.0, disk_load, excess)
+        excess = torch.where(model.disk_valid, excess, torch.zeros_like(excess))
+        return disk_sum_per_broker(excess, model, model.disk_valid)
     raise NotImplementedError(f"goal kind {kind}")
+
+
+def _disk_limits(spec: GoalSpec, model: TensorClusterModel,
+                 constraint: BalancingConstraint, disk_load: torch.Tensor,
+                 arrays: Optional[BrokerArrays] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lower f32[D], upper f32[D]) bands on the disk axis
+    (``goals/kernels.py:147-171``): ``intra_disk_capacity`` caps each disk at
+    capacity x threshold; ``intra_disk_distribution`` keeps each disk within
+    the DISK balance percentage of its broker's mean utilization (the
+    broker's load over its live disks' capacity; ``arrays``' once per step
+    when present).  Dead disks (capacity < 0) take no part in the mean."""
+    cap = model.disk_capacity.clamp(min=1e-9)
+    if spec.kind == "intra_disk_capacity":
+        upper = cap * constraint.capacity_threshold[Resource.DISK]
+        return torch.zeros_like(upper), upper
+    avg_pct = disk_means(model, arrays, disk_load)
+    bp = constraint.balance_percentage(Resource.DISK)
+    return avg_pct * (2.0 - bp) * cap, avg_pct * bp * cap
 
 
 def _wrong_leader_mask(model: TensorClusterModel) -> torch.Tensor:
@@ -256,7 +287,7 @@ def limits(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
             / arrays.num_alive.to(torch.float32)
         return zero, (avg * bp).expand(B)
     if kind in ("rack", "rack_distribution", "topic_replica_distribution",
-                "preferred_leader", "min_topic_leaders"):
+                "preferred_leader", "min_topic_leaders") + INTRA_DISK_KINDS:
         return zero, zero
     raise NotImplementedError(f"goal kind {kind}")
 
@@ -286,7 +317,7 @@ _SWEEP_KINDS = ("capacity", "potential_nw_out", "replica_capacity",
                 "resource_distribution", "replica_distribution",
                 "leader_replica_distribution", "leader_bytes_in", "rack",
                 "topic_replica_distribution", "rack_distribution", "preferred_leader",
-                "min_topic_leaders")
+                "min_topic_leaders") + INTRA_DISK_KINDS
 _SWEEP_COUNTS = cuda.mode_counters("stack_sweep", _SWEEP_KINDS)
 _BATCH_SWEEP_COUNTS = cuda.mode_counters("stack_sweep_batch", _SWEEP_KINDS)
 
@@ -320,6 +351,11 @@ def _sweep_params(spec: GoalSpec, constraint: BalancingConstraint):
         a, b = bp, 2.0 - bp
     elif kind == "min_topic_leaders":
         a = float(constraint.min_topic_leaders_per_broker)
+    elif kind == "intra_disk_capacity":
+        a = constraint.capacity_threshold[Resource.DISK]
+    elif kind == "intra_disk_distribution":
+        bp = constraint.balance_percentage(Resource.DISK)
+        a, b = bp, 2.0 - bp
     ints = [_SWEEP_KINDS.index(kind), max(int(res), 0), int(spec.is_hard)]
     return ints, [_metric_epsilon(spec), a, b, c]
 
@@ -365,8 +401,11 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
     reduce their alive sums in a fixed order and test every broker against
     its band, the rack goals walk the replicas' siblings (against "no
     sibling on the rack" or the ceil(rf / racks) quota), the preferred-
-    leader goal tests every leader, the topic goals read their counts.
-    Exact booleans."""
+    leader goal tests every leader, the topic goals read their counts, the
+    intra-broker disk goals walk each broker's disks in disk order (the
+    disk loads of ``segment_sum[disk]``, the distribution goal's mean
+    utilization per broker, each disk's excess over its band, a dead disk's
+    whole load, summed per broker).  Exact booleans."""
     specs = tuple(specs)
     for s in specs:
         require_supported(s)
@@ -376,6 +415,8 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
         return stack_satisfied_plain(specs, model, arrays, constraint)
     ints, floats = _sweep_table(specs, constraint, dev)
     tables = _sweep_tables(specs, model, arrays, constraint)
+    disk_load = (disk_loads(model, arrays)
+                 if any(s.kind in INTRA_DISK_KINDS for s in specs) else None)
     sat = torch.empty((len(specs),), dtype=torch.bool, device=dev)
     off = torch.empty((1,), dtype=torch.bool, device=dev)
     cuda.launch("stack_sweep", len(specs), model.num_brokers, model.num_replicas_padded,
@@ -386,7 +427,7 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
                 arrays.num_alive.reshape(1), *tables, model.replica_broker,
                 model.replica_valid, model.replica_partition, model.partition_replicas,
                 model.broker_rack, model.broker_state, model.replica_is_leader,
-                model.replica_offline_now(), sat, off)
+                model.replica_offline_now(), sat, off, *_disk_rows(model), disk_load)
     stack_satisfied.launches += 1
     for kind in {s.kind for s in specs}:
         _SWEEP_COUNTS[kind].launches += 1
@@ -407,16 +448,25 @@ def _sweep_tables(specs, model: TensorClusterModel, arrays: BrokerArrays,
             model.partition_replication_factor() if "rack_distribution" in kinds else None)
 
 
+def _disk_rows(model: TensorClusterModel):
+    """(num_disks, max disks per broker, disk_capacity, disk_valid,
+    broker_disks): the disk axis as K9's intra-disk kinds walk it, each
+    broker's disks in increasing disk order."""
+    return (model.num_disks, model.broker_disks.shape[1], model.disk_capacity,
+            model.disk_valid, model.broker_disks.contiguous())
+
+
 # ---------------------------------------------------------------------------
 # K10: the goal stack's satisfied flags for a batch of placement blends
 # ---------------------------------------------------------------------------
 
 # (load f32[C, B, 4], replica_count i32[C, B], leader_count i32[C, B],
 # potential_nw_out f32[C, B], leader_bytes_in f32[C, B], topic counts
-# i32[C, T, B] or None, topic leader counts i32[C, T, B] or None) —
-# BrokerArrays' aggregates of C blends.
+# i32[C, T, B] or None, topic leader counts i32[C, T, B] or None, disk
+# loads f32[C, D] or None) — BrokerArrays' aggregates of C blends.
 BlendAggregates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                        torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+                        torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
+                        Optional[torch.Tensor]]
 
 
 def blend_placement(before: TensorClusterModel, after: TensorClusterModel,
@@ -436,30 +486,33 @@ def _blend_arrays(before: TensorClusterModel, aggs: BlendAggregates, c: int) -> 
     """BrokerArrays of blend ``c`` from its slice of the batched aggregates
     (liveness, capacity and validity are the broker axis's, which a blend
     leaves as they are)."""
-    load, rc, lc, pnw, lbi, tbc, tlc = aggs
+    load, rc, lc, pnw, lbi, tbc, tlc, dl = aggs
     alive = before.alive_broker_mask()
     return BrokerArrays(load=load[c], replica_count=rc[c], leader_count=lc[c],
                         potential_nw_out=pnw[c], leader_bytes_in=lbi[c], alive=alive,
                         capacity=before.broker_capacity, valid=before.broker_valid,
                         num_alive=alive.sum().clamp(min=1).to(torch.int32),
                         topic_counts=None if tbc is None else tbc[c],
-                        topic_leader_counts=None if tlc is None else tlc[c])
+                        topic_leader_counts=None if tlc is None else tlc[c],
+                        disk_load=None if dl is None else dl[c])
 
 
 def blend_aggregates_plain(before: TensorClusterModel, after: TensorClusterModel,
                            masks: torch.Tensor, with_topic_counts: bool,
-                           with_topic_leaders: bool = False) -> BlendAggregates:
+                           with_topic_leaders: bool = False,
+                           with_disk_load: bool = False) -> BlendAggregates:
     """K10's aggregates, one blend at a time: ``BrokerArrays.from_model`` of
     each blend, stacked."""
     rows = [BrokerArrays.from_model(blend_placement(before, after, m), with_topic_counts,
-                                    with_topic_leaders)
+                                    with_topic_leaders, with_disk_load)
             for m in masks]
     stack = [torch.stack([getattr(a, f) for a in rows])
              for f in ("load", "replica_count", "leader_count", "potential_nw_out",
                        "leader_bytes_in")]
     tbc = torch.stack([a.topic_counts for a in rows]) if with_topic_counts else None
     tlc = torch.stack([a.topic_leader_counts for a in rows]) if with_topic_leaders else None
-    return (*stack, tbc, tlc)
+    dl = torch.stack([a.disk_load for a in rows]) if with_disk_load else None
+    return (*stack, tbc, tlc, dl)
 
 
 def _check_blend_inputs(before: TensorClusterModel, after: TensorClusterModel,
@@ -475,32 +528,40 @@ def _check_blend_inputs(before: TensorClusterModel, after: TensorClusterModel,
         raise ValueError("placement blends need at least one partition")
 
 
+# The disk loads of the blends: a second launch of K10's aggregates, counted
+# as ``blend_aggregates[disk]``.
+_BLEND_DISK_COUNTS = cuda.mode_counters("blend_aggregates", ("disk",))
+
+
 @cuda.counted("blend_aggregates")
 def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
                      masks: torch.Tensor, with_topic_counts: bool,
                      out: Optional[BlendAggregates] = None,
-                     with_topic_leaders: bool = False) -> BlendAggregates:
+                     with_topic_leaders: bool = False,
+                     with_disk_load: bool = False) -> BlendAggregates:
     """K10, aggregates.  Replaces the ``BrokerArrays.from_model`` of every
     blend that ``cruise_control_tpu/analyzer/optimizer.py:2392``
     ``_get_placement_score_fn`` maps over its masks: each blend's per-broker
     sums, its (topic, broker) replica counts when ``with_topic_counts`` and
-    its (topic, broker) leader counts when ``with_topic_leaders``.  Bound
-    on the card: bytes (the masks, both placements and the load rows once;
-    C x B x 32 bytes and the C x T x B counts written).  CPU tensors take
+    its (topic, broker) leader counts when ``with_topic_leaders`` and its
+    disk loads when ``with_disk_load``.  Bound on the card: bytes (the
+    masks, both placements and the load rows once; C x B x 32 bytes, the C
+    x T x B counts and the C x D disk loads written).  CPU tensors take
     ``blend_aggregates_plain``; CUDA tensors launch one block per (broker,
     blend) running K1's block body on the blend read through the mask, in
     K1's fixed order (an all-false mask gives K1's bits), with exact
-    integer atomics for the topic counts.  ``out`` takes the output tensors
-    to write (the scorer's buffers of this shape)."""
+    integer atomics for the topic counts, and for the disk loads a second
+    launch (``blend_disk_load``).  ``out`` takes the output tensors to write
+    (the scorer's buffers of this shape)."""
     dev = before.device
     C, B, T = masks.shape[0], before.num_brokers, before.num_topics
     R = before.num_replicas_padded
     _check_blend_inputs(before, after, masks)
     cuda.record("blend_aggregates", (before, after, masks, with_topic_counts, None,
-                                     with_topic_leaders))
+                                     with_topic_leaders, with_disk_load))
     if cuda.on_cpu(masks):
         return blend_aggregates_plain(before, after, masks, with_topic_counts,
-                                      with_topic_leaders)
+                                      with_topic_leaders, with_disk_load)
     if out is None:
         out = (torch.empty((C, B, 4), dtype=torch.float32, device=dev),
                torch.empty((C, B), dtype=torch.int32, device=dev),
@@ -510,8 +571,10 @@ def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
                torch.empty((C, T, B), dtype=torch.int32, device=dev)
                if with_topic_counts else None,
                torch.empty((C, T, B), dtype=torch.int32, device=dev)
-               if with_topic_leaders else None)
-    load, rc, lc, pnw, lbi, tbc, tlc = out
+               if with_topic_leaders else None,
+               torch.empty((C, before.num_disks), dtype=torch.float32, device=dev)
+               if with_disk_load else None)
+    load, rc, lc, pnw, lbi, tbc, tlc, dl = out
     for t in (tbc, tlc):
         if t is not None:
             t.zero_()
@@ -523,6 +586,51 @@ def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
                     before.replica_topic if tbc is not None or tlc is not None else None,
                     load, rc, lc, pnw, lbi, tbc, tlc)
         blend_aggregates.launches += 1
+        if dl is not None:
+            blend_disk_load(before, after, masks, dl)
+    return out
+
+
+def blend_disk_load_plain(before: TensorClusterModel, after: TensorClusterModel,
+                          masks: torch.Tensor) -> torch.Tensor:
+    """K10's disk loads in torch ops, one blend at a time: each blend's
+    ``disk_load`` (``index_add_`` in row order), stacked; f32[C, D]."""
+    rows = []
+    for m in masks:
+        blend = blend_placement(before, after, m)
+        on_disk = blend.replica_disk >= 0
+        disk = blend.replica_load()[:, Resource.DISK]
+        rows.append(masked_segment_sum(disk, torch.where(on_disk, blend.replica_disk, 0),
+                                       blend.num_disks, blend.replica_valid & on_disk))
+    return torch.stack(rows)
+
+
+def blend_disk_load(before: TensorClusterModel, after: TensorClusterModel,
+                    masks: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10's disk loads (the second launch of ``blend_aggregates``), f32[C,
+    D]: each blend's ``disk_load``.  Bound on the card: bytes (the masks,
+    both placements' disks and leader flags, the replica rows and the disk
+    lists once; C x D loads written).  CPU tensors take
+    ``blend_disk_load_plain``; CUDA tensors launch one block per (broker,
+    blend) that adds the DISK load of the blend's replicas on each of the
+    broker's disks in row order (the CPU's ``index_add_`` order).  ``out``
+    takes the tensor to write."""
+    _check_blend_inputs(before, after, masks)
+    if cuda.on_cpu(masks):
+        return blend_disk_load_plain(before, after, masks)
+    C, D = masks.shape[0], before.num_disks
+    if out is None:
+        out = torch.empty((C, D), dtype=torch.float32, device=before.device)
+    out.zero_()
+    if C > 0 and before.num_brokers > 0:
+        cuda.launch("blend_disk_load", C, before.num_brokers, before.num_replicas_padded,
+                    before.num_partitions, D, before.broker_disks.shape[1], masks,
+                    before.replica_partition, before.replica_disk, after.replica_disk,
+                    before.replica_is_leader, after.replica_is_leader,
+                    before.replica_valid, before.replica_load_leader,
+                    before.replica_load_follower, before.disk_broker,
+                    before.broker_disks.contiguous(), out)
+        _BLEND_DISK_COUNTS["disk"].launches += 1
     return out
 
 
@@ -553,16 +661,17 @@ def stack_sweep_batch(specs, before: TensorClusterModel, after: TensorClusterMod
     topic goal's counts, once).  CPU tensors take
     ``stack_sweep_batch_plain``; CUDA tensors launch one block per (goal,
     blend) running K9's per-goal body on the blend's slice of ``aggs``
-    (``blend_aggregates``), the rack goals reading blended brokers, and the
+    (``blend_aggregates``), the rack goals reading blended brokers, the
     preferred-leader goal blended leader flags and offline flags, through
-    the mask.  Exact booleans."""
+    the mask, and the intra-broker disk goals the blend's disk loads.
+    Exact booleans."""
     specs = tuple(specs)
     for s in specs:
         require_supported(s)
     dev = before.device
     C, G, B, T = masks.shape[0], len(specs), before.num_brokers, before.num_topics
     _check_blend_inputs(before, after, masks)
-    load, rc, lc, pnw, lbi, tbc, tlc = aggs
+    load, rc, lc, pnw, lbi, tbc, tlc, dl = aggs
     cuda.check(load, "load", torch.float32, (C, B, 4), dev)
     for t, what, dtype in ((rc, "replica_count", torch.int32),
                            (lc, "leader_count", torch.int32),
@@ -576,6 +685,11 @@ def stack_sweep_batch(specs, before: TensorClusterModel, after: TensorClusterMod
             if table is None:
                 raise ValueError(f"the {kind} goal needs the blends' {what}")
             cuda.check(table, what, torch.int32, (C, T, B), dev)
+    intra = bool(kinds & set(INTRA_DISK_KINDS))
+    if intra:
+        if dl is None:
+            raise ValueError("the intra-broker disk goals need the blends' disk loads")
+        cuda.check(dl, "disk loads", torch.float32, (C, before.num_disks), dev)
     cuda.record("stack_sweep_batch", (specs, before, after, masks, aggs, constraint))
     if cuda.on_cpu(masks):
         return stack_sweep_batch_plain(specs, before, after, masks, aggs, constraint)
@@ -599,7 +713,7 @@ def stack_sweep_batch(specs, before: TensorClusterModel, after: TensorClusterMod
                     before.replica_partition, before.partition_replicas, before.broker_rack,
                     before.partition_replication_factor()
                     if "rack_distribution" in kinds else None,
-                    sat)
+                    sat, *_disk_rows(before), dl if intra else None)
         stack_sweep_batch.launches += 1
         for kind in kinds:
             _BATCH_SWEEP_COUNTS[kind].launches += 1
@@ -611,6 +725,8 @@ def _metric_epsilon(spec: GoalSpec) -> float:
         return Resource(spec.resource).epsilon * 1e-3
     if spec.kind in ("potential_nw_out", "leader_bytes_in"):
         return Resource.NW_OUT.epsilon * 1e-3
+    if spec.kind in INTRA_DISK_KINDS:
+        return Resource.DISK.epsilon * 1e-3
     return 1e-6  # count-based metrics are integral
 
 
@@ -722,6 +838,8 @@ def self_feasible(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArray
                 & ((cand.dest_replica == preferred) | src_demoted))
     if kind == "min_topic_leaders":
         return _min_leader_feasible(model, arrays, cand, constraint, unhealthy)
+    if kind in INTRA_DISK_KINDS:
+        return _intra_disk_feasible(spec, model, arrays, cand, constraint)
     if kind in ("rack", "rack_distribution"):
         conflict = _replica_rack_conflict(spec, model)[cand.replica]
         ok_dest = _rack_ok_for(spec, model, cand.replica, cand.dest, cand.partition)
@@ -766,6 +884,46 @@ def _min_leader_feasible(model: TensorClusterModel, arrays: BrokerArrays,
     return designated[t] & gains_leader & dest_short & src_ok
 
 
+def _disk_contribs(model: TensorClusterModel, cand: Candidates):
+    """(f32[K] the DISK load of each lane's replica, f32[K] that of its swap
+    partner, replica 0's where there is none)."""
+    disk = model.replica_load()[:, Resource.DISK]
+    r2 = torch.where(cand.dest_replica >= 0, cand.dest_replica, 0)
+    return disk[cand.replica], disk[r2]
+
+
+def _intra_disk_feasible(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
+                         cand: Candidates, constraint: BalancingConstraint) -> torch.Tensor:
+    """An intra-broker move out of an over-band (or dead) disk onto a disk of
+    the same broker that stays within its band, or an intra-broker swap
+    whose net exchange keeps both disks in band (``goals/kernels.py:427``).
+    The satisfied goal's epsilon, so a satisfied goal has no feasible lane."""
+    disk_load = disk_loads(model, arrays)
+    lo_d, up_d = _disk_limits(spec, model, constraint, disk_load, arrays)
+    s = cand.src_disk.clamp(min=0)
+    d = cand.dest_disk.clamp(min=0)
+    contrib, contrib2 = _disk_contribs(model, cand)
+    src_dead = model.disk_capacity[s] < 0.0
+    eps = _metric_epsilon(spec)
+    src_over = disk_load[s] > up_d[s] + eps
+    dest_under = disk_load[d] < lo_d[d] - eps
+    helps = src_over | dest_under | src_dead
+    same_broker = model.disk_broker[d] == cand.src
+    valid_disks = (cand.src_disk >= 0) & (cand.dest_disk >= 0) & \
+        (cand.src_disk != cand.dest_disk)
+    dest_ok = (disk_load[d] + contrib <= up_d[d]) & (model.disk_capacity[d] > 0.0)
+    src_stays = (disk_load[s] - contrib >= lo_d[s]) | src_dead | src_over
+    move_ok = (cand.is_intra_move() & valid_disks & same_broker & helps
+               & dest_ok & src_stays)
+    net = contrib - contrib2
+    swap_dest_ok = (disk_load[d] + net <= up_d[d]) & (model.disk_capacity[d] > 0.0)
+    swap_src_ok = ((disk_load[s] - net >= lo_d[s]) | src_dead | src_over) & \
+        ((disk_load[s] - net <= up_d[s]) | (net > 0))
+    swap_ok = (cand.is_intra_swap() & valid_disks & same_broker & helps
+               & swap_dest_ok & swap_src_ok)
+    return move_ok | swap_ok
+
+
 def accepts(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
             cand: Candidates, constraint: BalancingConstraint) -> torch.Tensor:
     """bool[K] — this already-optimized goal does not veto the candidate."""
@@ -792,6 +950,23 @@ def accepts(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         starves2 = cand.is_swap() & designated[t2] & model.replica_is_leader[r2] & \
             (tlc[t2, cand.dest] - 1 < need) & arrays.alive[cand.dest]
         return ~(starves | starves2)
+    if kind in INTRA_DISK_KINDS:
+        # Veto any action landing a replica on a disk over its upper band:
+        # a move, an intra move, or either leg of a swap (r1 onto r2's disk
+        # with the net contrib - contrib2, r2 onto r1's with the reverse).
+        disk_load = disk_loads(model, arrays)
+        _, up_d = _disk_limits(spec, model, constraint, disk_load, arrays)
+        d = cand.dest_disk.clamp(min=0)
+        s = cand.src_disk.clamp(min=0)
+        contrib, contrib2 = _disk_contribs(model, cand)
+        is_swap = cand.is_swap() | cand.is_intra_swap()
+        net_in = torch.where(is_swap, contrib - contrib2, contrib)
+        changes_disk = (cand.is_move() | cand.is_intra_move() | is_swap) & \
+            (cand.dest_disk >= 0)
+        over = disk_load[d] + net_in > up_d[d]
+        over_rev = is_swap & (cand.src_disk >= 0) & \
+            (disk_load[s] + contrib2 - contrib > up_d[s])
+        return ~((changes_disk & over) | over_rev)
     if kind in ("rack", "rack_distribution"):
         return torch.where(cand.is_move(),
                            _rack_ok_for(spec, model, cand.replica, cand.dest, cand.partition),
@@ -824,7 +999,7 @@ def accepts(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
 
 
 _STRUCTURAL_KINDS = ("rack", "topic_replica_distribution", "rack_distribution",
-                     "min_topic_leaders")
+                     "min_topic_leaders") + INTRA_DISK_KINDS
 _ACCEPT_COUNTS = cuda.mode_counters("structural_accepts", _STRUCTURAL_KINDS)
 
 
@@ -843,9 +1018,10 @@ def structural_accepts(prev_specs, model: TensorClusterModel, arrays: BrokerArra
     """K5b.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:464``
     ``accepts`` of the structural previous goals (``rack``,
     ``rack_distribution``, ``topic_replica_distribution``,
-    ``min_topic_leaders``; the band kinds' vetoes are the channel budgets of
-    the selection, and ``preferred_leader`` vetoes nothing): bool[K], False
-    where an earlier goal vetoes the candidate.  Bound on the card: bytes (a
+    ``min_topic_leaders``, the intra-broker disk kinds; the band kinds'
+    vetoes are the channel budgets of the selection, and
+    ``preferred_leader`` vetoes nothing): bool[K], False where an earlier
+    goal vetoes the candidate.  Bound on the card: bytes (a
     lane's action, replica, endpoints and partner, its sibling rows and
     broker racks, its topic-count or leader-count rows).  CPU tensors take
     ``structural_accepts_plain``; CUDA tensors launch one thread per lane
@@ -854,13 +1030,17 @@ def structural_accepts(prev_specs, model: TensorClusterModel, arrays: BrokerArra
     rack, or the ceil(rf / racks) quota), reads the (topic, broker) counts
     for the topic test, for moves and both legs of swaps, and the (topic,
     broker) leader counts for the min-leaders test of every action that
-    takes a designated leader off a broker.  Exact booleans."""
+    takes a designated leader off a broker, and each earlier disk goal's
+    upper disk band for the disk veto (any move, intra move or swap leg
+    landing on a disk: the disk's load plus the net DISK load it receives
+    against the band).  Exact booleans."""
     kinds = {s.kind for s in prev_specs}
     if not kinds <= set(_STRUCTURAL_KINDS):
         raise ValueError(f"structural_accepts takes {_STRUCTURAL_KINDS}, got {sorted(kinds)}")
     dev = cand.replica.device
     k = cand.k
-    for name in ("action_type", "replica", "src", "dest", "dest_replica"):
+    for name in ("action_type", "replica", "src", "dest", "dest_replica", "src_disk",
+                 "dest_disk"):
         cuda.check(getattr(cand, name), name, torch.int32, (k,), dev)
     cuda.record("structural_accepts", (tuple(prev_specs), model, arrays, cand, constraint))
     if cuda.on_cpu(cand.replica):
@@ -877,15 +1057,26 @@ def structural_accepts(prev_specs, model: TensorClusterModel, arrays: BrokerArra
         designated = _designated_topic_mask(model, constraint)
     if rack_dist:
         prf = model.partition_replication_factor()
+    disk_load = None
+    up_d = {}
+    if kinds & set(INTRA_DISK_KINDS):
+        disk_load = disk_loads(model, arrays)
+        for spec in prev_specs:
+            if spec.kind in INTRA_DISK_KINDS:
+                up_d[spec.kind] = _disk_limits(spec, model, constraint, disk_load, arrays)[1]
     out = torch.empty((k,), dtype=torch.bool, device=dev)
     if k > 0:
         cuda.launch("structural_accepts", int("rack" in kinds), int(rack_dist), int(topic),
-                    int(leaders), k, model.num_brokers, model.max_rf,
+                    int(leaders), int("intra_disk_capacity" in up_d),
+                    int("intra_disk_distribution" in up_d), k, model.num_brokers, model.max_rf,
                     constraint.min_topic_leaders_per_broker, model.num_racks,
                     cand.action_type, cand.replica, cand.src, cand.dest, cand.dest_replica,
                     model.replica_topic, model.replica_partition, model.replica_broker,
                     model.partition_replicas, model.broker_rack, tbc, lower_t, upper_t,
-                    model.replica_is_leader, arrays.alive, tlc, designated, prf, out)
+                    model.replica_is_leader, arrays.alive, tlc, designated, prf, out,
+                    disk_load, up_d.get("intra_disk_capacity"),
+                    up_d.get("intra_disk_distribution"), cand.src_disk, cand.dest_disk,
+                    model.replica_load_leader, model.replica_load_follower)
         structural_accepts.launches += 1
         for kind in kinds:
             _ACCEPT_COUNTS[kind].launches += 1
@@ -920,6 +1111,27 @@ def score(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         c_src = tlc[t, cand.src]
         loss = torch.clamp(need - (c_src - 1.0), min=0.0) - torch.clamp(need - c_src, min=0.0)
         return torch.where(designated, gain - torch.clamp(loss, max=1.0), fzero) + bonus
+    if kind in INTRA_DISK_KINDS:
+        # The two disks' deviation from their bands before and after the
+        # net transfer (the contribution for a move, the exchange difference
+        # for a swap), and the offline bonus off a dead disk.
+        disk_load = disk_loads(model, arrays)
+        lo_d, up_d = _disk_limits(spec, model, constraint, disk_load, arrays)
+        s = cand.src_disk.clamp(min=0)
+        d = cand.dest_disk.clamp(min=0)
+        contrib, contrib2 = _disk_contribs(model, cand)
+        net = torch.where(cand.is_intra_swap(), contrib - contrib2, contrib)
+
+        def dev(load, disk):
+            return torch.clamp(load - up_d[disk], min=0.0) + \
+                torch.clamp(lo_d[disk] - load, min=0.0)
+
+        before = dev(disk_load[s], s) + dev(disk_load[d], d)
+        after = dev(disk_load[s] - net, s) + dev(disk_load[d] + net, d)
+        dead_bonus = torch.where(model.disk_capacity[s] < 0.0, _f32(_OFFLINE_BONUS, fzero),
+                                 fzero)
+        return torch.where(cand.is_intra_move() | cand.is_intra_swap(),
+                           before - after + dead_bonus, fzero)
     if kind in ("rack", "rack_distribution"):
         _, _, sib_rack, sib_valid = _sibling_info(model, cand.replica)
         own_rack = model.broker_rack[cand.src]
@@ -965,7 +1177,7 @@ _DELTA_OF_KIND = {"replica_capacity": 4, "replica_distribution": 4,
                   "leader_replica_distribution": 5, "potential_nw_out": 6,
                   "leader_bytes_in": 7}
 (_MODE_THRESHOLD, _MODE_DISTRIBUTION, _MODE_TOPIC, _MODE_RACK, _MODE_PREFERRED,
- _MODE_MIN_LEADERS, _MODE_RACK_DIST) = range(7)
+ _MODE_MIN_LEADERS, _MODE_RACK_DIST, _MODE_INTRA_DISK) = range(8)
 _MASK_COUNTS = cuda.mode_counters("goal_masks", SUPPORTED_KINDS)
 
 
@@ -989,10 +1201,12 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
                accepted=None):
     """K5.  Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:550``
     ``score``, ``:354`` ``self_feasible`` and ``:256`` ``_candidate_deltas``
-    with the ``eligible`` line ``optimizer.py:1154``, for every inter-broker
-    kind (the band kinds, ``topic_replica_distribution``, ``rack``,
-    ``preferred_leader``, ``min_topic_leaders`` and ``rack_distribution``);
-    ``accepted`` (the cross-goal vetoes, K5b) comes in as a mask.  Bound on
+    with the ``eligible`` line ``optimizer.py:1154``, for every goal kind
+    (the band kinds, ``topic_replica_distribution``, ``rack``,
+    ``preferred_leader``, ``min_topic_leaders``, ``rack_distribution`` and,
+    as mode 7, the intra-broker disk kinds: intra moves and intra swaps
+    against both disks' bands, ``goals/kernels.py:427,578``); ``accepted``
+    (the cross-goal vetoes, K5b) comes in as a mask.  Bound on
     the card: bytes (about 40-80 bytes a lane read through the gathers, 5
     written).  CPU tensors take ``goal_masks_plain``; CUDA tensors launch
     one thread per lane that gathers its broker, topic, leader-count,
@@ -1003,7 +1217,7 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
     dev = cand.replica.device
     k = cand.k
     for name in ("action_type", "replica", "src", "dest", "dest_replica",
-                 "d_replica_count", "d_leader_count"):
+                 "d_replica_count", "d_leader_count", "src_disk", "dest_disk"):
         cuda.check(getattr(cand, name), name, torch.int32, (k,), dev)
     cuda.check(cand.valid, "valid", torch.bool, (k,), dev)
     if accepted is not None:
@@ -1013,9 +1227,13 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
         return goal_masks_plain(spec, model, arrays, cand, constraint, bands, accepted)
     kind = spec.kind
     metric = lower = upper = tbc = lower_t = upper_t = avg_t = conflict = None
-    tlc = designated = prf = None
+    tlc = designated = prf = disk_load = lo_d = up_d = None
     delta_sel = 0
-    if kind in ("rack", "rack_distribution"):
+    if kind in INTRA_DISK_KINDS:
+        mode = _MODE_INTRA_DISK
+        disk_load = disk_loads(model, arrays)
+        lo_d, up_d = _disk_limits(spec, model, constraint, disk_load, arrays)
+    elif kind in ("rack", "rack_distribution"):
         mode = _MODE_RACK if kind == "rack" else _MODE_RACK_DIST
         conflict = _replica_rack_conflict(spec, model)
         if kind == "rack_distribution":
@@ -1056,7 +1274,9 @@ def goal_masks(spec: GoalSpec, model: TensorClusterModel, arrays: BrokerArrays,
                     conflict, tbc, lower_t, upper_t, avg_t,
                     model.partition_replicas, model.broker_rack, score_out, eligible,
                     cand.dest_replica, model.broker_state, model.replica_is_leader,
-                    model.replica_valid, tlc, designated, prf)
+                    model.replica_valid, tlc, designated, prf, disk_load, lo_d, up_d,
+                    model.disk_capacity, model.disk_broker, cand.src_disk, cand.dest_disk,
+                    model.replica_load_leader, model.replica_load_follower)
         goal_masks.launches += 1
         _MASK_COUNTS[kind].launches += 1
     return score_out, eligible
@@ -1120,6 +1340,28 @@ def source_replica_relevance(spec: GoalSpec, model: TensorClusterModel,
         base = torch.where(donor | (designated & model.replica_is_leader & dead_src), one,
                            -big)
         return torch.where(model.replica_valid, base, -big)
+    if kind in INTRA_DISK_KINDS:
+        # Replicas on over-band and dead disks, and on disks above their
+        # band's midpoint on brokers with an under-band disk (donors);
+        # bigger replicas first.
+        disk_load = disk_loads(model, arrays)
+        lo_d, up_d = _disk_limits(spec, model, constraint, disk_load, arrays)
+        s = model.replica_disk.clamp(min=0)
+        on_disk = model.replica_disk >= 0
+        over = disk_load[s] > up_d[s]
+        dead = model.disk_capacity[s] < 0.0
+        under = (model.disk_valid & (disk_load < lo_d)).to(torch.int32)
+        seg = torch.where(model.disk_valid, model.disk_broker, 0).long()
+        broker_has_under = torch.zeros((model.num_brokers,), dtype=torch.int32,
+                                       device=seg.device).scatter_reduce_(
+                                           0, seg, under, "amax") > 0
+        donor = broker_has_under[model.replica_broker] & \
+            (disk_load[s] > (lo_d[s] + up_d[s]) * 0.5)
+        size = model.replica_load()[:, Resource.DISK]
+        scale = size.max().clamp(min=1e-9)
+        base = torch.where(dead, big,
+                           torch.where(over | donor, 1.0 + 1e-3 * size / scale, -big))
+        return torch.where(model.replica_valid & on_disk, base, -big)
     pressure = source_pressure(spec, model, arrays, constraint,
                                bands=bands)[model.replica_broker]
     if kind in ("rack", "rack_distribution"):

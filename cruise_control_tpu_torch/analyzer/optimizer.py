@@ -52,6 +52,11 @@ of the before and after placements) with K10 (``kernels.blend_aggregates``
 and ``kernels.stack_sweep_batch``, ``csrc/placement_score.cu``);
 ``donation_copy`` clones a model for a solve that donates it.
 
+The intra-broker disk goals (``INTRA_BROKER_GOAL_ORDER``) run on every
+path: their steps build intra-broker moves and swaps, and while one of
+them is in the stack ``select_batched``'s ``disk_guard`` keeps one landing
+per source and per destination disk.
+
 Not ported (``optimize`` raises): meshes, the flight recorder, the repair
 oracle, and multi-round selection (``moves_per_broker_step`` above
 ``SUBROUNDS``).
@@ -81,7 +86,7 @@ from cruise_control_tpu_torch.analyzer.goals.specs import GoalSpec, goals_by_pri
 from cruise_control_tpu_torch.analyzer.provisioning import (ProvisionResponse, host_view,
                                                             provision_verdict_for_goal)
 from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_DEPTH, CTR_LANES,
-                                                     CTR_LAST_N, CTR_REPAIR, CTR_STEPS,
+                                                     INTRA_DISK_KINDS, CTR_LAST_N, CTR_REPAIR, CTR_STEPS,
                                                      CTR_TOTAL, CTR_WIDTH, MUTABLE_FIELDS,
                                                      PACKED_ACTIONS, PACKED_AFTER,
                                                      PACKED_ANY_OFFLINE, PACKED_BEFORE,
@@ -410,7 +415,8 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
                    model: TensorClusterModel, room_dest: torch.Tensor,
                    slack_src: torch.Tensor, topic_budgets, subrounds: int,
                    has_swaps: bool, compact_k: Optional[int] = None,
-                   frontier: Optional[FrontierInvariants] = None):
+                   frontier: Optional[FrontierInvariants] = None,
+                   disk_guard: bool = False):
     """(keep bool[K], sel_stats) — one round of the JAX package's greedy
     multi-accept selection: per-(broker, lane) and per-partition segment
     argmax passes (K2), per-(topic, broker) key lanes, then the
@@ -423,7 +429,12 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
     active set's bucket (the JAX package's ``optimizer.py:518-531``): the
     candidates keep their full broker ids, inactive brokers alias compact
     slot 0 and pad slots read broker 0's budgets — harmless, because no
-    eligible candidate has an inactive endpoint."""
+    eligible candidate has an inactive endpoint.
+
+    ``disk_guard`` (an intra-broker disk goal in the stack) keeps one
+    landing per source disk and per destination disk among the lanes that
+    touch a disk (``optimizer.py:653-657``): two K2 passes over the disk
+    axis."""
     num_brokers, num_partitions = model.num_brokers, model.num_partitions
     dev = score.device
     k_full = score.shape[0]
@@ -512,6 +523,12 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
         claim1 = claim1.scatter_reduce_(0, torch.where(keep, cand.partition, 0).long(),
                                         keep.to(torch.int32), "amax") > 0
         keep = keep & ~((cand.partition2 != cand.partition) & claim1[cand.partition2])
+    if disk_guard:
+        touches = cand.dest_disk >= 0
+        kd = _best_per_segment(score, cand.src_disk.clamp(min=0), model.num_disks,
+                               keep & touches)
+        kd = _best_per_segment(score, cand.dest_disk.clamp(min=0), model.num_disks, kd)
+        keep = (keep & ~touches) | kd
 
     # Per-broker sums of a round's kept deltas, dest legs then src legs, in
     # lane order (fixed-order on the card: no float atomics).
@@ -676,8 +693,10 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
         batches.append(cgen.leadership_candidates(spec, model, arrays, constraint,
                                                   options, num_sources,
                                                   relevance=relevance, bands=bands))
-    if spec.uses_intra_moves or spec.uses_intra_swaps:
-        raise NotImplementedError(f"intra-broker actions of {spec.name}")
+    if spec.uses_intra_moves:
+        batches.append(cgen.intra_disk_candidates(spec, model, arrays, constraint, options,
+                                                  num_sources, relevance=relevance,
+                                                  bands=bands))
     sw_s = min(cgen.default_num_swap_sources(model), num_sources)
     sw_p = min(cgen.default_num_swap_partners(model), max(2, num_dests),
                model.num_replicas_padded)
@@ -685,6 +704,10 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
         batches.append(cgen.swap_candidates(spec, model, arrays, constraint, options,
                                             sw_s, sw_p, relevance=relevance,
                                             bands=bands, active=active))
+    if spec.uses_intra_swaps:
+        batches.append(cgen.intra_swap_candidates(spec, model, arrays, constraint, options,
+                                                  sw_s, sw_p, relevance=relevance,
+                                                  bands=bands))
     cand = batches[0]
     for extra in batches[1:]:
         cand = cgen.concat_candidates(cand, extra)
@@ -707,10 +730,12 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     subrounds = min(SUBROUNDS, max(1, int(constraint.moves_per_broker_step)))
     nb_sel = frontier.bucket if frontier is not None else model.num_brokers
     compact_k = _lane_bucket(cand.k, nb_sel, subrounds)
+    disk_guard = any(s.kind in INTRA_DISK_KINDS for s in all_specs)
     keep, sel_stats = select_batched(score, cand, eligible, model, room_dest, slack_src,
                                      topic_budgets, subrounds,
-                                     has_swaps=spec.uses_swaps, compact_k=compact_k,
-                                     frontier=frontier)
+                                     has_swaps=spec.uses_swaps or spec.uses_intra_swaps,
+                                     compact_k=compact_k, frontier=frontier,
+                                     disk_guard=disk_guard)
     return cand, keep, sel_stats
 
 
@@ -1158,13 +1183,14 @@ def _get_placement_score_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingCo
         return fn
     topic = any(s.kind == "topic_replica_distribution" for s in specs)
     leaders = any(s.kind == "min_topic_leaders" for s in specs)
+    disks = any(s.kind in INTRA_DISK_KINDS for s in specs)
     buffers: dict = {}
 
     def slice_buffers(before: TensorClusterModel, c: int):
-        B, T, dev = before.num_brokers, before.num_topics, before.device
+        B, T, D, dev = before.num_brokers, before.num_topics, before.num_disks, before.device
         if dev.type == "cpu":
             return None, None
-        bkey = (c, B, T, dev)
+        bkey = (c, B, T, D, dev)
         if bkey not in buffers:
             buffers[bkey] = (
                 (torch.empty((c, B, 4), dtype=torch.float32, device=dev),
@@ -1173,7 +1199,8 @@ def _get_placement_score_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingCo
                  torch.empty((c, B), dtype=torch.float32, device=dev),
                  torch.empty((c, B), dtype=torch.float32, device=dev),
                  torch.empty((c, T, B), dtype=torch.int32, device=dev) if topic else None,
-                 torch.empty((c, T, B), dtype=torch.int32, device=dev) if leaders else None),
+                 torch.empty((c, T, B), dtype=torch.int32, device=dev) if leaders else None,
+                 torch.empty((c, D), dtype=torch.float32, device=dev) if disks else None),
                 torch.empty((batch, len(specs)), dtype=torch.bool, device=dev))
         return buffers[bkey]
 
@@ -1188,7 +1215,7 @@ def _get_placement_score_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingCo
         for lo in range(0, batch, step):
             part = masks[lo:lo + step]
             aggs = kernels.blend_aggregates(before, after, part, topic, out=aggs_out,
-                                            with_topic_leaders=leaders)
+                                            with_topic_leaders=leaders, with_disk_load=disks)
             sat = None if sat_out is None else sat_out[lo:lo + step]
             rows.append(kernels.stack_sweep_batch(specs, before, after, part, aggs,
                                                   constraint, out=sat))
@@ -2547,7 +2574,9 @@ def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
         k = ns_l * nd_l * (1 if spec.uses_moves else 0)
         if spec.uses_leadership:
             k += ns_l * model.max_rf
-        if spec.uses_swaps:
+        if spec.uses_intra_moves:
+            k += ns_l * model.broker_disks.shape[1]
+        if spec.uses_swaps or spec.uses_intra_swaps:
             k += min(cgen.default_num_swap_sources(model), ns_l) * \
                 min(cgen.default_num_swap_partners(model), max(2, nd_l),
                     model.num_replicas_padded)

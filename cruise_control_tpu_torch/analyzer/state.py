@@ -18,7 +18,10 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.model.tensor_model import TENSOR_FIELDS, TensorClusterModel
-from cruise_control_tpu_torch.ops.segment import broker_aggregates
+from cruise_control_tpu_torch.ops.segment import broker_aggregates, segment_sum
+
+# The goal kinds that balance the disks of each broker (JBOD).
+INTRA_DISK_KINDS = ("intra_disk_capacity", "intra_disk_distribution")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,11 +43,21 @@ class BrokerArrays:
     # i32[T, B] leaders per (topic, broker), computed once per step when a
     # min-topic-leaders goal is in play, for the same reason.
     topic_leader_counts: Optional[torch.Tensor] = None
+    # f32[D] DISK load per disk, computed once per step when an intra-broker
+    # disk goal is in play, for the same reason.
+    disk_load: Optional[torch.Tensor] = None
+    # f32[D] the mean DISK utilization of each disk's broker over its live
+    # disks (the distribution band's two per-broker sums), computed once per
+    # step when IntraBrokerDiskUsageDistributionGoal is in play: its K5,
+    # K5b and relevance each read it.
+    disk_mean_util: Optional[torch.Tensor] = None
 
     @classmethod
     def from_model(cls, model: TensorClusterModel, with_topic_counts: bool = False,
-                   with_topic_leaders: bool = False) -> "BrokerArrays":
+                   with_topic_leaders: bool = False, with_disk_load: bool = False,
+                   with_disk_means: bool = False) -> "BrokerArrays":
         alive = model.alive_broker_mask()
+        disk_load = model.disk_load() if with_disk_load or with_disk_means else None
         load, rc, lc, pnw, lbi = broker_aggregates(
             model.replica_broker, model.replica_valid, model.replica_is_leader,
             model.replica_load_leader, model.replica_load_follower,
@@ -60,16 +73,23 @@ class BrokerArrays:
                           if with_topic_counts else None),
             topic_leader_counts=(model.topic_leader_counts()
                                  if with_topic_leaders else None),
+            disk_load=disk_load,
+            disk_mean_util=(disk_mean_utilization(model, disk_load)
+                            if with_disk_means else None),
         )
 
     @classmethod
     def for_specs(cls, model: TensorClusterModel, specs) -> "BrokerArrays":
-        """``from_model`` with the (topic, broker) tables that ``specs``
-        read: replica counts for a topic goal, leader counts for a
-        min-topic-leaders goal."""
+        """``from_model`` with the tables that ``specs`` read: (topic,
+        broker) replica counts for a topic goal, leader counts for a
+        min-topic-leaders goal, the disk loads for an intra-broker disk
+        goal and the brokers' mean disk utilization for the distribution
+        one."""
         kinds = {s.kind for s in specs}
         return cls.from_model(model, "topic_replica_distribution" in kinds,
-                              "min_topic_leaders" in kinds)
+                              "min_topic_leaders" in kinds,
+                              bool(kinds & set(INTRA_DISK_KINDS)),
+                              "intra_disk_distribution" in kinds)
 
 
 def topic_counts(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tensor:
@@ -77,6 +97,42 @@ def topic_counts(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tenso
     if arrays.topic_counts is not None:
         return arrays.topic_counts
     return model.topic_broker_replica_counts()
+
+
+def disk_loads(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tensor:
+    """f32[D] — the step's shared disk loads when present."""
+    if arrays.disk_load is not None:
+        return arrays.disk_load
+    return model.disk_load()
+
+
+def disk_sum_per_broker(values: torch.Tensor, model: TensorClusterModel,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """f32[B] — ``values`` (f32[D]) of the disks set in ``mask`` summed per
+    broker in disk order (``masked_segment_sum`` over ``disk_broker``; on
+    the card K1's ``segment_sum``, in the same order)."""
+    return segment_sum(values[:, None].contiguous(), model.disk_broker, mask,
+                       model.num_brokers, "disk_broker")[:, 0]
+
+
+def disk_mean_utilization(model: TensorClusterModel, disk_load: torch.Tensor) -> torch.Tensor:
+    """f32[D] — each disk's broker's load over its live disks' capacity
+    (``goals/kernels.py:160-167``); dead disks (capacity < 0) take no
+    part."""
+    ok = model.disk_valid & (model.disk_capacity > 0)
+    cap = model.disk_capacity.clamp(min=1e-9)
+    broker_load_d = disk_sum_per_broker(disk_load, model, ok)
+    broker_cap_d = disk_sum_per_broker(
+        torch.where(ok, model.disk_capacity, torch.zeros_like(cap)), model, ok).clamp(min=1e-9)
+    return (broker_load_d / broker_cap_d)[model.disk_broker]
+
+
+def disk_means(model: TensorClusterModel, arrays: BrokerArrays,
+               disk_load: torch.Tensor) -> torch.Tensor:
+    """f32[D] — the step's shared mean disk utilization when present."""
+    if arrays is not None and arrays.disk_mean_util is not None:
+        return arrays.disk_mean_util
+    return disk_mean_utilization(model, disk_load)
 
 
 def topic_leaders(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tensor:

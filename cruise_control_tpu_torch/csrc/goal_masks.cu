@@ -23,7 +23,18 @@
 //       source; the gain into dest and the loss on src, each clamped to 1,
 //       from two cells of the [T, B] topic leader counts;
 //   mode 6, rack_distribution: mode 3's sibling walk, with the quota
-//       ceil(rf / num_racks) in place of "no sibling on the dest rack".
+//       ceil(rf / num_racks) in place of "no sibling on the dest rack";
+//   mode 7, intra_disk_capacity and intra_disk_distribution (JAX
+//       goals/kernels.py:427 _intra_disk_feasible, :578 score): an intra-
+//       broker move of the replica's DISK load, or an intra-broker swap's
+//       net exchange, from the source disk onto another disk of the same
+//       broker; feasible when it helps (source over its band or dead,
+//       destination under) and both disks stay legal; the score is the
+//       two disks' summed deviation from their bands before minus after,
+//       plus the offline bonus off a dead disk.  The disk bands (lo_d,
+//       up_d) and the disk loads come in per disk, computed once per step
+//       (disk_load by K1's segment_sum[disk], the distribution band's two
+//       per-broker sums by segment_sum[disk_broker]).
 // The cross-goal vetoes of structural previous goals arrive as the
 // ``accepted`` mask (null = all accepted); K5b below computes them.
 //
@@ -36,8 +47,12 @@
 // or swap may take a designated leader off an alive broker at the minimum,
 // the swap's reverse leg included).  One thread per lane, the same sibling
 // walk as modes 3 and 6, the same topic-count rows as mode 2 and the
-// leader-count rows of mode 5; exact booleans.  Bound: bytes (~40 per lane
-// through the gathers: 1.3 MB at 32,768 lanes).
+// leader-count rows of mode 5; exact booleans.  With an earlier intra-broker
+// disk goal it also vetoes any action that lands a replica on a disk over
+// that goal's upper disk band (goals/kernels.py:492-510): a move onto the
+// destination broker's first disk, an intra move, or either leg of an
+// inter- or intra-broker swap (the net DISK exchange on each disk).  Bound:
+// bytes (~40 per lane through the gathers: 1.3 MB at 32,768 lanes).
 //
 // Bound on the card: bytes.  A lane reads ~80 bytes through its gathers
 // (its own fields, two broker rows, a topic row or max_rf sibling rows) and
@@ -61,10 +76,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kThreshold = 0, kDistribution = 1, kTopic = 2, kRack = 3, kPreferred = 4,
-              kMinLeaders = 5, kRackDist = 6;
+              kMinLeaders = 5, kRackDist = 6, kIntraDisk = 7;
 constexpr int32_t kMove = 0;        // ActionType.INTER_BROKER_REPLICA_MOVEMENT
 constexpr int32_t kLeadership = 1;  // ActionType.LEADERSHIP_MOVEMENT
+constexpr int32_t kIntraMove = 2;   // ActionType.INTRA_BROKER_REPLICA_MOVEMENT
 constexpr int32_t kSwap = 3;        // ActionType.INTER_BROKER_REPLICA_SWAP
+constexpr int32_t kIntraSwap = 4;   // ActionType.INTRA_BROKER_REPLICA_SWAP
+constexpr int kDiskColumn = 3;      // Resource.DISK
 constexpr int8_t kDemoted = 3;      // BrokerState.DEMOTED
 
 __device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
@@ -72,6 +90,18 @@ __device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
 // x * x + y * y rounded as fma(x, x, round(y * y)).
 __device__ __forceinline__ float sq_sum(float x, float y) {
   return __fmaf_rn(x, x, __fmul_rn(y, y));
+}
+
+// The DISK load replica r carries under its current leadership
+// (TensorClusterModel.replica_load()[r, DISK]): a pick, no arithmetic.
+__device__ __forceinline__ float disk_contrib(const float* leader, const float* follower,
+                                              const uint8_t* is_leader, int32_t r) {
+  return is_leader[r] ? leader[4 * r + kDiskColumn] : follower[4 * r + kDiskColumn];
+}
+
+// A disk's deviation from its band [lo, up] at ``load``.
+__device__ __forceinline__ float band_dev(float load, float lo, float up) {
+  return __fadd_rn(clamp0(__fsub_rn(load, up)), clamp0(__fsub_rn(lo, load)));
 }
 
 // ceil(rf / num_racks) as the plain version computes it: an i32 divided by
@@ -105,6 +135,11 @@ struct Args {
   const int32_t* tlc;         // [T, B] topic leader counts (mode 5)
   const uint8_t* designated;  // [T] (mode 5)
   const int32_t* partition_rf;  // [P] replication factors (mode 6)
+  // Mode 7: per disk the load, the band and the owner broker; per lane
+  // the source and destination disks; per replica the load rows.
+  const float *disk_load, *lo_d, *up_d, *disk_capacity;
+  const int32_t *disk_broker, *src_disk, *dest_disk;
+  const float *load_leader, *load_follower;
 };
 
 // Replica r leads wrongly (goals/kernels.py:105 _wrong_leader_mask): it is a
@@ -132,7 +167,40 @@ __global__ void goal_masks_kernel(const Args a) {
   const float bonus = (unhealthy && is_move) ? kBonus : 0.f;
   bool feasible;
   float score;
-  if (a.mode == kRack || a.mode == kRackDist) {
+  if (a.mode == kIntraDisk) {
+    const int32_t at = a.action_type[i];
+    const bool intra_move = at == kIntraMove, intra_swap = at == kIntraSwap;
+    const int32_t sd = a.src_disk[i], dd = a.dest_disk[i];
+    const int32_t sc = sd > 0 ? sd : 0, dc = dd > 0 ? dd : 0;  // maximum(disk, 0)
+    const int32_t r2 = a.dest_replica[i] >= 0 ? a.dest_replica[i] : 0;
+    const float contrib = disk_contrib(a.load_leader, a.load_follower, a.is_leader, r);
+    const float contrib2 = disk_contrib(a.load_leader, a.load_follower, a.is_leader, r2);
+    const float ls = a.disk_load[sc], ld = a.disk_load[dc];
+    const float lo_s = a.lo_d[sc], up_s = a.up_d[sc], lo_t = a.lo_d[dc], up_t = a.up_d[dc];
+    const bool src_dead = a.disk_capacity[sc] < 0.f;
+    const bool src_over = ls > __fadd_rn(up_s, a.eps);
+    const bool dest_under = ld < __fsub_rn(lo_t, a.eps);
+    const bool helps = src_over || dest_under || src_dead;
+    const bool same_broker = a.disk_broker[dc] == s;
+    const bool valid_disks = sd >= 0 && dd >= 0 && sd != dd;
+    const bool dest_live = a.disk_capacity[dc] > 0.f;
+    const bool common = valid_disks && same_broker && helps && dest_live;
+    const bool move_ok = intra_move && common && __fadd_rn(ld, contrib) <= up_t &&
+                         (__fsub_rn(ls, contrib) >= lo_s || src_dead || src_over);
+    const float net = __fsub_rn(contrib, contrib2);
+    const float ls_swap = __fsub_rn(ls, net);
+    const bool swap_ok = intra_swap && common && __fadd_rn(ld, net) <= up_t &&
+                         (ls_swap >= lo_s || src_dead || src_over) &&
+                         (ls_swap <= up_s || net > 0.f);
+    feasible = move_ok || swap_ok;
+    const float moved = intra_swap ? net : contrib;
+    const float before = __fadd_rn(band_dev(ls, lo_s, up_s), band_dev(ld, lo_t, up_t));
+    const float after = __fadd_rn(band_dev(__fsub_rn(ls, moved), lo_s, up_s),
+                                  band_dev(__fadd_rn(ld, moved), lo_t, up_t));
+    score = (intra_move || intra_swap)
+                ? __fadd_rn(__fsub_rn(before, after), src_dead ? kBonus : 0.f)
+                : 0.f;
+  } else if (a.mode == kRack || a.mode == kRackDist) {
     const int32_t p = a.replica_partition[r];
     const int32_t own_rack = a.broker_rack[s];
     const int32_t dest_rack = a.broker_rack[d];
@@ -237,7 +305,7 @@ __global__ void goal_masks_kernel(const Args a) {
 }
 
 struct AcceptArgs {
-  int rack, rack_dist, topic, min_leaders;
+  int rack, rack_dist, topic, min_leaders, intra_cap, intra_dist;
   int64_t k, num_brokers, max_rf, need, num_racks;
   const int32_t *action_type, *replica, *src, *dest, *dest_replica;
   const int32_t *replica_topic, *replica_partition, *replica_broker;
@@ -248,7 +316,25 @@ struct AcceptArgs {
   const uint8_t* designated;
   const int32_t* partition_rf;
   uint8_t* out;
+  // The disk vetoes: the disk loads, each earlier disk goal's upper band
+  // (null when that goal is not in the stack), the lanes' disks and the
+  // replicas' load rows.
+  const float *disk_load, *up_cap, *up_dist;
+  const int32_t *src_disk, *dest_disk;
+  const float *load_leader, *load_follower;
 };
+
+// An earlier disk goal with upper band ``up`` does not veto the lane
+// (goals/kernels.py:492-510): no landing pushes a disk over the band.
+__device__ __forceinline__ bool disk_leg_ok(const AcceptArgs& a, const float* up,
+                                            bool changes_disk, bool any_swap, int32_t sd,
+                                            int32_t sc, int32_t dc, float net_in, float c1,
+                                            float c2) {
+  const bool over = __fadd_rn(a.disk_load[dc], net_in) > up[dc];
+  const bool over_rev = any_swap && sd >= 0 &&
+                        __fsub_rn(__fadd_rn(a.disk_load[sc], c2), c1) > up[sc];
+  return !((changes_disk && over) || over_rev);
+}
 
 // Siblings of replica r's partition (other than r) on rack ``rack``.
 __device__ __forceinline__ int siblings_on(const AcceptArgs& a, int32_t r, int32_t rack) {
@@ -292,6 +378,19 @@ __global__ void structural_accepts_kernel(const AcceptArgs a) {
                           a.tlc[t2 * a.num_brokers + d] - 1 < a.need && a.alive[d];
     ok = !(starves || starves2);
   }
+  if (a.intra_cap || a.intra_dist) {
+    const bool any_swap = is_swap || at == kIntraSwap;
+    const int32_t sd = a.src_disk[i], dd = a.dest_disk[i];
+    const int32_t sc = sd > 0 ? sd : 0, dc = dd > 0 ? dd : 0;
+    const float c1 = disk_contrib(a.load_leader, a.load_follower, a.is_leader, r);
+    const float c2 = disk_contrib(a.load_leader, a.load_follower, a.is_leader, r2);
+    const float net_in = any_swap ? __fsub_rn(c1, c2) : c1;
+    const bool changes_disk = (is_move || at == kIntraMove || any_swap) && dd >= 0;
+    if (a.intra_cap)
+      ok = ok && disk_leg_ok(a, a.up_cap, changes_disk, any_swap, sd, sc, dc, net_in, c1, c2);
+    if (a.intra_dist)
+      ok = ok && disk_leg_ok(a, a.up_dist, changes_disk, any_swap, sd, sc, dc, net_in, c1, c2);
+  }
   if (is_move || is_swap) {
     if (a.rack || a.rack_dist) {
       ok = ok && rack_leg_ok(a, r, a.broker_rack[d]);
@@ -318,7 +417,8 @@ __global__ void structural_accepts_kernel(const AcceptArgs a) {
 }  // namespace
 
 extern "C" int cc_structural_accepts(
-    int64_t rack, int64_t rack_dist, int64_t topic, int64_t min_leaders, int64_t k,
+    int64_t rack, int64_t rack_dist, int64_t topic, int64_t min_leaders, int64_t intra_cap,
+    int64_t intra_dist, int64_t k,
     int64_t num_brokers, int64_t max_rf, int64_t need, int64_t num_racks,
     const int32_t* action_type, const int32_t* replica, const int32_t* src,
     const int32_t* dest, const int32_t* dest_replica, const int32_t* replica_topic,
@@ -326,14 +426,28 @@ extern "C" int cc_structural_accepts(
     const int32_t* partition_replicas, const int32_t* broker_rack, const int32_t* tbc,
     const float* lower_t, const float* upper_t, const uint8_t* is_leader,
     const uint8_t* alive, const int32_t* tlc, const uint8_t* designated,
-    const int32_t* partition_rf, uint8_t* out, cudaStream_t stream) {
+    const int32_t* partition_rf, uint8_t* out, const float* disk_load, const float* up_cap,
+    const float* up_dist, const int32_t* src_disk, const int32_t* dest_disk,
+    const float* load_leader, const float* load_follower, cudaStream_t stream) {
   if (k <= 0) return 0;
   if ((topic && (!tbc || !lower_t || !upper_t)) ||
       (min_leaders && (!tlc || !designated || !is_leader || !alive)) ||
-      (rack_dist && (!partition_rf || num_racks < 1)))
+      (rack_dist && (!partition_rf || num_racks < 1)) ||
+      (intra_cap && !up_cap) || (intra_dist && !up_dist) ||
+      ((intra_cap || intra_dist) && (!disk_load || !src_disk || !dest_disk ||
+                                     !load_leader || !load_follower || !is_leader)))
     return static_cast<int>(cudaErrorInvalidValue);
   AcceptArgs a;
   a.rack = static_cast<int>(rack);
+  a.intra_cap = static_cast<int>(intra_cap);
+  a.intra_dist = static_cast<int>(intra_dist);
+  a.disk_load = disk_load;
+  a.up_cap = up_cap;
+  a.up_dist = up_dist;
+  a.src_disk = src_disk;
+  a.dest_disk = dest_disk;
+  a.load_leader = load_leader;
+  a.load_follower = load_follower;
   a.rack_dist = static_cast<int>(rack_dist);
   a.topic = static_cast<int>(topic);
   a.min_leaders = static_cast<int>(min_leaders);
@@ -380,9 +494,16 @@ extern "C" int cc_goal_masks(
     const int32_t* partition_replicas, const int32_t* broker_rack, float* score,
     uint8_t* eligible, const int32_t* dest_replica, const int8_t* broker_state,
     const uint8_t* is_leader, const uint8_t* replica_valid, const int32_t* tlc,
-    const uint8_t* designated, const int32_t* partition_rf, cudaStream_t stream) {
+    const uint8_t* designated, const int32_t* partition_rf, const float* disk_load,
+    const float* lo_d, const float* up_d, const float* disk_capacity,
+    const int32_t* disk_broker, const int32_t* src_disk, const int32_t* dest_disk,
+    const float* load_leader, const float* load_follower, cudaStream_t stream) {
   if (k <= 0) return 0;
-  if (mode < kThreshold || mode > kRackDist || delta_sel < 0 || delta_sel > 7)
+  if (mode < kThreshold || mode > kIntraDisk || delta_sel < 0 || delta_sel > 7)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kIntraDisk &&
+      (!disk_load || !lo_d || !up_d || !disk_capacity || !disk_broker || !src_disk ||
+       !dest_disk || !load_leader || !load_follower || !is_leader || !dest_replica))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool band = mode == kThreshold || mode == kDistribution;
   if ((band && (!metric || !lower || !upper)) ||
@@ -437,6 +558,15 @@ extern "C" int cc_goal_masks(
   a.tlc = tlc;
   a.designated = designated;
   a.partition_rf = partition_rf;
+  a.disk_load = disk_load;
+  a.lo_d = lo_d;
+  a.up_d = up_d;
+  a.disk_capacity = disk_capacity;
+  a.disk_broker = disk_broker;
+  a.src_disk = src_disk;
+  a.dest_disk = dest_disk;
+  a.load_leader = load_leader;
+  a.load_follower = load_follower;
   const unsigned blocks = static_cast<unsigned>((k + kThreads - 1) / kThreads);
   goal_masks_kernel<<<blocks, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -20,9 +20,17 @@
 // (c, topic, broker) into another i32[C, T, B], with integer atomics
 // (exact, in any order; the caller zeroes the buffers).
 //
+// cc_blend_disk_load adds the disk loads of each blend for the intra-broker
+// disk goals: grid (B, C), block (b, c) walks the replica axis in K1's
+// passes, keeps the valid replicas whose blended disk belongs to broker b
+// (disk_broker), stages their DISK loads in row order in shared memory
+// (k1::compact_pass) and lets thread j add those on the broker's j-th disk
+// in turn: each disk's sum in the CPU index_add_'s row order, f32[C, D].
+//
 // cc_stack_sweep_batch is K9's sweep with a batch axis: grid (G, C), block
 // (g, c) runs K9's per-goal body (stack_sweep.cuh) on checkpoint c's slice
-// of the aggregates; the rack kinds read the blended broker of each replica
+// of the aggregates (the disk kinds checkpoint c's row of the disk loads);
+// the rack kinds read the blended broker of each replica
 // and of each sibling through the mask, the preferred-leader kind the
 // blended leader flags and brokers and each preferred replica's blended
 // offline flag (replica_offline_now of the blend: on a dead broker or a
@@ -42,7 +50,10 @@
 // (C = 256, P ~ 3.4k, R ~ 10k, B = 50) ~1.7 MB, half a microsecond at
 // 3.35 TB/s.  This simple design is far from it: every (b, c) block
 // re-reads the replica axis (B x C x R x ~14 bytes, from L2), which is what
-// a later, faster version has to remove.
+// a later, faster version has to remove.  With a disk goal in the stack the
+// function also reads both placements' disks and the disk rows and writes
+// C x D disk loads; cc_blend_disk_load re-reads the replica axis per (b, c)
+// block in the same way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,6 +142,63 @@ __global__ void blend_aggregates_kernel(
                       potential_nw_out + cb, leader_bytes_in + cb);
 }
 
+__global__ void blend_disk_load_kernel(
+    const uint8_t* __restrict__ masks, const int32_t* __restrict__ partition, int64_t p,
+    const int32_t* __restrict__ before_disk, const int32_t* __restrict__ after_disk,
+    const uint8_t* __restrict__ before_lead, const uint8_t* __restrict__ after_lead,
+    const uint8_t* __restrict__ valid, const float* __restrict__ load_leader,
+    const float* __restrict__ load_follower, const int32_t* __restrict__ disk_broker,
+    const int32_t* __restrict__ broker_disks, int64_t num_replicas, int64_t num_disks,
+    int64_t max_dpb, float* disk_load) {
+  constexpr int kThreads = k1::kThreads, kChunks = k1::kChunks;
+  __shared__ float s_val[k1::kRows];
+  __shared__ int32_t s_slot[k1::kRows];
+  __shared__ int32_t s_cnt[kChunks * k1::kWarps];
+  const int b = blockIdx.x;
+  const int64_t c = blockIdx.y;
+  const int t = threadIdx.x;
+  const int32_t* disks = broker_disks + b * max_dpb;
+  Blend pl{};
+  pl.mask = masks + c * p;
+  pl.partition = partition;
+  pl.p = p;
+  float acc = 0.f;  // the load of the broker's t-th disk (t < max_dpb)
+  for (int64_t base = 0; base < num_replicas; base += k1::kRows) {
+    bool flags[kChunks];
+    int slot[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int64_t r = base + k * kThreads + t;
+      flags[k] = false;
+      slot[k] = -1;
+      if (r < num_replicas && valid[r]) {
+        const int32_t disk = pl.landed(r) ? after_disk[r] : before_disk[r];
+        if (disk >= 0 && disk < num_disks && disk_broker[disk] == b) {
+          for (int64_t j = 0; j < max_dpb; ++j)
+            if (disks[j] == disk) slot[k] = static_cast<int>(j);
+          flags[k] = slot[k] >= 0;
+        }
+      }
+    }
+    int pos[kChunks];
+    const int total = k1::compact_pass<kChunks>(flags, pos, s_cnt);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      if (pos[k] < 0) continue;
+      const int64_t r = base + k * kThreads + t;
+      const bool lead = (pl.landed(r) ? after_lead[r] : before_lead[r]) != 0;
+      s_val[pos[k]] = lead ? load_leader[4 * r + 3] : load_follower[4 * r + 3];
+      s_slot[pos[k]] = slot[k];
+    }
+    __syncthreads();
+    if (t < max_dpb)
+      for (int j = 0; j < total; ++j)
+        if (s_slot[j] == t) acc = __fadd_rn(acc, s_val[j]);
+    __syncthreads();  // s_val, s_slot and s_cnt are rewritten by the next pass
+  }
+  if (t < max_dpb && disks[t] >= 0) disk_load[c * num_disks + disks[t]] = acc;
+}
+
 __global__ void stack_sweep_batch_kernel(const k9::Args a, const Blend blend) {
   const int64_t g = blockIdx.x;
   const int64_t c = blockIdx.y;
@@ -142,6 +210,7 @@ __global__ void stack_sweep_batch_kernel(const k9::Args a, const Blend blend) {
   ac.lbi = a.lbi + c * a.b;
   if (a.tbc != nullptr) ac.tbc = a.tbc + c * a.t * a.b;
   if (a.tlc != nullptr) ac.tlc = a.tlc + c * a.t * a.b;
+  if (a.disk_load != nullptr) ac.disk_load = a.disk_load + c * a.d;
   Blend pl = blend;
   pl.mask = blend.mask + c * blend.p;
   k9::sweep_goal(ac, g, pl, a.sat + c * a.g + g);
@@ -168,6 +237,23 @@ extern "C" int cc_blend_aggregates(
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int cc_blend_disk_load(
+    int64_t c, int64_t b, int64_t r, int64_t p, int64_t d, int64_t max_dpb,
+    const uint8_t* masks, const int32_t* partition, const int32_t* before_disk,
+    const int32_t* after_disk, const uint8_t* before_lead, const uint8_t* after_lead,
+    const uint8_t* valid, const float* load_leader, const float* load_follower,
+    const int32_t* disk_broker, const int32_t* broker_disks, float* disk_load,
+    cudaStream_t stream) {
+  if (c <= 0 || b <= 0) return 0;
+  if (p <= 0 || c > 65535 || max_dpb < 1 || max_dpb > k1::kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  blend_disk_load_kernel<<<dim3(static_cast<unsigned>(b), static_cast<unsigned>(c)),
+                           k1::kThreads, 0, stream>>>(
+      masks, partition, p, before_disk, after_disk, before_lead, after_lead, valid,
+      load_leader, load_follower, disk_broker, broker_disks, r, d, max_dpb, disk_load);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int cc_stack_sweep_batch(
     int64_t c, int64_t g, int64_t b, int64_t r, int64_t t, int64_t p, int64_t max_rf,
     int64_t num_racks, const int32_t* ints, const float* floats, const uint8_t* alive,
@@ -180,7 +266,9 @@ extern "C" int cc_stack_sweep_batch(
     const int32_t* original_broker, const int8_t* broker_state,
     const uint8_t* replica_valid, const int32_t* replica_partition,
     const int32_t* partition_replicas, const int32_t* broker_rack,
-    const int32_t* partition_rf, uint8_t* sat, cudaStream_t stream) {
+    const int32_t* partition_rf, uint8_t* sat, int64_t d, int64_t max_dpb,
+    const float* disk_capacity_rows, const uint8_t* disk_valid, const int32_t* broker_disks,
+    const float* disk_load, cudaStream_t stream) {
   if (c <= 0 || g <= 0) return 0;
   if (b <= 0 || b > 32 * k9::kThreads || p <= 0 || c > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -216,6 +304,12 @@ extern "C" int cc_stack_sweep_batch(
   a.offline = nullptr;
   a.sat = sat;
   a.off = nullptr;
+  a.d = d;
+  a.max_dpb = max_dpb;
+  a.disk_load = disk_load;
+  a.disk_capacity = disk_capacity_rows;
+  a.disk_valid = disk_valid;
+  a.broker_disks = broker_disks;
   Blend blend{};
   blend.mask = masks;
   blend.partition = replica_partition;

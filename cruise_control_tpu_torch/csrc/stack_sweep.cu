@@ -29,6 +29,11 @@
 //                         any leader on a DEMOTED broker
 //  11 min_topic_leaders   (topic, broker) leader counts of designated
 //                         topics on alive brokers against a (the minimum)
+//  12 intra_disk_capacity  each broker's summed excess of its disks over
+//                         [0, capacity * a] (a dead disk: its whole load)
+//                         against 0 +- eps
+//  13 intra_disk_distribution  the same over [avg * b * cap, avg * a *
+//                         cap], avg the broker's mean disk utilization
 // ``floats`` holds (eps, a, b, c) per goal as float32, which is how torch
 // applies the Python constants of the plain version.
 //
@@ -38,7 +43,8 @@
 // every leader's preferred replica, its broker state and offline flag (~R x
 // 12 bytes), the topic goals the [T, B] counts, the offline block R flags:
 // the stack's 16 goals move ~3-5 MB, about a microsecond at 3.35 TB/s — the
-// launch costs more than the work.
+// launch costs more than the work.  The disk kinds read D disk loads,
+// capacities and flags and the B x max_dpb disk lists (~13 bytes a disk).
 //
 // Design: one block per goal and one more for the offline flag.  A block
 // reduces the alive sums its kind needs — float sums in the windowed order
@@ -87,7 +93,9 @@ extern "C" int cc_stack_sweep(
     const int32_t* replica_broker, const uint8_t* replica_valid,
     const int32_t* replica_partition, const int32_t* partition_replicas,
     const int32_t* broker_rack, const int8_t* broker_state, const uint8_t* is_leader,
-    const uint8_t* offline, uint8_t* sat, uint8_t* off, cudaStream_t stream) {
+    const uint8_t* offline, uint8_t* sat, uint8_t* off, int64_t d, int64_t max_dpb,
+    const float* disk_capacity, const uint8_t* disk_valid, const int32_t* broker_disks,
+    const float* disk_load, cudaStream_t stream) {
   if (g < 0 || b <= 0 || b > 32 * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.g = g;
@@ -121,6 +129,12 @@ extern "C" int cc_stack_sweep(
   a.offline = offline;
   a.sat = sat;
   a.off = off;
+  a.d = d;
+  a.max_dpb = max_dpb;
+  a.disk_load = disk_load;
+  a.disk_capacity = disk_capacity;
+  a.disk_valid = disk_valid;
+  a.broker_disks = broker_disks;
   stack_sweep_kernel<<<static_cast<unsigned>(g + 1), kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

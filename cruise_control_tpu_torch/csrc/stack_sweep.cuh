@@ -19,7 +19,7 @@ constexpr float kBig = 1e30f;
 enum Kind {
   kCapacity = 0, kPotentialNwOut = 1, kReplicaCapacity = 2, kResourceDist = 3,
   kReplicaDist = 4, kLeaderDist = 5, kLeaderBytesIn = 6, kRack = 7, kTopic = 8,
-  kRackDist = 9, kPreferred = 10, kMinLeaders = 11
+  kRackDist = 9, kPreferred = 10, kMinLeaders = 11, kIntraCap = 12, kIntraDist = 13
 };
 constexpr int kNwOut = 2;  // Resource.NW_OUT
 constexpr int8_t kDead = 1, kDemoted = 3;  // BrokerState
@@ -43,6 +43,13 @@ struct Args {
   const uint8_t* is_leader;
   const uint8_t* offline;  // replica_offline_now
   uint8_t *sat, *off;
+  // The disk axis (kinds 12-13): D disks, each broker's disks in increasing
+  // order in broker_disks[B, max_dpb] (-1 pad), the disk loads (null unless
+  // a disk kind is in the stack).
+  int64_t d, max_dpb;
+  const float *disk_load, *disk_capacity;
+  const uint8_t* disk_valid;
+  const int32_t* broker_disks;
 };
 
 // alive[i] ? x[stride * i + col] : 0 — a masked column of a broker table.
@@ -78,6 +85,50 @@ struct Direct {
   __device__ __forceinline__ bool leader(int64_t r) const { return is_leader[r] != 0; }
   __device__ __forceinline__ bool offline_now(int64_t r) const { return offline[r] != 0; }
 };
+
+__device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
+
+// Broker b's excess over its disks' bands (goals/kernels.py:89-101 with
+// _disk_limits :147-171): for the distribution kind the broker's mean
+// utilization avg = (load of its live disks) / max(their capacity, 1e-9),
+// each disk's band [avg * pb * cap, avg * pa * cap] with cap =
+// max(capacity, 1e-9); for the capacity kind [0, cap * pa].  A disk adds
+// its deviation from the band, a dead disk (capacity < 0) its whole load,
+// an invalid disk nothing.  Every sum runs over the broker's disks in disk
+// order, the plain version's index_add_ order.
+__device__ inline float broker_disk_excess(const Args& a, int kind, int64_t b, float pa,
+                                           float pb) {
+  const int32_t* disks = a.broker_disks + b * a.max_dpb;
+  float avg = 0.f;
+  if (kind == kIntraDist) {
+    float load = 0.f, cap = 0.f;
+    for (int64_t j = 0; j < a.max_dpb; ++j) {
+      const int32_t d = disks[j];
+      if (d < 0 || !a.disk_valid[d] || !(a.disk_capacity[d] > 0.f)) continue;
+      load = __fadd_rn(load, a.disk_load[d]);
+      cap = __fadd_rn(cap, a.disk_capacity[d]);
+    }
+    avg = __fdiv_rn(load, fmaxf(cap, 1e-9f));
+  }
+  float excess = 0.f;
+  for (int64_t j = 0; j < a.max_dpb; ++j) {
+    const int32_t d = disks[j];
+    if (d < 0 || !a.disk_valid[d]) continue;
+    const float capacity = a.disk_capacity[d];
+    const float load = a.disk_load[d];
+    float dev;
+    if (capacity < 0.f) {
+      dev = load;
+    } else {
+      const float cap = fmaxf(capacity, 1e-9f);
+      const float up = kind == kIntraCap ? __fmul_rn(cap, pa) : __fmul_rn(__fmul_rn(avg, pa), cap);
+      const float lo = kind == kIntraCap ? 0.f : __fmul_rn(__fmul_rn(avg, pb), cap);
+      dev = __fadd_rn(clamp0(__fsub_rn(load, up)), clamp0(__fsub_rn(lo, load)));
+    }
+    excess = __fadd_rn(excess, dev);
+  }
+  return excess;
+}
 
 // ceil(rf / num_racks) as the plain version computes it (f32).
 __device__ __forceinline__ float rack_quota(int32_t rf, int64_t num_racks) {
@@ -148,6 +199,13 @@ __device__ void sweep_goal(const Args& a, int64_t g, const Placement& pl, uint8_
     for (int64_t i = t; i < a.t * a.b; i += kThreads) {
       const int64_t b = i % a.b;
       any |= a.alive[b] && a.designated[i / a.b] && static_cast<float>(a.tlc[i]) < pa;
+    }
+  } else if (kind == kIntraCap || kind == kIntraDist) {
+    // A broker violates when its disks' summed excess leaves [0 - eps, 0 +
+    // eps] (the zero band of goals/kernels.py:216-219).
+    for (int64_t i = t; i < a.b; i += kThreads) {
+      const float excess = broker_disk_excess(a, kind, i, pa, pb);
+      any |= a.alive[i] && (excess > eps || excess < -eps);
     }
   } else if (kind == kTopic) {
     // Topic totals are the row sums of the counts (every valid replica is

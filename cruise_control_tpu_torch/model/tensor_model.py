@@ -25,7 +25,7 @@ from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.ops import cuda
 from cruise_control_tpu_torch.ops.segment import (broker_aggregates,
                                                   masked_segment_count,
-                                                  masked_segment_sum)
+                                                  masked_segment_sum, segment_sum)
 
 
 class BrokerState:
@@ -169,6 +169,16 @@ class TensorClusterModel:
         counts = masked_segment_count(flat, self.num_topics * self.num_brokers,
                                       self.replica_valid & self.replica_is_leader)
         return counts.reshape(self.num_topics, self.num_brokers)
+
+    def disk_load(self) -> torch.Tensor:
+        """f32[D] disk utilization (the DISK column of ``replica_load`` summed
+        per disk over the valid replicas that sit on a disk).  On the card
+        K1's ``segment_sum`` adds each disk's rows in the CPU's row order."""
+        disk_ids = torch.where(self.replica_disk >= 0, self.replica_disk, 0)
+        mask = self.replica_valid & (self.replica_disk >= 0)
+        disk = self.replica_load()[:, Resource.DISK]
+        return segment_sum(disk[:, None].contiguous(), disk_ids, mask, self.num_disks,
+                           "disk")[:, 0]
 
     def preferred_leader_replica(self) -> torch.Tensor:
         """i32[P] the preferred (first-listed) replica of each partition

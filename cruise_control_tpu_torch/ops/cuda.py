@@ -51,12 +51,12 @@ _ENTRIES = {
     "ordered_sum": ("ordered", "cc_ordered_sum", "ppii"),
     "ordered_cumsum": ("ordered", "cc_ordered_cumsum", "ppii"),
     "apply_actions": ("apply_actions", "cc_apply_actions", "pppppppppiiippp"),
-    "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 7 + "f" + "p" * 37),
+    "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 7 + "f" + "p" * 46),
     "transport_rank": ("transport_match", "cc_transport_rank", "ppip"),
     "transport_lookup": ("transport_match", "cc_transport_lookup", "ppppiippp"),
     "cluster_stats": ("cluster_stats", "cc_cluster_stats", "ppiip"),
-    "structural_accepts": ("goal_masks", "cc_structural_accepts", "i" * 9 + "p" * 19),
-    "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 6 + "p" * 25),
+    "structural_accepts": ("goal_masks", "cc_structural_accepts", "i" * 11 + "p" * 26),
+    "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 6 + "p" * 25 + "ii" + "p" * 4),
     "frontier_active": ("frontier_active", "cc_frontier_active", "if" + "p" * 8),
     "frontier_active_batch": ("frontier_active", "cc_frontier_active_batch",
                               "ii" + "p" * 10),
@@ -64,7 +64,9 @@ _ENTRIES = {
     "cross_gate": ("chunk_gate", "cc_cross_gate", "p" * 5 + "i"),
     "chunk_touched": ("chunk_gate", "cc_chunk_touched", "ii" + "p" * 8),
     "blend_aggregates": ("placement_score", "cc_blend_aggregates", "i" * 5 + "p" * 17),
-    "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch", "i" * 8 + "p" * 31),
+    "blend_disk_load": ("placement_score", "cc_blend_disk_load", "i" * 6 + "p" * 12),
+    "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch",
+                          "i" * 8 + "p" * 31 + "ii" + "p" * 4),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 

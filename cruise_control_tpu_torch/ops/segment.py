@@ -10,7 +10,9 @@ per-broker aggregates ``analyzer.state.BrokerArrays`` needs, in one pass
 over the replica axis.  Its plain twin ``broker_aggregates_plain`` is the
 five ``masked_segment_*`` calls of ``model/tensor_model.py``.
 ``segment_sum`` is the same fixed-order design for any f32[N, C] rows (the
-selection's per-broker round sums); its plain twin is ``masked_segment_sum``.
+selection's per-broker round sums, the replicas' DISK loads per disk and
+the disks' sums per broker of the intra-broker disk goals); its plain twin
+is ``masked_segment_sum``.
 On the card neither adds floats with atomics, so both are run-to-run
 identical and safe to replay in a CUDA graph.
 """
@@ -56,24 +58,35 @@ def masked_segment_count(segment_ids: torch.Tensor, num_segments: int,
 # K1 — broker aggregates
 # ---------------------------------------------------------------------------
 
+# What the segments of a ``segment_sum`` are: the selection's per-broker
+# round sums, the replicas' DISK loads per disk (``disk_load``), or the
+# disks' sums per broker (the intra-broker disk goals' bands and excess).
+SEGMENT_MODES = ("round", "disk", "disk_broker")
+_SUM_COUNTS = cuda.mode_counters("segment_sum", SEGMENT_MODES)
+
+
 @cuda.counted("segment_sum")
 def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
-                mask: torch.Tensor, num_segments: int) -> torch.Tensor:
+                mask: torch.Tensor, num_segments: int,
+                segments: str = "round") -> torch.Tensor:
     """f32[S, C] — the rows of ``values`` whose ``mask`` is set, summed per
     segment.  K1 family (``csrc/broker_aggregates.cu`` ``cc_segment_sum``);
     replaces the float scatter-adds of ``select_batched``'s round sums
-    (``cruise_control_tpu/analyzer/optimizer.py:663-668``).  Bound on the
-    card: bytes (N·(4C+5) read, S·4C written).  CPU tensors take
-    ``masked_segment_sum`` (``index_add_`` in row order); CUDA tensors
-    launch one block per segment that sums its rows in a fixed order and
-    reduces with a fixed tree: deterministic, no float atomics."""
+    (``cruise_control_tpu/analyzer/optimizer.py:663-668``), of
+    ``tensor_model.py:170`` ``disk_load`` and of the disk goals' per-broker
+    sums (``goals/kernels.py:100,163-167``).  Bound on the card: bytes
+    (N·(4C+5) read, S·4C written).  CPU tensors take ``masked_segment_sum``
+    (``index_add_`` in row order); CUDA tensors launch one block per
+    segment that adds its rows in that row order: deterministic, no float
+    atomics, the CPU's bits.  ``segments`` names the mode
+    (``SEGMENT_MODES``) for the launch counts."""
     dev = values.device
     n = values.shape[0]
     c = values.shape[1] if values.dim() == 2 else -1
     cuda.check(values, "values", torch.float32, (n, c), dev)
     cuda.check(segment_ids, "segment_ids", torch.int32, (n,), dev)
     cuda.check(mask, "mask", torch.bool, (n,), dev)
-    cuda.record("segment_sum", (values, segment_ids, mask, num_segments))
+    cuda.record("segment_sum", (values, segment_ids, mask, num_segments, segments))
     if cuda.on_cpu(values):
         return masked_segment_sum(values, segment_ids, num_segments, mask)
     if not 1 <= c <= 16:
@@ -82,6 +95,7 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     if num_segments > 0:
         cuda.launch("segment_sum", values, segment_ids, mask, n, c, num_segments, out)
         segment_sum.launches += 1
+        _SUM_COUNTS[segments].launches += 1
     return out
 
 

@@ -106,7 +106,26 @@ def test_default_widths_match():
 
 
 def test_intra_broker_builders_wait_for_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        tc.intra_disk_candidates()
-    with pytest.raises(NotImplementedError):
-        tc.intra_swap_candidates()
+    """Both intra-broker builders give the JAX package's index sets and
+    fields on this cluster's one disk a broker (every pair is invalid: a
+    broker has no other disk) and on a JBOD cluster with 4 disks a broker
+    (tests/test_torch_intra_disk.py holds them per goal and case)."""
+    from tests.torch_port_helpers import SPEC_ENTRY, jbod_model
+    st = _state()
+    jbod = jbod_model(dict(SPEC_ENTRY, num_topics=5, mean_partitions_per_topic=16.0, seed=3))
+    tj = to_torch(jbod)
+    states = ((st["jm"], st["ja"], st["jo"], st["tm"], st["ta"], st["to"]),
+              (jbod, JaxBrokerArrays.from_model(jbod), JaxOptions.none(jbod), tj,
+               BrokerArrays.from_model(tj), OptimizationOptions.none(tj)))
+    for i, (jm, ja, jo, tm, ta, to) in enumerate(states):
+        for name in ("IntraBrokerDiskCapacityGoal", "IntraBrokerDiskUsageDistributionGoal"):
+            jspec, tspec = JAX_SPECS[name], GOAL_SPECS[name]
+            jcand = jax.jit(lambda m, a, o: jc.concat_candidates(
+                jc.intra_disk_candidates(jspec, m, a, JaxBC.default(), o, 24),
+                jc.intra_swap_candidates(jspec, m, a, JaxBC.default(), o, 16, 64)))(jm, ja, jo)
+            tcand = tc.concat_candidates(
+                tc.intra_disk_candidates(tspec, tm, ta, BalancingConstraint.default(), to, 24),
+                tc.intra_swap_candidates(tspec, tm, ta, BalancingConstraint.default(), to,
+                                         16, 64))
+            _assert_same(tcand, jcand)
+            assert bool(tcand.valid.any()) == (i == 1)

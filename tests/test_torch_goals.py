@@ -4,7 +4,8 @@ goal of the default stack and per goal of the other inter-broker kinds
 pair): ``limits``, ``goal_satisfied``, ``self_feasible``, ``accepts``,
 ``score`` and ``source_replica_relevance`` on one candidate batch (moves,
 matched moves, leadership transfers and swaps) built by the JAX package
-and carried across.  The intra-broker disk goals are still refused.
+and carried across, and for the intra-broker disk goals on the same
+cluster (one disk a broker).
 
 Masks and verdicts exact; floats within rtol 1e-5 of the largest |value|
 (XLA and PyTorch sum the broker loads in different orders).  The "dead"
@@ -68,6 +69,10 @@ OTHER_GOALS = ["RackAwareDistributionGoal", "PreferredLeaderElectionGoal",
 @pytest.mark.parametrize("dead", [False, True], ids=["healthy", "dead"])
 @pytest.mark.parametrize("goal", STACK + OTHER_GOALS)
 def test_goal_functions_match(goal, dead):
+    _check_functions(goal, dead)
+
+
+def _check_functions(goal, dead):
     jm, ja, jcand, tm, ta, tcand = _case(dead)
     jspec, tspec = JAX_SPECS[goal], GOAL_SPECS[goal]
     jcon, tcon = JaxBC.default(), BalancingConstraint.default()
@@ -101,6 +106,8 @@ def test_goal_functions_match(goal, dead):
 @pytest.mark.parametrize("goal", ["IntraBrokerDiskCapacityGoal",
                                   "IntraBrokerDiskUsageDistributionGoal"])
 def test_kinds_outside_the_slice_raise(goal):
-    _, _, _, tm, ta, tcand = _case(False)
-    with pytest.raises(NotImplementedError, match=GOAL_SPECS[goal].kind):
-        tk.score(GOAL_SPECS[goal], tm, ta, tcand, BalancingConstraint.default())
+    """The intra-broker disk goals on this cluster's one disk a broker:
+    every function equals the JAX package's on the inter-broker batch (the
+    disk veto judges its moves and swaps).  tests/test_torch_intra_disk.py
+    holds them on a JBOD cluster."""
+    _check_functions(goal, False)

@@ -22,6 +22,7 @@ from cruise_control_tpu_torch.analyzer.verifier import verify_run
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
 from cruise_control_tpu_torch.analyzer.actions import Candidates as TorchCandidates
 from cruise_control_tpu_torch.analyzer.goals.specs import (DEFAULT_GOAL_ORDER,
+                                                           INTRA_BROKER_GOAL_ORDER,
                                                            KAFKA_ASSIGNER_GOALS)
 from cruise_control_tpu_torch.convert import model_from_numpy, model_to_numpy
 from cruise_control_tpu_torch.model.tensor_model import STATIC_FIELDS, TENSOR_FIELDS
@@ -429,3 +430,68 @@ def check_goal_kind_outcome(case: str, tm, trun) -> None:
     elif case == "rack-distribution":
         assert trun.goal_results[0].satisfied_after
         assert not trun.goal_results[0].satisfied_before
+
+
+# ---------------------------------------------------------------------------
+# The intra-broker disk goals (JBOD)
+# ---------------------------------------------------------------------------
+
+# The facade's stack for rebalance_disk=true.
+INTRA_GOALS = INTRA_BROKER_GOAL_ORDER
+# A goals= request with rebalance_disk=true mixing the intra-broker capacity
+# goal with the inter-broker disk goals.
+MIXED_DISK_GOALS = ["IntraBrokerDiskCapacityGoal", "DiskCapacityGoal",
+                    "DiskUsageDistributionGoal"]
+
+
+def jbod_model(spec_kw, disks_per_broker: int = 4, dead=(), fullest: float = 0.7):
+    """The JAX model of ``spec_kw`` with ``disks_per_broker`` disks a broker
+    (the generator puts about half of a broker's replicas on its first
+    disk), every disk's and broker's DISK capacity scaled by one factor so
+    that the fullest broker's disks sit at ``fullest`` together, and the
+    first disk of each broker in ``dead`` dead (capacity -1)."""
+    from cruise_control_tpu.common.resources import Resource
+    jm = jax_generate(JaxSpec(**dict(spec_kw, disks_per_broker=disks_per_broker)))
+    seg = np.asarray(jm.disk_broker)
+    load = np.bincount(seg, np.asarray(jm.disk_load(), np.float64), jm.num_brokers)
+    cap = np.bincount(seg, np.asarray(jm.disk_capacity, np.float64), jm.num_brokers)
+    f = (load / np.maximum(cap, 1e-30)).max() / fullest
+    disk_cap = (np.asarray(jm.disk_capacity, np.float64) * f).astype(np.float32)
+    broker_cap = np.asarray(jm.broker_capacity).copy()
+    broker_cap[:, Resource.DISK] = (broker_cap[:, Resource.DISK].astype(np.float64)
+                                    * f).astype(np.float32)
+    first = np.asarray(jm.broker_disks)[:, 0]
+    for b in dead:
+        disk_cap[first[b]] = -1.0
+    return jm.replace(disk_capacity=jnp.asarray(disk_cap), broker_capacity=jnp.asarray(broker_cap))
+
+
+def on_dead_disks(model) -> int:
+    """Valid replicas on a dead disk (a port or a JAX model)."""
+    rd = np.asarray(model.replica_disk)
+    cap = np.asarray(model.disk_capacity)
+    valid = np.asarray(model.replica_valid) & (rd >= 0)
+    return int((cap[np.maximum(rd, 0)] < 0)[valid].sum())
+
+
+def check_intra(jm, path: str, goals=INTRA_GOALS, verify: bool = True):
+    """The port's ``optimize(fused=True)`` on the grouped (``path`` =
+    "grouped") or the sequential per-goal path ("per-goal",
+    ``fuse_group_size=1``) against the JAX package's on ``jm``: per goal the
+    same integer packed slots 0-7 and the same placement, replicas and
+    disks; with ``verify`` the run passes the port's ``verify_run`` (every
+    hard goal must hold at the end)."""
+    tm = to_torch(jm)
+    kw = dict(fused=True)
+    if path == "per-goal":
+        kw["fuse_group_size"] = 1
+    jrun = jopt.optimize(jm, goals, raise_on_hard_failure=False, **kw)
+    trun = topt.optimize(tm, goals, raise_on_hard_failure=False, device="cpu", **kw)
+    assert [g.name for g in trun.goal_results] == list(goals)
+    assert goal_rows(trun) == goal_rows(jrun)
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(getattr(trun.model, f).numpy(),
+                                      np.asarray(getattr(jrun.model, f)), err_msg=f)
+    if verify:
+        verify_run(tm, trun, list(goals), proposals=tprops.diff(tm, trun.model))
+    return tm, trun
