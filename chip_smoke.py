@@ -134,7 +134,27 @@ Phases, in order (any failure raises and the process exits non-zero):
     of the healthy and the dead-disk runs, exactly, each timed; K10's disk
     loads and disk kinds against their twins on 256 blends at mid (healthy
     and dead disks), large and xl250 with 4 disks a broker, timed;
-18. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+18. from metric samples to anomalies (``check_detection``; its kernels,
+    K14's peer and row passes, are held against their plain versions with
+    phase 4's, ``check_k14``: bit for bit on seeded histories at 7,000
+    brokers and 20 windows — rows with no valid history, one valid window,
+    an invalid latest window; again with no valid latest window — and on
+    tests/test_device_detector.py's three fixtures, timed beside the plain
+    versions and ``torch.nanquantile``): the xl250
+    rung's placement as cluster metadata, six windows of the synthetic
+    sampler into a ``LoadMonitor`` on the card (flush times and bytes-in
+    added to its broker history, an excursion on brokers 3, 17 and 501 in
+    the latest window), its model equal field for field to its CPU build;
+    one tick of every detector through the manager with the counters set to
+    0 just before (``CRUISE_DETECTOR_ORACLE=1``): K14 launched once for both
+    finder families, flagging exactly the slow brokers, K9's sweep once for
+    the 15 detection goals, the violated goals healed by a stand-in context
+    whose ``rebalance`` solves the monitor's model (``verify_run``, hard
+    goals, every kernel of the pipelined path launched); then brokers 0, 10,
+    ..., 90 die: the broker-failure detector reports them, the notifier
+    waits out its alert threshold, the goal-violation detector defers on
+    K9's offline flag with the balancedness score pinned;
+19. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -335,7 +355,7 @@ def main(argv) -> int:
         return {n: w.launches for n, w in wrappers.items()}
 
     def check_launched(label, counts, path=None):
-        skip = NOT_ON.get(path, ()) + EXECUTION_ONLY
+        skip = NOT_ON.get(path, ()) + EXECUTION_ONLY + tuple(DETECTION_KERNELS)
         idle = [n for n, c in counts.items() if c == 0 and n not in skip]
         if not rehearse and idle:
             raise RuntimeError(f"kernels not launched on the {label} path: {idle}; {counts}")
@@ -398,6 +418,11 @@ def main(argv) -> int:
                                           {"mid": mid, "second": second, "large": large}))
     results.update(check_pipeline_kernels(torch, np, wrappers, log, timer,
                                           {"mid": mid, "second": second, "large": large}))
+    # K14 (phase 18's kernels) here, where the profiler reads device times
+    # reliably: late in the script its sessions now and then record no op.
+    import types
+    k14_rows = check_k14(types.SimpleNamespace(torch=torch, np=np, log=log, dev=dev,
+                                               rehearse=rehearse, timer=timer))
 
     # 5. mid rung as the service runs it: fused, step graphs
     phase("mid fused")
@@ -729,7 +754,6 @@ def main(argv) -> int:
 
     # 16. the goal kinds beyond the 15-goal stack
     phase("goal kinds")
-    import types
     cx = types.SimpleNamespace(
         torch=torch, np=np, opt=opt, props=props, gk=gk, cuda=cuda, log=log, dev=dev,
         rehearse=rehearse, timer=timer, fused_run=fused_run, mid=mid, mid_rung=mid_rung,
@@ -747,7 +771,16 @@ def main(argv) -> int:
     phase("JBOD")
     jbod_rows, jbod_counts, jbod_summary = check_jbod(cx)
 
-    # 18. results
+    # 18. from metric samples to anomalies: the monitor, the detectors (K14,
+    # K9's sweep) and the manager, with a stand-in heal
+    phase("detection")
+    cx.check_launched = check_launched
+    t_detect = time.monotonic()
+    detect_counts, detect_summary = check_detection(cx)
+    detect_summary["phase_s"] = round(time.monotonic() - t_detect, 1)
+    log(f"detection summary: {detect_summary}")
+
+    # 19. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -759,7 +792,8 @@ def main(argv) -> int:
         f"{pipe_wall:.3f} s ({pipe_steps} steps, ops/step {prof_pipe['ops_per_step']}, "
         f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
         f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; execution "
-        f"{exec_summary}; goal kinds {kinds_summary}; JBOD {jbod_summary}; card {smi}")
+        f"{exec_summary}; goal kinds {kinds_summary}; JBOD {jbod_summary}; detection "
+        f"{detect_summary}; card {smi}")
     for name in EXECUTION_ONLY:
         # The mid shape is the execution's; the large and xl250 numbers beside.
         results[name] = dict(k10["mid"][name])
@@ -784,6 +818,8 @@ def main(argv) -> int:
                      "launches_unfused_mid": mid_counts[name],
                      "launches_xl250": xl_counts[name],
                      "launches_execution": exec_counts[name],
+                     "launches_detection_tick": detect_counts["tick"][name],
+                     "launches_detectors": detect_counts["detect"].get(name, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms_per_launch": device_ms,
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -825,6 +861,19 @@ def main(argv) -> int:
                      "device_ms_per_launch": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": "bytes", "library_ms": r["library_ms"]})
+    # K14's two launches: timed at 7,000 brokers x 20 windows, launched in the
+    # fleet tick (once each, for both finder families).
+    for name, (source, replaces) in DETECTION_KERNELS.items():
+        r = k14_rows[name]
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": detect_counts["tick"][name],
+                     "launches_run": "detection tick", "shape": r["shape"],
+                     "launches_shape": detect_summary["k14_shape"],
+                     "launches_dead_tick": detect_counts["dead"].get(name, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms_per_launch": r["device_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # K12's device time is the whole fused solve's (its eager per-goal
     # set-up included), from the fused profile.
     graph_results["goal_chain"]["device_ms_per_launch"] = prof_fused.get("device_ms")
@@ -3486,6 +3535,443 @@ def check_jbod_placement(cx, before, after, label):
         log(f"  K10 {label} {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: from metric samples to anomalies (the monitor and the detectors)
+# ---------------------------------------------------------------------------
+
+K14_SHAPE = (7000, 20)  # brokers (LinkedIn's largest fleets) x num.broker.metrics.windows
+SLOW_BROKERS = (3, 17, 501)  # a flush-time excursion in the latest window
+DEAD_BROKERS = tuple(range(0, 100, 10))
+DETECTION_WINDOWS = 6  # sampler windows fed to the monitor (5 complete, 1 open)
+BROKER_WINDOWS = K14_SHAPE[1]  # the broker history the tick scores: all of it
+WINDOW_MS = 300_000
+FLUSH = "BROKER_LOG_FLUSH_TIME_MS_999TH"
+F32_PEAK_OPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+DETECTION_KERNELS = {
+    "detector_peer": ("cruise_control_tpu_torch/csrc/detector_scores.cu",
+                      "cruise_control_tpu/detector/device.py:102"),
+    "detector_rows": ("cruise_control_tpu_torch/csrc/detector_scores.cu",
+                      "cruise_control_tpu/detector/device.py:77"),
+}
+# tests/test_device_detector.py:33-45: flush-time histories of four brokers
+# over six windows; BORDERLINE puts the latest value exactly on the anomaly
+# threshold (percentile 10 x margin 1.5).
+DETECTOR_FIXTURES = {
+    "clean": {b: [5, 5, 5, 5, 5, 5] for b in range(4)},
+    "single_slow": {0: [5, 5, 5, 5, 5, 100], 1: [5, 5, 5, 5, 5, 5],
+                    2: [5, 5, 5, 5, 5, 6], 3: [5, 5, 5, 5, 5, 5]},
+    "borderline": {0: [10, 10, 10, 10, 10, 15], 1: [10, 10, 10, 10, 10, 16],
+                   2: [10, 10, 10, 10, 10, 10], 3: [10, 10, 10, 10, 10, 10]},
+}
+
+
+def k14_history(np, seed, e, w):
+    """Seeded f32[E, W] flush times and bytes-in with 80 % valid windows
+    (integer-valued, so ties occur); rows 0-2 with no valid history, one
+    valid history window and an invalid latest window; every 97th row with
+    a 40x excursion in its latest window."""
+    rng = np.random.default_rng(seed)
+    vals = np.round(rng.gamma(2.0, 5.0, size=(e, w))).astype(np.float32)
+    bts = rng.gamma(2.0, 50.0, size=(e, w)).astype(np.float32)
+    wvalid = rng.random((e, w)) < 0.8
+    wvalid[0, :-1] = False
+    wvalid[1, :-1] = False
+    wvalid[1, 4] = True
+    wvalid[2, -1] = False
+    vals[3::97, -1] *= 40.0
+    wvalid[3::97, -1] = True
+    return vals, bts, wvalid
+
+
+def fixture_history(history, windows=6):
+    """tests/test_detector.py ``broker_agg_with_history`` on the port's
+    aggregator."""
+    from cruise_control_tpu_torch.monitor.aggregator import MetricSampleAggregator
+    agg = MetricSampleAggregator(windows, WINDOW_MS)
+    for w in range(windows):
+        for b, series in history.items():
+            agg.add_sample(b, w * WINDOW_MS + 1, {FLUSH: series[w], "LEADER_BYTES_IN": 100.0})
+    for b in history:
+        agg.add_sample(b, windows * WINDOW_MS, {FLUSH: 0.0, "LEADER_BYTES_IN": 100.0})
+    return agg
+
+
+def check_k14(cx):
+    """K14's two launches against their plain versions on the card, bit for
+    bit: seeded histories at E = 7,000 and W = 20 (with rows of no valid
+    history, one valid window, an invalid latest window; again with every
+    latest window invalid, where the peer anchor is 0), and the three
+    fixtures.  Timed at 7,000 x 20 beside the plain versions and
+    ``torch.nanquantile``.  Returns the kernel rows."""
+    torch, np, log, dev, rehearse = cx.torch, cx.np, cx.log, cx.dev, cx.rehearse
+    from cruise_control_tpu_torch.detector import device as dd
+    from cruise_control_tpu_torch.monitor.metricdef import KAFKA_METRIC_DEF
+    mid = KAFKA_METRIC_DEF.metric_info(FLUSH).metric_id
+    bmid = KAFKA_METRIC_DEF.metric_info("LEADER_BYTES_IN").metric_id
+    c = dd.ScoreConstants.of(dd.DeviceScorer("cpu")._params())
+    e, w = K14_SHAPE
+
+    def on_dev(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    vals, bts, wvalid = on_dev(*k14_history(np, SEED, e, w))
+    none_latest = wvalid.clone()
+    none_latest[:, -1] = False
+    cases = {"seeded": (vals, bts, wvalid), "no valid latest": (vals, bts, none_latest)}
+    for name, history in DETECTOR_FIXTURES.items():
+        res = fixture_history(history).aggregate()
+        cases[name] = tuple(on_dev(res.values[:, :, mid], res.values[:, :, bmid],
+                                   res.window_valid))
+    flagged = {}
+    for label, (v, b, ok) in cases.items():
+        peer = dd.peer_anchor(v, ok, c.peer_q)
+        peer_ref = dd.peer_anchor_plain(v, ok, c.peer_q)
+        got = dd.row_scores(v, b, ok, peer_ref, c)
+        ref = dd.row_scores_plain(v, b, ok, peer_ref, c)
+        if not (_exact(torch, peer, peer_ref) and _exact(torch, got, ref)):
+            raise RuntimeError(f"K14 {label}: the kernels differ from their plain versions")
+        flagged[label] = (int(ref[0].sum()), int(ref[2].sum()), float(peer_ref[0]))
+    log(f"K14 against its plain versions, bit for bit: (metric flags, suspects, peer "
+        f"anchor) {flagged}")
+    if flagged["no valid latest"][:2] != (0, 0) or flagged["seeded"][1] == 0:
+        raise RuntimeError(f"K14 cases did not exercise the flags: {flagged}")
+
+    peer = dd.peer_anchor(vals, wvalid, c.peer_q)
+    nan = torch.tensor(float("nan"), device=dev)
+    hist_nan = torch.where(wvalid[:, :-1], vals[:, :-1], nan)
+    norm_nan = torch.where(wvalid[:, :-1], vals[:, :-1] / torch.clamp_min(bts[:, :-1], 1e-9),
+                           nan)
+    latest_nan = torch.where(wvalid[:, -1], vals[:, -1], nan)
+    timer = cx.timer
+    m = w - 1
+    rows = {
+        "detector_peer": dict(
+            shape=dict(E=e, W=w), max_abs_err=0.0,
+            ms=timer(torch, lambda: dd.peer_anchor(vals, wvalid, c.peer_q)),
+            plain_ms=timer(torch, lambda: dd.peer_anchor_plain(vals, wvalid, c.peer_q)),
+            library_ms=timer(torch, lambda: torch.nanquantile(latest_nan, c.peer_q)),
+            device_ms=None if rehearse else device_ms(
+                torch, lambda: dd.peer_anchor(vals, wvalid, c.peer_q),
+                ("detector_peer_kernel",), log),
+            nbytes=e * 5 + 4, ops=e * 2),
+        "detector_rows": dict(
+            shape=dict(E=e, W=w), max_abs_err=0.0,
+            ms=timer(torch, lambda: dd.row_scores(vals, bts, wvalid, peer, c)),
+            plain_ms=timer(torch, lambda: dd.row_scores_plain(vals, bts, wvalid, peer, c)),
+            library_ms=timer(torch, lambda: (torch.nanquantile(hist_nan, c.a_q, dim=1),
+                                             torch.nanquantile(hist_nan, c.q, dim=1),
+                                             torch.nanquantile(norm_nan, c.q, dim=1))),
+            device_ms=None if rehearse else device_ms(
+                torch, lambda: dd.row_scores(vals, bts, wvalid, peer, c),
+                ("detector_rows_kernel",), log),
+            nbytes=e * w * 9 + 4 + e * 6, ops=e * (m + 3 * m + 12)),
+    }
+    for name, r in rows.items():
+        by_bytes = bound_ms(r.pop("nbytes"))
+        by_ops = r.pop("ops") / F32_PEAK_OPS * 1e3
+        r["bound_ms"] = max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        log(f"  K14 {name} at E={e} W={w}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']}), plain {r['plain_ms']:.4f} ms, torch.nanquantile "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms ({r['bound_by']})")
+    return rows
+
+
+def check_k14_captured(cx, captured):
+    """K14's two launches against their plain versions, bit for bit, on the
+    inputs the detection tick gave them (its first call of each, kept by
+    ``cuda.CAPTURE``): the peer anchor from the tick's history, and the
+    row pass on the tick's history and anchor.  Returns the tick's shape,
+    which must span the broker aggregator's full history."""
+    torch, log = cx.torch, cx.log
+    from cruise_control_tpu_torch.detector import device as dd
+    if "detector_peer" not in captured or "detector_rows" not in captured:
+        raise RuntimeError(f"the tick launched no K14 pass: captured {sorted(captured)}")
+    vals, wvalid, q = captured["detector_peer"]
+    rvals, bts, rvalid, peer_tick, c = captured["detector_rows"]
+    peer_ref = dd.peer_anchor_plain(vals, wvalid, q)
+    same = (_exact(torch, dd.peer_anchor(vals, wvalid, q), peer_ref)
+            and _exact(torch, peer_tick, peer_ref)
+            and _exact(torch, dd.row_scores(rvals, bts, rvalid, peer_tick, c),
+                       dd.row_scores_plain(rvals, bts, rvalid, peer_tick, c)))
+    e, w = rvals.shape
+    log(f"K14 on the detection tick's inputs (E={e}, W={w}, peer anchor "
+        f"{float(peer_ref[0])}): bit for bit with its plain versions: {same}")
+    if not same:
+        raise RuntimeError("K14 differs from its plain versions on the tick's inputs")
+    if w != BROKER_WINDOWS or tuple(vals.shape) != (e, w):
+        raise RuntimeError(f"the tick scored {tuple(vals.shape)}, not the broker "
+                           f"aggregator's {BROKER_WINDOWS} windows")
+    return dict(E=int(e), W=int(w))
+
+
+def fleet_metadata(np, model):
+    """The port's ``ClusterMetadata`` of a generated cluster: brokers on their
+    racks, each partition with its replicas leader first, topics named by
+    id and partitions numbered within their topic."""
+    from cruise_control_tpu_torch.monitor.metadata import (BrokerInfo, ClusterMetadata,
+                                                           PartitionInfo)
+    rb = model.replica_broker.cpu().numpy()
+    rp = model.replica_partition.cpu().numpy()
+    lead = model.replica_is_leader.cpu().numpy()
+    idx = np.nonzero(model.replica_valid.cpu().numpy())[0]
+    order = idx[np.lexsort((idx, ~lead[idx], rp[idx]))]
+    parts_sorted, brokers_sorted = rp[order], rb[order]
+    bounds = np.searchsorted(parts_sorted, np.arange(model.num_partitions + 1))
+    topic_of = model.partition_topic.cpu().numpy()
+    racks = model.broker_rack.cpu().numpy()
+    seen = np.zeros(model.num_topics, np.int64)
+    parts = []
+    for p in range(model.num_partitions):
+        lo, hi = bounds[p], bounds[p + 1]
+        if lo == hi:
+            continue
+        reps = tuple(int(b) for b in brokers_sorted[lo:hi])
+        t = int(topic_of[p])
+        parts.append(PartitionInfo(f"topic{t}", int(seen[t]), leader=reps[0], replicas=reps))
+        seen[t] += 1
+    brokers = tuple(BrokerInfo(b, rack=f"rack{int(racks[b])}", host=f"host{b}")
+                    for b in range(model.num_brokers))
+    return ClusterMetadata(brokers=brokers, partitions=tuple(parts))
+
+
+class StandInContext:
+    """The self-healing context the manager calls until the facade is
+    ported: ``rebalance`` builds the monitor's model and solves it with
+    ``solve``; every other call is recorded and answered True."""
+
+    def __init__(self, lm, solve):
+        self._lm, self._solve = lm, solve
+        self.calls, self.heals = [], []
+
+    def rebalance(self, goals=None, reason="", self_healing=False, **kw):
+        self.calls.append(("rebalance", reason))
+        model = self._lm.cluster_model()
+        self.heals.append((model, self._solve(model)))
+        return True
+
+    def __getattr__(self, name):
+        def call(*args, **kwargs):
+            self.calls.append((name, args))
+            return True
+        return call
+
+
+def _anomaly_rows(mgr):
+    return [(type(e.anomaly).__name__, e.anomaly.reason()[:120]) for e in sorted(mgr._queue)]
+
+
+def check_detection(cx):
+    """Phase 18: one tick of the monitor and the detectors at the xl250
+    shape (``xl_rung``), one stand-in heal, and a tick with dead brokers
+    (K14 against its plain versions runs with phase 4's kernels,
+    ``check_k14``).  Returns (launch counts per tick, summary)."""
+    torch, np, opt, cuda, log = cx.torch, cx.np, cx.opt, cx.cuda, cx.log
+    dev, rehearse = cx.dev, cx.rehearse
+    from cruise_control_tpu_torch.analyzer.balancedness import (
+        BALANCEDNESS_SCORE_WITH_OFFLINE_REPLICAS)
+    from cruise_control_tpu_torch.config import constants as C
+    from cruise_control_tpu_torch.convert import model_to_numpy
+    from cruise_control_tpu_torch.detector import anomalies as danom
+    from cruise_control_tpu_torch.detector import detectors as ddet
+    from cruise_control_tpu_torch.detector import device as dd
+    from cruise_control_tpu_torch.detector.manager import AnomalyDetectorManager
+    from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
+    from cruise_control_tpu_torch.executor.admin import InMemoryClusterAdmin
+    from cruise_control_tpu_torch.monitor.capacity import StaticCapacityResolver
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.metadata import MetadataClient
+    from cruise_control_tpu_torch.monitor.sampling import SyntheticWorkloadSampler
+
+    summary, counts = {}, {}
+    t0 = time.monotonic()
+    md = fleet_metadata(np, cx.generate_cluster(cx.spec_of(cx.xl_rung), device="cpu"))
+    summary["metadata_s"] = round(time.monotonic() - t0, 3)
+    nb = len(md.brokers)
+    slow = {b for b in SLOW_BROKERS if b < nb}
+    dead = {b for b in DEAD_BROKERS if b < nb}
+    mc = MetadataClient(md)
+    kw = dict(num_partition_windows=DETECTION_WINDOWS - 1, partition_window_ms=WINDOW_MS,
+              broker_window_ms=WINDOW_MS)
+    lm = LoadMonitor(mc, StaticCapacityResolver(), device=dev, **kw)
+    lm.start_up()
+    t0 = time.monotonic()
+    sampler = SyntheticWorkloadSampler()
+    for w in range(BROKER_WINDOWS + 1 - DETECTION_WINDOWS, BROKER_WINDOWS + 1):
+        lm.fetch_once(sampler, w * WINDOW_MS, w * WINDOW_MS + 1)
+    # The synthetic broker samples carry a constant flush time and no
+    # bytes-in: add both for every broker and each of the broker
+    # aggregator's complete windows, the sampler's and the earlier ones
+    # (seeded flush times near 5 ms), with the excursion on the slow
+    # brokers in the latest.
+    rng = np.random.default_rng(SEED)
+    flush = rng.uniform(4.0, 6.0, size=(BROKER_WINDOWS, nb))
+    flush[-1, sorted(slow)] = 5000.0
+    lm.broker_aggregator.add_samples([
+        (b, w * WINDOW_MS + 2, {FLUSH: float(flush[w, b]), "LEADER_BYTES_IN": 100.0})
+        for w in range(BROKER_WINDOWS) for b in range(nb)])
+    summary["sample_s"] = round(time.monotonic() - t0, 3)
+    log(f"detection fleet: {nb} brokers, {md.partition_count()} partitions, "
+        f"{md.replica_count()} replicas; metadata {summary['metadata_s']} s, "
+        f"{DETECTION_WINDOWS} sampled windows and {BROKER_WINDOWS} broker windows "
+        f"{summary['sample_s']} s")
+
+    # The model the monitor builds on the card equals its CPU build.
+    cpu_lm = LoadMonitor(mc, StaticCapacityResolver(), device="cpu", **kw)
+    cpu_lm.partition_aggregator = lm.partition_aggregator
+    cpu_lm.broker_aggregator = lm.broker_aggregator
+    t0 = time.monotonic()
+    model = lm.cluster_model()
+    torch.cuda.synchronize()
+    summary["card_build_s"] = round(time.monotonic() - t0, 3)
+    t0 = time.monotonic()
+    cpu_model = cpu_lm.cluster_model()
+    summary["cpu_build_s"] = round(time.monotonic() - t0, 3)
+    (f_card, s_card), (f_cpu, s_cpu) = model_to_numpy(model), model_to_numpy(cpu_model)
+    same = s_card == s_cpu and all(np.array_equal(f_card[f], f_cpu[f]) for f in f_card)
+    log(f"monitor model: {int(model.replica_valid.sum())} replicas, {model.num_brokers} "
+        f"brokers; built on the card in {summary['card_build_s']} s, on the CPU in "
+        f"{summary['cpu_build_s']} s; equal field for field: {same}")
+    if not same or model.replica_broker.device.type != dev.type:
+        raise RuntimeError("the monitor's card-built model differs from its CPU build")
+    del model, cpu_model, cpu_lm
+
+    def heal_solve(model):
+        run = opt.optimize(model, STACK, fused=True, raise_on_hard_failure=False, device=dev)
+        torch.cuda.synchronize()
+        cx.check_run("heal", model, run, STACK)
+        return run
+
+    ctx = StandInContext(lm, heal_solve)
+    notifier = SelfHealingNotifier(self_healing_enabled=dict.fromkeys(danom.AnomalyType, True))
+    mgr = AnomalyDetectorManager(notifier, ctx)
+    finders = dd.build_device_finders({C.SLOW_BROKER_DEMOTION_SCORE_CONFIG: 1}, device=dev)
+    goal_detector = dd.DeviceGoalViolationDetector(lm, STACK)
+    for det in (ddet.BrokerFailureDetector(mc),
+                ddet.DiskFailureDetector(InMemoryClusterAdmin(mc), mc), goal_detector,
+                ddet.MetricAnomalyDetector(lm, finders),
+                ddet.TopicAnomalyDetector(mc, desired_rf=3, load_monitor=lm),
+                ddet.MaintenanceEventDetector(ddet.MaintenanceEventReader())):
+        mgr.register_detector(det, interval_ms=1)
+
+    oracle = os.environ.get("CRUISE_DETECTOR_ORACLE")
+    os.environ["CRUISE_DETECTOR_ORACLE"] = "1"  # device verdicts checked against the scalar ones
+    try:
+        # Tick 1: healthy fleet, the slow brokers' excursion; the heal.
+        now = (BROKER_WINDOWS + 1) * WINDOW_MS
+        dispatches, sweeps = dd.DEVICE_COUNTERS["dispatches"], opt.SWEEP_COUNTERS["dispatches"]
+        cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        cuda.CAPTURE = {}
+        t0 = time.monotonic()
+        found = mgr.run_detectors_once(now)
+        torch.cuda.synchronize()
+        summary["detect_s"] = round(time.monotonic() - t0, 3)
+        captured, cuda.CAPTURE = cuda.CAPTURE, None
+        counts["detect"] = {n: f.launches for n, f in cuda.COUNTED.items() if f.launches}
+        queued = _anomaly_rows(mgr)
+        metric = [e.anomaly for e in mgr._queue if isinstance(e.anomaly, danom.SlowBrokers)]
+        violations = [e.anomaly for e in mgr._queue
+                      if isinstance(e.anomaly, danom.GoalViolations)]
+        log(f"tick 1 ({summary['detect_s']} s): {found} anomalies {queued}; scoring "
+            f"dispatches +{dd.DEVICE_COUNTERS['dispatches'] - dispatches}, goal sweeps "
+            f"+{opt.SWEEP_COUNTERS['dispatches'] - sweeps}; launches {counts['detect']}")
+        if len(metric) != 2 or any(set(a.slow_brokers) != slow for a in metric):
+            raise RuntimeError(f"the finders did not flag exactly brokers {sorted(slow)}: "
+                               f"{[a.slow_brokers for a in metric]}")
+        if not violations or not violations[0].fixable_goals:
+            raise RuntimeError("the goal-violation detector found no fixable goal")
+        if dd.DEVICE_COUNTERS["dispatches"] - dispatches != 1 or \
+                opt.SWEEP_COUNTERS["dispatches"] - sweeps != 1:
+            raise RuntimeError("tick 1 did not score once and sweep once")
+        if not rehearse and (counts["detect"].get("detector_peer") != 1
+                             or counts["detect"].get("detector_rows") != 1
+                             or not counts["detect"].get("stack_sweep")):
+            raise RuntimeError(f"tick 1 launched K14 or K9's sweep otherwise than once: "
+                               f"{counts['detect']}")
+        t0 = time.monotonic()
+        handled = mgr.handle_anomalies_once(now + 1)
+        torch.cuda.synchronize()
+        summary["handle_s"] = round(time.monotonic() - t0, 3)
+        counts["tick"] = {n: f.launches for n, f in cuda.COUNTED.items()}
+        state = mgr.state_dict()
+        statuses = {t: [r["status"] for r in rows_]
+                    for t, rows_ in state["recentAnomalies"].items() if rows_}
+        log(f"tick 1 handled {handled} ({summary['handle_s']} s): context calls "
+            f"{[c[0] for c in ctx.calls]}; statuses {statuses}; alerts "
+            f"{[type(a).__name__ for a in notifier.alerts]}; balancedness "
+            f"{state.get('balancednessScore')}")
+        if len(ctx.heals) != 1 or "demote_brokers" not in [c[0] for c in ctx.calls]:
+            raise RuntimeError(f"tick 1 did not heal once and demote: {ctx.calls}")
+        heal_model, heal_run = ctx.heals[0]
+        summary["heal"] = dict(
+            goals_violated=violations[0].fixable_goals + violations[0].unfixable_goals,
+            steps=sum(g.steps for g in heal_run.goal_results),
+            actions=sum(g.actions_applied for g in heal_run.goal_results),
+            pipelined=heal_run.pipelined,
+            balancedness=(round(heal_run.balancedness_before, 3),
+                          round(heal_run.balancedness_after, 3)))
+        log(f"stand-in heal on the monitor's model: {summary['heal']}")
+        cx.check_launched("detection tick", {n: counts["tick"][n] for n in KERNELS})
+        del ctx.heals[:], heal_model, heal_run
+        summary["k14_shape"] = check_k14_captured(cx, captured)
+        del captured
+
+        # The device's share of one detection pass as a deployment runs it
+        # (the oracle off): fresh goal detector and finders, so the model is
+        # built, swept and scored anew.
+        os.environ["CRUISE_DETECTOR_ORACLE"] = "0"
+
+        def detection_pass():
+            for det in (dd.DeviceGoalViolationDetector(lm, STACK),
+                        ddet.MetricAnomalyDetector(lm, dd.build_device_finders(
+                            {C.SLOW_BROKER_DEMOTION_SCORE_CONFIG: 1}, device=dev))):
+                det.detect(now)
+        t0 = time.monotonic()
+        detection_pass()
+        torch.cuda.synchronize()
+        summary["pass_s"] = round(time.monotonic() - t0, 3)
+        if not rehearse:
+            prof = profile_mid(torch, detection_pass, summary["pass_s"], 1, "detection pass",
+                               log)
+            summary["pass_busy"] = prof["busy"]
+            summary["pass_device_ms"] = round(prof["device_ms"], 3)
+        os.environ["CRUISE_DETECTOR_ORACLE"] = "1"
+
+        # Tick 2: brokers 0, 10, ..., 90 die.
+        cluster = mc.cluster()
+        mc.refresh(dataclasses.replace(cluster, brokers=tuple(
+            dataclasses.replace(b, is_alive=b.broker_id not in dead) for b in cluster.brokers)))
+        cuda.reset_launch_counts()
+        t0 = time.monotonic()
+        found = mgr.run_detectors_once(now + WINDOW_MS)
+        queued = _anomaly_rows(mgr)
+        handled = mgr.handle_anomalies_once(now + WINDOW_MS + 1)
+        torch.cuda.synchronize()
+        summary["dead_tick_s"] = round(time.monotonic() - t0, 3)
+        counts["dead"] = {n: f.launches for n, f in cuda.COUNTED.items() if f.launches}
+        state = mgr.state_dict()
+        failures = [a for a in mgr.state.recent(danom.AnomalyType.BROKER_FAILURE)]
+        log(f"tick 2, brokers {sorted(dead)} dead ({summary['dead_tick_s']} s): {found} "
+            f"anomalies {queued}; broker failures {[s.status for s in failures]}; "
+            f"balancedness {goal_detector.balancedness_score}; launches {counts['dead']}")
+        if not failures or set(failures[-1].anomaly.failed_brokers) != dead:
+            raise RuntimeError("the broker-failure detector did not report the dead brokers")
+        if any(name == "GoalViolations" for name, _ in queued):
+            raise RuntimeError("the goal-violation detector did not defer to the failures")
+        if goal_detector.balancedness_score != BALANCEDNESS_SCORE_WITH_OFFLINE_REPLICAS:
+            raise RuntimeError("the balancedness score is not pinned while replicas are offline")
+        if not rehearse and not counts["dead"].get("stack_sweep"):
+            raise RuntimeError("tick 2's offline verdict did not come from K9's sweep")
+    finally:
+        cuda.CAPTURE = None
+        if oracle is None:
+            os.environ.pop("CRUISE_DETECTOR_ORACLE", None)
+        else:
+            os.environ["CRUISE_DETECTOR_ORACLE"] = oracle
+    return counts, summary
 
 
 if __name__ == "__main__":

@@ -1131,6 +1131,19 @@ def _stack_frontiers(model: TensorClusterModel, specs: Sequence[GoalSpec],
     return sat, off, fronts
 
 
+def _get_sweep_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint):
+    """``model -> (sat bool[G], any offline)`` on the host: the K9 sweep of
+    ``_stack_satisfied`` fetched in one transfer (the JAX package's name
+    and signature, ``optimizer.py:2359``; the anomaly detector's goal
+    verdicts), each call counted in ``SWEEP_COUNTERS["dispatches"]``."""
+    specs = tuple(specs)
+
+    def sweep(model: TensorClusterModel):
+        SWEEP_COUNTERS["dispatches"] += 1
+        return _stack_satisfied(model, specs, constraint)
+    return sweep
+
+
 def _get_frontier_sweep_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint):
     """``model -> (sat bool[G], off bool, fronts bool[G, B])`` on the host:
     ``_stack_frontiers`` fetched in one transfer (the JAX package's name

@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
-           "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score")
+           "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score",
+           "detector_scores")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,6 +68,8 @@ _ENTRIES = {
     "blend_disk_load": ("placement_score", "cc_blend_disk_load", "i" * 6 + "p" * 12),
     "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch",
                           "i" * 8 + "p" * 31 + "ii" + "p" * 4),
+    "detector_peer": ("detector_scores", "cc_detector_peer", "ppiifp"),
+    "detector_rows": ("detector_scores", "cc_detector_rows", "pppp" + "ii" + "f" * 7 + "ppp"),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 

@@ -53,6 +53,32 @@ def test_no_forbidden_import_in_source(path):
             assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
 
 
+def _docstrings(tree):
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if (isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
+                    and isinstance(first.value.value, str)):
+                out.add(id(first.value))
+    return out
+
+
+def test_no_string_constant_names_a_jax_package_module():
+    """Class-valued config defaults and any other string the port hands to
+    ``importlib`` name the port's own modules: no string constant of the
+    port, docstrings aside, names a ``cruise_control_tpu.`` module path."""
+    found = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        docs = _docstrings(tree)
+        found += [f"{path.relative_to(REPO)}:{node.lineno}: {node.value[:60]!r}"
+                  for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                  and id(node) not in docs and "cruise_control_tpu." in node.value]
+    assert not found, found
+
+
 def _need_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the test checks the refusal without it")

@@ -495,3 +495,86 @@ def check_intra(jm, path: str, goals=INTRA_GOALS, verify: bool = True):
     if verify:
         verify_run(tm, trun, list(goals), proposals=tprops.diff(tm, trun.model))
     return tm, trun
+
+
+# ---------------------------------------------------------------------------
+# Monitor and detector twins (tests/test_torch_{monitor,detector}.py).  The
+# JAX side uses tests/test_detector.py's own helpers; these build the same
+# metadata, monitors and broker histories from the port's classes.
+# ---------------------------------------------------------------------------
+
+# The histories of tests/test_device_detector.py:33-45, read by both sides.
+from tests.test_device_detector import BORDERLINE, CLEAN, SINGLE_SLOW  # noqa: E402,F401
+
+WINDOW_MS = 300_000
+
+
+def port_md(num_brokers=4, rf=2, alive=None):
+    """Twin of tests/test_detector.py ``make_md`` on the port's metadata."""
+    from cruise_control_tpu_torch.monitor.metadata import (BrokerInfo, ClusterMetadata,
+                                                           PartitionInfo)
+    alive = alive if alive is not None else set(range(num_brokers))
+    brokers = tuple(BrokerInfo(i, rack=f"r{i % 2}", host=f"h{i}", is_alive=(i in alive))
+                    for i in range(num_brokers))
+    parts = []
+    for t in range(2):
+        for p in range(6):
+            reps = tuple((t + p + k) % num_brokers for k in range(rf))
+            parts.append(PartitionInfo(f"t{t}", p, leader=reps[0], replicas=reps))
+    return ClusterMetadata(brokers=brokers, partitions=tuple(parts))
+
+
+def port_sampled_lm(md, windows=3):
+    """Twin of tests/test_detector.py ``sampled_lm``: a port ``LoadMonitor``
+    on the CPU fed ``windows + 1`` windows of the synthetic sampler."""
+    from cruise_control_tpu_torch.monitor.capacity import StaticCapacityResolver
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.metadata import MetadataClient
+    from cruise_control_tpu_torch.monitor.sampling import SyntheticWorkloadSampler
+    lm = LoadMonitor(MetadataClient(md), StaticCapacityResolver(),
+                     num_partition_windows=windows, partition_window_ms=WINDOW_MS,
+                     device="cpu")
+    lm.start_up()
+    s = SyntheticWorkloadSampler()
+    for w in range(windows + 1):
+        lm.fetch_once(s, w * WINDOW_MS, w * WINDOW_MS + 1)
+    return lm
+
+
+def port_broker_agg_with_history(values_by_broker, windows=6):
+    """Twin of tests/test_detector.py ``broker_agg_with_history``."""
+    from cruise_control_tpu_torch.monitor.aggregator import MetricSampleAggregator
+    agg = MetricSampleAggregator(windows, WINDOW_MS)
+    for w in range(windows):
+        for b, series in values_by_broker.items():
+            agg.add_sample(b, w * WINDOW_MS + 1, {
+                "BROKER_LOG_FLUSH_TIME_MS_999TH": series[w],
+                "LEADER_BYTES_IN": 100.0})
+    for b in values_by_broker:
+        agg.add_sample(b, windows * WINDOW_MS, {"BROKER_LOG_FLUSH_TIME_MS_999TH": 0.0,
+                                                "LEADER_BYTES_IN": 100.0})
+    return agg
+
+
+def assert_models_equal(tmodel, jmodel) -> None:
+    """Leaf for leaf: every tensor field and static int of a port model
+    equal to the JAX package's (integers, masks and loads exactly)."""
+    fields, static = model_to_numpy(tmodel)
+    for f in TENSOR_FIELDS:
+        want = np.asarray(getattr(jmodel, f))
+        assert fields[f].dtype == want.dtype, f
+        np.testing.assert_array_equal(fields[f], want, err_msg=f)
+    assert static == {s: int(getattr(jmodel, s)) for s in STATIC_FIELDS}
+
+
+def assert_aggregations_equal(tres, jres) -> None:
+    """Every field of two ``AggregationResult``s equal (arrays exactly)."""
+    from cruise_control_tpu_torch.convert import AGGREGATION_FIELDS, aggregation_to_numpy
+    got, want = aggregation_to_numpy(tres), aggregation_to_numpy(jres)
+    for f in AGGREGATION_FIELDS:
+        if isinstance(want[f], np.ndarray):
+            assert got[f].dtype == want[f].dtype, f
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        else:
+            assert got[f] == want[f], f
+
