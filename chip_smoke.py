@@ -154,7 +154,25 @@ Phases, in order (any failure raises and the process exits non-zero):
     ..., 90 die: the broker-failure detector reports them, the notifier
     waits out its alert threshold, the goal-violation detector defers on
     K9's offline flag with the balancedness score pinned;
-19. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+19. the service front (``check_service``): the large rung's placement as
+    cluster metadata, four sampled windows into a ``LoadMonitor`` on the
+    card, ``CruiseControl(device="cuda")`` behind ``CruiseControlApi``;
+    with ``CRUISE_FLIGHT_RECORDER=1``, ``GET /proposals`` from a cold cache
+    with the counters set to 0 just before (the pipelined path: every
+    kernel launched, ``cc_flight_row`` once per executed step),
+    ``POST /rebalance`` dry run (the same proposals) and ``GET /flight`` of
+    its task (each goal's rows summing to its actions, equal to the
+    ``/proposals`` solve's timelines); the same solve run eagerly with the
+    plain flight row in the kernel's place gives the same rows (integer
+    slots and score bits) and placement; with the recorder off the same
+    requests place alike and record nothing; ``cc_flight_row`` against its
+    plain twin on its captured inputs, timed; the mid rung under
+    ``_DBG_NO_BUDGETS`` (at most ``ABLATION_STEPS`` steps a goal):
+    ``cc_band_accepts`` launched, bit for bit on its captured inputs, the
+    card placed as the CPU, timed; the mid rung under
+    ``CRUISE_REPAIR_ORACLE=1`` (gated steps eager on the card, the loop's
+    host reads counted), placed as on the CPU;
+20. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -423,6 +441,10 @@ def main(argv) -> int:
     import types
     k14_rows = check_k14(types.SimpleNamespace(torch=torch, np=np, log=log, dev=dev,
                                                rehearse=rehearse, timer=timer))
+    # Phase 19's kernels likewise: K8's flight row and the band accepts.
+    service_rows = check_service_kernels(types.SimpleNamespace(
+        torch=torch, np=np, opt=opt, gk=gk, log=log, dev=dev, rehearse=rehearse,
+        timer=timer))
 
     # 5. mid rung as the service runs it: fused, step graphs
     phase("mid fused")
@@ -780,7 +802,17 @@ def main(argv) -> int:
     detect_summary["phase_s"] = round(time.monotonic() - t_detect, 1)
     log(f"detection summary: {detect_summary}")
 
-    # 19. results
+    # 19. the service front: /proposals, /rebalance and /flight with the
+    # flight recorder (K8's flight rows), the budget ablation
+    # (accepts_band_batch) and the repair oracle
+    phase("service")
+    cx.gk = gk
+    t_service = time.monotonic()
+    service_counts, service_summary = check_service(cx)
+    service_summary["phase_s"] = round(time.monotonic() - t_service, 1)
+    log(f"service summary: {service_summary}")
+
+    # 20. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -793,7 +825,7 @@ def main(argv) -> int:
         f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
         f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; execution "
         f"{exec_summary}; goal kinds {kinds_summary}; JBOD {jbod_summary}; detection "
-        f"{detect_summary}; card {smi}")
+        f"{detect_summary}; service {service_summary}; card {smi}")
     for name in EXECUTION_ONLY:
         # The mid shape is the execution's; the large and xl250 numbers beside.
         results[name] = dict(k10["mid"][name])
@@ -820,6 +852,7 @@ def main(argv) -> int:
                      "launches_execution": exec_counts[name],
                      "launches_detection_tick": detect_counts["tick"][name],
                      "launches_detectors": detect_counts["detect"].get(name, 0),
+                     "launches_service": service_counts["service proposals"][name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms_per_launch": device_ms,
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -870,6 +903,19 @@ def main(argv) -> int:
                      "launches_run": "detection tick", "shape": r["shape"],
                      "launches_shape": detect_summary["k14_shape"],
                      "launches_dead_tick": detect_counts["dead"].get(name, 0),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms_per_launch": r["device_ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # K8's flight rows (launched in the service's recorder-on solve) and
+    # accepts_band_batch (the mid ablation), timed on seeded inputs at the
+    # shapes of SERVICE_SHAPES and held on their captured inputs too.
+    for name, (source, replaces, run_label) in SERVICE_KERNELS.items():
+        r = service_rows[name]
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": service_counts[run_label][name],
+                     "launches_run": run_label, "shape": r["shape"],
+                     "launches_shape": service_summary[f"{name}_captured"],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms_per_launch": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3738,9 +3784,11 @@ def fleet_metadata(np, model):
 
 
 class StandInContext:
-    """The self-healing context the manager calls until the facade is
-    ported: ``rebalance`` builds the monitor's model and solves it with
-    ``solve``; every other call is recorded and answered True."""
+    """A self-healing context for the detection phase, which times the
+    detectors and one heal without the facade's request path: ``rebalance``
+    builds the monitor's model and solves it with ``solve``; every other
+    call is recorded and answered True (the facade itself is driven in the
+    service phase)."""
 
     def __init__(self, lm, solve):
         self._lm, self._solve = lm, solve
@@ -3971,6 +4019,369 @@ def check_detection(cx):
             os.environ.pop("CRUISE_DETECTOR_ORACLE", None)
         else:
             os.environ["CRUISE_DETECTOR_ORACLE"] = oracle
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the service front, with the flight recorder, the budget ablation
+# and the repair oracle
+# ---------------------------------------------------------------------------
+
+SERVICE_KERNELS = {
+    # name: (source, JAX function it replaces, the run whose launches count)
+    "flight_row": ("cruise_control_tpu_torch/csrc/flight_row.cu",
+                   "cruise_control_tpu/analyzer/optimizer.py:1213", "service proposals"),
+    "band_accepts": ("cruise_control_tpu_torch/csrc/band_accepts.cu",
+                     "cruise_control_tpu/analyzer/goals/kernels.py:931", "mid ablation"),
+}
+# The timed shapes: the flight row over the large service solve's widest
+# step (RackAwareGoal's, 102,400 lanes) cut as a distribution goal's
+# batches (move, leadership, swap) with the frontier count over 200 brokers;
+# the band accepts of the mid stack's last goal (its 12 band goals before
+# it) over a mid step's 32,768 lanes.
+SERVICE_SHAPES = {"flight_row": dict(K=102400, B=200, offsets=(0, 65536, 69632, 102400),
+                                     kinds=(0, 1, 3)),
+                  "band_accepts": dict(S=12, B=50, K=32768)}
+SERVICE_WINDOWS = 4  # sampler windows fed to the service's monitor (3 complete, 1 open)
+SERVICE_WAIT = {"max_wait_s": "900"}
+# Steps a goal the ablation's mid solve may take: without the budgets a
+# step lands few actions and the goals run long (the card's and the CPU's
+# solves both stop there).
+ABLATION_STEPS = 16
+
+
+def service_stack(cx, md):
+    """The port's service on ``cx.dev``: a ``LoadMonitor`` fed
+    SERVICE_WINDOWS windows of the synthetic sampler over the metadata
+    ``md``, an in-memory admin and executor, ``CruiseControl`` with the
+    15-goal stack and ``CruiseControlApi`` (tests/test_api.py's recipe)."""
+    from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS
+    from cruise_control_tpu_torch.api.facade import CruiseControl
+    from cruise_control_tpu_torch.api.server import CruiseControlApi
+    from cruise_control_tpu_torch.detector.manager import AnomalyDetectorManager
+    from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
+    from cruise_control_tpu_torch.executor.admin import InMemoryClusterAdmin
+    from cruise_control_tpu_torch.executor.executor import Executor
+    from cruise_control_tpu_torch.monitor.capacity import StaticCapacityResolver
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.metadata import MetadataClient
+    from cruise_control_tpu_torch.monitor.sampling import SyntheticWorkloadSampler
+    mc = MetadataClient(md)
+    lm = LoadMonitor(mc, StaticCapacityResolver(), num_partition_windows=SERVICE_WINDOWS - 1,
+                     partition_window_ms=WINDOW_MS, device=cx.dev)
+    lm.start_up()
+    sampler = SyntheticWorkloadSampler()
+    for w in range(SERVICE_WINDOWS):
+        lm.fetch_once(sampler, w * WINDOW_MS, w * WINDOW_MS + 1)
+    admin = InMemoryClusterAdmin(mc, latency_polls=1)
+    ex = Executor(admin, mc)
+    cc = CruiseControl(lm, ex, admin, goals=STACK,
+                       hard_goals=[g for g in STACK if GOAL_SPECS[g].is_hard], device=cx.dev)
+    mgr = AnomalyDetectorManager(SelfHealingNotifier(), cc,
+                                 executor_busy=lambda: ex.has_ongoing_execution)
+    return CruiseControlApi(cc, detector_manager=mgr, sampler=sampler), cc
+
+
+def _request(api, method, endpoint, params, label):
+    status, body, headers = api.handle(method, endpoint, dict(params))
+    if status != 200:
+        raise RuntimeError(f"{label}: {method} /{endpoint} answered {status}: "
+                           f"{str(body)[:400]}")
+    return body, headers
+
+
+def _flight_steps(run):
+    return {g.name: g.flight["steps"] for g in run.goal_results if g.flight is not None}
+
+
+def check_service_kernels(cx):
+    """Phase 19's kernels against their plain twins on seeded inputs at
+    ``SERVICE_SHAPES``, bit for bit (the flight row with the step active and
+    gated off, with and without a frontier mask), each timed beside its
+    plain twin and the profiler's device time.  Returns the kernel rows."""
+    torch, np, opt, gk, log, dev = cx.torch, cx.np, cx.opt, cx.gk, cx.log, cx.dev
+    from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N,
+                                                         CTR_STEPS, CTR_WIDTH, FLIGHT_WIDTH)
+    rng = np.random.default_rng(SEED)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    fs = SERVICE_SHAPES["flight_row"]
+    k, b = fs["K"], fs["B"]
+    keep = on_dev(rng.random(k) < 0.01)
+    score = on_dev(rng.normal(size=k).astype(np.float32))
+    elig = on_dev(rng.random(k) < 0.3)
+    fmask = on_dev(rng.random(b) < 0.5)
+    rep = torch.tensor(1, dtype=torch.int32, device=dev)
+    lanes = torch.tensor(4096, dtype=torch.int32, device=dev)
+    ctr = torch.zeros((CTR_WIDTH,), dtype=torch.int32, device=dev)
+    ctr[CTR_STEPS], ctr[CTR_LAST_N], ctr[CTR_BUDGET] = 5, 1, 32
+    off = ctr.clone()
+    off[CTR_LAST_N] = 0
+    got = torch.zeros((32, FLIGHT_WIDTH), dtype=torch.int32, device=dev)
+    ref = got.clone()
+    for counters, mask in ((ctr, fmask), (ctr, None), (off, fmask)):
+        args = (counters, keep, fs["offsets"], fs["kinds"], score, elig, mask, rep, lanes, 12)
+        opt.flight_row(*args, got)
+        opt.flight_row_plain(*args, ref)
+    if not _exact(torch, got, ref):
+        raise RuntimeError("cc_flight_row differs from its plain twin on seeded inputs")
+    args = (ctr, keep, fs["offsets"], fs["kinds"], score, elig, fmask, rep, lanes, 12)
+    timer = cx.timer
+    rows = {"flight_row": dict(
+        shape=dict(K=k, B=b, batches=len(fs["kinds"])), max_abs_err=0.0,
+        ms=timer(torch, lambda: opt.flight_row(*args, got)),
+        plain_ms=timer(torch, lambda: opt.flight_row_plain(*args, ref)),
+        device_ms=None if cx.rehearse else device_ms(
+            torch, lambda: opt.flight_row(*args, got), ("flight_row_kernel",), log),
+        nbytes=k * 6 + b + 4 * (len(fs["offsets"]) + len(fs["kinds"])) + 4 * CTR_WIDTH + 8
+        + 4 * FLIGHT_WIDTH, library_ms=None)}
+
+    bs = SERVICE_SHAPES["band_accepts"]
+    s_, b_, k_ = bs["S"], bs["B"], bs["K"]
+    metric = rng.normal(size=(s_, b_)).astype(np.float32) * 100
+    lower = metric - rng.random((s_, b_)).astype(np.float32) * 30
+    upper = metric + rng.random((s_, b_)).astype(np.float32) * 30
+    d_src = -np.abs(rng.normal(size=(s_, k_)).astype(np.float32)) * 2
+    tables = tuple(on_dev(a) for a in (
+        metric, lower, upper, d_src, -d_src, rng.random(s_) < 0.5, rng.random(b_) < 0.9,
+        rng.integers(0, b_, k_).astype(np.int32), rng.integers(0, b_, k_).astype(np.int32)))
+    mask = gk.band_accepts(*tables)
+    if not _exact(torch, mask, gk.accepts_band_batch_plain(*tables)):
+        raise RuntimeError("cc_band_accepts differs from its plain twin on seeded inputs")
+    rows["band_accepts"] = dict(
+        shape=dict(S=s_, B=b_, K=k_), max_abs_err=0.0,
+        ms=timer(torch, lambda: gk.band_accepts(*tables)),
+        plain_ms=timer(torch, lambda: gk.accepts_band_batch_plain(*tables)),
+        device_ms=None if cx.rehearse else device_ms(
+            torch, lambda: gk.band_accepts(*tables), ("band_accepts_kernel",), log),
+        nbytes=s_ * b_ * 12 + s_ * k_ * 8 + s_ + b_ + k_ * 8 + k_, library_ms=None)
+    for name, r in rows.items():
+        r["bound_ms"] = bound_ms(r.pop("nbytes"))
+        r["bound_by"] = "bytes"
+        log(f"  {name} at {r['shape']}: bit for bit with its plain twin; kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']}), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.7f} ms (bytes)")
+    log(f"  band accepts: {int(mask.sum())} of {k_} lanes accepted")
+    return rows
+
+
+def check_service(cx):
+    """Phase 19: the large rung's cluster as metadata behind the port's
+    service on the card; with the flight recorder on, ``GET /proposals``
+    (the main path, counters set to 0 just before), ``POST /rebalance`` dry
+    run and ``GET /flight`` of its task; the recorder off places the same;
+    ``cc_flight_row``'s rows against the plain twin's from an eager run of
+    the same solve; a mid solve under ``_DBG_NO_BUDGETS`` (``cc_band_accepts``
+    launched, bit for bit on its captured inputs, placed as on the CPU); a
+    mid solve under ``CRUISE_REPAIR_ORACLE=1`` placed as on the CPU; the
+    service solve timed with the recorder on and off in turns (the two new
+    kernels are timed in phase 4, ``check_service_kernels``).  Returns
+    (launch counts, summary)."""
+    torch, np, opt, cuda, gk, log = cx.torch, cx.np, cx.opt, cx.cuda, cx.gk, cx.log
+    dev, rehearse = cx.dev, cx.rehearse
+    from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N,
+                                                         CTR_STEPS)
+    summary, counts = {}, {}
+    saved = {k: os.environ.get(k) for k in ("CRUISE_FLIGHT_RECORDER", "CRUISE_REPAIR_ORACLE")}
+    try:
+        t0 = time.monotonic()
+        md = fleet_metadata(np, cx.generate_cluster(cx.spec_of(cx.large_rung), device="cpu"))
+        api, cc = service_stack(cx, md)
+        summary["stack_s"] = round(time.monotonic() - t0, 3)
+        log(f"service: {len(md.brokers)} brokers, {md.partition_count()} partitions, "
+            f"{md.replica_count()} replicas; monitor and facade on {cc.device} in "
+            f"{summary['stack_s']} s")
+
+        # The main path: recorder on, GET /proposals from a cold cache.
+        os.environ["CRUISE_FLIGHT_RECORDER"] = "1"
+        state, _ = _request(api, "GET", "state", {"substates": "analyzer"}, "state")
+        if state["AnalyzerState"]["flightRecorder"] is not True:
+            raise RuntimeError(f"the facade does not report the recorder: {state}")
+        cuda.CAPTURE = {}
+        cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        on, _ = _request(api, "GET", "proposals", SERVICE_WAIT, "recorder-on proposals")
+        torch.cuda.synchronize()
+        summary["proposals_s"] = round(time.monotonic() - t0, 3)
+        counts["service proposals"] = {n: f.launches for n, f in cuda.COUNTED.items()}
+        captured, cuda.CAPTURE = cuda.CAPTURE, None
+        _, _, pre_model, run_on, _ = cc._cached
+        if not on["ok"] or on["numProposals"] == 0 or not (run_on.pipelined or rehearse):
+            raise RuntimeError(f"recorder-on proposals: ok {on['ok']}, "
+                               f"{on['numProposals']} proposals, pipelined {run_on.pipelined}")
+        cx.check_launched("service", {n: counts["service proposals"][n] for n in KERNELS})
+        if not rehearse and counts["service proposals"]["flight_row"] == 0:
+            raise RuntimeError("the recorder-on solve launched no cc_flight_row")
+        summary["proposals"] = on["numProposals"]
+        summary["steps"] = sum(g.steps for g in run_on.goal_results)
+        log(f"GET /proposals, recorder on ({summary['proposals_s']} s): "
+            f"{on['numProposals']} proposals, {summary['steps']} steps, reason "
+            f"{on['reason']!r}; launches "
+            f"{ {n: c for n, c in counts['service proposals'].items() if c} }")
+
+        t0 = time.monotonic()
+        reb, headers = _request(api, "POST", "rebalance", {"dryrun": "true", **SERVICE_WAIT},
+                                "recorder-on rebalance")
+        torch.cuda.synchronize()
+        summary["rebalance_s"] = round(time.monotonic() - t0, 3)
+        if reb["numProposals"] != on["numProposals"] or reb["proposals"] != on["proposals"]:
+            raise RuntimeError("POST /rebalance proposed otherwise than GET /proposals")
+        flight, _ = _request(api, "GET", "flight", {"task_id": headers["User-Task-ID"]},
+                             "flight")
+        recorded = _flight_steps(run_on)
+        if {g["goal"]: g["flight"]["steps"] for g in flight["goals"]} != recorded:
+            raise RuntimeError(f"GET /flight's timelines ({len(flight['goals'])} goals) "
+                               f"differ from the /proposals solve's ({len(recorded)})")
+        for g in flight["goals"]:
+            steps = g["flight"]["steps"]
+            if len(steps) != g["steps"] or sum(s["actions"] for s in steps) != g["actions"]:
+                raise RuntimeError(f"GET /flight {g['goal']}: {len(steps)} rows for "
+                                   f"{g['steps']} steps")
+        summary["flight_goals"] = len(flight["goals"])
+        summary["flight_rows"] = sum(len(g["flight"]["steps"]) for g in flight["goals"])
+        log(f"POST /rebalance dry run ({summary['rebalance_s']} s), GET /flight: "
+            f"{summary['flight_goals']} goals, {summary['flight_rows']} rows, each "
+            f"goal's rows summing to its actions, equal to the /proposals solve's")
+
+        # cc_flight_row's rows against the plain twin's: the same solve, its
+        # gated steps run eagerly, the plain flight row in the kernel's place.
+        kernel_row = opt.flight_row
+        opt.flight_row = opt.flight_row_plain
+        try:
+            t0 = time.monotonic()
+            drive = drive_pipelined if run_on.pipelined else drive_fused
+            eager = drive(opt, pre_model, STACK, None, None)
+            torch.cuda.synchronize()
+        finally:
+            opt.flight_row = kernel_row
+        summary["eager_twin_s"] = round(time.monotonic() - t0, 3)
+        same_rows = _flight_steps(eager) == _flight_steps(run_on)
+        same = cx.same_placement(eager, run_on)
+        log(f"eager twin with the plain flight row ({summary['eager_twin_s']} s): rows "
+            f"equal {same_rows} (integer slots and score bits), placement equal {same}")
+        if not (same_rows and same):
+            raise RuntimeError("cc_flight_row's rows differ from the plain twin's")
+
+        # The recorder off: the same requests place alike and record nothing.
+        os.environ.pop("CRUISE_FLIGHT_RECORDER")
+        cc.invalidate_proposal_cache()
+        t0 = time.monotonic()
+        off, _ = _request(api, "GET", "proposals", SERVICE_WAIT, "recorder-off proposals")
+        reb_off, _ = _request(api, "POST", "rebalance", {"dryrun": "true", **SERVICE_WAIT},
+                              "recorder-off rebalance")
+        torch.cuda.synchronize()
+        summary["off_s"] = round(time.monotonic() - t0, 3)
+        run_off = cc._cached[3]
+        if not (cx.same_placement(run_off, run_on) and off["proposals"] == on["proposals"]
+                and reb_off["numProposals"] == reb["numProposals"]
+                and all(g.flight is None for g in run_off.goal_results)):
+            raise RuntimeError("the recorder-off service solve differs from the recorder-on")
+        log(f"recorder off ({summary['off_s']} s for both requests): the same placement "
+            f"and proposals, no timeline")
+
+        # The recorder's cost: the same solve timed on and off, in turns.
+        walls = {"on": [], "off": []}
+        for mode in ("on", "off", "off", "on"):
+            if mode == "on":
+                os.environ["CRUISE_FLIGHT_RECORDER"] = "1"
+            else:
+                os.environ.pop("CRUISE_FLIGHT_RECORDER", None)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            opt.optimize(opt.donation_copy(pre_model), STACK, fused=True, donate_model=True,
+                         raise_on_hard_failure=False, device=dev)
+            torch.cuda.synchronize()
+            walls[mode].append(round(time.monotonic() - t0, 4))
+        os.environ.pop("CRUISE_FLIGHT_RECORDER", None)
+        summary["recorder_walls_s"] = walls
+        log(f"large service solve timed in turns (on, off, off, on): {walls}")
+
+        # K8's flight row on its captured inputs, the step made active.
+        if "flight_row" not in captured:
+            raise RuntimeError(f"no flight row captured: {sorted(captured)}")
+        c0, keep, offs, kinds, score, elig, fmask, rep, lanes, depth, buf = \
+            captured.pop("flight_row")
+        del captured
+        ctr = c0.clone()
+        ctr[CTR_STEPS], ctr[CTR_LAST_N], ctr[CTR_BUDGET] = 0, 1, buf.shape[0]
+        got, ref = buf.clone(), buf.clone()
+        opt.flight_row(ctr, keep, offs, kinds, score, elig, fmask, rep, lanes, depth, got)
+        opt.flight_row_plain(ctr, keep, offs, kinds, score, elig, fmask, rep, lanes, depth, ref)
+        if not _exact(torch, got, ref):
+            raise RuntimeError("cc_flight_row differs from its plain twin on its inputs")
+        summary["flight_row_captured"] = dict(K=keep.shape[0], batches=len(kinds))
+        log(f"cc_flight_row on the solve's captured inputs (K={keep.shape[0]}, "
+            f"{len(kinds)} batch): bit for bit with its plain twin")
+
+        # The budget ablation: a mid solve, its steps vetoed by the band
+        # goals' accepts (cc_band_accepts) instead of the budgets.
+        mid = cx.mid
+        opt._DBG_NO_BUDGETS = True
+        try:
+            cuda.CAPTURE = {}
+            cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            abl = opt.optimize(mid, STACK, fused=True, raise_on_hard_failure=False, device=dev,
+                               max_steps_per_goal=ABLATION_STEPS)
+            torch.cuda.synchronize()
+            summary["ablation_s"] = round(time.monotonic() - t0, 3)
+            counts["mid ablation"] = {n: f.launches for n, f in cuda.COUNTED.items()}
+            captured, cuda.CAPTURE = cuda.CAPTURE, None
+            t0 = time.monotonic()
+            abl_cpu = opt.optimize(mid.to("cpu"), STACK, fused=True,
+                                   raise_on_hard_failure=False, device="cpu",
+                                   max_steps_per_goal=ABLATION_STEPS)
+            summary["ablation_cpu_s"] = round(time.monotonic() - t0, 3)
+        finally:
+            opt._DBG_NO_BUDGETS = False
+        same = cx.same_placement(abl, abl_cpu)
+        n_band = counts["mid ablation"]["band_accepts"]
+        log(f"mid ablation ({summary['ablation_s']} s on the card, "
+            f"{summary['ablation_cpu_s']} s on the CPU): {sum(g.steps for g in abl.goal_results)} "
+            f"steps, cc_band_accepts launched {n_band} times; card equals CPU: {same}")
+        if not same or (not rehearse and n_band == 0):
+            raise RuntimeError("the ablation's card solve differs from the CPU's, or "
+                               "launched no cc_band_accepts")
+        if "band_accepts" not in captured:
+            raise RuntimeError(f"no band accepts captured: {sorted(captured)}")
+        tables = captured.pop("band_accepts")
+        del captured
+        if not _exact(torch, gk.band_accepts(*tables), gk.accepts_band_batch_plain(*tables)):
+            raise RuntimeError("cc_band_accepts differs from its plain twin on its inputs")
+        summary["band_accepts_captured"] = dict(S=tables[0].shape[0], B=tables[0].shape[1],
+                                                K=tables[7].shape[0])
+        log(f"cc_band_accepts on the ablation's captured inputs "
+            f"{summary['band_accepts_captured']}: bit for bit with its plain twin")
+
+        # The repair oracle: a mid solve, its steps eager on the card.
+        os.environ["CRUISE_REPAIR_ORACLE"] = "1"
+        reads = opt.REPAIR_ORACLE_COUNTERS["host_reads"]
+        t0 = time.monotonic()
+        orc = opt.optimize(mid, STACK, fused=True, raise_on_hard_failure=False, device=dev)
+        torch.cuda.synchronize()
+        summary["oracle_s"] = round(time.monotonic() - t0, 3)
+        reads = opt.REPAIR_ORACLE_COUNTERS["host_reads"] - reads
+        t0 = time.monotonic()
+        orc_cpu = opt.optimize(mid.to("cpu"), STACK, fused=True, raise_on_hard_failure=False,
+                               device="cpu")
+        summary["oracle_cpu_s"] = round(time.monotonic() - t0, 3)
+        same = cx.same_placement(orc, orc_cpu)
+        log(f"mid repair oracle ({summary['oracle_s']} s on the card, "
+            f"{summary['oracle_cpu_s']} s on the CPU, {reads} host reads on the card): "
+            f"card equals CPU: {same}")
+        if not same or reads == 0:
+            raise RuntimeError("the oracle's card solve differs from the CPU's")
+    finally:
+        cuda.CAPTURE = None
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     return counts, summary
 
 

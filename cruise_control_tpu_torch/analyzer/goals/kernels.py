@@ -34,6 +34,9 @@ broker against its band, ``_disk_limits``).
   ``frontier_active_batch_plain``.
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
   ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
+- ``accepts_band_batch`` — the band goals' ``accepts`` ANDed over a stack
+  (the optimizer's ``_DBG_NO_BUDGETS`` ablation; ``csrc/band_accepts.cu``),
+  with the plain twin ``accepts_band_batch_plain``.
 - ``blend_aggregates`` / ``stack_sweep_batch`` — every goal's satisfied
   flag for a batch of blends of two placements, as the executor's
   balancedness scorer asks for it (K10, ``csrc/placement_score.cu``), with
@@ -1080,6 +1083,93 @@ def structural_accepts(prev_specs, model: TensorClusterModel, arrays: BrokerArra
         structural_accepts.launches += 1
         for kind in kinds:
             _ACCEPT_COUNTS[kind].launches += 1
+    return out
+
+
+def _band_accept_inputs(specs, model: TensorClusterModel, arrays: BrokerArrays,
+                        cand: Candidates, constraint: BalancingConstraint):
+    """The stacked tables of ``accepts_band_batch``: (metric, lower, upper)
+    f32[S, B], (d_src, d_dest) f32[S, K] and cap_style bool[S]."""
+    B = model.num_brokers
+    metric = torch.stack([broker_metric(s, model, arrays, constraint).expand(B)
+                          for s in specs])
+    bands = [limits(s, model, arrays, constraint) for s in specs]
+    lower = torch.stack([lo.expand(B) for lo, _ in bands])
+    upper = torch.stack([up.expand(B) for _, up in bands])
+    deltas = [_candidate_deltas(s, cand) for s in specs]
+    d_src = torch.stack([d for d, _ in deltas])
+    d_dest = torch.stack([d for _, d in deltas])
+    cap_style = _cap_style(tuple(s.is_hard or s.kind in ("potential_nw_out", "leader_bytes_in")
+                                 for s in specs), metric.device)
+    return metric, lower, upper, d_src, d_dest, cap_style
+
+
+# Never evicted: the captured step graphs read these tensors by address.
+@functools.lru_cache(maxsize=None)
+def _cap_style(flags: Tuple[bool, ...], device: torch.device) -> torch.Tensor:
+    """bool[S] on ``device``, uploaded once per stack: a host-to-device copy
+    inside a step would break its CUDA-graph capture."""
+    return torch.tensor(flags, dtype=torch.bool).to(device)
+
+
+def accepts_band_batch_plain(metric, lower, upper, d_src, d_dest, cap_style, alive,
+                             src, dest) -> torch.Tensor:
+    """bool[K] — the JAX package's ``accepts_band_batch`` on its stacked
+    tables (``goals/kernels.py:966-975``)."""
+    dest_after = metric[:, dest] + d_dest
+    src_after = metric[:, src] + d_src
+    dest_ok = (dest_after <= upper[:, dest]) | (d_dest <= 0)
+    src_cap_ok = (src_after <= upper[:, src]) | (d_src <= 0)
+    src_ok = (src_after >= lower[:, src]) | (d_src >= 0) | (~alive[src])[None, :]
+    dest_low_ok = (dest_after >= lower[:, dest]) | (d_dest >= 0)
+    return (dest_ok & src_cap_ok & (cap_style[:, None] | (src_ok & dest_low_ok))).all(dim=0)
+
+
+def accepts_band_batch(specs, model: TensorClusterModel, arrays: BrokerArrays,
+                       cand: Candidates, constraint: BalancingConstraint) -> torch.Tensor:
+    """bool[K] — the AND of ``accepts`` over the band-kind ``specs``.
+    Replaces ``cruise_control_tpu/analyzer/goals/kernels.py:931``
+    ``accepts_band_batch`` (reached by the ``_DBG_NO_BUDGETS`` ablation of
+    the optimizer, where the band checks stand in for the channel budgets).
+    Bound on the card: bytes (8 S + 8 bytes a candidate, the [S, B] tables,
+    one byte written).  CPU tensors take ``accepts_band_batch_plain``; CUDA
+    tensors launch ``csrc/band_accepts.cu`` (``cc_band_accepts``): one
+    thread per candidate walking the S specs, each ``metric + delta`` one
+    separately rounded add, so the two agree bit for bit."""
+    specs = [s for s in specs if is_band_kind(s)]
+    dev = cand.replica.device
+    if not specs:
+        return torch.ones((cand.k,), dtype=torch.bool, device=dev)
+    tables = _band_accept_inputs(specs, model, arrays, cand, constraint)
+    return band_accepts(*tables, arrays.alive, cand.src, cand.dest)
+
+
+@cuda.counted("band_accepts")
+def band_accepts(metric, lower, upper, d_src, d_dest, cap_style, alive, src,
+                 dest) -> torch.Tensor:
+    """The launch of ``accepts_band_batch`` on its stacked tables (see
+    there); the CPU takes ``accepts_band_batch_plain``."""
+    S, B = metric.shape
+    k = src.shape[0]
+    dev = src.device
+    for name, t in (("metric", metric), ("lower", lower), ("upper", upper)):
+        cuda.check(t, name, torch.float32, (S, B), dev)
+    cuda.check(d_src, "d_src", torch.float32, (S, k), dev)
+    cuda.check(d_dest, "d_dest", torch.float32, (S, k), dev)
+    cuda.check(cap_style, "cap_style", torch.bool, (S,), dev)
+    cuda.check(alive, "alive", torch.bool, (B,), dev)
+    cuda.check(src, "src", torch.int32, (k,), dev)
+    cuda.check(dest, "dest", torch.int32, (k,), dev)
+    cuda.record("band_accepts", (metric, lower, upper, d_src, d_dest, cap_style, alive,
+                                 src, dest))
+    if cuda.on_cpu(src):
+        return accepts_band_batch_plain(metric, lower, upper, d_src, d_dest, cap_style,
+                                        alive, src, dest)
+    out = torch.empty((k,), dtype=torch.bool, device=dev)
+    if k > 0:
+        cuda.launch("band_accepts", S, B, k, metric, lower, upper, d_src, d_dest, cap_style,
+                    alive, src, dest, out)
+        band_accepts.launches += 1
     return out
 
 

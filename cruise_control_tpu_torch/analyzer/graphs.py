@@ -21,6 +21,10 @@ touches is a static buffer:
   earlier snapshot's memory;
 - each graph's step invariants: its own buffers, refreshed before each
   goal or chunk (``StepGraph.load``);
+- with the flight recorder on, the flight buffer of the chunk's capacity
+  (``StepState.flight_buffer``) and its row index, the step counter: a
+  recorder-on graph has a key of its own (``goal_key``'s ``flight_cap``),
+  and the recorder-off graphs stay the recorder-less ones;
 - each bucket's frontier maps (``FrontierInvariants``): one set of buffers
   per (shape, bucket), shared by every goal's graph of that bucket and
   written when a chunk that uses a new frontier is dispatched
@@ -216,8 +220,13 @@ GRAPHS = GraphCache()
 
 
 def goal_key(spec, prev_specs: Tuple, constraint, num_sources: int, num_dests: int,
-             st: StepState, bucket: Optional[int] = None) -> tuple:
+             st: StepState, bucket: Optional[int] = None, flight_cap: int = 0,
+             oracle: bool = False, no_budgets: bool = False) -> tuple:
     """The graph key of a goal's gated step: ``bucket`` is the frontier's
-    compacted axis (None: dense); the shape key comes last."""
+    compacted axis (None: dense); ``flight_cap`` the flight recorder's
+    buffer rows (0: off), ``oracle`` and ``no_budgets`` the repair oracle's
+    and the budget ablation's flags, so that a graph of one mode is never
+    replayed for another; the shape key comes last."""
     return (spec, tuple(prev_specs), constraint, num_sources, num_dests, bucket,
+            int(flight_cap), bool(oracle), bool(no_budgets),
             GraphCache.shape_key(st.model, st.options))

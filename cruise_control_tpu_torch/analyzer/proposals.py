@@ -75,6 +75,22 @@ class ExecutionProposal(NamedTuple):
         }
 
 
+def renumber_brokers(proposals: List[ExecutionProposal],
+                     broker_ids: List[int]) -> List[ExecutionProposal]:
+    """Map dense model broker indices to the cluster's broker ids
+    (``cruise_control_tpu/analyzer/proposals.py:89``): the model addresses
+    brokers by dense index 0..B-1 in sorted-id order, the cluster by ids
+    that need not be contiguous; the facade translates here before
+    proposals reach the executor or a REST payload."""
+    def pl(p: ReplicaPlacement) -> ReplicaPlacement:
+        return ReplicaPlacement(int(broker_ids[p.broker]), p.disk)
+
+    return [p._replace(
+        old_leader=pl(p.old_leader),
+        old_replicas=tuple(pl(x) for x in p.old_replicas),
+        new_replicas=tuple(pl(x) for x in p.new_replicas)) for p in proposals]
+
+
 def diff(initial: TensorClusterModel, final: TensorClusterModel) -> List[ExecutionProposal]:
     """Emit proposals for partitions whose placement or leadership changed."""
     def host(t):

@@ -205,6 +205,23 @@ PACKED_CONFLICT = 10      # brokers touched since the frontier sweep that lie
 PACKED_WIDTH = 11
 
 
+# Flight-recorder per-step row layout (the JAX package's ``state.py:174-192``):
+# with ``CRUISE_FLIGHT_RECORDER=1`` every executed gated step writes one
+# i32[FLIGHT_WIDTH] row of telemetry at its chunk-local step index into the
+# working state's flight buffer (``StepState.flight_buffer``), which rides
+# the chunk's boundary fetch.  The f32 best eligible score is bitcast into
+# the i32 row (FLIGHT_SCORE_BITS); the host decodes it with
+# ``np.int32(...).view(np.float32)``.
+FLIGHT_ACTIONS = 0      # candidates accepted this step
+FLIGHT_FRONTIER = 1     # frontier population at step entry; -1 non-band
+FLIGHT_REPAIR = 2       # selection repair saw a violation this step (0/1)
+FLIGHT_BISECT = 3       # repair bisection depth this step
+FLIGHT_LANES = 4        # live candidate lanes at compaction this step
+FLIGHT_SCORE_BITS = 5   # best eligible candidate score, f32 bitcast to i32
+FLIGHT_KIND = 6         # argmax action-kind index into FLIGHT_KINDS; -1 none
+FLIGHT_WIDTH = 7
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelineNextGoal:
     """Host-side descriptor of the next goal of a pipelined stack run (the
@@ -251,6 +268,9 @@ class OptimizationOptions:
             only_move_immigrants=zeros(),
         )
 
+    def replace(self, **kw) -> "OptimizationOptions":
+        return dataclasses.replace(self, **kw)
+
 
 # ---------------------------------------------------------------------------
 # The gated step's working state
@@ -282,6 +302,19 @@ class StepState:
     model: TensorClusterModel
     options: "OptimizationOptions"
     counters: torch.Tensor  # i32[CTR_WIDTH]
+    # Flight-recorder buffers, i32[capacity, FLIGHT_WIDTH] by capacity, made
+    # on first use and kept: a captured step graph writes its rows at the
+    # buffer's fixed address.
+    flight: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def flight_buffer(self, capacity: int) -> torch.Tensor:
+        """The flight buffer of ``capacity`` rows (contents undefined until
+        the steps of a chunk write theirs)."""
+        buf = self.flight.get(capacity)
+        if buf is None:
+            buf = self.flight[capacity] = torch.zeros(
+                (capacity, FLIGHT_WIDTH), dtype=torch.int32, device=self.counters.device)
+        return buf
 
     @classmethod
     def working(cls, model: TensorClusterModel,

@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
            "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score",
-           "detector_scores")
+           "detector_scores", "flight_row", "band_accepts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,6 +70,8 @@ _ENTRIES = {
                           "i" * 8 + "p" * 31 + "ii" + "p" * 4),
     "detector_peer": ("detector_scores", "cc_detector_peer", "ppiifp"),
     "detector_rows": ("detector_scores", "cc_detector_rows", "pppp" + "ii" + "f" * 7 + "ppp"),
+    "flight_row": ("flight_row", "cc_flight_row", "ppippipppippipi"),
+    "band_accepts": ("band_accepts", "cc_band_accepts", "iii" + "p" * 10),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 

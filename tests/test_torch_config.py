@@ -26,10 +26,9 @@ from cruise_control_tpu_torch.config import configdef
 from cruise_control_tpu_torch.config import constants as C
 
 JAX_PREFIX, PORT_PREFIX = "cruise_control_tpu.", "cruise_control_tpu_torch."
-# Class-valued defaults whose class comes with a later slice of the port.
-LATER_SLICES = {
-    "cruise_control_tpu_torch.api.server": "the service slice (ROADMAP Queue 1 item 6)",
-}
+# Class-valued defaults whose class comes with a later slice of the port
+# (none since the service slice ported ``api.server``: every default loads).
+LATER_SLICES: dict = {}
 GROUPS = ("analyzer", "monitor", "executor", "anomaly_detector", "webserver")
 
 

@@ -48,9 +48,12 @@ from cruise_control_tpu_torch.monitor import sampling as tsamp
 from cruise_control_tpu_torch.monitor.metricdef import KAFKA_METRIC_DEF
 from tests.test_detector import (RecordingFacade, broker_agg_with_history, make_md,
                                  sampled_lm)
-from tests.torch_port_helpers import (BORDERLINE, CLEAN, SINGLE_SLOW, WINDOW_MS,
-                                      port_broker_agg_with_history, port_md,
+from tests.torch_port_helpers import (BORDERLINE, CLEAN, SINGLE_SLOW, WINDOW_MS,  # noqa: F401
+                                      jax_native, port_broker_agg_with_history, port_md,
                                       port_sampled_lm)
+
+# The reference's monitors ingest through its native library.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 W = WINDOW_MS
 FLUSH = "BROKER_LOG_FLUSH_TIME_MS_999TH"

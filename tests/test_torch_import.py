@@ -155,3 +155,50 @@ def test_the_ports_registries_are_its_own():
     TRACE.record("port.registry-probe", 0.0)
     assert any(s["name"] == "port.registry-probe" for s in TRACE.recent(5))
     assert not any(s["name"] == "port.registry-probe" for s in JAX_TRACE.recent(50))
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO))
+                                        for p in (PORT / "api").rglob("*.py")))
+def test_service_front_imports_no_app_module(path):
+    """The port's service front stands without an ``app`` module: the realm
+    file is read by its own ``api.security.load_credentials``."""
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] + [f"{node.module or ''}.{a.name}" for a in node.names]
+        for n in names:
+            assert n.split(".")[-1] != "app", f"{path}:{node.lineno} imports {n}"
+
+
+def test_new_wrappers_raise_on_a_non_cpu_device_and_check_shapes():
+    """K8's flight row and the band accepts never take the plain path off
+    the CPU, and refuse inputs of the wrong type or shape."""
+    from cruise_control_tpu_torch.analyzer.goals.kernels import band_accepts
+    from cruise_control_tpu_torch.analyzer.optimizer import flight_row
+    from cruise_control_tpu_torch.analyzer.state import CTR_WIDTH, FLIGHT_WIDTH
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    i32, b8 = torch.int32, torch.bool
+    with pytest.raises(ValueError, match="unsupported device"):
+        flight_row(meta(CTR_WIDTH, dtype=i32), meta(4, dtype=b8), (0, 4), (0,), meta(4),
+                   meta(4, dtype=b8), None, meta(dtype=i32), meta(dtype=i32), 2,
+                   meta(3, FLIGHT_WIDTH, dtype=i32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        band_accepts(meta(2, 3), meta(2, 3), meta(2, 3), meta(2, 4), meta(2, 4),
+                     meta(2, dtype=b8), meta(3, dtype=b8), meta(4, dtype=i32),
+                     meta(4, dtype=i32))
+    with pytest.raises(ValueError):
+        flight_row(torch.zeros(CTR_WIDTH, dtype=i32), torch.zeros(4, dtype=b8), (0, 3), (0,),
+                   torch.zeros(4), torch.zeros(4, dtype=b8), None,
+                   torch.zeros((), dtype=i32), torch.zeros((), dtype=i32), 2,
+                   torch.zeros(3, FLIGHT_WIDTH, dtype=i32))
+    with pytest.raises(TypeError):
+        band_accepts(torch.zeros(2, 3, dtype=torch.float64), torch.zeros(2, 3),
+                     torch.zeros(2, 3), torch.zeros(2, 4), torch.zeros(2, 4),
+                     torch.zeros(2, dtype=b8), torch.zeros(3, dtype=b8),
+                     torch.zeros(4, dtype=i32), torch.zeros(4, dtype=i32))

@@ -33,8 +33,12 @@ from cruise_control_tpu_torch.monitor import load_monitor as tlm
 from cruise_control_tpu_torch.monitor import metadata as tmeta
 from cruise_control_tpu_torch.monitor import sampling as tsamp
 from cruise_control_tpu_torch.monitor.metricdef import KAFKA_METRIC_DEF
-from tests.torch_port_helpers import (WINDOW_MS, assert_aggregations_equal,
-                                      assert_models_equal)
+from tests.torch_port_helpers import (WINDOW_MS, assert_aggregations_equal,  # noqa: F401
+                                      assert_models_equal, jax_native,
+                                      restore_jax_native)
+
+# The reference's aggregator takes its native ingest in every test here.
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 W = WINDOW_MS
 NAMES = [i.name for i in KAFKA_METRIC_DEF.all_metric_infos()]
@@ -290,3 +294,17 @@ def test_file_sample_store_replays_into_the_same_model(tmp_path):
     got, _ = model_to_numpy(replayed.cluster_model())
     for f in want:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+
+
+def test_native_fixture_recovers_a_failed_load(tmp_path):
+    """The JAX loader's failed state (a worker that lost the race on the
+    shared ``.tmp``: tried, nothing loaded) is repaired by the module
+    fixture's helper: the native path loads again."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_TRIED", True)
+        mp.setattr(jnative, "_LIB", None)
+        assert not jnative.available()
+        restore_jax_native(mp, tmp_path)
+        assert jnative.available()
+        ing = jnative.ingest_samples
+        assert callable(ing)

@@ -13,6 +13,7 @@ import torch
 from cruise_control_tpu.analyzer import optimizer as jopt
 from cruise_control_tpu.analyzer import proposals as jprops
 from cruise_control_tpu.analyzer.verifier import verify_run as jax_verify_run
+from cruise_control_tpu.common.sensors import SENSORS as JSENSORS
 from cruise_control_tpu.model.generator import ClusterSpec as JaxSpec
 from cruise_control_tpu.model.generator import generate_cluster as jax_generate
 from cruise_control_tpu.model.tensor_model import TensorClusterModel as JaxModel
@@ -24,6 +25,7 @@ from cruise_control_tpu_torch.analyzer.actions import Candidates as TorchCandida
 from cruise_control_tpu_torch.analyzer.goals.specs import (DEFAULT_GOAL_ORDER,
                                                            INTRA_BROKER_GOAL_ORDER,
                                                            KAFKA_ASSIGNER_GOALS)
+from cruise_control_tpu_torch.common.sensors import SENSORS as TSENSORS
 from cruise_control_tpu_torch.convert import model_from_numpy, model_to_numpy
 from cruise_control_tpu_torch.model.tensor_model import STATIC_FIELDS, TENSOR_FIELDS
 
@@ -213,9 +215,11 @@ def check_like_jax(spec_kw, goals, warm: bool = False, **kw):
     return jrun, trun
 
 
-# The JAX package's environment switches.  The port reads CRUISE_PIPELINE
-# and CRUISE_PIPELINE_FUSE (the pipeline and its auto-fusion) and none of
-# the others; the parity tests clear all six and set the two they mean.
+# The JAX package's environment switches.  The port reads CRUISE_PIPELINE,
+# CRUISE_PIPELINE_FUSE (the pipeline and its auto-fusion),
+# CRUISE_FLIGHT_RECORDER and CRUISE_REPAIR_ORACLE; CRUISE_AOT_PRELOWER and
+# CRUISE_TPU_COMPILE_CEILING work around the TPU's remote compiler and are
+# not read.  The parity tests clear all six and set the ones they mean.
 CRUISE_ENV = ("CRUISE_PIPELINE", "CRUISE_PIPELINE_FUSE", "CRUISE_FLIGHT_RECORDER",
               "CRUISE_AOT_PRELOWER", "CRUISE_REPAIR_ORACLE", "CRUISE_TPU_COMPILE_CEILING")
 
@@ -578,3 +582,191 @@ def assert_aggregations_equal(tres, jres) -> None:
         else:
             assert got[f] == want[f], f
 
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's native library in this worker
+# ---------------------------------------------------------------------------
+
+def restore_jax_native(mp: pytest.MonkeyPatch, cache_dir) -> None:
+    """Make the JAX package's native path load in this process.  Its loader
+    compiles ``cc_native-<digest>.so`` into a shared cache through one fixed
+    ``<so>.tmp`` name, so test workers that start on a fresh cache race on
+    that file, and the loser pins ``_LIB = None`` for the rest of its
+    process (``cruise_control_tpu/native/__init__.py:40-77``); the reference
+    then takes its per-sample fallbacks, whose results differ from its
+    native ones.  When the library is not available, point
+    ``CC_TPU_NATIVE_CACHE`` at ``cache_dir`` (private to this worker),
+    reset the loader's state through ``mp`` and load again; then assert
+    that it is available (never a skip)."""
+    from cruise_control_tpu import native as jnative
+    if not jnative.available():
+        mp.setenv("CC_TPU_NATIVE_CACHE", str(cache_dir))
+        mp.setattr(jnative, "_TRIED", False)
+        mp.setattr(jnative, "_LIB", None)
+        jnative._load()
+    assert jnative.available(), "the JAX package's native library does not load"
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native path, certain for a module's reference runs
+    (``restore_jax_native``); the loader's state is put back afterwards."""
+    with pytest.MonkeyPatch.context() as mp:
+        restore_jax_native(mp, tmp_path_factory.mktemp("cc_native"))
+        yield
+
+
+# ---------------------------------------------------------------------------
+# The flight recorder's parity tests
+# ---------------------------------------------------------------------------
+
+FLIGHT_STACK = ["RackAwareGoal", "ReplicaDistributionGoal", "DiskUsageDistributionGoal",
+                "LeaderReplicaDistributionGoal"]
+# The dense, speculating driver shape of tests/test_flight_recorder.py:40.
+FLIGHT_DRIVER_KW = dict(num_sources=4, num_dests=1, max_steps=64, chunk_steps=8,
+                        min_chunk=1, frontier=False)
+FLIGHT_SENSOR_PREFIXES = ("GoalOptimizer.repair-", "GoalOptimizer.actions-per-step",
+                          "GoalOptimizer.steps-to-90pct-actions")
+
+
+def flight_sensor_view(before, after, goals):
+    """The repair and flight series a run of ``goals`` pushed: counters and
+    histogram counts as deltas, gauges as their new values (series of other
+    goals, which earlier tests in the process may have pushed, left out)."""
+    out = {}
+    labels = tuple(f'goal="{g}"' for g in goals)
+    for key, val in after.items():
+        if not key.startswith(FLIGHT_SENSOR_PREFIXES) or not any(lb in key for lb in labels):
+            continue
+        old = before.get(key)
+        if isinstance(val, dict):
+            base = old or {"count": 0, "buckets": {}}
+            out[key] = (val["count"] - base["count"],
+                        {b: c - base["buckets"].get(b, 0) for b, c in val["buckets"].items()})
+        elif "repair-bisect-depth" in key or "steps-to-90pct" in key:
+            out[key] = val
+        else:
+            out[key] = val - (old or 0)
+    return out
+
+
+def flight_solves(jm, tm, goals, recorder=True, **kw):
+    """One optimize in each package under the same switches, with the
+    sensors each pushed."""
+    with pytest.MonkeyPatch.context() as mp:
+        clear_cruise_env(mp)
+        if recorder:
+            mp.setenv("CRUISE_FLIGHT_RECORDER", "1")
+        j0 = JSENSORS.snapshot()
+        jrun = jopt.optimize(jm, goals, raise_on_hard_failure=False, fused=True, **kw)
+        jsens = flight_sensor_view(j0, JSENSORS.snapshot(), goals)
+        t0 = TSENSORS.snapshot()
+        trun = topt.optimize(tm, goals, raise_on_hard_failure=False, fused=True,
+                             device="cpu", **kw)
+        tsens = flight_sensor_view(t0, TSENSORS.snapshot(), goals)
+    return jrun, trun, jsens, tsens
+
+
+def port_flight_run(tm, goals, recorder, **kw):
+    with pytest.MonkeyPatch.context() as mp:
+        clear_cruise_env(mp)
+        if recorder:
+            mp.setenv("CRUISE_FLIGHT_RECORDER", "1")
+        return topt.optimize(tm, goals, raise_on_hard_failure=False, fused=True,
+                             device="cpu", **kw)
+
+
+def assert_same_placement(a, b):
+    for f in PLACEMENT:
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
+                                      err_msg=f)
+
+
+def assert_same_flight(tflight, jflight, what):
+    assert jflight is not None and tflight is not None, what
+    assert tflight["kinds"] == jflight["kinds"]
+    assert tflight["steps"] == jflight["steps"], what
+    assert [(c["len"], c["bucket"], c["speculative"]) for c in tflight["chunks"]] == \
+        [(c["len"], c["bucket"], c["speculative"]) for c in jflight["chunks"]], what
+
+
+# ---------------------------------------------------------------------------
+# The service front's parity tests
+# ---------------------------------------------------------------------------
+
+# tests/test_api.py ``build_stack``'s goals and hard goals.
+API_GOALS = ["RackAwareGoal", "DiskCapacityGoal", "ReplicaDistributionGoal",
+             "LeaderReplicaDistributionGoal"]
+API_HARD = ["RackAwareGoal", "DiskCapacityGoal"]
+WAIT = {"max_wait_s": "300"}
+
+
+def port_build_stack(num_brokers=5, two_step=False, security=None, broker_ids=None):
+    """tests/test_api.py ``build_stack`` on the port, on the CPU."""
+    from tests.test_api import W
+    from cruise_control_tpu_torch.api import server as tserver
+    from cruise_control_tpu_torch.api.facade import CruiseControl
+    from cruise_control_tpu_torch.detector.manager import AnomalyDetectorManager
+    from cruise_control_tpu_torch.detector.notifier import SelfHealingNotifier
+    from cruise_control_tpu_torch.executor.admin import InMemoryClusterAdmin
+    from cruise_control_tpu_torch.executor.executor import Executor
+    from cruise_control_tpu_torch.monitor.capacity import StaticCapacityResolver
+    from cruise_control_tpu_torch.monitor.load_monitor import LoadMonitor
+    from cruise_control_tpu_torch.monitor.metadata import (BrokerInfo, ClusterMetadata,
+                                                           MetadataClient, PartitionInfo)
+    from cruise_control_tpu_torch.monitor.sampling import SyntheticWorkloadSampler
+    rng = np.random.default_rng(19)
+    ids = list(broker_ids) if broker_ids else list(range(num_brokers))
+    num_brokers = len(ids)
+    brokers = tuple(BrokerInfo(b, rack=f"r{i % 3}", host=f"h{i}") for i, b in enumerate(ids))
+    w = np.linspace(1, 4, num_brokers)
+    w /= w.sum()
+    parts = []
+    for t in range(3):
+        for p in range(8):
+            reps = tuple(ids[int(x)] for x in rng.choice(num_brokers, 2, replace=False, p=w))
+            parts.append(PartitionInfo(f"t{t}", p, leader=reps[0], replicas=reps))
+    mc = MetadataClient(ClusterMetadata(brokers=brokers, partitions=tuple(parts)))
+    lm = LoadMonitor(mc, StaticCapacityResolver(), num_partition_windows=3,
+                     partition_window_ms=W, device="cpu")
+    lm.start_up()
+    sampler = SyntheticWorkloadSampler()
+    for wdx in range(4):
+        lm.fetch_once(sampler, wdx * W, wdx * W + 1)
+    admin = InMemoryClusterAdmin(mc, latency_polls=1)
+    ex = Executor(admin, mc)
+    cc = CruiseControl(lm, ex, admin, goals=API_GOALS, hard_goals=API_HARD, device="cpu")
+    mgr = AnomalyDetectorManager(SelfHealingNotifier(), cc,
+                                 executor_busy=lambda: ex.has_ongoing_execution)
+    api = tserver.CruiseControlApi(cc, detector_manager=mgr, sampler=sampler,
+                                   two_step_verification=two_step, security=security)
+    return api, cc, mc
+
+
+def both(**kw):
+    """(JAX stack, port stack), each (api, facade, metadata client)."""
+    from tests.test_api import build_stack as jax_build_stack
+    return jax_build_stack(**kw), port_build_stack(**kw)
+
+
+def placement(mc):
+    return {p.tp: (p.leader, p.replicas) for p in mc.cluster().partitions}
+
+
+def same_call(stacks, method, endpoint, params, headers=None):
+    """The request on both stacks: the same status; returns both bodies."""
+    (japi, _, _), (tapi, _, _) = stacks
+    args = (method, endpoint, dict(params)) + ((headers,) if headers is not None else ())
+    js, jbody, _ = japi.handle(*args)
+    ts, tbody, _ = tapi.handle(*args)
+    assert ts == js, (endpoint, ts, js, tbody)
+    return jbody, tbody
+
+
+def same_operation(jbody, tbody):
+    """Two operation results: the same outcome, proposals and goal verdicts."""
+    for key in ("ok", "dryrun", "numProposals", "proposals", "violatedGoalsBefore",
+                "violatedGoalsAfter", "provisionStatus", "cappedGoals",
+                "onDemandBalancednessScoreBefore", "onDemandBalancednessScoreAfter"):
+        assert tbody.get(key) == jbody.get(key), key
