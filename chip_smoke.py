@@ -172,7 +172,21 @@ Phases, in order (any failure raises and the process exits non-zero):
     card placed as the CPU, timed; the mid rung under
     ``CRUISE_REPAIR_ORACLE=1`` (gated steps eager on the card, the loop's
     host reads counted), placed as on the CPU;
-20. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+20. the sharded search (``check_mesh``; its kernel K15,
+    ``cc_shard_combine``, is held against its plain twin in phase 4,
+    ``check_k15``: bit for bit on the card and against the CPU, on seeded
+    partials of 2 ranks x 50 and 200 brokers and 8 ranks x 7,000 brokers,
+    timed beside the twin and ``torch.sum``): the mid and large
+    rungs (replicas padded to a multiple of 8) in bench.py's mesh flavour
+    (``MESH_FLAVOUR``, dense floor 16) on one device, then replica-sharded
+    over 2 ranks sharing the card (gloo, host-staged collectives, eager
+    steps), with the counters set to 0 just before each rank's solve: both
+    ranks verified and equal, every step kernel and K15 launched on each,
+    mid placed exactly as one device with equal per-goal steps and actions,
+    large the same or else equisatisfying past the first goal that differs
+    (reported); the mid rung over a one-rank NCCL group, placed as one
+    device bit for bit; walls, collectives and gathered bytes per rank;
+21. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -445,6 +459,9 @@ def main(argv) -> int:
     service_rows = check_service_kernels(types.SimpleNamespace(
         torch=torch, np=np, opt=opt, gk=gk, log=log, dev=dev, rehearse=rehearse,
         timer=timer))
+    # And phase 20's K15.
+    k15_rows = check_k15(types.SimpleNamespace(torch=torch, np=np, log=log, dev=dev,
+                                               rehearse=rehearse, timer=timer))
 
     # 5. mid rung as the service runs it: fused, step graphs
     phase("mid fused")
@@ -812,7 +829,17 @@ def main(argv) -> int:
     service_summary["phase_s"] = round(time.monotonic() - t_service, 1)
     log(f"service summary: {service_summary}")
 
-    # 20. results
+    # 20. the sharded search: mid and large replica-sharded over 2 ranks
+    # sharing the card (gloo), mid over a one-rank NCCL group, each against
+    # the one-device solve (K15 against its twin ran in phase 4)
+    phase("mesh")
+    cx.timed = timed
+    t_mesh = time.monotonic()
+    mesh_counts, mesh_summary = check_mesh(cx)
+    mesh_summary["phase_s"] = round(time.monotonic() - t_mesh, 1)
+    log(f"mesh summary: {mesh_summary}")
+
+    # 21. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -825,7 +852,7 @@ def main(argv) -> int:
         f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
         f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; execution "
         f"{exec_summary}; goal kinds {kinds_summary}; JBOD {jbod_summary}; detection "
-        f"{detect_summary}; service {service_summary}; card {smi}")
+        f"{detect_summary}; service {service_summary}; mesh {mesh_summary}; card {smi}")
     for name in EXECUTION_ONLY:
         # The mid shape is the execution's; the large and xl250 numbers beside.
         results[name] = dict(k10["mid"][name])
@@ -920,6 +947,25 @@ def main(argv) -> int:
                      "device_ms_per_launch": r["device_ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # K15: timed at the large mesh's shape (2 ranks, 200 brokers), the mid
+    # and the 7,000-broker fleet's shapes beside; launched by rank 0 of the
+    # large solve over 2 ranks, the mid solves' counts beside.
+    for name, (source, replaces) in MESH_KERNELS.items():
+        r = k15_rows[K15_SHAPES[1]]
+        extra = {}
+        for suffix, shape in (("mid", K15_SHAPES[0]), ("fleet", K15_SHAPES[2])):
+            extra.update({f"{k}_{suffix}": v for k, v in k15_rows[shape].items()
+                          if k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                   "library_ms")})
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": mesh_counts["large 2 ranks"][name],
+                     "launches_run": "large over 2 ranks (rank 0)", "shape": r["shape"],
+                     "launches_mid_2_ranks": mesh_counts["mid 2 ranks"][name],
+                     "launches_mid_nccl": mesh_counts["mid nccl"][name], **extra,
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms_per_launch": r["device_ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
     # K12's device time is the whole fused solve's (its eager per-goal
     # set-up included), from the fused profile.
     graph_results["goal_chain"]["device_ms_per_launch"] = prof_fused.get("device_ms")
@@ -4382,6 +4428,239 @@ def check_service(cx):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the sharded search (parallel/mesh.py) and K15
+# ---------------------------------------------------------------------------
+
+_PM = "cruise_control_tpu/parallel/mesh.py"
+MESH_KERNELS = {
+    # name: (source, what it replaces)
+    "shard_combine": ("cruise_control_tpu_torch/csrc/shard_combine.cu",
+                      f"{_PM}:69 (the psum of the replica-sharded reductions, {_PM}:16-20)"),
+}
+# (ranks n, brokers B) of K15's seeded checks: mid and large over 2 ranks,
+# and the fleet of tools/sharded_1m.py (7,000 brokers) over 8.
+K15_SHAPES = ((2, 50), (2, 200), (8, 7000))
+K15_CF, K15_CI = 6, 2  # K1's float aggregates and its counts
+# bench.py's mesh rung (bench.py:380-398): the dense floor lowered to 16,
+# short segments, the pipeline, widths that are multiples of the mesh size.
+MESH_DENSE_MIN = 16
+MESH_FLAVOUR = dict(fused=True, fuse_group_size=1, segment_steps=8, pipeline=True,
+                    num_sources=32, num_dests=8, raise_on_hard_failure=False)
+MESH_PAD = 8  # replicas padded to a multiple of 8
+# The step's kernels that every sharded solve must launch on each rank.
+MESH_PATH_KERNELS = ("broker_aggregates", "best_per_segment", "prefix_cut", "goal_masks",
+                     "structural_accepts", "apply_actions", "stack_sweep", "chunk_gate",
+                     "shard_combine")
+MESH_TIMEOUT_S = 600
+
+
+def mesh_spec(rung):
+    from cruise_control_tpu_torch.model.generator import ClusterSpec
+    b, r, t, ppt, rf = rung
+    return ClusterSpec(num_brokers=b, num_racks=r, num_topics=t,
+                       mean_partitions_per_topic=ppt, replication_factor=rf,
+                       distribution="exponential", seed=SEED)
+
+
+def mesh_rank(mesh, rungs):
+    """One rank of phase 20's meshes: for each (label, rung) the rung's
+    model, replica-sharded over ``mesh``, through ``optimize(mesh=mesh)``
+    in bench.py's mesh flavour, with the launch counters set to 0 just
+    before; ``verify_run`` on every rank.
+    Returns per rung the placement, per-goal rows, wall, collectives,
+    gathered bytes, launches and the verification's outcome."""
+    import numpy as np
+    import torch
+
+    from cruise_control_tpu_torch.analyzer import optimizer as opt
+    from cruise_control_tpu_torch.analyzer import proposals as props
+    from cruise_control_tpu_torch.analyzer.verifier import verify_run
+    from cruise_control_tpu_torch.model.generator import generate_cluster
+    from cruise_control_tpu_torch.ops import cuda
+    from cruise_control_tpu_torch.parallel import collectives
+    from cruise_control_tpu_torch.parallel import mesh as pmesh
+
+    opt._FRONTIER_DENSE_MIN = MESH_DENSE_MIN
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+    out = {}
+    for label, rung in rungs:
+        model = generate_cluster(mesh_spec(rung), pad_replicas_to_multiple=MESH_PAD,
+                                 device=mesh.device)
+        sharded = pmesh.shard_model_replica_axis(model, mesh)
+        c0 = dict(collectives.COUNTERS)
+        cuda.reset_launch_counts()
+        sync()
+        t0 = time.monotonic()
+        run = opt.optimize(sharded, STACK, mesh=mesh, device=mesh.device, **MESH_FLAVOUR)
+        sync()
+        wall = time.monotonic() - t0
+        counts = cuda.launch_counts()
+        try:
+            verify_run(sharded, run, STACK, proposals=props.diff(model, run.model))
+            verified = "ok"
+        except Exception as e:  # reported to the parent, which decides
+            verified = f"{type(e).__name__}: {e}"
+        out[label] = {
+            "wall_s": wall, "verified": verified,
+            "collectives": collectives.COUNTERS["collectives"] - c0["collectives"],
+            "gathered_bytes": collectives.COUNTERS["bytes"] - c0["bytes"],
+            "launches": {n: counts[n] for n in MESH_PATH_KERNELS},
+            "rows": [(g.name, g.steps, g.actions_applied, g.satisfied_after)
+                     for g in run.goal_results],
+            "placement": {f: getattr(run.model, f).cpu().numpy() for f in PLACEMENT},
+            "input": {f: getattr(model, f).cpu().numpy() for f in PLACEMENT},
+            "replicas": int(model.replica_valid.sum()), "padded": model.num_replicas_padded,
+            "device": str(mesh.device), "backend": mesh.backend, "world": mesh.size,
+        }
+        del model, sharded, run
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_k15(cx):
+    """Phase 4's K15 (phase 20's kernel, timed early, where the profiler
+    reads device times reliably) against its plain twin on the card, bit
+    for bit, on seeded
+    partials at ``K15_SHAPES`` (spread magnitudes, negative counts), timed
+    beside the plain twin, the profiler's device time and ``torch.sum``
+    over the ranks (the library call: f32 and i32 parts)."""
+    torch, np, log, dev = cx.torch, cx.np, cx.log, cx.dev
+    from cruise_control_tpu_torch.ops import segment
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    for n, b in K15_SHAPES:
+        f = (rng.standard_normal((n, b, K15_CF)) * 10.0 ** rng.integers(-3, 7, (n, b, K15_CF))
+             ).astype(np.float32)
+        i = rng.integers(-(1 << 20), 1 << 20, (n, b, K15_CI)).astype(np.int32)
+        fp, ip = (torch.from_numpy(a).to(dev) for a in (f, i))
+        got_f, got_i = segment.shard_combine(fp, ip)
+        ref_f, ref_i = segment.shard_combine_plain(fp, ip)
+        cpu_f, cpu_i = segment.shard_combine_plain(fp.cpu(), ip.cpu())
+        exact = (_exact(torch, got_f, ref_f) and _exact(torch, got_i, ref_i)
+                 and _exact(torch, got_f.cpu(), cpu_f) and _exact(torch, got_i.cpu(), cpu_i))
+        if not exact:
+            raise RuntimeError(f"cc_shard_combine differs from its plain twin at n={n}, B={b}")
+        nbytes = (n + 1) * b * (K15_CF + K15_CI) * 4
+        r = dict(shape=dict(n=n, B=b, Cf=K15_CF, Ci=K15_CI), max_abs_err=0.0,
+                 ms=cx.timer(torch, lambda: segment.shard_combine(fp, ip)),
+                 plain_ms=cx.timer(torch, lambda: segment.shard_combine_plain(fp, ip)),
+                 library_ms=cx.timer(torch, lambda: (torch.sum(fp, 0), torch.sum(ip, 0))),
+                 device_ms=None if cx.rehearse else device_ms(
+                     torch, lambda: segment.shard_combine(fp, ip), ("shard_combine_kernel",),
+                     log),
+                 bound_ms=bound_ms(nbytes), bound_by="bytes")
+        rows[(n, b)] = r
+        log(f"  shard_combine n={n} B={b}: bit for bit with its plain twin (card and CPU); "
+            f"kernel {r['ms']:.4f} ms (device {r['device_ms']}), plain {r['plain_ms']:.4f} "
+            f"ms, torch.sum {r['library_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms (bytes)")
+    return rows
+
+
+def _same_rows_and_placement(a, b):
+    import numpy as np
+    same_pl = all(np.array_equal(a["placement"][f], b["placement"][f]) for f in PLACEMENT)
+    return same_pl, [r[:3] for r in a["rows"]] == [r[:3] for r in b["rows"]]
+
+
+def check_mesh(cx):
+    """Phase 20: the one-device port solves of the mid and large rungs in bench.py's mesh flavour on the card; the same
+    rungs replica-sharded over 2 ranks sharing the card (gloo); the mid
+    rung over a one-rank NCCL group.  The 2-rank mid run and the NCCL run
+    must place as the one-device run with equal per-goal steps and actions;
+    the large run too, or else differ only past a documented near-tie with
+    both runs verified and equisatisfying.  Returns (the launches of the
+    rank runs, a summary)."""
+    torch, np, opt, log, dev = cx.torch, cx.np, cx.opt, cx.log, cx.dev
+    from cruise_control_tpu_torch.analyzer import proposals as props
+    from cruise_control_tpu_torch.analyzer.verifier import verify_run
+    from cruise_control_tpu_torch.model.generator import generate_cluster
+    from cruise_control_tpu_torch.parallel import mesh as pmesh
+    rungs = (("mid", cx.mid_rung), ("large", cx.large_rung))
+    refs = {}
+    dense = opt._FRONTIER_DENSE_MIN
+    opt._FRONTIER_DENSE_MIN = MESH_DENSE_MIN
+    try:
+        for label, rung in rungs:
+            model = generate_cluster(mesh_spec(rung), pad_replicas_to_multiple=MESH_PAD,
+                                     device=dev)
+            opt.optimize(model, STACK, device=dev, **MESH_FLAVOUR)  # captures its graphs
+            run, wall, _ = cx.timed(lambda: opt.optimize(model, STACK, device=dev,
+                                                         **MESH_FLAVOUR))
+            verify_run(model, run, STACK, proposals=props.diff(model, run.model))
+            refs[label] = {"wall_s": wall, "rows": [
+                (g.name, g.steps, g.actions_applied, g.satisfied_after)
+                for g in run.goal_results],
+                "placement": {f: getattr(run.model, f).cpu().numpy() for f in PLACEMENT},
+                "input": {f: getattr(model, f).cpu().numpy() for f in PLACEMENT}}
+            log(f"  {label} one device ({model.num_replicas_padded} padded replicas): "
+                f"{wall:.3f} s, {sum(r[1] for r in refs[label]['rows'])} steps")
+            del model, run
+    finally:
+        opt._FRONTIER_DENSE_MIN = dense
+    device = "cpu" if cx.rehearse else "cuda"
+    t0 = time.monotonic()
+    two = pmesh.Ranks(mesh_rank, 2, device, "gloo", (rungs,)).join(MESH_TIMEOUT_S)
+    two_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    one = pmesh.Ranks(mesh_rank, 1, device, "gloo" if cx.rehearse else "nccl",
+                            ((("mid", cx.mid_rung),),)).join(MESH_TIMEOUT_S)[0]
+    one_s = time.monotonic() - t0
+    summary = {"spawn_and_run_2_ranks_s": round(two_s, 1),
+               "spawn_and_run_nccl_s": round(one_s, 1)}
+    counts = {}
+    for label, _ in rungs:
+        ref = refs[label]
+        for rank, res in enumerate(two):
+            r = res[label]
+            if not all(np.array_equal(r["input"][f], ref["input"][f]) for f in PLACEMENT):
+                raise RuntimeError(f"rank {rank} built another {label} model")
+            if r["verified"] != "ok":
+                raise RuntimeError(f"{label} rank {rank}: verify_run failed: {r['verified']}")
+            missing = [n for n, c in r["launches"].items() if c == 0]
+            if not cx.rehearse and missing:
+                raise RuntimeError(f"{label} rank {rank}: kernels not launched: {missing}")
+        a, b = two[0][label], two[1][label]
+        if not _same_rows_and_placement(a, b) == (True, True):
+            raise RuntimeError(f"the two ranks of the {label} mesh ended apart")
+        same_pl, same_rows = _same_rows_and_placement(a, ref)
+        first = next((x[0] for x, y in zip(a["rows"], ref["rows"]) if x[:3] != y[:3]), None)
+        equisat = [x[3] for x in a["rows"]] == [y[3] for y in ref["rows"]]
+        summary[label] = {
+            "identical_placement": same_pl, "identical_rows": same_rows,
+            "first_goal_apart": first, "equisatisfying": equisat,
+            "one_device_s": round(ref["wall_s"], 4),
+            "ranks_s": [round(x[label]["wall_s"], 4) for x in two],
+            "collectives": [x[label]["collectives"] for x in two],
+            "gathered_bytes": [x[label]["gathered_bytes"] for x in two],
+            "steps": sum(x[1] for x in a["rows"]), "replicas": a["replicas"]}
+        counts[f"{label} 2 ranks"] = a["launches"]
+        log(f"  {label} over 2 ranks sharing {a['device']} (gloo): {summary[label]}; "
+            f"rank 0 launches {a['launches']}")
+        if label == "mid" or cx.rehearse:
+            if not (same_pl and same_rows):
+                raise RuntimeError(f"the {label} mesh placed apart from one device "
+                                   f"(first goal apart: {first})")
+        elif not (same_pl and same_rows) and not equisat:
+            raise RuntimeError(f"the large mesh is not equisatisfying with one device "
+                               f"(first goal apart: {first})")
+    nccl = one["mid"]
+    same_pl, same_rows = _same_rows_and_placement(nccl, refs["mid"])
+    summary["mid_nccl"] = {"backend": nccl["backend"], "identical_placement": same_pl,
+                           "identical_rows": same_rows, "rank_s": round(nccl["wall_s"], 4),
+                           "collectives": nccl["collectives"],
+                           "gathered_bytes": nccl["gathered_bytes"]}
+    counts["mid nccl"] = nccl["launches"]
+    log(f"  mid over a one-rank {nccl['backend']} group: {summary['mid_nccl']}; launches "
+        f"{nccl['launches']}")
+    if nccl["verified"] != "ok" or not (same_pl and same_rows):
+        raise RuntimeError("the one-rank mid mesh differs from the one-device run")
+    if not cx.rehearse and not nccl["launches"]["shard_combine"]:
+        raise RuntimeError("the one-rank mid mesh never launched cc_shard_combine")
     return counts, summary
 
 

@@ -35,6 +35,7 @@ from cruise_control_tpu_torch.analyzer.state import (BrokerArrays, OptimizationO
                                                      disk_loads, topic_counts)
 from cruise_control_tpu_torch.model.tensor_model import BrokerState, TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda, order
+from cruise_control_tpu_torch.parallel import collectives
 
 _NEG = -1e29  # "irrelevant" sentinel threshold (relevance uses -1e30)
 
@@ -540,6 +541,20 @@ def _legit_swap_mask(model, arrays, options, r1, r2) -> torch.Tensor:
             & both_alive & different
             & no_sibling_on(r1, b2) & no_sibling_on(r2, b1)
             & topic_ok & dest_ok & requested_ok & immigrants_ok)
+
+
+def shard_candidate_batch(cand: Candidates, mesh) -> Candidates:
+    """The rank's contiguous slice of every K-leading leaf of ``cand``
+    (``collectives.lane_range``: ``ceil(K/n)`` candidates a rank, in rank
+    order), the counterpart of the JAX package's ``P(search)`` constraint
+    (``candidates.py:36-52``): each rank scores and masks its own
+    candidates end to end, and ``collectives.gather_scores`` puts the
+    results back in candidate order.  No-op without a mesh or on a one-rank
+    mesh, as in ``candidates.py:48-49``."""
+    if mesh is None or mesh.size <= 1:
+        return cand
+    lo, hi = collectives.lane_range(cand.k, mesh)
+    return cand.map(lambda x: x[lo:hi])
 
 
 def concat_candidates(a: Candidates, b: Candidates) -> Candidates:

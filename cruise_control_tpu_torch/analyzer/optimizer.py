@@ -76,7 +76,14 @@ stand in for the channel budgets.  ``CRUISE_AOT_PRELOWER`` and
 ``CRUISE_TPU_COMPILE_CEILING`` work around the TPU's remote compiler and are
 not read.
 
-Not ported (``optimize`` raises): meshes and multi-round selection
+``optimize(mesh=...)`` runs every path under a search mesh
+(``parallel/mesh.py``, ranks over ``torch.distributed``): each step splits
+its candidate scoring (K5b, K5) over the ranks and gathers it back, the
+selection runs replicated, a replica-sharded model's aggregates combine
+across the ranks (K15), and the gated steps run eagerly — a captured CUDA
+graph cannot hold the collectives.
+
+Not ported (``optimize`` raises): multi-round selection
 (``moves_per_broker_step`` above ``SUBROUNDS``).
 """
 
@@ -128,6 +135,7 @@ from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stat
 from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda, order
 from cruise_control_tpu_torch.ops.segment import segment_sum
+from cruise_control_tpu_torch.parallel import collectives
 
 # Lanes per selection round (see the JAX package's SUBROUNDS).
 SUBROUNDS = 128
@@ -860,7 +868,8 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
                  spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
                  constraint: BalancingConstraint, num_sources: int, num_dests: int,
                  invariants: Optional[StepInvariants] = None,
-                 frontier: Optional[FrontierInvariants] = None, flight: bool = False):
+                 frontier: Optional[FrontierInvariants] = None, flight: bool = False,
+                 mesh=None):
     """The selecting half of one step: ``(cand, keep bool[K], sel_stats)``.
     With ``frontier`` the step is restricted to the active brokers (the JAX
     package's ``optimizer.py:1050-1056,1155-1160``): sources and
@@ -869,14 +878,24 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     (``_FlightInputs``: the batches' offsets and kinds, the score and
     eligibility before the budgets, and the K9 frontier mask of the entry
     model for band kinds).  The repair oracle and ``_DBG_NO_BUDGETS`` are
-    read here."""
+    read here.
+
+    Under a search ``mesh`` (``parallel/mesh.py``) of n ranks every rank
+    builds the whole batch, runs K5b and K5 on its own slice of it
+    (``cgen.shard_candidate_batch``; the JAX package's per-shard frontier
+    mask, ``optimizer.py:1161-1172``, is a layout hint implied by the
+    ``active`` clause and is not ported), gathers the
+    score and eligibility back in candidate order (one
+    ``collectives.gather_scores``, bit for bit: both are per-candidate) and
+    runs the selection replicated, so every rank keeps the same set and
+    K7 keeps the ranks' models identical."""
     all_specs = (spec,) + tuple(prev_specs)
     for s in all_specs:
         kernels.require_supported(s)
     if constraint.moves_per_broker_step > SUBROUNDS:
         raise NotImplementedError("multi-round selection (moves_per_broker_step > "
                                   f"{SUBROUNDS}) is not ported yet")
-    arrays = BrokerArrays.for_specs(model, all_specs)
+    arrays = BrokerArrays.for_specs(model, all_specs, mesh)
     num_sources = _goal_num_sources(spec, model, num_sources)
     inv = invariants
     if inv is None:
@@ -937,19 +956,22 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     # be active: inactive brokers alias compact slot 0.
     structural = tuple(p for p in prev_specs
                        if not kernels.is_band_kind(p) and p.kind != "preferred_leader")
-    accepted = (kernels.structural_accepts(structural, model, arrays, cand, constraint)
+    part = cgen.shard_candidate_batch(cand, mesh)
+    accepted = (kernels.structural_accepts(structural, model, arrays, part, constraint)
                 if structural else None)
     no_budgets = _DBG_NO_BUDGETS
     if no_budgets:
         # The budget ablation keeps the band check: the band goals' accepts
         # stand in for the budgets (``optimizer.py:1137-1143``).
-        band = kernels.accepts_band_batch(prev_specs, model, arrays, cand, constraint)
+        band = kernels.accepts_band_batch(prev_specs, model, arrays, part, constraint)
         accepted = band if accepted is None else accepted & band
     if active is not None:
-        both = active[cand.src] & active[cand.dest]
+        both = active[part.src] & active[part.dest]
         accepted = both if accepted is None else accepted & both
-    score, eligible = kernels.goal_masks(spec, model, arrays, cand, constraint,
+    score, eligible = kernels.goal_masks(spec, model, arrays, part, constraint,
                                          bands=bands, accepted=accepted)
+    if part is not cand:
+        score, eligible = collectives.gather_scores(mesh, score, eligible, cand.k)
     room_dest, slack_src = _channel_budgets(arrays, (inv.upper_min, inv.lower_max))
     topic_budgets = _topic_budgets(all_specs, model, arrays, inv, constraint)
     if no_budgets:
@@ -993,18 +1015,21 @@ def _goal_step(model: TensorClusterModel, options: OptimizationOptions,
                spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
                constraint: BalancingConstraint, num_sources: int, num_dests: int,
                invariants: Optional[StepInvariants] = None,
-               frontier: Optional[FrontierInvariants] = None):
+               frontier: Optional[FrontierInvariants] = None, mesh=None):
     """One optimization step for ``spec``: ``(new_model, n_kept, sel_stats)``
-    as the JAX package's ``_goal_step`` (``optimizer.py:1205-1214``)."""
+    as the JAX package's ``_goal_step`` (``optimizer.py:1205-1214``), its
+    candidate scoring split over ``mesh``'s ranks when one is given."""
     cand, keep, sel_stats = _step_select(model, options, spec, prev_specs, constraint,
-                                         num_sources, num_dests, invariants, frontier)
+                                         num_sources, num_dests, invariants, frontier,
+                                         mesh=mesh)
     return apply_candidates(model, cand, keep), keep.sum(), sel_stats
 
 
 def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
                 prev_specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
                 num_sources: int, num_dests: int,
-                frontier: Optional[FrontierInvariants] = None, flight_cap: int = 0) -> None:
+                frontier: Optional[FrontierInvariants] = None, flight_cap: int = 0,
+                mesh=None) -> None:
     """One iteration of the JAX package's fixpoint ``lax.while_loop``
     (``optimizer.py:1628-1651``) as an in-place update of ``st``: the step
     runs while ``last_n > 0 and steps < budget`` and is a no-op after —
@@ -1017,7 +1042,7 @@ def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
     steps, last_n = c[CTR_STEPS], c[CTR_LAST_N]
     active = (last_n > 0) & (steps < c[CTR_BUDGET])
     out = _step_select(st.model, st.options, spec, prev_specs, constraint, num_sources,
-                       num_dests, inv, frontier, flight=flight_cap > 0)
+                       num_dests, inv, frontier, flight=flight_cap > 0, mesh=mesh)
     cand, keep, (rep, lanes, depth) = out[:3]
     keep = keep & active
     if flight_cap > 0:
@@ -1036,15 +1061,22 @@ def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
         c[CTR_LANES] + a * lanes, c[CTR_BUDGET]]))
 
 
+def _check_agree(mesh, model: TensorClusterModel, what: str) -> None:
+    """The divergence guard of a sharded solve, at a chunk boundary."""
+    if mesh is not None:
+        collectives.check_agree(mesh, [getattr(model, f) for f in MUTABLE_FIELDS], what)
+
+
 def _goal_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
                    spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
                    constraint: BalancingConstraint, num_sources: int,
-                   num_dests: int, max_steps: int):
+                   num_dests: int, max_steps: int, mesh=None):
     """Run ``spec`` to its fixpoint: ``(model, packed i32[5])`` with the
     steps, actions, satisfied before/after and capped flags at the
     ``PACKED_*`` slots.  K9 with G = 1 gives the flags at entry and exit.
-    The step loop reads one count per step."""
-    arrays0 = BrokerArrays.from_model(model)
+    The step loop reads one count per step.  Under ``mesh`` the ranks'
+    placements are checked equal at the end (``collectives.check_agree``)."""
+    arrays0 = BrokerArrays.from_model(model, mesh=mesh)
     sat, any_offline = kernels.stack_satisfied((spec,), model, arrays0, constraint)
     before = sat[0]
     skip = bool(before & ~any_offline[0])
@@ -1053,11 +1085,12 @@ def _goal_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
     last_n = 0 if skip else 1
     while last_n > 0 and steps < max_steps:
         model, n, _ = _goal_step(model, options, spec, prev_specs, constraint,
-                                 num_sources, num_dests, invariants=inv)
+                                 num_sources, num_dests, invariants=inv, mesh=mesh)
         last_n = int(n)
         steps += 1
         total += last_n
-    after = kernels.stack_satisfied((spec,), model, BrokerArrays.from_model(model),
+    _check_agree(mesh, model, spec.name)
+    after = kernels.stack_satisfied((spec,), model, BrokerArrays.from_model(model, mesh=mesh),
                                     constraint)[0][0]
     capped = steps >= max_steps and last_n > 0
     packed = torch.zeros((5,), dtype=torch.int32)
@@ -1087,7 +1120,8 @@ def _goal_fixpoint_budget(st: StepState, spec: GoalSpec,
                           prev_specs: Tuple[GoalSpec, ...],
                           constraint: BalancingConstraint, num_sources: int,
                           num_dests: int, max_steps: int,
-                          cache: Optional[graphs.GraphCache], flight_capacity: int = 0):
+                          cache: Optional[graphs.GraphCache], flight_capacity: int = 0,
+                          mesh=None):
     """One goal of the fused stack on ``st``, in place: the JAX package's
     ``_goal_fixpoint_budget`` (``optimizer.py:1572-1702``) with
     ``frontier=None, touched=None, next_mask=None`` — one dense chunk of
@@ -1099,7 +1133,7 @@ def _goal_fixpoint_budget(st: StepState, spec: GoalSpec,
     recorder."""
     t0 = time.monotonic()
     runner = _ChunkRunner(st, spec, tuple(prev_specs), constraint, cache,
-                          flight_cap=flight_capacity)
+                          flight_cap=flight_capacity, mesh=mesh)
     chunk = runner.dispatch(None, None, num_sources, num_dests, max_steps, False)
     packed = runner.close(chunk)
     run = _GoalRun(wall_s=time.monotonic() - t0, gated_steps=chunk.replays,
@@ -1112,23 +1146,26 @@ def _goal_fixpoint_budget(st: StepState, spec: GoalSpec,
 def _stack_fixpoint(st: StepState, specs: Tuple[GoalSpec, ...],
                     constraint: BalancingConstraint, num_sources: int, num_dests: int,
                     max_steps: int, prev_specs: Tuple[GoalSpec, ...] = (),
-                    cache: Optional[graphs.GraphCache] = None, flight_capacity: int = 0):
+                    cache: Optional[graphs.GraphCache] = None, flight_capacity: int = 0,
+                    mesh=None):
     """A group of goals chained in priority order on ``st`` (the JAX
     package's ``_stack_fixpoint``, ``optimizer.py:2491``): each goal runs
     under the acceptance of every goal before it.  Returns ``(packed
     i32[PACKED_WIDTH, G] on the host — one fetch for the group —,
     [_GoalRun])``, and with ``flight_capacity`` > 0 also the goals' flight
-    rows i32[G, flight_capacity, FLIGHT_WIDTH], in the same transfer."""
+    rows i32[G, flight_capacity, FLIGHT_WIDTH], in the same transfer.
+    Under ``mesh`` the ranks' placements are checked equal at the fetch."""
     packed_l, runs, flights = [], [], []
     prev = tuple(prev_specs)
     for spec in specs:
         out = _goal_fixpoint_budget(st, spec, prev, constraint, num_sources, num_dests,
-                                    max_steps, cache, flight_capacity)
+                                    max_steps, cache, flight_capacity, mesh)
         packed_l.append(out[0])
         runs.append(out[1])
         flights.extend(out[2:])
         prev = prev + (spec,)
     packed = torch.stack(packed_l, dim=1)
+    _check_agree(mesh, st.model, specs[-1].name)
     if not flight_capacity:
         return packed.cpu().numpy(), runs
     flight = torch.stack(flights)
@@ -1181,10 +1218,17 @@ def _frontier_bucket(num_active: int, num_brokers: int) -> Optional[int]:
     return bucket
 
 
-def _frontier_widths(bucket: int, ns: int, nd: int) -> Tuple[int, int]:
+def _frontier_widths(bucket: int, ns: int, nd: int, lanes: int = 1) -> Tuple[int, int]:
     """(ns, nd) of a compacted chunk (``optimizer.py:1404``): the candidate
-    widths shrink with the frontier, with exploration floors."""
-    return max(1, min(ns, max(32, 4 * bucket))), max(1, min(nd, bucket))
+    widths shrink with the frontier, with exploration floors; ``lanes``
+    (the mesh size under a search mesh) rounds each up to a multiple of
+    itself, so that the compacted batch splits evenly over the ranks
+    (``optimizer.py:1416-1419``)."""
+    cns, cnd = max(1, min(ns, max(32, 4 * bucket))), max(1, min(nd, bucket))
+    if lanes > 1:
+        cns = -(-cns // lanes) * lanes
+        cnd = -(-cnd // lanes) * lanes
+    return cns, cnd
 
 
 def _build_frontier(active_np: np.ndarray, bucket: int) -> FrontierInvariants:
@@ -1380,25 +1424,25 @@ def chunk_touched(rb0: torch.Tensor, rl0: torch.Tensor, rd0: torch.Tensor,
 
 
 def _stack_satisfied(model: TensorClusterModel, specs: Sequence[GoalSpec],
-                     constraint: BalancingConstraint) -> Tuple[np.ndarray, bool]:
+                     constraint: BalancingConstraint, mesh=None) -> Tuple[np.ndarray, bool]:
     """The fused "already satisfied?" sweep (``optimizer.py:2332``): K9 over
     the whole stack, fetched in one transfer.  Returns (bool[G], offline
     replicas remain)."""
-    arrays = BrokerArrays.for_specs(model, specs)
+    arrays = BrokerArrays.for_specs(model, specs, mesh)
     sat, off = kernels.stack_satisfied(tuple(specs), model, arrays, constraint)
     flags = torch.cat([sat, off]).cpu().numpy()
     return flags[:-1], bool(flags[-1])
 
 
 def _stack_frontiers(model: TensorClusterModel, specs: Sequence[GoalSpec],
-                     constraint: BalancingConstraint):
+                     constraint: BalancingConstraint, mesh=None):
     """The pipeline's sweep (``optimizer.py:2340``): every goal's satisfied
     flag and the offline flag (K9 sweep) and every goal's predicted
     frontier, all false for the goals that are not of a band kind (K9
     batch), on the device: ``(sat bool[G], off bool[1], fronts bool[G,
     B])``."""
     specs = tuple(specs)
-    arrays = BrokerArrays.for_specs(model, specs)
+    arrays = BrokerArrays.for_specs(model, specs, mesh)
     sat, off = kernels.stack_satisfied(specs, model, arrays, constraint)
     fronts, _ = kernels.frontier_active_batch(
         *kernels.frontier_inputs_batch(specs, model, arrays, constraint))
@@ -1418,14 +1462,16 @@ def _get_sweep_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint):
     return sweep
 
 
-def _get_frontier_sweep_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint):
+def _get_frontier_sweep_fn(specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
+                           mesh=None):
     """``model -> (sat bool[G], off bool, fronts bool[G, B])`` on the host:
     ``_stack_frontiers`` fetched in one transfer (the JAX package's name
-    and signature, ``optimizer.py:2371``)."""
+    and signature, ``optimizer.py:2371``; ``mesh`` as in
+    ``BrokerArrays.from_model``)."""
     G = len(specs)
 
     def sweep(model: TensorClusterModel):
-        sat, off, fronts = _stack_frontiers(model, specs, constraint)
+        sat, off, fronts = _stack_frontiers(model, specs, constraint, mesh)
         flags = torch.cat([sat, off, fronts.reshape(-1)]).cpu().numpy()
         return flags[:G], bool(flags[G]), flags[G + 1:].reshape(G, model.num_brokers)
     return sweep
@@ -1675,12 +1721,16 @@ class _ChunkRunner:
     closed before an opener reads its gate from the predecessor's slot.
 
     Each bucket's frontier maps live in the graph cache's static buffers
-    and are written there when a chunk that uses them is dispatched."""
+    and are written there when a chunk that uses them is dispatched.
+
+    Under a search ``mesh`` (no ``cache``: the gated steps run eagerly)
+    every step splits its candidate scoring over the ranks."""
 
     def __init__(self, st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
                  constraint: BalancingConstraint, cache: Optional[graphs.GraphCache],
-                 lane: Optional[_Lane] = None, flight_cap: int = 0):
+                 lane: Optional[_Lane] = None, flight_cap: int = 0, mesh=None):
         self.st = st
+        self.mesh = mesh
         # Rows of the flight buffer the steps write (0: recorder off); it
         # rides each chunk's host transfer.
         self.flight_cap = flight_cap
@@ -1697,7 +1747,7 @@ class _ChunkRunner:
         self.count = 0
 
     def _arrays(self) -> BrokerArrays:
-        return BrokerArrays.for_specs(self.st.model, self.all_specs)
+        return BrokerArrays.for_specs(self.st.model, self.all_specs, self.mesh)
 
     def _entry_flags(self, arrays: BrokerArrays):
         return kernels.stack_satisfied((self.spec,), self.st.model, arrays, self.constraint)
@@ -1715,7 +1765,8 @@ class _ChunkRunner:
         st = self.st
         step = functools.partial(_gated_step, spec=self.spec, prev_specs=self.prev,
                                  constraint=self.constraint, num_sources=chunk.ns,
-                                 num_dests=chunk.nd, flight_cap=self.flight_cap)
+                                 num_dests=chunk.nd, flight_cap=self.flight_cap,
+                                 mesh=self.mesh)
         if self.cache is None:
             fr = chunk.fr
             if fr is not None and fr.active.device != st.model.device:
@@ -1940,15 +1991,19 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
                      min_chunk: int, speculate: Optional[bool],
                      cache: Optional[graphs.GraphCache], seed_active=None,
                      next_goal: Optional[PipelineNextGoal] = None,
-                     prelaunch: Optional[dict] = None) -> dict:
+                     prelaunch: Optional[dict] = None, mesh=None) -> dict:
     """The host control flow of the JAX package's ``frontier_fixpoint``
-    (``optimizer.py:1854-2323``, without callbacks or a mesh), line for
+    (``optimizer.py:1854-2323``, without callbacks), line for
     line, on ``st`` in place; only the dispatch and the
     fetch are the port's (``_ChunkRunner``).  With ``next_goal`` the next
     goal's opener is queued behind every authoritative chunk; with
     ``prelaunch`` (a previous driver's ``handoff``) the opener it holds is
-    this goal's first chunk, on that driver's working state."""
+    this goal's first chunk, on that driver's working state.  Under
+    ``mesh`` the compacted widths round up to the mesh size, the ranks'
+    placements are checked equal at every boundary, and each chunk record counts the collectives issued
+    and the bytes gathered since the previous one."""
     B = st.model.num_brokers
+    lanes = mesh.size if mesh is not None else 1
     # Every chunk's length is at most this, so one buffer holds its rows.
     flight_cap = min(chunk_steps, max_steps) if _flight_recorder() else 0
     flight_steps: List[dict] = []
@@ -1962,7 +2017,7 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
         lane = runner.lane
     else:
         lane = _Lane(st)
-        runner = _ChunkRunner(st, spec, prev_specs, constraint, cache, lane, flight_cap)
+        runner = _ChunkRunner(st, spec, prev_specs, constraint, cache, lane, flight_cap, mesh)
     chunks: List[dict] = []
     buckets: set = set()
     fresh = False
@@ -2016,7 +2071,7 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
             opener_fcap = (min(next_goal.chunk_len, next_goal.max_steps)
                            if _flight_recorder() else 0)
             nxt_runner = _ChunkRunner(st, next_goal.spec, tuple(next_goal.prev_specs),
-                                      constraint, cache, lane, opener_fcap)
+                                      constraint, cache, lane, opener_fcap, mesh)
     pending: Optional[_Chunk] = None
     t_first_dispatch: Optional[float] = None
     if prelaunch is not None:
@@ -2024,10 +2079,11 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
         t_first_dispatch = prelaunch.get("t_dispatch")
         seeded = prelaunch.get("seeded", 0) or seeded
     t_prev = time.monotonic()
+    coll_prev = dict(collectives.COUNTERS)
 
     def _dispatch(bucket, fr, blen, speculative, confirm=False, after=None) -> _Chunk:
         nonlocal fresh, speculated, replays, counter_reads, t_first_dispatch
-        cns, cnd = (ns, nd) if bucket is None else _frontier_widths(bucket, ns, nd)
+        cns, cnd = (ns, nd) if bucket is None else _frontier_widths(bucket, ns, nd, lanes)
         rec = runner.dispatch(bucket, fr, cns, cnd, blen, speculative, confirm,
                               after=after, mask=next_mask)
         fresh = fresh or rec.fresh
@@ -2064,7 +2120,7 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
             # its follow-up): K11 cross releases its budget only when this
             # chunk ends the goal without touching the opener's seed.
             ons, ond = (ns, nd) if opener_bucket is None else \
-                _frontier_widths(opener_bucket, ns, nd)
+                _frontier_widths(opener_bucket, ns, nd, lanes)
             cross_rec = nxt_runner.dispatch_cross(cur, opener_bucket, opener_fr, ons, ond,
                                                   opener_blen)
             fresh = fresh or cross_rec.fresh
@@ -2074,6 +2130,7 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
         bytes0 = FETCH_COUNTERS["fetch_bytes"]
         packed_np, active_np, flight_np = runner.fetch(cur)
         fetch_bytes = FETCH_COUNTERS["fetch_bytes"] - bytes0
+        _check_agree(mesh, st.model, f"{spec.name} chunk {len(chunks)}")
         if cur.cross:
             # The adopted opener: its queued steps, and the rest replayed
             # before its close.
@@ -2103,6 +2160,11 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
                        "fresh_compile": cur.fresh, "speculative": cur.speculative,
                        "replays": cur.replays, "num_active": na, "cross": cur.cross,
                        "fetch_bytes": fetch_bytes})
+        if mesh is not None:
+            chunks[-1].update(
+                collectives=collectives.COUNTERS["collectives"] - coll_prev["collectives"],
+                gathered_bytes=collectives.COUNTERS["bytes"] - coll_prev["bytes"])
+            coll_prev = dict(collectives.COUNTERS)
         if flight_np is not None:
             ci = len(flight_chunks)
             flight_steps.extend(_flight_step_dicts(flight_np[:s], len(flight_steps), ci))
@@ -2186,6 +2248,16 @@ def _frontier_driver(st: StepState, spec: GoalSpec, prev_specs: Tuple[GoalSpec, 
     return info
 
 
+def _graph_cache(model: TensorClusterModel, mesh=None) -> Optional[graphs.GraphCache]:
+    """The step-graph cache on the card; None (eager gated steps) on the
+    CPU, under the repair oracle, whose loop reads the card from the host,
+    and under a search mesh, whose collectives a captured graph cannot
+    hold."""
+    if model.device.type == "cuda" and not _repair_oracle() and mesh is None:
+        return graphs.GRAPHS
+    return None
+
+
 def frontier_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
                       spec: GoalSpec, prev_specs: Tuple[GoalSpec, ...],
                       constraint: BalancingConstraint,
@@ -2194,7 +2266,7 @@ def frontier_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
                       tail_threshold: float = 0.1, min_chunk: int = 4,
                       speculate: Optional[bool] = None, seed_active=None,
                       next_goal: Optional[PipelineNextGoal] = None,
-                      prelaunch: Optional[dict] = None):
+                      prelaunch: Optional[dict] = None, mesh=None):
     """The chunked per-goal driver (the JAX package's ``frontier_fixpoint``,
     ``optimizer.py:1854``) on ``model``'s device: ``(model, info)`` with
     the JAX package's info keys (``flight`` with the recorder on: the
@@ -2225,8 +2297,10 @@ def frontier_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
     has ``cross_dispatched``, ``cross_wasted``, ``t_first_dispatch``,
     ``adopted_prelaunch``, and the port's ``cross_replays`` and
     ``cross_replays_wasted`` (the openers' queued gated steps).  On the
-    card the chunks replay the step graphs of ``graphs.GRAPHS``."""
-    cache = graphs.GRAPHS if model.device.type == "cuda" and not _repair_oracle() else None
+    card the chunks replay the step graphs of ``graphs.GRAPHS``; under a
+    search ``mesh`` (``parallel.mesh.distributed_frontier_fixpoint``) the
+    gated steps run eagerly and split their scoring over the ranks."""
+    cache = _graph_cache(model, mesh)
     ns = num_sources or cgen.default_num_sources(model)
     nd = num_dests or cgen.default_num_dests(model)
     with cache.lock if cache is not None else contextlib.nullcontext():
@@ -2238,7 +2312,7 @@ def frontier_fixpoint(model: TensorClusterModel, options: OptimizationOptions,
         info = _frontier_driver(st, spec, tuple(prev_specs), constraint, ns, nd,
                                 max_steps, chunk_steps, frontier, tail_threshold,
                                 min_chunk, speculate, cache, seed_active=seed_active,
-                                next_goal=next_goal, prelaunch=prelaunch)
+                                next_goal=next_goal, prelaunch=prelaunch, mesh=mesh)
         handoff = info.get("handoff")
         if handoff is not None:
             # The returned model holds the whole opener, as the JAX
@@ -2353,7 +2427,7 @@ def _optimize_fused(model: TensorClusterModel, options: OptimizationOptions,
                     specs: Sequence[GoalSpec], constraint: BalancingConstraint,
                     ns: int, nd: int, max_steps: int, group: int,
                     raise_on_hard_failure: bool, k_of,
-                    cache: Optional[graphs.GraphCache]):
+                    cache: Optional[graphs.GraphCache], mesh=None):
     """The grouped stack (``optimizer.py:3480-3618``): groups of ``group``
     goals in priority order over one working state, each group's packed
     stats fetched once.  Returns ``(final model, [GoalResult], candidates
@@ -2368,7 +2442,7 @@ def _optimize_fused(model: TensorClusterModel, options: OptimizationOptions,
         chunk = tuple(specs[start:start + group])
         t0 = time.monotonic()
         out = _stack_fixpoint(st, chunk, constraint, ns, nd, max_steps, prev_specs=prev,
-                              cache=cache, flight_capacity=flight_cap)
+                              cache=cache, flight_capacity=flight_cap, mesh=mesh)
         packed, runs = out[:2]
         wall = time.monotonic() - t0
         _push_dispatch_sensors(chunk[0].name, 1, 0, 0)
@@ -2455,7 +2529,7 @@ def _optimize_per_goal(model: TensorClusterModel, options: OptimizationOptions,
                        ns: int, nd: int, max_steps: int, segment_steps: Optional[int],
                        use_frontier: bool, raise_on_hard_failure: bool, k_of,
                        cache: Optional[graphs.GraphCache],
-                       seed_mask: Optional[np.ndarray] = None):
+                       seed_mask: Optional[np.ndarray] = None, mesh=None):
     """The sequential per-goal branch of the JAX package's ``_optimize``
     (``optimizer.py:3382-3467``): one K9 sweep answers "already satisfied?"
     for the whole stack and is re-run only after a goal applied actions;
@@ -2476,7 +2550,7 @@ def _optimize_per_goal(model: TensorClusterModel, options: OptimizationOptions,
         sweep_fetch = 0
         if sat_v is None:
             SWEEP_COUNTERS["dispatches"] += 1
-            sat_v, sweep_off = _stack_satisfied(st.model, specs, constraint)
+            sat_v, sweep_off = _stack_satisfied(st.model, specs, constraint, mesh)
             sweep_fetch = 1
         if bool(sat_v[i]) and not sweep_off:
             SWEEP_COUNTERS["skipped_goals"] += 1
@@ -2486,7 +2560,8 @@ def _optimize_per_goal(model: TensorClusterModel, options: OptimizationOptions,
             continue
         info = _frontier_driver(st, spec, prev, constraint, ns, nd, max_steps,
                                 _chunk_len(spec, use_frontier, B, max_steps, segment_steps),
-                                use_frontier, 0.1, 4, None, cache, seed_active=seed_mask)
+                                use_frontier, 0.1, 4, None, cache, seed_active=seed_mask,
+                                mesh=mesh)
         for ch in info["chunks"]:
             scored += ch["steps"] * k_of(spec, ch["ns"], ch["nd"])
         if info["actions"]:
@@ -2499,12 +2574,14 @@ def _optimize_per_goal(model: TensorClusterModel, options: OptimizationOptions,
 
 
 def _push_dispatch_sensors(goal_name: str, fetches: int, chunks_speculative: int,
-                           chunks_wasted: int, fetch_bytes: int = 0) -> None:
+                           chunks_wasted: int, fetch_bytes: int = 0,
+                           collectives: int = 0) -> None:
     """Dispatch counters into the sensor registry (``optimizer.py:2559``):
     how often the chunk driver blocked on the device, how much speculative
-    dispatch bought (launched) and burned (gated to zero), and the bytes
-    each boundary fetch moved.  The JAX package's mesh-collective counter is
-    not reported: the port runs on one device."""
+    dispatch bought (launched) and burned (gated to zero), the bytes each
+    boundary fetch moved, and the collectives the rank issued under a
+    search mesh (0 without one; the JAX package counts those in the
+    dispatched programs' HLO)."""
     labels = {"goal": goal_name}
     SENSORS.counter(
         "GoalOptimizer.device-fetches", labels=labels,
@@ -2522,6 +2599,10 @@ def _push_dispatch_sensors(goal_name: str, fetches: int, chunks_speculative: int
         "GoalOptimizer.boundary-fetch-bytes", labels=labels,
         help="Bytes moved hostward by chunk-boundary fetches",
     ).inc(fetch_bytes)
+    SENSORS.counter(
+        "GoalOptimizer.mesh-collective-ops", labels=labels,
+        help="Collectives the rank issued over the search mesh",
+    ).inc(collectives)
 
 
 def _push_repair_sensors(goal_name: str, repair_steps: int, bisect_depth: int,
@@ -2579,7 +2660,8 @@ def _push_driver_sensors(spec: GoalSpec, info: dict) -> None:
                          info.get("bisect_depth", 0), info.get("lanes_live", 0))
     _push_dispatch_sensors(spec.name, info.get("fetches", 0),
                            info.get("chunks_speculative", 0), info.get("chunks_wasted", 0),
-                           fetch_bytes=sum(c.get("fetch_bytes", 0) for c in info["chunks"]))
+                           fetch_bytes=sum(c.get("fetch_bytes", 0) for c in info["chunks"]),
+                           collectives=sum(c.get("collectives", 0) for c in info["chunks"]))
     if info.get("flight") is not None:
         _push_flight_sensors(spec.name, info["flight"])
 
@@ -2661,7 +2743,7 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
                         segment_steps: Optional[int], use_frontier: bool,
                         raise_on_hard_failure: bool, k_of,
                         cache: Optional[graphs.GraphCache],
-                        seed_mask: Optional[np.ndarray] = None):
+                        seed_mask: Optional[np.ndarray] = None, mesh=None):
     """The pipelined branch of the JAX package's ``_optimize``
     (``optimizer.py:3146-3381``), line for line: one sweep
     (``_get_frontier_sweep_fn``) predicts every goal's satisfaction and
@@ -2679,7 +2761,9 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
         StepState.working(model, options)
     B = model.num_brokers
     max_steps = max(max_steps_per_goal, 1)
-    fr_sweep = _get_frontier_sweep_fn(tuple(specs), constraint)
+    # Without a mesh, the JAX package's two-argument call (which tests substitute).
+    fr_sweep = (_get_frontier_sweep_fn(tuple(specs), constraint) if mesh is None
+                else _get_frontier_sweep_fn(tuple(specs), constraint, mesh))
     allow_fuse = _fusion_allowed(use_frontier, segment_steps)
     results: List[GoalResult] = []
     scored = skipped = overlapped = fused = attempted = cross_wasted = 0
@@ -2740,7 +2824,7 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
             if len(fuse_specs) > 1:
                 packed_np, runs = _stack_fixpoint(st, fuse_specs, constraint, ns, nd,
                                                   max_steps_per_goal, prev_specs=prev,
-                                                  cache=cache)
+                                                  cache=cache, mesh=mesh)
                 FETCH_COUNTERS["device_fetches"] += 1
                 now = time.monotonic()
                 share = (now - tg) / len(fuse_specs)
@@ -2769,7 +2853,7 @@ def _optimize_pipelined(model: TensorClusterModel, options: OptimizationOptions,
                                 _chunk_len(spec, use_frontier, B, max_steps, segment_steps),
                                 use_frontier, 0.1, 4, None, cache,
                                 seed_active=seed_mask if handoff is None else None,
-                                next_goal=mk_next(idx + 1), prelaunch=handoff)
+                                next_goal=mk_next(idx + 1), prelaunch=handoff, mesh=mesh)
         adopted = bool(info.get("adopted_prelaunch"))
         handoff = info.get("handoff")
         if handoff is not None:
@@ -2854,6 +2938,20 @@ def optimize(model: TensorClusterModel, goal_names: Sequence[str],
         return run
 
 
+def _mesh_device(mesh, model: TensorClusterModel, dev: torch.device) -> torch.device:
+    """The device a solve under ``mesh`` runs on: the mesh's.  Raises on an
+    object that is no ``SearchMesh``, a ``device`` of another type than the
+    mesh's, or a model sharded over another mesh."""
+    from cruise_control_tpu_torch.parallel.mesh import SearchMesh
+    if not isinstance(mesh, SearchMesh):
+        raise TypeError(f"mesh must be a parallel.mesh.SearchMesh, got {type(mesh).__name__}")
+    if dev.type != mesh.device.type:
+        raise ValueError(f"device {dev} given for a mesh on {mesh.device}")
+    if model.replica_mesh is not None and model.replica_mesh != mesh:
+        raise ValueError("the model is sharded over another mesh")
+    return mesh.device
+
+
 def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
              constraint: Optional[BalancingConstraint] = None,
              options: Optional[OptimizationOptions] = None,
@@ -2905,8 +3003,18 @@ def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
     only on the per-goal paths and ``segment_steps`` only on the fused
     ones: elsewhere they are ignored.  ``pipeline=True`` with
     ``fused=False`` or a ``fuse_group_size`` above 1 raises
-    ``ValueError``, as in the JAX package; ``mesh`` raises
-    ``NotImplementedError``.
+    ``ValueError``, as in the JAX package.
+
+    ``mesh`` (a ``parallel.mesh.SearchMesh``; any other object raises
+    ``TypeError``) runs the chosen path on every rank of the mesh, on the
+    mesh's device, with each step's candidate scoring split over the ranks
+    (see ``_step_select``); pass the model as is (replicated) or placed
+    with ``shard_model_replica_axis`` over the same mesh (a model so
+    placed without its mesh raises ``ValueError``).  The returned model is
+    unsharded (``replica_mesh`` None): each rank holds the whole placement.
+    The orchestration and the results are the one-device path's; the gated
+    steps run eagerly (no ``graphs.GRAPHS``), and ``donate_model`` is
+    ignored, as in the JAX package (``optimizer.py:3028``).
 
     ``warm_start`` (a ``WarmStart``) re-bases the model onto its
     ``prev_model``'s placement (copied) when it is ``compatible_with`` the
@@ -2922,11 +3030,14 @@ def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
     fused paths replay the gated steps' CUDA graphs (``graphs.GRAPHS``),
     except under ``CRUISE_REPAIR_ORACLE=1``, whose repair loop reads the
     card from the host: there the gated steps run eagerly."""
-    if mesh is not None:
-        raise NotImplementedError("optimize(mesh=...) is not ported yet")
     if pipeline and not fused:
         raise ValueError("pipeline=True requires fused=True (the fused per-goal path)")
     dev = resolve_device(device)
+    if mesh is not None:
+        dev = _mesh_device(mesh, model, dev)
+    elif model.replica_mesh is not None:
+        raise ValueError("the model is sharded over a search mesh "
+                         "(shard_model_replica_axis): pass that mesh")
     model = model.to(dev)
     warm = False
     seed_mask: Optional[np.ndarray] = None
@@ -2999,8 +3110,7 @@ def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
     results: List[GoalResult] = []
     scored = 0
     counts: dict = {}
-    # The repair oracle's loop reads the device on the host: no graphs.
-    cache = graphs.GRAPHS if fused and dev.type == "cuda" and not _repair_oracle() else None
+    cache = _graph_cache(model, mesh) if fused else None
     if fused and per_goal:
         use_frontier = (frontier if frontier is not None
                         else model.num_brokers > _FRONTIER_DENSE_MIN)
@@ -3010,18 +3120,18 @@ def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
                 model, options, specs, constraint, ns, nd,
                 max_steps_per_goal if pipe else max(max_steps_per_goal, 1),
                 segment_steps, use_frontier, raise_on_hard_failure, k_of, cache,
-                seed_mask=seed_mask)
+                seed_mask=seed_mask, mesh=mesh)
     elif fused:
         with cache.lock if cache is not None else contextlib.nullcontext():
             model, results, scored = _optimize_fused(
                 model, options, specs, constraint, ns, nd, max_steps_per_goal,
-                group, raise_on_hard_failure, k_of, cache)
+                group, raise_on_hard_failure, k_of, cache, mesh)
     else:
         prev = ()
         for spec in specs:
             t0 = time.monotonic()
             model, packed = _goal_fixpoint(model, options, spec, prev, constraint,
-                                           ns, nd, max_steps_per_goal)
+                                           ns, nd, max_steps_per_goal, mesh)
             steps, actions = int(packed[PACKED_STEPS]), int(packed[PACKED_ACTIONS])
             after = bool(packed[PACKED_AFTER])
             scored += steps * k_of(spec)
@@ -3044,7 +3154,8 @@ def _optimize(model: TensorClusterModel, goal_names: Sequence[str],
     if warm:
         _push_warm_sensors(int(seed_mask.sum()) if seed_mask is not None else 0,
                            counts.get("goals_skipped", 0))
-    return OptimizerRun(model=model, goal_results=results, stats_before=stats_before,
+    return OptimizerRun(model=model.replace(replica_mesh=None), goal_results=results,
+                        stats_before=stats_before,
                         stats_after=compute_stats(model), num_candidates_scored=scored,
                         provision_response=provision,
                         balancedness_before=balancedness_score(

@@ -4,7 +4,8 @@ inter-goal pipeline's next-goal descriptor and warm-start seeding.
 Counterpart of ``cruise_control_tpu/analyzer/state.py`` for the dense,
 per-goal and pipelined paths.
 ``BrokerArrays.from_model`` is where K1 (``ops.segment.broker_aggregates``)
-runs: once per optimizer step and once per satisfied check.
+runs: once per optimizer step and once per satisfied check (under a
+replica-sharded model over the rank's rows, with K15 across the ranks).
 ``WarmStart``, ``ModelDelta`` and ``model_delta`` are host code (numpy over
 host copies of the models), as in the JAX package.
 """
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 
 from cruise_control_tpu_torch.model.tensor_model import TENSOR_FIELDS, TensorClusterModel
-from cruise_control_tpu_torch.ops.segment import broker_aggregates, segment_sum
+from cruise_control_tpu_torch.ops.segment import segment_sum
+from cruise_control_tpu_torch.parallel import collectives
 
 # The goal kinds that balance the disks of each broker (JBOD).
 INTRA_DISK_KINDS = ("intra_disk_capacity", "intra_disk_distribution")
@@ -55,13 +57,20 @@ class BrokerArrays:
     @classmethod
     def from_model(cls, model: TensorClusterModel, with_topic_counts: bool = False,
                    with_topic_leaders: bool = False, with_disk_load: bool = False,
-                   with_disk_means: bool = False) -> "BrokerArrays":
+                   with_disk_means: bool = False, mesh=None) -> "BrokerArrays":
+        """The step's per-broker arrays.  Under the search ``mesh`` that
+        ``model`` is replica-sharded over (``model.replica_mesh``), K1's
+        aggregates and the disk loads cover the rank's rows and combine
+        across the ranks through K15 (``collectives.sharded_*``); otherwise
+        they cover every row on this process, with no collective."""
         alive = model.alive_broker_mask()
-        disk_load = model.disk_load() if with_disk_load or with_disk_means else None
-        load, rc, lc, pnw, lbi = broker_aggregates(
-            model.replica_broker, model.replica_valid, model.replica_is_leader,
-            model.replica_load_leader, model.replica_load_follower,
-            model.num_brokers)
+        split = mesh is not None and model.replica_mesh is not None
+        disk_load = None
+        if with_disk_load or with_disk_means:
+            disk_load = (collectives.sharded_disk_load(model, mesh) if split
+                         else model.disk_load())
+        load, rc, lc, pnw, lbi = (collectives.sharded_broker_aggregates(model, mesh)
+                                  if split else model.aggregates())
         return cls(
             load=load, replica_count=rc, leader_count=lc,
             potential_nw_out=pnw, leader_bytes_in=lbi,
@@ -79,7 +88,7 @@ class BrokerArrays:
         )
 
     @classmethod
-    def for_specs(cls, model: TensorClusterModel, specs) -> "BrokerArrays":
+    def for_specs(cls, model: TensorClusterModel, specs, mesh=None) -> "BrokerArrays":
         """``from_model`` with the tables that ``specs`` read: (topic,
         broker) replica counts for a topic goal, leader counts for a
         min-topic-leaders goal, the disk loads for an intra-broker disk
@@ -89,7 +98,7 @@ class BrokerArrays:
         return cls.from_model(model, "topic_replica_distribution" in kinds,
                               "min_topic_leaders" in kinds,
                               bool(kinds & set(INTRA_DISK_KINDS)),
-                              "intra_disk_distribution" in kinds)
+                              "intra_disk_distribution" in kinds, mesh)
 
 
 def topic_counts(model: TensorClusterModel, arrays: BrokerArrays) -> torch.Tensor:
@@ -166,7 +175,14 @@ class FrontierInvariants:
     steps and the index maps between the full broker axis and a compacted
     axis bucketed to a power of two.  A compacted step runs its selection
     segment spaces over the compacted axis while the candidates keep their
-    full broker ids.  The bucket is ``full_of_compact.shape[0]``."""
+    full broker ids.  The bucket is ``full_of_compact.shape[0]``.
+
+    The JAX package's ``shard_active`` (the compact slots' liveness, placed
+    ``P(search)``) is a layout hint for GSPMD with no effect on the values:
+    a candidate whose source and destination are active has live slots, so
+    the ``active`` clause already implies it (``optimizer.py:1163-1169``).
+    A search mesh of the port issues its collectives itself and needs no
+    such operand."""
 
     active: torch.Tensor           # bool[B] — full-axis membership mask
     compact_of_full: torch.Tensor  # i32[B] — compact id per broker, -1 when inactive

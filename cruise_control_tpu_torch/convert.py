@@ -5,7 +5,9 @@
 ints.  ``model_from_numpy`` rebuilds the model on ``device``.  The JAX
 package's model has the same field names and static ints, so the same
 dicts, read from its leaves with ``np.asarray``, carry a model across in
-either direction.  ``aggregation_to_numpy`` / ``aggregation_from_numpy`` do
+either direction; a JAX model whose replica axis is sharded over a device
+mesh reads whole (``np.asarray`` of a sharded array gathers it), so it
+converts to the same port model as the unsharded one.  ``aggregation_to_numpy`` / ``aggregation_from_numpy`` do
 the same for a metric aggregator's ``AggregationResult`` (K14's inputs):
 its fields are numpy arrays, ints and entity keys in both packages.  This
 module imports no JAX: the caller does the reading.

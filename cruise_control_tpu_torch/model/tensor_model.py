@@ -10,6 +10,16 @@ Each replica carries a leader and a follower load row (f32[R, 4]); the
 actual load is selected by the leadership flag, so moving leadership is an
 index flip.  Padded rows are masked by ``*_valid``.  Types follow the JAX
 package: int32 ids, bool masks, float32 loads, int8 broker states.
+
+``replica_mesh`` (set by ``parallel.mesh.shard_model_replica_axis``) marks a
+model whose replica axis is sharded over a search mesh.  It is a marker
+only: the tensors stay whole, and the model's own queries reduce over all
+rows on this process and issue no collective.  An optimizer running under
+the same mesh splits its reductions into K1 over the rank's rows
+(``aggregates(rows)``, ``disk_load(rows)``) and combines them across the
+ranks with K15 (``parallel.collectives.sharded_broker_aggregates``,
+``sharded_disk_load``, reached from ``BrokerArrays.from_model(...,
+mesh=...)``).
 """
 
 from __future__ import annotations
@@ -89,6 +99,8 @@ class TensorClusterModel:
     num_partitions: int
     num_disks: int
     max_rf: int
+    # The search mesh the replica axis is sharded over (None: unsharded).
+    replica_mesh: Optional[object] = dataclasses.field(default=None, compare=False)
 
     def replace(self, **changes) -> "TensorClusterModel":
         return dataclasses.replace(self, **changes)
@@ -113,24 +125,27 @@ class TensorClusterModel:
         return torch.where(self.replica_is_leader[:, None],
                            self.replica_load_leader, self.replica_load_follower)
 
-    def _card_aggregates(self):
-        """K1's per-broker sums on the card: fixed-order, no float atomics
-        (``index_add_`` would add the loads with atomics there)."""
-        return broker_aggregates(self.replica_broker, self.replica_valid,
-                                 self.replica_is_leader, self.replica_load_leader,
-                                 self.replica_load_follower, self.num_brokers)
+    def aggregates(self, rows: slice = slice(None)):
+        """K1's five per-broker sums (load, replica count, leader count,
+        potential NW-out, leader bytes-in) over the replica ``rows``:
+        fixed-order, no float atomics on the card (``index_add_`` would add
+        the loads with atomics there)."""
+        return broker_aggregates(self.replica_broker[rows], self.replica_valid[rows],
+                                 self.replica_is_leader[rows],
+                                 self.replica_load_leader[rows],
+                                 self.replica_load_follower[rows], self.num_brokers)
 
     def broker_load(self) -> torch.Tensor:
         """f32[B, 4] per-broker utilization."""
         if not cuda.on_cpu(self.replica_broker):
-            return self._card_aggregates()[0]
+            return self.aggregates()[0]
         return masked_segment_sum(self.replica_load(), self.replica_broker,
                                   self.num_brokers, self.replica_valid)
 
     def potential_leadership_load(self) -> torch.Tensor:
         """f32[B] potential NW_OUT per broker if all its replicas led."""
         if not cuda.on_cpu(self.replica_broker):
-            return self._card_aggregates()[3]
+            return self.aggregates()[3]
         return masked_segment_sum(self.replica_load_leader[:, Resource.NW_OUT],
                                   self.replica_broker, self.num_brokers,
                                   self.replica_valid)
@@ -148,7 +163,7 @@ class TensorClusterModel:
     def broker_leader_bytes_in(self) -> torch.Tensor:
         """f32[B] leader NW_IN per broker."""
         if not cuda.on_cpu(self.replica_broker):
-            return self._card_aggregates()[4]
+            return self.aggregates()[4]
         load = torch.where(self.replica_is_leader,
                            self.replica_load_leader[:, Resource.NW_IN],
                            torch.zeros((), device=self.device))
@@ -170,13 +185,15 @@ class TensorClusterModel:
                                       self.replica_valid & self.replica_is_leader)
         return counts.reshape(self.num_topics, self.num_brokers)
 
-    def disk_load(self) -> torch.Tensor:
+    def disk_load(self, rows: slice = slice(None)) -> torch.Tensor:
         """f32[D] disk utilization (the DISK column of ``replica_load`` summed
-        per disk over the valid replicas that sit on a disk).  On the card
-        K1's ``segment_sum`` adds each disk's rows in the CPU's row order."""
-        disk_ids = torch.where(self.replica_disk >= 0, self.replica_disk, 0)
-        mask = self.replica_valid & (self.replica_disk >= 0)
-        disk = self.replica_load()[:, Resource.DISK]
+        per disk over the valid replicas that sit on a disk), over the
+        replica ``rows``.  On the card K1's ``segment_sum`` adds each disk's
+        rows in the CPU's row order."""
+        rd = self.replica_disk[rows]
+        disk_ids = torch.where(rd >= 0, rd, 0)
+        mask = self.replica_valid[rows] & (rd >= 0)
+        disk = self.replica_load()[rows, Resource.DISK]
         return segment_sum(disk[:, None].contiguous(), disk_ids, mask, self.num_disks,
                            "disk")[:, 0]
 

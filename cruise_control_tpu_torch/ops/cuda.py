@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
            "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score",
-           "detector_scores", "flight_row", "band_accepts")
+           "detector_scores", "flight_row", "band_accepts", "shard_combine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,6 +72,7 @@ _ENTRIES = {
     "detector_rows": ("detector_scores", "cc_detector_rows", "pppp" + "ii" + "f" * 7 + "ppp"),
     "flight_row": ("flight_row", "cc_flight_row", "ppippipppippipi"),
     "band_accepts": ("band_accepts", "cc_band_accepts", "iii" + "p" * 10),
+    "shard_combine": ("shard_combine", "cc_shard_combine", "ppiiipp"),
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
 

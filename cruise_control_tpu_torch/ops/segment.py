@@ -15,6 +15,17 @@ the disks' sums per broker of the intra-broker disk goals); its plain twin
 is ``masked_segment_sum``.
 On the card neither adds floats with atomics, so both are run-to-run
 identical and safe to replay in a CUDA graph.
+
+``shard_combine`` is kernel K15 (``csrc/shard_combine.cu``): under a model
+sharded along the replica axis (``parallel/mesh.py``
+``shard_model_replica_axis``) each rank runs K1 or ``segment_sum`` over its
+own rows, the ranks' partials are all-gathered and K15 sums them in rank
+order (``parallel/collectives.py`` ``sharded_broker_aggregates``,
+``sharded_disk_load``) — the psum XLA inserts into the JAX package's
+sharded programs.  Its plain twin is ``shard_combine_plain``.  The split changes
+the float order of the aggregates (each rank's rows, then the ranks), so
+they agree with the unsharded ones within rtol 1e-5, the JAX package's
+tolerance for the same split; with one rank they are equal bit for bit.
 """
 
 from __future__ import annotations
@@ -166,3 +177,51 @@ def broker_aggregates(replica_broker: torch.Tensor, replica_valid: torch.Tensor,
                     replica_count, leader_count, pnw, lbi, num_brokers)
         broker_aggregates.launches += 1
     return load, replica_count, leader_count, pnw, lbi
+
+
+# ---------------------------------------------------------------------------
+# K15 — the cross-shard combine of a replica-sharded model's aggregates
+# ---------------------------------------------------------------------------
+
+def shard_combine_plain(fparts: torch.Tensor, iparts: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(f32[B, Cf], i32[B, Ci] or None): the ranks' partials f32[n, B, Cf]
+    and i32[n, B, Ci] summed over the ranks, in rank order
+    ``((p0 + p1) + p2) + ...``."""
+    fout = fparts[0].clone()
+    for r in range(1, fparts.shape[0]):
+        fout = fout + fparts[r]
+    iout = None
+    if iparts is not None:
+        iout = iparts[0].clone()
+        for r in range(1, iparts.shape[0]):
+            iout = iout + iparts[r]
+    return fout, iout
+
+
+@cuda.counted("shard_combine")
+def shard_combine(fparts: torch.Tensor, iparts: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K15.  Replaces the psum of the JAX package's replica-sharded segment
+    reductions (``cruise_control_tpu/parallel/mesh.py:16-20,69``; XLA
+    inserts it).  Bound on the card: bytes (n·B·(Cf+Ci)·4 read,
+    B·(Cf+Ci)·4 written).  CPU tensors take ``shard_combine_plain``; CUDA
+    tensors launch one thread per output element that adds the n partials
+    in rank order with ``__fadd_rn`` (the plain twin's bits) and the counts
+    exactly."""
+    dev = fparts.device
+    n, b, cf = fparts.shape
+    cuda.check(fparts, "fparts", torch.float32, (n, b, cf), dev)
+    ci = 0
+    if iparts is not None:
+        ci = iparts.shape[2]
+        cuda.check(iparts, "iparts", torch.int32, (n, b, ci), dev)
+    cuda.record("shard_combine", (fparts, iparts))
+    if cuda.on_cpu(fparts):
+        return shard_combine_plain(fparts, iparts)
+    fout = torch.empty((b, cf), dtype=torch.float32, device=dev)
+    iout = torch.empty((b, ci), dtype=torch.int32, device=dev) if iparts is not None else None
+    if b * (cf + ci) > 0:
+        cuda.launch("shard_combine", fparts, iparts, n, b * cf, b * ci, fout, iout)
+        shard_combine.launches += 1
+    return fout, iout

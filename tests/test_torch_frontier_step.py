@@ -189,11 +189,11 @@ def test_per_goal_refusals(spec_kw, kwargs, monkeypatch):
     pipeline forced, the pipeline by default at 100 brokers (one goal pins
     the policy), a warm start, and ``segment_steps`` on the unfused path
     and ``frontier=True`` on the grouped one, which the JAX package ignores
-    — and only a mesh is refused."""
+    — and a mesh that is no ``SearchMesh`` is refused with ``TypeError``."""
     clear_cruise_env(monkeypatch)
     if "mesh" in kwargs:
         tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="SearchMesh"):
             topt.optimize(tm, STACK, fused=True, device="cpu", **kwargs)
         return
     kwargs = dict(kwargs)

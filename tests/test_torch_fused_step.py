@@ -146,11 +146,12 @@ def test_fused_paths_of_later_slices_raise(spec_kw, kwargs, monkeypatch):
     """The fused calls later slices ported — above the floor (pipelined by
     default), the pipeline forced, a warm start, segments above the floor,
     ``frontier=True`` off the per-goal paths (which the JAX package
-    ignores) — do what the JAX package does; a mesh is still refused."""
+    ignores) — do what the JAX package does; a mesh that is no
+    ``SearchMesh`` is refused with ``TypeError``."""
     clear_cruise_env(monkeypatch)
     if "mesh" in kwargs:
         tm = generate_cluster(ClusterSpec(**spec_kw), device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="SearchMesh"):
             topt.optimize(tm, SHORT, fused=True, device="cpu", **kwargs)
         return
     kwargs = dict(kwargs)

@@ -109,12 +109,13 @@ def test_later_slice_options_raise(kwargs, monkeypatch):
     call: the forced pipeline runs, ``pipeline=True`` on the unfused path
     raises ValueError, a warm start re-bases the unfused solve, and
     ``frontier=True`` and ``segment_steps``, which the unfused path does
-    not read, are ignored; only a mesh is refused."""
+    not read, are ignored; a mesh that is no ``SearchMesh`` is refused
+    with ``TypeError``."""
     clear_cruise_env(monkeypatch)
     goals = ["ReplicaDistributionGoal"]
     if "mesh" in kwargs:
         tm = generate_cluster(ClusterSpec(**SPEC_6), device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="SearchMesh"):
             topt.optimize(tm, goals, device="cpu", **kwargs)
         return
     kwargs = dict(kwargs)
