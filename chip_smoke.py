@@ -92,7 +92,12 @@ Phases, in order (any failure raises and the process exits non-zero):
     the wall inside ``score_checkpoints``, flushes and checkpoints.  K10's
     two launches are held exactly against their plain twins on 256 blends
     of the mid solve (here), of the large pipelined solve (phase 9) and of
-    the xl250 solve (phase 15), and timed;
+    the xl250 solve (phase 15), and timed, with the row-index build alone
+    (event and device ms) and the topic tables' kernel alone beside them;
+    at mid and large the aggregates also against the plain version on CPU
+    copies, and on C = 1, C = 5 and a blend with a fifth of the replicas
+    moved to broker 0, and the row indexes built on the card against their
+    plain build;
 15. xl250 rung (1000 brokers, ~250k replicas, ``segment_steps`` 32 by the
     JAX package's rule) on the default pipelined path, the stack of
     ``XL_GOALS``; then the mid fused solve again (the graph cache past its
@@ -133,7 +138,10 @@ Phases, in order (any failure raises and the process exits non-zero):
     ``segment_sum``'s disk modes against their plain twins on the inputs
     of the healthy and the dead-disk runs, exactly, each timed; K10's disk
     loads and disk kinds against their twins on 256 blends at mid (healthy
-    and dead disks), large and xl250 with 4 disks a broker, timed;
+    and dead disks), large and xl250 with 4 disks a broker, timed with the
+    disk index's build beside them, the disk loads at mid and large also on
+    C = 1, C = 5 and a blend with a fifth of the replicas on broker 0's
+    first disk;
 18. from metric samples to anomalies (``check_detection``; its kernels,
     K14's peer and row passes, are held against their plain versions with
     phase 4's, ``check_k14``: bit for bit on seeded histories at 7,000
@@ -250,7 +258,8 @@ PROFILE_NAMES = {
     "cross_gate": ("cross_gate_kernel",),
     "chunk_touched": ("chunk_touched_kernel",),
     "ordered_sum": ("ordered_sum_kernel",),
-    "blend_aggregates": ("blend_aggregates_kernel",),
+    "blend_aggregates": ("blend_aggregates_kernel", "blend_topic_counts_kernel"),
+    "masks_by_partition": ("masks_by_partition_kernel",),
     "stack_sweep_batch": ("stack_sweep_batch_kernel",),
 }
 
@@ -868,7 +877,7 @@ def main(argv) -> int:
                 device_ms = prof["per_launch"].get(name)
         launches = exec_counts[name] if name in EXECUTION_ONLY else pipe_counts[name]
         extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
-                 or k == "shape"}
+                 or k in ("shape", "index_ms", "index_device_ms", "topic_device_ms")}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches, **extra,
                      "launches_per_large_step": pipe_counts[name] / max(pipe_steps, 1),
@@ -911,7 +920,7 @@ def main(argv) -> int:
     for name, (source, replaces, run_label) in JBOD_MODES.items():
         r = jbod_rows[name]
         extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
-                 or k == "shape"}
+                 or k in ("shape", "index_ms", "index_device_ms")}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": r["launches"],
                      "launches_run": run_label, **extra,
@@ -1199,6 +1208,93 @@ def device_ms(torch, fn, names, log, runs: int = 5):
     return None
 
 
+def device_ms_total(torch, fn, log, runs: int = 5):
+    """Device time per call of ``fn`` under ``torch.profiler``: every device
+    op it runs (K10's row-index build is torch's sort, search and elementwise
+    kernels), over ``runs`` calls; None when three sessions saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        if ops:
+            return sum(e.time_range.elapsed_us() for e in ops) / 1e3 / runs
+        log(f"  profiler, attempt {attempt + 1}: no device op")
+    return None
+
+
+def k10_index_build(gk, before, after, masks, disk):
+    """What K10's wrapper does before a blend kernel's launch: the masks
+    transposed to [P, C], the per-broker (``disk``: per-disk) row index and
+    for the aggregates the per-topic row index."""
+    return lambda: gk.blend_indexes(before, after, masks, disks=disk, topics=not disk)
+
+
+def skewed_placement(torch, np, model, seed, share=0.2):
+    """``model`` with a seeded ``share`` of its valid replicas moved to
+    broker 0's first disk: one broker's and one disk's index list holds a
+    fifth of the rows (K10's longest serial walk)."""
+    rng = np.random.default_rng(seed)
+    rb = model.replica_broker.cpu().numpy().copy()
+    rd = model.replica_disk.cpu().numpy().copy()
+    valid = np.nonzero(model.replica_valid.cpu().numpy())[0]
+    pick = rng.choice(valid, int(share * valid.shape[0]), replace=False)
+    rb[pick] = 0
+    rd[pick] = int(model.broker_disks[0, 0])
+    return model.with_placement(torch.from_numpy(rb).to(model.device), model.replica_is_leader,
+                                torch.from_numpy(rd).to(model.device))
+
+
+def check_k10_cases(torch, np, gk, log, before, after, label, disk):
+    """K10's blend kernels bit for bit against their plain twins on the
+    blends that stress the row index: C = 1 (the all-landed row) and C = 5
+    of ``before`` and ``after``, and K10_BATCH blends of a skewed
+    after-placement (``skewed_placement``).  ``disk``: the disk loads,
+    against the plain version on CPU copies; else the aggregates with both
+    topic tables, against the plain twin on the card."""
+    masks, _ = k10_masks(torch, np, before, after, K10_BATCH, SEED)
+    skewed = skewed_placement(torch, np, before, SEED)
+    skew_masks, _ = k10_masks(torch, np, before, skewed, K10_BATCH, SEED + 1)
+    pick = torch.tensor([0, 63, 127, 191, K10_BATCH - 1], device=masks.device)
+    seg = "replica_disk" if disk else "replica_broker"
+    num = before.num_disks if disk else before.num_brokers
+    offsets, _ = gk.blend_row_index(getattr(before, seg), getattr(skewed, seg),
+                                    before.replica_valid, num)
+    longest = int((offsets[1:] - offsets[:-1]).max())
+    # The row indexes built on the card against the plain build on the CPU.
+    for b_seg, a_seg, n_seg in ((getattr(before, seg), getattr(skewed, seg), num),
+                                (before.replica_topic, None, before.num_topics)):
+        got_index = gk.blend_row_index(b_seg, a_seg, before.replica_valid, n_seg)
+        want = gk.blend_row_index(b_seg.cpu(), None if a_seg is None else a_seg.cpu(),
+                                  before.replica_valid.cpu(), n_seg)
+        if not _exact(torch, got_index, want):
+            raise RuntimeError(f"K10 ({label}): the row index built on the card differs from "
+                               "the plain build")
+    for m in (masks, masks[pick]):  # C = 256 and C = 5 (padded to 8 columns)
+        if not _exact(torch, gk.masks_by_partition(m), gk.masks_by_partition(m.cpu())):
+            raise RuntimeError(f"K10 ({label}): the masks by partition differ from the plain "
+                               "transpose")
+    for case, a, m in (("C=1", after, masks[-1:]), ("C=5", after, masks[pick]),
+                       ("skewed", skewed, skew_masks)):
+        if disk:  # the plain version on the card adds with index_add_'s atomics
+            same = _exact(torch, gk.blend_disk_load(before, a, m),
+                          gk.blend_disk_load_plain(before.to("cpu"), a.to("cpu"), m.cpu()))
+        else:
+            same = _exact(torch, tuple(gk.blend_aggregates(before, a, m, True,
+                                                           with_topic_leaders=True)[:7]),
+                          tuple(gk.blend_aggregates_plain(before, a, m, True, True)[:7]))
+        if not same:
+            raise RuntimeError(f"K10 {'disk loads' if disk else 'aggregates'} ({label}, "
+                               f"{case}) differ from the plain twin")
+    log(f"K10 {label} {'disk loads' if disk else 'aggregates'}: C=1, C=5 and the skewed "
+        f"blends (longest index list {longest} of {int(before.replica_valid.sum())} rows) "
+        f"bit-equal to the plain twin")
+
+
 def _k10_bytes(before, c, topic, g=None, leaders=False, preferred=False):
     """Bytes K10 must move for ``c`` blends.  The aggregates: the masks
     (c x P), both placements (broker id and leader flag, 5 bytes each), the
@@ -1260,6 +1356,14 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
         if not torch.equal(bits(g[0]), bits(k)):
             raise RuntimeError(f"K10 aggregates ({label}): the all-false blend's {f} "
                                "differs from K1's")
+    if label in ("mid", "large"):
+        cpu_ref = gk.blend_aggregates_plain(before.to("cpu"), after.to("cpu"), masks.cpu(),
+                                            True, True)
+        if not _exact(torch, tuple(got[:7]), tuple(cpu_ref[:7])):
+            raise RuntimeError(f"K10 aggregates ({label}) differ from the plain version on "
+                               "the CPU")
+        del cpu_ref
+        check_k10_cases(torch, np, gk, log, before, after, label, disk=False)
     sat = ks(specs, before, after, masks, got, con)
     sat_ref = gk.stack_sweep_batch_plain(specs, before, after, masks, ref, con)
     if not torch.equal(sat, sat_ref):
@@ -1295,6 +1399,7 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
     seg = (torch.arange(C, device=rb.device)[:, None] * B + rb).reshape(-1)
     acc = torch.zeros((C * B, 8), device=rb.device)
     fast = 5 if T * B * C > 1 << 24 else TIMED_RUNS
+    build = k10_index_build(gk, before, after, masks, disk=False)
     out = {
         "blend_aggregates": dict(
             max_abs_err=0.0, shape=shape,
@@ -1306,7 +1411,13 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
             bound_ms=bound_ms(_k10_bytes(before, C, True, leaders=True)),
             device_ms=None if rehearse else device_ms(
                 torch, lambda: ka(before, after, masks, True, with_topic_leaders=True),
-                ("blend_aggregates_kernel",), log)),
+                PROFILE_NAMES["blend_aggregates"], log),
+            index_ms=time_ms(torch, build, fast),
+            index_device_ms=None if rehearse else device_ms_total(torch, build, log),
+            # The topic tables' share of the device time: their kernel alone.
+            topic_device_ms=None if rehearse else device_ms(
+                torch, lambda: ka(before, after, masks, True, with_topic_leaders=True),
+                ("blend_topic_counts_kernel",), log)),
         "stack_sweep_batch": dict(
             max_abs_err=0.0, shape=shape,
             ms=time_ms(torch, lambda: ks(specs, before, after, masks, got, con), fast),
@@ -1346,7 +1457,22 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
         log(f"  K10 {label} {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']}), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
             f"{r['bound_ms']:.6f} ms")
+    log_index_build(log, label, out["blend_aggregates"])
+    log(f"  K10 {label} topic tables: device {out['blend_aggregates']['topic_device_ms']} ms "
+        f"of the aggregates' {out['blend_aggregates']['device_ms']} ms (written once, no "
+        f"zeroing)")
     return out
+
+
+def log_index_build(log, label, r):
+    """The row-index build's event and device ms beside its kernel's, and
+    whether the two together stay under the ``index_add_`` call."""
+    both = None if r["device_ms"] is None or r["index_device_ms"] is None else \
+        r["device_ms"] + r["index_device_ms"]
+    log(f"  K10 {label} index build: event {r['index_ms']:.4f} ms, device "
+        f"{r['index_device_ms']}; kernel and index build on the device {both} ms against "
+        f"index_add_ {r['library_ms']:.4f} ms: below "
+        f"{None if both is None else both < r['library_ms']}")
 
 
 def check_execution(torch, np, opt, props, mid, dev, wrappers, log, smi, rehearse,
@@ -3570,6 +3696,8 @@ def check_jbod_placement(cx, before, after, label):
     if not _exact(torch, got[7][0], before.disk_load()):
         raise RuntimeError(f"K10 ({label}): the all-false blend's disk loads differ from "
                            "segment_sum[disk]'s")
+    if label in ("mid JBOD", "large JBOD"):
+        check_k10_cases(torch, np, gk, log, before, after, label, disk=True)
     for sk in ((specs[0],), (specs[1],), specs):
         if not torch.equal(ks(sk, before, after, masks, got, con),
                            gk.stack_sweep_batch_plain(sk, before, after, masks, ref, con)):
@@ -3592,8 +3720,10 @@ def check_jbod_placement(cx, before, after, label):
     acc = torch.zeros((C * D,), device=rd.device)
     fast = 5 if R * C > 1 << 24 else TIMED_RUNS
     # The disk loads' launch alone: its event and device time, its plain
-    # version in torch ops, its bound and one index_add_.
+    # version in torch ops, its bound and one index_add_; the row index's
+    # build alone beside it.
     dl_out = torch.empty_like(got[7])
+    build = k10_index_build(gk, before, after, masks, disk=True)
     out = {"blend_aggregates[disk]": dict(
         max_abs_err=0.0, shape=shape,
         ms=cx.timer(torch, lambda: gk.blend_disk_load(before, after, masks, dl_out), fast),
@@ -3602,7 +3732,9 @@ def check_jbod_placement(cx, before, after, label):
         bound_ms=bound_ms(_k10_disk_bytes(before, C)),
         device_ms=None if rehearse else device_ms(
             torch, lambda: gk.blend_disk_load(before, after, masks, dl_out),
-            ("blend_disk_load_kernel",), log))}
+            ("blend_disk_load_kernel",), log),
+        index_ms=cx.timer(torch, build, fast),
+        index_device_ms=None if rehearse else device_ms_total(torch, build, log))}
     for kind, spec in zip(INTRA_KINDS, specs):
         sk = (spec,)
         # The sweep reads the disk loads, capacities and valid flags, the
@@ -3626,6 +3758,7 @@ def check_jbod_placement(cx, before, after, label):
     for name, r in out.items():
         log(f"  K10 {label} {name}: kernel {r['ms']:.4f} ms (device {r['device_ms']}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound {r['bound_ms']:.6f} ms")
+    log_index_build(log, label, out["blend_aggregates[disk]"])
     return out
 
 

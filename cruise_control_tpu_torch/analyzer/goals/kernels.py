@@ -40,7 +40,8 @@ broker against its band, ``_disk_limits``).
 - ``blend_aggregates`` / ``stack_sweep_batch`` — every goal's satisfied
   flag for a batch of blends of two placements, as the executor's
   balancedness scorer asks for it (K10, ``csrc/placement_score.cu``), with
-  the plain twins ``blend_aggregates_plain`` and ``stack_sweep_batch_plain``.
+  the plain twins ``blend_aggregates_plain`` and ``stack_sweep_batch_plain``;
+  ``blend_row_index`` is the per-segment row index their kernels walk.
 """
 
 from __future__ import annotations
@@ -531,6 +532,81 @@ def _check_blend_inputs(before: TensorClusterModel, after: TensorClusterModel,
         raise ValueError("placement blends need at least one partition")
 
 
+def blend_row_index(seg_before: torch.Tensor, seg_after: Optional[torch.Tensor],
+                    valid: torch.Tensor, num_segments: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows each segment (broker, disk or topic) can hold in any blend
+    of two placements, as a CSR: ``(offsets i32[S + 1], rows i32[N])``.
+    The rows of segment s, ``rows[offsets[s]:offsets[s + 1]]``, are every
+    valid row whose before-segment is s and every valid row whose
+    after-segment is s and differs from its before-segment (none when
+    ``seg_after`` is None), in increasing row order; ``rows`` may run on
+    past ``offsets[S]``.  Segments outside [0, S) hold no row.  One sort of
+    the keys ``segment * R + row`` (int32 where they fit); on the card the
+    keys and the CSR come from two small kernels around torch's sort, with
+    no host sync.  It orders row ids only and computes no part of K10's
+    sums."""
+    R, S, dev = seg_before.shape[0], num_segments, seg_before.device
+    if 2 * R >= 2 ** 31:
+        raise ValueError(f"{R} rows: the row index holds at most 2**30 - 1")
+    if R == 0:
+        return (torch.zeros(S + 1, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    kd = torch.int32 if (S + 1) * R < 2 ** 31 else torch.int64
+    if not cuda.on_cpu(seg_before):
+        keys = torch.empty(R if seg_after is None else 2 * R, dtype=kd, device=dev)
+        cuda.launch("blend_index_keys", R, S, kd == torch.int64, seg_before, seg_after, valid,
+                    keys)
+        keys = keys.sort().values
+        offsets = torch.empty(S + 1, dtype=torch.int32, device=dev)
+        rows = torch.empty(keys.shape[0], dtype=torch.int32, device=dev)
+        cuda.launch("blend_index_offsets", keys.shape[0], R, S, kd == torch.int64, keys,
+                    offsets, rows)
+        return offsets, rows
+    segs = (seg_before[None] if seg_after is None
+            else torch.stack([seg_before, seg_after])).to(kd)
+    held = valid & (segs >= 0) & (segs < S)
+    if seg_after is not None:
+        held[1] &= segs[1] != segs[0]
+    # A row outside every segment gets a key past the last: sorted to the end.
+    keys = (torch.where(held, segs, S) * R
+            + torch.arange(R, dtype=kd, device=dev)).reshape(-1).sort().values
+    offsets = torch.searchsorted(keys, torch.arange(S + 1, dtype=kd, device=dev) * R)
+    return offsets.to(torch.int32), (keys % R).to(torch.int32)
+
+
+def masks_by_partition(masks: torch.Tensor) -> torch.Tensor:
+    """bool[P, C'], the landed masks transposed, C' = C rounded up to a
+    multiple of 8 and the columns past C false: the blend kernels read a
+    partition's flags for up to 8 consecutive blends as one aligned word.
+    On the card a tiled transpose (``cc_masks_by_partition``), a step of
+    the blend wrappers' launches."""
+    C, P = masks.shape
+    cp = -(-C // 8) * 8
+    if cuda.on_cpu(masks):
+        out = torch.zeros((P, cp), dtype=torch.bool)
+        out[:, :C] = masks.t()
+        return out
+    out = torch.empty((P, cp), dtype=torch.bool, device=masks.device)
+    cuda.launch("masks_by_partition", C, P, masks, out)
+    return out
+
+
+def blend_indexes(before: TensorClusterModel, after: TensorClusterModel,
+                  masks: torch.Tensor, disks: bool = False, topics: bool = False):
+    """What a blend kernel walks besides the models, built per call: the
+    masks by partition, the per-broker (``disks``: per-disk) row index and,
+    with ``topics``, the per-topic row index (each topic's valid rows in row
+    order) or None."""
+    seg, num = (("replica_disk", before.num_disks) if disks
+                else ("replica_broker", before.num_brokers))
+    index = blend_row_index(getattr(before, seg), getattr(after, seg), before.replica_valid,
+                            num)
+    by_topic = blend_row_index(before.replica_topic, None, before.replica_valid,
+                               before.num_topics) if topics else None
+    return masks_by_partition(masks), index, by_topic
+
+
 # The disk loads of the blends: a second launch of K10's aggregates, counted
 # as ``blend_aggregates[disk]``.
 _BLEND_DISK_COUNTS = cuda.mode_counters("blend_aggregates", ("disk",))
@@ -550,15 +626,17 @@ def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
     disk loads when ``with_disk_load``.  Bound on the card: bytes (the
     masks, both placements and the load rows once; C x B x 32 bytes, the C
     x T x B counts and the C x D disk loads written).  CPU tensors take
-    ``blend_aggregates_plain``; CUDA tensors launch one block per (broker,
-    blend) running K1's block body on the blend read through the mask, in
-    K1's fixed order (an all-false mask gives K1's bits), with exact
-    integer atomics for the topic counts, and for the disk loads a second
-    launch (``blend_disk_load``).  ``out`` takes the output tensors to write
-    (the scorer's buffers of this shape)."""
+    ``blend_aggregates_plain``; CUDA tensors build the per-broker (and
+    per-topic) row index (``blend_indexes``) and launch one warp per broker
+    and 32 L blends: each lane walks its broker's index rows in order for L
+    blends (1 to 8), keeping the rows each blend puts there, so every sum
+    adds the plain version's rows in row order (an all-false mask gives
+    K1's bits); the topic counts are counted per topic in shared memory,
+    exactly, and written once; the disk loads are a second launch
+    (``blend_disk_load``).  ``out`` takes the output tensors to write (the
+    scorer's buffers of this shape)."""
     dev = before.device
     C, B, T = masks.shape[0], before.num_brokers, before.num_topics
-    R = before.num_replicas_padded
     _check_blend_inputs(before, after, masks)
     cuda.record("blend_aggregates", (before, after, masks, with_topic_counts, None,
                                      with_topic_leaders, with_disk_load))
@@ -578,19 +656,19 @@ def blend_aggregates(before: TensorClusterModel, after: TensorClusterModel,
                torch.empty((C, before.num_disks), dtype=torch.float32, device=dev)
                if with_disk_load else None)
     load, rc, lc, pnw, lbi, tbc, tlc, dl = out
-    for t in (tbc, tlc):
-        if t is not None:
-            t.zero_()
     if C > 0 and B > 0:
-        cuda.launch("blend_aggregates", C, B, R, before.num_partitions, T, masks,
-                    before.replica_partition, before.replica_broker, after.replica_broker,
-                    before.replica_is_leader, after.replica_is_leader, before.replica_valid,
-                    before.replica_load_leader, before.replica_load_follower,
-                    before.replica_topic if tbc is not None or tlc is not None else None,
-                    load, rc, lc, pnw, lbi, tbc, tlc)
+        topics = tbc is not None or tlc is not None
+        masks_t, (offsets, rows), by_topic = blend_indexes(before, after, masks,
+                                                           topics=topics)
+        t_offsets, t_rows = by_topic if topics else (None, None)
+        cuda.launch("blend_aggregates", C, B, before.num_partitions, T, masks_t, offsets,
+                    rows, t_offsets, t_rows, before.replica_partition,
+                    before.replica_broker, after.replica_broker, before.replica_is_leader,
+                    after.replica_is_leader, before.replica_load_leader,
+                    before.replica_load_follower, load, rc, lc, pnw, lbi, tbc, tlc)
         blend_aggregates.launches += 1
         if dl is not None:
-            blend_disk_load(before, after, masks, dl)
+            _launch_disk_load(before, after, masks_t, dl)
     return out
 
 
@@ -608,32 +686,39 @@ def blend_disk_load_plain(before: TensorClusterModel, after: TensorClusterModel,
     return torch.stack(rows)
 
 
+def _launch_disk_load(before: TensorClusterModel, after: TensorClusterModel,
+                      masks_t: torch.Tensor, out: torch.Tensor) -> None:
+    """K10's disk-loads kernel for the blends of ``masks_t``
+    (``masks_by_partition``) into ``out`` (f32[C, D], every entry
+    written)."""
+    C, D = out.shape[0], before.num_disks
+    if C > 0 and D > 0:
+        offsets, rows = blend_row_index(before.replica_disk, after.replica_disk,
+                                        before.replica_valid, D)
+        cuda.launch("blend_disk_load", C, D, before.num_partitions, masks_t, offsets, rows,
+                    before.replica_partition, before.replica_disk, after.replica_disk,
+                    before.replica_is_leader, after.replica_is_leader,
+                    before.replica_load_leader, before.replica_load_follower, out)
+        _BLEND_DISK_COUNTS["disk"].launches += 1
+
+
 def blend_disk_load(before: TensorClusterModel, after: TensorClusterModel,
                     masks: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K10's disk loads (the second launch of ``blend_aggregates``), f32[C,
     D]: each blend's ``disk_load``.  Bound on the card: bytes (the masks,
-    both placements' disks and leader flags, the replica rows and the disk
-    lists once; C x D loads written).  CPU tensors take
-    ``blend_disk_load_plain``; CUDA tensors launch one block per (broker,
-    blend) that adds the DISK load of the blend's replicas on each of the
-    broker's disks in row order (the CPU's ``index_add_`` order).  ``out``
-    takes the tensor to write."""
+    both placements' disks and leader flags and the replica rows once; C x D
+    loads written).  CPU tensors take ``blend_disk_load_plain``; CUDA
+    tensors build the per-disk row index (``blend_row_index``) and launch
+    one warp per disk and 32 L blends whose lanes each add, for L blends,
+    the DISK load of the rows the blend puts on the disk in row order (the
+    CPU's ``index_add_`` order).  ``out`` takes the tensor to write."""
     _check_blend_inputs(before, after, masks)
     if cuda.on_cpu(masks):
         return blend_disk_load_plain(before, after, masks)
     C, D = masks.shape[0], before.num_disks
     if out is None:
         out = torch.empty((C, D), dtype=torch.float32, device=before.device)
-    out.zero_()
-    if C > 0 and before.num_brokers > 0:
-        cuda.launch("blend_disk_load", C, before.num_brokers, before.num_replicas_padded,
-                    before.num_partitions, D, before.broker_disks.shape[1], masks,
-                    before.replica_partition, before.replica_disk, after.replica_disk,
-                    before.replica_is_leader, after.replica_is_leader,
-                    before.replica_valid, before.replica_load_leader,
-                    before.replica_load_follower, before.disk_broker,
-                    before.broker_disks.contiguous(), out)
-        _BLEND_DISK_COUNTS["disk"].launches += 1
+    _launch_disk_load(before, after, masks_by_partition(masks), out)
     return out
 
 

@@ -64,8 +64,11 @@ _ENTRIES = {
     "chunk_gate": ("chunk_gate", "cc_chunk_gate", "p" * 9 + "iiii"),
     "cross_gate": ("chunk_gate", "cc_cross_gate", "p" * 5 + "i"),
     "chunk_touched": ("chunk_gate", "cc_chunk_touched", "ii" + "p" * 8),
-    "blend_aggregates": ("placement_score", "cc_blend_aggregates", "i" * 5 + "p" * 17),
-    "blend_disk_load": ("placement_score", "cc_blend_disk_load", "i" * 6 + "p" * 12),
+    "blend_aggregates": ("placement_score", "cc_blend_aggregates", "i" * 4 + "p" * 19),
+    "masks_by_partition": ("placement_score", "cc_masks_by_partition", "iipp"),
+    "blend_index_keys": ("placement_score", "cc_blend_index_keys", "iiipppp"),
+    "blend_index_offsets": ("placement_score", "cc_blend_index_offsets", "iiiippp"),
+    "blend_disk_load": ("placement_score", "cc_blend_disk_load", "iii" + "p" * 11),
     "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch",
                           "i" * 8 + "p" * 31 + "ii" + "p" * 4),
     "detector_peer": ("detector_scores", "cc_detector_peer", "ppiifp"),
