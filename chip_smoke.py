@@ -194,7 +194,22 @@ Phases, in order (any failure raises and the process exits non-zero):
     large the same or else equisatisfying past the first goal that differs
     (reported); the mid rung over a one-rank NCCL group, placed as one
     device bit for bit; walls, collectives and gathered bytes per rank;
-21. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
+21. K1, ``segment_sum``'s three modes and their row index
+    (``check_family``) at the mid, large and xl250 rungs' shapes, on the
+    inputs the mid warm-up (phase 3) and the large and xl250 warm-ups
+    (phases 8 and 15) gave K1 and the round sums: bit for bit against
+    their plain twins on CPU copies in five cases (the rung's inputs, a
+    fifth of the rows on one segment, all masked, an empty segment, ids
+    outside [0, S)), each case's launches also into buffers between canary
+    bands (``guarded_writes``), identical over two launches and a graph
+    replay, timed as one call and as many calls in a replayed CUDA graph
+    beside ``index_add_`` (the index: ``torch.sort``) timed the same way.
+    It runs after every profiler session: a session that replays the step
+    graphs after this script's own graphs were captured and destroyed can
+    end in a segmentation fault inside ``cudaGraphLaunch``, with or without
+    CUPTI's teardown (``cupti_graph_check.py --smoke`` repeats that order
+    with graphs of torch's own ops, on any checkout);
+22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --rehearse-cpu`` runs the same phases on the CPU
@@ -238,10 +253,16 @@ TIMED_RUNS = 20
 K13_RTOL = 1e-6  # of each column's largest |value|: the sums run in another order
 SEGSUM_RTOL = 1e-5
 
+# The row index's device kernels (K1's and segment_sum's first three
+# launches).
+INDEX_KERNELS = ("index_scatter_kernel", "index_count_kernel", "index_scan_kernel")
 # Device kernel names of each wrapper, as the profiler reports them.
 PROFILE_NAMES = {
+    # K1 and segment_sum: the walk alone (a run's profile adds the row
+    # index's time a launch to each, ``profile_mid``).
     "broker_aggregates": ("broker_aggregates_kernel",),
     "segment_sum": ("segment_sum_kernel",),
+    "segment_row_index": INDEX_KERNELS,
     "best_per_segment": ("segment_max_key", "segment_winner"),
     "prefix_cut": ("prefix_cut_kernel", "scan_blocks_kernel", "block_totals_kernel",
                    "add_back_kernel"),
@@ -269,6 +290,10 @@ KERNELS = {
                           "cruise_control_tpu/ops/segment.py:22"),
     "segment_sum": ("cruise_control_tpu_torch/csrc/broker_aggregates.cu",
                     "cruise_control_tpu/analyzer/optimizer.py:663"),
+    # The per-segment row index K1 and segment_sum walk: part of their
+    # replacement of the scatter-adds (no JAX function builds one).
+    "segment_row_index": ("cruise_control_tpu_torch/csrc/broker_aggregates.cu",
+                          "cruise_control_tpu/ops/segment.py:22"),
     "best_per_segment": ("cruise_control_tpu_torch/csrc/best_per_segment.cu",
                          "cruise_control_tpu/analyzer/optimizer.py:210"),
     "prefix_cut": ("cruise_control_tpu_torch/csrc/prefix_cut.cu",
@@ -327,6 +352,12 @@ def log(msg: str) -> None:
 
 
 def main(argv) -> int:
+    # Keep CUPTI set up between the script's many profiler sessions, as
+    # torch does for its own CUDA graphs (torch.profiler.profile's
+    # start_trace): re-initialising it for a session that replays graphs
+    # is a known CUPTI fault.
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
     import torch
     rehearse = "--rehearse-cpu" in argv
     if not rehearse and not torch.cuda.is_available():
@@ -444,8 +475,10 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log(f"mid unfused warm-up run: {time.monotonic() - t0:.2f} s")
     captured, cuda.CAPTURE = cuda.CAPTURE, None
+    # (K1's plain path on the CPU builds no row index.)
     missing = [n for n in wrappers
-               if n not in captured and n not in NOT_ON["unfused"] + EXECUTION_ONLY]
+               if n not in captured and n not in NOT_ON["unfused"] + EXECUTION_ONLY
+               and not (rehearse and n == "segment_row_index")]
     if missing:
         raise RuntimeError(f"kernels never launched in the warm-up run: {missing}")
     warm_props = check_run("mid-warm", mid, run_warm, STACK)
@@ -455,6 +488,21 @@ def main(argv) -> int:
     second, second_opts = second_snapshot(torch, np, mid, SECOND_SEED)
     large = generate_cluster(spec_of(large_rung), device=dev)
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
+    # K1's and the round sums' inputs at each rung, for phase 21.
+    family_inputs_of, family = {}, {}
+
+    def keep_family_inputs(label, kept):
+        if kept.get("segment_sum", (None,) * 5)[4] != "round":
+            raise RuntimeError(f"the {label} run kept no round sums' inputs")
+        family_inputs_of[label] = {n: kept[n] for n in ("broker_aggregates", "segment_sum")}
+
+    def check_family_at(label):
+        kept = family_inputs_of.pop(label)
+        for name, r in check_family(torch, np, log, timer, label, kept["broker_aggregates"],
+                                    kept["segment_sum"], rehearse).items():
+            family.setdefault(name, {}).update(r)
+
+    keep_family_inputs("mid", captured)
     results.update(check_frontier_kernels(torch, np, captured, wrappers, log, timer,
                                           {"mid": mid, "second": second, "large": large}))
     results.update(check_pipeline_kernels(torch, np, wrappers, log, timer,
@@ -577,6 +625,7 @@ def main(argv) -> int:
         return out
 
     gk.frontier_inputs = recording_inputs
+    cuda.CAPTURE = {}  # K1's and the round sums' first inputs at this rung
     try:
         t0 = time.monotonic()
         run_large_warm = fused_run(large, **per_goal)  # captures
@@ -584,6 +633,9 @@ def main(argv) -> int:
         large_warm_s = time.monotonic() - t0
     finally:
         gk.frontier_inputs = real_inputs
+        kept, cuda.CAPTURE = cuda.CAPTURE, None
+    keep_family_inputs("large", kept)
+    del kept
     mem1 = (0, 0) if rehearse else (torch.cuda.memory_allocated(),
                                     torch.cuda.memory_reserved())
     large_captures = sum(g.fresh_compile for g in run_large_warm.goal_results)
@@ -779,8 +831,14 @@ def main(argv) -> int:
     log(f"xl250 rung: {int(xl.replica_valid.sum())} replicas, {xl.num_brokers} brokers, "
         f"goals {len(XL_GOALS)}")
     t0 = time.monotonic()
-    fused_run(xl, XL_GOALS)
-    torch.cuda.synchronize()
+    cuda.CAPTURE = {}
+    try:
+        fused_run(xl, XL_GOALS)
+        torch.cuda.synchronize()
+    finally:
+        kept, cuda.CAPTURE = cuda.CAPTURE, None
+    keep_family_inputs("xl250", kept)
+    del kept
     xl_warm = time.monotonic() - t0
     run_xl, xl_wall, xl_counts = timed(lambda: fused_run(xl, XL_GOALS))
     check_run("xl250", xl, run_xl, XL_GOALS)
@@ -848,7 +906,13 @@ def main(argv) -> int:
     mesh_summary["phase_s"] = round(time.monotonic() - t_mesh, 1)
     log(f"mesh summary: {mesh_summary}")
 
-    # 21. results
+    # 21. K1, segment_sum's modes and their row index at each rung's shapes,
+    # after every profiler session (see the docstring)
+    phase("K1 family")
+    for label in ("mid", "large", "xl250"):
+        check_family_at(label)
+
+    # 22. results
     phase("results")
     log(f"summary: mid fused wall {fused_wall:.3f} s ({fused_steps} steps, "
         f"{fused_wall / max(fused_steps, 1) * 1e3:.1f} ms/step, {replays} replays, "
@@ -877,9 +941,11 @@ def main(argv) -> int:
                 device_ms = prof["per_launch"].get(name)
         launches = exec_counts[name] if name in EXECUTION_ONLY else pipe_counts[name]
         extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
-                 or k in ("shape", "index_ms", "index_device_ms", "topic_device_ms")}
+                 or k in ("shape", "index_ms", "index_device_ms", "topic_device_ms",
+                          "index_library_ms", "index_bound_ms")}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches, **extra,
+                     **family.get(name, {}),
                      "launches_per_large_step": pipe_counts[name] / max(pipe_steps, 1),
                      "launches_large_sequential": large_counts[name],
                      "launches_fused_mid": fused_counts[name],
@@ -920,10 +986,11 @@ def main(argv) -> int:
     for name, (source, replaces, run_label) in JBOD_MODES.items():
         r = jbod_rows[name]
         extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
-                 or k in ("shape", "index_ms", "index_device_ms")}
+                 or k in ("shape", "index_ms", "index_device_ms", "index_library_ms",
+                          "index_bound_ms")}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": r["launches"],
-                     "launches_run": run_label, **extra,
+                     "launches_run": run_label, **extra, **family.get(name, {}),
                      "launches_large_jbod_pipelined":
                          jbod_counts["large jbod pipelined"].get(name, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1234,6 +1301,35 @@ def k10_index_build(gk, before, after, masks, disk):
     return lambda: gk.blend_indexes(before, after, masks, disks=disk, topics=not disk)
 
 
+def k10_index_keys(torch, before, after, disk):
+    """The keys ``blend_row_index`` sorts for K10's index build, as its plain
+    version forms them: segment * R + row, a row outside every segment past
+    the last; the per-broker (per-disk) index over the before and the moved
+    after rows, and for the aggregates the per-topic index."""
+    R = before.replica_broker.shape[0]
+    rows = torch.arange(R, dtype=torch.int64, device=before.replica_broker.device)
+    f, S = ("replica_disk", before.num_disks) if disk else ("replica_broker",
+                                                            before.num_brokers)
+    b, a = getattr(before, f).long(), getattr(after, f).long()
+    v = before.replica_valid
+    held_b = v & (b >= 0) & (b < S)
+    held_a = v & (a >= 0) & (a < S) & (a != b)
+    keys = [torch.cat([torch.where(held_b, b, S) * R + rows,
+                       torch.where(held_a, a, S) * R + rows])]
+    if not disk:
+        t = before.replica_topic.long()
+        keys.append(torch.where(v, t, before.num_topics) * R + rows)
+    return [k.to(torch.int32) if int(k.max()) < 2 ** 31 else k for k in keys]
+
+
+def _k10_index_bytes(keys, masks, segments):
+    """Bytes K10's index build must move: the masks read and written
+    transposed, and for each index its keys and its rows written and the
+    offsets of its ``segments``."""
+    return 2 * masks.numel() + sum(k.numel() * (k.element_size() + 4) for k in keys) + \
+        sum((s + 1) * 4 for s in segments)
+
+
 def skewed_placement(torch, np, model, seed, share=0.2):
     """``model`` with a seeded ``share`` of its valid replicas moved to
     broker 0's first disk: one broker's and one disk's index list holds a
@@ -1400,6 +1496,7 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
     acc = torch.zeros((C * B, 8), device=rb.device)
     fast = 5 if T * B * C > 1 << 24 else TIMED_RUNS
     build = k10_index_build(gk, before, after, masks, disk=False)
+    keys = k10_index_keys(torch, before, after, disk=False)
     out = {
         "blend_aggregates": dict(
             max_abs_err=0.0, shape=shape,
@@ -1414,6 +1511,8 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
                 PROFILE_NAMES["blend_aggregates"], log),
             index_ms=time_ms(torch, build, fast),
             index_device_ms=None if rehearse else device_ms_total(torch, build, log),
+            index_library_ms=time_ms(torch, lambda: [k.sort() for k in keys], fast),
+            index_bound_ms=bound_ms(_k10_index_bytes(keys, masks, (B, T))),
             # The topic tables' share of the device time: their kernel alone.
             topic_device_ms=None if rehearse else device_ms(
                 torch, lambda: ka(before, after, masks, True, with_topic_leaders=True),
@@ -1449,7 +1548,7 @@ def check_placement_kernels(torch, np, wrappers, log, time_ms, before, after, la
             device_ms=None if rehearse else device_ms(
                 torch, lambda: ks(sk, before, after, masks, got, con),
                 ("stack_sweep_batch_kernel",), log))
-    del rows, seg, acc, rmask
+    del rows, seg, acc, rmask, keys
     log(f"K10 {label}: C={C} P={before.num_partitions} R={R} B={B} G={len(specs)} T={T}, "
         f"{moved} partitions moved; aggregates bit-equal to the plain twin (all-false "
         f"blend = K1), flags exact, {int((~sat).sum())} of {sat.numel()} flags violated")
@@ -1470,8 +1569,9 @@ def log_index_build(log, label, r):
     both = None if r["device_ms"] is None or r["index_device_ms"] is None else \
         r["device_ms"] + r["index_device_ms"]
     log(f"  K10 {label} index build: event {r['index_ms']:.4f} ms, device "
-        f"{r['index_device_ms']}; kernel and index build on the device {both} ms against "
-        f"index_add_ {r['library_ms']:.4f} ms: below "
+        f"{r['index_device_ms']}, bound {r['index_bound_ms']:.6f} ms, torch.sort of its "
+        f"keys {r['index_library_ms']:.4f} ms; kernel and index build on the device {both} "
+        f"ms against index_add_ {r['library_ms']:.4f} ms: below "
         f"{None if both is None else both < r['library_ms']}")
 
 
@@ -1741,15 +1841,25 @@ def profile_mid(torch, run, wall, steps, label, log):
     # Device time per launch of each port kernel: the time of all its device
     # kernels over the count of the first (K2 is two device kernels, K3 its
     # cut and the launches of its scan).
-    per_launch = {}
+    per_launch, totals = {}, {}
     for wrapper, names in PROFILE_NAMES.items():
         hits = {k: [(n, t) for name, (n, t) in by_name.items() if k in name]
                 for k in names}
         launches = sum(n for n, _ in hits[names[0]])
         total = sum(t for h in hits.values() for _, t in h)
         per_launch[wrapper] = total / launches if launches else None
-        log(f"  {label} {wrapper}: device ms per launch {per_launch[wrapper]}")
-    return {"per_launch": per_launch, "ops": len(kernels),
+        totals[wrapper] = total
+        log(f"  {label} {wrapper}: device ms per launch {per_launch[wrapper]} ({launches} "
+            f"launches, {total:.3f} ms)")
+    # Each K1 or segment_sum call builds one row index: its walk's time a
+    # launch plus the index build's (averaged over both walks' shapes).
+    index_ms = per_launch.get("segment_row_index")
+    for wrapper in ("broker_aggregates", "segment_sum"):
+        if per_launch.get(wrapper) is not None and index_ms is not None:
+            per_launch[wrapper] += index_ms
+            log(f"  {label} {wrapper}: device ms per launch with its row index "
+                f"{per_launch[wrapper]}")
+    return {"per_launch": per_launch, "totals": totals, "ops": len(kernels),
             "ops_per_step": round(ops_per_step, 1),
             "busy": round(busy, 4), "device_ms": device_ms}
 
@@ -2020,6 +2130,242 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+# ---------------------------------------------------------------------------
+# K1 and segment_sum over the hand-built row index, at each rung's shapes
+# ---------------------------------------------------------------------------
+
+GRAPH_CALLS = 20   # calls captured in one graph for the many-launch timings
+GRAPH_REPLAYS = 10
+
+
+def graph_ms(torch, fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_REPLAYS) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between two events, over the count.
+    Many launches between two events, as inside the step graphs where K1 and
+    ``segment_sum`` run: the host's Python and ctypes time stays out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def _index_bytes(mask, S):
+    """Bytes the row index must move: each row's flag and each kept row's
+    id read, the offsets and the rows written."""
+    n = mask.numel()
+    return n + int(mask.sum()) * 4 + (S + 1 + n) * 4
+
+
+def _segsum_bytes(values, mask, S):
+    """Bytes ``segment_sum``'s function must move: each row's flag, a kept
+    row's id and values read, the sums written (the rule of ``_k1_bytes``
+    and ``check_kernels``)."""
+    c = values.shape[1]
+    return mask.numel() + int(mask.sum()) * (4 + 4 * c) + S * 4 * c
+
+
+GUARD_WORDS = 4096  # canary words around each buffer of a guarded launch
+CANARY = 0x7FA5A5A5
+
+
+def guarded_writes(torch, sg, cuda, name, args):
+    """One launch of ``name``'s row index and walk through their C entries
+    into buffers that each lie between bands of ``GUARD_WORDS`` canary
+    words (the index's offsets, rows and scratch, the walk's outputs).
+    Raises if a band changed or the outputs differ from the wrapper's: the
+    kernels' writes stay inside what they were given."""
+    dev = args[0].device
+    if name == "segment_row_index":
+        seg, mask, S = args
+    elif name == "broker_aggregates":
+        seg, mask, lead, ll, lf, S = args
+    else:
+        values, seg, mask, S = args[:4]
+    n = seg.shape[0]
+    warps, warp_rows, blocks = sg.index_tiling(n, S)
+    sizes = [S + 1, n, S * blocks + S]
+    if name == "broker_aggregates":
+        sizes += [4 * S, S, S, S, S]
+    elif name != "segment_row_index":
+        sizes += [S * values.shape[1]]
+    buf = torch.full((sum(sizes) + GUARD_WORDS * (len(sizes) + 1),), CANARY,
+                     dtype=torch.int32, device=dev)
+    guard = torch.ones_like(buf, dtype=torch.bool)
+    views, at = [], GUARD_WORDS
+    for size in sizes:
+        views.append(buf[at:at + size])
+        guard[at:at + size] = False
+        at += size + GUARD_WORDS
+    offsets, rows, scratch = views[:3]
+    f32 = [v.view(torch.float32) for v in views[3:]]
+    cuda.launch("segment_row_index", seg, mask, n, S, warps, warp_rows, offsets, rows, scratch)
+    if name == "broker_aggregates":
+        cuda.launch("broker_aggregates", offsets, rows, lead, ll, lf, f32[0], views[4],
+                    views[5], f32[3], f32[4], S)
+        got = (f32[0].view(S, 4), views[4], views[5], f32[3], f32[4])
+    elif name == "segment_sum":
+        cuda.launch("segment_sum", values, offsets, rows, values.shape[1], S, f32[0])
+        got = f32[0].view(S, values.shape[1])
+    else:
+        got = (offsets, rows)
+    torch.cuda.synchronize()
+    if not bool((buf[guard] == CANARY).all()):
+        raise RuntimeError(f"{name}: a launch wrote outside its buffers")
+    wrapper = {"segment_row_index": sg.segment_row_index,
+               "broker_aggregates": sg.broker_aggregates,
+               "segment_sum": sg.segment_sum}[name]
+    if not _exact(torch, got, wrapper(*args)):
+        raise RuntimeError(f"{name}: the guarded launch differs from the wrapper's")
+
+
+def family_inputs(torch, np, k1_args, round_args, seed):
+    """The inputs of K1, each ``segment_sum`` mode and the row index at one
+    rung's shapes: K1's and the round sums' as the rung's solve gave them;
+    the disk modes at the JBOD rungs' shapes built from K1's rows (4 disks a
+    broker, replica r on disk r mod 4 of its broker, its DISK load; the
+    disks' per-broker sums over 4 B seeded loads with a twentieth of the
+    disks masked); the index over K1's brokers."""
+    rb, valid, lead, ll, lf, B = k1_args
+    dev = rb.device
+    gen = np.random.default_rng(seed)
+    r = torch.arange(rb.shape[0], dtype=torch.int32, device=dev)
+    disk = torch.where(lead[:, None], ll, lf)[:, 3:4].contiguous()
+    disk_ids = (rb * 4 + r % 4).to(torch.int32)
+    D = 4 * B
+    per_disk = torch.from_numpy(gen.exponential(100.0, (D, 1)).astype(np.float32)).to(dev)
+    disk_broker = torch.arange(D, dtype=torch.int32, device=dev) // 4
+    alive = torch.from_numpy(gen.random(D) >= 0.05).to(dev)
+    return {"broker_aggregates": tuple(k1_args),
+            "segment_sum": tuple(round_args[:4]) + ("round",),
+            "segment_sum[disk]": (disk, disk_ids, valid, D, "disk"),
+            "segment_sum[disk_broker]": (per_disk, disk_broker, alive, B, "disk_broker"),
+            "segment_row_index": (rb, valid, B)}
+
+
+def family_cases(torch, np, seg, mask, S, seed):
+    """(case, segment ids, mask): the rung's own inputs; a fifth of the kept
+    rows moved to segment 0; every row masked; segment 1 emptied into
+    segment 2 (0 when S <= 2); a twentieth of the ids past S and another
+    twentieth at -1, their rows unmasked."""
+    u = torch.from_numpy(np.random.default_rng(seed).random(seg.shape[0])).to(seg.device)
+    i32 = torch.int32
+    return [("main path", seg, mask),
+            ("skewed", torch.where(mask & (u < 0.2), 0, seg).to(i32), mask),
+            ("all masked", seg, torch.zeros_like(mask)),
+            ("empty segment", torch.where(seg == 1, 2 if S > 2 else 0, seg).to(i32), mask),
+            ("out of range", torch.where(u < 0.05, S + 3, torch.where(u < 0.1, -1, seg)).to(i32),
+             mask)]
+
+
+def check_family(torch, np, log, timer, label, k1_args, round_args, rehearse):
+    """K1, ``segment_sum`` in its three modes and the row index at one
+    rung's shapes (``family_inputs``): each bit for bit against its plain
+    twin on CPU copies in every case of ``family_cases``, identical over two
+    launches and, on the rung's own inputs, after a graph replay; timed as
+    one call between two events (``ms``) and as many launches in a replayed
+    graph (``graph_ms``: the device time a call takes inside the step
+    graphs), beside ``index_add_`` (``library_graph_ms``; the index: a
+    stable ``torch.sort`` of its keys) timed the same way, and the skewed
+    case (``skewed_graph_ms``); on the card every case also through
+    ``guarded_writes``.  Returns {kernel: {metric_<label>: value}}."""
+    from cruise_control_tpu_torch.ops import cuda
+    from cruise_control_tpu_torch.ops import segment as sg
+
+    def plain_sum(values, ids, mask, n, _segments):
+        return sg.masked_segment_sum(values, ids, n, mask)
+
+    def cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+    # kernel, plain twin, positions of (ids, mask, S) in its arguments
+    calls = {"broker_aggregates": (sg.broker_aggregates, sg.broker_aggregates_plain, (0, 1, 5)),
+             "segment_sum": (sg.segment_sum, plain_sum, (1, 2, 3)),
+             "segment_row_index": (sg.segment_row_index, sg.segment_row_index_plain, (0, 1, 2))}
+    out = {}
+    for name, args in family_inputs(torch, np, k1_args, round_args, SEED).items():
+        base = name.split("[")[0]
+        kernel, plain, (si, mi, ni) = calls[base]
+        S = args[ni]
+        longest, skewed = {}, None
+        for case, seg, mask in family_cases(torch, np, args[si], args[mi], S, SEED):
+            a = list(args)
+            a[si], a[mi] = seg, mask
+            a = tuple(a)
+            if case == "skewed":
+                skewed = a
+            got, again = kernel(*a), kernel(*a)
+            if not rehearse:
+                guarded_writes(torch, sg, cuda, base, a)
+            if not _exact(torch, got, again):
+                raise RuntimeError(f"{name} at {label} ({case}) differs between two launches")
+            if not _exact(torch, got, plain(*cpu(a))):
+                raise RuntimeError(f"{name} at {label} ({case}) differs from its plain twin "
+                                   "on the CPU")
+            o = sg.segment_row_index_plain(*cpu((seg, mask, S)))[0]
+            longest[case] = int((o[1:] - o[:-1]).max())
+        fn = lambda: kernel(*args)  # noqa: E731
+        if not rehearse:
+            eager = fn()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static = fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            if not _exact(torch, static, eager):
+                raise RuntimeError(f"{name} at {label}: a graph replay differs from the eager "
+                                   "launch")
+        seg, mask = args[si], args[mi]
+        if base == "segment_row_index":
+            keys = torch.where(mask & (seg >= 0) & (seg < S), seg, S)
+            library = lambda: torch.sort(keys, stable=True)  # noqa: E731
+            nbytes = _index_bytes(mask, S)
+            shape = dict(N=seg.shape[0], S=S)
+        else:
+            if base == "broker_aggregates":
+                rb, valid, lead, ll, lf, _ = args
+                values = torch.cat([torch.where(lead[:, None], ll, lf), ll[:, 2:3],
+                                    torch.where(lead, ll[:, 1], 0.0)[:, None],
+                                    torch.ones_like(ll[:, :1]), lead[:, None].float()], 1)
+                nbytes = _k1_bytes(valid, lead, S)
+                shape = dict(R=seg.shape[0], B=S)
+            else:
+                values = args[0]
+                nbytes = _segsum_bytes(values, mask, S)
+                shape = dict(N=seg.shape[0], C=values.shape[1], S=S)
+            rows_v = torch.where(mask[:, None], values, 0.0)
+            ids = torch.where(mask, seg, 0).long()
+            acc = torch.zeros((S, values.shape[1]), device=values.device)
+            library = lambda: acc.zero_().index_add_(0, ids, rows_v)  # noqa: E731
+        r = {"shape": shape, "ms": timer(torch, fn), "bound_ms": bound_ms(nbytes),
+             "longest_segment": longest["main path"],
+             "longest_segment_skewed": longest["skewed"]}
+        if rehearse:
+            r.update(graph_ms=None, library_graph_ms=None, skewed_graph_ms=None)
+        else:
+            r.update(graph_ms=graph_ms(torch, fn), library_graph_ms=graph_ms(torch, library),
+                     skewed_graph_ms=graph_ms(torch, lambda: kernel(*skewed)))
+        out[name] = {f"{k}_{label}": v for k, v in r.items()}
+        log(f"{name} at {label} {shape}: bit for bit with its plain twin on the CPU in "
+            f"{len(longest)} cases (longest segment {longest}), identical over two "
+            f"launches{'' if rehearse else ' and a graph replay'}; graph {r['graph_ms']} ms "
+            f"a call (skewed {r['skewed_graph_ms']}), one call {r['ms']:.4f} ms; "
+            f"{'torch.sort' if base == 'segment_row_index' else 'index_add_'}"
+            f" {r['library_graph_ms']} ms; bound {r['bound_ms']:.6f} ms")
+    return out
+
+
 def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     from cruise_control_tpu_torch.analyzer import optimizer as opt
     from cruise_control_tpu_torch.analyzer.actions import (ActionType, Candidates,
@@ -2188,6 +2534,25 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         library_ms=time_ms(torch, lambda: acc_s.zero_().index_add_(0, s0, vz)),
         bound_ms=bound_ms(N + int(cap[2].sum()) * (4 + 4 * C) + S * 4 * C))
     log(f"K1 segment_sum: N={N} C={C} S={S} equal to the plain version on the CPU (exact), deterministic; card twin max |err| {err:.3g}")
+
+    # ---- The per-segment row index K1 and segment_sum walk (three
+    # launches): exact against its plain twin on CPU copies, on K1's captured
+    # inputs and on the fixture's; its library time is one stable torch.sort
+    # of the same segment keys.
+    from cruise_control_tpu_torch.ops.segment import segment_row_index_plain
+    kx = wrappers["segment_row_index"]
+    rb, valid, B = captured["broker_aggregates"][0], captured["broker_aggregates"][1], \
+        captured["broker_aggregates"][5]
+    for args in ((rb, valid, B), (fix[1], fix[2], fix[3])):
+        if not _exact(torch, kx(*args), segment_row_index_plain(*cpu(args))):
+            raise RuntimeError("segment_row_index differs from its plain twin on the CPU")
+    keys = torch.where(valid & (rb >= 0) & (rb < B), rb, B)
+    out["segment_row_index"] = dict(
+        max_abs_err=0.0, ms=time_ms(torch, lambda: kx(rb, valid, B)),
+        plain_ms=time_ms(torch, lambda: segment_row_index_plain(rb, valid, B)),
+        library_ms=time_ms(torch, lambda: torch.sort(keys, stable=True)),
+        bound_ms=bound_ms(_index_bytes(valid, B)))
+    log(f"segment_row_index: N={rb.shape[0]} S={B} equal to its plain twin on the CPU (exact)")
 
     # ---- K5: goal masks.  Exact (score bits and eligible), for every goal
     # of the stack on the captured batch, healthy and with a dead broker.
@@ -3582,7 +3947,8 @@ def check_jbod_modes(cx, healthy, dead):
                 "stack_sweep": (gk.stack_satisfied, gk.stack_satisfied_plain)}
     names = {"goal_masks": ("goal_masks_kernel",),
              "structural_accepts": ("structural_accepts_kernel",),
-             "stack_sweep": ("stack_sweep_kernel",), "segment_sum": ("segment_sum_kernel",)}
+             "stack_sweep": ("stack_sweep_kernel",),
+             "segment_sum": PROFILE_NAMES["segment_sum"] + INDEX_KERNELS}  # with its index
     both = tuple(goals_by_priority(INTRA_GOALS))
     rows = {}
     keys = [(n, k) for n in ("goal_masks", "stack_sweep") for k in INTRA_KINDS] + \
@@ -3724,6 +4090,7 @@ def check_jbod_placement(cx, before, after, label):
     # build alone beside it.
     dl_out = torch.empty_like(got[7])
     build = k10_index_build(gk, before, after, masks, disk=True)
+    keys = k10_index_keys(torch, before, after, disk=True)
     out = {"blend_aggregates[disk]": dict(
         max_abs_err=0.0, shape=shape,
         ms=cx.timer(torch, lambda: gk.blend_disk_load(before, after, masks, dl_out), fast),
@@ -3734,7 +4101,9 @@ def check_jbod_placement(cx, before, after, label):
             torch, lambda: gk.blend_disk_load(before, after, masks, dl_out),
             ("blend_disk_load_kernel",), log),
         index_ms=cx.timer(torch, build, fast),
-        index_device_ms=None if rehearse else device_ms_total(torch, build, log))}
+        index_device_ms=None if rehearse else device_ms_total(torch, build, log),
+        index_library_ms=cx.timer(torch, lambda: [k.sort() for k in keys], fast),
+        index_bound_ms=bound_ms(_k10_index_bytes(keys, masks, (D,))))}
     for kind, spec in zip(INTRA_KINDS, specs):
         sk = (spec,)
         # The sweep reads the disk loads, capacities and valid flags, the
@@ -3751,7 +4120,7 @@ def check_jbod_placement(cx, before, after, label):
             device_ms=None if rehearse else device_ms(
                 torch, lambda: ks(sk, before, after, masks, got, con),
                 ("stack_sweep_batch_kernel",), log))
-    del rmask, rd, lead, seg, vals, acc, dl_out
+    del rmask, rd, lead, seg, vals, acc, dl_out, keys
     log(f"K10 {label}: C={C} R={R} D={D}, {moved} partitions moved; disk loads bit-equal "
         f"to the plain twin and to the plain version on the CPU (all-false blend = "
         f"segment_sum[disk]), flags exact")
@@ -4585,9 +4954,9 @@ MESH_FLAVOUR = dict(fused=True, fuse_group_size=1, segment_steps=8, pipeline=Tru
                     num_sources=32, num_dests=8, raise_on_hard_failure=False)
 MESH_PAD = 8  # replicas padded to a multiple of 8
 # The step's kernels that every sharded solve must launch on each rank.
-MESH_PATH_KERNELS = ("broker_aggregates", "best_per_segment", "prefix_cut", "goal_masks",
-                     "structural_accepts", "apply_actions", "stack_sweep", "chunk_gate",
-                     "shard_combine")
+MESH_PATH_KERNELS = ("broker_aggregates", "segment_row_index", "best_per_segment",
+                     "prefix_cut", "goal_masks", "structural_accepts", "apply_actions",
+                     "stack_sweep", "chunk_gate", "shard_combine")
 MESH_TIMEOUT_S = 600
 
 

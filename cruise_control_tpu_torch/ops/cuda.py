@@ -45,8 +45,9 @@ BUILD_LOG: Dict[str, str] = {}
 # "p" = device pointer, "i" = int64, "f" = float.  The stream pointer is
 # appended to each.
 _ENTRIES = {
-    "broker_aggregates": ("broker_aggregates", "cc_broker_aggregates", "pppppipppppi"),
-    "segment_sum": ("broker_aggregates", "cc_segment_sum", "pppiiip"),
+    "segment_row_index": ("broker_aggregates", "cc_segment_row_index", "ppiiiippp"),
+    "broker_aggregates": ("broker_aggregates", "cc_broker_aggregates", "p" * 10 + "i"),
+    "segment_sum": ("broker_aggregates", "cc_segment_sum", "pppiip"),
     "best_per_segment": ("best_per_segment", "cc_best_per_segment", "pppiipp"),
     "prefix_cut": ("prefix_cut", "cc_prefix_cut", "ppppppppiii"),
     "ordered_sum": ("ordered", "cc_ordered_sum", "ppii"),

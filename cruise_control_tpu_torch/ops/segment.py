@@ -6,15 +6,19 @@ point at segment 0 and contribute zero.
 Integer counts stay int32 and exact on every backend.
 
 ``broker_aggregates`` is kernel K1 (``csrc/broker_aggregates.cu``): the five
-per-broker aggregates ``analyzer.state.BrokerArrays`` needs, in one pass
-over the replica axis.  Its plain twin ``broker_aggregates_plain`` is the
-five ``masked_segment_*`` calls of ``model/tensor_model.py``.
-``segment_sum`` is the same fixed-order design for any f32[N, C] rows (the
-selection's per-broker round sums, the replicas' DISK loads per disk and
-the disks' sums per broker of the intra-broker disk goals); its plain twin
-is ``masked_segment_sum``.
-On the card neither adds floats with atomics, so both are run-to-run
-identical and safe to replay in a CUDA graph.
+per-broker aggregates ``analyzer.state.BrokerArrays`` needs.  Its plain twin
+``broker_aggregates_plain`` is the five ``masked_segment_*`` calls of
+``model/tensor_model.py``.  ``segment_sum`` is the same fixed-order sum for
+any f32[N, C] rows (the selection's per-broker round sums, the replicas'
+DISK loads per disk and the disks' sums per broker of the intra-broker
+disk goals); its plain twin is ``masked_segment_sum``.  On the card both
+first group the kept rows by segment (``segment_row_index``: a stable
+counting sort built by hand, three launches; its plain twin
+``segment_row_index_plain``), then walk each segment's rows in row order,
+one warp a segment: the CPU ``index_add_``'s order and bits, no float
+atomics, so both are run-to-run identical and safe to replay in a CUDA
+graph.  Rows whose mask is unset or whose segment id lies outside
+[0, S) add nothing, in the kernels and in the plain twins alike.
 
 ``shard_combine`` is kernel K15 (``csrc/shard_combine.cu``): under a model
 sharded along the replica axis (``parallel/mesh.py``
@@ -41,15 +45,19 @@ from cruise_control_tpu_torch.ops import cuda
 def masked_segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sum ``values`` rows into ``num_segments`` buckets, zeroing masked rows."""
-    if mask is not None:
-        m = mask.reshape((-1,) + (1,) * (values.dim() - 1))
-        values = torch.where(m, values, torch.zeros((), dtype=values.dtype,
-                                                    device=values.device))
-        segment_ids = torch.where(mask, segment_ids, 0)
+    """Sum ``values`` rows into ``num_segments`` buckets, zeroing masked rows
+    and rows whose id lies outside [0, num_segments) (the JAX package's
+    scatter drops ids past the end; no caller passes a negative one)."""
     out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
-    return out.index_add_(0, segment_ids, values)
+    if num_segments == 0:
+        return out
+    kept = (segment_ids >= 0) & (segment_ids < num_segments)
+    mask = kept if mask is None else mask & kept
+    m = mask.reshape((-1,) + (1,) * (values.dim() - 1))
+    values = torch.where(m, values, torch.zeros((), dtype=values.dtype,
+                                                device=values.device))
+    return out.index_add_(0, torch.where(mask, segment_ids, 0), values)
 
 
 def masked_segment_count(segment_ids: torch.Tensor, num_segments: int,
@@ -66,7 +74,87 @@ def masked_segment_count(segment_ids: torch.Tensor, num_segments: int,
 
 
 # ---------------------------------------------------------------------------
-# K1 — broker aggregates
+# The per-segment row index that K1 and ``segment_sum`` walk on the card
+# ---------------------------------------------------------------------------
+
+# The shared memory a block of the card can use.
+_SMEM_BYTES = 232448
+
+
+def index_warps(num_segments: int) -> int:
+    """Warps of a build block: the most of 8, 4, 2, 1 whose per-warp
+    histograms and the offsets (``(W + 1)·S + 1`` ints) fit in a block's
+    shared memory."""
+    for w in (8, 4, 2, 1):
+        if (w * num_segments + num_segments + 1) * 4 + 1024 <= _SMEM_BYTES:
+            return w
+    raise ValueError(f"segment_row_index takes at most 28,927 segments, got {num_segments}")
+
+
+def index_tiling(n: int, num_segments: int) -> Tuple[int, int, int]:
+    """(warps a block, rows a warp, blocks) of the index build over ``n``
+    rows: 128 rows a warp, or 256 where the per-(segment, block) counts,
+    S·blocks, would pass 2**19 (the 4,000 disks of the 1,000-broker JBOD
+    shape): small tiles keep more warps busy, and the scan's length
+    S·blocks grows as they shrink."""
+    warps = index_warps(num_segments)
+    rows = 128
+    if num_segments * -(-n // (warps * rows)) > 1 << 19:
+        rows = 256
+    return warps, rows, -(-n // (warps * rows))
+
+
+def segment_row_index_plain(segment_ids: torch.Tensor, mask: torch.Tensor,
+                            num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(offsets i32[S + 1], rows i32[N]): the rows whose ``mask`` is set and
+    whose id lies in [0, S), grouped by segment, each segment's rows in
+    increasing order: segment s holds ``rows[offsets[s]:offsets[s + 1]]``;
+    ``rows`` holds -1 past ``offsets[S]``.  A stable sort in torch ops."""
+    S, dev = num_segments, segment_ids.device
+    kept = mask & (segment_ids >= 0) & (segment_ids < S)
+    key = torch.where(kept, segment_ids, S).to(torch.int64)
+    rows = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = torch.zeros(S + 1, dtype=torch.int64, device=dev).index_add_(
+        0, key, torch.ones_like(key))
+    offsets = torch.zeros(S + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts[:S], 0)
+    rows[int(offsets[S]):] = -1
+    return offsets.to(torch.int32), rows
+
+
+@cuda.counted("segment_row_index")
+def segment_row_index(segment_ids: torch.Tensor, mask: torch.Tensor,
+                      num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``segment_row_index_plain``'s index; no JAX function has one (the
+    JAX package scatters).  On the card ``cc_segment_row_index``, a stable
+    counting sort on the segment id in three launches (count per block,
+    scan per segment, scatter in row order; ``index_tiling``): work
+    N + S·blocks, no host sync, nothing sized by the data.  Bound on the
+    card: bytes (N flags and the kept rows' ids read, (S + 1 + N)·4
+    written).  CPU tensors take the plain twin."""
+    dev = segment_ids.device
+    n, S = segment_ids.shape[0], num_segments
+    cuda.check(segment_ids, "segment_ids", torch.int32, (n,), dev)
+    cuda.check(mask, "mask", torch.bool, (n,), dev)
+    cuda.record("segment_row_index", (segment_ids, mask, num_segments))
+    if cuda.on_cpu(segment_ids):
+        return segment_row_index_plain(segment_ids, mask, S)
+    if n >= 2 ** 31:
+        raise ValueError(f"segment_row_index takes fewer than 2**31 rows, got {n}")
+    offsets = torch.empty(S + 1, dtype=torch.int32, device=dev)
+    rows = torch.empty(n, dtype=torch.int32, device=dev)
+    if S == 0 or n == 0:  # nothing to group
+        return offsets.zero_(), rows
+    warps, warp_rows, blocks = index_tiling(n, S)
+    scratch = torch.empty(S * blocks + S, dtype=torch.int32, device=dev)
+    cuda.launch("segment_row_index", segment_ids, mask, n, S, warps, warp_rows,
+                offsets, rows, scratch)
+    segment_row_index.launches += 1
+    return offsets, rows
+
+
+# ---------------------------------------------------------------------------
+# K1 — broker aggregates, and segment_sum
 # ---------------------------------------------------------------------------
 
 # What the segments of a ``segment_sum`` are: the selection's per-broker
@@ -86,11 +174,12 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
     (``cruise_control_tpu/analyzer/optimizer.py:663-668``), of
     ``tensor_model.py:170`` ``disk_load`` and of the disk goals' per-broker
     sums (``goals/kernels.py:100,163-167``).  Bound on the card: bytes
-    (N·(4C+5) read, S·4C written).  CPU tensors take ``masked_segment_sum``
-    (``index_add_`` in row order); CUDA tensors launch one block per
-    segment that adds its rows in that row order: deterministic, no float
-    atomics, the CPU's bits.  ``segments`` names the mode
-    (``SEGMENT_MODES``) for the launch counts."""
+    (N·5 + kept·4C read, S·4C written).  CPU tensors take
+    ``masked_segment_sum`` (``index_add_`` in row order); CUDA tensors build
+    the row index (``segment_row_index``) and launch one warp per segment
+    that adds its rows in that row order: deterministic, no float atomics,
+    the CPU's bits.  ``segments`` names the mode (``SEGMENT_MODES``) for the
+    launch counts."""
     dev = values.device
     n = values.shape[0]
     c = values.shape[1] if values.dim() == 2 else -1
@@ -104,7 +193,8 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError(f"segment_sum takes 1..16 channels, got {c}")
     out = torch.empty((num_segments, c), dtype=torch.float32, device=dev)
     if num_segments > 0:
-        cuda.launch("segment_sum", values, segment_ids, mask, n, c, num_segments, out)
+        offsets, rows = segment_row_index(segment_ids, mask, num_segments)
+        cuda.launch("segment_sum", values, offsets, rows, c, num_segments, out)
         segment_sum.launches += 1
         _SUM_COUNTS[segments].launches += 1
     return out
@@ -123,7 +213,9 @@ def broker_aggregates_plain(replica_broker: torch.Tensor,
     """(load f32[B,4], replica_count i32[B], leader_count i32[B],
     potential_nw_out f32[B], leader_bytes_in f32[B]) — the JAX package's
     ``broker_load``, ``broker_replica_counts``, ``broker_leader_counts``,
-    ``potential_leadership_load`` and ``broker_leader_bytes_in``."""
+    ``potential_leadership_load`` and ``broker_leader_bytes_in``; rows on a
+    broker outside [0, B) count nowhere."""
+    replica_valid = replica_valid & (replica_broker >= 0) & (replica_broker < num_brokers)
     load = torch.where(replica_is_leader[:, None], load_leader, load_follower)
     lbi = torch.where(replica_is_leader, load_leader[:, Resource.NW_IN],
                       torch.zeros((), dtype=load_leader.dtype,
@@ -148,9 +240,10 @@ def broker_aggregates(replica_broker: torch.Tensor, replica_valid: torch.Tensor,
     ``cruise_control_tpu/ops/segment.py:22-42`` as reached through
     ``BrokerArrays.from_model`` (``analyzer/state.py:37``).  Bound on the
     card: bytes (R·38 read, B·32 written).  CPU tensors take
-    ``broker_aggregates_plain``; CUDA tensors launch the kernel (one block
-    per broker, fixed-order register + tree reduction: deterministic, no
-    float atomics)."""
+    ``broker_aggregates_plain``; CUDA tensors build the per-broker row
+    index of the valid rows (``segment_row_index``) and launch one warp per
+    broker that adds its rows' six floats in row order (the CPU's bits, no
+    float atomics) and counts them and their leaders."""
     dev = replica_broker.device
     r = replica_broker.shape[0]
     cuda.check(replica_broker, "replica_broker", torch.int32, (r,), dev)
@@ -166,15 +259,18 @@ def broker_aggregates(replica_broker: torch.Tensor, replica_valid: torch.Tensor,
         return broker_aggregates_plain(replica_broker, replica_valid,
                                        replica_is_leader, load_leader,
                                        load_follower, num_brokers)
+    if load_leader.data_ptr() % 16 or load_follower.data_ptr() % 16:
+        raise ValueError("broker_aggregates reads each load row as 16 aligned bytes")
     load = torch.empty((num_brokers, NUM_RESOURCES), dtype=torch.float32, device=dev)
     replica_count = torch.empty((num_brokers,), dtype=torch.int32, device=dev)
     leader_count = torch.empty((num_brokers,), dtype=torch.int32, device=dev)
     pnw = torch.empty((num_brokers,), dtype=torch.float32, device=dev)
     lbi = torch.empty((num_brokers,), dtype=torch.float32, device=dev)
     if num_brokers > 0:
-        cuda.launch("broker_aggregates", replica_broker, replica_valid,
-                    replica_is_leader, load_leader, load_follower, r, load,
-                    replica_count, leader_count, pnw, lbi, num_brokers)
+        offsets, rows = segment_row_index(replica_broker, replica_valid, num_brokers)
+        cuda.launch("broker_aggregates", offsets, rows, replica_is_leader, load_leader,
+                    load_follower, load, replica_count, leader_count, pnw, lbi,
+                    num_brokers)
         broker_aggregates.launches += 1
     return load, replica_count, leader_count, pnw, lbi
 
