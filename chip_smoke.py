@@ -208,7 +208,23 @@ Phases, in order (any failure raises and the process exits non-zero):
     graphs after this script's own graphs were captured and destroyed can
     end in a segmentation fault inside ``cudaGraphLaunch``, with or without
     CUPTI's teardown (``cupti_graph_check.py --smoke`` repeats that order
-    with graphs of torch's own ops, on any checkout);
+    with graphs of torch's own ops, on any checkout); then K3
+    (``check_k3``) through ``prefix_cut_admit`` and ``prefix_admit_safe``
+    on the inputs the mid, large and xl250 warm-ups and the goal kinds'
+    first topic cut gave it and on seeded cases (``k3_cases``: positions on
+    the running totals' level edges, tied scores with +0 and -0,
+    non-dyadic deltas, one segment holding every row, empty segments, no
+    kept row, segments out of band at their first position, a topic cut's
+    shape, 4,096, 4,097 and 40,000 segments: both groupings): bit for bit
+    against its plain twin on the card and on CPU copies, identical over
+    two launches and a graph replay, into canary-guarded buffers, timed on
+    the run inputs as one call (and its host time) and in a replayed graph
+    beside one stable ``torch.sort`` of the order's composite key (K3's
+    device ms a call, its sort and grouping included, comes from the
+    profiler in phase 4 for mid and at the large and xl250 warm-ups); and
+    the ordered sum (``check_ordered_sum``) on phase 4's fixtures the same
+    way, timed at B = 50, 200 and 1,000 brokers, one column and four,
+    beside ``torch.sum``;
 22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
@@ -254,8 +270,11 @@ K13_RTOL = 1e-6  # of each column's largest |value|: the sums run in another ord
 SEGSUM_RTOL = 1e-5
 
 # The row index's device kernels (K1's and segment_sum's first three
-# launches).
+# launches; K3's grouping launches them too).
 INDEX_KERNELS = ("index_scatter_kernel", "index_count_kernel", "index_scan_kernel")
+# K3's own device kernels after its sort and grouping.
+K3_KERNELS = ("prefix_flags_kernel", "prefix_rows_kernel", "prefix_scan_kernel",
+              "prefix_admit_kernel", "sorted_offsets_kernel")
 # Device kernel names of each wrapper, as the profiler reports them.
 PROFILE_NAMES = {
     # K1 and segment_sum: the walk alone (a run's profile adds the row
@@ -264,8 +283,10 @@ PROFILE_NAMES = {
     "segment_sum": ("segment_sum_kernel",),
     "segment_row_index": INDEX_KERNELS,
     "best_per_segment": ("segment_max_key", "segment_winner"),
-    "prefix_cut": ("prefix_cut_kernel", "scan_blocks_kernel", "block_totals_kernel",
-                   "add_back_kernel"),
+    # K3: the count of its flags pass, the time of its own four kernels
+    # (its score sort and grouping run as torch's sort and the row index's
+    # kernels).
+    "prefix_cut": K3_KERNELS,
     "goal_masks": ("goal_masks_kernel",),
     "transport_rank": ("transport_rank_kernel",),
     "transport_lookup": ("transport_lookup_kernel",),
@@ -488,13 +509,19 @@ def main(argv) -> int:
     second, second_opts = second_snapshot(torch, np, mid, SECOND_SEED)
     large = generate_cluster(spec_of(large_rung), device=dev)
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
-    # K1's and the round sums' inputs at each rung, for phase 21.
-    family_inputs_of, family = {}, {}
+    # K1's, the round sums' and K3's inputs at each rung, for phase 21.
+    family_inputs_of, family, k3_inputs = {}, {}, {}
 
     def keep_family_inputs(label, kept):
         if kept.get("segment_sum", (None,) * 5)[4] != "round":
             raise RuntimeError(f"the {label} run kept no round sums' inputs")
+        if "prefix_cut" not in kept:
+            raise RuntimeError(f"the {label} run kept no K3 inputs")
         family_inputs_of[label] = {n: kept[n] for n in ("broker_aggregates", "segment_sum")}
+        k3_inputs[label] = kept["prefix_cut"]
+        if label != "mid" and not rehearse:  # K3's device ms a call (phase 4: mid's)
+            family.setdefault("prefix_cut", {})[f"device_ms_call_{label}"] = device_ms_total(
+                torch, lambda: gk.prefix_cut_admit(*kept["prefix_cut"]), log)
 
     def check_family_at(label):
         kept = family_inputs_of.pop(label)
@@ -862,7 +889,8 @@ def main(argv) -> int:
     phase("goal kinds")
     cx = types.SimpleNamespace(
         torch=torch, np=np, opt=opt, props=props, gk=gk, cuda=cuda, log=log, dev=dev,
-        rehearse=rehearse, timer=timer, fused_run=fused_run, mid=mid, mid_rung=mid_rung,
+        rehearse=rehearse, k3_inputs=k3_inputs, timer=timer, fused_run=fused_run, mid=mid,
+        mid_rung=mid_rung,
         large=large, large_rung=large_rung, hundred_rung=hundred_rung, xl_rung=xl_rung,
         two_racks_rung=two_racks_rung, spec_of=spec_of, generate_cluster=generate_cluster,
         compare_card_cpu=compare_card_cpu, same_placement=same_placement,
@@ -907,10 +935,15 @@ def main(argv) -> int:
     log(f"mesh summary: {mesh_summary}")
 
     # 21. K1, segment_sum's modes and their row index at each rung's shapes,
-    # after every profiler session (see the docstring)
-    phase("K1 family")
+    # K3 and the ordered sum on every case, after every profiler session
+    # (see the docstring)
+    phase("K1 family, K3, ordered sum")
     for label in ("mid", "large", "xl250"):
         check_family_at(label)
+    for name, r in check_k3(torch, np, log, timer, k3_inputs, rehearse).items():
+        family.setdefault(name, {}).update(r)
+    family.update(check_ordered_sum(torch, np, log, timer, captured["ordered_sum"][0],
+                                    rehearse))
 
     # 22. results
     phase("results")
@@ -941,6 +974,7 @@ def main(argv) -> int:
                 device_ms = prof["per_launch"].get(name)
         launches = exec_counts[name] if name in EXECUTION_ONLY else pipe_counts[name]
         extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
+                 or k.startswith("device_ms_call")
                  or k in ("shape", "index_ms", "index_device_ms", "topic_device_ms",
                           "index_library_ms", "index_bound_ms")}
         line.append({"name": name, "route": "cuda", "source": source,
@@ -971,11 +1005,11 @@ def main(argv) -> int:
     for name, (source, replaces, run_label) in MODE_KERNELS.items():
         r = mode_rows[name]
         extra = {k: v for k, v in r.items() if k.endswith(("_large", "_xl250"))
-                 or k == "shape"}
+                 or k in ("shape", "device_ms_call")}
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": kind_counts[run_label].get(name, 0),
-                     "launches_run": run_label, **extra,
+                     "launches_run": run_label, **extra, **family.get(name, {}),
                      "launches_large_designated": kind_counts["large designated"].get(name, 0),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms_per_launch": r["device_ms"],
@@ -1815,10 +1849,11 @@ def check_recorded_frontiers(torch, gk, inputs, log):
     return len(inputs)
 
 
-def profile_mid(torch, run, wall, steps, label, log):
+def profile_mid(torch, run, wall, steps, label, log, names=None):
     """One more run of ``run`` under ``torch.profiler``: device ops per step,
     the device's busy share of the unprofiled ``wall``, the device ops that
-    take the most time, and each port kernel's device time per launch."""
+    take the most time, and each port kernel's device time per launch (of
+    ``names``, by default ``PROFILE_NAMES``)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -1842,10 +1877,10 @@ def profile_mid(torch, run, wall, steps, label, log):
     # kernels over the count of the first (K2 is two device kernels, K3 its
     # cut and the launches of its scan).
     per_launch, totals = {}, {}
-    for wrapper, names in PROFILE_NAMES.items():
+    for wrapper, kernels in (names or PROFILE_NAMES).items():
         hits = {k: [(n, t) for name, (n, t) in by_name.items() if k in name]
-                for k in names}
-        launches = sum(n for n, _ in hits[names[0]])
+                for k in kernels}
+        launches = sum(n for n, _ in hits[kernels[0]])
         total = sum(t for h in hits.values() for _, t in h)
         per_launch[wrapper] = total / launches if launches else None
         totals[wrapper] = total
@@ -2115,6 +2150,20 @@ def time_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
+def enqueue_ms(torch, fn, runs: int = 100) -> float:
+    """Host ms a call of ``fn`` issued back to back without a sync: the
+    wrapper's Python and the launches' host cost."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / runs
+    torch.cuda.synchronize()
+    return host
+
+
 def host_time_ms(torch, fn, runs: int = 3) -> float:
     """Host-clock stand-in for ``time_ms`` in the CPU rehearsal."""
     fn()
@@ -2180,6 +2229,20 @@ GUARD_WORDS = 4096  # canary words around each buffer of a guarded launch
 CANARY = 0x7FA5A5A5
 
 
+def canary_views(torch, dev, sizes):
+    """(buffer, guard mask, views): int32 views of ``sizes`` words, each
+    between bands of ``GUARD_WORDS`` canary words of one buffer."""
+    buf = torch.full((sum(sizes) + GUARD_WORDS * (len(sizes) + 1),), CANARY,
+                     dtype=torch.int32, device=dev)
+    guard = torch.ones_like(buf, dtype=torch.bool)
+    views, at = [], GUARD_WORDS
+    for size in sizes:
+        views.append(buf[at:at + size])
+        guard[at:at + size] = False
+        at += size + GUARD_WORDS
+    return buf, guard, views
+
+
 def guarded_writes(torch, sg, cuda, name, args):
     """One launch of ``name``'s row index and walk through their C entries
     into buffers that each lie between bands of ``GUARD_WORDS`` canary
@@ -2200,17 +2263,11 @@ def guarded_writes(torch, sg, cuda, name, args):
         sizes += [4 * S, S, S, S, S]
     elif name != "segment_row_index":
         sizes += [S * values.shape[1]]
-    buf = torch.full((sum(sizes) + GUARD_WORDS * (len(sizes) + 1),), CANARY,
-                     dtype=torch.int32, device=dev)
-    guard = torch.ones_like(buf, dtype=torch.bool)
-    views, at = [], GUARD_WORDS
-    for size in sizes:
-        views.append(buf[at:at + size])
-        guard[at:at + size] = False
-        at += size + GUARD_WORDS
+    buf, guard, views = canary_views(torch, dev, sizes)
     offsets, rows, scratch = views[:3]
     f32 = [v.view(torch.float32) for v in views[3:]]
-    cuda.launch("segment_row_index", seg, mask, n, S, warps, warp_rows, offsets, rows, scratch)
+    cuda.launch("segment_row_index", seg, mask, None, n, S, warps, warp_rows, offsets, rows,
+                scratch)
     if name == "broker_aggregates":
         cuda.launch("broker_aggregates", offsets, rows, lead, ll, lf, f32[0], views[4],
                     views[5], f32[3], f32[4], S)
@@ -2316,16 +2373,9 @@ def check_family(torch, np, log, timer, label, k1_args, round_args, rehearse):
             o = sg.segment_row_index_plain(*cpu((seg, mask, S)))[0]
             longest[case] = int((o[1:] - o[:-1]).max())
         fn = lambda: kernel(*args)  # noqa: E731
-        if not rehearse:
-            eager = fn()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                static = fn()
-            graph.replay()
-            torch.cuda.synchronize()
-            if not _exact(torch, static, eager):
-                raise RuntimeError(f"{name} at {label}: a graph replay differs from the eager "
-                                   "launch")
+        if not rehearse and not _graph_replay_equal(torch, fn):
+            raise RuntimeError(f"{name} at {label}: a graph replay differs from the eager "
+                               "launch")
         seg, mask = args[si], args[mi]
         if base == "segment_row_index":
             keys = torch.where(mask & (seg >= 0) & (seg < S), seg, S)
@@ -2364,6 +2414,270 @@ def check_family(torch, np, log, timer, label, k1_args, round_args, rehearse):
             f"{'torch.sort' if base == 'segment_row_index' else 'index_add_'}"
             f" {r['library_graph_ms']} ms; bound {r['bound_ms']:.6f} ms")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K3 and the ordered sum on every case, into canary-guarded buffers
+# ---------------------------------------------------------------------------
+
+K3_EDGES = (16, 17, 256, 257, 4096, 4097, 65537)  # the running totals' level edges
+K3_CASES = ("ties", "one segment", "empty segments", "none kept", "out of band first")
+# Segment counts on both sides of K3's grouping choice (the counting pass
+# up to gk.COUNTING_MAX_SEGMENTS, a second sort above) and far above it.
+K3_GROUPING_SEGMENTS = (4096, 4097, 40000)
+
+
+def k3_fixture(torch, np, dev, k, s, c, seed, case="mixed", segments="broker"):
+    """K3's arguments (score, seg, deltas, kept, cum_before, lo, hi, S,
+    segments) of one seeded case on ``dev``: integer scores (ties, +0 and
+    -0, a few +inf), non-dyadic deltas (normal draws over four decades, so
+    the rounding order of the running totals matters), and a share of the
+    channels bounded at the highest or lowest float64 running total of
+    their segment up to a random position, exactly or a little inside it.
+    ``case``: three scores only ("ties"), every row on segment 0 ("one
+    segment"), odd segments empty, no kept row, or a third of the segments
+    out of band before their first position ("out of band first")."""
+    rng = np.random.default_rng(seed)
+    score = rng.integers(-6, 7, k).astype(np.float32)
+    score[(score == 0) & (rng.random(k) < 0.5)] = -0.0
+    score[rng.random(k) < 0.02] = np.inf
+    if case == "ties":
+        score = rng.choice(np.array([1.0, 0.0, -0.0], np.float32), k)
+    seg = rng.integers(0, s, k)
+    if case == "one segment":
+        seg[:] = 0
+    elif case == "empty segments":
+        seg = 2 * rng.integers(0, (s + 1) // 2, k)
+    seg = seg.astype(np.int32)
+    deltas = (rng.normal(0.0, 1.0, (k, c)) * 10.0 ** rng.integers(-2, 2, (k, c))).astype(
+        np.float32)
+    kept = rng.random(k) < 0.8
+    if case == "none kept":
+        kept[:] = False
+    cum = rng.normal(0.0, 1.0, (s, c)).astype(np.float32)
+    lo = np.full((s, c), -np.inf, np.float32)
+    hi = np.full((s, c), np.inf, np.float32)
+    o = np.lexsort((-score + np.float32(0.0), seg))        # the JAX order
+    cs = np.cumsum(np.where(kept[o][:, None], deltas[o], 0.0), axis=0)
+    so = seg[o]
+    starts = np.searchsorted(so, np.arange(s))
+    ends = np.searchsorted(so, np.arange(s), side="right")
+    base = np.where((starts > 0)[:, None], cs[np.maximum(starts - 1, 0)], 0.0)
+    run = np.vstack([cum[so] + cs - base[so], np.zeros((1, c))])
+    g = np.nonzero(starts < ends)[0]
+    at = starts[g] + (rng.random(g.size) * (ends[g] - starts[g])).astype(np.int64)
+    cuts = np.empty(2 * g.size, np.int64)
+    cuts[0::2], cuts[1::2] = starts[g], at + 1
+    top = np.maximum.reduceat(run, cuts, axis=0)[0::2]     # highest total up to at
+    bottom = np.minimum.reduceat(run, cuts, axis=0)[0::2]
+    u = rng.random((g.size, c))
+    hi[g] = np.where(u < 0.3, top - (u < 0.15) * 1e-3 * np.abs(top), hi[g])
+    lo[g] = np.where((u >= 0.3) & (u < 0.6), bottom + (u < 0.45) * 1e-3 * np.abs(bottom),
+                     lo[g])
+    wide = (u >= 0.6) & (u < 0.8)
+    hi[g] = np.where(wide, np.abs(run[:-1]).max() + 1.0, hi[g])
+    lo[g] = np.where(wide, -np.abs(run[:-1]).max() - 1.0, lo[g])
+    if case == "out of band first":
+        cum[rng.random(s) < 0.33] = 1e4
+        hi[:, 0] = np.where(np.isinf(hi[:, 0]), 1e3, hi[:, 0])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (t(score), t(seg), t(deltas), t(kept), t(cum), t(lo), t(hi), s, segments)
+
+
+def k3_cases(torch, np, dev):
+    """(label, K3 arguments) of every seeded K3 case: the level edges at the
+    main path's 8 channels, the cases of ``K3_CASES`` at 4,097 positions, a
+    topic cut's shape (7,000 positions, 2 channels, 2,000 segments) and the
+    segment counts of ``K3_GROUPING_SEGMENTS`` at 65,537 positions."""
+    cases = [(f"K={k}", k3_fixture(torch, np, dev, k, max(3, k // 48), 8, k + 2))
+             for k in K3_EDGES]
+    cases += [(case, k3_fixture(torch, np, dev, 4097, 64, 8, 7, case)) for case in K3_CASES]
+    cases.append(("topic shape", k3_fixture(torch, np, dev, 7000, 2000, 2, 11,
+                                            segments="topic")))
+    cases += [(f"S={s}", k3_fixture(torch, np, dev, 65537, s, 2, 13 + s))
+              for s in K3_GROUPING_SEGMENTS]
+    return cases
+
+
+def k3_safe_args(torch, args):
+    """The arguments ``prefix_admit_safe`` hands K3: the split channels."""
+    score, seg, deltas, kept, cum, lo, hi, S = args[:8]
+    inf = torch.full_like(hi, float("inf"))
+    return (score, seg, torch.cat([deltas.clamp(min=0.0), deltas.clamp(max=0.0)], 1).contiguous(),
+            kept, torch.cat([cum, cum], 1).contiguous(), torch.cat([-inf, lo], 1).contiguous(),
+            torch.cat([hi, inf], 1).contiguous(), S)
+
+
+def guarded_k3(torch, gk, args):
+    """K3's launches (``prefix_cut_launch``) into scratch and an output that
+    each lie between canary bands; raises if a band changed or the output
+    differs from the wrapper's."""
+    score, seg, deltas, kept, cum, lo, hi, S = args[:8]
+    K, C = deltas.shape
+    sizes = gk.prefix_cut_scratch(K, S, C) + [-(-K // 4)]
+    buf, guard, views = canary_views(torch, score.device, sizes)
+    out = views[-1].view(torch.uint8)[:K].view(torch.bool)
+    gk.prefix_cut_launch(score, seg, deltas, kept, cum, lo, hi, S, views[:-1], out)
+    torch.cuda.synchronize()
+    if not bool((buf[guard] == CANARY).all()):
+        raise RuntimeError("K3: a launch wrote outside its buffers")
+    if not torch.equal(out, gk.prefix_cut_admit(*args[:8])):
+        raise RuntimeError("K3: the guarded launch differs from the wrapper's")
+
+
+def _graph_replay_equal(torch, fn):
+    """Whether one replay of a graph capturing ``fn()`` gives its eager result."""
+    eager = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _exact(torch, static, eager)
+
+
+def check_k3(torch, np, log, timer, inputs, rehearse):
+    """K3 through ``prefix_cut_admit`` and ``prefix_admit_safe`` on every
+    case of ``k3_cases`` and on the inputs the mid, large and xl250 warm-ups
+    and the goal kinds' first topic cut gave it (``inputs``): bit for bit
+    against ``prefix_cut_admit_plain`` on the card (the safe entry: on its
+    split channels) and against the entry point on CPU copies, identical
+    over two launches and a graph replay, and launched into canary-guarded
+    buffers (``guarded_k3``).  On the run inputs, timed as one call
+    (``ms``) and as many calls in a replayed graph (``graph_ms``), beside
+    one stable ``torch.sort`` of the order's composite key (segment, then
+    the score's total-order key descending) timed the same way.  Returns
+    {kernel: {metric_<label>: value}}."""
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.ops import order
+
+    def cpu(args):
+        return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+    dev = next(iter(inputs.values()))[0].device
+    cases = list(inputs.items()) + k3_cases(torch, np, dev)
+    admitted = {}
+    for label, a in cases:
+        for entry in ("prefix_cut_admit", "prefix_admit_safe"):
+            if entry == "prefix_admit_safe" and 2 * a[2].shape[1] > 16:
+                continue
+            fn = getattr(gk, entry)
+            plain_args = a[:8] if entry == "prefix_cut_admit" else k3_safe_args(torch, a)
+            got, again = fn(*a), fn(*a)
+            if not torch.equal(got, again):
+                raise RuntimeError(f"K3 {entry} ({label}) differs between two launches")
+            if not torch.equal(got, gk.prefix_cut_admit_plain(*plain_args)):
+                raise RuntimeError(f"K3 {entry} ({label}) differs from the plain twin at "
+                                   f"{int((got != gk.prefix_cut_admit_plain(*plain_args)).sum())}"
+                                   " positions")
+            if not torch.equal(got.cpu(), fn(*cpu(a))):
+                raise RuntimeError(f"K3 {entry} ({label}) differs from the CPU")
+            if not rehearse:
+                if not _graph_replay_equal(torch, lambda: fn(*a)):
+                    raise RuntimeError(f"K3 {entry} ({label}): a graph replay differs")
+                guarded_k3(torch, gk, plain_args)
+            admitted[f"{label} {entry}"] = (int(got.sum()), int(a[3].sum()))
+    log(f"K3: {len(admitted)} (case, entry) pairs bit for bit against the plain twin on the "
+        f"card and on the CPU, identical over two launches"
+        f"{'' if rehearse else ', a graph replay and into canary-guarded buffers'}; "
+        f"admitted / kept {admitted}")
+    out = {}
+    for label, a in inputs.items():
+        score, seg, deltas, kept, cum, lo, hi, S = a[:8]
+        K, C = deltas.shape
+        key = order._total_order_key(-score + 0.0).to(torch.int64) + 2 ** 31
+        composite = (seg.to(torch.int64) << 32) | key
+        fn = lambda: gk.prefix_cut_admit(*a)  # noqa: E731, B023
+        library = lambda: torch.sort(composite, stable=True)  # noqa: E731, B023
+        r = {"shape": dict(K=K, C=C, S=S), "ms": timer(torch, fn),
+             "library_ms": timer(torch, library),
+             "bound_ms": bound_ms(K * 10 + int(kept.sum()) * 4 * C + S * 12 * C),
+             "host_ms": enqueue_ms(torch, fn),
+             "sort_host_ms": enqueue_ms(torch, lambda: order.argsort(-score))}  # noqa: B023
+        if rehearse:
+            r.update(graph_ms=None, library_graph_ms=None)
+        else:
+            r.update(graph_ms=graph_ms(torch, fn), library_graph_ms=graph_ms(torch, library))
+        name = "prefix_cut[topic]" if label == "topic" else "prefix_cut"
+        out.setdefault(name, {}).update({f"{k}_{label}": v for k, v in r.items()})
+        log(f"K3 at {label} {r['shape']}: one call {r['ms']:.4f} ms (host {r['host_ms']:.4f} "
+            f"ms, its score sort's {r['sort_host_ms']:.4f}), graph {r['graph_ms']} ms a call; "
+            f"torch.sort of the composite key {r['library_ms']:.4f} ms, graph "
+            f"{r['library_graph_ms']} ms; bound {r['bound_ms']:.6f} ms")
+    return out
+
+
+ORDERED_SUM_SHAPES = [(b, c) for b in (50, 200, 1000) for c in (1, 4)]
+
+
+def ordered_sum_fixtures(torch, np, dev, x_cap):
+    """The captured input of the band averages' ordered sum, and seeded
+    vectors and [n, 4] tables around the window edges (magnitudes over
+    eight decades, both signs)."""
+    rng = np.random.default_rng(SEED)
+    fixtures = [x_cap]
+    for n in (1, 31, 32, 33, 200, 1000, 1025, 16384):
+        for shape in ((n,), (n, 4)):
+            mag = rng.exponential(1.0, shape) * 10.0 ** rng.integers(-3, 5, shape)
+            fixtures.append(torch.from_numpy(
+                (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)).to(dev))
+    return fixtures
+
+
+def check_ordered_sum(torch, np, log, timer, x_cap, rehearse):
+    """The ordered sum on every fixture of ``ordered_sum_fixtures``: bit for
+    bit against its plain twin on the card and on a CPU copy, identical over
+    two launches and a graph replay, and launched into an output between
+    canary bands; then at the band averages' shapes (``ORDERED_SUM_SHAPES``:
+    B brokers, one column or four) timed as one call and as many calls in a
+    replayed graph beside ``torch.sum(x, dim=0)`` timed the same way.
+    Returns {"ordered_sum": {metric_B<b>x<c>: value}}."""
+    from cruise_control_tpu_torch.ops import cuda, order
+    dev = x_cap.device
+    fixtures = ordered_sum_fixtures(torch, np, dev, x_cap)
+    for x in fixtures:
+        got, again = order.ordered_sum(x), order.ordered_sum(x)
+        if not (_exact(torch, got, again) and _exact(torch, got, order.ordered_sum_plain(x))
+                and _exact(torch, got, order.ordered_sum_plain(x.cpu()))):
+            raise RuntimeError(f"ordered_sum on {tuple(x.shape)} differs from its plain twin "
+                               "or between two launches")
+        if not rehearse:
+            if not _graph_replay_equal(torch, lambda: order.ordered_sum(x)):  # noqa: B023
+                raise RuntimeError(f"ordered_sum on {tuple(x.shape)}: a graph replay differs")
+            c = max(got.numel(), 1)
+            buf, guard, (out,) = canary_views(torch, dev, [c])
+            cuda.launch("ordered_sum", x.contiguous(), out, x.shape[0], c)
+            torch.cuda.synchronize()
+            if not bool((buf[guard] == CANARY).all()):
+                raise RuntimeError("ordered_sum: a launch wrote outside its output")
+            if not _exact(torch, out.view(torch.float32).view(got.shape), got):
+                raise RuntimeError("ordered_sum: the guarded launch differs from the wrapper's")
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+    for b, c in ORDERED_SUM_SHAPES:
+        shape = (b,) if c == 1 else (b, c)
+        x = torch.from_numpy(rng.exponential(100.0, shape).astype(np.float32)).to(dev)
+        fn = lambda: order.ordered_sum(x)  # noqa: E731, B023
+        library = lambda: torch.sum(x, dim=0)  # noqa: E731, B023
+        r = {"ms": timer(torch, fn), "library_ms": timer(torch, library),
+             "bound_ms": bound_ms(b * c * 4 + c * 4), "host_ms": enqueue_ms(torch, fn),
+             "library_host_ms": enqueue_ms(torch, library)}
+        if rehearse:
+            r.update(graph_ms=None, library_graph_ms=None)
+        else:
+            r.update(graph_ms=graph_ms(torch, fn), library_graph_ms=graph_ms(torch, library))
+        out.update({f"{k}_B{b}x{c}": v for k, v in r.items()})
+        log(f"ordered_sum at B={b} x {c}: one call {r['ms']:.4f} ms (torch.sum "
+            f"{r['library_ms']:.4f}; host {r['host_ms']:.4f} and {r['library_host_ms']:.4f}), "
+            f"graph {r['graph_ms']} ms a call (torch.sum {r['library_graph_ms']}); bound "
+            f"{r['bound_ms']:.8f} ms")
+    log(f"ordered_sum: {len(fixtures)} inputs bit for bit against the plain twin on the card "
+        f"and on the CPU, identical over two launches"
+        f"{'' if rehearse else ', a graph replay and into a canary-guarded output'}")
+    return {"ordered_sum": out}
 
 
 def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
@@ -2479,10 +2793,14 @@ def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
         if not torch.equal(got, ref):
             raise RuntimeError(f"K3 disagrees at {int((got != ref).sum())} positions")
         near_total += int(_near_bound_segments(torch, gk, *args).sum())
+    # Device ms a call, every device op of it (its sort and grouping too):
+    # here for the mid input, at the large and xl250 warm-ups for theirs.
+    on_card = dev.type == "cuda"
     out["prefix_cut"] = dict(
         max_abs_err=0.0, ms=time_ms(torch, lambda: k3(*cap)),
         plain_ms=time_ms(torch, lambda: gk.prefix_cut_admit_plain(*cap)),
-        library_ms=None, bound_ms=bound_ms(K * 10 + int(cap[3].sum()) * 4 * C + S * 12 * C))
+        library_ms=None, bound_ms=bound_ms(K * 10 + int(cap[3].sum()) * 4 * C + S * 12 * C),
+        device_ms_call_mid=device_ms_total(torch, lambda: k3(*cap), log) if on_card else None)
     log(f"K3 prefix_cut: K={K} C={C} S={S} ok (exact); segments with a position "
         f"within 2 eps of a bound: {near_total}")
 
@@ -2776,13 +3094,7 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
     # seeded vectors and [n, 4] tables around the window edges.
     ks = wrappers["ordered_sum"]
     (x_cap,) = captured["ordered_sum"]
-    rng = np.random.default_rng(SEED)
-    fixtures = [x_cap]
-    for n in (1, 31, 32, 33, 200, 1000, 1025, 16384):
-        for shape in ((n,), (n, 4)):
-            mag = rng.exponential(1.0, shape) * 10.0 ** rng.integers(-3, 5, shape)
-            fixtures.append(torch.from_numpy(
-                (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)).to(dev))
+    fixtures = ordered_sum_fixtures(torch, np, dev, x_cap)
     for x in fixtures:
         got = ks(x)
         if not (torch.equal(got, order.ordered_sum_plain(x))
@@ -3597,7 +3909,8 @@ def check_goal_kinds(cx):
 
     # 6. The new modes against their plain twins on the captured inputs,
     # healthy and with a dead broker.
-    rows = check_mode_kernels(torch, np, gk, cuda, capture.inputs, log, cx.timer, rehearse)
+    rows = check_mode_kernels(torch, np, gk, cuda, capture.inputs, log, cx.timer, rehearse,
+                              cx.k3_inputs)
     for name, (_, _, run_label) in MODE_KERNELS.items():
         if name in rows:
             rows[name]["launches"] = counts[run_label].get(name, 0)
@@ -3605,13 +3918,12 @@ def check_goal_kinds(cx):
     return rows, counts, summary
 
 
-def check_mode_kernels(torch, np, gk, cuda, inputs, log, time_ms, rehearse):
+def check_mode_kernels(torch, np, gk, cuda, inputs, log, time_ms, rehearse, k3_inputs):
     """K5's, K5b's and K9's new modes on the inputs ``ModeCapture`` kept,
     and on the same inputs with broker 2 dead: the kernel against its plain
     twin, exactly (score bits, flags).  Each timed (CUDA events, median;
     device time under the profiler) beside its plain twin and its bound.
-    K3's topic cuts were held against their twin in phase 4's K3 check (the
-    same kernel); their row reports the launches only."""
+    K3's first topic cut goes to ``k3_inputs`` for phase 21's K3 checks."""
     from cruise_control_tpu_torch.analyzer.state import BrokerArrays
     from cruise_control_tpu_torch.model.tensor_model import BrokerState
     wrappers = {"goal_masks": (gk.goal_masks, gk.goal_masks_plain),
@@ -3631,11 +3943,11 @@ def check_mode_kernels(torch, np, gk, cuda, inputs, log, time_ms, rehearse):
             library_ms=None,
             bound_ms=bound_ms(K * 10 + int(args[3].sum()) * 4 * C + S * 12 * C),
             device_ms=None if rehearse else device_ms(
-                torch, lambda: gk.prefix_cut_admit(*topic_cut), ("prefix_cut_kernel",
-                                                                 "scan_blocks_kernel",
-                                                                 "block_totals_kernel",
-                                                                 "add_back_kernel"), log),
+                torch, lambda: gk.prefix_cut_admit(*topic_cut), K3_KERNELS, log),
+            device_ms_call=None if rehearse else device_ms_total(
+                torch, lambda: gk.prefix_cut_admit(*topic_cut), log),
             shape=dict(K=K, C=C, S=S))
+        k3_inputs["topic"] = topic_cut
         log(f"prefix_cut[topic]: K={K} C={C} S={S} equal to the plain twin (exact)")
     elif not rehearse:
         raise RuntimeError("no captured input for K3's topic cut")

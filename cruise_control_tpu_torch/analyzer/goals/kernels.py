@@ -33,7 +33,9 @@ broker against its band, ``_disk_limits``).
   are not of a band kind (K9 batch, same source), with the plain twin
   ``frontier_active_batch_plain``.
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
-  ``csrc/prefix_cut.cu``), with the plain twin ``prefix_cut_admit_plain``.
+  ``csrc/prefix_cut.cu``: one score sort, the row index's counting pass,
+  running totals rebuilt where they are tested), with the plain twin
+  ``prefix_cut_admit_plain``.
 - ``accepts_band_batch`` — the band goals' ``accepts`` ANDed over a stack
   (the optimizer's ``_DBG_NO_BUDGETS`` ablation; ``csrc/band_accepts.cu``),
   with the plain twin ``accepts_band_batch_plain``.
@@ -64,6 +66,7 @@ from cruise_control_tpu_torch.analyzer.state import (INTRA_DISK_KINDS, BrokerArr
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.model.tensor_model import BrokerState, TensorClusterModel
 from cruise_control_tpu_torch.ops import cuda, order
+from cruise_control_tpu_torch.ops import segment as sg
 from cruise_control_tpu_torch.ops.segment import masked_segment_count, masked_segment_sum
 
 _BIG = 1e30
@@ -1854,6 +1857,12 @@ def prefix_cut_admit_plain(score, seg, deltas, kept, cum_before, lo, hi,
 
 # The segments a cut runs over: brokers, or (topic, broker) keys.
 _CUT_COUNTS = cuda.mode_counters("prefix_cut", ("broker", "topic"))
+# The most segments K3 groups with the row index's counting pass; above,
+# a second stable sort.  Every block of the pass scans all S segment counts,
+# so its work grows as S·blocks: at the large rung's 20,000 (topic, broker)
+# keys one scatter launch took 0.38 ms on an H100 (solve_walls.py's
+# profile).
+COUNTING_MAX_SEGMENTS = 4096
 
 
 @cuda.counted("prefix_cut")
@@ -1865,23 +1874,29 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
     (``_sorted_prefix_tables`` + ``prefix_cut_admit``): per segment, keep the
     longest score-ranked prefix of ``kept`` whose running totals
     (``cum_before`` plus the kept deltas) stay inside [lo, hi] at every
-    position.  Bound on the card: bytes (K·(9+4C) + S·12C read, K written).
-    CPU tensors take ``prefix_cut_admit_plain``; CUDA tensors sort with two
-    stable ``torch.sort`` calls, take the global running totals in the
-    order of ``ordered_cumsum`` (``cc_ordered_cumsum``: a scan of blocks of
-    16 rows per level, the plain version's bits) and launch one block per
-    segment that cuts at its first out-of-band position.  ``segments``
-    names what the segments are ("broker" or "topic"), for the launch
-    counts."""
+    position.  Segment ids lie in [0, S); a row outside is admitted nowhere.
+    Bound on the card: bytes (K·(9+4C) + S·12C read, K written).  CPU
+    tensors take ``prefix_cut_admit_plain``; CUDA tensors sort once (the
+    stable ``torch.sort`` of the canonical score), group the score-ordered
+    rows by segment with the row index's counting pass
+    (``cc_segment_row_index`` over ``seg[by_score]``, every row; above
+    ``COUNTING_MAX_SEGMENTS`` a second stable sort and
+    ``cc_sorted_offsets``), and launch ``cc_prefix_cut``: the running
+    totals in the order of ``ordered_cumsum`` rebuilt where they are
+    tested, each segment cut at its first out-of-band position
+    (``csrc/prefix_cut.cu``).  No host sync; scratch sized from (K, S, C).
+    ``segments`` names what the segments are ("broker" or "topic"), for the
+    launch counts."""
     dev = score.device
     K = score.shape[0]
     C = deltas.shape[1] if deltas.dim() == 2 else -1
+    S = num_segments
     cuda.check(score, "score", torch.float32, (K,), dev)
     cuda.check(seg, "seg", torch.int32, (K,), dev)
     cuda.check(deltas, "deltas", torch.float32, (K, C), dev)
     cuda.check(kept, "kept", torch.bool, (K,), dev)
     for name, t in (("cum_before", cum_before), ("lo", lo), ("hi", hi)):
-        cuda.check(t, name, torch.float32, (num_segments, C), dev)
+        cuda.check(t, name, torch.float32, (S, C), dev)
     cuda.record("prefix_cut", (score, seg, deltas, kept, cum_before, lo, hi,
                                num_segments, segments))
     if cuda.on_cpu(score):
@@ -1889,19 +1904,53 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
                                       hi, num_segments)
     if not 1 <= C <= 16:
         raise ValueError(f"prefix_cut takes 1..16 channels, got {C}")
-    out = torch.zeros((K,), dtype=torch.bool, device=dev)
-    if K > 0 and num_segments > 0:
-        ordr = _prefix_order(score, seg)
-        s_deltas = torch.where(kept[ordr][:, None], deltas[ordr],
-                               torch.zeros((), dtype=deltas.dtype, device=dev))
-        cs = s_deltas.contiguous()
-        scratch = torch.empty(((K // 15 + 16) * C,), dtype=torch.float32, device=dev)
-        cuda.launch("ordered_cumsum", cs, scratch, K, C)
-        cuda.launch("prefix_cut", ordr.to(torch.int32), seg, cs, kept, cum_before, lo,
-                    hi, out, K, num_segments, C)
-        prefix_cut_admit.launches += 1
-        _CUT_COUNTS[segments].launches += 1
+    out = torch.empty((K,), dtype=torch.bool, device=dev)
+    if K == 0 or S <= 0:
+        return out.zero_()
+    sizes = prefix_cut_scratch(K, S, C)
+    scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    prefix_cut_launch(score, seg, deltas, kept, cum_before, lo, hi, S,
+                      torch.split(scratch, sizes), out)
+    prefix_cut_admit.launches += 1
+    _CUT_COUNTS[segments].launches += 1
     return out
+
+
+def prefix_cut_scratch(K: int, S: int, C: int) -> list:
+    """Sizes in int32 words of K3's scratch on the card, from (K, S, C)
+    alone: the sorted rows and their segment ids, the grouping's rows and
+    offsets, the counting pass's counts (none above
+    ``COUNTING_MAX_SEGMENTS``: the sort groups), the first bad positions,
+    then the in-block scans, the level-1 values and the segment bases
+    (float32)."""
+    index_words = 0
+    if S <= COUNTING_MAX_SEGMENTS:
+        index_words = S * sg.index_tiling(K, S)[2] + S
+    return [K, K, K, S + 1, index_words, S, K * C, C * -(-K // 16), S * C]
+
+
+def prefix_cut_launch(score, seg, deltas, kept, cum_before, lo, hi, num_segments: int,
+                      parts, out) -> None:
+    """K3's launches on the card into ``parts`` (views of the sizes of
+    ``prefix_cut_scratch``) and ``out``: the score sort, the grouping, and
+    ``cc_prefix_cut``."""
+    K, C = deltas.shape
+    S = num_segments
+    ordr, sorted_seg, rows, offsets, index_scratch, first_bad, inblock, level1, base = parts
+    by_score = order.argsort(-score)
+    if S <= COUNTING_MAX_SEGMENTS:
+        warps, warp_rows, _ = sg.index_tiling(K, S)
+        cuda.launch("segment_row_index", seg, None, by_score, K, S, warps, warp_rows,
+                    offsets, rows, index_scratch)
+    else:
+        keys = torch.where((seg >= 0) & (seg < S), seg, S)[by_score]
+        regroup = torch.sort(keys, stable=True)
+        rows.copy_(regroup.indices)
+        cuda.launch("sorted_offsets", regroup.values, offsets, K, S)
+    f32 = torch.float32
+    cuda.launch("prefix_cut", by_score, rows, offsets, seg, deltas, kept, cum_before, lo,
+                hi, ordr, sorted_seg, inblock.view(f32), level1.view(f32), base.view(f32),
+                first_bad, out, K, S, C)
 
 
 def prefix_admit_safe(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tensor,

@@ -50,6 +50,9 @@
 //       leader advances the cursor.  rows[] then holds each segment's kept
 //       rows in increasing row order; the slots past the last kept row
 //       hold -1.
+// With a permutation perm, row i's id is seg[perm[i]], and a null mask
+// keeps every row: K3 (prefix_cut.cu) groups its score-sorted rows so, up
+// to 4,096 segments.
 // The work is N + S * N / (W T) for the build, not S * N.
 //
 // The walks (broker_aggregates_kernel, segment_sum_kernel): one warp per
@@ -80,9 +83,12 @@ constexpr int kDefaultSmem = 48 * 1024;     // dynamic shared memory without opt
 
 // A warp's 32 Steps keys: row row0 + 32 j + lane in step j; -1 for a row
 // that is masked, out of range or past n, or whose id lies outside [0, S).
+// Row i's id is seg[i], or seg[perm[i]] where a permutation is given (K3
+// groups its rows in score order); a null mask keeps every row.
 template <int Steps>
 __device__ __forceinline__ void load_keys(const int32_t* __restrict__ seg,
-                                          const uint8_t* __restrict__ mask, int64_t n,
+                                          const uint8_t* __restrict__ mask,
+                                          const int64_t* __restrict__ perm, int64_t n,
                                           int num_segments, int64_t row0,
                                           int (&key)[Steps]) {
   const int lane = threadIdx.x & 31;
@@ -90,8 +96,8 @@ __device__ __forceinline__ void load_keys(const int32_t* __restrict__ seg,
   for (int j = 0; j < Steps; ++j) {
     const int64_t i = row0 + 32 * j + lane;
     const bool in = i < n;
-    const bool kept = in && mask[i];
-    const int k = in ? seg[i] : -1;
+    const bool kept = in && (mask == nullptr || mask[i]);
+    const int k = in ? seg[perm == nullptr ? i : perm[i]] : -1;
     key[j] = kept && k >= 0 && k < num_segments ? k : -1;
   }
 }
@@ -148,12 +154,14 @@ __device__ void block_exclusive_scan(const int32_t* __restrict__ in, int32_t* ou
 // (a) Block b's count of each segment: btot[s * NB + b].
 template <int Steps>
 __global__ void index_count_kernel(const int32_t* __restrict__ seg,
-                                   const uint8_t* __restrict__ mask, int64_t n,
+                                   const uint8_t* __restrict__ mask,
+                                   const int64_t* __restrict__ perm, int64_t n,
                                    int num_segments, int32_t* __restrict__ btot) {
   extern __shared__ int32_t s_hist[];  // [warps][S]
   const int warps = blockDim.x >> 5, w = threadIdx.x >> 5, S = num_segments;
   int key[Steps];
-  load_keys(seg, mask, n, S, (static_cast<int64_t>(blockIdx.x) * warps + w) * 32 * Steps, key);
+  load_keys(seg, mask, perm, n, S,
+            (static_cast<int64_t>(blockIdx.x) * warps + w) * 32 * Steps, key);
   for (int i = threadIdx.x; i < warps * S; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
   count_keys(key, s_hist + w * S);
@@ -190,7 +198,8 @@ __global__ void index_scan_kernel(int32_t* __restrict__ btot, int num_segments,
 // (c) The offsets and each kept row's slot.
 template <int Steps>
 __global__ void index_scatter_kernel(const int32_t* __restrict__ seg,
-                                     const uint8_t* __restrict__ mask, int64_t n,
+                                     const uint8_t* __restrict__ mask,
+                                     const int64_t* __restrict__ perm, int64_t n,
                                      int num_segments, const int32_t* __restrict__ btot,
                                      const int32_t* __restrict__ tot,
                                      int32_t* __restrict__ offsets,
@@ -201,7 +210,7 @@ __global__ void index_scatter_kernel(const int32_t* __restrict__ seg,
   int32_t* s_off = s_hist + warps * S;
   const int64_t row0 = (static_cast<int64_t>(blockIdx.x) * warps + w) * 32 * Steps;
   int key[Steps];
-  load_keys(seg, mask, n, S, row0, key);
+  load_keys(seg, mask, perm, n, S, row0, key);
   for (int i = threadIdx.x; i < warps * S; i += blockDim.x) s_hist[i] = 0;
   block_exclusive_scan(tot, s_off, S);
   count_keys(key, s_hist + w * S);
@@ -238,8 +247,9 @@ __global__ void index_scatter_kernel(const int32_t* __restrict__ seg,
 }
 
 template <int Steps>
-int build_index(const int32_t* seg, const uint8_t* mask, int64_t n, int S, int warps,
-                int32_t* offsets, int32_t* rows, int32_t* scratch, cudaStream_t stream) {
+int build_index(const int32_t* seg, const uint8_t* mask, const int64_t* perm, int64_t n,
+                int S, int warps, int32_t* offsets, int32_t* rows, int32_t* scratch,
+                cudaStream_t stream) {
   const int64_t tile = static_cast<int64_t>(warps) * 32 * Steps;
   const int nb = static_cast<int>((n + tile - 1) / tile);
   int32_t* btot = scratch;                              // [S][nb]
@@ -261,11 +271,12 @@ int build_index(const int32_t* seg, const uint8_t* mask, int64_t n, int S, int w
                                 kMaxSmem - kStaticSmem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  index_count_kernel<Steps><<<nb, 32 * warps, count_smem, stream>>>(seg, mask, n, S, btot);
+  index_count_kernel<Steps><<<nb, 32 * warps, count_smem, stream>>>(seg, mask, perm, n, S,
+                                                                    btot);
   index_scan_kernel<<<(S + kScanWarps - 1) / kScanWarps, 32 * kScanWarps, 0, stream>>>(
       btot, S, nb, tot);
   index_scatter_kernel<Steps><<<nb, 32 * warps, scatter_smem, stream>>>(
-      seg, mask, n, S, btot, tot, offsets, rows);
+      seg, mask, perm, n, S, btot, tot, offsets, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -464,17 +475,19 @@ int launch_segment_sum(const float* values, const int32_t* offsets, const int32_
 // a build block and ``warp_rows`` (128 or 256) a warp, so that the warps'
 // histograms fit a block's shared memory and S * blocks stays short;
 // ``scratch`` holds S * ceil(n / (warps * warp_rows)) + S ints.
-extern "C" int cc_segment_row_index(const int32_t* seg, const uint8_t* mask, int64_t n,
-                                    int64_t num_segments, int64_t warps, int64_t warp_rows,
-                                    int32_t* offsets, int32_t* rows, int32_t* scratch,
-                                    cudaStream_t stream) {
+// The per-segment row index of rows 0..n-1 (ids seg[i], or seg[perm[i]]
+// with a permutation; every row kept where mask is null).
+extern "C" int cc_segment_row_index(const int32_t* seg, const uint8_t* mask,
+                                    const int64_t* perm, int64_t n, int64_t num_segments,
+                                    int64_t warps, int64_t warp_rows, int32_t* offsets,
+                                    int32_t* rows, int32_t* scratch, cudaStream_t stream) {
   if (num_segments <= 0 || n <= 0 || n >= (int64_t{1} << 31) ||
       (warps != 1 && warps != 2 && warps != 4 && warps != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = static_cast<int>(num_segments), w = static_cast<int>(warps);
   switch (warp_rows) {
-    case 128: return build_index<4>(seg, mask, n, S, w, offsets, rows, scratch, stream);
-    case 256: return build_index<8>(seg, mask, n, S, w, offsets, rows, scratch, stream);
+    case 128: return build_index<4>(seg, mask, perm, n, S, w, offsets, rows, scratch, stream);
+    case 256: return build_index<8>(seg, mask, perm, n, S, w, offsets, rows, scratch, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

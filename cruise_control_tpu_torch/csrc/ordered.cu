@@ -1,18 +1,27 @@
-// The ordered sum and the ordered cumsum of ops/order.py on the card, on
-// f32[n, c] along the rows, in the orders of ordered.cuh.
+// The ordered sum of ops/order.py on the card: f32[n, c] summed along the
+// rows in the order of ordered.cuh (windows of 32, padded with zeros split
+// before and after, each summed in order from 0, and again on the window
+// sums down to one value).
 //
 // cc_ordered_sum replaces the alive-broker sums of the band goals'
 // averages: cruise_control_tpu/analyzer/goals/kernels.py:190 (limits) and
 // analyzer/optimizer.py:311 (_band_sides), each a ``jnp.sum`` over B
-// brokers.  Bound on the card: bytes (n * c * 4 read, c * 4 written: a few
-// KB at 1000 brokers), so the launch is the cost.  Design: one block per
-// column, ordered::block_sum.
+// brokers, one column or four.  Bound on the card: bytes (n * c * 4 read,
+// c * 4 written: 16 KB at 1,000 brokers and four columns, about 5 ns at
+// 3.35 TB/s), so the launch and the chain of 32 dependent adds are the cost.
 //
-// cc_ordered_cumsum is K3's running totals (the ``jnp.cumsum`` of
-// goals/kernels.py:1011); ops/order.py ordered_cumsum is its plain twin.
-// Design: one launch per level of the scan over one thread per (block of
-// 16 rows, column), a launch that gathers the block totals into the next
-// level, and one add-back launch per level on the way down.
+// Design: one launch for all columns, one warp per column, no block-wide
+// synchronisation (the launch and the chains of dependent adds are the
+// cost; the bytes are a few KB, read from L1 after the first touch).  Lane
+// k of a warp sums window k of the padded column (windows k + 32, k + 64,
+// ... past 32 windows): it issues the window's 32 predicated loads at once
+// and then adds them in order from 0, padding zeros included, as the plain
+// version does.  The window sums go to the warp's shared memory; lane k
+// sums window k of the next level (at most 16 of them for 16,384 rows) and
+// one lane adds those in order.  The plain version's adds in its order (a
+// sum started at +0 is never -0, so adding or skipping padding zeros
+// changes no bit), so the card, the CPU and the JAX package's compiled CPU
+// sum agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -21,85 +30,61 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSumThreads = 512;
+constexpr int kWarps = 8;                           // columns a block
+constexpr int kMaxWindows = 512;                    // 16,384 rows
+constexpr int kWindow = static_cast<int>(ordered::kWindow);
+constexpr unsigned kFull = 0xffffffffu;
 
-// Column ``col`` of f32[n, c].
-struct Column {
-  const float* x;
-  int64_t c, col;
-  __device__ float operator()(int64_t i) const { return x[i * c + col]; }
-};
+__host__ __device__ int windows(int64_t count) {
+  return count > 0 ? static_cast<int>((count + kWindow - 1) / kWindow) : 1;
+}
 
-__global__ void ordered_sum_kernel(const float* __restrict__ x, int64_t n, int64_t c,
+__global__ void ordered_sum_kernel(const float* __restrict__ x, int n, int64_t c,
                                    float* __restrict__ out) {
-  __shared__ float sh[kSumThreads];
-  __shared__ float res[1];
-  const float s = ordered::block_sum(Column{x, c, blockIdx.x}, n, sh, res);
-  if (threadIdx.x == 0) out[blockIdx.x] = s;
-}
-
-__global__ void scan_blocks_kernel(float* __restrict__ x, int64_t n, int64_t c) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= (n + ordered::kBlock - 1) / ordered::kBlock * c) return;
-  ordered::scan_block(x, n, c, t / c, t % c);
-}
-
-__global__ void block_totals_kernel(const float* __restrict__ x, int64_t n, int64_t c,
-                                    float* __restrict__ totals) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= (n + ordered::kBlock - 1) / ordered::kBlock * c) return;
-  totals[t] = ordered::block_total(x, n, c, t / c, t % c);
-}
-
-__global__ void add_back_kernel(float* __restrict__ x, int64_t n, int64_t c,
-                                const float* __restrict__ scanned) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n * c) return;
-  ordered::add_back(x, t / c, c, t % c, scanned);
-}
-
-unsigned grid_of(int64_t threads) {
-  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  __shared__ float sums[kWarps][kMaxWindows];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (j >= c) return;  // the whole warp
+  const int w = windows(n), lo = (w * kWindow - n) / 2;
+  for (int k = lane; k < w; k += 32) {
+    float v[kWindow];
+#pragma unroll
+    for (int q = 0; q < kWindow; ++q) {
+      const int r = k * kWindow - lo + q;
+      v[q] = r >= 0 && r < n ? x[static_cast<int64_t>(r) * c + j] : 0.f;
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWindow; ++q) acc = __fadd_rn(acc, v[q]);
+    sums[warp][k] = acc;
+  }
+  __syncwarp();
+  // The next level: w2 <= 16 windows of the w sums, then their sum in order.
+  const int w2 = windows(w), lo2 = (w2 * kWindow - w) / 2;
+  float s2 = 0.f;
+  if (lane < w2) {
+#pragma unroll
+    for (int q = 0; q < kWindow; ++q) {
+      const int i = lane * kWindow - lo2 + q;
+      if (i >= 0 && i < w) s2 = __fadd_rn(s2, sums[warp][i]);
+    }
+  }
+  float total = 0.f;
+  for (int k = 0; k < w2; ++k) total = __fadd_rn(total, __shfl_sync(kFull, s2, k));
+  if (lane == 0) out[j] = total;
 }
 
 }  // namespace
 
-// out[j] = ordered sum of x[:, j], j < c.  n <= 32 * 512.
+// out[j] = ordered sum of x[:, j], j < c; x is f32[n, c] row-major.
+// n <= 32 * 512.
 extern "C" int cc_ordered_sum(const float* x, float* out, int64_t n, int64_t c,
                               cudaStream_t stream) {
   if (c <= 0) return 0;
-  if (n < 0 || n > ordered::kWindow * kSumThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  ordered_sum_kernel<<<static_cast<unsigned>(c), kSumThreads, 0, stream>>>(x, n, c, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The ordered cumsum of f32[n, c] along the rows, in place; ``scratch``
-// holds (n / 15 + 16) * c floats for the block totals of every level.
-extern "C" int cc_ordered_cumsum(float* x, float* scratch, int64_t n, int64_t c,
-                                 cudaStream_t stream) {
-  if (n <= 0 || c <= 0) return 0;
-  float* level[ordered::kMaxLevels];
-  int64_t size[ordered::kMaxLevels];
-  int depth = 0;
-  level[0] = x;
-  size[0] = n;
-  float* next = scratch;
-  while (true) {
-    const int64_t blocks = (size[depth] + ordered::kBlock - 1) / ordered::kBlock;
-    scan_blocks_kernel<<<grid_of(blocks * c), kThreads, 0, stream>>>(level[depth],
-                                                                    size[depth], c);
-    if (size[depth] <= ordered::kBlock || depth == ordered::kMaxLevels - 1) break;
-    block_totals_kernel<<<grid_of(blocks * c), kThreads, 0, stream>>>(level[depth],
-                                                                     size[depth], c, next);
-    level[depth + 1] = next;
-    size[depth + 1] = blocks;
-    next += blocks * c;
-    ++depth;
-  }
-  for (int d = depth - 1; d >= 0; --d)
-    add_back_kernel<<<grid_of(size[d] * c), kThreads, 0, stream>>>(level[d], size[d], c,
-                                                                   level[d + 1]);
+  if (n < 0 || n > kWindow * kMaxWindows) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (c + kWarps - 1) / kWarps;
+  const int64_t warps = c < kWarps ? c : kWarps;
+  ordered_sum_kernel<<<static_cast<unsigned>(blocks), static_cast<unsigned>(32 * warps), 0,
+                       stream>>>(x, static_cast<int>(n), c, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,8 @@
 // each scanned in order, plus the scan of the block totals (taken the same
 // way) shifted by one block.
 //
-// Included by ordered.cu (the C entries of ops/order.py and K3's scan),
-// stack_sweep.cu and frontier_active.cu.
+// Included by ordered.cu (ops/order.py's ordered sum), prefix_cut.cu
+// (K3's running totals), stack_sweep.cu and frontier_active.cu.
 
 #pragma once
 

@@ -45,13 +45,13 @@ BUILD_LOG: Dict[str, str] = {}
 # "p" = device pointer, "i" = int64, "f" = float.  The stream pointer is
 # appended to each.
 _ENTRIES = {
-    "segment_row_index": ("broker_aggregates", "cc_segment_row_index", "ppiiiippp"),
+    "segment_row_index": ("broker_aggregates", "cc_segment_row_index", "pppiiiippp"),
     "broker_aggregates": ("broker_aggregates", "cc_broker_aggregates", "p" * 10 + "i"),
     "segment_sum": ("broker_aggregates", "cc_segment_sum", "pppiip"),
     "best_per_segment": ("best_per_segment", "cc_best_per_segment", "pppiipp"),
-    "prefix_cut": ("prefix_cut", "cc_prefix_cut", "ppppppppiii"),
+    "prefix_cut": ("prefix_cut", "cc_prefix_cut", "p" * 16 + "iii"),
+    "sorted_offsets": ("prefix_cut", "cc_sorted_offsets", "ppii"),
     "ordered_sum": ("ordered", "cc_ordered_sum", "ppii"),
-    "ordered_cumsum": ("ordered", "cc_ordered_cumsum", "ppii"),
     "apply_actions": ("apply_actions", "cc_apply_actions", "pppppppppiiippp"),
     "goal_masks": ("goal_masks", "cc_goal_masks", "i" * 7 + "f" + "p" * 46),
     "transport_rank": ("transport_match", "cc_transport_rank", "ppip"),
@@ -152,24 +152,30 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
+# Each kernel's loaded C function and argument layout, bound at its first
+# launch: a launch then makes no lookup beyond this dict.
+_BOUND: Dict[str, tuple] = {}
+
+
+def _bind(name: str) -> tuple:
+    source, entry, sig = _ENTRIES[name]
+    bound = _BOUND[name] = (getattr(library(source), entry), sig)
+    return bound
+
+
 def launch(name: str, *args) -> None:
     """Call the C entry of kernel ``name`` with ``args`` (tensors become
     device pointers, ints and floats stay numbers; ``None`` is a null
     pointer) on PyTorch's current stream, and raise on a non-zero
     ``cudaGetLastError``."""
-    source, entry, sig = _ENTRIES[name]
-    fn = getattr(library(source), entry)
+    fn, sig = _BOUND.get(name) or _bind(name)
     if len(args) != len(sig):
         raise TypeError(f"{name}: {len(args)} arguments for layout {sig!r}")
-    conv = []
-    for a, c in zip(args, sig):
-        if c == "p":
-            conv.append(None if a is None else a.data_ptr())
-        elif c == "f":
-            conv.append(float(a))
-        else:
-            conv.append(int(a))
-    rc = fn(*conv, torch.cuda.current_stream().cuda_stream)
+    conv = [(None if a is None else a.data_ptr()) if c == "p"
+            else float(a) if c == "f" else int(a) for a, c in zip(args, sig)]
+    # The raw handle of the current stream, without building a Stream object.
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    rc = fn(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
 

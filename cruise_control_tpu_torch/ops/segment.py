@@ -18,7 +18,9 @@ counting sort built by hand, three launches; its plain twin
 one warp a segment: the CPU ``index_add_``'s order and bits, no float
 atomics, so both are run-to-run identical and safe to replay in a CUDA
 graph.  Rows whose mask is unset or whose segment id lies outside
-[0, S) add nothing, in the kernels and in the plain twins alike.
+[0, S) add nothing, in the kernels and in the plain twins alike.  K3
+(``analyzer/goals/kernels.py`` ``prefix_cut_admit``) groups its
+score-sorted rows with the same counting pass, up to 4,096 segments.
 
 ``shard_combine`` is kernel K15 (``csrc/shard_combine.cu``): under a model
 sharded along the replica axis (``parallel/mesh.py``
@@ -147,7 +149,7 @@ def segment_row_index(segment_ids: torch.Tensor, mask: torch.Tensor,
         return offsets.zero_(), rows
     warps, warp_rows, blocks = index_tiling(n, S)
     scratch = torch.empty(S * blocks + S, dtype=torch.int32, device=dev)
-    cuda.launch("segment_row_index", segment_ids, mask, n, S, warps, warp_rows,
+    cuda.launch("segment_row_index", segment_ids, mask, None, n, S, warps, warp_rows,
                 offsets, rows, scratch)
     segment_row_index.launches += 1
     return offsets, rows

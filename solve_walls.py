@@ -9,8 +9,14 @@ with the full 15-goal stack as the service calls it,
 ``optimize(fused=True, donate_model=True)``: per rung a warm-up run that
 captures the step graphs, then N timed runs (default 3; each wall printed,
 the median kept), and for mid and large one more run under
-``torch.profiler``: the device's busy share of the median wall, and each
-kernel's device ms a launch (chip_smoke.py's ``profile_mid``).  Prints the
+``torch.profiler``: the device's busy share of the median wall, and the
+device ms a launch and in all of K1, ``segment_sum``, the row index, K3
+(by its kernels before and after its redesign), the ordered sum and every
+sort kernel (chip_smoke.py's ``profile_mid``); then K3 and the ordered sum
+on the large warm-up's first inputs: device ms a call, one call between
+two events and a call in a replayed graph, and the ordered sum at the band
+averages' shapes beside ``torch.sum`` (chip_smoke.py's
+``check_ordered_sum``).  Prints the
 card's name and power limit, and last one JSON object.  To compare two
 checkouts, unpack the other one (``git archive``) into a directory and run
 this script for each in turns within one call: A, B, B, A.
@@ -27,6 +33,12 @@ import time
 # them (see chip_smoke.py's main).
 os.environ.setdefault("TEARDOWN_CUPTI", "0")
 os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
+
+
+# K3's device kernels before its redesign: the cut and the ordered
+# cumsum's three launches.
+PREFIX_CUT_BEFORE = ("prefix_cut_kernel", "scan_blocks_kernel", "block_totals_kernel",
+                     "add_back_kernel")
 
 
 def main(argv) -> int:
@@ -68,9 +80,13 @@ def main(argv) -> int:
             return opt_mod.optimize(model, cs.STACK, fused=True, donate_model=True,
                                     raise_on_hard_failure=False, device="cuda")
         t0 = time.monotonic()
+        if name == "large":  # K3's and the ordered sum's first inputs
+            cuda.CAPTURE = {}
         solve()
         torch.cuda.synchronize()
         warm = time.monotonic() - t0
+        if name == "large":
+            kept, cuda.CAPTURE = cuda.CAPTURE, None
         walls = []
         for _ in range(runs):
             torch.cuda.synchronize()
@@ -82,14 +98,37 @@ def main(argv) -> int:
         steps = sum(g.steps for g in run.goal_results)
         row = {"warm_up_s": warm, "walls_s": walls, "wall_s": wall, "steps": steps}
         if profiled:
-            prof = cs.profile_mid(torch, solve, wall, steps, f"{label} {name}", print)
-            family = ("broker_aggregates", "segment_sum", "segment_row_index")
+            # K3 by its kernels before and after its redesign (one tree has
+            # one set), and every sort kernel of the solve ("ort": in "sort"
+            # and "Sort" alike).
+            names = dict(cs.PROFILE_NAMES, prefix_cut_before=PREFIX_CUT_BEFORE,
+                         sorts=("ort",))
+            prof = cs.profile_mid(torch, solve, wall, steps, f"{label} {name}", print, names)
+            family = ("broker_aggregates", "segment_sum", "segment_row_index", "prefix_cut",
+                      "prefix_cut_before", "ordered_sum", "sorts")
             row.update(busy=prof["busy"], device_ms=prof["device_ms"],
                        device_ms_per_launch={k: prof["per_launch"].get(k) for k in family},
                        device_ms_total={k: prof["totals"].get(k) for k in family})
         out[name] = row
         print(f"{label} {name}: {json.dumps(row)}", flush=True)
         del model, run
+    # K3 and the ordered sum on the large warm-up's first inputs: device ms
+    # a call (every device op), one call between two events, a call in a
+    # replayed graph, last (no profiler session after a graph of this
+    # script's own: chip_smoke.py's docstring, phase 21).
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.ops import order
+    calls = {"prefix_cut": lambda: gk.prefix_cut_admit(*kept["prefix_cut"]),
+             "ordered_sum": lambda: order.ordered_sum(*kept["ordered_sum"])}
+    out["kernels"] = {n: {"device_ms_call": cs.device_ms_total(torch, fn, print)}
+                      for n, fn in calls.items()}
+    for n, fn in calls.items():
+        out["kernels"][n].update(ms=cs.time_ms(torch, fn), graph_ms=cs.graph_ms(torch, fn))
+    # The ordered sum at the band averages' shapes, beside torch.sum.
+    import numpy as np
+    out["kernels"].update(cs.check_ordered_sum(torch, np, print, cs.time_ms,
+                                               kept["ordered_sum"][0], False))
+    print(f"{label} kernels: {json.dumps(out['kernels'])}", flush=True)
     print(json.dumps({"solve_walls": out}), flush=True)
     return 0
 
