@@ -15,7 +15,9 @@ Phases, in order (any failure raises and the process exits non-zero):
 4. each hand-written kernel against its plain PyTorch version on the card,
    on seeded fixtures and on the captured inputs (K9's sweep, frontier mask
    and batch on the mid rung, the second mid snapshot with its dead broker
-   and the large rung; K11 and K11 cross's gate on their case tables; K11
+   and the large rung, each batch row against its goal's frontier mask;
+   K9's device ms on the 7,000-broker fleet for phase 21; K11 and K11
+   cross's gate on their case tables; K11
    cross's touched pass on seeded placement changes; K5b on the captured
    batch; the ordered sum of the band averages), with timings (CUDA events,
    median of 20), the least time the card could take for the same bytes
@@ -224,7 +226,22 @@ Phases, in order (any failure raises and the process exits non-zero):
     profiler in phase 4 for mid and at the large and xl250 warm-ups); and
     the ordered sum (``check_ordered_sum``) on phase 4's fixtures the same
     way, timed at B = 50, 200 and 1,000 brokers, one column and four,
-    beside ``torch.sum``;
+    beside ``torch.sum``; and K9 (``check_k9``) on the models the mid,
+    large and xl250 warm-ups handed the sweep and on a 7,000-broker fleet
+    (``FLEET``): the sweep of the stack, every band goal's frontier mask and
+    the batch of the stack, the sweep of the stack and the replica- and
+    topic-axis kinds beyond it on the large model with its last replica in
+    a rack conflict, reported offline or led wrongly and with a dead broker,
+    the frontier mask on seeded rows of 1 to 8,192 brokers (ties, +0 and
+    -0, every broker over its band, none under it, no surplus, dead brokers
+    hosting replicas; up to 1,024 brokers through both of its sorts) and the
+    batch on stacks of them: bit for bit against their plain twins on CPU
+    copies (the sweep also on the card), identical over two launches and a
+    graph replay, into canary-guarded outputs, timed at each shape as one
+    call and in a replayed graph beside the plain twin and the bound, with
+    the device ms a launch and a call profiled at the warm-ups (phase 4 for
+    mid and the fleet), and the frontier mask's two sorts timed against
+    each other at 50 to 1,000 brokers;
 22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
@@ -293,6 +310,10 @@ PROFILE_NAMES = {
     "apply_actions": ("apply_actions_kernel",),
     "cluster_stats": ("cluster_stats_kernel",),
     "structural_accepts": ("structural_accepts_kernel",),
+    # K9: the sweep's one kernel (its two memsets are not counted here; a
+    # call's every device op is, where a row says "a call"), and the
+    # frontier kernels, templated on the slots a thread holds
+    # (frontier_active_kernel<1> ... <8>).
     "stack_sweep": ("stack_sweep_kernel",),
     "frontier_active": ("frontier_active_kernel",),
     "frontier_active_batch": ("frontier_active_batch_kernel",),
@@ -401,14 +422,14 @@ def main(argv) -> int:
     wrappers = {n: cuda.COUNTED[n] for n in KERNELS}
     dev = torch.device("cpu" if rehearse else "cuda")
     mid_rung, large_rung, hundred_rung, xl_rung = MID, LARGE, HUNDRED, XL250
-    two_racks_rung = TWO_RACKS
+    two_racks_rung, fleet_rung = TWO_RACKS, FLEET
     timer = time_ms
     # The per-goal path as the service asks for it above 64 brokers.
     per_goal = dict(pipeline=False)
     if rehearse:
         mid_rung, large_rung, timer = (12, 4, 6, 20.0, 2), (16, 4, 8, 20.0, 3), host_time_ms
         hundred_rung, xl_rung = (16, 4, 5, 30.0, 2), (20, 4, 6, 20.0, 2)
-        two_racks_rung = (12, 2, 6, 20.0, 3)
+        two_racks_rung, fleet_rung = (12, 2, 6, 20.0, 3), (40, 5, 6, 20.0, 3)
         # Small clusters: ask for the per-goal path (below 100 brokers
         # pipeline=False alone keeps the grouped stack); phase 8 lowers the
         # dense floor so that its chunks compact.
@@ -509,16 +530,20 @@ def main(argv) -> int:
     second, second_opts = second_snapshot(torch, np, mid, SECOND_SEED)
     large = generate_cluster(spec_of(large_rung), device=dev)
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
-    # K1's, the round sums' and K3's inputs at each rung, for phase 21.
-    family_inputs_of, family, k3_inputs = {}, {}, {}
+    # K1's, the round sums', K3's and K9's inputs at each rung, for phase 21;
+    # K9's device ms at each, profiled here (see the docstring, phase 21).
+    family_inputs_of, family, k3_inputs, k9_inputs, k9_device = {}, {}, {}, {}, {}
 
     def keep_family_inputs(label, kept):
         if kept.get("segment_sum", (None,) * 5)[4] != "round":
             raise RuntimeError(f"the {label} run kept no round sums' inputs")
-        if "prefix_cut" not in kept:
-            raise RuntimeError(f"the {label} run kept no K3 inputs")
+        if "prefix_cut" not in kept or "stack_sweep" not in kept:
+            raise RuntimeError(f"the {label} run kept no K3 or K9 sweep inputs")
         family_inputs_of[label] = {n: kept[n] for n in ("broker_aggregates", "segment_sum")}
         k3_inputs[label] = kept["prefix_cut"]
+        k9_inputs[label] = _clone(torch, kept["stack_sweep"][1:3])  # (model, arrays)
+        if not rehearse:
+            k9_device[label] = k9_device_ms(torch, gk, *k9_inputs[label], log)
         if label != "mid" and not rehearse:  # K3's device ms a call (phase 4: mid's)
             family.setdefault("prefix_cut", {})[f"device_ms_call_{label}"] = device_ms_total(
                 torch, lambda: gk.prefix_cut_admit(*kept["prefix_cut"]), log)
@@ -534,6 +559,14 @@ def main(argv) -> int:
                                           {"mid": mid, "second": second, "large": large}))
     results.update(check_pipeline_kernels(torch, np, wrappers, log, timer,
                                           {"mid": mid, "second": second, "large": large}))
+    # K9 at the detector fleet's 7,000 brokers, for phase 21.
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    fleet = generate_cluster(spec_of(fleet_rung), device=dev)
+    k9_inputs["fleet"] = (fleet, BrokerArrays.from_model(fleet))
+    log(f"fleet: {int(fleet.replica_valid.sum())} replicas, {fleet.num_brokers} brokers")
+    if not rehearse:
+        k9_device["fleet"] = k9_device_ms(torch, gk, *k9_inputs["fleet"], log)
+    del fleet
     # K14 (phase 18's kernels) here, where the profiler reads device times
     # reliably: late in the script its sessions now and then record no op.
     import types
@@ -937,13 +970,16 @@ def main(argv) -> int:
     # 21. K1, segment_sum's modes and their row index at each rung's shapes,
     # K3 and the ordered sum on every case, after every profiler session
     # (see the docstring)
-    phase("K1 family, K3, ordered sum")
+    phase("K1 family, K3, ordered sum, K9")
     for label in ("mid", "large", "xl250"):
         check_family_at(label)
     for name, r in check_k3(torch, np, log, timer, k3_inputs, rehearse).items():
         family.setdefault(name, {}).update(r)
     family.update(check_ordered_sum(torch, np, log, timer, captured["ordered_sum"][0],
                                     rehearse))
+    for name, r in check_k9(torch, np, log, timer, k9_inputs, k9_device, rehearse).items():
+        family.setdefault(name, {}).update(r)
+    del k9_inputs
 
     # 22. results
     phase("results")
@@ -2680,6 +2716,299 @@ def check_ordered_sum(torch, np, log, timer, x_cap, rehearse):
     return {"ordered_sum": out}
 
 
+# ---------------------------------------------------------------------------
+# K9's sweep, frontier mask and batch at each rung's shapes (phase 21)
+# ---------------------------------------------------------------------------
+
+K9_KERNELS = ("stack_sweep", "frontier_active", "frontier_active_batch")
+K9_BAND_GOAL = "ReplicaDistributionGoal"  # the frontier row timed at each shape
+# The sweep's goals for the seeded cases: the stack and the replica- and
+# topic-axis kinds beyond it.
+K9_SWEEP_GOALS = STACK + ["RackAwareDistributionGoal", "PreferredLeaderElectionGoal",
+                          "MinTopicLeadersPerBrokerGoal"]
+# Seeded frontier rows: sizes on both sorts' edges and every count of slots
+# a thread (1, 2, 4, 8); the cases beyond "mixed" at three of them.
+K9_FRONTIER_SIZES = (1, 17, 33, 200, 256, 257, 512, 513, 1000, 1024, 1025, 2049, 4097, 7000,
+                     8192)
+K9_FRONTIER_CASES = ("all_over", "no_under", "zero_surplus", "dead")
+K9_ROUTE_SIZES = (50, 100, 200, 256, 512, 1000)  # the rank pass against the bitonic sort
+FLEET = (7000, 70, 500, 100.0, 3)  # the detector fleet's brokers: K9 at B = 7,000
+
+
+def k9_args(gk, model, arrays):
+    """K9's three calls on one model as the main path makes them: the sweep
+    of ``STACK``, the frontier mask of ``K9_BAND_GOAL``'s rows and the batch
+    of ``STACK``."""
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS, goals_by_priority
+    con = BalancingConstraint.default()
+    specs = tuple(goals_by_priority(STACK))
+    return {"stack_sweep": (specs, model, arrays, con),
+            "frontier_active": gk.frontier_inputs(GOAL_SPECS[K9_BAND_GOAL], model, arrays, con),
+            "frontier_active_batch": gk.frontier_inputs_batch(specs, model, arrays, con)}
+
+
+def k9_calls(gk, args):
+    """{kernel: (the wrapper's call, its plain twin's call)} on ``args``."""
+    return {"stack_sweep": (lambda: gk.stack_satisfied(*args["stack_sweep"]),
+                            lambda: gk.stack_satisfied_plain(*args["stack_sweep"])),
+            "frontier_active": (lambda: gk.frontier_mask(*args["frontier_active"]),
+                                lambda: gk.frontier_mask_plain(*args["frontier_active"])),
+            "frontier_active_batch": (
+                lambda: gk.frontier_active_batch(*args["frontier_active_batch"]),
+                lambda: gk.frontier_active_batch_plain(*args["frontier_active_batch"]))}
+
+
+def k9_device_ms(torch, gk, model, arrays, log):
+    """Device ms of K9's three kernels on one model's calls (``k9_args``):
+    per launch by kernel name, and per call with every device op (the
+    sweep's two memsets too)."""
+    out = {}
+    for name, (fn, _) in k9_calls(gk, k9_args(gk, model, arrays)).items():
+        out[name] = {"device_ms": device_ms(torch, fn, PROFILE_NAMES[name], log),
+                     "device_ms_call": device_ms_total(torch, fn, log)}
+    return out
+
+
+def _k9_bound(name, args):
+    """Bytes over the memory rate of one K9 call (``k9_args``)."""
+    if name == "stack_sweep":
+        specs, model = args[name][:2]
+        return bound_ms(_k9_bytes(specs, model))
+    if name == "frontier_active":
+        b = args[name][0].shape[0]
+        return bound_ms(b * 18 + b + 4)
+    metric, band = args[name][0], args[name][3]
+    g, b = metric.shape
+    return bound_ms(int(band.sum()) * b * 12 + b * 6 + g * 5 + g * b + g * 4)
+
+
+def k9_frontier_rows(torch, np, dev, b, case, seed):
+    """(metric, lower, upper, alive, valid, replica_count, eps) of one seeded
+    band goal at ``b`` brokers: non-dyadic lognormal loads, a fifth of the
+    metrics copied onto others (equal-value ties), in "mixed" a twentieth
+    -0.0, a tenth of the bands unbounded above and a twentieth of the
+    brokers dead; "all_over" every broker a donor over its band,
+    "no_under" none under it, "zero_surplus" every broker inside it,
+    "dead" a sixth dead (light ones) still hosting replicas."""
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    cap = rng.lognormal(3.0, 0.3, b).astype(f32)
+    metric = (cap * rng.uniform(0.42, 0.93, b)).astype(f32)
+    ties = rng.random(b) < 0.2
+    metric[ties] = metric[rng.integers(0, b, int(ties.sum()))]
+    lower, upper = (cap * f32(0.45)).astype(f32), (cap * f32(0.9)).astype(f32)
+    alive, valid = np.ones(b, bool), np.ones(b, bool)
+    rc = rng.integers(0, 40, b).astype(np.int32)
+    if case == "mixed":
+        metric[rng.random(b) < 0.05] = f32(-0.0)
+        upper[rng.random(b) < 0.1] = f32(1e30)
+        alive[rng.random(b) < 0.05] = False
+    elif case == "all_over":
+        metric = (upper * f32(1.7) + f32(0.3)).astype(f32)
+    elif case == "no_under":
+        metric = np.maximum(metric, lower * f32(1.01)).astype(f32)
+    elif case == "zero_surplus":
+        metric = (lower + (upper - lower) * f32(0.37)).astype(f32)
+    elif case == "dead":
+        alive[rng.random(b) < 0.15] = False
+        rc[~alive] = np.maximum(rc[~alive], 1)
+        metric[~alive] = (metric[~alive] * f32(0.01)).astype(f32)
+    tensors = [torch.from_numpy(x).to(dev) for x in (metric, lower, upper, alive, valid, rc)]
+    return tuple(tensors) + (float(f32(1e-6)),)
+
+
+def k9_sweep_variants(torch, model):
+    """``model`` with its last valid replica (in the sweep's last tile) moved
+    onto its lowest sibling's broker (a rack conflict), reported offline on
+    its original broker, or led by its partition's last replica; and with
+    broker 3 dead."""
+    from cruise_control_tpu_torch.model.tensor_model import BrokerState
+    r = int(torch.nonzero(model.replica_valid).max())
+    sib = model.partition_replicas[int(model.replica_partition[r])]
+    sib = sib[sib >= 0].long()
+    rb = model.replica_broker.clone()
+    rb[r] = rb[int(sib.min())]
+    off = model.replica_offline.clone()
+    off[r] = True
+    original = model.replica_original_broker.clone()
+    original[r] = model.replica_broker[r]
+    lead = model.replica_is_leader.clone()
+    lead[sib[0]], lead[sib[-1]] = False, True
+    return {"rack_last": model.replace(replica_broker=rb),
+            "offline_last": model.replace(replica_offline=off, replica_original_broker=original),
+            "preferred_last": model.replace(replica_is_leader=lead),
+            "dead_broker": model.set_broker_state(3, BrokerState.DEAD)}
+
+
+def _other_sort(torch, gk, rows):
+    """The frontier mask of ``rows`` (at most 1,024 brokers) through the sort
+    the wrapper does not take at their size."""
+    b = rows[0].shape[0]
+    active = torch.empty((b,), dtype=torch.bool, device=rows[0].device)
+    count = torch.empty((1,), dtype=torch.int32, device=rows[0].device)
+    rank_max = 0 if b <= gk.FRONTIER_RANK_MAX_BROKERS else 1024
+    gk.frontier_mask_launch(*rows, active, count, rank_max=rank_max)
+    return active, count
+
+
+def guarded_k9(torch, gk, name, args):
+    """One launch of a K9 kernel through its launch function into outputs
+    that each lie between canary bands; raises if a band changed or the
+    outputs differ from the wrapper's."""
+    dev = args[0].device if name != "stack_sweep" else args[2].load.device
+    if name == "stack_sweep":
+        g = len(args[0])
+        sizes = [-(-g // 4), 1]
+    elif name == "frontier_active":
+        b = args[0].shape[0]
+        sizes = [-(-b // 4), 1]
+    else:
+        g, b = args[0].shape
+        sizes = [-(-(g * b) // 4), g]
+    buf, guard, views = canary_views(torch, dev, sizes)
+    flags = views[0].view(torch.uint8)
+    if name == "stack_sweep":
+        got = (flags[:g].view(torch.bool), views[1].view(torch.uint8)[:1].view(torch.bool))
+        gk.stack_sweep_launch(*args, *got)
+        ref = gk.stack_satisfied(*args)
+    elif name == "frontier_active":
+        got = (flags[:b].view(torch.bool), views[1])
+        gk.frontier_mask_launch(*args, *got)
+        ref = gk.frontier_mask(*args)
+    else:
+        got = (flags[:g * b].view(torch.bool).view(g, b), views[1])
+        gk.frontier_batch_launch(*args, *got)
+        ref = gk.frontier_active_batch(*args)
+    torch.cuda.synchronize()
+    if not bool((buf[guard] == CANARY).all()):
+        raise RuntimeError(f"{name}: a launch wrote outside its outputs")
+    if not _exact(torch, got, ref):
+        raise RuntimeError(f"{name}: the guarded launch differs from the wrapper's")
+
+
+def check_k9(torch, np, log, timer, inputs, device, rehearse):
+    """K9's sweep, frontier mask and batch on the models the mid, large and
+    xl250 warm-ups handed the sweep and on the 7,000-broker fleet
+    (``inputs``: label -> (model, arrays)): the sweep of ``STACK``, every
+    band goal's frontier mask and the batch of ``STACK``; the sweep of
+    ``K9_SWEEP_GOALS`` (a designated topic a broker must lead) on the large
+    model's ``k9_sweep_variants``; the frontier mask on seeded rows
+    (``k9_frontier_rows`` at ``K9_FRONTIER_SIZES``, through the rank pass
+    and the bitonic sort alike) and the batch on stacks of them.  Each is
+    bit for bit against its plain twin on CPU copies (the sweep also on the
+    card), identical over two launches and a graph replay, and launched into
+    canary-guarded outputs (``guarded_k9``).  At each label, timed as one
+    call (``ms``, and its host time), in a replayed graph (``graph_ms``)
+    beside the plain twin and the bound, with the device ms a launch and a
+    call from ``device`` (profiled where the profiler is reliable); at
+    large the sweep of each of ``K9_SWEEP_GOALS`` alone in a graph; the two
+    sorts against each other at ``K9_ROUTE_SIZES``.  Returns {kernel:
+    {metric_<label>: value}}."""
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+
+    checked = {name: 0 for name in K9_KERNELS}
+
+    def check(name, label, args, wrapper, plain, launch=None):
+        got, again = wrapper(*args), wrapper(*args)
+        if not _exact(torch, got, again):
+            raise RuntimeError(f"K9 {name} ({label}) differs between two launches")
+        if not _exact(torch, got, plain(*_clone(torch, args, device="cpu"))):
+            raise RuntimeError(f"K9 {name} ({label}) differs from its plain twin on the CPU")
+        if name == "stack_sweep" and not _exact(torch, got, plain(*args)):
+            raise RuntimeError(f"K9 {name} ({label}) differs from its plain twin on the card")
+        if launch is not None and not _exact(torch, got, launch()):
+            raise RuntimeError(f"K9 {name} ({label}) differs between its two sorts")
+        if not rehearse:
+            if not _graph_replay_equal(torch, lambda: wrapper(*args)):
+                raise RuntimeError(f"K9 {name} ({label}): a graph replay differs")
+            guarded_k9(torch, gk, name, args)
+        checked[name] += 1
+
+    out = {}
+    dev = None
+    for label, (model, arrays) in inputs.items():
+        dev = model.device
+        args = k9_args(gk, model, arrays)
+        specs, _, _, con = args["stack_sweep"]
+        check("stack_sweep", label, args["stack_sweep"], gk.stack_satisfied,
+              gk.stack_satisfied_plain)
+        for spec in specs:
+            if gk.is_band_kind(spec):
+                check("frontier_active", f"{label} {spec.name}",
+                      gk.frontier_inputs(spec, model, arrays, con), gk.frontier_mask,
+                      gk.frontier_mask_plain)
+        check("frontier_active_batch", label, args["frontier_active_batch"],
+              gk.frontier_active_batch, gk.frontier_active_batch_plain)
+        if label == "large":
+            goals = tuple(GOAL_SPECS[g] for g in K9_SWEEP_GOALS)
+            for variant, m in k9_sweep_variants(torch, model).items():
+                con_v, _ = designated_constraint(torch, m)
+                a = (goals, m, BrokerArrays.from_model(m, with_topic_counts=True), con_v)
+                check("stack_sweep", f"large {variant}", a, gk.stack_satisfied,
+                      gk.stack_satisfied_plain)
+                sat, off = gk.stack_satisfied(*a)
+                log(f"K9 sweep on large {variant}: violated "
+                    f"{[g for g, s in zip(K9_SWEEP_GOALS, sat.tolist()) if not s]}, offline "
+                    f"{bool(off[0])}")
+            if not rehearse:  # the sweep of each goal alone (G = 1), a call in a graph
+                con_d, _ = designated_constraint(torch, model)
+                by_goal = {f"graph_ms_large_{g}": graph_ms(
+                    torch, lambda g=g: gk.stack_satisfied((GOAL_SPECS[g],), model, arrays, con_d))
+                    for g in K9_SWEEP_GOALS}
+                out.setdefault("stack_sweep", {}).update(by_goal)
+                log(f"K9 sweep of one goal at large, device ms a call in a graph: {by_goal}")
+        for name, (fn, plain) in k9_calls(gk, args).items():
+            r = {"ms": timer(torch, fn), "plain_ms": timer(torch, plain),
+                 "bound_ms": _k9_bound(name, args), "host_ms": enqueue_ms(torch, fn),
+                 "graph_ms": None if rehearse else graph_ms(torch, fn),
+                 **device.get(label, {}).get(name, {})}
+            out.setdefault(name, {}).update({f"{k}_{label}": v for k, v in r.items()})
+            log(f"K9 {name} at {label}: one call {r['ms']:.4f} ms (host {r['host_ms']:.4f}), "
+                f"graph {r['graph_ms']} ms a call, device {r.get('device_ms')} ms a launch "
+                f"({r.get('device_ms_call')} a call); plain {r['plain_ms']:.4f} ms; bound "
+                f"{r['bound_ms']:.6f} ms")
+    # Seeded rows, through both sorts where the rank pass reaches.
+    for b in K9_FRONTIER_SIZES:
+        cases = ("mixed",) + (K9_FRONTIER_CASES if b in (33, 257, 4097) else ())
+        rows_of = {}
+        for case in cases:
+            rows = rows_of[case] = k9_frontier_rows(torch, np, dev, b, case, seed=b)
+            other = (functools.partial(_other_sort, torch, gk, rows)
+                     if not rehearse and b <= 1024 else None)
+            check("frontier_active", f"seeded B={b} {case}", rows, gk.frontier_mask,
+                  gk.frontier_mask_plain, other)
+        if b in (33, 257, 4097, 8192):  # a batch of the rows, one not of a band kind
+            rows = [rows_of.get(c, rows_of["mixed"]) for c in ("mixed",) + K9_FRONTIER_CASES]
+            stacked = [torch.stack([x[i] for x in rows]) for i in range(3)]
+            band = torch.tensor([True, True, False, True, True], device=dev)
+            eps = torch.full((5,), rows[0][6], dtype=torch.float32, device=dev)
+            check("frontier_active_batch", f"seeded B={b}",
+                  (*stacked, band, eps, *rows[0][3:6]), gk.frontier_active_batch,
+                  gk.frontier_active_batch_plain)
+    log(f"K9: {checked} cases bit for bit against the plain twins on CPU copies (the sweep "
+        f"also on the card), identical over two launches"
+        f"{'' if rehearse else ', a graph replay and into canary-guarded outputs'}; "
+        f"seeded frontier rows up to 1,024 brokers through both sorts, from 1,025 through "
+        f"the bitonic sort alone")
+    if not rehearse:  # the two sorts of the frontier mask, a call in a replayed graph
+        routes = {}
+        for b in K9_ROUTE_SIZES:
+            rows = k9_frontier_rows(torch, np, dev, b, "mixed", seed=b)
+            active = torch.empty((b,), dtype=torch.bool, device=dev)
+            count = torch.empty((1,), dtype=torch.int32, device=dev)
+            for route, rank_max in (("rank", 1024), ("bitonic", 0)):
+                routes[f"{route}_graph_ms_B{b}"] = graph_ms(
+                    torch, lambda: gk.frontier_mask_launch(*rows, active, count,  # noqa: B023
+                                                           rank_max=rank_max))  # noqa: B023
+        out["frontier_active"].update(routes)
+        log(f"K9 frontier mask, the rank pass against the bitonic sort (device ms a call in "
+            f"a replayed graph): {routes}")
+    return out
+
+
 def check_kernels(torch, np, dev, captured, wrappers, log, time_ms):
     from cruise_control_tpu_torch.analyzer import optimizer as opt
     from cruise_control_tpu_torch.analyzer.actions import (ActionType, Candidates,
@@ -2979,9 +3308,10 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
     the full stack for the mid snapshot, the second mid snapshot (a dead
     broker) and the large rung, K9's frontier mask for every band goal of
     those clusters (against the plain version on CPU copies of the inputs:
-    the CPU cumsum is the order the kernel reproduces), K11 on its case
-    table, the ordered sum of the band averages on the captured input and on
-    seeded fixtures.  All exact."""
+    the CPU cumsum is the order the kernel reproduces) and K9's batch of the
+    stack on them (each row the goal's mask), K11 on its case table, the
+    ordered sum of the band averages on the captured input and on seeded
+    fixtures.  All exact."""
     from cruise_control_tpu_torch.analyzer import optimizer as opt
     from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
     from cruise_control_tpu_torch.analyzer.goals import kernels as gk
@@ -3061,6 +3391,20 @@ def check_frontier_kernels(torch, np, captured, wrappers, log, time_ms, models):
         bound_ms=bound_ms(B * 18 + B + 4))
     log(f"K9 frontier_active: {n} masks (band goals x mid, second, large) ok (exact); the "
         f"plain version run on the card differs from it on the CPU in {card_diff} brokers")
+    # K9 batch on the same clusters: each band goal's row is that goal's
+    # mask, every other row all false.
+    kb = wrappers["frontier_active_batch"]
+    for label, m in models.items():
+        arr = BrokerArrays.from_model(m)
+        rows, counts = kb(*gk.frontier_inputs_batch(specs, m, arr, con))
+        for g, spec in enumerate(specs):
+            want, want_n = (kf(*gk.frontier_inputs(spec, m, arr, con)) if gk.is_band_kind(spec)
+                            else (torch.zeros_like(rows[g]), torch.zeros_like(counts[:1])))
+            if not (torch.equal(rows[g], want) and torch.equal(counts[g:g + 1], want_n)):
+                raise RuntimeError(f"K9 batch row {spec.name} differs from the frontier mask "
+                                   f"on {label}")
+    log(f"K9 frontier_active_batch: every row equals its goal's frontier mask on "
+        f"{list(models)} (exact)")
 
     # ---- K11: chunk gate.  Exact.
     kg = wrappers["chunk_gate"]
@@ -3289,15 +3633,19 @@ def _k9_bytes(specs, model):
     """Bytes K9's sweep must move: the alive and valid flags, each broker
     column the stack's kinds read (replica and leader counts, the load and
     capacity columns, potential NW_OUT, leader bytes-in), the rack goals'
-    replica brokers, partitions and sibling rows and the broker racks (and
-    the replication factors), the preferred-leader goal's leader, broker,
-    partition and offline rows, preferred column and broker states, the
-    topic goal's [T, B] counts, the min-leaders goal's [T, B] leader counts
-    and designated flags, every replica's offline and valid flags, each read
-    once; G + 1 flags written."""
+    replica partitions and sibling rows and the broker racks (and the
+    replication factors), the preferred-leader goal's leader flags and
+    preferred column, the topic goal's [T, B] counts, the min-leaders goal's
+    [T, B] leader counts and designated flags, the disk goals' disk rows,
+    and the offline test's replica brokers, disks, reported-offline flags,
+    original brokers and valid flags, broker states and disk capacities,
+    each read once; G + 1 flags written."""
     R, B, T = model.num_replicas_padded, model.num_brokers, model.num_topics
+    D = model.num_disks
+    read = {"replica_broker": R * 4, "replica_disk": R * 4, "replica_offline": R,
+            "replica_original_broker": R * 4, "replica_valid": R, "broker_state": B,
+            "disk_capacity": D * 4}
     cols = set()
-    extra = 0
     for s in specs:
         if s.is_hard:
             cols.add("rc")
@@ -3311,30 +3659,23 @@ def _k9_bytes(specs, model):
             cols.add("lc")
         elif s.kind == "leader_bytes_in":
             cols.add("lbi")
-        if s.kind in ("rack", "rack_distribution") and "rack" not in cols:
-            cols.add("rack")
-            extra += R * 8 + model.partition_replicas.numel() * 4 + B * 4
-        if s.kind == "rack_distribution" and "rf" not in cols:
-            cols.add("rf")
-            extra += model.num_partitions * 4
-        elif s.kind == "topic_replica_distribution" and "topic" not in cols:
-            cols.add("topic")
-            extra += T * B * 4
-        elif s.kind == "preferred_leader" and "preferred" not in cols:
-            # Leader flags, brokers, partitions and offline flags of the
-            # replicas, the preferred column and the broker states.
-            cols.add("preferred")
-            extra += R * 10 + model.num_partitions * 4 + B
-        elif s.kind == "min_topic_leaders" and "leaders" not in cols:
-            cols.add("leaders")
-            extra += T * B * 4 + T
-        elif s.kind in INTRA_KINDS and "disks" not in cols:
-            # The disk loads, capacities and valid flags, each broker's
-            # disk list.
-            cols.add("disks")
-            extra += model.num_disks * 9 + model.broker_disks.numel() * 4
-    per_broker = len(cols - {"rack", "rf", "topic", "preferred", "leaders", "disks"})
-    return 2 * B + 4 * B * per_broker + extra + 2 * R + len(specs) + 1
+        elif s.kind in ("rack", "rack_distribution"):
+            read.update(replica_partition=R * 4, broker_rack=B * 4,
+                        partition_replicas=model.partition_replicas.numel() * 4)
+            if s.kind == "rack_distribution":
+                read["partition_rf"] = model.num_partitions * 4
+        elif s.kind == "topic_replica_distribution":
+            read["topic_counts"] = T * B * 4
+        elif s.kind == "preferred_leader":
+            read.update(replica_partition=R * 4, replica_is_leader=R,
+                        preferred_column=model.num_partitions * 4)
+        elif s.kind == "min_topic_leaders":
+            read.update(topic_leaders=T * B * 4, designated=T)
+        elif s.kind in INTRA_KINDS:
+            read.update(disk_rows=D * 5 + model.broker_disks.numel() * 4)
+    if "partition_replicas" in read:  # the preferred column is in the sibling rows
+        read.pop("preferred_column", None)
+    return 2 * B + 4 * B * len(cols) + sum(read.values()) + len(specs) + 1
 
 
 def _k1_bytes(valid, lead, B):
@@ -3607,15 +3948,16 @@ def movable_leaders_on(model, brokers):
     return count
 
 
-def _clone(torch, x):
-    """A deep copy of a kernel argument: tensors cloned, dataclasses of
-    tensors (models, arrays, candidates) field by field."""
+def _clone(torch, x, device=None):
+    """A deep copy of a kernel argument: tensors cloned (or, with
+    ``device``, copied there), dataclasses of tensors (models, arrays,
+    candidates) field by field."""
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        return x.clone() if device is None else x.to(device, copy=True)
     if isinstance(x, tuple):
-        return tuple(_clone(torch, a) for a in x)
+        return tuple(_clone(torch, a, device) for a in x)
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return dataclasses.replace(x, **{f.name: _clone(torch, getattr(x, f.name))
+        return dataclasses.replace(x, **{f.name: _clone(torch, getattr(x, f.name), device)
                                          for f in dataclasses.fields(x) if f.init})
     return x
 

@@ -391,6 +391,22 @@ def stack_satisfied_plain(specs, model: TensorClusterModel, arrays: BrokerArrays
     return sat, off
 
 
+# Goal kinds K9's sweep spreads over the replica axis and over the (topic,
+# broker) cells; every other kind takes one block on the broker axis.
+_REPLICA_AXIS_KINDS = ("rack", "rack_distribution", "preferred_leader")
+_TOPIC_AXIS_KINDS = ("topic_replica_distribution", "min_topic_leaders")
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_axes(specs) -> Tuple[int, int]:
+    """(goals of a replica-axis kind, goals of a (topic, broker) kind) of
+    ``specs``: with the kinds in the parameter table they give K9's sweep
+    its launch shape."""
+    kinds = [s.kind for s in specs]
+    return (sum(k in _REPLICA_AXIS_KINDS for k in kinds),
+            sum(k in _TOPIC_AXIS_KINDS for k in kinds))
+
+
 @cuda.counted("stack_sweep")
 def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
                     constraint: BalancingConstraint):
@@ -401,18 +417,19 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
     Bound on the card: bytes (the broker rows once per goal; the rack
     goals' replica and sibling rows; the preferred-leader goal's leader,
     preferred-replica and broker-state rows; the topic goal's [T, B]
-    counts, the min-leaders goal's [T, B] leader counts; the offline flags
-    once).  CPU tensors take ``stack_satisfied_plain``; CUDA tensors launch
-    one block per goal, with a parameter table of (kind, resource, is_hard,
-    epsilon, thresholds), and one block for the offline flag: band kinds
-    reduce their alive sums in a fixed order and test every broker against
-    its band, the rack goals walk the replicas' siblings (against "no
-    sibling on the rack" or the ceil(rf / racks) quota), the preferred-
-    leader goal tests every leader, the topic goals read their counts, the
-    intra-broker disk goals walk each broker's disks in disk order (the
-    disk loads of ``segment_sum[disk]``, the distribution goal's mean
-    utilization per broker, each disk's excess over its band, a dead disk's
-    whole load, summed per broker).  Exact booleans."""
+    counts, the min-leaders goal's [T, B] leader counts; each replica's
+    broker, disk, reported-offline flag and original broker once).  CPU
+    tensors take ``stack_satisfied_plain``; CUDA tensors launch one kernel
+    spread over the grid by axis, with a parameter table of (kind,
+    resource, is_hard, epsilon, thresholds): a band or disk goal takes one
+    block that reduces its alive sums in a fixed order and tests every
+    broker against its band (the intra-broker disk goals walk each
+    broker's disks in disk order); the rack, rack-distribution and
+    preferred-leader goals take tiles of the replicas (a replica's siblings
+    against "no sibling on the rack" or the ceil(rf / racks) quota; every
+    leader); the topic goals take a warp a topic; the offline flag takes
+    tiles of the replicas, each replica's ``replica_offline_now`` computed
+    in the kernel.  Exact booleans."""
     specs = tuple(specs)
     for s in specs:
         require_supported(s)
@@ -420,25 +437,36 @@ def stack_satisfied(specs, model: TensorClusterModel, arrays: BrokerArrays,
     cuda.record("stack_sweep", (specs, model, arrays, constraint))
     if cuda.on_cpu(arrays.load):
         return stack_satisfied_plain(specs, model, arrays, constraint)
+    G = len(specs)
+    flags = torch.empty((G + 1,), dtype=torch.bool, device=dev)
+    sat, off = flags[:G], flags[G:]
+    stack_sweep_launch(specs, model, arrays, constraint, sat, off)
+    stack_satisfied.launches += 1
+    for kind in {s.kind for s in specs}:
+        _SWEEP_COUNTS[kind].launches += 1
+    return sat, off
+
+
+def stack_sweep_launch(specs, model: TensorClusterModel, arrays: BrokerArrays,
+                       constraint: BalancingConstraint, sat: torch.Tensor,
+                       off: torch.Tensor) -> None:
+    """K9's sweep of ``specs`` (a tuple) into ``sat`` (bool[G]) and ``off``
+    (bool[1]) on CUDA tensors: ``stack_satisfied``'s launch, uncounted."""
+    dev = arrays.load.device
     ints, floats = _sweep_table(specs, constraint, dev)
     tables = _sweep_tables(specs, model, arrays, constraint)
     disk_load = (disk_loads(model, arrays)
                  if any(s.kind in INTRA_DISK_KINDS for s in specs) else None)
-    sat = torch.empty((len(specs),), dtype=torch.bool, device=dev)
-    off = torch.empty((1,), dtype=torch.bool, device=dev)
     cuda.launch("stack_sweep", len(specs), model.num_brokers, model.num_replicas_padded,
-                model.num_topics, model.max_rf, model.num_racks, ints, floats, arrays.alive,
-                arrays.valid, arrays.replica_count, arrays.leader_count,
+                model.num_topics, model.max_rf, model.num_racks, *_sweep_axes(specs), ints,
+                floats, arrays.alive, arrays.valid, arrays.replica_count, arrays.leader_count,
                 arrays.load.contiguous(), arrays.capacity.contiguous(),
                 arrays.potential_nw_out.contiguous(), arrays.leader_bytes_in.contiguous(),
                 arrays.num_alive.reshape(1), *tables, model.replica_broker,
                 model.replica_valid, model.replica_partition, model.partition_replicas,
                 model.broker_rack, model.broker_state, model.replica_is_leader,
-                model.replica_offline_now(), sat, off, *_disk_rows(model), disk_load)
-    stack_satisfied.launches += 1
-    for kind in {s.kind for s in specs}:
-        _SWEEP_COUNTS[kind].launches += 1
-    return sat, off
+                model.replica_disk, model.replica_offline, model.replica_original_broker,
+                sat, off, *_disk_rows(model), disk_load)
 
 
 def _sweep_tables(specs, model: TensorClusterModel, arrays: BrokerArrays,
@@ -1689,11 +1717,15 @@ def frontier_mask(metric, lower, upper, alive, valid, replica_count, eps: float)
     i32[1])`` from a band goal's metric, band and broker flags.  Bound on
     the card: bytes (B rows of 18 bytes read, B + 4 written: a few
     kilobytes, so a launch costs more than the work).  CPU tensors take
-    ``frontier_mask_plain``; CUDA tensors launch one block that sorts the
-    donor surpluses and the receiver rooms in shared memory on (value
-    descending, index ascending) — the permutation of the stable argsort —
-    and takes the totals and running sums in the order of ``ordered_sum``
-    and ``ordered_cumsum``.  Exact against the plain twin."""
+    ``frontier_mask_plain``; CUDA tensors launch one block whose threads
+    all take part in every step: the totals in the order of
+    ``ordered_sum``; the donor surpluses and the receiver rooms each ranked
+    on (value descending, index ascending) — the permutation of the stable
+    argsort — by counting up to ``FRONTIER_RANK_MAX_BROKERS`` brokers and by
+    a bitonic sort in registers and shared memory above; the running sums
+    in the order of ``ordered_cumsum`` (in-block shuffle scans, one warp on
+    the block totals), each position testing itself.  Exact against the
+    plain twin."""
     B = metric.shape[0]
     dev = metric.device
     for name, t in (("metric", metric), ("lower", lower), ("upper", upper)):
@@ -1708,14 +1740,28 @@ def frontier_mask(metric, lower, upper, alive, valid, replica_count, eps: float)
         raise ValueError(f"frontier_active takes 1..{FRONTIER_MAX_BROKERS} brokers, got {B}")
     active = torch.empty((B,), dtype=torch.bool, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
-    cuda.launch("frontier_active", B, eps, metric, lower, upper, alive, valid,
-                replica_count, active, count)
+    frontier_mask_launch(metric, lower, upper, alive, valid, replica_count, eps, active, count)
     frontier_mask.launches += 1
     return active, count
 
 
+def frontier_mask_launch(metric, lower, upper, alive, valid, replica_count, eps: float,
+                         active: torch.Tensor, count: torch.Tensor,
+                         rank_max: Optional[int] = None) -> None:
+    """K9's frontier mask into ``active`` (bool[B]) and ``count`` (i32[1]) on
+    CUDA tensors: ``frontier_mask``'s launch, uncounted; ``rank_max`` (at
+    most 1,024) in place of ``FRONTIER_RANK_MAX_BROKERS`` picks the sort."""
+    rank_max = FRONTIER_RANK_MAX_BROKERS if rank_max is None else rank_max
+    cuda.launch("frontier_active", metric.shape[0], rank_max, eps, metric, lower, upper, alive,
+                valid, replica_count, active, count)
+
+
 # Brokers one frontier-mask block sorts in shared memory.
 FRONTIER_MAX_BROKERS = 8192
+# Up to this many brokers the frontier mask ranks its keys by counting, a
+# thread a broker; above it a bitonic sort (at most 1,024: one block's
+# threads).
+FRONTIER_RANK_MAX_BROKERS = 128
 
 
 # Never evicted: the captured step graphs read these tensors by address, so
@@ -1773,7 +1819,7 @@ def frontier_active_batch(metric, lower, upper, band, eps, alive, valid, replica
     populations i32[G])`` from the stacked rows of ``frontier_inputs_batch``.
     Bound on the card: bytes (G rows of 13 bytes a broker and the shared
     broker rows read, G x (B + 4) written: tens of kilobytes, so the launch
-    and each block's serial running sums cost more than the traffic).  CPU
+    and each block's synchronised steps cost more than the traffic).  CPU
     tensors take ``frontier_active_batch_plain``; CUDA tensors launch one
     block per goal, each running the frontier mask's body on its row (a
     non-band row is written all false).  Exact against the plain twin."""
@@ -1796,10 +1842,19 @@ def frontier_active_batch(metric, lower, upper, band, eps, alive, valid, replica
                          f"and 1..65535 goals, got {B} and {G}")
     active = torch.empty((G, B), dtype=torch.bool, device=dev)
     count = torch.empty((G,), dtype=torch.int32, device=dev)
-    cuda.launch("frontier_active_batch", G, B, band, eps, metric, lower, upper, alive,
-                valid, replica_count, active, count)
+    frontier_batch_launch(metric, lower, upper, band, eps, alive, valid, replica_count,
+                          active, count)
     frontier_active_batch.launches += 1
     return active, count
+
+
+def frontier_batch_launch(metric, lower, upper, band, eps, alive, valid, replica_count,
+                          active: torch.Tensor, count: torch.Tensor) -> None:
+    """K9's batch into ``active`` (bool[G, B]) and ``count`` (i32[G]) on CUDA
+    tensors: ``frontier_active_batch``'s launch, uncounted."""
+    G, B = metric.shape
+    cuda.launch("frontier_active_batch", G, B, FRONTIER_RANK_MAX_BROKERS, band, eps, metric,
+                lower, upper, alive, valid, replica_count, active, count)
 
 
 # ---------------------------------------------------------------------------

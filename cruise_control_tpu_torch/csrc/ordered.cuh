@@ -28,9 +28,11 @@ constexpr int64_t kBlock = 16;
 constexpr int kMaxLevels = 12;
 
 // Sum of v(0..n-1) in the ordered-sum order.  Every thread of the block
-// calls it and gets the sum.  ``sh`` holds max(32, ceil(n / 32)) floats,
-// ``out`` one: the first level runs one window per thread, the rest in
-// thread 0.
+// (at least one warp) calls it and gets the sum.  ``sh`` holds max(32,
+// ceil(n / 32)) floats, ``out`` one: the first level runs one window per
+// thread (its 32 loads in flight at once), the levels above one window per
+// lane of warp 0, and the last sum of at most 32 runs down warp 0's lanes
+// in order.
 template <class V>
 __device__ float block_sum(const V& v, int64_t n, float* sh, float* out) {
   const int t = threadIdx.x;
@@ -38,9 +40,17 @@ __device__ float block_sum(const V& v, int64_t n, float* sh, float* out) {
   if (n > kWindow) {
     const int64_t w = (n + kWindow - 1) / kWindow, lo = (w * kWindow - n) / 2;
     for (int64_t k = t; k < w; k += blockDim.x) {
+      // The window's loads all issued before its adds (a padding zero
+      // added to a sum started at +0 changes no bit).
+      float x[kWindow];
+#pragma unroll
+      for (int q = 0; q < kWindow; ++q) {
+        const int64_t i = k * kWindow - lo + q;
+        x[q] = i >= 0 && i < n ? v(i) : 0.f;
+      }
       float acc = 0.f;
-      for (int64_t i = k * kWindow - lo; i < k * kWindow - lo + kWindow; ++i)
-        if (i >= 0 && i < n) acc = __fadd_rn(acc, v(i));
+#pragma unroll
+      for (int q = 0; q < kWindow; ++q) acc = __fadd_rn(acc, x[q]);
       sh[k] = acc;
     }
     count = w;
@@ -48,20 +58,27 @@ __device__ float block_sum(const V& v, int64_t n, float* sh, float* out) {
     for (int64_t k = t; k < n; k += blockDim.x) sh[k] = v(k);
   }
   __syncthreads();
-  if (t == 0) {
+  if (t < 32) {
     while (count > kWindow) {
       const int64_t w = (count + kWindow - 1) / kWindow, lo = (w * kWindow - count) / 2;
-      for (int64_t k = 0; k < w; ++k) {  // in place: window k reads only indices >= k
+      // In place: the windows of lanes base.. read only indices >= base * 32 - lo.
+      for (int64_t base = 0; base < w; base += 32) {
+        const int64_t k = base + t;
         float acc = 0.f;
-        for (int64_t i = k * kWindow - lo; i < k * kWindow - lo + kWindow; ++i)
-          if (i >= 0 && i < count) acc = __fadd_rn(acc, sh[i]);
-        sh[k] = acc;
+        if (k < w)
+          for (int64_t i = k * kWindow - lo; i < k * kWindow - lo + kWindow; ++i)
+            if (i >= 0 && i < count) acc = __fadd_rn(acc, sh[i]);
+        __syncwarp();
+        if (k < w) sh[k] = acc;
+        __syncwarp();
       }
       count = w;
     }
+    const float x = t < count ? sh[t] : 0.f;
     float acc = 0.f;
-    for (int64_t i = 0; i < count; ++i) acc = __fadd_rn(acc, sh[i]);
-    out[0] = acc;
+    for (int64_t i = 0; i < count; ++i)
+      acc = __fadd_rn(acc, __shfl_sync(0xffffffffu, x, static_cast<int>(i)));
+    if (t == 0) out[0] = acc;
   }
   __syncthreads();
   const float r = out[0];
@@ -106,26 +123,44 @@ __device__ __forceinline__ void add_back(float* x, int64_t i, int64_t c, int64_t
     x[i * c + ch] = __fadd_rn(x[i * c + ch], scanned[(i / kBlock - 1) * c + ch]);
 }
 
-// The inclusive ordered cumsum of a[0..n) in place, by the calling thread
-// alone; ``scratch`` holds n / 15 + 16 floats for the levels above.
-__device__ inline void serial_cumsum(float* a, int64_t n, float* scratch) {
+// Floats of the levels of a scan of n values kept in place: n, then one level
+// per 16x until a level of at most 16.
+__host__ __device__ inline int64_t level_floats(int64_t n) {
+  int64_t floats = 0;
+  for (int64_t m = n;; m = (m + kBlock - 1) / kBlock) {
+    floats += m;
+    if (m <= kBlock) return floats;
+  }
+}
+
+// The inclusive ordered cumsum of x[0..n) in place, by the 32 lanes of the
+// calling warp (every lane calls it); the levels above go to x + n ...
+// (level_floats(n) floats in all).  A lane scans one block of 16 of a level
+// at a time.
+__device__ inline void warp_cumsum(float* x, int64_t n) {
+  const int lane = threadIdx.x & 31;
   float* level[kMaxLevels];
   int64_t size[kMaxLevels];
   int depth = 0;
-  level[0] = a;
+  level[0] = x;
   size[0] = n;
-  float* next = scratch;
+  float* next = x + n;
   while (true) {
     const int64_t m = size[depth], blocks = (m + kBlock - 1) / kBlock;
-    for (int64_t b = 0; b < blocks; ++b) scan_block(level[depth], m, 1, b, 0);
+    for (int64_t b = lane; b < blocks; b += 32) scan_block(level[depth], m, 1, b, 0);
+    __syncwarp();
     if (m <= kBlock || depth == kMaxLevels - 1) break;
-    for (int64_t b = 0; b < blocks; ++b) next[b] = block_total(level[depth], m, 1, b, 0);
-    level[++depth] = next;
-    size[depth] = blocks;
+    for (int64_t b = lane; b < blocks; b += 32) next[b] = block_total(level[depth], m, 1, b, 0);
+    __syncwarp();
+    level[depth + 1] = next;
+    size[depth + 1] = blocks;
     next += blocks;
+    ++depth;
   }
-  for (int d = depth - 1; d >= 0; --d)
-    for (int64_t i = kBlock; i < size[d]; ++i) add_back(level[d], i, 1, 0, level[d + 1]);
+  for (int d = depth - 1; d >= 0; --d) {
+    for (int64_t i = kBlock + lane; i < size[d]; i += 32) add_back(level[d], i, 1, 0, level[d + 1]);
+    __syncwarp();
+  }
 }
 
 }  // namespace ordered

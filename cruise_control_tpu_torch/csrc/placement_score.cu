@@ -655,7 +655,9 @@ extern "C" int cc_stack_sweep_batch(
   a.broker_rack = broker_rack;
   a.broker_state = broker_state;
   a.is_leader = nullptr;  // the blend is read through the mask
-  a.offline = nullptr;
+  a.replica_disk = nullptr;  // the blend's offline test reads these through the mask
+  a.replica_offline = nullptr;
+  a.original_broker = nullptr;
   a.sat = sat;
   a.off = nullptr;
   a.d = d;

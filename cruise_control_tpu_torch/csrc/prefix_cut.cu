@@ -80,16 +80,6 @@ constexpr int64_t kBlock = ordered::kBlock;
 constexpr int64_t kDefaultSmem = 48 * 1024;  // dynamic shared memory without opting in
 constexpr int64_t kMaxSmem = 232448;         // shared memory a block can use
 
-// Floats of the levels above the positions: nb block totals, then one
-// level per 16x until a level of at most 16.
-int64_t level_floats(int64_t nb) {
-  int64_t floats = 0;
-  for (int64_t m = nb;; m = (m + kBlock - 1) / kBlock) {
-    floats += m;
-    if (m <= kBlock) return floats;
-  }
-}
-
 __global__ void prefix_rows_kernel(const int64_t* __restrict__ by_score,
                                    const int32_t* __restrict__ rows,
                                    const int32_t* __restrict__ offsets,
@@ -262,7 +252,7 @@ extern "C" int cc_prefix_cut(const int64_t* by_score, const int32_t* rows,
   if (channels < 1 || channels > kMaxChannels || k >= INT_MAX || num_segments >= INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = static_cast<int>(num_segments), C = static_cast<int>(channels);
-  const int64_t smem = level_floats((k + kBlock - 1) / kBlock) *
+  const int64_t smem = ordered::level_floats((k + kBlock - 1) / kBlock) *
                        static_cast<int64_t>(sizeof(float));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > kDefaultSmem) {  // past ~180,000 positions

@@ -1,8 +1,9 @@
-// K9's per-goal block body, shared by K9's sweep (stack_sweep.cu, the
-// model's own placement and aggregates) and K10's batched sweep
-// (placement_score.cu, one execution checkpoint's blended placement and
-// its slice of the blended aggregates).  See stack_sweep.cu for the goal
-// kinds, the parameter table and the float order.
+// K9's per-goal block body and its per-replica and per-cell tests, shared by
+// K9's sweep (stack_sweep.cu: the model's own placement and aggregates,
+// spread over the grid by axis) and K10's batched sweep (placement_score.cu:
+// one block per (goal, blend), on one execution checkpoint's blended
+// placement and its slice of the blended aggregates).  See stack_sweep.cu
+// for the goal kinds, the parameter table and the float order.
 
 #pragma once
 
@@ -41,7 +42,12 @@ struct Args {
   const int32_t *replica_partition, *partition_replicas, *broker_rack;
   const int8_t* broker_state;
   const uint8_t* is_leader;
-  const uint8_t* offline;  // replica_offline_now
+  // K9's offline test (replica_offline_now): each replica's disk (-1 off
+  // JBOD), its reported-offline flag and its broker at model build; K10
+  // reads its blend's through the mask instead.
+  const int32_t* replica_disk;
+  const uint8_t* replica_offline;
+  const int32_t* original_broker;
   uint8_t *sat, *off;
   // The disk axis (kinds 12-13): D disks, each broker's disks in increasing
   // order in broker_disks[B, max_dpb] (-1 pad), the disk loads (null unless
@@ -75,16 +81,31 @@ __device__ inline long long block_sum_i(long long v, long long* sh) {
   return out;
 }
 
-// The model's own placement (K9): replica r sits on replica_broker[r],
-// leads when is_leader[r] and is offline when offline[r]
-// (replica_offline_now).
+// The model's own placement (K9): replica r sits on replica_broker[r] and
+// leads when is_leader[r]; it is offline as TensorClusterModel.
+// replica_offline_now computes it: valid and on a DEAD broker, or on a dead
+// disk (capacity < 0), or reported offline and still on its original broker.
 struct Direct {
-  const int32_t* replica_broker;
-  const uint8_t *is_leader, *offline;
+  const int32_t *replica_broker, *replica_disk, *original_broker;
+  const uint8_t *is_leader, *replica_valid, *replica_offline;
+  const int8_t* broker_state;
+  const float* disk_capacity;
   __device__ __forceinline__ int32_t broker(int64_t r) const { return replica_broker[r]; }
   __device__ __forceinline__ bool leader(int64_t r) const { return is_leader[r] != 0; }
-  __device__ __forceinline__ bool offline_now(int64_t r) const { return offline[r] != 0; }
+  __device__ __forceinline__ bool offline_now(int64_t r) const {
+    if (!replica_valid[r]) return false;
+    const int32_t b = replica_broker[r];
+    const int32_t disk = replica_disk[r];
+    const bool dead_disk = disk >= 0 && disk_capacity[disk] < 0.f;
+    const bool sticky = replica_offline[r] && b == original_broker[r];
+    return broker_state[b] == kDead || dead_disk || sticky;
+  }
 };
+
+__device__ __forceinline__ Direct direct(const Args& a) {
+  return Direct{a.replica_broker, a.replica_disk, a.original_broker, a.is_leader,
+                a.replica_valid, a.replica_offline, a.broker_state, a.disk_capacity};
+}
 
 __device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
 
@@ -135,6 +156,68 @@ __device__ __forceinline__ float rack_quota(int32_t rf, int64_t num_racks) {
   return ceilf(__fdiv_rn(static_cast<float>(rf), static_cast<float>(num_racks)));
 }
 
+// A dead broker that still hosts replicas: it violates every hard goal.
+__device__ __forceinline__ bool dead_hosting(const Args& a, int64_t i) {
+  return !a.alive[i] && a.valid[i] && a.rc[i] > 0;
+}
+
+// Whether replica i violates a replica-axis goal (kind kRack, kRackDist or
+// kPreferred) under placement pl.
+template <class Placement>
+__device__ __forceinline__ bool replica_violates(const Args& a, int kind, const Placement& pl,
+                                                 int64_t i) {
+  if (!a.replica_valid[i]) return false;
+  const int32_t own = pl.broker(i);
+  if (kind == kPreferred) {
+    // A wrong leader on an alive broker: a valid leader whose partition's
+    // preferred replica is another valid, online replica off a DEMOTED
+    // broker, or any leader on a DEMOTED broker.
+    if (!pl.leader(i) || !a.alive[own]) return false;
+    const int32_t preferred = a.partition_replicas[a.replica_partition[i] * a.max_rf];
+    const int32_t sp = preferred > 0 ? preferred : 0;
+    const bool pref_ok = preferred >= 0 && a.replica_valid[sp] && !pl.offline_now(sp) &&
+                         a.broker_state[pl.broker(sp)] != kDemoted;
+    return (preferred != i && pref_ok) || a.broker_state[own] == kDemoted;
+  }
+  // A replica conflicts when it has a lower-id sibling on its rack (rack),
+  // or at least the quota of them (rack_distribution).
+  if (!a.alive[own]) return false;
+  const int32_t rack = a.broker_rack[own];
+  const int64_t p = a.replica_partition[i];
+  const int32_t* sib = a.partition_replicas + p * a.max_rf;
+  int rank = 0;
+  for (int64_t j = 0; j < a.max_rf; ++j) {
+    const int32_t s = sib[j];
+    rank += s >= 0 && s < i && a.broker_rack[pl.broker(s)] == rack;
+  }
+  return kind == kRack ? rank > 0
+                       : static_cast<float>(rank) >= rack_quota(a.partition_rf[p], a.num_racks);
+}
+
+// The topic goal's band of one topic from its replica total: floor / ceil
+// of the topic average over alive brokers times (b, a).
+struct TopicBand {
+  float lower, upper;
+  // Whether (topic tp, broker i) is an alive broker out of the band.
+  __device__ __forceinline__ bool out(const Args& a, int64_t tp, int64_t i) const {
+    const float c = static_cast<float>(a.tbc[tp * a.b + i]);
+    return a.alive[i] && (c > upper || c < lower);
+  }
+};
+
+__device__ __forceinline__ TopicBand topic_band(long long total, float num_alive, float pa,
+                                                float pb) {
+  const float avg = __fdiv_rn(static_cast<float>(total), num_alive);
+  return TopicBand{floorf(__fmul_rn(avg, pb)), ceilf(__fmul_rn(avg, pa))};
+}
+
+// An alive broker short of leaders in a designated topic: its shortfall is
+// an integer-valued sum, positive when any term is.
+__device__ __forceinline__ bool short_of_leaders(const Args& a, int64_t tp, int64_t i,
+                                                 float minimum) {
+  return a.alive[i] && a.designated[tp] && static_cast<float>(a.tlc[tp * a.b + i]) < minimum;
+}
+
 // Goal ``g``'s satisfied flag under placement ``pl`` (read by the rack,
 // rack-distribution and preferred-leader kinds; every other kind reads the
 // aggregates in ``a``), written to ``sat[0]`` by thread 0.  Every thread
@@ -157,49 +240,13 @@ __device__ void sweep_goal(const Args& a, int64_t g, const Placement& pl, uint8_
   bool any = false;
   // Dead brokers still hosting replicas violate every hard goal.
   if (hard) {
-    for (int64_t i = t; i < a.b; i += kThreads)
-      any |= !a.alive[i] && a.valid[i] && a.rc[i] > 0;
+    for (int64_t i = t; i < a.b; i += kThreads) any |= dead_hosting(a, i);
   }
-  if (kind == kRack || kind == kRackDist) {
-    // A replica conflicts when it has a lower-id sibling on its rack
-    // (rack), or at least the quota of them (rack_distribution).
-    for (int64_t i = t; i < a.r; i += kThreads) {
-      if (!a.replica_valid[i]) continue;
-      const int32_t own = pl.broker(i);
-      if (!a.alive[own]) continue;
-      const int32_t rack = a.broker_rack[own];
-      const int64_t p = a.replica_partition[i];
-      const int32_t* sib = a.partition_replicas + p * a.max_rf;
-      int rank = 0;
-      for (int64_t j = 0; j < a.max_rf; ++j) {
-        const int32_t s = sib[j];
-        rank += s >= 0 && s < i && a.broker_rack[pl.broker(s)] == rack;
-      }
-      any |= kind == kRack ? rank > 0
-                           : static_cast<float>(rank) >= rack_quota(a.partition_rf[p],
-                                                                    a.num_racks);
-    }
-  } else if (kind == kPreferred) {
-    // A wrong leader on an alive broker: a valid leader whose partition's
-    // preferred replica is another valid, online replica off a DEMOTED
-    // broker, or any leader on a DEMOTED broker.
-    for (int64_t i = t; i < a.r; i += kThreads) {
-      if (!a.replica_valid[i] || !pl.leader(i)) continue;
-      const int32_t own = pl.broker(i);
-      if (!a.alive[own]) continue;
-      const int32_t preferred = a.partition_replicas[a.replica_partition[i] * a.max_rf];
-      const int32_t sp = preferred > 0 ? preferred : 0;
-      const bool pref_ok = preferred >= 0 && a.replica_valid[sp] && !pl.offline_now(sp) &&
-                           a.broker_state[pl.broker(sp)] != kDemoted;
-      any |= (preferred != i && pref_ok) || a.broker_state[own] == kDemoted;
-    }
+  if (kind == kRack || kind == kRackDist || kind == kPreferred) {
+    for (int64_t i = t; i < a.r; i += kThreads) any |= replica_violates(a, kind, pl, i);
   } else if (kind == kMinLeaders) {
-    // An alive broker short of leaders in a designated topic: its
-    // shortfall is an integer-valued sum, positive when any term is.
-    for (int64_t i = t; i < a.t * a.b; i += kThreads) {
-      const int64_t b = i % a.b;
-      any |= a.alive[b] && a.designated[i / a.b] && static_cast<float>(a.tlc[i]) < pa;
-    }
+    for (int64_t i = t; i < a.t * a.b; i += kThreads)
+      any |= short_of_leaders(a, i / a.b, i % a.b, pa);
   } else if (kind == kIntraCap || kind == kIntraDist) {
     // A broker violates when its disks' summed excess leaves [0 - eps, 0 +
     // eps] (the zero band of goals/kernels.py:216-219).
@@ -214,14 +261,8 @@ __device__ void sweep_goal(const Args& a, int64_t g, const Placement& pl, uint8_
     for (int64_t tp = 0; tp < a.t; ++tp) {
       long long part = 0;
       for (int64_t i = t; i < a.b; i += kThreads) part += a.tbc[tp * a.b + i];
-      const float total = static_cast<float>(block_sum_i(part, shi));
-      const float avg = __fdiv_rn(total, num_alive);
-      const float upper = ceilf(__fmul_rn(avg, pa));
-      const float lower = floorf(__fmul_rn(avg, pb));
-      for (int64_t i = t; i < a.b; i += kThreads) {
-        const float c = static_cast<float>(a.tbc[tp * a.b + i]);
-        any |= a.alive[i] && (c > upper || c < lower);
-      }
+      const TopicBand band = topic_band(block_sum_i(part, shi), num_alive, pa, pb);
+      for (int64_t i = t; i < a.b; i += kThreads) any |= band.out(a, tp, i);
     }
   } else {
     long long si = 0;

@@ -58,10 +58,10 @@ _ENTRIES = {
     "transport_lookup": ("transport_match", "cc_transport_lookup", "ppppiippp"),
     "cluster_stats": ("cluster_stats", "cc_cluster_stats", "ppiip"),
     "structural_accepts": ("goal_masks", "cc_structural_accepts", "i" * 11 + "p" * 26),
-    "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 6 + "p" * 25 + "ii" + "p" * 4),
-    "frontier_active": ("frontier_active", "cc_frontier_active", "if" + "p" * 8),
+    "stack_sweep": ("stack_sweep", "cc_stack_sweep", "i" * 8 + "p" * 27 + "ii" + "p" * 4),
+    "frontier_active": ("frontier_active", "cc_frontier_active", "iif" + "p" * 8),
     "frontier_active_batch": ("frontier_active", "cc_frontier_active_batch",
-                              "ii" + "p" * 10),
+                              "iii" + "p" * 10),
     "chunk_gate": ("chunk_gate", "cc_chunk_gate", "p" * 9 + "iiii"),
     "cross_gate": ("chunk_gate", "cc_cross_gate", "p" * 5 + "i"),
     "chunk_touched": ("chunk_gate", "cc_chunk_touched", "ii" + "p" * 8),

@@ -6,15 +6,18 @@
 Imports ``cruise_control_tpu_torch`` from DIR (default: this checkout) and,
 on one GPU, solves chip_smoke.py's mid, large and xl250 rungs (seed 2026)
 with the full 15-goal stack as the service calls it,
-``optimize(fused=True, donate_model=True)``: per rung a warm-up run that
-captures the step graphs, then N timed runs (default 3; each wall printed,
-the median kept), and for mid and large one more run under
+``optimize(fused=True, donate_model=True)``, and the mid rung once more on
+the per-goal path (``pipeline=False, fuse_group_size=1``): per solve a
+warm-up run that captures the step graphs, then N timed runs (default 3;
+each wall printed, the median kept), and one more run under
 ``torch.profiler``: the device's busy share of the median wall, and the
 device ms a launch and in all of K1, ``segment_sum``, the row index, K3
-(by its kernels before and after its redesign), the ordered sum and every
-sort kernel (chip_smoke.py's ``profile_mid``); then K3 and the ordered sum
-on the large warm-up's first inputs: device ms a call, one call between
-two events and a call in a replayed graph, and the ordered sum at the band
+(by its kernels before and after its redesign), the ordered sum, K9's
+sweep, frontier mask and batch, and every sort kernel (chip_smoke.py's
+``profile_mid``); then K3, the ordered sum and K9's three calls on the
+large warm-up's first inputs (K9's also on chip_smoke.py's 7,000-broker
+fleet): device ms a call, one call between two events and a call in a
+replayed graph, and the ordered sum at the band
 averages' shapes beside ``torch.sum`` (chip_smoke.py's
 ``check_ordered_sum``).  Prints the
 card's name and power limit, and last one JSON object.  To compare two
@@ -68,8 +71,8 @@ def main(argv) -> int:
     print(f"{label}: {smi}", flush=True)
     cuda.build_all()
     out = {"label": label, "card": smi}
-    for name, rung, profiled in (("mid", cs.MID, True), ("large", cs.LARGE, True),
-                                 ("xl250", cs.XL250, False)):
+    for name, rung, kw in (("mid", cs.MID, {}), ("large", cs.LARGE, {}), ("xl250", cs.XL250, {}),
+                           ("mid per-goal", cs.MID, dict(pipeline=False, fuse_group_size=1))):
         b, r, t, ppt, rf = rung
         model = generate_cluster(ClusterSpec(num_brokers=b, num_racks=r, num_topics=t,
                                              mean_partitions_per_topic=ppt,
@@ -78,7 +81,7 @@ def main(argv) -> int:
 
         def solve():
             return opt_mod.optimize(model, cs.STACK, fused=True, donate_model=True,
-                                    raise_on_hard_failure=False, device="cuda")
+                                    raise_on_hard_failure=False, device="cuda", **kw)
         t0 = time.monotonic()
         if name == "large":  # K3's and the ordered sum's first inputs
             cuda.CAPTURE = {}
@@ -97,29 +100,38 @@ def main(argv) -> int:
         wall = statistics.median(walls)
         steps = sum(g.steps for g in run.goal_results)
         row = {"warm_up_s": warm, "walls_s": walls, "wall_s": wall, "steps": steps}
-        if profiled:
-            # K3 by its kernels before and after its redesign (one tree has
-            # one set), and every sort kernel of the solve ("ort": in "sort"
-            # and "Sort" alike).
-            names = dict(cs.PROFILE_NAMES, prefix_cut_before=PREFIX_CUT_BEFORE,
-                         sorts=("ort",))
-            prof = cs.profile_mid(torch, solve, wall, steps, f"{label} {name}", print, names)
-            family = ("broker_aggregates", "segment_sum", "segment_row_index", "prefix_cut",
-                      "prefix_cut_before", "ordered_sum", "sorts")
-            row.update(busy=prof["busy"], device_ms=prof["device_ms"],
-                       device_ms_per_launch={k: prof["per_launch"].get(k) for k in family},
-                       device_ms_total={k: prof["totals"].get(k) for k in family})
+        # K3 by its kernels before and after its redesign (one tree has one
+        # set), and every sort kernel of the solve ("ort": in "sort" and
+        # "Sort" alike).
+        names = dict(cs.PROFILE_NAMES, prefix_cut_before=PREFIX_CUT_BEFORE, sorts=("ort",))
+        prof = cs.profile_mid(torch, solve, wall, steps, f"{label} {name}", print, names)
+        family = ("broker_aggregates", "segment_sum", "segment_row_index", "prefix_cut",
+                  "prefix_cut_before", "ordered_sum", "stack_sweep", "frontier_active",
+                  "frontier_active_batch", "sorts")
+        row.update(busy=prof["busy"], device_ms=prof["device_ms"],
+                   device_ms_per_launch={k: prof["per_launch"].get(k) for k in family},
+                   device_ms_total={k: prof["totals"].get(k) for k in family})
         out[name] = row
         print(f"{label} {name}: {json.dumps(row)}", flush=True)
         del model, run
-    # K3 and the ordered sum on the large warm-up's first inputs: device ms
-    # a call (every device op), one call between two events, a call in a
+    # K3, the ordered sum and K9 on the large warm-up's first inputs: device
+    # ms a call (every device op), one call between two events, a call in a
     # replayed graph, last (no profiler session after a graph of this
     # script's own: chip_smoke.py's docstring, phase 21).
     from cruise_control_tpu_torch.analyzer.goals import kernels as gk
     from cruise_control_tpu_torch.ops import order
     calls = {"prefix_cut": lambda: gk.prefix_cut_admit(*kept["prefix_cut"]),
              "ordered_sum": lambda: order.ordered_sum(*kept["ordered_sum"])}
+    k9 = cs.k9_args(gk, *cs._clone(torch, kept["stack_sweep"][1:3]))
+    calls.update({n: fn for n, (fn, _) in cs.k9_calls(gk, k9).items()})
+    # K9 at the detector fleet's 7,000 brokers (chip_smoke.py's FLEET).
+    from cruise_control_tpu_torch.analyzer.state import BrokerArrays
+    b, r, t, ppt, rf = cs.FLEET
+    fleet = generate_cluster(ClusterSpec(num_brokers=b, num_racks=r, num_topics=t,
+                                         mean_partitions_per_topic=ppt, replication_factor=rf,
+                                         distribution="exponential", seed=cs.SEED), device="cuda")
+    k9_fleet = cs.k9_args(gk, fleet, BrokerArrays.from_model(fleet))
+    calls.update({f"{n}_fleet": fn for n, (fn, _) in cs.k9_calls(gk, k9_fleet).items()})
     out["kernels"] = {n: {"device_ms_call": cs.device_ms_total(torch, fn, print)}
                       for n, fn in calls.items()}
     for n, fn in calls.items():

@@ -31,6 +31,7 @@ from cruise_control_tpu.analyzer.goals import kernels as jk
 from cruise_control_tpu_torch.analyzer.goals import kernels as tk
 from cruise_control_tpu_torch.ops import order
 from cruise_control_tpu_torch.ops.segment import segment_row_index_plain
+from tests.torch_port_helpers import scan_blocks, scan_levels
 
 EDGES = (16, 17, 256, 257, 4096, 4097, 65537)
 CASES = ("ties", "dominant", "empty_segments", "none_kept", "out_of_band_first")
@@ -159,32 +160,6 @@ def test_cases_match_jax(fn, case):
 # The card's decomposition, walked in numpy
 # ---------------------------------------------------------------------------
 
-def _scan_blocks(x):
-    """f32[ceil(m / 16) * 16, C]: each block of 16 rows of ``x`` (zero-padded)
-    scanned in order, as the kernel's lanes and threads scan them."""
-    m, c = x.shape
-    blocks = np.zeros((-(-m // 16), 16, c), np.float32)
-    blocks.reshape(-1, c)[:m] = x
-    for j in range(1, 16):
-        blocks[:, j] = blocks[:, j] + blocks[:, j - 1]
-    return blocks
-
-
-def _levels(t):
-    """The ordered cumsum of the level-1 totals by the kernel's steps: scan
-    the blocks of 16, take each block's total at its last row, scan the
-    totals the same way, add the total of the block before."""
-    m = t.shape[0]
-    blocks = _scan_blocks(t)
-    out = blocks.reshape(-1, t.shape[1])[:m].copy()
-    if m <= 16:
-        return out
-    last = np.minimum(np.arange(blocks.shape[0]) * 16 + 15, m - 1)
-    up = _levels(out[last])
-    out[16:] = out[16:] + up[np.arange(16, m) // 16 - 1]
-    return out
-
-
 def _grouping(seg, by_score, s, regroup):
     """(offsets, rows): the ids in score order grouped by segment — the row
     index's counting pass (its plain twin), or the second stable sort."""
@@ -208,9 +183,9 @@ def _card_walk(score, seg, deltas, kept, cum, lo, hi, s, regroup=False):
     row_at = by_score[rows[:grouped]]
     x = np.zeros((k, c), np.float32)
     x[:grouped] = np.where(kept[row_at][:, None], deltas[row_at], np.float32(0.0))
-    blocks = _scan_blocks(x)                                  # (2)'s shuffle scans
+    blocks = scan_blocks(x)                                   # (2)'s shuffle scans
     inblock = blocks.reshape(-1, c)[:k]
-    level1 = _levels(blocks[:, 15])                           # (1): totals, levels
+    level1 = scan_levels(blocks[:, 15])                       # (1): totals, levels
     cs = inblock.copy()
     cs[16:] = inblock[16:] + level1[np.arange(16, k) // 16 - 1]
     starts = offsets[:s].astype(np.int64)

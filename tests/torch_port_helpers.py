@@ -770,3 +770,35 @@ def same_operation(jbody, tbody):
                 "violatedGoalsAfter", "provisionStatus", "cappedGoals",
                 "onDemandBalancednessScoreBefore", "onDemandBalancednessScoreAfter"):
         assert tbody.get(key) == jbody.get(key), key
+
+
+# ---------------------------------------------------------------------------
+# The running sums of the card's blocked scan, walked in numpy
+# ---------------------------------------------------------------------------
+
+def scan_blocks(x):
+    """f32[ceil(m / 16), 16, C]: each block of 16 rows of ``x`` (zero-padded)
+    scanned in order, as the card's shuffle scans take them (K3 and K9's
+    frontier mask)."""
+    m, c = x.shape
+    blocks = np.zeros((-(-m // 16), 16, c), np.float32)
+    blocks.reshape(-1, c)[:m] = x
+    for j in range(1, 16):
+        blocks[:, j] = blocks[:, j] + blocks[:, j - 1]
+    return blocks
+
+
+def scan_levels(t):
+    """The ordered cumsum of the level-1 totals ``t`` (f32[m, C]) by the
+    card's steps (ordered.cuh): scan the blocks of 16, take each block's
+    total at its last row, scan the totals the same way, add the total of
+    the block before."""
+    m = t.shape[0]
+    blocks = scan_blocks(t)
+    out = blocks.reshape(-1, t.shape[1])[:m].copy()
+    if m <= 16:
+        return out
+    last = np.minimum(np.arange(blocks.shape[0]) * 16 + 15, m - 1)
+    up = scan_levels(out[last])
+    out[16:] = out[16:] + up[np.arange(16, m) // 16 - 1]
+    return out
