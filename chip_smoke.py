@@ -11,7 +11,10 @@ Phases, in order (any failure raises and the process exits non-zero):
    per source, all started together);
 3. mid rung (50 brokers, 10 racks, 40 topics, ~10.2k replicas, seed 2026),
    full 15-goal stack, unfused warm-up run; each kernel's inputs at its
-   first launch are captured;
+   first launch are captured; then the mid fused and the large pipelined
+   warm-ups (the step graphs of phases 5 and 9; K1's and the round sums'
+   first inputs at large) and K8's gated-off replay at both, timed before
+   any profiler session (``gated_off_replay``);
 4. each hand-written kernel against its plain PyTorch version on the card,
    on seeded fixtures and on the captured inputs (K9's sweep, frontier mask
    and batch on the mid rung, the second mid snapshot with its dead broker
@@ -29,9 +32,12 @@ Phases, in order (any failure raises and the process exits non-zero):
    of the path launched (graph replays counted), graph captures, replays,
    gated-off replays and host fetches; a second fused run gives identical
    proposals; the unfused timed run gives the same placement; K8 (one
-   replayed step against the same step run eagerly) and K12 (the fused
-   driver with its step graphs against the same driver with its gated steps
-   run eagerly) are timed and checked;
+   replayed step against the same step run eagerly, its credited launches
+   against the eager step's; gated off: no launch credited, the state
+   unchanged, the gate kernel the only device op of a profiled replay,
+   timed beside the eager gated-off step and the body replayed without its
+   gate) and K12 (the fused driver with its step graphs against the same
+   driver with its gated steps run eagerly) are timed and checked;
 6. a second snapshot of exactly the mid shape, in which every field but
    the padding masks holds other data (from seed 2027: relabelled brokers,
    partitions, topics and disks, new leaders, loads, capacities, racks and
@@ -58,10 +64,12 @@ Phases, in order (any failure raises and the process exits non-zero):
    cross included), at least one opener dispatched; per goal whether it
    adopted an opener, its boundary gap, openers dispatched and wasted,
    their replays (gated off), fused group, chunks, replays and wall; a
-   repeat gives identical proposals; a profile; the sequential and the
-   pipelined walls timed in turns in this call (and the pipeline with one
-   gated step queued behind each opener), and whether their placements
-   agree;
+   repeat gives identical proposals; a profile, with the run's gated-off
+   replays and device time; a distribution goal's step graph replayed gated
+   off as in phase 5; the sequential and the
+   pipelined walls timed in turns in this call (and the pipeline with the
+   other ``OPENER_QUEUE``, 0 or 1, gated steps queued behind each opener),
+   and whether their placements agree;
 10. the skewed 16-broker model (tests/test_pipeline.py's recipe), dense
     floor 8, fusion off: pipelined equals sequential in placement and per
     goal steps and actions, with a goal boundary overlapped, and the card
@@ -102,8 +110,9 @@ Phases, in order (any failure raises and the process exits non-zero):
     plain build;
 15. xl250 rung (1000 brokers, ~250k replicas, ``segment_steps`` 32 by the
     JAX package's rule) on the default pipelined path, the stack of
-    ``XL_GOALS``; then the mid fused solve again (the graph cache past its
-    four shapes): the proposals of phase 5;
+    ``XL_GOALS``, profiled (its gated-off replays and device time); then
+    the mid fused solve again (the graph cache past its four shapes): the
+    proposals of phase 5;
 16. the goal kinds beyond the 15-goal stack (``check_goal_kinds``), each
     timed run with the launch counters set to 0 just before and each new
     mode's own counter read after it: the facade's default order
@@ -176,7 +185,9 @@ Phases, in order (any failure raises and the process exits non-zero):
     plain flight row in the kernel's place gives the same rows (integer
     slots and score bits) and placement; with the recorder off the same
     requests place alike and record nothing; ``cc_flight_row`` against its
-    plain twin on its captured inputs, timed; the mid rung under
+    plain twin on its captured inputs (and, in phase 4, on seeded inputs at
+    the service shape and on ``FLIGHT_EDGES``, active and gated off, and
+    through its C entry into canary-guarded buffers), timed; the mid rung under
     ``_DBG_NO_BUDGETS`` (at most ``ABLATION_STEPS`` steps a goal):
     ``cc_band_accepts`` launched, bit for bit on its captured inputs, the
     card placed as the CPU, timed; the mid rung under
@@ -199,7 +210,7 @@ Phases, in order (any failure raises and the process exits non-zero):
 21. K1, ``segment_sum``'s three modes and their row index
     (``check_family``) at the mid, large and xl250 rungs' shapes, on the
     inputs the mid warm-up (phase 3) and the large and xl250 warm-ups
-    (phases 8 and 15) gave K1 and the round sums: bit for bit against
+    (phases 3 and 15) gave K1 and the round sums: bit for bit against
     their plain twins on CPU copies in five cases (the rung's inputs, a
     fifth of the rows on one segment, all masked, an empty segment, ids
     outside [0, S)), each case's launches also into buffers between canary
@@ -241,7 +252,9 @@ Phases, in order (any failure raises and the process exits non-zero):
     call and in a replayed graph beside the plain twin and the bound, with
     the device ms a launch and a call profiled at the warm-ups (phase 4 for
     mid and the fleet), and the frontier mask's two sorts timed against
-    each other at 50 to 1,000 brokers;
+    each other at 50 to 1,000 brokers; and K8's flight row at the service
+    shape in a graph replay, active and gated off, against its plain twin
+    (``check_flight_row_graph``);
 22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
@@ -466,7 +479,8 @@ def main(argv) -> int:
                            distribution="exponential", seed=seed)
 
     def read_counts():
-        return {n: w.launches for n, w in wrappers.items()}
+        counts = cuda.launch_counts()
+        return {n: counts[n] for n in wrappers}
 
     def check_launched(label, counts, path=None):
         skip = NOT_ON.get(path, ()) + EXECUTION_ONLY + tuple(DETECTION_KERNELS)
@@ -524,11 +538,33 @@ def main(argv) -> int:
     if missing:
         raise RuntimeError(f"kernels never launched in the warm-up run: {missing}")
     warm_props = check_run("mid-warm", mid, run_warm, STACK)
+    # The step graphs of the mid fused solve (phase 5's) and of the large
+    # pipelined solve (phase 9's), captured here, and a gated-off replay of
+    # each timed before any profiler session: a session leaves CUPTI set up
+    # (TEARDOWN_CUPTI=0), which adds host time to every later graph launch.
+    graphs.GRAPHS.clear()
+    t0 = time.monotonic()
+    run_capture = fused_run(mid)
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t0
+    large = generate_cluster(spec_of(large_rung), device=dev)
+    cuda.CAPTURE = {}  # K1's and the round sums' first inputs at the large rung
+    try:
+        fused_run(large)
+        torch.cuda.synchronize()
+    finally:
+        kept_large, cuda.CAPTURE = cuda.CAPTURE, None
+    k8_early = {}
+    if not rehearse:
+        k8_early = {label: gated_off_replay(torch, graphs, model, goal, log, label,
+                                            profiled=False)
+                    for label, model, goal in (
+                        ("mid", mid, "TopicReplicaDistributionGoal"),
+                        ("large", large, band_goal_graphed(graphs, large)))}
 
     # 4. kernels against their plain versions
     phase("kernels")
     second, second_opts = second_snapshot(torch, np, mid, SECOND_SEED)
-    large = generate_cluster(spec_of(large_rung), device=dev)
     results = check_kernels(torch, np, dev, captured, wrappers, log, timer)
     # K1's, the round sums', K3's and K9's inputs at each rung, for phase 21;
     # K9's device ms at each, profiled here (see the docstring, phase 21).
@@ -582,13 +618,8 @@ def main(argv) -> int:
 
     # 5. mid rung as the service runs it: fused, step graphs
     phase("mid fused")
-    graphs.GRAPHS.clear()
-    t0 = time.monotonic()
-    run_capture = fused_run(mid)
-    torch.cuda.synchronize()
-    capture_s = time.monotonic() - t0
     captures = sum(g.fresh_compile for g in run_capture.goal_results)
-    log(f"mid fused warm-up run (captures {captures} step graphs): {capture_s:.2f} s")
+    log(f"mid fused warm-up run (phase 3; captured {captures} step graphs): {capture_s:.2f} s")
     run_fused, fused_wall, fused_counts = timed(lambda: fused_run(mid))
     fused_props = check_run("mid-fused", mid, run_fused, STACK)
     fused_steps = sum(g.steps for g in run_fused.goal_results)
@@ -685,7 +716,6 @@ def main(argv) -> int:
         return out
 
     gk.frontier_inputs = recording_inputs
-    cuda.CAPTURE = {}  # K1's and the round sums' first inputs at this rung
     try:
         t0 = time.monotonic()
         run_large_warm = fused_run(large, **per_goal)  # captures
@@ -693,9 +723,8 @@ def main(argv) -> int:
         large_warm_s = time.monotonic() - t0
     finally:
         gk.frontier_inputs = real_inputs
-        kept, cuda.CAPTURE = cuda.CAPTURE, None
-    keep_family_inputs("large", kept)
-    del kept
+    keep_family_inputs("large", kept_large)  # phase 3's pipelined warm-up's
+    del kept_large
     mem1 = (0, 0) if rehearse else (torch.cuda.memory_allocated(),
                                     torch.cuda.memory_reserved())
     large_captures = sum(g.fresh_compile for g in run_large_warm.goal_results)
@@ -768,18 +797,26 @@ def main(argv) -> int:
     if not rehearse:
         prof_pipe = profile_mid(torch, lambda: fused_run(large), pipe_wall, pipe_steps,
                                 "large-pipelined", log)
+        large_off = gated_off_replay(torch, graphs, large, band_goal_graphed(graphs, large),
+                                     log, "large")
     else:
         prof_pipe = {"ops": None, "ops_per_step": None, "busy": None,
                      "per_launch": {n: None for n in wrappers}}
+        large_off = None
+    log(f"large pipelined: {pipe_summary['gated_off']} of {pipe_summary['replays']} replays "
+        f"gated off ({pipe_summary['opener_gated_off']} of the openers' "
+        f"{pipe_summary['opener_replays']}), {pipe_steps} steps, device time "
+        f"{prof_pipe.get('device_ms')} ms")
     # The sequential and the pipelined walls in turns, in this call, and the
-    # pipeline with one gated step queued behind each opener
-    # (opt.OPENER_QUEUE = 1) beside its default.
-    walls = {"sequential": [], "pipelined": [], "opener step queued": []}
+    # pipeline with the other choice of opener steps queued behind each opener
+    # (opt.OPENER_QUEUE 0 or 1) beside its default.
     queue = opt.OPENER_QUEUE
+    other = f"OPENER_QUEUE={1 - queue}"
+    walls = {"sequential": [], "pipelined": [], other: []}
     try:
-        for label in ("sequential", "pipelined", "opener step queued") * 2 + \
-                ("opener step queued", "pipelined", "sequential") * 2:
-            opt.OPENER_QUEUE = 1 if label == "opener step queued" else queue
+        for label in ("sequential", "pipelined", other) * 2 + \
+                (other, "pipelined", "sequential") * 2:
+            opt.OPENER_QUEUE = 1 - queue if label == other else queue
             kw = per_goal if label == "sequential" else {}
             out, wall, _ = timed(lambda: fused_run(large, **kw))
             walls[label].append(wall)
@@ -908,6 +945,11 @@ def main(argv) -> int:
     check_launched("xl250", xl_counts)
     if not run_xl.pipelined:
         raise RuntimeError("the xl250 default solve did not pipeline")
+    prof_xl = (profile_mid(torch, lambda: fused_run(xl, XL_GOALS), xl_wall,
+                           xl_summary["steps"], "xl250", log) if not rehearse else {})
+    log(f"xl250: {xl_summary['gated_off']} of {xl_summary['replays']} replays gated off "
+        f"({xl_summary['opener_gated_off']} of the openers' {xl_summary['opener_replays']}), "
+        f"{xl_summary['steps']} steps, device time {prof_xl.get('device_ms')} ms")
     k10["xl250"] = check_placement_kernels(torch, np, wrappers, log, timer, xl,
                                            run_xl.model, "xl250", rehearse)
     del xl, run_xl
@@ -970,7 +1012,7 @@ def main(argv) -> int:
     # 21. K1, segment_sum's modes and their row index at each rung's shapes,
     # K3 and the ordered sum on every case, after every profiler session
     # (see the docstring)
-    phase("K1 family, K3, ordered sum, K9")
+    phase("K1 family, K3, ordered sum, K9, K8's flight row")
     for label in ("mid", "large", "xl250"):
         check_family_at(label)
     for name, r in check_k3(torch, np, log, timer, k3_inputs, rehearse).items():
@@ -980,6 +1022,8 @@ def main(argv) -> int:
     for name, r in check_k9(torch, np, log, timer, k9_inputs, k9_device, rehearse).items():
         family.setdefault(name, {}).update(r)
     del k9_inputs
+    if not rehearse:
+        check_flight_row_graph(torch, np, opt, dev, log)
 
     # 22. results
     phase("results")
@@ -1115,6 +1159,26 @@ def main(argv) -> int:
     # K12's device time is the whole fused solve's (its eager per-goal
     # set-up included), from the fused profile.
     graph_results["goal_chain"]["device_ms_per_launch"] = prof_fused.get("device_ms")
+    # K8 at large (a distribution goal's dense graph gated off), and the
+    # gated-off replays and device time of the large pipelined and xl250 runs.
+    # "ms": the event ms of phase 3, before any profiler session; the same
+    # replay timed later, with CUPTI left set up, beside it.
+    step_row = graph_results["step_graph"]
+    if large_off is not None:
+        step_row.update({f"{k}_large": large_off[k] for k in ("goal", "device_ms", "device_ops",
+                                                             "body_replay_ms")})
+        step_row["ms_large_after_profiler"] = large_off["ms"]
+    if k8_early:
+        step_row["ms_after_profiler"] = step_row["ms"]
+        step_row["ms"] = k8_early["mid"]["ms"]
+        step_row["ms_large"] = k8_early["large"]["ms"]
+        step_row["counter_read_ms"] = k8_early["mid"]["counter_read_ms"]
+    step_row.update(
+        replays_large_pipelined=pipe_summary["replays"],
+        gated_off_large_pipelined=pipe_summary["gated_off"],
+        device_ms_large_pipelined=prof_pipe.get("device_ms"),
+        replays_xl250=xl_summary["replays"], gated_off_xl250=xl_summary["gated_off"],
+        device_ms_xl250=prof_xl.get("device_ms"))
     for name, (source, replaces) in GRAPH_KERNELS.items():
         line.append({"name": name, "route": "cuda_graph", "source": source,
                      "replaces": replaces, **graph_results[name],
@@ -2083,23 +2147,116 @@ def second_snapshot(torch, np, model, seed):
     return new, options
 
 
+# The bytes a gated-off replay moves: its gate reads three counters
+# (csrc/step_graph.cu; the executed count moves only when the step runs).
+GATE_BYTES = 3 * 4
+
+
+def gated_off_replay(torch, graphs, model, goal, log, label, strict=True, profiled=True):
+    """K8 gated off: the cached dense, recorder-off step graph of ``goal``
+    at ``model``'s shape, its counters set to last_n = 0 (converged).  A
+    replay leaves the state (placement, counters) unchanged; its event ms
+    (median of TIMED_RUNS single replays); the device ops a profiled replay
+    runs (of 10), their names and device ms a replay; and, where the graph
+    keeps the body torch captured, that body replayed without its gate (the
+    step graph before its conditional node: every kernel of the step).
+    With ``strict`` a changed state raises, and so does a profile that runs
+    more than the gate kernel or that records no device op in any of its
+    sessions: an empty profile shows nothing.  Without ``profiled`` only the
+    state and the event ms (and the counter read).  The counters are
+    restored after."""
+    from torch.profiler import ProfilerActivity, profile
+    from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N, CTR_STEPS,
+                                                         OptimizationOptions)
+    cache = graphs.GRAPHS
+    shape = cache.shape_key(model, OptimizationOptions.none(model))
+    found = [(k, g) for k, g in cache._graphs.items()
+             if k[-1] == shape and k[0].name == goal and k[5] is None and not k[6]]
+    if not found:
+        raise RuntimeError(f"{label}: no cached dense step graph of {goal}")
+    key, g = found[0]
+    st = cache._states[shape]
+    with cache.lock:
+        saved = st.counters.clone()
+        st.counters[CTR_LAST_N] = 0
+        before = [getattr(st.model, f).clone() for f in PLACEMENT] + [st.counters.clone()]
+        g.replay(3)
+        torch.cuda.synchronize()
+        after = [getattr(st.model, f).clone() for f in PLACEMENT] + [st.counters.clone()]
+        unchanged = all(torch.equal(a, b) for a, b in zip(before, after))
+        ms = time_ms(torch, lambda: g.replay(1))
+        n_prof, ops = 10, []
+        for _ in range(5 if profiled else 0):  # a session now and then records no op
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                g.replay(n_prof)
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            if ops:
+                break
+        body = getattr(g, "body", None) if profiled else None
+        body_ms = time_ms(torch, body.replay) if body is not None else None
+        # One counter read of the per-goal driver's sub-chunks (``_run_rest``)
+        # on an idle stream: host ms, median of TIMED_RUNS.
+        reads = []
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.counters[[CTR_STEPS, CTR_LAST_N, CTR_BUDGET]].tolist()
+            reads.append((time.perf_counter() - t0) * 1e3)
+        st.counters.copy_(saved)
+    names = sorted({e.name[:60] for e in ops})
+    out = dict(goal=goal, unchanged=unchanged, ms=ms,
+               device_ms=(sum(e.time_range.elapsed_us() for e in ops) / 1e3 / n_prof
+                          if ops else None),
+               device_ops=len(ops) / n_prof if ops else None, op_names=names,
+               body_replay_ms=body_ms, counter_read_ms=statistics.median(reads))
+    log(f"K8 gated-off replay at {label} ({goal}): state unchanged {unchanged}; "
+        f"{ms:.4f} ms event, device {out['device_ms']} ms, {out['device_ops']} device "
+        f"ops a replay {names}; its body replayed without the gate {body_ms} ms; one "
+        f"counter read {out['counter_read_ms']:.4f} ms host")
+    if strict and not unchanged:
+        raise RuntimeError(f"{label}: a gated-off replay changed the state")
+    if strict and profiled and not ops:
+        raise RuntimeError(f"{label}: no profiler session recorded the gated-off replays")
+    if strict and any("step_gate_kernel" not in e.name for e in ops):
+        raise RuntimeError(f"{label}: a gated-off replay ran more than its gate: {names}")
+    return out
+
+
+def band_goal_graphed(graphs, model):
+    """The first distribution goal of STACK with a dense, recorder-off step
+    graph cached at ``model``'s shape."""
+    from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
+    shape = graphs.GRAPHS.shape_key(model, OptimizationOptions.none(model))
+    dense = {k[0].name for k in graphs.GRAPHS._graphs
+             if k[-1] == shape and k[5] is None and not k[6]}
+    for goal in STACK:
+        if "Distribution" in goal and goal in dense:
+            return goal
+    raise RuntimeError(f"no dense step graph of a distribution goal at {shape[1][:1]}")
+
+
 def check_graphs(torch, opt, graphs, dev, mid, run_fused, chain_wall, eager_wall,
                  replays, time_ms, log, rehearse):
     """K8: one replay of a cached step graph against the same gated step run
-    eagerly on a copy of the same state (placement and counters equal), and
-    both timed with the step gated off (the same kernels run, nothing
-    changes); the replay's device time from a profile of replays alone.
-    K12: the fused mid driver with its step graphs (``chain_wall``) against
-    the same driver with eager gated steps (``eager_wall``).  Bounds: the
-    bytes a step must move (read the model's replica and broker rows once,
-    write the new placement) over the memory rate; the chain's bound is
-    that times its executed steps."""
+    eagerly on a copy of the same state (placement and counters equal, the
+    body's launches credited once, as the eager step launches them), and
+    gated off: no launch credited, the state unchanged, timed (event ms
+    against the eager gated-off step, which runs every kernel), the device
+    ops a profiled replay runs (the gate kernel alone) and its device ms,
+    and the body replayed without its gate beside it.  K12: the fused mid
+    driver with its step graphs (``chain_wall``) against the same driver
+    with eager gated steps (``eager_wall``).  Bounds: a gated-off replay's,
+    the gate's bytes; an executed step's, the bytes a step must move (read
+    the model's replica and broker rows once, write the new placement) over
+    the memory rate; the chain's, that times its executed steps."""
     from cruise_control_tpu_torch.analyzer.goals.specs import goals_by_priority
     from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
     from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N,
                                                          BrokerArrays, OptimizationOptions,
                                                          StepState)
     from cruise_control_tpu_torch.analyzer import candidates as cgen
+    from cruise_control_tpu_torch.ops import cuda
     specs = goals_by_priority(STACK)
     i = STACK.index("TopicReplicaDistributionGoal")
     spec, prev = specs[i], tuple(specs[:i])
@@ -2124,45 +2281,75 @@ def check_graphs(torch, opt, graphs, dev, mid, run_fused, chain_wall, eager_wall
         state.counters.zero_()
         state.counters[CTR_LAST_N] = 1
         state.counters[CTR_BUDGET] = 256
-    if cache is not None:
-        g.replay(1)
-    else:
-        step(st)
-    step(eager)
-    torch.cuda.synchronize()
+    counts = {}
+    for label, state in (("graph", st), ("eager", eager)):
+        cuda.reset_launch_counts()
+        if label == "graph" and cache is not None:
+            g.replay(1)
+        else:
+            step(state)
+        torch.cuda.synchronize()
+        counts[label] = {n: c for n, c in cuda.launch_counts().items() if c}
     same = all(torch.equal(getattr(st.model, f), getattr(eager.model, f)) for f in PLACEMENT)
     same = same and torch.equal(st.counters, eager.counters)
-    log(f"K8 step graph ({spec.name}): one replay equals the eager gated step: {same}")
+    log(f"K8 step graph ({spec.name}): one replay equals the eager gated step: {same}; "
+        f"launches credited equal the eager step's: {counts['graph'] == counts['eager']}")
     if not same:
         raise RuntimeError("a replayed step graph disagrees with the eager gated step")
+    if not rehearse and counts["graph"] != counts["eager"]:
+        raise RuntimeError(f"a replay credited {counts['graph']}, the eager step launched "
+                           f"{counts['eager']}")
+    # An executed step timed from the same entry state each time (its three
+    # placement fields and the counters copied back first, in both).
+    for state in (st, eager):
+        state.counters.zero_()
+        state.counters[CTR_LAST_N] = 1
+        state.counters[CTR_BUDGET] = 256
+    entry = [getattr(eager.model, f).clone() for f in PLACEMENT] + [eager.counters.clone()]
+
+    def from_entry(state, run):
+        def fn():
+            for f, src in zip(PLACEMENT, entry):
+                getattr(state.model, f).copy_(src)
+            state.counters.copy_(entry[-1])
+            run()
+        return fn
+    executed_ms = time_ms(torch, from_entry(st, (lambda: g.replay(1)) if cache is not None
+                                            else (lambda: step(st))))
+    plain_executed_ms = time_ms(torch, from_entry(eager, lambda: step(eager)))
     for state in (st, eager):
         state.counters[CTR_LAST_N] = 0
-    step_ms = time_ms(torch, (lambda: g.replay(1)) if cache is not None else (lambda: step(st)))
-    plain_step_ms = time_ms(torch, lambda: step(eager))
-    replay_device_ms = None
+    cuda.reset_launch_counts()
     if cache is not None:
-        from torch.profiler import ProfilerActivity, profile
-        n_prof = 10
-        with cache.lock, profile(activities=[ProfilerActivity.CUDA]) as prof:
-            g.replay(n_prof)
-            torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        if ops:  # else the profiler saw no device op inside the replays
-            replay_device_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / n_prof
+        g.replay(5)
+    credited = {n: c for n, c in cuda.launch_counts().items() if c}
+    log(f"K8 five gated-off replays: launches credited {credited}")
+    if credited:
+        raise RuntimeError(f"gated-off replays credited launches: {credited}")
+    off = (gated_off_replay(torch, graphs, mid, spec.name, log, "mid") if cache is not None
+           else dict(ms=time_ms(torch, lambda: step(st)), device_ms=None, device_ops=None,
+                     body_replay_ms=None))
+    plain_step_ms = time_ms(torch, lambda: step(eager))
     R, B = mid.num_replicas_padded, mid.num_brokers
     step_bytes = R * (4 + 4 + 4 + 1 + 32 + 1 + 4 + 1 + 4) + B * 60 + R * 9
     steps = sum(r.steps for r in run_fused.goal_results)
     out = {
-        "step_graph": dict(launches=replays, max_abs_err=0.0, ms=step_ms,
-                           device_ms_per_launch=replay_device_ms,
-                           plain_ms=plain_step_ms, bound_ms=bound_ms(step_bytes)),
+        "step_graph": dict(launches=replays, max_abs_err=0.0, ms=off["ms"],
+                           device_ms_per_launch=off["device_ms"],
+                           device_ops_gated_off=off["device_ops"],
+                           body_replay_ms=off["body_replay_ms"],
+                           ms_executed=executed_ms, plain_ms_executed=plain_executed_ms,
+                           bound_ms_executed=bound_ms(step_bytes),
+                           plain_ms=plain_step_ms, bound_ms=bound_ms(GATE_BYTES)),
         "goal_chain": dict(launches=1, max_abs_err=0.0, ms=chain_wall * 1e3,
                            plain_ms=eager_wall * 1e3,
                            bound_ms=bound_ms(step_bytes * max(steps, 1))),
     }
-    log(f"K8 step replay {step_ms:.4f} ms (device {replay_device_ms} ms per replay, "
-        f"profiled alone, gated off) vs eager gated step {plain_step_ms:.4f} ms; "
-        f"K12 fused mid driver {chain_wall:.3f} s with graphs vs {eager_wall:.3f} s eager")
+    log(f"K8 gated-off replay {off['ms']:.4f} ms (device {off['device_ms']} ms, "
+        f"{off['device_ops']} device ops) vs eager gated-off step {plain_step_ms:.4f} ms and "
+        f"the body without its gate {off['body_replay_ms']} ms; executed replay "
+        f"{executed_ms:.4f} ms vs eager {plain_executed_ms:.4f} ms; K12 fused mid driver "
+        f"{chain_wall:.3f} s with graphs vs {eager_wall:.3f} s eager")
     return out
 
 
@@ -5120,7 +5307,7 @@ def check_detection(cx):
         torch.cuda.synchronize()
         summary["detect_s"] = round(time.monotonic() - t0, 3)
         captured, cuda.CAPTURE = cuda.CAPTURE, None
-        counts["detect"] = {n: f.launches for n, f in cuda.COUNTED.items() if f.launches}
+        counts["detect"] = {n: c for n, c in cuda.launch_counts().items() if c}
         queued = _anomaly_rows(mgr)
         metric = [e.anomaly for e in mgr._queue if isinstance(e.anomaly, danom.SlowBrokers)]
         violations = [e.anomaly for e in mgr._queue
@@ -5145,7 +5332,7 @@ def check_detection(cx):
         handled = mgr.handle_anomalies_once(now + 1)
         torch.cuda.synchronize()
         summary["handle_s"] = round(time.monotonic() - t0, 3)
-        counts["tick"] = {n: f.launches for n, f in cuda.COUNTED.items()}
+        counts["tick"] = cuda.launch_counts()
         state = mgr.state_dict()
         statuses = {t: [r["status"] for r in rows_]
                     for t, rows_ in state["recentAnomalies"].items() if rows_}
@@ -5201,7 +5388,7 @@ def check_detection(cx):
         handled = mgr.handle_anomalies_once(now + WINDOW_MS + 1)
         torch.cuda.synchronize()
         summary["dead_tick_s"] = round(time.monotonic() - t0, 3)
-        counts["dead"] = {n: f.launches for n, f in cuda.COUNTED.items() if f.launches}
+        counts["dead"] = {n: c for n, c in cuda.launch_counts().items() if c}
         state = mgr.state_dict()
         failures = [a for a in mgr.state.recent(danom.AnomalyType.BROKER_FAILURE)]
         log(f"tick 2, brokers {sorted(dead)} dead ({summary['dead_tick_s']} s): {found} "
@@ -5311,10 +5498,7 @@ def check_service_kernels(cx):
 
     fs = SERVICE_SHAPES["flight_row"]
     k, b = fs["K"], fs["B"]
-    keep = on_dev(rng.random(k) < 0.01)
-    score = on_dev(rng.normal(size=k).astype(np.float32))
-    elig = on_dev(rng.random(k) < 0.3)
-    fmask = on_dev(rng.random(b) < 0.5)
+    keep, score, elig, fmask = flight_fixture(torch, np, dev, k, 0.01, 0.3, b, (0, 0, 0), rng)
     rep = torch.tensor(1, dtype=torch.int32, device=dev)
     lanes = torch.tensor(4096, dtype=torch.int32, device=dev)
     ctr = torch.zeros((CTR_WIDTH,), dtype=torch.int32, device=dev)
@@ -5329,14 +5513,26 @@ def check_service_kernels(cx):
         opt.flight_row_plain(*args, ref)
     if not _exact(torch, got, ref):
         raise RuntimeError("cc_flight_row differs from its plain twin on seeded inputs")
+    edges = check_flight_edges(torch, np, opt, dev, rng, rep, lanes, ctr, off)
+    log(f"  flight_row: bit for bit with its plain twin on the edges {edges}, active and "
+        "gated off")
+    if not cx.rehearse:
+        guarded_flight_row(torch, opt, (ctr, keep, fs["offsets"], fs["kinds"], score, elig,
+                                        fmask, rep, lanes, 12))
+        cut = k - 9
+        guarded_flight_row(torch, opt, (ctr, keep[:cut], (0, 40_000, cut), (0, 3), score[:cut],
+                                        elig[:cut], None, rep, lanes, 12))
+        log("  flight_row through its C entry into canary-guarded buffers: no write outside "
+            "them, equal to the wrapper's")
     args = (ctr, keep, fs["offsets"], fs["kinds"], score, elig, fmask, rep, lanes, 12)
     timer = cx.timer
     rows = {"flight_row": dict(
-        shape=dict(K=k, B=b, batches=len(fs["kinds"])), max_abs_err=0.0,
+        shape=dict(K=k, B=b, batches=len(fs["kinds"]),
+                   blocks=opt.flight_tiling(k, b)), max_abs_err=0.0,
         ms=timer(torch, lambda: opt.flight_row(*args, got)),
         plain_ms=timer(torch, lambda: opt.flight_row_plain(*args, ref)),
         device_ms=None if cx.rehearse else device_ms(
-            torch, lambda: opt.flight_row(*args, got), ("flight_row_kernel",), log),
+            torch, lambda: opt.flight_row(*args, got), FLIGHT_ROW_KERNELS, log),
         nbytes=k * 6 + b + 4 * (len(fs["offsets"]) + len(fs["kinds"])) + 4 * CTR_WIDTH + 8
         + 4 * FLIGHT_WIDTH, library_ms=None)}
 
@@ -5367,6 +5563,150 @@ def check_service_kernels(cx):
             f"bound {r['bound_ms']:.7f} ms (bytes)")
     log(f"  band accepts: {int(mask.sum())} of {k_} lanes accepted")
     return rows
+
+
+# K8's flight row's device kernels, the row's (one a call) first.
+FLIGHT_ROW_KERNELS = ("flight_row_kernel", "flight_partials_kernel")
+# Its edge cases: K, the batch offsets, the shares of kept and eligible
+# lanes, B (None: no frontier mask) and how many lanes past a 16-byte-aligned
+# base keep, eligible and score start (views into larger buffers): the
+# partials launch reads 16-lane groups from the first lane where all three
+# are aligned, one lane at a time before it and after the last full group,
+# or every lane when they are not aligned alike.
+FLIGHT_EDGES = {
+    "ragged": (1007, (0, 400, 1007), 0.3, 0.5, 12, (0, 0, 0)),
+    "boundary_in_group": (96, (0, 37, 70, 96), 0.5, 0.5, 4, (0, 0, 0)),
+    "empty_batches": (160, (0, 0, 50, 50, 160, 160), 0.4, 0.3, 3, (0, 0, 0)),
+    "one_batch": (333, (0, 333), 0.2, 0.4, None, (0, 0, 0)),
+    "eight_batches": (512, (0, 1, 17, 64, 65, 200, 300, 301, 512), 0.5, 0.5, 30, (0, 0, 0)),
+    "no_eligible": (200, (0, 100, 200), 0.3, 0.0, 7, (0, 0, 0)),
+    "nothing_kept": (64, (0, 20, 64), 0.0, 0.5, 5, (0, 0, 0)),
+    "below_a_group": (11, (0, 5, 11), 0.5, 0.5, 2, (0, 0, 0)),
+    "head": (5000, (0, 3001, 5000), 0.3, 0.5, 50, (3, 3, 3)),
+    "unaligned": (5000, (0, 2500, 5000), 0.3, 0.5, 50, (5, 1, 2)),
+    "frontier_wider": (100, (0, 60, 100), 0.3, 0.5, 5000, (0, 0, 0)),
+    "grid_stride": (2_200_001, (0, 1_000_000, 2_200_001), 0.01, 0.3, 1000, (0, 0, 0)),
+    "signed_zero_tie": (5000, (0, 2500, 5000), 0.3, 0.5, 50, (0, 0, 0)),
+    "nan": (5000, (0, 2500, 5000), 0.3, 0.5, 50, (0, 0, 0)),
+}
+
+
+def flight_special_scores(np, name, score, eligible):
+    """The scores of FLIGHT_EDGES' ties.  ``signed_zero_tie``: every score
+    negative but the eligible lanes' maximum, -0 and +0 on alternate eligible
+    lanes, -0 first (+0 must win, in whichever block); ``nan``: a NaN of
+    each sign among the eligible lanes (the positive one ranks above every
+    number, the negative one below)."""
+    score = score.copy()
+    lanes = np.flatnonzero(eligible)
+    if name == "signed_zero_tie":
+        score[:] = -np.abs(score) - np.float32(1.0)
+        for j, i in enumerate(lanes[::7]):
+            score[i] = np.float32(-0.0) if j % 2 == 0 else np.float32(0.0)
+    elif name == "nan":
+        score[lanes[3]] = -np.float32(np.nan)
+        score[lanes[-4]] = np.float32(np.nan)
+    return score
+
+
+def flight_fixture(torch, np, dev, k, kept, eligible, b, past, rng, name=None):
+    """Seeded (keep, score, eligible, fmask or None) of ``k`` lanes, keep,
+    eligible and score starting ``past`` lanes into larger buffers; the
+    scores of case ``name`` as ``flight_special_scores`` sets them."""
+    def view(a, at):
+        buf = np.zeros(a.shape[0] + 16, a.dtype)
+        buf[at:at + a.shape[0]] = a
+        return torch.from_numpy(buf).to(dev)[at:at + a.shape[0]]
+    keep = view(rng.random(k) < kept, past[0])
+    score = rng.normal(size=k).astype(np.float32)
+    el = rng.random(k) < eligible
+    score = view(flight_special_scores(np, name, score, el), past[2])
+    elig = view(el, past[1])
+    fmask = None if b is None else torch.from_numpy(rng.random(b) < 0.5).to(dev)
+    return keep, score, elig, fmask
+
+
+def check_flight_edges(torch, np, opt, dev, rng, rep, lanes, ctr, off):
+    """K8's flight row on every case of ``FLIGHT_EDGES``, its step active
+    and gated off, bit for bit against its plain twin (a row written, or
+    none); returns the cases' names."""
+    from cruise_control_tpu_torch.analyzer.state import FLIGHT_WIDTH
+    for name, (k, offsets, kept, el, b, past) in FLIGHT_EDGES.items():
+        keep, score, elig, fmask = flight_fixture(torch, np, dev, k, kept, el, b, past, rng,
+                                                  name)
+        kinds = tuple((3 * s + 1) % 5 for s in range(len(offsets) - 1))
+        got = torch.full((8, FLIGHT_WIDTH), 99, dtype=torch.int32, device=dev)
+        ref = got.clone()
+        for counters in (ctr, off):
+            args = (counters, keep, offsets, kinds, score, elig, fmask, rep, lanes, 3)
+            opt.flight_row(*args, got)
+            opt.flight_row_plain(*args, ref)
+        if not _exact(torch, got, ref):
+            raise RuntimeError(f"cc_flight_row differs from its plain twin on {name}: "
+                               f"{got[5].tolist()} vs {ref[5].tolist()}")
+        want = {"signed_zero_tie": 0, "nan": int(np.float32(np.nan).view(np.int32))}
+        if name in want and int(ref[5, 5]) != want[name]:
+            raise RuntimeError(f"flight row {name}: score bits {int(ref[5, 5])}, "
+                               f"expected {want[name]}")
+    return sorted(FLIGHT_EDGES)
+
+
+def guarded_flight_row(torch, opt, args):
+    """One ``cc_flight_row`` through its C entry, its row buffer and its
+    partials between canary bands: raises if a band changed or the row
+    differs from the plain twin's."""
+    from cruise_control_tpu_torch.analyzer.state import FLIGHT_WIDTH
+    from cruise_control_tpu_torch.ops import cuda
+    counters, keep, offsets, kinds, score, elig, fmask, rep, lanes, depth = args
+    dev, k = keep.device, keep.shape[0]
+    b = 0 if fmask is None else fmask.shape[0]
+    blocks, cap = opt.flight_tiling(k, b), 32
+    buf, guard, (rows, partials) = canary_views(
+        torch, dev, [cap * FLIGHT_WIDTH, blocks * opt.FLIGHT_PARTIAL])
+    off_t, kind_t = opt._flight_consts(tuple(offsets), tuple(kinds), dev)
+    rows.zero_()
+    cuda.launch("flight_row", counters, keep, k, off_t, kind_t, len(kinds), score, elig, fmask,
+                b, rep, lanes, depth, rows, cap, partials, blocks)
+    torch.cuda.synchronize()
+    if not bool((buf[guard] == CANARY).all()):
+        raise RuntimeError("cc_flight_row: a launch wrote outside its buffers")
+    ref = torch.zeros((cap, FLIGHT_WIDTH), dtype=torch.int32, device=dev)
+    opt.flight_row_plain(counters, keep, offsets, kinds, score, elig, fmask, rep, lanes, depth,
+                         ref)
+    if not _exact(torch, rows.view(cap, FLIGHT_WIDTH), ref):
+        raise RuntimeError("cc_flight_row: the guarded launch differs from the plain twin")
+
+
+def check_flight_row_graph(torch, np, opt, dev, log):
+    """Phase 21: K8's flight row captured in a CUDA graph of this script's
+    own (after every profiler session) at the service shape, its step
+    active and gated off: one replay equals the plain twin's row, and the
+    gated-off replay writes nothing."""
+    from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_LAST_N, CTR_STEPS,
+                                                         CTR_WIDTH, FLIGHT_WIDTH)
+    rng = np.random.default_rng(SEED + 1)
+    fs = SERVICE_SHAPES["flight_row"]
+    keep, score, elig, fmask = flight_fixture(torch, np, dev, fs["K"], 0.01, 0.3, fs["B"],
+                                              (0, 0, 0), rng)
+    rep = torch.tensor(0, dtype=torch.int32, device=dev)
+    lanes = torch.tensor(2048, dtype=torch.int32, device=dev)
+    same = []
+    for last_n in (1, 0):
+        ctr = torch.zeros((CTR_WIDTH,), dtype=torch.int32, device=dev)
+        ctr[CTR_STEPS], ctr[CTR_LAST_N], ctr[CTR_BUDGET] = 3, last_n, 8
+        buf = torch.full((8, FLIGHT_WIDTH), 99, dtype=torch.int32, device=dev)
+        args = (ctr, keep, fs["offsets"], fs["kinds"], score, elig, fmask, rep, lanes, 4)
+
+        def fn():
+            buf.fill_(99)
+            opt.flight_row(*args, buf)
+            return buf.clone()
+        ref = torch.full((8, FLIGHT_WIDTH), 99, dtype=torch.int32, device=dev)
+        opt.flight_row_plain(*args, ref)
+        same.append(_graph_replay_equal(torch, fn) and _exact(torch, fn(), ref))
+    log(f"  flight_row in a graph replay (active, gated off): equal to the plain twin {same}")
+    if not all(same):
+        raise RuntimeError("cc_flight_row in a graph replay differs from its plain twin")
 
 
 def check_service(cx):
@@ -5408,7 +5748,7 @@ def check_service(cx):
         on, _ = _request(api, "GET", "proposals", SERVICE_WAIT, "recorder-on proposals")
         torch.cuda.synchronize()
         summary["proposals_s"] = round(time.monotonic() - t0, 3)
-        counts["service proposals"] = {n: f.launches for n, f in cuda.COUNTED.items()}
+        counts["service proposals"] = cuda.launch_counts()
         captured, cuda.CAPTURE = cuda.CAPTURE, None
         _, _, pre_model, run_on, _ = cc._cached
         if not on["ok"] or on["numProposals"] == 0 or not (run_on.pipelined or rehearse):
@@ -5531,7 +5871,7 @@ def check_service(cx):
                                max_steps_per_goal=ABLATION_STEPS)
             torch.cuda.synchronize()
             summary["ablation_s"] = round(time.monotonic() - t0, 3)
-            counts["mid ablation"] = {n: f.launches for n, f in cuda.COUNTED.items()}
+            counts["mid ablation"] = cuda.launch_counts()
             captured, cuda.CAPTURE = cuda.CAPTURE, None
             t0 = time.monotonic()
             abl_cpu = opt.optimize(mid.to("cpu"), STACK, fused=True,

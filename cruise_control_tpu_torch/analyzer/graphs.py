@@ -6,7 +6,7 @@ The Hopper form of the JAX package's device-resident loops — the
 ``_stack_fixpoint`` (``:2491``) — and of its program caches
 (``_budget_cache``, ``_stack_cache``).  It has no JAX counterpart as a
 module.  Per (goal, previous goals, constraint, widths, shapes, frontier
-bucket) the cache holds one ``torch.cuda.CUDAGraph`` of the gated step
+bucket) the cache holds one CUDA graph of the gated step
 (``optimizer._gated_step``), captured once and replayed a chunk of times
 between host reads; a stack runs its goals' graphs back to back, and the
 per-goal frontier driver replays the graph of each chunk's bucket and
@@ -52,9 +52,23 @@ the least recently used one with all its graphs and frontier buffers, so
 a service whose cluster shape drifts holds a bounded set.  The evicted
 graphs' blocks stay in the pool for later captures to reuse.
 
+A step graph gates itself, as the JAX package's loop tests its cond before
+its body: torch captures the step's body alone (``optimizer._step_body``),
+and ``csrc/step_graph.cu`` builds the graph that is replayed around it — a
+one-thread gate kernel that reads the counters, then a conditional IF node
+holding the body.  A gated-off replay (the goal converged or its budget
+spent) runs the gate kernel and nothing else.  The body holds only kernels,
+memsets and device copies; if the conditional graph cannot be built, the
+capture raises.
+
 The kernel wrappers' launch counters run once per capture while nothing is
-launched, so a capture takes its increments back off and every replay
-credits them again (``StepGraph.replay``).
+launched, so a capture takes its increments back off.  The gate counts on
+the device the steps it lets run (``StepGraph.executed``); the cache keeps
+the graphs replayed since it last settled, and credits each body's launches
+once for every step that ran when the launch counts are read
+(``cuda.launch_counts`` and ``cuda.reset_launch_counts``) and before it
+drops a graph (eviction, ``clear``), so the counters hold only launches
+that ran and a dropped graph is kept alive by nothing.
 """
 
 from __future__ import annotations
@@ -62,12 +76,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from cruise_control_tpu_torch.analyzer.state import (CTR_LAST_N, FrontierInvariants,
-                                                     StepInvariants, StepState)
+                                                     StepInvariants, StepState, step_active)
 from cruise_control_tpu_torch.model.tensor_model import STATIC_FIELDS, TENSOR_FIELDS
 from cruise_control_tpu_torch.ops import cuda
 
@@ -82,14 +97,24 @@ def _copy_invariants(inv: StepInvariants) -> StepInvariants:
 
 
 class StepGraph:
-    """One captured gated step and the invariant buffers it reads."""
+    """One captured gated step: the body torch captured (kept for the pool
+    memory its nodes address), the executable that gates it, the invariant
+    buffers it reads, and its count of executed steps."""
 
-    def __init__(self, graph: torch.cuda.CUDAGraph, invariants: StepInvariants,
-                 launches: Dict[str, int]):
-        self.graph = graph
+    def __init__(self, body: torch.cuda.CUDAGraph, exe: int, invariants: StepInvariants,
+                 launches: Dict[str, int], executed: torch.Tensor,
+                 on_replay: Callable[["StepGraph"], None]):
+        self.body = body
+        self.exe = exe
         self.invariants = invariants
-        # Kernel launches one replay makes, by wrapper name.
+        # Kernel launches one executed step makes, by wrapper name.
         self.launches = launches
+        # Steps the gate let run (0-d int64 on the device), and how many of
+        # them have had their launches credited.
+        self.executed = executed
+        self.credited = 0
+        self._on_replay = on_replay
+        weakref.finalize(self, _destroy, exe)
 
     def load(self, inv: StepInvariants) -> None:
         for f in dataclasses.fields(inv):
@@ -99,8 +124,15 @@ class StepGraph:
 
     def replay(self, times: int) -> None:
         for _ in range(times):
-            self.graph.replay()
-        cuda.add_launches(self.launches, times)
+            cuda.launch("step_graph_launch", self.exe)
+        self._on_replay(self)
+
+
+def _destroy(exe: int) -> None:
+    try:
+        cuda.launch("step_graph_destroy", exe)
+    except RuntimeError:
+        pass  # the context is gone at exit
 
 
 class GraphCache:
@@ -118,6 +150,28 @@ class GraphCache:
         self._pool = None
         # Held by a solve for as long as it uses the static buffers.
         self.lock = threading.Lock()
+        # Graphs replayed since the last ``settle``, by id.
+        self._replayed: Dict[int, StepGraph] = {}
+        self._replayed_lock = threading.Lock()
+        _CACHES.add(self)
+
+    def _mark_replayed(self, g: StepGraph) -> None:
+        with self._replayed_lock:
+            self._replayed[id(g)] = g
+
+    def settle(self) -> None:
+        """Credit each graph replayed since the last settling with its body's
+        launches once for every step its gate let run: one host read of
+        their device counts."""
+        with self._replayed_lock:
+            pending = list(self._replayed.values())
+            self._replayed.clear()
+        if not pending:
+            return
+        ran = torch.stack([g.executed for g in pending]).tolist()
+        for g, n in zip(pending, ran):
+            cuda.add_launches(g.launches, n - g.credited)
+            g.credited = n
 
     @staticmethod
     def shape_key(model, options) -> tuple:
@@ -138,6 +192,7 @@ class GraphCache:
             self._states[key] = st
             while len(self._states) > MAX_SHAPES:
                 old, _ = self._states.popitem(last=False)
+                self.settle()
                 for k in [k for k in self._graphs if k[-1] == old]:
                     del self._graphs[k]
                 for k in [k for k in self._frontiers if k[0] == old]:
@@ -177,30 +232,34 @@ class GraphCache:
         return self._graphs.get(key)
 
     def capture(self, key: tuple, st: StepState, inv: StepInvariants,
-                step: Callable[[StepState, StepInvariants], None]) -> StepGraph:
-        """Capture ``step(st, invariants)`` as the graph of ``key``.  One
-        eager run first, with the step gated off so it changes nothing,
-        loads every kernel library and fills every constant cache the
-        capture must not create; the capture itself launches nothing."""
+                body: Callable[[StepState, StepInvariants, torch.Tensor], None]) -> StepGraph:
+        """Capture ``body(st, invariants, active)`` as the gated step of
+        ``key``: torch captures the body, ``csrc/step_graph.cu`` puts it
+        under an IF node behind the gate kernel.  One eager run of the body
+        first, with the step gated off so it changes nothing, loads every
+        kernel library and fills every constant cache the capture must not
+        create; the capture itself launches nothing."""
         static_inv = _copy_invariants(inv)
         saved = st.counters.clone()
         st.counters[CTR_LAST_N] = 0
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            step(st, static_inv)
+            body(st, static_inv, step_active(st.counters))
         torch.cuda.current_stream().wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = cuda.launch_counts()
         with torch.cuda.graph(graph, pool=self._pool):
-            step(st, static_inv)
+            body(st, static_inv, step_active(st.counters))
         after = cuda.launch_counts()
         delta = {n: after[n] - before[n] for n in after if after[n] != before[n]}
         cuda.add_launches(delta, -1)
         st.counters.copy_(saved)
-        g = StepGraph(graph, static_inv, delta)
+        executed = torch.zeros((), dtype=torch.int64, device=st.counters.device)
+        exe = cuda.step_graph_build(graph.raw_cuda_graph(), st.counters, executed)
+        g = StepGraph(graph, exe, static_inv, delta, executed, self._mark_replayed)
         self._graphs[key] = g
         return g
 
@@ -208,11 +267,23 @@ class GraphCache:
         return len(self._graphs)
 
     def clear(self) -> None:
+        self.settle()
         self._graphs.clear()
         self._frontiers.clear()
         self._states.clear()
         self._pool = None
 
+
+# Every live cache, settled when the launch counts are read.
+_CACHES: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
+
+
+def _settle_all() -> None:
+    for c in list(_CACHES):
+        c.settle()
+
+
+cuda.on_count_read(_settle_all)
 
 # The process's graph cache (the JAX package keeps its program caches at
 # module level too).

@@ -16,9 +16,10 @@ conflict-free subset inside every optimized goal's band budgets
   ``_gated_step``, which updates the working state in place and turns into
   a no-op once the goal has converged or spent its budget; the host reads
   the counters once per chunk of steps.  On the CPU the gated step runs
-  eagerly; on the card it is captured once per goal as a CUDA graph and
-  replayed (K8, ``analyzer/graphs.py``), and a stack is its goals' graphs
-  replayed back to back (K12) with one fetch of the packed
+  eagerly; on the card its body (``_step_body``) is captured once per goal
+  as a CUDA graph under a conditional node that skips it once the gate is
+  off, and replayed (K8, ``analyzer/graphs.py``), and a stack is its goals'
+  graphs replayed back to back (K12) with one fetch of the packed
   ``i32[PACKED_WIDTH, G]`` stats per group.
 - ``optimize(fused=True)`` above 64 brokers without ``fuse_group_size``
   (or with ``pipeline=True``): the inter-goal pipeline — one sweep of every
@@ -126,7 +127,8 @@ from cruise_control_tpu_torch.analyzer.state import (CTR_BUDGET, CTR_DEPTH, CTR_
                                                      FrontierInvariants, OptimizationOptions,
                                                      PipelineNextGoal, StepInvariants,
                                                      StepState, WarmStart, pow2_bucket,
-                                                     topic_counts, topic_leaders)
+                                                     step_active, topic_counts,
+                                                     topic_leaders)
 from cruise_control_tpu_torch.common.resources import Resource
 from cruise_control_tpu_torch.common.sensors import SENSORS
 from cruise_control_tpu_torch.common.tracing import TRACE
@@ -259,6 +261,22 @@ def _flight_consts(offsets: Tuple[int, ...], kinds: Tuple[int, ...],
             torch.tensor(kinds, dtype=torch.int32).to(device))
 
 
+# The partials launch of ``csrc/flight_row.cu``: threads a block, lanes a
+# thread reads at once, most blocks, and i32 words a block's partial row.
+FLIGHT_THREADS = 128
+FLIGHT_GROUP = 16
+FLIGHT_MAX_BLOCKS = 1024
+FLIGHT_PARTIAL = 10
+
+
+def flight_tiling(k: int, b: int) -> int:
+    """Blocks of ``cc_flight_row``'s partials launch for ``k`` lanes and a
+    frontier mask of ``b`` brokers: one group of FLIGHT_GROUP lanes a
+    thread, up to FLIGHT_MAX_BLOCKS (the threads stride over the rest)."""
+    lanes = max(k, b, 1)
+    return min(FLIGHT_MAX_BLOCKS, -(-lanes // (FLIGHT_THREADS * FLIGHT_GROUP)))
+
+
 def flight_row_plain(counters: torch.Tensor, keep: torch.Tensor,
                      offsets: Tuple[int, ...], kinds: Tuple[int, ...],
                      score: torch.Tensor, eligible: torch.Tensor,
@@ -269,13 +287,17 @@ def flight_row_plain(counters: torch.Tensor, keep: torch.Tensor,
     dev = keep.device
     c = counters
     steps = c[CTR_STEPS]
-    active = (c[CTR_LAST_N] > 0) & (steps < c[CTR_BUDGET])
+    active = step_active(c)
     counts = torch.stack([keep[a:b].sum(dtype=i32) for a, b in zip(offsets[:-1], offsets[1:])])
     n = keep.sum(dtype=i32)
     kind = torch.tensor(kinds, dtype=i32, device=dev)[counts.argmax()]
     kind = torch.where(n > 0, kind, torch.full((), -1, dtype=i32, device=dev))
     best = torch.where(eligible, score, torch.full((), -_INF, dtype=score.dtype, device=dev))
-    bits = best.max().reshape(1).view(i32)[0]
+    # The maximum by the kernel's order key of the f32 bits: +0 ranks above
+    # -0 whatever their order, and a NaN ranks by its bits.
+    key = best.view(i32)
+    key = torch.where(key >= 0, key, key ^ 0x7FFFFFFF).max()
+    bits = torch.where(key >= 0, key, key ^ 0x7FFFFFFF)
     fcount = (fmask.sum(dtype=i32) if fmask is not None
               else torch.full((), -1, dtype=i32, device=dev))
     row = torch.stack([n, fcount, rep.to(i32), torch.full((), depth, dtype=i32, device=dev),
@@ -302,9 +324,12 @@ def flight_row(counters: torch.Tensor, keep: torch.Tensor, offsets: Tuple[int, .
     from ``counters`` before the step's own update; a gated-off step
     (``counters``: last_n 0 or steps at the budget) writes nothing.  Bound:
     bytes (K·6 + B read, 28 written).  CPU tensors take
-    ``flight_row_plain``; CUDA tensors launch one block
-    (``csrc/flight_row.cu``) whose integer sums and float maximum are exact,
-    so the two agree bit for bit."""
+    ``flight_row_plain``; CUDA tensors launch ``csrc/flight_row.cu``: one
+    partial row a block over the grid (``flight_tiling`` blocks, into a
+    scratch tensor), then one warp that reduces them and writes the row.
+    Integer sums and a maximum of integer score keys are exact in any
+    order, so the two agree bit for bit; both rank +0 above -0 and a NaN by
+    its bits (``flight_row_plain`` takes its maximum by the same key)."""
     dev = keep.device
     k = keep.shape[0]
     cuda.check(counters, "counters", torch.int32, (CTR_WIDTH,), dev)
@@ -325,9 +350,11 @@ def flight_row(counters: torch.Tensor, keep: torch.Tensor, offsets: Tuple[int, .
                          depth, buf)
         return
     off_t, kind_t = _flight_consts(tuple(offsets), tuple(kinds), dev)
+    b = 0 if fmask is None else fmask.shape[0]
+    blocks = flight_tiling(k, b)
+    partials = torch.empty((blocks, FLIGHT_PARTIAL), dtype=torch.int32, device=dev)
     cuda.launch("flight_row", counters, keep, k, off_t, kind_t, len(kinds), score, eligible,
-                fmask, 0 if fmask is None else fmask.shape[0], rep, lanes, int(depth), buf,
-                buf.shape[0])
+                fmask, b, rep, lanes, int(depth), buf, buf.shape[0], partials, blocks)
     flight_row.launches += 1
 
 
@@ -1025,22 +1052,22 @@ def _goal_step(model: TensorClusterModel, options: OptimizationOptions,
     return apply_candidates(model, cand, keep), keep.sum(), sel_stats
 
 
-def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
-                prev_specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
-                num_sources: int, num_dests: int,
-                frontier: Optional[FrontierInvariants] = None, flight_cap: int = 0,
-                mesh=None) -> None:
-    """One iteration of the JAX package's fixpoint ``lax.while_loop``
-    (``optimizer.py:1628-1651``) as an in-place update of ``st``: the step
-    runs while ``last_n > 0 and steps < budget`` and is a no-op after —
-    model and counters unchanged — so a chunk of them can run, or replay as
-    a CUDA graph, without a host read between steps.  With ``flight_cap``
+def _step_body(st: StepState, inv: StepInvariants, active: torch.Tensor, spec: GoalSpec,
+               prev_specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
+               num_sources: int, num_dests: int,
+               frontier: Optional[FrontierInvariants] = None, flight_cap: int = 0,
+               mesh=None) -> None:
+    """The body of the JAX package's fixpoint ``lax.while_loop``
+    (``optimizer.py:1628-1651``) as an in-place update of ``st``, under the
+    gate ``active`` (``state.step_active`` of the counters): with it false
+    the step is a no-op — model and counters unchanged.  With ``flight_cap``
     > 0 an executed step also writes its flight row into
     ``st.flight_buffer(flight_cap)`` at its chunk-local index (K8's flight
-    rows, before the counters move on)."""
+    rows, before the counters move on).  A step graph captures this body
+    under an IF node on the same gate (``graphs.GraphCache.capture``), so a
+    gated-off replay skips it."""
     c = st.counters
     steps, last_n = c[CTR_STEPS], c[CTR_LAST_N]
-    active = (last_n > 0) & (steps < c[CTR_BUDGET])
     out = _step_select(st.model, st.options, spec, prev_specs, constraint, num_sources,
                        num_dests, inv, frontier, flight=flight_cap > 0, mesh=mesh)
     cand, keep, (rep, lanes, depth) = out[:3]
@@ -1059,6 +1086,19 @@ def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
         c[CTR_REPAIR] + a * rep,
         torch.where(active, c[CTR_DEPTH].clamp(min=depth), c[CTR_DEPTH]),
         c[CTR_LANES] + a * lanes, c[CTR_BUDGET]]))
+
+
+def _gated_step(st: StepState, inv: StepInvariants, spec: GoalSpec,
+                prev_specs: Tuple[GoalSpec, ...], constraint: BalancingConstraint,
+                num_sources: int, num_dests: int,
+                frontier: Optional[FrontierInvariants] = None, flight_cap: int = 0,
+                mesh=None) -> None:
+    """One iteration of the fixpoint loop run eagerly: the gate
+    (``step_active``) and the body (``_step_body``) under it.  The step runs
+    while ``last_n > 0 and steps < budget`` and is a no-op after, so a chunk
+    of them can run without a host read between steps."""
+    _step_body(st, inv, step_active(st.counters), spec, prev_specs, constraint, num_sources,
+               num_dests, frontier, flight_cap, mesh)
 
 
 def _check_agree(mesh, model: TensorClusterModel, what: str) -> None:
@@ -1183,16 +1223,16 @@ def _stack_fixpoint(st: StepState, specs: Tuple[GoalSpec, ...],
 # at once, as the JAX package dispatches a chunk as one program; a longer
 # one (a goal's whole budget in one chunk) replays in sub-chunks of 1, 2,
 # 4, ... CHUNK_MAX with a counter read between, so it stops near its
-# fixpoint instead of paying a gated-off step for every unused step.
+# fixpoint instead of replaying a gated-off step for every unused step.
 QUEUE_MAX = 32
 
 # Gated steps an opening chunk of the next goal queues behind the current
 # goal's chunk, after its entry (K1, K9, K11 cross, its step invariants and
 # graph).  The driver that adopts it replays its budget in sub-chunks with
-# counter reads.  On the card a gated-off replay costs a full step, and a
-# discarded opener's queued steps are all gated off: at the large rung,
-# queuing one step per opener made the pipelined solve 3 % slower than
-# queuing none (PERF.md, the pipeline's findings; chip_smoke times both).
+# counter reads.  A discarded opener's queued steps are all gated off, and
+# on the card a gated-off replay now runs only its gate; even so, at the
+# large rung queuing one step per opener stayed slower than queuing none
+# (medians in turns, PERF.md's K8 findings; chip_smoke times both).
 OPENER_QUEUE = 0
 
 # Dispatch and fetch accounting of the per-goal driver (the JAX package's
@@ -1763,19 +1803,18 @@ class _ChunkRunner:
     def _advance(self, chunk: _Chunk, inv: StepInvariants):
         """``advance(times) -> steps run`` for the chunk's gated step."""
         st = self.st
-        step = functools.partial(_gated_step, spec=self.spec, prev_specs=self.prev,
-                                 constraint=self.constraint, num_sources=chunk.ns,
-                                 num_dests=chunk.nd, flight_cap=self.flight_cap,
-                                 mesh=self.mesh)
         if self.cache is None:
+            step = functools.partial(_gated_step, spec=self.spec, prev_specs=self.prev,
+                                     constraint=self.constraint, num_sources=chunk.ns,
+                                     num_dests=chunk.nd, flight_cap=self.flight_cap,
+                                     mesh=self.mesh)
             fr = chunk.fr
             if fr is not None and fr.active.device != st.model.device:
                 fr = FrontierInvariants(**{f.name: getattr(fr, f.name).to(st.model.device)
                                            for f in dataclasses.fields(fr)})
 
             def advance(times: int) -> int:
-                # Gated-off steps change nothing: stop after the first one
-                # (a chunk's replays on the card run it too).
+                # Gated-off steps change nothing: stop after the first one.
                 for n in range(times):
                     steps, last_n, budget = st.counters[
                         [CTR_STEPS, CTR_LAST_N, CTR_BUDGET]].tolist()
@@ -1790,7 +1829,11 @@ class _ChunkRunner:
                               _DBG_NO_BUDGETS)
         g = self.cache.get(key)
         if g is None:
-            g = self.cache.capture(key, st, inv, functools.partial(step, frontier=fr))
+            body = functools.partial(_step_body, spec=self.spec, prev_specs=self.prev,
+                                     constraint=self.constraint, num_sources=chunk.ns,
+                                     num_dests=chunk.nd, frontier=fr,
+                                     flight_cap=self.flight_cap)
+            g = self.cache.capture(key, st, inv, body)
             chunk.fresh = True
         g.load(inv)
 

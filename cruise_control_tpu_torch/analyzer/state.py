@@ -307,6 +307,14 @@ CTR_WIDTH = 7
 MUTABLE_FIELDS = ("replica_broker", "replica_is_leader", "replica_disk")
 
 
+def step_active(counters: torch.Tensor) -> torch.Tensor:
+    """The gate of a step (the cond of the JAX package's fixpoint loop,
+    ``optimizer.py:1628``): 0-d bool, ``last_n > 0 and steps < budget``.
+    On the card a step graph computes the same in its gate kernel
+    (``csrc/step_graph.cu``) and skips the step's body when it is false."""
+    return (counters[CTR_LAST_N] > 0) & (counters[CTR_STEPS] < counters[CTR_BUDGET])
+
+
 @dataclasses.dataclass
 class StepState:
     """What the gated step reads and updates in place: the working model,

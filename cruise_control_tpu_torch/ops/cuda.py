@@ -23,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -32,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
            "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score",
-           "detector_scores", "flight_row", "band_accepts", "shard_combine")
+           "detector_scores", "flight_row", "band_accepts", "shard_combine", "step_graph")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +42,8 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
 
 # Every C entry: kernel name -> (source, entry symbol, argument layout),
-# "p" = device pointer, "i" = int64, "f" = float.  The stream pointer is
-# appended to each.
+# "p" = device pointer, "i" = int64, "f" = float, "h" = host handle or
+# address (passed as a number).  The stream pointer is appended to each.
 _ENTRIES = {
     "segment_row_index": ("broker_aggregates", "cc_segment_row_index", "pppiiiippp"),
     "broker_aggregates": ("broker_aggregates", "cc_broker_aggregates", "p" * 10 + "i"),
@@ -74,11 +74,16 @@ _ENTRIES = {
                           "i" * 8 + "p" * 31 + "ii" + "p" * 4),
     "detector_peer": ("detector_scores", "cc_detector_peer", "ppiifp"),
     "detector_rows": ("detector_scores", "cc_detector_rows", "pppp" + "ii" + "f" * 7 + "ppp"),
-    "flight_row": ("flight_row", "cc_flight_row", "ppippipppippipi"),
+    "flight_row": ("flight_row", "cc_flight_row", "ppippipppippipipi"),
     "band_accepts": ("band_accepts", "cc_band_accepts", "iii" + "p" * 10),
     "shard_combine": ("shard_combine", "cc_shard_combine", "ppiiipp"),
+    # The step graphs' executables: no kernels, no launch counts.
+    "step_graph_build": ("step_graph", "cc_step_graph_build", "hpph"),
+    "step_graph_launch": ("step_graph", "cc_step_graph_launch", "h"),
+    "step_graph_destroy": ("step_graph", "cc_step_graph_destroy", "h"),
 }
-_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int64, "f": ctypes.c_float,
+          "h": ctypes.c_void_p}
 
 
 def _nvcc() -> str:
@@ -180,6 +185,21 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
 
 
+def step_graph_build(body_graph: int, counters: torch.Tensor, executed: torch.Tensor) -> int:
+    """The executable (``csrc/step_graph.cu``) of [gate kernel -> IF
+    node(``body_graph``, a graph torch captured)]: the gate reads
+    ``counters`` (i32[CTR_WIDTH]) and counts the steps it lets run in
+    ``executed`` (a 0-d int64 tensor); raises if the conditional graph cannot
+    be built.  Replay it with ``launch("step_graph_launch", exe)`` and free
+    it with ``launch("step_graph_destroy", exe)``."""
+    out = ctypes.c_void_p()
+    try:
+        launch("step_graph_build", body_graph, counters, executed, ctypes.addressof(out))
+    except RuntimeError as e:
+        raise RuntimeError("the step graph's conditional node could not be built") from e
+    return out.value
+
+
 def check(t: torch.Tensor, what: str, dtype: torch.dtype,
           shape: Sequence[int], device: torch.device) -> None:
     """Raise unless ``t`` has the dtype, shape and device a kernel takes and
@@ -229,7 +249,10 @@ def record(name: str, args: tuple) -> None:
 # that it raises by one where it launches its kernel.  A CUDA-graph capture
 # runs the wrappers once without launching anything, so the graph cache
 # (``analyzer/graphs.py``) takes each capture's increments back off and
-# credits them once per replay instead.
+# credits them once for every replay whose gate let the step run, read from
+# the device when the counts are next read.  Read the counts through
+# ``launch_counts``: a wrapper's ``launches`` leaves out graph replays that
+# have not been settled yet.
 # ---------------------------------------------------------------------------
 
 COUNTED: Dict[str, object] = {}
@@ -262,11 +285,26 @@ def mode_counters(kernel: str, modes: Sequence[str]) -> Dict[str, ModeCounter]:
     return out
 
 
+# Called before the counts are read: a replayed CUDA graph credits its
+# launches there (``graphs.GraphCache.settle``).
+_ON_READ: List[Callable[[], None]] = []
+
+
+def on_count_read(fn: Callable[[], None]) -> None:
+    _ON_READ.append(fn)
+
+
 def launch_counts() -> Dict[str, int]:
+    """Every counter by name, after the graphs have credited their
+    launches."""
+    for fn in _ON_READ:
+        fn()
     return {n: fn.launches for n, fn in COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
+    for fn in _ON_READ:
+        fn()
     for fn in COUNTED.values():
         fn.launches = 0
 
