@@ -83,6 +83,15 @@ Phases, in order (any failure raises and the process exits non-zero):
     path, solved on the card and on the CPU plain path: per goal the same
     flags (and for the 100-broker cluster the same steps, actions,
     ``pipelined`` and fused group, and placement);
+12b. multi-round selection (``check_multi_round``): the large rung's full
+    stack at ``moves_per_broker_step`` = 256 (two selection rounds of 128
+    lanes a broker) on the pipelined and on the sequential per-goal path, a
+    warm-up that captures the step graphs and keeps K4's first inputs of
+    rounds 2 on, then a timed run with the counters set to 0 just before:
+    every hard goal held, ``verify_run`` under that constraint, each K4
+    kernel launched (K4d's used sets too), the same placement and per-goal
+    steps and actions as the eager driver; the mid rung's grouped solve at
+    256 on the card and on the CPU plain path, placed alike;
 13. warm starts: at the large rung a cold default solve, a load-only
     change of a few partitions, ``model_delta``, and the warm solve —
     ``warm``, ``verify_run``, the hard goals, at least as many goals
@@ -254,7 +263,15 @@ Phases, in order (any failure raises and the process exits non-zero):
     mid and the fleet), and the frontier mask's two sorts timed against
     each other at 50 to 1,000 brokers; and K8's flight row at the service
     shape in a graph replay, active and gated off, against its plain twin
-    (``check_flight_row_graph``);
+    (``check_flight_row_graph``); and K4a-K4d (``check_k4``) on the inputs
+    of the large pipelined warm-ups at the default configuration (phase 3)
+    and at 256 moves a step (phase 12b) and on seeded edges (no lane
+    eligible or kept and every lane, every leg on key 0, every budget +inf,
+    zero deltas as -0.0, every lane on one partition): bit for bit against
+    their plain twins on the card and on CPU copies, identical over two
+    launches and a graph replay, into canary-guarded buffers, timed beside
+    the plain twin, the bound and, for K4b and K4d, one ``index_add_`` or
+    ``scatter_reduce_``;
 22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
@@ -337,6 +354,12 @@ PROFILE_NAMES = {
     "blend_aggregates": ("blend_aggregates_kernel", "blend_topic_counts_kernel"),
     "masks_by_partition": ("masks_by_partition_kernel",),
     "stack_sweep_batch": ("stack_sweep_batch_kernel",),
+    # K4: the selection glue (its K4b a count and a key pass, its K4d a
+    # scatter and, in a claim round, a drop pass).
+    "select_mask": ("select_mask_kernel",),
+    "topic_round_sums": ("topic_count_kernel", "topic_viol_kernel"),
+    "net_viol": ("net_viol_kernel",),
+    "partition_claims": ("claim_scatter_kernel", "claim_drop_kernel"),
 }
 
 KERNELS = {
@@ -383,6 +406,15 @@ KERNELS = {
                          "cruise_control_tpu/analyzer/optimizer.py:2392"),
     "stack_sweep_batch": ("cruise_control_tpu_torch/csrc/placement_score.cu",
                           "cruise_control_tpu/analyzer/optimizer.py:2392"),
+    # K4, the selection glue of select_batched (optimizer.py:410-871).
+    "select_mask": ("cruise_control_tpu_torch/csrc/selection.cu",
+                    "cruise_control_tpu/analyzer/optimizer.py:599"),
+    "topic_round_sums": ("cruise_control_tpu_torch/csrc/selection.cu",
+                         "cruise_control_tpu/analyzer/optimizer.py:671"),
+    "net_viol": ("cruise_control_tpu_torch/csrc/selection.cu",
+                 "cruise_control_tpu/analyzer/optimizer.py:739"),
+    "partition_claims": ("cruise_control_tpu_torch/csrc/selection.cu",
+                         "cruise_control_tpu/analyzer/optimizer.py:649"),
 }
 # Kernels a path does not launch: the unfused path has no chunk gate and no
 # frontier count; only the pipelined path sweeps every goal's frontier (K9
@@ -488,7 +520,7 @@ def main(argv) -> int:
         if not rehearse and idle:
             raise RuntimeError(f"kernels not launched on the {label} path: {idle}; {counts}")
 
-    def check_run(label, initial, run, goals):
+    def check_run(label, initial, run, goals, con=None):
         for g in run.goal_results:
             log(f"  {label} {g.name:38s} steps={g.steps:3d} actions={g.actions_applied:5d} "
                 f"satisfied {g.satisfied_before}->{g.satisfied_after} "
@@ -498,7 +530,7 @@ def main(argv) -> int:
         if bad:
             raise RuntimeError(f"{label}: hard goals unsatisfied: {bad}")
         proposals = props.diff(initial, run.model)
-        verify_run(initial, run, goals, proposals=proposals)
+        verify_run(initial, run, goals, constraint=con, proposals=proposals)
         return proposals
 
     def same_placement(a, b):
@@ -569,6 +601,7 @@ def main(argv) -> int:
     # K1's, the round sums', K3's and K9's inputs at each rung, for phase 21;
     # K9's device ms at each, profiled here (see the docstring, phase 21).
     family_inputs_of, family, k3_inputs, k9_inputs, k9_device = {}, {}, {}, {}, {}
+    k4_inputs = {}
 
     def keep_family_inputs(label, kept):
         if kept.get("segment_sum", (None,) * 5)[4] != "round":
@@ -576,6 +609,8 @@ def main(argv) -> int:
         if "prefix_cut" not in kept or "stack_sweep" not in kept:
             raise RuntimeError(f"the {label} run kept no K3 or K9 sweep inputs")
         family_inputs_of[label] = {n: kept[n] for n in ("broker_aggregates", "segment_sum")}
+        if label == "large":  # K4's inputs at the default configuration, for phase 21
+            k4_inputs["large"] = {n: kept[n] for n in K4_INPUTS["large"]}
         k3_inputs[label] = kept["prefix_cut"]
         k9_inputs[label] = _clone(torch, kept["stack_sweep"][1:3])  # (model, arrays)
         if not rehearse:
@@ -907,6 +942,19 @@ def main(argv) -> int:
     if not hundred_runs["pipelined"][0].pipelined:
         raise RuntimeError("the 100-broker default solve did not pipeline")
 
+    # 12b. multi-round selection: moves_per_broker_step=256 at large on the
+    # pipelined and the per-goal path against the eager drivers, and mid
+    # card against CPU; K4's inputs of rounds 2 on kept for phase 21
+    phase("multi-round")
+    import types
+    multi_summary, multi_counts, k4_inputs["large-256"] = check_multi_round(
+        types.SimpleNamespace(
+            torch=torch, opt=opt, log=log, dev=dev, rehearse=rehearse, large=large,
+            mid_rung=mid_rung, spec_of=spec_of, generate_cluster=generate_cluster,
+            fused_run=fused_run, timed=timed, check_run=check_run,
+            same_placement=same_placement, per_goal=per_goal,
+            default_rows={"pipelined": run_pipe, "per-goal": run_large}))
+
     # 13. warm starts: at the large rung, and at 100 brokers card against CPU
     phase("warm start")
     warm_summary = check_warm_large(torch, np, opt, large, run_pipe, fused_run, timed,
@@ -1012,7 +1060,7 @@ def main(argv) -> int:
     # 21. K1, segment_sum's modes and their row index at each rung's shapes,
     # K3 and the ordered sum on every case, after every profiler session
     # (see the docstring)
-    phase("K1 family, K3, ordered sum, K9, K8's flight row")
+    phase("K1 family, K3, ordered sum, K9, K8's flight row, K4")
     for label in ("mid", "large", "xl250"):
         check_family_at(label)
     for name, r in check_k3(torch, np, log, timer, k3_inputs, rehearse).items():
@@ -1024,6 +1072,15 @@ def main(argv) -> int:
     del k9_inputs
     if not rehearse:
         check_flight_row_graph(torch, np, opt, dev, log)
+    k4_rows = check_k4(torch, np, log, timer, k4_inputs, rehearse)
+    del k4_inputs
+    for name, r in k4_rows.items():
+        results[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                            "max_abs_err")}
+        family.setdefault(name, {}).update(
+            {k: v for k, v in r.items() if k not in results[name]},
+            launches_large_pipelined_256=multi_counts["pipelined"][name],
+            launches_large_per_goal_256=multi_counts["per-goal"][name])
 
     # 22. results
     phase("results")
@@ -1038,7 +1095,8 @@ def main(argv) -> int:
         f"busy {prof_pipe['busy']}); warm start {warm_summary}; xl250 {len(XL_GOALS)} "
         f"goals {xl_wall:.3f} s; frontier masks checked {frontier_checked}; execution "
         f"{exec_summary}; goal kinds {kinds_summary}; JBOD {jbod_summary}; detection "
-        f"{detect_summary}; service {service_summary}; mesh {mesh_summary}; card {smi}")
+        f"{detect_summary}; service {service_summary}; mesh {mesh_summary}; multi-round "
+        f"{multi_summary}; card {smi}")
     for name in EXECUTION_ONLY:
         # The mid shape is the execution's; the large and xl250 numbers beside.
         results[name] = dict(k10["mid"][name])
@@ -2022,11 +2080,12 @@ def drive_fused(opt, model, goals, options, cache):
     return types.SimpleNamespace(model=final, goal_results=results)
 
 
-def drive_per_goal(opt, model, goals, options, cache, kw):
+def drive_per_goal(opt, model, goals, options, cache, kw, constraint=None):
     """``optimize(fused=True, **kw)``'s sequential per-goal driver at the
     defaults the runs use (default widths, step budget and chunk lengths),
     without the before/after statistics: with ``cache`` the goals' step
-    graphs replay, with None the same gated steps run eagerly."""
+    graphs replay, with None the same gated steps run eagerly.  ``constraint``:
+    the default when None."""
     import contextlib
     import inspect
     import types
@@ -2042,19 +2101,19 @@ def drive_per_goal(opt, model, goals, options, cache, kw):
     b = model.num_brokers
     with cache.lock if cache is not None else contextlib.nullcontext():
         final, results, _, _ = opt._optimize_per_goal(
-            model, options, specs, BalancingConstraint.default(),
+            model, options, specs, constraint or BalancingConstraint.default(),
             cgen.default_num_sources(model), cgen.default_num_dests(model), max_steps,
             32 if b >= 500 else None, b > opt._FRONTIER_DENSE_MIN, False,
             lambda *a: 0, cache)
     return types.SimpleNamespace(model=final, goal_results=results)
 
 
-def drive_pipelined(opt, model, goals, options, cache):
+def drive_pipelined(opt, model, goals, options, cache, constraint=None):
     """``optimize(fused=True)``'s pipelined driver at the defaults the runs
     use above the dense floor (default widths, step budget and chunk
     lengths, auto-fusion as the environment says), without the before/after
     statistics: with ``cache`` the goals' step graphs replay, with None the
-    same gated steps run eagerly."""
+    same gated steps run eagerly.  ``constraint``: the default when None."""
     import contextlib
     import inspect
     import types
@@ -2068,7 +2127,7 @@ def drive_pipelined(opt, model, goals, options, cache):
     b = model.num_brokers
     with cache.lock if cache is not None else contextlib.nullcontext():
         final, results, _, counts = opt._optimize_pipelined(
-            model, options, specs, BalancingConstraint.default(),
+            model, options, specs, constraint or BalancingConstraint.default(),
             cgen.default_num_sources(model), cgen.default_num_dests(model), max_steps,
             32 if b >= 500 else None, b > opt._FRONTIER_DENSE_MIN, False,
             lambda *a: 0, cache)
@@ -5950,7 +6009,8 @@ MESH_PAD = 8  # replicas padded to a multiple of 8
 # The step's kernels that every sharded solve must launch on each rank.
 MESH_PATH_KERNELS = ("broker_aggregates", "segment_row_index", "best_per_segment",
                      "prefix_cut", "goal_masks", "structural_accepts", "apply_actions",
-                     "stack_sweep", "chunk_gate", "shard_combine")
+                     "stack_sweep", "chunk_gate", "shard_combine", "select_mask",
+                     "topic_round_sums", "net_viol", "partition_claims")
 MESH_TIMEOUT_S = 600
 
 
@@ -6158,6 +6218,404 @@ def check_mesh(cx):
     if not cx.rehearse and not nccl["launches"]["shard_combine"]:
         raise RuntimeError("the one-rank mid mesh never launched cc_shard_combine")
     return counts, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 12b: multi-round selection (moves_per_broker_step above 128)
+# ---------------------------------------------------------------------------
+
+MULTI_ROUND_MOVES = 256  # two selection rounds of 128 lanes a broker
+K4_KERNELS = ("select_mask", "topic_round_sums", "net_viol", "partition_claims")
+# The captured inputs of K4 phase 21 holds against the plain twins: the
+# default large pipelined warm-up's (round 1; a swap round's claim) and the
+# 256 warm-up's (the forms of rounds 2 on, the used sets).
+K4_INPUTS = {"large": ("select_mask", "select_mask[topic]", "topic_round_sums", "net_viol",
+                       "net_viol[topic]", "partition_claims"),
+             "large-256": ("select_mask[cum]", "select_mask[cum,topic]", "topic_round_sums[cum]",
+                           "net_viol[cum]", "net_viol[cum,topic]", "partition_claims[used]")}
+# The suffix of each form's numbers in the kernels line.
+K4_SUFFIX = {"": "", "[topic]": "_topic", "[cum]": "_256", "[cum,topic]": "_256_topic",
+             "[used]": "_256"}
+
+
+def check_multi_round(mx):
+    """Phase 12b: the large rung's full stack at ``moves_per_broker_step`` =
+    MULTI_ROUND_MOVES on the pipelined and on the sequential per-goal path
+    (a warm-up that captures the step graphs and keeps K4's first inputs of
+    rounds 2 on, then a timed run with the counters set to 0 just before):
+    every hard goal held, ``verify_run`` under that constraint, every K4
+    kernel launched (the used sets too), the same placement and per-goal
+    steps and actions as the eager driver; then the mid rung's grouped
+    solve at the same constraint on the card and on the CPU plain path,
+    placed alike.  Returns (summary, counts by path, K4's kept inputs)."""
+    torch, opt, log = mx.torch, mx.opt, mx.log
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    from cruise_control_tpu_torch.ops import cuda
+    con = dataclasses.replace(BalancingConstraint.default(),
+                              moves_per_broker_step=MULTI_ROUND_MOVES)
+    summary, counts = {}, {}
+    cuda.CAPTURE = {}
+    try:
+        t0 = time.monotonic()
+        mx.fused_run(mx.large, constraint=con)  # captures the pipelined path's graphs
+        torch.cuda.synchronize()
+        summary["warm_up_s"] = round(time.monotonic() - t0, 2)
+    finally:
+        kept, cuda.CAPTURE = cuda.CAPTURE, None
+    missing = [n for n in K4_INPUTS["large-256"] if n not in kept]
+    if missing:
+        raise RuntimeError(f"the {MULTI_ROUND_MOVES}-move warm-up kept no inputs of {missing}")
+    kept = {n: kept[n] for n in K4_INPUTS["large-256"]}
+    rows = lambda run: [(g.steps, g.actions_applied) for g in run.goal_results]  # noqa: E731
+    for label, kw, eager in (
+            ("pipelined", {}, lambda: drive_pipelined(opt, mx.large, STACK, None, None, con)),
+            ("per-goal", mx.per_goal,
+             lambda: drive_per_goal(opt, mx.large, STACK, None, None, mx.per_goal, con))):
+        if kw:
+            mx.fused_run(mx.large, constraint=con, **kw)  # captures what the first did not
+        run, wall, _ = mx.timed(lambda: mx.fused_run(mx.large, constraint=con, **kw))
+        c = cuda.launch_counts()  # every counter, the modes' too
+        mx.check_run(f"large-{MULTI_ROUND_MOVES}-{label}", mx.large, run, STACK, con)
+        ref = eager()
+        same = mx.same_placement(run, ref) and rows(run) == rows(ref)
+        default = mx.default_rows[label]
+        summary[label] = dict(
+            wall_s=round(wall, 4), steps=sum(g.steps for g in run.goal_results),
+            actions=sum(g.actions_applied for g in run.goal_results),
+            steps_128=sum(g.steps for g in default.goal_results),
+            actions_128=sum(g.actions_applied for g in default.goal_results),
+            equal_to_eager=same)
+        counts[label] = c
+        log(f"large {label} at moves_per_broker_step={MULTI_ROUND_MOVES}: {summary[label]}; "
+            f"K4 launches {[(n, c[n]) for n in K4_KERNELS + ('partition_claims[used]',)]}")
+        if not same:
+            raise RuntimeError(f"the large {label} solve at {MULTI_ROUND_MOVES} moves a step "
+                               "placed apart from its eager driver")
+        idle = [n for n in K4_KERNELS + ("partition_claims[used]",) if c.get(n, 0) == 0]
+        if idle and not mx.rehearse:
+            raise RuntimeError(f"the large {label} solve at {MULTI_ROUND_MOVES} moves a step "
+                               f"launched no {idle}")
+    mid_card = mx.generate_cluster(mx.spec_of(mx.mid_rung), device=mx.dev)
+    run_card = mx.fused_run(mid_card, constraint=con)
+    t0 = time.monotonic()
+    run_cpu = opt.optimize(mx.generate_cluster(mx.spec_of(mx.mid_rung), device="cpu"), STACK,
+                           constraint=con, fused=True, raise_on_hard_failure=False,
+                           device="cpu")
+    cpu_s = time.monotonic() - t0
+    mx.check_run(f"mid-{MULTI_ROUND_MOVES}", mid_card, run_card, STACK, con)
+    same = mx.same_placement(run_card, run_cpu) and rows(run_card) == rows(run_cpu)
+    summary["mid_card_vs_cpu"] = dict(equal=same, cpu_s=round(cpu_s, 1),
+                                      steps=sum(g.steps for g in run_card.goal_results))
+    log(f"mid at moves_per_broker_step={MULTI_ROUND_MOVES}, card vs CPU plain path: "
+        f"{summary['mid_card_vs_cpu']}")
+    if not same:
+        raise RuntimeError(f"mid at {MULTI_ROUND_MOVES} moves a step: the card and the CPU "
+                           "plain path disagree")
+    return summary, counts, kept
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: K4 against its plain twins, into canary-guarded buffers
+# ---------------------------------------------------------------------------
+
+def _k4_base(name):
+    return name.split("[")[0]
+
+
+def _k4_clone_used(args):
+    """partition_claims' arguments with its in-place used sets cloned."""
+    keep, p1, p2, P, used, disks = args
+    if used is None:
+        return args
+    return (keep, p1, p2, P, used.clone(),
+            None if disks is None else disks[:2] + tuple(d.clone() for d in disks[2:]))
+
+
+def k4_call(fn, name, args):
+    """One call of ``fn`` (a K4 wrapper or its plain twin) on ``args``, as a
+    tuple of output tensors: K4b with its cumulative sums written, K4d's used
+    sets updated on clones."""
+    base = _k4_base(name)
+    if base == "topic_round_sums":
+        keep, topic, nb, _ = args
+        return tuple(fn(keep, topic, nb, True))
+    if base == "partition_claims":
+        a = _k4_clone_used(args)
+        out = fn(*a)
+        if a[4] is None:
+            return (out,)
+        return (a[4],) + (() if a[5] is None else a[5][2:])
+    return (fn(*args),)
+
+
+def k4_cases(torch, name, args):
+    """(case, arguments): the captured inputs and seeded edges — no lane
+    eligible or kept and every lane, every leg on key 0, every budget +inf,
+    every zero delta as -0.0, and for a claim every lane on partition 0."""
+    base = _k4_base(name)
+    cases = [("main path", args)]
+
+    def negzero(t):
+        return torch.where(t == 0, torch.full_like(t, -0.0), t)
+
+    def used_disks(p1, p2):
+        """Seeded disk sets of 4 disks a broker: a third of the lanes land
+        on a disk, a fifth and a seventh of the disks used."""
+        d = 800
+        at = torch.arange(d, device=p1.device)
+        dest = torch.where(p2 % 3 == 0, (p2 * 7) % d, -1).to(torch.int32)
+        return ((p1 % d).to(torch.int32), dest, at % 5 == 0, at % 7 == 0)
+
+    def inf_like(t):
+        return torch.full_like(t, float("inf"))
+
+    if base == "select_mask":
+        elig, d_src, d_dest, sb, db, room, slack, cum, topic, used, disks = args
+        rest = (sb, db, room, slack, cum, topic, used, disks)
+        cases.append(("none eligible", (torch.zeros_like(elig), d_src, d_dest) + rest))
+        cases.append(("all eligible", (torch.ones_like(elig), d_src, d_dest) + rest))
+        cases.append(("-0.0 deltas", (elig, negzero(d_src), negzero(d_dest)) + rest))
+        t_inf = None if topic is None else topic[:3] + tuple(inf_like(b) for b in topic[3:6]) \
+            + topic[6:]
+        cases.append(("+inf budgets", (elig, d_src, d_dest, sb, db, inf_like(room),
+                                       inf_like(slack), cum, t_inf, used, disks)))
+        if topic is not None:
+            t0 = (torch.zeros_like(topic[0]),) + topic[1:]
+            cases.append(("legs on key 0", (elig, d_src, d_dest, sb, db, room, slack, cum, t0,
+                                            used, disks)))
+        if used is not None and disks is None:
+            cases.append(("used disks", (elig, d_src, d_dest) + rest[:-1]
+                          + (used_disks(used[2], used[3]),)))
+    elif base == "topic_round_sums":
+        keep, topic, nb, w = args
+        cases.append(("none kept", (torch.zeros_like(keep), topic, nb, w)))
+        cases.append(("all kept", (torch.ones_like(keep), topic, nb, w)))
+        cases.append(("legs on key 0", (keep, (torch.zeros_like(topic[0]),) + topic[1:], nb, w)))
+        cases.append(("+inf budgets", (keep, topic[:3] + tuple(inf_like(b) for b in topic[3:6])
+                                       + topic[6:], nb, w)))
+        cases.append(("-0.0 deltas", (keep, topic[:1] + (negzero(topic[1]), negzero(topic[2]))
+                                      + topic[3:], nb, w)))
+    elif base == "net_viol":
+        cum, rn, room, slack, bad = args
+        cases.append(("+inf budgets", (cum, rn, inf_like(room), inf_like(slack), bad)))
+        cases.append(("-0.0 sums", (cum, negzero(rn), room, slack, bad)))
+        if bad is not None:
+            cases.append(("every broker bad", (cum, rn, room, slack, torch.ones_like(bad))))
+    else:
+        keep, p1, p2, P, used, disks = args
+        cases.append(("none kept", (torch.zeros_like(keep), p1, p2, P, used, disks)))
+        cases.append(("all kept", (torch.ones_like(keep), p1, p2, P, used, disks)))
+        cases.append(("partition 0", (keep, torch.zeros_like(p1), p2, P, used, disks)))
+        if used is not None and disks is None:
+            cases.append(("used disks", (keep, p1, p2, P, used,
+                                         used_disks(p1, p2))))
+    return cases
+
+
+def guarded_k4(torch, cuda, name, args):
+    """One launch of a K4 kernel through its C entry into outputs (and K4b's
+    counts, K4d's claim flags) that each lie between canary bands, the used
+    sets copied in first; raises if a band changed or the outputs differ from
+    the wrapper's."""
+    from cruise_control_tpu_torch.ops import selection as sel
+    base = _k4_base(name)
+    dev = args[0].device if args[0] is not None else args[1].device
+
+    def u8(view, n):
+        return view.view(torch.uint8)[:n]
+
+    if base == "select_mask":
+        elig, d_src, d_dest, sb, db, room, slack, cum, topic, used, disks = args
+        k, nb = elig.shape[0], room.shape[0]
+        buf, guard, views = canary_views(torch, dev, [-(-k // 4)])
+        legs = n_tb = parts = nd = 0
+        if topic is not None:
+            legs, n_tb = topic[0].shape[0], topic[3].shape[0]
+        if used is not None:
+            parts = used[1].shape[0]
+        if disks is not None:
+            nd = disks[2].shape[0]
+        out = u8(views[0], k)
+        cuda.launch("select_mask", k, nb, legs, n_tb, parts, nd, elig, d_src, d_dest, sb, db,
+                    room, slack, cum, *(topic or (None,) * 8), *(used or (None,) * 4),
+                    *(disks or (None,) * 4), out)
+        got = (out.view(torch.bool),)
+    elif base == "topic_round_sums":
+        keep, topic, nb, _ = args
+        k, legs, n_tb = keep.shape[0], topic[0].shape[0], topic[3].shape[0]
+        buf, guard, views = canary_views(torch, dev, [2 * n_tb, -(-n_tb // 4), -(-nb // 4),
+                                                      n_tb, n_tb])
+        vt, bad = u8(views[1], n_tb), u8(views[2], nb)
+        rep, lead = views[3].view(torch.float32), views[4].view(torch.float32)
+        cuda.launch("topic_round_sums", k, legs, n_tb, nb, keep, *topic, views[0], vt, bad,
+                    rep, lead)
+        got = (vt.view(torch.bool), bad.view(torch.bool), rep, lead)
+    elif base == "net_viol":
+        cum, rn, room, slack, bad = args
+        nb = rn.shape[0]
+        buf, guard, views = canary_views(torch, dev, [-(-nb // 4)])
+        out = u8(views[0], nb)
+        cuda.launch("net_viol", nb, cum, rn, room, slack, bad, out)
+        got = (out.view(torch.bool),)
+    else:
+        keep, p1, p2, P, used, disks = args
+        k = keep.shape[0]
+        nd = 0 if disks is None else disks[2].shape[0]
+        sizes = [-(-P // 4)] + ([-(-k // 4)] if used is None else []) + \
+            ([-(-nd // 4)] * 2 if disks is not None else [])
+        buf, guard, views = canary_views(torch, dev, sizes)
+        claims = u8(views[0], P)
+        if used is None:
+            out = u8(views[1], k)
+            cuda.launch("partition_claims", k, P, 0, keep, p1, p2, claims, out,
+                        None, None, None, None)
+            got = (out.view(torch.bool),)
+        else:
+            claims.copy_(used.view(torch.uint8))
+            dsets = ()
+            if disks is not None:
+                dsets = (u8(views[1], nd), u8(views[2], nd))
+                dsets[0].copy_(disks[2].view(torch.uint8))
+                dsets[1].copy_(disks[3].view(torch.uint8))
+            cuda.launch("partition_claims", k, P, nd, keep, p1, p2, claims, None,
+                        *(disks[:2] if disks is not None else (None, None)),
+                        *(dsets or (None, None)))
+            got = (claims.view(torch.bool),) + tuple(d.view(torch.bool) for d in dsets)
+    torch.cuda.synchronize()
+    if not bool((buf[guard] == CANARY).all()):
+        raise RuntimeError(f"{name}: a launch wrote outside its buffers")
+    wrapper = getattr(sel, base)
+    if not _exact(torch, got, k4_call(wrapper, name, args)):
+        raise RuntimeError(f"{name}: the guarded launch differs from the wrapper's")
+
+
+def _k4_bytes(name, args):
+    """Bytes K4's function must move on these inputs: each input read once
+    where this run's lanes need it (a lane's deltas and indices when it is
+    eligible, a leg's key and deltas when its lane is kept), each output
+    written once."""
+    base = _k4_base(name)
+    if base == "select_mask":
+        elig, d_src, d_dest, sb, db, room, slack, cum, topic, used, disks = args
+        k, nb, n = elig.shape[0], room.shape[0], int(elig.sum())
+        total = k + n * 72 + nb * 64 + (0 if cum is None else nb * 32) + k
+        if topic is not None:
+            legs, n_tb = topic[0].shape[0], topic[3].shape[0]
+            total += n * legs * 12 + n_tb * (12 + (8 if topic[6] is not None else 0))
+        if used is not None:
+            total += k + used[1].shape[0] + n * 8
+        if disks is not None:
+            total += n * 8 + 2 * disks[2].shape[0]
+        return total
+    if base == "topic_round_sums":
+        keep, topic, nb, _ = args
+        n_tb, legs, kept = topic[3].shape[0], topic[0].shape[0], int(keep.sum())
+        cum = topic[6] is not None
+        return (keep.shape[0] + kept * legs * 12 + n_tb * (12 + (8 if cum else 0))
+                + n_tb + nb + 8 * n_tb)
+    if base == "net_viol":
+        cum, rn, room, slack, bad = args
+        nb = rn.shape[0]
+        return nb * (96 + (32 if cum is not None else 0) + (1 if bad is not None else 0)) + nb
+    keep, p1, p2, P, used, disks = args
+    k, kept = keep.shape[0], int(keep.sum())
+    if used is None:
+        return k + kept * 8 + k
+    total = k + kept * 8 + P
+    if disks is not None:
+        total += kept * 8 + 2 * disks[2].shape[0]
+    return total
+
+
+def _k4_library(torch, name, args):
+    """One PyTorch call computing (a part of) the same function, or None:
+    K4b's (topic, broker) sums as one ``index_add_`` of both columns (what
+    the kernel replaced); K4d's scatter as one ``scatter_reduce_``."""
+    base = _k4_base(name)
+    if base == "topic_round_sums":
+        keep, topic, _, _ = args
+        keys = torch.where(keep[None, :], topic[0], 0).reshape(-1)
+        vals = torch.where(keep[None, :, None], torch.stack([topic[1], topic[2]], -1),
+                           0.0).reshape(-1, 2)
+        acc = torch.zeros((topic[3].shape[0], 2), device=keep.device)
+        return lambda: acc.zero_().index_add_(0, keys, vals)
+    if base == "partition_claims":
+        keep, p1, _, P, _, _ = args
+        idx = torch.where(keep, p1, 0).long()
+        src = keep.to(torch.int32)
+        acc = torch.zeros((P,), dtype=torch.int32, device=keep.device)
+        return lambda: acc.zero_().scatter_reduce_(0, idx, src, "amax")
+    return None
+
+
+def _k4_shape(name, args):
+    base = _k4_base(name)
+    if base == "select_mask":
+        topic = args[8]
+        return dict(K=args[0].shape[0], nb=args[5].shape[0],
+                    L=None if topic is None else topic[0].shape[0],
+                    n_tb=None if topic is None else topic[3].shape[0],
+                    P=None if args[9] is None else args[9][1].shape[0])
+    if base == "topic_round_sums":
+        return dict(K=args[0].shape[0], L=args[1][0].shape[0], n_tb=args[1][3].shape[0],
+                    nb=args[2])
+    if base == "net_viol":
+        return dict(nb=args[1].shape[0], cum=args[0] is not None, topic=args[4] is not None)
+    return dict(K=args[0].shape[0], P=args[3], mode="claim" if args[4] is None else "used",
+                D=None if args[5] is None else args[5][2].shape[0])
+
+
+def check_k4(torch, np, log, timer, inputs, rehearse):
+    """K4a-K4d (``ops/selection.py``, ``csrc/selection.cu``) on the inputs
+    the large pipelined warm-ups gave them — at the default configuration
+    (phase 3: round 1, a swap round's claim) and at ``moves_per_broker_step``
+    = MULTI_ROUND_MOVES (phase 12b: the cumulative forms, the used sets) —
+    and on the seeded edges of ``k4_cases``: bit for bit against the plain
+    twin on the card and on CPU copies, identical over two launches and a
+    graph replay, through ``guarded_k4``; timed as one call (event ms)
+    beside the plain twin on the card, the bound, and the one PyTorch call
+    of ``_k4_library``.  Returns {kernel: row}: the default configuration's
+    numbers, the 256 run's with the suffix ``_256``."""
+    from cruise_control_tpu_torch.ops import cuda
+    from cruise_control_tpu_torch.ops import selection as sel
+
+    def cpu(x):
+        return _clone(torch, x, "cpu")
+
+    rows = {}
+    for label, names in K4_INPUTS.items():
+        for name in names:
+            base = _k4_base(name)
+            args = inputs[label][name]
+            kernel, plain = getattr(sel, base), getattr(sel, f"{base}_plain")
+            for case, a in k4_cases(torch, name, args):
+                got = k4_call(kernel, name, a)
+                if not _exact(torch, got, k4_call(kernel, name, a)):
+                    raise RuntimeError(f"{name} ({case}) differs between two launches")
+                if not _exact(torch, got, k4_call(plain, name, a)):
+                    raise RuntimeError(f"{name} ({case}) differs from its plain twin")
+                if not _exact(torch, got, k4_call(plain, name, cpu(a))):
+                    raise RuntimeError(f"{name} ({case}) differs from its plain twin on the "
+                                       "CPU")
+                if not rehearse:
+                    guarded_k4(torch, cuda, name, a)
+            fn = lambda: k4_call(kernel, name, args)  # noqa: E731
+            if not rehearse and not _graph_replay_equal(torch, fn):
+                raise RuntimeError(f"{name}: a graph replay differs from the eager launch")
+            library = _k4_library(torch, name, args)
+            r = {"shape": _k4_shape(name, args), "ms": timer(torch, fn),
+                 "plain_ms": timer(torch, lambda: k4_call(plain, name, args)),
+                 "bound_ms": bound_ms(_k4_bytes(name, args)),
+                 "library_ms": None if library is None else timer(torch, library),
+                 "max_abs_err": 0.0, "cases": len(k4_cases(torch, name, args))}
+            suffix = K4_SUFFIX[name[len(base):]]
+            rows.setdefault(base, {}).update({f"{k}{suffix}": v for k, v in r.items()})
+            log(f"{name} at {label} {r['shape']}: bit for bit with its plain twin on the card "
+                f"and the CPU in {r['cases']} cases, identical over two launches"
+                f"{'' if rehearse else ', a graph replay and into canary-guarded buffers'}; "
+                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
+                f"bound {r['bound_ms']:.6f})")
+    return rows
 
 
 if __name__ == "__main__":

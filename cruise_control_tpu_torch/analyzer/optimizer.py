@@ -84,8 +84,10 @@ selection runs replicated, a replica-sharded model's aggregates combine
 across the ranks (K15), and the gated steps run eagerly — a captured CUDA
 graph cannot hold the collectives.
 
-Not ported (``optimize`` raises): multi-round selection
-(``moves_per_broker_step`` above ``SUBROUNDS``).
+``moves_per_broker_step`` above ``SUBROUNDS`` (128) selects in
+ceil(moves_per_broker_step / 128) rounds of 128 lanes a broker, on every
+path; ``select_batched``'s glue between K2's and K3's launches is K4
+(``ops/selection.py``, ``csrc/selection.cu``).
 """
 
 from __future__ import annotations
@@ -135,7 +137,7 @@ from cruise_control_tpu_torch.common.tracing import TRACE
 from cruise_control_tpu_torch.device import resolve_device
 from cruise_control_tpu_torch.model.stats import ClusterModelStats, compute_stats
 from cruise_control_tpu_torch.model.tensor_model import TensorClusterModel
-from cruise_control_tpu_torch.ops import cuda, order
+from cruise_control_tpu_torch.ops import cuda, order, selection
 from cruise_control_tpu_torch.ops.segment import segment_sum
 from cruise_control_tpu_torch.parallel import collectives
 
@@ -621,19 +623,39 @@ def _selection_consts(k: int, subrounds: int, device: torch.device):
     return torch.from_numpy(factor).to(device), torch.from_numpy(lane).to(device)
 
 
+def _accumulate(cum: Optional[torch.Tensor], d: torch.Tensor, seg: torch.Tensor,
+                keep: torch.Tensor, nb_sel: int) -> torch.Tensor:
+    """``cum.at[where(keep, seg, 0)].add(where(keep, d, 0))`` (zeros for a
+    None ``cum``): the kept rows added onto ``cum`` in lane order, as
+    XLA:CPU's scatter-add does, by ``segment_sum`` with ``cum``'s own rows
+    first (no float atomics on the card)."""
+    if cum is None:
+        return segment_sum(d, seg, keep, nb_sel)
+    rows = torch.arange(nb_sel, dtype=torch.int32, device=d.device)
+    return segment_sum(torch.cat([cum, d]), torch.cat([rows, seg]),
+                       torch.cat([torch.ones_like(rows, dtype=torch.bool), keep]), nb_sel)
+
+
 def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor,
                    model: TensorClusterModel, room_dest: torch.Tensor,
                    slack_src: torch.Tensor, topic_budgets, subrounds: int,
                    has_swaps: bool, compact_k: Optional[int] = None,
                    frontier: Optional[FrontierInvariants] = None,
-                   disk_guard: bool = False, repair_oracle: bool = False):
-    """(keep bool[K], sel_stats) — one round of the JAX package's greedy
-    multi-accept selection: per-(broker, lane) and per-partition segment
-    argmax passes (K2), per-(topic, broker) key lanes, then the
-    bounded-depth exact repair (K3): two alternating dest/src prefix cuts
-    and one subset-closed safe admit.  ``sel_stats`` is the JAX package's
-    (repair fired i32, lanes live i32, bisect depth) — the first two are
-    0-d tensors, the depth a Python int fixed by the shapes.
+                   disk_guard: bool = False, repair_oracle: bool = False, rounds: int = 1):
+    """(keep bool[K], sel_stats) — the JAX package's greedy multi-accept
+    selection in ``rounds`` rounds (``optimizer.py:592-871``).  Each round:
+    its eligibility (K4a, ``ops/selection.py``), per-(broker, lane) and
+    per-partition segment argmax passes (K2) and a swap round's claim
+    (K4d), per-(topic, broker) key lanes, then the bounded-depth exact
+    repair (K3): two alternating dest/src prefix cuts and one subset-closed
+    safe admit, each violation test a round sum (``segment_sum``), the
+    (topic, broker) sums (K4b) and the broker test (K4c).  From round 2 on a
+    round sees the step's cumulative sums (``cum_src`` + ``cum_dest``, the
+    (topic, broker) ``cum_rep`` and ``cum_lead``), its kept lanes and its
+    used partitions (and disks); the last round skips that bookkeeping.
+    ``sel_stats`` is the JAX package's (repair fired i32, lanes live i32,
+    bisect depth) — the first two are 0-d tensors, the depth a Python int
+    fixed by the shapes.
 
     ``frontier`` compacts every broker segment space and budget onto the
     active set's bucket (the JAX package's ``optimizer.py:518-531``): the
@@ -644,7 +666,7 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
     ``disk_guard`` (an intra-broker disk goal in the stack) keeps one
     landing per source disk and per destination disk among the lanes that
     touch a disk (``optimizer.py:653-657``): two K2 passes over the disk
-    axis.
+    axis, and from round 2 on no landing on a disk used before.
 
     ``repair_oracle`` runs the JAX package's legacy repair instead of the
     bounded one (``optimizer.py:705-722,758-793``): each pass runs only when
@@ -655,7 +677,6 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
     num_brokers, num_partitions = model.num_brokers, model.num_partitions
     dev = score.device
     k_full = score.shape[0]
-    eps = 1e-6
     factor, lane = _selection_consts(k_full, subrounds, dev)
     score = score * factor
     if repair_oracle:
@@ -717,148 +738,149 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
             d_rep = torch.stack([-mv, mv])
             d_lead = torch.stack([-lead1, lead1])
         num_legs = leg_keys.shape[0]
-        eps_tb = 1e-6
+        hi_tb = torch.stack([gain_rep, torch.full_like(gain_rep, _INF)], 1)
+        lo_tb = torch.stack([-shed_rep, -shed_lead], 1)
+        nl = 16
+        lane_tb = lane % nl
 
-        def tb_ok(d, gain, shed):
-            return ((d <= gain[leg_keys] + eps_tb) &
-                    (d >= -shed[leg_keys] - eps_tb)).all(dim=0)
+        def legs(cum_rep, cum_lead):
+            return (leg_keys, d_rep, d_lead, gain_rep, shed_rep, shed_lead, cum_rep, cum_lead)
 
-    elig = eligible
-    cum_net = torch.zeros((nb_sel, NUM_CHANNELS), dtype=torch.float32, device=dev)
-    budget_ok = ((d_dest <= room_dest[dest_b] + eps) &
-                 (d_dest >= -slack_src[dest_b] - eps) &
-                 (d_src >= -slack_src[src_b] - eps) &
-                 (d_src <= room_dest[src_b] + eps)).all(dim=1)
-    elig = elig & budget_ok
-    if topic_on:
-        elig = elig & tb_ok(d_rep, gain_rep, shed_rep) & \
-            tb_ok(d_lead, torch.full_like(gain_rep, _INF), shed_lead)
-    keep = _best_per_segment(score, src_lane, nb_sel * subrounds, elig)
-    keep = _best_per_segment(score, dest_lane, nb_sel * subrounds, keep)
-    keep = _best_per_segment(score, cand.partition, num_partitions, keep)
-    if has_swaps:
-        keep = _best_per_segment(score, cand.partition2, num_partitions, keep)
-        claim1 = torch.zeros((num_partitions,), dtype=torch.int32, device=dev)
-        claim1 = claim1.scatter_reduce_(0, torch.where(keep, cand.partition, 0).long(),
-                                        keep.to(torch.int32), "amax") > 0
-        keep = keep & ~((cand.partition2 != cand.partition) & claim1[cand.partition2])
-    if disk_guard:
-        touches = cand.dest_disk >= 0
-        kd = _best_per_segment(score, cand.src_disk.clamp(min=0), model.num_disks,
-                               keep & touches)
-        kd = _best_per_segment(score, cand.dest_disk.clamp(min=0), model.num_disks, kd)
-        keep = (keep & ~touches) | kd
+        def leg_contrib(i, k):
+            return k & ((d_rep[i] != 0.0) | (d_lead[i] != 0.0))
 
     # Per-broker sums of a round's kept deltas, dest legs then src legs, in
     # lane order (fixed-order on the card: no float atomics).
     d_both = torch.cat([d_dest, d_src], dim=0)
     seg_both = torch.cat([dest_b, src_b])
+    neg_slack = -slack_src
+    kk = score.shape[0]
+    # The step's cross-round state: None until round 1's bookkeeping (the
+    # JAX package's round-1 specialisation; one round never makes it).
+    keep_total = used_part = used_disks = cum_src = cum_dest = None
+    cum_net = cum_rep = cum_lead = None
+    for r in range(rounds):
+        first, last = r == 0, r == rounds - 1
+        if not first:
+            cum_net = cum_src + cum_dest
+        topic = legs(cum_rep, cum_lead) if topic_on else None
+        elig = selection.select_mask(
+            eligible, d_src, d_dest, src_b, dest_b, room_dest, slack_src, cum_net, topic,
+            None if first else (keep_total, used_part, cand.partition, cand.partition2),
+            None if first or not disk_guard else (cand.src_disk, cand.dest_disk) + used_disks)
+        keep = _best_per_segment(score, src_lane, nb_sel * subrounds, elig)
+        keep = _best_per_segment(score, dest_lane, nb_sel * subrounds, keep)
+        keep = _best_per_segment(score, cand.partition, num_partitions, keep)
+        if has_swaps:
+            keep = _best_per_segment(score, cand.partition2, num_partitions, keep)
+            keep = selection.partition_claims(keep, cand.partition, cand.partition2,
+                                              num_partitions)
+        if disk_guard:
+            touches = cand.dest_disk >= 0
+            kd = _best_per_segment(score, cand.src_disk.clamp(min=0), model.num_disks,
+                                   keep & touches)
+            kd = _best_per_segment(score, cand.dest_disk.clamp(min=0), model.num_disks, kd)
+            keep = (keep & ~touches) | kd
+        # The prefix cuts take the cumulative sums as tensors.
+        cum_before = (torch.zeros((nb_sel, NUM_CHANNELS), dtype=torch.float32, device=dev)
+                      if first else cum_net)
 
-    def round_net(k):
-        return segment_sum(d_both, seg_both, torch.cat([k, k]), nb_sel)
-
-    if topic_on:
-        def round_tb(k, d):
-            keys = torch.where(k[None, :], leg_keys, 0)
-            return torch.zeros((n_tb,), dtype=torch.float32, device=dev).index_add_(
-                0, keys.reshape(-1), torch.where(k[None, :], d, fzero).reshape(-1))
-
-        def tb_viol(k):
-            rep = round_tb(k, d_rep)
-            lead = round_tb(k, d_lead)
-            return ((rep > gain_rep + eps_tb) | (rep < -shed_rep - eps_tb) |
-                    (lead < -shed_lead - eps_tb))
-
-        def leg_contrib(i, k):
-            return k & ((d_rep[i] != 0.0) | (d_lead[i] != 0.0))
-
-        nl = 16
-        lane_tb = lane % nl
-        for i in range(num_legs):
-            contrib = leg_contrib(i, keep)
-            sel = _best_per_segment(score, leg_keys[i] * nl + lane_tb, n_tb * nl, contrib)
-            keep = keep & (~contrib | sel)
-
-        hi_tb = torch.stack([gain_rep, torch.full_like(gain_rep, _INF)], 1)
-        lo_tb = torch.stack([-shed_rep, -shed_lead], 1)
-        cum_tb = torch.zeros_like(hi_tb)
-        vt = tb_viol(keep)
-        if repair_oracle:
-            if _oracle_any(vt):
-                for i in range(num_legs):
-                    contrib = leg_contrib(i, keep)
-                    admit = _prefix_admit_role(
-                        score, leg_keys[i], torch.stack([d_rep[i], d_lead[i]], 1),
-                        contrib, cum_tb, lo_tb, hi_tb, n_tb)
-                    keep = keep & (~(contrib & vt[leg_keys[i]]) | admit)
-        else:
-            rep_fired = rep_fired + vt.any().to(torch.int32)
+        if topic_on:
             for i in range(num_legs):
                 contrib = leg_contrib(i, keep)
-                admit = kernels.prefix_cut_admit(
-                    score, leg_keys[i], torch.stack([d_rep[i], d_lead[i]], 1),
-                    contrib, cum_tb, lo_tb, hi_tb, n_tb, "topic")
-                keep = keep & (~(contrib & vt[leg_keys[i]]) | admit)
+                sel = _best_per_segment(score, leg_keys[i] * nl + lane_tb, n_tb * nl, contrib)
+                keep = keep & (~contrib | sel)
+            cum_tb = (torch.zeros_like(hi_tb) if first
+                      else torch.stack([cum_rep, cum_lead], 1))
+            vt = selection.topic_round_sums(keep, topic, nb_sel)[0]
+            if repair_oracle:
+                if _oracle_any(vt):
+                    for i in range(num_legs):
+                        contrib = leg_contrib(i, keep)
+                        admit = _prefix_admit_role(
+                            score, leg_keys[i], torch.stack([d_rep[i], d_lead[i]], 1),
+                            contrib, cum_tb, lo_tb, hi_tb, n_tb)
+                        keep = keep & (~(contrib & vt[leg_keys[i]]) | admit)
+            else:
+                rep_fired = rep_fired + vt.any().to(torch.int32)
+                for i in range(num_legs):
+                    contrib = leg_contrib(i, keep)
+                    admit = kernels.prefix_cut_admit(
+                        score, leg_keys[i], torch.stack([d_rep[i], d_lead[i]], 1),
+                        contrib, cum_tb, lo_tb, hi_tb, n_tb, "topic")
+                    keep = keep & (~(contrib & vt[leg_keys[i]]) | admit)
 
-    def net_viol(k):
-        total = cum_net + round_net(k)
-        out = ((total > room_dest + eps) | (total < -slack_src - eps)).any(dim=1)
-        if topic_on:
-            tb_bad = tb_viol(k)
-            # key = topic * nb_sel + broker: fold the topic axis away.
-            out = out | tb_bad.reshape(-1, nb_sel).any(dim=0)
-        return out
+        def net_viol(k):
+            round_net = segment_sum(d_both, seg_both, torch.cat([k, k]), nb_sel)
+            bad_b = selection.topic_round_sums(k, topic, nb_sel)[1] if topic_on else None
+            return selection.net_viol(cum_net, round_net, room_dest, slack_src, bad_b)
 
-    neg_slack = -slack_src
-    if repair_oracle:
-        v = net_viol(keep)
-        if _oracle_any(v):
-            admit_d = _prefix_admit_role(score, dest_b, d_dest, keep, cum_net, neg_slack,
-                                         room_dest, nb_sel)
-            keep = keep & (~v[dest_b] | admit_d)
+        if repair_oracle:
             v = net_viol(keep)
-            admit_s = _prefix_admit_role(score, src_b, d_src, keep, cum_net, neg_slack,
-                                         room_dest, nb_sel)
-            keep = keep & (~v[src_b] | admit_s)
-            v = net_viol(keep)
-            while _oracle_any(v):
-                keep = keep & ~v[src_b] & ~v[dest_b]
+            if _oracle_any(v):
+                admit_d = _prefix_admit_role(score, dest_b, d_dest, keep, cum_before,
+                                             neg_slack, room_dest, nb_sel)
+                keep = keep & (~v[dest_b] | admit_d)
                 v = net_viol(keep)
-        return keep, (rep_fired, lanes_live, kernels.bisect_depth(score.shape[0]))
-    v = net_viol(keep)
-    rep_fired = rep_fired + v.any().to(torch.int32)
-    for _ in range(2):
-        admit_d = kernels.prefix_cut_admit(score, dest_b, d_dest, keep, cum_net,
-                                           neg_slack, room_dest, nb_sel)
-        keep = keep & (~v[dest_b] | admit_d)
-        v = net_viol(keep)
-        admit_s = kernels.prefix_cut_admit(score, src_b, d_src, keep, cum_net,
-                                           neg_slack, room_dest, nb_sel)
-        keep = keep & (~v[src_b] | admit_s)
-        v = net_viol(keep)
-    any_left = v.any()
-    kk = score.shape[0]
-    safe2 = kernels.prefix_admit_safe(
-        torch.cat([score, score]), torch.cat([src_b, dest_b]),
-        torch.cat([d_src, d_dest], dim=0), torch.cat([keep, keep]),
-        cum_net, neg_slack, room_dest, nb_sel)
-    safe = safe2[:kk] & safe2[kk:]
-    if topic_on:
-        contribs = [leg_contrib(i, keep) for i in range(num_legs)]
-        safe_t = kernels.prefix_admit_safe(
-            torch.cat([score] * num_legs),
-            torch.cat([leg_keys[i] for i in range(num_legs)]),
-            torch.cat([torch.stack([d_rep[i], d_lead[i]], 1)
-                       for i in range(num_legs)], dim=0),
-            torch.cat(contribs), cum_tb, lo_tb, hi_tb, n_tb, "topic").reshape(num_legs, kk)
-        for i in range(num_legs):
-            safe = safe & (~contribs[i] | safe_t[i])
-    keep = torch.where(any_left, keep & safe, keep)
+                admit_s = _prefix_admit_role(score, src_b, d_src, keep, cum_before,
+                                             neg_slack, room_dest, nb_sel)
+                keep = keep & (~v[src_b] | admit_s)
+                v = net_viol(keep)
+                while _oracle_any(v):
+                    keep = keep & ~v[src_b] & ~v[dest_b]
+                    v = net_viol(keep)
+        else:
+            v = net_viol(keep)
+            rep_fired = rep_fired + v.any().to(torch.int32)
+            for _ in range(2):
+                admit_d = kernels.prefix_cut_admit(score, dest_b, d_dest, keep, cum_before,
+                                                   neg_slack, room_dest, nb_sel)
+                keep = keep & (~v[dest_b] | admit_d)
+                v = net_viol(keep)
+                admit_s = kernels.prefix_cut_admit(score, src_b, d_src, keep, cum_before,
+                                                   neg_slack, room_dest, nb_sel)
+                keep = keep & (~v[src_b] | admit_s)
+                v = net_viol(keep)
+            any_left = v.any()
+            safe2 = kernels.prefix_admit_safe(
+                torch.cat([score, score]), torch.cat([src_b, dest_b]),
+                torch.cat([d_src, d_dest], dim=0), torch.cat([keep, keep]),
+                cum_before, neg_slack, room_dest, nb_sel)
+            safe = safe2[:kk] & safe2[kk:]
+            if topic_on:
+                contribs = [leg_contrib(i, keep) for i in range(num_legs)]
+                safe_t = kernels.prefix_admit_safe(
+                    torch.cat([score] * num_legs),
+                    torch.cat([leg_keys[i] for i in range(num_legs)]),
+                    torch.cat([torch.stack([d_rep[i], d_lead[i]], 1)
+                               for i in range(num_legs)], dim=0),
+                    torch.cat(contribs), cum_tb, lo_tb, hi_tb, n_tb,
+                    "topic").reshape(num_legs, kk)
+                for i in range(num_legs):
+                    safe = safe & (~contribs[i] | safe_t[i])
+            keep = torch.where(any_left, keep & safe, keep)
+
+        keep_total = keep if first else keep_total | keep
+        if last:
+            continue  # the last round's bookkeeping has no reader
+        if first:
+            used_part = torch.zeros((num_partitions,), dtype=torch.bool, device=dev)
+            if disk_guard:
+                used_disks = tuple(torch.zeros((model.num_disks,), dtype=torch.bool,
+                                               device=dev) for _ in range(2))
+        selection.partition_claims(
+            keep, cand.partition, cand.partition2, num_partitions, used_part,
+            (cand.src_disk, cand.dest_disk) + used_disks if disk_guard else None)
+        cum_src = _accumulate(cum_src, d_src, src_b, keep, nb_sel)
+        cum_dest = _accumulate(cum_dest, d_dest, dest_b, keep, nb_sel)
+        if topic_on:
+            _, _, cum_rep, cum_lead = selection.topic_round_sums(keep, topic, nb_sel,
+                                                                 write_cum=True)
     if sel_idx is not None:
         full = torch.zeros((k_full,), dtype=torch.bool, device=dev)
-        full[sel_idx] = keep
-        keep = full
-    return keep, (rep_fired, lanes_live, kernels.bisect_depth(kk))
+        full[sel_idx] = keep_total
+        keep_total = full
+    return keep_total, (rep_fired, lanes_live, kernels.bisect_depth(kk))
 
 
 # ---------------------------------------------------------------------------
@@ -919,9 +941,6 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
     all_specs = (spec,) + tuple(prev_specs)
     for s in all_specs:
         kernels.require_supported(s)
-    if constraint.moves_per_broker_step > SUBROUNDS:
-        raise NotImplementedError("multi-round selection (moves_per_broker_step > "
-                                  f"{SUBROUNDS}) is not ported yet")
     arrays = BrokerArrays.for_specs(model, all_specs, mesh)
     num_sources = _goal_num_sources(spec, model, num_sources)
     inv = invariants
@@ -1005,7 +1024,10 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
         room_dest = torch.full_like(room_dest, _INF)
         slack_src = torch.full_like(slack_src, _INF)
         topic_budgets = None
+    # moves.per.step: up to ``subrounds`` actions per broker a round, in
+    # ceil(moves_per_broker_step / subrounds) rounds (``optimizer.py:1195-1196``).
     subrounds = min(SUBROUNDS, max(1, int(constraint.moves_per_broker_step)))
+    rounds = max(1, -(-int(constraint.moves_per_broker_step) // subrounds))
     nb_sel = frontier.bucket if frontier is not None else model.num_brokers
     compact_k = _lane_bucket(cand.k, nb_sel, subrounds)
     disk_guard = any(s.kind in INTRA_DISK_KINDS for s in all_specs)
@@ -1013,7 +1035,8 @@ def _step_select(model: TensorClusterModel, options: OptimizationOptions,
                                      topic_budgets, subrounds,
                                      has_swaps=spec.uses_swaps or spec.uses_intra_swaps,
                                      compact_k=compact_k, frontier=frontier,
-                                     disk_guard=disk_guard, repair_oracle=_repair_oracle())
+                                     disk_guard=disk_guard, repair_oracle=_repair_oracle(),
+                                     rounds=rounds)
     if not flight:
         return cand, keep, sel_stats
     offsets = [0]

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
            "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score",
-           "detector_scores", "flight_row", "band_accepts", "shard_combine", "step_graph")
+           "detector_scores", "flight_row", "band_accepts", "shard_combine", "selection",
+           "step_graph")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -77,6 +78,10 @@ _ENTRIES = {
     "flight_row": ("flight_row", "cc_flight_row", "ppippipppippipipi"),
     "band_accepts": ("band_accepts", "cc_band_accepts", "iii" + "p" * 10),
     "shard_combine": ("shard_combine", "cc_shard_combine", "ppiiipp"),
+    "select_mask": ("selection", "cc_select_mask", "i" * 6 + "p" * 25),
+    "topic_round_sums": ("selection", "cc_topic_round_sums", "i" * 4 + "p" * 14),
+    "net_viol": ("selection", "cc_net_viol", "i" + "p" * 6),
+    "partition_claims": ("selection", "cc_partition_claims", "iii" + "p" * 9),
     # The step graphs' executables: no kernels, no launch counts.
     "step_graph_build": ("step_graph", "cc_step_graph_build", "hpph"),
     "step_graph_launch": ("step_graph", "cc_step_graph_launch", "h"),
@@ -233,15 +238,23 @@ def on_cpu(t: torch.Tensor) -> bool:
 CAPTURE: Optional[Dict[str, tuple]] = None
 
 
+def _clone(a):
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, tuple):
+        return tuple(_clone(x) for x in a)
+    return a
+
+
 def record(name: str, args: tuple) -> None:
-    """Keep clones of ``args`` as kernel ``name``'s first inputs while a
-    capture dict is set.  Never during a CUDA-graph capture: cloning there
-    would record copies into the graph instead of taking them."""
+    """Keep clones of ``args`` (tensors inside tuples too) as kernel
+    ``name``'s first inputs while a capture dict is set.  Never during a
+    CUDA-graph capture: cloning there would record copies into the graph
+    instead of taking them."""
     if (CAPTURE is not None and name not in CAPTURE
             and not (torch.cuda.is_available()
                      and torch.cuda.is_current_stream_capturing())):
-        CAPTURE[name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                              for a in args)
+        CAPTURE[name] = _clone(args)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,8 @@ each wall printed, the median kept), and one more run under
 ``torch.profiler``: the device's busy share of the median wall, and the
 device ms a launch and in all of K1, ``segment_sum``, the row index, K3
 (by its kernels before and after its redesign), the ordered sum, K9's
-sweep, frontier mask and batch, and every sort kernel (chip_smoke.py's
-``profile_mid``); then K3, the ordered sum and K9's three calls on the
+sweep, frontier mask and batch, K4's four kernels, torch's ``index_add_``
+and every sort kernel (chip_smoke.py's ``profile_mid``); then K3, the ordered sum and K9's three calls on the
 large warm-up's first inputs (K9's also on chip_smoke.py's 7,000-broker
 fleet): device ms a call, one call between two events and a call in a
 replayed graph, and the ordered sum at the band
@@ -46,6 +46,8 @@ os.environ.setdefault("TEARDOWN_CUPTI", "0")
 os.environ.setdefault("DISABLE_CUPTI_LAZY_REINIT", "1")
 
 
+# torch's index_add_ kernels (the topic budgets' scatter-adds before K4b).
+INDEX_ADD = ("indexFunc",)
 # K3's device kernels before its redesign: the cut and the ordered
 # cumsum's three launches.
 PREFIX_CUT_BEFORE = ("prefix_cut_kernel", "scan_blocks_kernel", "block_totals_kernel",
@@ -135,12 +137,14 @@ def main(argv) -> int:
         # K3 by its kernels before and after its redesign (one tree has one
         # set), and every sort kernel of the solve ("ort": in "sort" and
         # "Sort" alike).
-        names = dict(cs.PROFILE_NAMES, prefix_cut_before=PREFIX_CUT_BEFORE, sorts=("ort",))
+        names = dict(cs.PROFILE_NAMES, prefix_cut_before=PREFIX_CUT_BEFORE, sorts=("ort",),
+                     index_add=INDEX_ADD)
         prof = cs.profile_mid(torch, solve, row["wall_s"], row["steps"], f"{label} {name}",
                               print, names)
         family = ("broker_aggregates", "segment_sum", "segment_row_index", "prefix_cut",
                   "prefix_cut_before", "ordered_sum", "stack_sweep", "frontier_active",
-                  "frontier_active_batch", "sorts")
+                  "frontier_active_batch", "sorts", "select_mask", "topic_round_sums",
+                  "net_viol", "partition_claims", "index_add")
         row.update(busy=prof["busy"], device_ms=prof["device_ms"],
                    device_ms_per_launch={k: prof["per_launch"].get(k) for k in family},
                    device_ms_total={k: prof["totals"].get(k) for k in family})

@@ -12,6 +12,9 @@
   port's.  (The 12-broker cluster is in test_torch_stack.py.)
 - Options of later slices raise instead of being ignored (``fused=True``
   only where it would pipeline the goals).
+- ``moves_per_broker_step=256`` (two selection rounds) on the grouped,
+  per-goal and pipelined paths: the same packed slots and placement as the
+  JAX package, and the port's ``verify_run``.
 """
 
 import dataclasses
@@ -33,8 +36,8 @@ from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingCons
 from cruise_control_tpu_torch.analyzer.goals.specs import GOAL_SPECS
 from cruise_control_tpu_torch.analyzer.state import OptimizationOptions
 from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-from tests.torch_port_helpers import (SPEC_6, check_like_jax, check_stack, clear_cruise_env,
-                                      to_torch)
+from tests.torch_port_helpers import (MULTI_ROUND_PATHS, SPEC_6, check_like_jax,
+                                      check_multi_round, check_stack, clear_cruise_env, to_torch)
 
 ENTRY_GOAL = "ReplicaDistributionGoal"
 ENTRY_PREV = ("RackAwareGoal", "DiskCapacityGoal")
@@ -127,11 +130,13 @@ def test_later_slice_options_raise(kwargs, monkeypatch):
         assert runs is not None and runs[1].warm == warm
 
 
-def test_multi_round_selection_raises():
-    tm = generate_cluster(ClusterSpec(**SPEC_6), device="cpu")
-    con = dataclasses.replace(BalancingConstraint.default(), moves_per_broker_step=256)
-    with pytest.raises(NotImplementedError, match="multi-round"):
-        topt.optimize(tm, ["ReplicaDistributionGoal"], constraint=con, device="cpu")
+@pytest.mark.parametrize("path", sorted(MULTI_ROUND_PATHS))
+def test_multi_round_selection(path, monkeypatch):
+    """``moves_per_broker_step=256``: two selection rounds of 128 lanes a
+    broker, on the grouped, per-goal and pipelined paths, as the JAX
+    package (300, three rounds: tests/test_torch_multi_round.py)."""
+    clear_cruise_env(monkeypatch)
+    check_multi_round(256, path)
 
 
 def test_hard_goal_failure_raises():

@@ -184,20 +184,27 @@ def check_stack(spec_kw):
     return jrun, trun
 
 
-def check_like_jax(spec_kw, goals, warm: bool = False, **kw):
+def check_like_jax(spec_kw, goals, warm: bool = False, constraint=None, **kw):
     """The port's ``optimize(**kw)`` does what the JAX package's does on the
     same call and cluster: it raises the same exception type, or it gives
     the same per-goal packed slots 0-7 and ``pipelined`` flags, the same
     run accounting and the same placement.  With ``warm`` both take a warm
-    start from the cluster itself (compatible, no seed mask).  Returns the
-    two runs, or None when both raised."""
+    start from the cluster itself (compatible, no seed mask); ``constraint``
+    (a dict) replaces those fields of each package's default
+    ``BalancingConstraint``.  Returns the two runs, or None when both
+    raised."""
+    from cruise_control_tpu.analyzer.balancing_constraint import BalancingConstraint as JaxBC
     from cruise_control_tpu.analyzer.state import WarmStart as JaxWarm
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
     from cruise_control_tpu_torch.analyzer.state import WarmStart
     jm = jax_generate(JaxSpec(**spec_kw))
     tm = to_torch(jm)
     jkw, tkw = dict(kw), dict(kw)
     if warm:
         jkw["warm_start"], tkw["warm_start"] = JaxWarm(prev_model=jm), WarmStart(prev_model=tm)
+    if constraint is not None:
+        jkw["constraint"] = dataclasses.replace(JaxBC.default(), **constraint)
+        tkw["constraint"] = dataclasses.replace(BalancingConstraint.default(), **constraint)
     try:
         jrun = jopt.optimize(jm, goals, raise_on_hard_failure=False, **jkw)
     except Exception as exc:  # the port must raise the same type
@@ -212,6 +219,30 @@ def check_like_jax(spec_kw, goals, warm: bool = False, **kw):
     for f in PLACEMENT:
         np.testing.assert_array_equal(getattr(trun.model, f).numpy(),
                                       np.asarray(getattr(jrun.model, f)), err_msg=f)
+    return jrun, trun
+
+
+# Multi-round selection (``moves_per_broker_step`` above 128) on each fused
+# path: a goal with swaps, then one with (topic, broker) budgets.
+MULTI_ROUND_GOALS = ["DiskUsageDistributionGoal", "TopicReplicaDistributionGoal"]
+MULTI_ROUND_PATHS = {"grouped": {}, "per-goal": {"fuse_group_size": 1},
+                     "pipelined": {"pipeline": True}}
+
+
+def check_multi_round(moves: int, path: str):
+    """``optimize(fused=True)`` on the 6-broker cluster with
+    ``moves_per_broker_step=moves`` on ``path``: ``check_like_jax`` (per goal
+    the same packed slots, so the same satisfied flags, and the same
+    placement), and the port's run passes its ``verify_run``."""
+    from cruise_control_tpu_torch.analyzer.balancing_constraint import BalancingConstraint
+    con = {"moves_per_broker_step": moves}
+    jrun, trun = check_like_jax(SPEC_6, MULTI_ROUND_GOALS, constraint=con, fused=True,
+                                **MULTI_ROUND_PATHS[path])
+    tm = to_torch(jax_generate(JaxSpec(**SPEC_6)))
+    verify_run(tm, trun, MULTI_ROUND_GOALS,
+               constraint=dataclasses.replace(BalancingConstraint.default(), **con),
+               proposals=tprops.diff(tm, trun.model))
+    assert sum(g.actions_applied for g in trun.goal_results) > 0
     return jrun, trun
 
 
