@@ -360,6 +360,14 @@ PROFILE_NAMES = {
     "topic_round_sums": ("topic_count_kernel", "topic_viol_kernel"),
     "net_viol": ("net_viol_kernel",),
     "partition_claims": ("claim_scatter_kernel", "claim_drop_kernel"),
+    # K4e (one kernel each), K6's top-k (a call is one to thirteen of its
+    # kernels, by its path: the count here is of its kernels, its device ms
+    # a call comes from phase 4) and K6's group rank (four kernels a call).
+    "select_legs": ("select_legs_kernel",),
+    "frontier_budgets": ("frontier_budgets_kernel",),
+    "top_k": ("topk_",),
+    "group_rank": ("rank_count_kernel", "rank_scan_kernel", "rank_scatter_kernel",
+                   "rank_count_above_kernel"),
 }
 
 KERNELS = {
@@ -415,6 +423,17 @@ KERNELS = {
                  "cruise_control_tpu/analyzer/optimizer.py:739"),
     "partition_claims": ("cruise_control_tpu_torch/csrc/selection.cu",
                          "cruise_control_tpu/analyzer/optimizer.py:649"),
+    # K4e, the leg build and the compaction's gathers (optimizer.py:514-580),
+    # and K6's top-k (every jax.lax.top_k: the compaction at optimizer.py:512,
+    # the builders at candidates.py:111-643) and group rank.
+    "select_legs": ("cruise_control_tpu_torch/csrc/selection.cu",
+                    "cruise_control_tpu/analyzer/optimizer.py:514"),
+    "frontier_budgets": ("cruise_control_tpu_torch/csrc/selection.cu",
+                         "cruise_control_tpu/analyzer/optimizer.py:521"),
+    "top_k": ("cruise_control_tpu_torch/csrc/top_k.cu",
+              "cruise_control_tpu/analyzer/candidates.py:111"),
+    "group_rank": ("cruise_control_tpu_torch/csrc/group_rank.cu",
+                   "cruise_control_tpu/analyzer/goals/kernels.py:791"),
 }
 # Kernels a path does not launch: the unfused path has no chunk gate and no
 # frontier count; only the pipelined path sweeps every goal's frontier (K9
@@ -563,6 +582,8 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log(f"mid unfused warm-up run: {time.monotonic() - t0:.2f} s")
     captured, cuda.CAPTURE = cuda.CAPTURE, None
+    # K4e's, K6 top-k's and group rank's forms, for phases 4 and 21.
+    new_inputs = {"mid": new_kernel_inputs(captured)}
     # (K1's plain path on the CPU builds no row index.)
     missing = [n for n in wrappers
                if n not in captured and n not in NOT_ON["unfused"] + EXECUTION_ONLY
@@ -586,6 +607,7 @@ def main(argv) -> int:
         torch.cuda.synchronize()
     finally:
         kept_large, cuda.CAPTURE = cuda.CAPTURE, None
+    new_inputs["large"] = new_kernel_inputs(kept_large)
     k8_early = {}
     if not rehearse:
         k8_early = {label: gated_off_replay(torch, graphs, model, goal, log, label,
@@ -650,6 +672,9 @@ def main(argv) -> int:
     # And phase 20's K15.
     k15_rows = check_k15(types.SimpleNamespace(torch=torch, np=np, log=log, dev=dev,
                                                rehearse=rehearse, timer=timer))
+    # K4e's, K6 top-k's and group rank's device ms a call on the warm-ups'
+    # inputs, for phase 21 (profiled here, before any graph of this script).
+    new_device = {} if rehearse else new_kernels_device_ms(torch, new_inputs, log)
 
     # 5. mid rung as the service runs it: fused, step graphs
     phase("mid fused")
@@ -1060,7 +1085,7 @@ def main(argv) -> int:
     # 21. K1, segment_sum's modes and their row index at each rung's shapes,
     # K3 and the ordered sum on every case, after every profiler session
     # (see the docstring)
-    phase("K1 family, K3, ordered sum, K9, K8's flight row, K4")
+    phase("K1 family, K3, ordered sum, K9, K8's flight row, K4, K4e, K6 top-k and group rank")
     for label in ("mid", "large", "xl250"):
         check_family_at(label)
     for name, r in check_k3(torch, np, log, timer, k3_inputs, rehearse).items():
@@ -1077,6 +1102,15 @@ def main(argv) -> int:
     for name, r in k4_rows.items():
         results[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                             "max_abs_err")}
+        family.setdefault(name, {}).update(
+            {k: v for k, v in r.items() if k not in results[name]},
+            launches_large_pipelined_256=multi_counts["pipelined"][name],
+            launches_large_per_goal_256=multi_counts["per-goal"][name])
+    new_rows = check_new_kernels(torch, np, log, timer, new_inputs, new_device, dev, rehearse)
+    del new_inputs
+    for name, r in new_rows.items():
+        results[name] = {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "max_abs_err", "device_ms", "shape")}
         family.setdefault(name, {}).update(
             {k: v for k, v in r.items() if k not in results[name]},
             launches_large_pipelined_256=multi_counts["pipelined"][name],
@@ -6615,6 +6649,406 @@ def check_k4(torch, np, log, timer, inputs, rehearse):
                 f"{'' if rehearse else ', a graph replay and into canary-guarded buffers'}; "
                 f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
                 f"bound {r['bound_ms']:.6f})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: K4e and K6's top-k and group rank against their plain twins
+# ---------------------------------------------------------------------------
+
+NEW_KERNELS = ("top_k", "select_legs", "frontier_budgets", "group_rank")
+# The form of each kernel whose numbers head its row in the kernels line:
+# the large pipelined warm-up's compaction, compacted leg build, frontier
+# budgets (with (topic, broker) budgets) and broker ranks.
+NEW_PRIMARY = {"top_k": "top_k[mask]", "select_legs": "select_legs[compact]",
+               "frontier_budgets": "frontier_budgets[frontier,topic]",
+               "group_rank": "group_rank[broker]"}
+
+
+def new_kernel_inputs(kept):
+    """The first inputs of each recorded form of K4e, K6 top-k and group
+    rank in ``kept`` (a capture dict)."""
+    return {n: a for n, a in kept.items() if n.split("[")[0] in NEW_KERNELS}
+
+
+def new_call(torch, name, args, plain=False):
+    """One call of a new kernel's wrapper (or, with ``plain``, its plain
+    twin) on recorded ``args``, as a flat tuple of output tensors (None
+    where an output is absent)."""
+    from cruise_control_tpu_torch.analyzer.actions import Candidates
+    from cruise_control_tpu_torch.analyzer.goals import kernels as gk
+    from cruise_control_tpu_torch.ops import order
+    from cruise_control_tpu_torch.ops import selection as sel
+    base = name.split("[")[0]
+    if base == "top_k":
+        if len(args) == 2:
+            return tuple((order.top_k_plain if plain else order.top_k)(*args))
+        x, mask, k = args
+        if not plain:
+            return tuple(order.masked_top_k(x, mask, k))
+        vals, idx = order.top_k_plain(torch.where(mask, x, -float("inf")), k)
+        return vals, idx, mask.sum(dtype=torch.int32)
+    if base == "select_legs":
+        cand = Candidates(*args[0])
+        return tuple((sel.select_legs_plain if plain else sel.select_legs)(cand, *args[1:]))
+    if base == "frontier_budgets":
+        out = (sel.frontier_budgets_plain if plain else sel.frontier_budgets)(*args)
+        return out[:3] + (out[3] or (None,) * 3) + out[4:]
+    group, key, num_groups, form = args
+    if plain:
+        return (gk.within_group_rank_plain(group, key),)
+    return (gk._within_group_rank(group, key, num_groups, form),)
+
+
+def _new_shape(name, args):
+    base = name.split("[")[0]
+    if base == "top_k":
+        return dict(n=args[0].shape[0], k=args[-1], dtype=str(args[0].dtype).split(".")[-1],
+                    mask=len(args) == 3)
+    if base == "select_legs":
+        return dict(K=args[2].shape[0], kc=args[2].shape[0] if args[1] is None
+                    else args[1].shape[0], nb=args[8], L=args[10],
+                    frontier=args[5] is not None)
+    if base == "frontier_budgets":
+        return dict(B=args[0].shape[0], nb=args[0].shape[0] if args[2] is None
+                    else args[2].shape[0], T=args[4] if args[3] is not None else None)
+    return dict(N=args[0].shape[0], S=args[2], form=args[3])
+
+
+def _new_bytes(torch, name, args):
+    """Bytes the function must move on these inputs: each input read once
+    where the lanes or rows need it (a gathered table's entries once each),
+    each distinct output written once (not the layouts' copies: K4e's
+    score copies, third slot and delta rows and (rep, lead) columns, and
+    ``hi_tb``'s copy of ``gain_rep`` beside a constant)."""
+    base = name.split("[")[0]
+    if base == "top_k":
+        n, k = args[0].shape[0], args[-1]
+        return n * 4 + (n + 4 if len(args) == 3 else 0) + k * 8
+    if base == "select_legs":
+        from cruise_control_tpu_torch.analyzer.actions import Candidates
+        from cruise_control_tpu_torch.ops import selection as sel
+        cand = Candidates(*args[0])
+        sel_idx, score, c_of_f, legs = args[1], args[2], args[5], args[10]
+        k_full = score.shape[0]
+        idx = (torch.arange(k_full, device=score.device) if sel_idx is None
+               else sel_idx.long().clamp(0, k_full - 1))
+        kc = idx.shape[0]
+        # score, eligible, lane; src, dest, partitions, disks; the 8 delta
+        # channels' 4 + 4 + 5 fields.
+        per_in = 4 + 1 + 4 + 6 * 4 + 32 + 20 + (4 if sel_idx is not None else 0)
+        # scores, eligible, 4 int fields, 2 slots, 2 lanes, 2 x 8 deltas.
+        per_out = 4 + 1 + 16 + 8 + 8 + 64
+        tables = 0
+        if c_of_f is not None:
+            brokers = torch.cat([cand.src[idx], cand.dest[idx]]).long()
+            tables += 4 * int(torch.unique(brokers.clamp(0, c_of_f.shape[0] - 1)).numel())
+        if legs:
+            num_r = args[6].shape[0]
+            per_in += 8 if legs == 2 else 12  # action_type, replica, dest_replica
+            # leg keys, rep, lead, non-zero flag, K2 key
+            per_out += legs * 17
+            at = cand.action_type[idx]
+            r1 = cand.replica[idx].long().clamp(0, num_r - 1)
+            reps, leads = [r1], [r1[(at == sel.ACTION_MOVE) | (at == sel.ACTION_SWAP)]]
+            if legs == 4:
+                r2 = cand.dest_replica[idx].long().clamp(0, num_r - 1)
+                reps.append(r2)
+                leads.append(r2[at == sel.ACTION_SWAP])
+            # replica_topic's and replica_is_leader's entries the lanes need
+            tables += 4 * int(torch.unique(torch.cat(reps)).numel()) + \
+                int(torch.unique(torch.cat(leads)).numel())
+        return kc * (per_in + per_out) + tables
+    if base == "frontier_budgets":
+        nb = args[0].shape[0] if args[2] is None else args[2].shape[0]
+        t_nb = args[4] * nb if args[3] is not None else 0
+        return nb * 64 + t_nb * 12 + nb * 96 + t_nb * 20 + (nb * 4 if args[2] is not None else 0)
+    return args[0].shape[0] * 12
+
+
+def _new_library(torch, name, args):
+    """One PyTorch call computing the same function, or None: ``torch.topk``
+    (ties in no given order) for the top-k; ``torch.sort`` of the (group,
+    key, row) order and ``cummax`` for the group rank."""
+    base = name.split("[")[0]
+    if base == "top_k":
+        x = args[0] if len(args) == 2 else torch.where(args[1], args[0], -float("inf"))
+        return lambda: torch.topk(x, args[-1])
+    if base == "group_rank":
+        group, key = args[0], args[1]
+        bits = (key + 0.0).view(torch.int32).long()
+        okey = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # value order
+        composite = group.long() * 2 ** 33 + (2 ** 32 - 1 - (okey + 2 ** 31))
+        starts = torch.arange(group.shape[0], device=group.device)
+        return lambda: (torch.sort(composite, stable=True), torch.cummax(starts, 0))
+    return None
+
+
+def new_kernels_device_ms(torch, inputs, log):
+    """Device ms a call of each recorded form at mid and large (every device
+    op of a call, ``device_ms_total``): {(rung, form): ms}."""
+    out = {}
+    for label, kept in inputs.items():
+        for name, args in kept.items():
+            out[(label, name)] = device_ms_total(torch, lambda: new_call(torch, name, args),
+                                                 log)
+    log(f"K4e, K6 top-k and group rank device ms a call: "
+        f"{ {f'{a} {b}': None if v is None else round(v, 5) for (a, b), v in out.items()} }")
+    return out
+
+
+def top_k_edges(torch, np, dev):
+    """Seeded top-k cases at the main path's shapes and on the edges."""
+    rng = np.random.default_rng(SEED)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    big = np.float32(1e30)
+    x = (rng.integers(1, 40, 65536) / 4).astype(np.float32)
+    zeros = rng.choice(np.array([0.0, -0.0, 1.0, -big], np.float32), 65536)
+    src = np.where(rng.random(100371) < 0.3, rng.standard_normal(100371), -big)
+    xl = np.where(rng.random(250863) < 0.2, rng.standard_normal(250863), -big)
+    ints = rng.integers(-2 ** 31, 2 ** 31 - 1, 9000, dtype=np.int64).astype(np.int32)
+    ints[:64] = np.iinfo(np.int32).min
+    return [
+        ("compaction 65,536 -> 32,768", (t(x), t(rng.random(65536) < 0.5), 32768)),
+        ("compaction, live below k", (t(x), t(rng.random(65536) < 0.1), 32768)),
+        ("compaction 65,536 -> 4,096", (t(x), t(rng.random(65536) < 0.5), 4096)),
+        ("k = n = 65,536, masked", (t(x), t(rng.random(65536) < 0.5), 65536)),
+        ("+0.0 / -0.0 / -big ties, masked", (t(zeros), t(rng.random(65536) < 0.7), 32768)),
+        ("sources 100,371 -> 800", (t(src.astype(np.float32)), 800)),
+        ("sources 250,863 -> 2,048", (t(xl.astype(np.float32)), 2048)),
+        ("matched 250,863 -> 32,768", (t(xl.astype(np.float32)), 32768)),
+        ("k = n = 7,000 int32 (room order)", (t(rng.integers(0, 60, 7000).astype(np.int32)),
+                                              7000)),
+        ("k = n = 200 int32", (t(rng.integers(-2, 9, 200).astype(np.int32)), 200)),
+        ("int32 with INT32_MIN ties", (t(ints), 3000)),
+        ("k = 1, n = 4,097", (t(rng.standard_normal(4097).astype(np.float32)), 1)),
+        ("every key equal", (t(np.full(10001, 2.5, np.float32)), 3000)),
+        ("every key -inf", (t(np.full(5000, -np.inf, np.float32)), 4097)),
+    ]
+
+
+def group_rank_edges(torch, np, dev):
+    """Seeded group-rank cases: the large rung's broker shape with a skewed
+    broker, one group of 20,000 rows, 40,000 pair groups over the xl250
+    rows, single-row groups, every key equal, signed-zero and -big ties."""
+    rng = np.random.default_rng(SEED + 1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    big = np.float32(1e30)
+    r = 100371
+    skew = np.where(rng.random(r) < 0.1, 7, rng.integers(0, 200, r)).astype(np.int32)
+    load = np.where(rng.random(r) < 0.4, rng.gamma(2.0, 1.0, r), -big).astype(np.float32)
+    return [
+        ("skewed: a tenth of 100,371 rows on one of 200 brokers", (t(skew), t(load), 200)),
+        ("one group of 20,000 rows", (t(np.zeros(20000, np.int32)),
+                                      t((rng.integers(0, 40, 20000) / 2).astype(np.float32)), 1)),
+        ("40,000 pair groups over 250,863 rows",
+         (t(rng.integers(0, 40000, 250863).astype(np.int32)),
+          t(np.where(rng.random(250863) < 0.5, 1.0, -big).astype(np.float32)), 40000)),
+        ("single-row groups", (t(rng.permutation(10000).astype(np.int32)),
+                               t(rng.standard_normal(10000).astype(np.float32)), 10000)),
+        ("every key equal", (t(rng.integers(0, 50, 10233).astype(np.int32)),
+                             t(np.full(10233, 3.0, np.float32)), 50)),
+        ("+0.0 / -0.0 / -big ties", (t(rng.integers(0, 50, 10233).astype(np.int32)),
+                                     t(rng.choice(np.array([0.0, -0.0, 1.0, -big],
+                                                           np.float32), 10233)), 50)),
+    ]
+
+
+def k4e_edges(torch, name, args):
+    """Seeded variants of a recorded K4e input: every zero delta negated to
+    -0.0 on the src rows, no compaction, no frontier, 0, 2 and 4 legs (leg
+    build); +inf budgets, zero slack and no frontier (budgets)."""
+    if name.startswith("select_legs"):
+        cand_f, sel_idx, score, elig, lane, c_of_f, rt, rl, nb, sub, legs = args
+        from cruise_control_tpu_torch.analyzer.actions import Candidates
+        cand = Candidates(*cand_f)
+        zero = dataclasses.replace(
+            cand, delta_src=torch.zeros_like(cand.delta_src),
+            delta_dest=torch.zeros_like(cand.delta_dest),
+            d_replica_count=torch.zeros_like(cand.d_replica_count),
+            d_leader_count=torch.zeros_like(cand.d_leader_count),
+            d_potential_nw_out=torch.zeros_like(cand.d_potential_nw_out),
+            d_leader_bytes_in_src=torch.zeros_like(cand.d_leader_bytes_in_src),
+            d_leader_bytes_in_dest=torch.zeros_like(cand.d_leader_bytes_in_dest))
+        zero_f = tuple(getattr(zero, f.name) for f in dataclasses.fields(zero))
+        rest = (score, elig, lane)
+        cases = [("zero deltas (-0.0 src rows)", (zero_f, sel_idx) + rest + args[5:]),
+                 ("no compaction", (cand_f, None) + rest + args[5:]),
+                 ("no frontier", (cand_f, sel_idx) + rest + (None,) + args[6:])]
+        cases += [(f"{n} legs", args[:10] + (n,)) for n in (0, 2, 4) if n != legs]
+        return cases
+    room, slack, foc, topic, num_t = args
+    inf = torch.full_like(room, float("inf"))
+    cases = [("+inf budgets", (inf, inf, foc, topic, num_t)),
+             ("zero slack (-0.0)", (room, torch.zeros_like(slack), foc, topic, num_t)),
+             ("no frontier", (room, slack, None, topic, num_t))]
+    if topic is not None:
+        cases.append(("+inf topic budgets", (room, slack, foc,
+                                            tuple(torch.full_like(b, float("inf"))
+                                                  for b in topic), num_t)))
+    return cases
+
+
+def _even(n):
+    return n + (n & 1)
+
+
+def guarded_new(torch, cuda, name, args):
+    """One launch of a new kernel through its C entry into outputs (and
+    scratch) that each lie between canary bands; raises if a band changed or
+    the outputs differ from the wrapper's."""
+    from cruise_control_tpu_torch.analyzer.actions import Candidates
+    from cruise_control_tpu_torch.ops import order
+    from cruise_control_tpu_torch.ops import selection as sel
+    base = name.split("[")[0]
+    dev = (args[0] if base != "select_legs" else args[2]).device
+    if base == "top_k":
+        x, k = args[0], args[-1]
+        mask = args[1] if len(args) == 3 else None
+        n, words = x.shape[0], order._top_k_work_words(x.shape[0], k)
+        buf, guard, views = canary_views(torch, dev, [_even(k), _even(k), 2, _even(max(words, 2))])
+        vals = views[0][:k].view(x.dtype)
+        idx, live = views[1][:k], views[2][:1].view(())
+        cuda.launch("top_k", n, k, int(x.dtype == torch.int32), x, mask, vals, idx,
+                    live if mask is not None else None, views[3][:words] if words else None,
+                    words)
+        got = (vals, idx) + ((live,) if mask is not None else ())
+    elif base == "group_rank":
+        group, key, num_groups = args[:3]
+        n = group.shape[0]
+        words = 3 * n + 2 * (num_groups + 1) + 1
+        buf, guard, views = canary_views(torch, dev, [_even(n), _even(words)])
+        out = views[0][:n]
+        cuda.launch("group_rank", n, num_groups, group, key, out, views[1][:words], words)
+        got = (out,)
+    elif base == "select_legs":
+        cand = Candidates(*args[0])
+        sel_idx, score, elig, lane, c_of_f, rt, rl, nb, sub, legs = args[1:]
+        k_full = score.shape[0]
+        kc = k_full if sel_idx is None else sel_idx.shape[0]
+        # The outputs' shapes, as the wrapper lays them out.
+        shapes = [(t.shape, t.dtype) for t in new_call(torch, name, args) if t is not None]
+        numels = [int(torch.Size(sh).numel()) for sh, _ in shapes]
+        sizes = [_even(-(-m // 4) if dt == torch.bool else m)
+                 for m, (_, dt) in zip(numels, shapes)]
+        buf, guard, views = canary_views(torch, dev, sizes)
+        outs = []
+        for v, m, (sh, dt) in zip(views, numels, shapes):
+            outs.append(v.view(torch.uint8)[:m].view(torch.bool).view(sh) if dt == torch.bool
+                        else v[:m].view(dt).view(sh))
+        outs += [None] * (16 - len(outs))
+        fields = [getattr(cand, f).contiguous() for f, _, _ in sel._LEG_FIELDS]
+        cuda.launch("select_legs", kc, k_full, nb, sub, legs,
+                    0 if c_of_f is None else c_of_f.shape[0], rt.shape[0], sel_idx, score, elig,
+                    lane, *fields, c_of_f, rt if legs else None, rl if legs else None, *outs)
+        got = tuple(outs)
+    else:
+        room, slack, foc, topic, num_t = args
+        nb_full = room.shape[0]
+        nb = nb_full if foc is None else foc.shape[0]
+        t_nb = num_t * nb if topic is not None else 0
+        sizes = [_even(nb * 8)] * 3 + ([_even(t_nb)] * 3 + [_even(2 * t_nb)] * 2
+                                       if topic is not None else [])
+        buf, guard, views = canary_views(torch, dev, sizes)
+        f32 = [v.view(torch.float32) for v in views]
+        b3 = tuple(f32[i][:nb * 8].view(nb, 8) for i in range(3))
+        t3 = tuple(f32[3 + i][:t_nb] for i in range(3)) if topic is not None else (None,) * 3
+        hl = tuple(f32[6 + i][:2 * t_nb].view(t_nb, 2) for i in range(2)) \
+            if topic is not None else (None, None)
+        cuda.launch("frontier_budgets", nb, nb_full, num_t, room, slack, foc,
+                    *(topic or (None,) * 3), *b3, *t3, *hl)
+        got = b3 + t3 + hl
+    torch.cuda.synchronize()
+    if not bool((buf[guard] == CANARY).all()):
+        raise RuntimeError(f"{name}: a launch wrote outside its buffers")
+    if not _exact(torch, got, new_call(torch, name, args)):
+        raise RuntimeError(f"{name}: the guarded launch differs from the wrapper's")
+
+
+def check_new_kernels(torch, np, log, timer, inputs, device, dev, rehearse):
+    """K4e (``select_legs``, ``frontier_budgets``), K6's top-k and group rank
+    on the inputs the mid and large warm-ups gave each of their forms (phase
+    3), on seeded variants of them (``k4e_edges``) and on seeded cases at the
+    main path's shapes and edges (``top_k_edges``, ``group_rank_edges``):
+    bit for bit against the plain twin on the card and on CPU copies,
+    identical over two launches and (the recorded forms and the seeded
+    cases) a graph replay, through ``guarded_new``; the recorded forms and
+    the seeded cases timed as one call (event ms) beside the plain twin, the
+    bound and one PyTorch call (``_new_library``), with their device ms a
+    call from phase 4.  Returns {kernel: row}: the numbers of its form in
+    ``NEW_PRIMARY`` at large, every other form's under ``forms``."""
+    from cruise_control_tpu_torch.ops import cuda
+
+    def cpu(x):
+        return _clone(torch, x, "cpu")
+
+    def hold(name, label, args, timed):
+        got = new_call(torch, name, args)
+        if not _exact(torch, got, new_call(torch, name, args)):
+            raise RuntimeError(f"{name} ({label}) differs between two launches")
+        if not _exact(torch, got, new_call(torch, name, args, plain=True)):
+            raise RuntimeError(f"{name} ({label}) differs from its plain twin")
+        if not _exact(torch, got, new_call(torch, name, cpu(args), plain=True)):
+            raise RuntimeError(f"{name} ({label}) differs from its plain twin on the CPU")
+        if not rehearse:
+            guarded_new(torch, cuda, name, args)
+            if timed and not _graph_replay_equal(torch, lambda: new_call(torch, name, args)):
+                raise RuntimeError(f"{name} ({label}): a graph replay differs from the eager "
+                                   "launch")
+        if not timed:
+            return None
+        library = _new_library(torch, name, args)
+        return {"shape": _new_shape(name, args),
+                "ms": timer(torch, lambda: new_call(torch, name, args)),
+                "plain_ms": timer(torch, lambda: new_call(torch, name, args, plain=True)),
+                "bound_ms": bound_ms(_new_bytes(torch, name, args)),
+                "library_ms": None if library is None else timer(torch, library),
+                "max_abs_err": 0.0}
+
+    forms, checked = {}, 0
+    how = "" if rehearse else ", over two launches, a graph replay and into canary-guarded " \
+        "buffers"
+    for label, kept in inputs.items():
+        for name, args in sorted(kept.items()):
+            r = hold(name, f"{label} warm-up", args, True)
+            r["device_ms"] = device.get((label, name))
+            forms[(label, name)] = r
+            checked += 1
+            if name.startswith(("select_legs", "frontier_budgets")):
+                for case, a in k4e_edges(torch, name, args):
+                    hold(name, f"{label} {case}", a, False)
+                    checked += 1
+            log(f"{name} at {label} {r['shape']}: bit for bit with its plain twin on the card "
+                f"and the CPU{how}; "
+                f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
+                f"bound {r['bound_ms']:.6f}, device a call {r['device_ms']})")
+    for name, cases in (("top_k[seeded]", top_k_edges(torch, np, dev)),
+                        ("group_rank[seeded]", group_rank_edges(torch, np, dev))):
+        for case, args in cases:
+            if name.startswith("group_rank"):
+                args = args + ("seeded",)
+            r = hold(name, case, args, True)
+            forms[("seeded", f"{name} {case}")] = r
+            checked += 1
+            log(f"{name} {case} {r['shape']}: bit for bit; {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound {r['bound_ms']:.6f})")
+    rows = {}
+    for base in NEW_KERNELS:
+        mine = {k: v for k, v in forms.items() if k[1].split("[")[0] == base}
+        if not mine:
+            raise RuntimeError(f"no recorded or seeded input of {base}")
+        primary = ("large", NEW_PRIMARY[base])
+        head = mine.get(primary) or mine.get(("large", base)) or next(iter(mine.values()))
+        rows[base] = dict(head, cases_checked=checked, forms={
+            f"{a} {b}": {k: v for k, v in r.items() if k != "max_abs_err"}
+            for (a, b), r in mine.items()})
+    log(f"K4e, K6 top-k and group rank: {checked} cases bit for bit")
     return rows
 
 

@@ -17,8 +17,9 @@ The matched-transport legs run kernel K6 (``csrc/transport_match.cu``) for
 their two non-library parts: ``transport_rank`` (each row's rank inside its
 group, from a stable sort's order) and ``transport_lookup`` (each slot's
 destination by a binary search of its window's prefix sums), with the plain
-twins ``transport_rank_plain`` and ``transport_lookup_plain``.  The sorts
-and top-k stay ``ops.order``.
+twins ``transport_rank_plain`` and ``transport_lookup_plain``.  Every top-k
+is K6's hand-written ``cc_top_k`` on the card (``csrc/top_k.cu``); the
+stable argsorts of the matched builders are still torch's sort.
 """
 
 from __future__ import annotations

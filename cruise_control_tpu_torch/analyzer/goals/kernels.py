@@ -17,7 +17,9 @@ broker against its band, ``_disk_limits``).
 - ``accepts`` — would this already-optimized goal veto the candidate.
 - ``score`` — improvement the candidate brings (> 0 required to apply).
 - ``source_pressure`` / ``dest_room`` / ``source_replica_relevance`` —
-  candidate-generation rankings.
+  candidate-generation rankings; ``_within_group_rank`` ranks the source
+  replicas within their broker or (topic, broker) pair (K6 group rank,
+  ``csrc/group_rank.cu``), with the plain twin ``within_group_rank_plain``.
 - ``goal_masks`` — per-candidate score and eligibility in one pass (K5,
   ``csrc/goal_masks.cu``), with the plain twin ``goal_masks_plain``.
 - ``stack_satisfied`` — every goal's satisfied flag and the offline flag in
@@ -1584,7 +1586,8 @@ def source_replica_relevance(spec: GoalSpec, model: TensorClusterModel,
         donor = under_exists[t] & (c > avg_t[t])
         relevant = over | donor
         pair = t * model.num_brokers + b
-        rank = _within_group_rank(pair, torch.where(relevant, c, -big))
+        rank = _within_group_rank(pair, torch.where(relevant, c, -big),
+                                  model.num_topics * model.num_brokers, "pair")
         overage = torch.where(over, c - upper_t[t], torch.clamp(c - avg_t[t], min=1.0))
         pnorm = pressure / pressure.abs().max().clamp(min=1e-9)
         base = torch.where(relevant,
@@ -1598,7 +1601,8 @@ def source_replica_relevance(spec: GoalSpec, model: TensorClusterModel,
         tiebreak = _replica_metric_contribution(spec, model)
         scale = tiebreak.abs().max().clamp(min=1e-9)
         rank = _within_group_rank(model.replica_broker,
-                                  torch.where(relevant, tiebreak, -big))
+                                  torch.where(relevant, tiebreak, -big), model.num_brokers,
+                                  "broker")
         pnorm = pressure / pressure.abs().max().clamp(min=1e-9)
         base = torch.where(relevant,
                            -rank.to(torch.float32) + 0.5 * pnorm + 1e-3 * tiebreak / scale,
@@ -1608,9 +1612,45 @@ def source_replica_relevance(spec: GoalSpec, model: TensorClusterModel,
     return torch.where(model.replica_valid, base, -big)
 
 
-def _within_group_rank(group: torch.Tensor, key_desc: torch.Tensor) -> torch.Tensor:
-    """i32[N] — each row's position among its group's rows when ordered by
-    descending ``key_desc`` (0 = group's best)."""
+@cuda.counted("group_rank")
+def _within_group_rank(group: torch.Tensor, key_desc: torch.Tensor, num_groups: int,
+                       form: str = "broker") -> torch.Tensor:
+    """K6 group rank.  Replaces ``cruise_control_tpu/analyzer/goals/
+    kernels.py:791-805`` ``_within_group_rank``: i32[N], each row's position
+    among its group's rows (``group`` i32[N], ids in [0, num_groups)) when
+    ordered by descending ``key_desc`` (f32[N], -0.0 equal to +0.0, not NaN;
+    ties to the lower row; 0 = the group's best).  ``form`` names the
+    grouping for ``cuda.record`` ("broker": S = B; "pair": S = T·B).  Bound
+    on the card: bytes (N·8 read, N·4 written).  CPU tensors take
+    ``within_group_rank_plain``; CUDA tensors launch ``cc_group_rank``: a
+    count of each group, a scan, an unordered scatter of (key, row)
+    composites into the groups' ranges and a count, a thread a row, of its
+    group's composites above its own (a block through shared memory when it
+    lies in one large group)."""
+    n = group.shape[0]
+    dev = group.device
+    cuda.check(group, "group", torch.int32, (n,), dev)
+    cuda.check(key_desc, "key_desc", torch.float32, (n,), dev)
+    if num_groups < 0:
+        raise ValueError(f"group rank: {num_groups} groups")
+    args = (group, key_desc, num_groups, form)
+    cuda.record("group_rank", args)
+    cuda.record(f"group_rank[{form}]", args)
+    if cuda.on_cpu(group):
+        return within_group_rank_plain(group, key_desc)
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    words = 3 * n + 2 * (num_groups + 1) + 1
+    work = torch.empty((words,), dtype=torch.int32, device=dev)
+    cuda.launch("group_rank", n, num_groups, group, key_desc, out, work, words)
+    _within_group_rank.launches += 1
+    return out
+
+
+def within_group_rank_plain(group: torch.Tensor, key_desc: torch.Tensor) -> torch.Tensor:
+    """``_within_group_rank``'s plain twin: the JAX package's lexsort, the
+    sorted groups' starts by ``cummax`` and the scatter back."""
     r = group.shape[0]
     ordr = order.lexsort2(-key_desc, group)
     g_sorted = group[ordr]

@@ -413,18 +413,6 @@ def _channel_metrics(arrays: BrokerArrays) -> torch.Tensor:
     ], dim=1)
 
 
-def _channel_deltas(cand: Candidates):
-    """(d_src f32[K, 8], d_dest f32[K, 8]) — per-candidate channel changes."""
-    dc = cand.d_replica_count.to(torch.float32)[:, None]
-    dl = cand.d_leader_count.to(torch.float32)[:, None]
-    dp = cand.d_potential_nw_out[:, None]
-    d_src = torch.cat([cand.delta_src, -dc, -dl, -dp,
-                       -cand.d_leader_bytes_in_src[:, None]], dim=1)
-    d_dest = torch.cat([cand.delta_dest, dc, dl, dp,
-                        cand.d_leader_bytes_in_dest[:, None]], dim=1)
-    return d_src, d_dest
-
-
 # Never evicted: the captured step graphs read these tensors by address, so
 # they must outlive every graph (a freed block would be reused under them).
 @functools.lru_cache(maxsize=None)
@@ -643,7 +631,11 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
                    frontier: Optional[FrontierInvariants] = None,
                    disk_guard: bool = False, repair_oracle: bool = False, rounds: int = 1):
     """(keep bool[K], sel_stats) — the JAX package's greedy multi-accept
-    selection in ``rounds`` rounds (``optimizer.py:592-871``).  Each round:
+    selection in ``rounds`` rounds (``optimizer.py:592-871``).  Once a step:
+    the live-lane compaction to ``compact_k`` lanes (K6 top-k,
+    ``order.masked_top_k``), then the compacted lanes' fields, broker slots,
+    channel deltas and (topic, broker) legs and the budgets on the
+    frontier's slots (K4e, ``ops/selection.py``).  Each round:
     its eligibility (K4a, ``ops/selection.py``), per-(broker, lane) and
     per-partition segment argmax passes (K2) and a swap round's claim
     (K4d), per-(topic, broker) key lanes, then the bounded-depth exact
@@ -685,76 +677,43 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
     lanes_live = torch.zeros((), dtype=torch.int32, device=dev)
     rep_fired = torch.zeros((), dtype=torch.int32, device=dev)
     if compact_k is not None and compact_k < k_full:
-        lanes_live = eligible.sum(dtype=torch.int32)
-        _, sel_idx = order.top_k(torch.where(eligible, score, -_INF), compact_k)
-        cand = cgen.take_candidates(cand, sel_idx)
-        score = score[sel_idx]
-        eligible = eligible[sel_idx]
-        lane = lane[sel_idx]
+        _, sel_idx, lanes_live = order.masked_top_k(score, eligible, compact_k)
+    topic_on = topic_budgets is not None
+    num_legs = (4 if has_swaps else 2) if topic_on else 0
     if frontier is not None:
         nb_sel = frontier.bucket
-        c_of_f = torch.clamp(frontier.compact_of_full, min=0)
-        src_b = c_of_f[cand.src]
-        dest_b = c_of_f[cand.dest]
-        gather = torch.clamp(frontier.full_of_compact, min=0)
-        room_dest = room_dest[gather]
-        slack_src = slack_src[gather]
-        if topic_budgets is not None:
-            topic_budgets = tuple(
-                b.reshape(model.num_topics, num_brokers)[:, gather].reshape(-1)
-                for b in topic_budgets)
+        c_of_f, full_of_c = frontier.compact_of_full, frontier.full_of_compact
     else:
         nb_sel = num_brokers
-        src_b, dest_b = cand.src, cand.dest
-    src_lane = src_b * subrounds + lane
-    dest_lane = dest_b * subrounds + lane
-    d_src, d_dest = _channel_deltas(cand)
-    topic_on = topic_budgets is not None
-    fzero = torch.zeros((), dtype=torch.float32, device=dev)
+        c_of_f = full_of_c = None
+    # K4e: the compacted lanes' fields, slots, deltas and legs (one launch),
+    # and the budgets on the frontier's slots (one launch).
+    lg = selection.select_legs(cand, sel_idx, score, eligible, lane, c_of_f,
+                               model.replica_topic, model.replica_is_leader, nb_sel,
+                               subrounds, num_legs)
+    budgets = selection.frontier_budgets(room_dest, slack_src, full_of_c, topic_budgets,
+                                         model.num_topics)
+    room_dest, slack_src, neg_slack, topic_budgets, hi_tb, lo_tb = budgets
+    kk = lg.kc
+    score, eligible = lg.lane_score, lg.eligible
+    src_b, dest_b, src_lane, dest_lane = lg.src_b, lg.dest_b, lg.src_lane, lg.dest_lane
+    d_src, d_dest = lg.d_src, lg.d_dest
+    partition, partition2 = lg.partition, lg.partition2
+    disks = (lg.src_disk, lg.dest_disk)
     if topic_on:
         gain_rep, shed_rep, shed_lead = topic_budgets
         n_tb = model.num_topics * nb_sel
-        t1 = model.replica_topic[cand.replica]
-        safe_r2 = torch.where(cand.dest_replica >= 0, cand.dest_replica, 0)
-        t2 = model.replica_topic[safe_r2]
-        moves_tb = cand.is_move() | cand.is_swap()
-        swap = cand.is_swap()
-        lead1 = (cand.is_leadership() |
-                 (moves_tb & model.replica_is_leader[cand.replica])).to(torch.float32)
-        if has_swaps:
-            same_t = swap & (t1 == t2)
-            rep1 = torch.where(same_t, fzero, moves_tb.to(torch.float32))
-            rep2 = torch.where(same_t, fzero, swap.to(torch.float32))
-            leg_keys = torch.stack([t1 * nb_sel + src_b, t1 * nb_sel + dest_b,
-                                    t2 * nb_sel + dest_b, t2 * nb_sel + src_b])
-            d_rep = torch.stack([-rep1, rep1, -rep2, rep2])
-            lead2 = (swap & model.replica_is_leader[safe_r2]).to(torch.float32)
-            l1 = torch.where(same_t, lead1 - lead2, lead1)
-            l2 = torch.where(same_t, fzero, lead2)
-            d_lead = torch.stack([-l1, l1, -l2, l2])
-        else:
-            mv = moves_tb.to(torch.float32)
-            leg_keys = torch.stack([t1 * nb_sel + src_b, t1 * nb_sel + dest_b])
-            d_rep = torch.stack([-mv, mv])
-            d_lead = torch.stack([-lead1, lead1])
-        num_legs = leg_keys.shape[0]
-        hi_tb = torch.stack([gain_rep, torch.full_like(gain_rep, _INF)], 1)
-        lo_tb = torch.stack([-shed_rep, -shed_lead], 1)
-        nl = 16
-        lane_tb = lane % nl
+        leg_keys, d_rep, d_lead = lg.leg_keys, lg.d_rep, lg.d_lead
+        nl = selection.LEG_LANES
 
         def legs(cum_rep, cum_lead):
             return (leg_keys, d_rep, d_lead, gain_rep, shed_rep, shed_lead, cum_rep, cum_lead)
 
-        def leg_contrib(i, k):
-            return k & ((d_rep[i] != 0.0) | (d_lead[i] != 0.0))
-
     # Per-broker sums of a round's kept deltas, dest legs then src legs, in
-    # lane order (fixed-order on the card: no float atomics).
-    d_both = torch.cat([d_dest, d_src], dim=0)
-    seg_both = torch.cat([dest_b, src_b])
-    neg_slack = -slack_src
-    kk = score.shape[0]
+    # lane order (fixed-order on the card: no float atomics); the safe
+    # admit's rows, src legs then dest legs.
+    d_both, seg_both = lg.d_both, lg.seg_both
+    d_safe, seg_safe = lg.d_safe, lg.seg_safe
     # The step's cross-round state: None until round 1's bookkeeping (the
     # JAX package's round-1 specialisation; one round never makes it).
     keep_total = used_part = used_disks = cum_src = cum_dest = None
@@ -766,20 +725,19 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
         topic = legs(cum_rep, cum_lead) if topic_on else None
         elig = selection.select_mask(
             eligible, d_src, d_dest, src_b, dest_b, room_dest, slack_src, cum_net, topic,
-            None if first else (keep_total, used_part, cand.partition, cand.partition2),
-            None if first or not disk_guard else (cand.src_disk, cand.dest_disk) + used_disks)
+            None if first else (keep_total, used_part, partition, partition2),
+            None if first or not disk_guard else disks + used_disks)
         keep = _best_per_segment(score, src_lane, nb_sel * subrounds, elig)
         keep = _best_per_segment(score, dest_lane, nb_sel * subrounds, keep)
-        keep = _best_per_segment(score, cand.partition, num_partitions, keep)
+        keep = _best_per_segment(score, partition, num_partitions, keep)
         if has_swaps:
-            keep = _best_per_segment(score, cand.partition2, num_partitions, keep)
-            keep = selection.partition_claims(keep, cand.partition, cand.partition2,
-                                              num_partitions)
+            keep = _best_per_segment(score, partition2, num_partitions, keep)
+            keep = selection.partition_claims(keep, partition, partition2, num_partitions)
         if disk_guard:
-            touches = cand.dest_disk >= 0
-            kd = _best_per_segment(score, cand.src_disk.clamp(min=0), model.num_disks,
+            touches = lg.dest_disk >= 0
+            kd = _best_per_segment(score, lg.src_disk.clamp(min=0), model.num_disks,
                                    keep & touches)
-            kd = _best_per_segment(score, cand.dest_disk.clamp(min=0), model.num_disks, kd)
+            kd = _best_per_segment(score, lg.dest_disk.clamp(min=0), model.num_disks, kd)
             keep = (keep & ~touches) | kd
         # The prefix cuts take the cumulative sums as tensors.
         cum_before = (torch.zeros((nb_sel, NUM_CHANNELS), dtype=torch.float32, device=dev)
@@ -787,8 +745,8 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
 
         if topic_on:
             for i in range(num_legs):
-                contrib = leg_contrib(i, keep)
-                sel = _best_per_segment(score, leg_keys[i] * nl + lane_tb, n_tb * nl, contrib)
+                contrib = keep & lg.leg_nz[i]
+                sel = _best_per_segment(score, lg.leg_lane_keys[i], n_tb * nl, contrib)
                 keep = keep & (~contrib | sel)
             cum_tb = (torch.zeros_like(hi_tb) if first
                       else torch.stack([cum_rep, cum_lead], 1))
@@ -796,18 +754,16 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
             if repair_oracle:
                 if _oracle_any(vt):
                     for i in range(num_legs):
-                        contrib = leg_contrib(i, keep)
-                        admit = _prefix_admit_role(
-                            score, leg_keys[i], torch.stack([d_rep[i], d_lead[i]], 1),
-                            contrib, cum_tb, lo_tb, hi_tb, n_tb)
+                        contrib = keep & lg.leg_nz[i]
+                        admit = _prefix_admit_role(score, leg_keys[i], lg.d_rl[i], contrib,
+                                                   cum_tb, lo_tb, hi_tb, n_tb)
                         keep = keep & (~(contrib & vt[leg_keys[i]]) | admit)
             else:
                 rep_fired = rep_fired + vt.any().to(torch.int32)
                 for i in range(num_legs):
-                    contrib = leg_contrib(i, keep)
-                    admit = kernels.prefix_cut_admit(
-                        score, leg_keys[i], torch.stack([d_rep[i], d_lead[i]], 1),
-                        contrib, cum_tb, lo_tb, hi_tb, n_tb, "topic")
+                    contrib = keep & lg.leg_nz[i]
+                    admit = kernels.prefix_cut_admit(score, leg_keys[i], lg.d_rl[i], contrib,
+                                                     cum_tb, lo_tb, hi_tb, n_tb, "topic")
                     keep = keep & (~(contrib & vt[leg_keys[i]]) | admit)
 
         def net_viol(k):
@@ -843,21 +799,16 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
                 v = net_viol(keep)
             any_left = v.any()
             safe2 = kernels.prefix_admit_safe(
-                torch.cat([score, score]), torch.cat([src_b, dest_b]),
-                torch.cat([d_src, d_dest], dim=0), torch.cat([keep, keep]),
+                lg.safe_score, seg_safe, d_safe, torch.cat([keep, keep]),
                 cum_before, neg_slack, room_dest, nb_sel)
             safe = safe2[:kk] & safe2[kk:]
             if topic_on:
-                contribs = [leg_contrib(i, keep) for i in range(num_legs)]
+                contribs = keep[None, :] & lg.leg_nz
                 safe_t = kernels.prefix_admit_safe(
-                    torch.cat([score] * num_legs),
-                    torch.cat([leg_keys[i] for i in range(num_legs)]),
-                    torch.cat([torch.stack([d_rep[i], d_lead[i]], 1)
-                               for i in range(num_legs)], dim=0),
-                    torch.cat(contribs), cum_tb, lo_tb, hi_tb, n_tb,
+                    lg.leg_score, leg_keys.reshape(-1), lg.d_rl.reshape(-1, 2),
+                    contribs.reshape(-1), cum_tb, lo_tb, hi_tb, n_tb,
                     "topic").reshape(num_legs, kk)
-                for i in range(num_legs):
-                    safe = safe & (~contribs[i] | safe_t[i])
+                safe = safe & (~contribs | safe_t).all(dim=0)
             keep = torch.where(any_left, keep & safe, keep)
 
         keep_total = keep if first else keep_total | keep
@@ -868,9 +819,8 @@ def select_batched(score: torch.Tensor, cand: Candidates, eligible: torch.Tensor
             if disk_guard:
                 used_disks = tuple(torch.zeros((model.num_disks,), dtype=torch.bool,
                                                device=dev) for _ in range(2))
-        selection.partition_claims(
-            keep, cand.partition, cand.partition2, num_partitions, used_part,
-            (cand.src_disk, cand.dest_disk) + used_disks if disk_guard else None)
+        selection.partition_claims(keep, partition, partition2, num_partitions, used_part,
+                                   disks + used_disks if disk_guard else None)
         cum_src = _accumulate(cum_src, d_src, src_b, keep, nb_sel)
         cum_dest = _accumulate(cum_dest, d_dest, dest_b, keep, nb_sel)
         if topic_on:

@@ -1,9 +1,16 @@
-// K4 — the selection glue of select_batched: four kernels.
+// K4 — the selection glue of select_batched: six kernels.
 //
-// Replace the elementwise and scatter passes between K2's and K3's launches
-// in every round of cruise_control_tpu/analyzer/optimizer.py:410-871
-// select_batched (the wrappers and plain twins: ops/selection.py):
+// Replace the elementwise, gather and scatter passes of
+// cruise_control_tpu/analyzer/optimizer.py:410-871 select_batched around
+// K2's and K3's launches (the wrappers and plain twins: ops/selection.py):
 //
+//   cc_select_legs       (K4e, :514-580)  once a step, after the live-lane
+//                        compaction: the compacted lanes' fields, broker
+//                        slots, subround keys, channel deltas and (topic,
+//                        broker) legs, in the layouts the rounds read;
+//   cc_frontier_budgets  (K4e, :521-531)  the broker and (topic, broker)
+//                        budgets gathered onto the frontier's slots, with
+//                        K3's bounds of the topic cuts;
 //   cc_select_mask       (K4a, :584-587, 599-637)  a round's eligibility;
 //   cc_topic_round_sums  (K4b, :671-682, 745-749, 859-860)  the kept legs'
 //                        (topic, broker) sums, their budget test and its
@@ -13,20 +20,23 @@
 //   cc_partition_claims  (K4d, :645-652, 851-864)  kept lanes OR-scattered
 //                        onto their partitions (and disks).
 //
-// Exactness: every output is a bool or an integer-valued float, and the
-// card equals the plain twin bit for bit.  Budget tests add a cumulative sum
-// and a delta with __fadd_rn, form `bound + eps` and `-bound - eps` with
-// __fadd_rn / __fsub_rn and compare in f32, as torch does (no contraction:
-// nothing here is a product).  K4b's deltas are -1, 0 or +1: a key's sum is
-// an integer of at most K * L in size, so it is summed in int32 atomics,
-// exact in any order, and converted to f32 once; the JAX package's float
-// scatter-add of the same integers is exact too, so the two are equal.  No
-// float atomic anywhere, and an unkept lane's legs are never visited.
+// Exactness: every output is a bool, an integer, a gathered float or its
+// sign flip (negation, never `0 - x`: -0.0 stays -0.0), or an
+// integer-valued float, and the card equals the plain twin bit for bit.
+// Budget tests add a cumulative sum and a delta with __fadd_rn, form
+// `bound + eps` and `-bound - eps` with __fadd_rn / __fsub_rn and compare in
+// f32, as torch does (no contraction: nothing here is a product).  K4b's
+// deltas are -1, 0 or +1: a key's sum is an integer of at most K * L in
+// size, so it is summed in int32 atomics, exact in any order, and converted
+// to f32 once; the JAX package's float scatter-add of the same integers is
+// exact too, so the two are equal.  No float atomic anywhere, and an unkept
+// lane's legs are never visited.
 //
-// Bound on the card: bytes in all four (a lane's 72 bytes of deltas and a
-// few indices; a key's budgets), and at the main path's shapes (K <= 65,536
-// lanes, n_tb = 20,000 keys, nb <= 200 brokers) each launch moves well under
-// 10 MB, so each is launch-bound: one thread a lane, a key or a broker, no
+// Bound on the card: bytes in all six (a lane's 72 bytes of deltas and a
+// few indices; a key's budgets; K4e's gathers and its writes of the legs),
+// and at the main path's shapes (K <= 65,536 lanes, n_tb = 20,000 keys,
+// nb <= 200 brokers) each launch moves well under 10 MB, so each is
+// launch-bound: one thread a lane, a key or a broker, no
 // shared memory.
 
 #include <cuda_runtime.h>
@@ -228,6 +238,178 @@ __global__ void claim_drop_kernel(int64_t k, int64_t num_parts,
   out[i] = kept ? 1 : 0;
 }
 
+
+// ---------------------------------------------------------------------------
+// K4e: the leg build and the compaction gathers, one thread a compacted lane
+// (through sel_idx, or the identity when nothing is compacted).  Layouts:
+// score_out holds max(2, legs) copies of the lanes' scores (K3's safe
+// admits read 2 or `legs` of them back to back); seg3 is [dest_b; src_b;
+// dest_b] and d3 the same rows of channel deltas (f32[3 kc, 8]), so that
+// the round sums read [dest; src] and the safe admit [src; dest] as views;
+// the legs are [legs, kc] (d_rl: [legs, kc, 2], K3's (rep, lead) columns).
+// ---------------------------------------------------------------------------
+// analyzer/actions.py ActionType
+constexpr int32_t kMove = 0, kLeadership = 1, kSwap = 3;
+constexpr int32_t kLegLanes = 16;  // K2's subround lanes of a (topic, broker) key
+
+__device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);  // the JAX package's gather
+}
+
+__global__ void select_legs_kernel(
+    int64_t kc, int64_t k_full, int64_t nb_sel, int64_t subrounds, int64_t legs,
+    int64_t num_brokers, int64_t num_replicas, const int32_t* __restrict__ sel_idx,
+    const float* __restrict__ score, const uint8_t* __restrict__ eligible,
+    const int32_t* __restrict__ lane, const int32_t* __restrict__ action_type,
+    const int32_t* __restrict__ replica, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ dest, const int32_t* __restrict__ dest_replica,
+    const int32_t* __restrict__ partition, const int32_t* __restrict__ partition2,
+    const int32_t* __restrict__ src_disk, const int32_t* __restrict__ dest_disk,
+    const float* __restrict__ delta_src, const float* __restrict__ delta_dest,
+    const int32_t* __restrict__ d_replica_count, const int32_t* __restrict__ d_leader_count,
+    const float* __restrict__ d_pnw, const float* __restrict__ d_lbi_src,
+    const float* __restrict__ d_lbi_dest, const int32_t* __restrict__ compact_of_full,
+    const int32_t* __restrict__ replica_topic, const uint8_t* __restrict__ replica_is_leader,
+    float* __restrict__ score_out, uint8_t* __restrict__ elig_out,
+    int32_t* __restrict__ part_out, int32_t* __restrict__ part2_out,
+    int32_t* __restrict__ sdisk_out, int32_t* __restrict__ ddisk_out,
+    int32_t* __restrict__ seg3, int32_t* __restrict__ src_lane_out,
+    int32_t* __restrict__ dest_lane_out, float* __restrict__ d3,
+    int32_t* __restrict__ leg_keys, float* __restrict__ d_rep, float* __restrict__ d_lead,
+    float* __restrict__ d_rl, uint8_t* __restrict__ leg_nz,
+    int32_t* __restrict__ leg_lane_keys) {
+  const int64_t j = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (j >= kc) return;
+  const int64_t i = sel_idx != nullptr ? clamp_index(sel_idx[j], k_full) : j;
+  const float sc = score[i];
+  const int64_t copies = legs > 2 ? legs : 2;
+  for (int64_t c = 0; c < copies; ++c) score_out[c * kc + j] = sc;
+  elig_out[j] = eligible[i];
+  part_out[j] = partition[i];
+  part2_out[j] = partition2[i];
+  sdisk_out[j] = src_disk[i];
+  ddisk_out[j] = dest_disk[i];
+  int32_t sb = src[i], db = dest[i];
+  if (compact_of_full != nullptr) {
+    sb = max(compact_of_full[clamp_index(sb, num_brokers)], 0);
+    db = max(compact_of_full[clamp_index(db, num_brokers)], 0);
+  }
+  seg3[j] = db;
+  seg3[kc + j] = sb;
+  seg3[2 * kc + j] = db;
+  const int32_t ln = lane[i];
+  src_lane_out[j] = sb * static_cast<int32_t>(subrounds) + ln;
+  dest_lane_out[j] = db * static_cast<int32_t>(subrounds) + ln;
+  float dd[kChannels], ds[kChannels];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    dd[r] = delta_dest[i * 4 + r];
+    ds[r] = delta_src[i * 4 + r];
+  }
+  const float dc = static_cast<float>(d_replica_count[i]);
+  const float dl = static_cast<float>(d_leader_count[i]);
+  const float dp = d_pnw[i];
+  dd[4] = dc;
+  dd[5] = dl;
+  dd[6] = dp;
+  dd[7] = d_lbi_dest[i];
+  ds[4] = -dc;
+  ds[5] = -dl;
+  ds[6] = -dp;
+  ds[7] = -d_lbi_src[i];
+#pragma unroll
+  for (int r = 0; r < kChannels; ++r) {
+    d3[j * kChannels + r] = dd[r];
+    d3[(kc + j) * kChannels + r] = ds[r];
+    d3[(2 * kc + j) * kChannels + r] = dd[r];
+  }
+  if (legs == 0) return;
+  const int32_t at = action_type[i];
+  const bool moves_tb = at == kMove || at == kSwap, swap = at == kSwap;
+  const int64_t r1 = clamp_index(replica[i], num_replicas);
+  const int32_t t1 = replica_topic[r1];
+  const int32_t nb = static_cast<int32_t>(nb_sel);
+  const float lead1 = (at == kLeadership || (moves_tb && replica_is_leader[r1] != 0)) ? 1.0f
+                                                                                       : 0.0f;
+  int32_t key[4];
+  float rep[4], ld[4];
+  key[0] = t1 * nb + sb;
+  key[1] = t1 * nb + db;
+  if (legs == 4) {
+    const int32_t dr = dest_replica[i];
+    const int64_t r2 = clamp_index(dr >= 0 ? dr : 0, num_replicas);
+    const int32_t t2 = replica_topic[r2];
+    const bool same_t = swap && t1 == t2;
+    const float rep1 = same_t ? 0.0f : (moves_tb ? 1.0f : 0.0f);
+    const float rep2 = same_t ? 0.0f : (swap ? 1.0f : 0.0f);
+    const float lead2 = (swap && replica_is_leader[r2] != 0) ? 1.0f : 0.0f;
+    const float l1 = same_t ? __fsub_rn(lead1, lead2) : lead1;
+    const float l2 = same_t ? 0.0f : lead2;
+    key[2] = t2 * nb + db;
+    key[3] = t2 * nb + sb;
+    rep[0] = -rep1;
+    rep[1] = rep1;
+    rep[2] = -rep2;
+    rep[3] = rep2;
+    ld[0] = -l1;
+    ld[1] = l1;
+    ld[2] = -l2;
+    ld[3] = l2;
+  } else {
+    const float mv = moves_tb ? 1.0f : 0.0f;
+    rep[0] = -mv;
+    rep[1] = mv;
+    ld[0] = -lead1;
+    ld[1] = lead1;
+  }
+  const int32_t lane_tb = ln % kLegLanes;
+  for (int64_t l = 0; l < legs; ++l) {
+    const int64_t o = l * kc + j;
+    leg_keys[o] = key[l];
+    d_rep[o] = rep[l];
+    d_lead[o] = ld[l];
+    d_rl[2 * o] = rep[l];
+    d_rl[2 * o + 1] = ld[l];
+    leg_nz[o] = (rep[l] != 0.0f || ld[l] != 0.0f) ? 1 : 0;
+    leg_lane_keys[o] = key[l] * kLegLanes + lane_tb;
+  }
+}
+
+// K4e's budgets: one thread a (slot, channel) of the broker budgets and a
+// (topic, slot) key of the topic budgets.
+__global__ void frontier_budgets_kernel(
+    int64_t nb_sel, int64_t num_brokers, int64_t num_topics, const float* __restrict__ room,
+    const float* __restrict__ slack, const int32_t* __restrict__ full_of_compact,
+    const float* __restrict__ gain_rep, const float* __restrict__ shed_rep,
+    const float* __restrict__ shed_lead, float* __restrict__ room_out,
+    float* __restrict__ slack_out, float* __restrict__ neg_slack_out,
+    float* __restrict__ gain_out, float* __restrict__ shed_out, float* __restrict__ lead_out,
+    float* __restrict__ hi_tb, float* __restrict__ lo_tb) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  auto gather = [&](int64_t c) -> int64_t {
+    return full_of_compact != nullptr
+               ? clamp_index(max(full_of_compact[c], 0), num_brokers) : c;
+  };
+  if (t < nb_sel * kChannels) {
+    const int64_t at = gather(t / kChannels) * kChannels + t % kChannels;
+    const float s = slack[at];
+    room_out[t] = room[at];
+    slack_out[t] = s;
+    neg_slack_out[t] = -s;
+  }
+  if (gain_rep != nullptr && t < num_topics * nb_sel) {
+    const int64_t at = (t / nb_sel) * num_brokers + gather(t % nb_sel);
+    const float g = gain_rep[at], s = shed_rep[at], l = shed_lead[at];
+    gain_out[t] = g;
+    shed_out[t] = s;
+    lead_out[t] = l;
+    hi_tb[2 * t] = g;
+    hi_tb[2 * t + 1] = INFINITY;
+    lo_tb[2 * t] = -s;
+    lo_tb[2 * t + 1] = -l;
+  }
+}
+
 }  // namespace
 
 // A null cum_net: round 1.  A null gain_rep: no topic budgets (the other
@@ -307,5 +489,59 @@ extern "C" int cc_partition_claims(int64_t k, int64_t num_parts, int64_t num_dis
   if (claim_round)
     claim_drop_kernel<<<blocks_for(k), kThreads, 0, stream>>>(k, num_parts, keep, partition,
                                                               partition2, claims, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4e.  sel_idx null: no compaction (kc == k_full).  compact_of_full null:
+// no frontier (the broker ids are the slots; num_brokers unread).  legs 0: no (topic, broker)
+// budgets (replica_topic, replica_is_leader and the leg outputs unread);
+// else 2 or 4 (swaps).
+extern "C" int cc_select_legs(
+    int64_t kc, int64_t k_full, int64_t nb_sel, int64_t subrounds, int64_t legs,
+    int64_t num_brokers, int64_t num_replicas, const int32_t* sel_idx, const float* score,
+    const uint8_t* eligible, const int32_t* lane, const int32_t* action_type,
+    const int32_t* replica, const int32_t* src, const int32_t* dest,
+    const int32_t* dest_replica, const int32_t* partition, const int32_t* partition2,
+    const int32_t* src_disk, const int32_t* dest_disk, const float* delta_src,
+    const float* delta_dest, const int32_t* d_replica_count, const int32_t* d_leader_count,
+    const float* d_pnw, const float* d_lbi_src, const float* d_lbi_dest,
+    const int32_t* compact_of_full, const int32_t* replica_topic,
+    const uint8_t* replica_is_leader, float* score_out, uint8_t* elig_out, int32_t* part_out,
+    int32_t* part2_out, int32_t* sdisk_out, int32_t* ddisk_out, int32_t* seg3,
+    int32_t* src_lane_out, int32_t* dest_lane_out, float* d3, int32_t* leg_keys, float* d_rep,
+    float* d_lead, float* d_rl, uint8_t* leg_nz, int32_t* leg_lane_keys, cudaStream_t stream) {
+  if (kc <= 0) return 0;
+  if ((legs != 0 && legs != 2 && legs != 4) || k_full <= 0 ||
+      (compact_of_full != nullptr && num_brokers <= 0) ||
+      (sel_idx == nullptr && kc != k_full) || (legs != 0 && num_replicas <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  select_legs_kernel<<<blocks_for(kc), kThreads, 0, stream>>>(
+      kc, k_full, nb_sel, subrounds, legs, num_brokers, num_replicas, sel_idx, score, eligible,
+      lane, action_type, replica, src, dest, dest_replica, partition, partition2, src_disk,
+      dest_disk, delta_src, delta_dest, d_replica_count, d_leader_count, d_pnw, d_lbi_src,
+      d_lbi_dest, compact_of_full, replica_topic, replica_is_leader, score_out, elig_out,
+      part_out, part2_out, sdisk_out, ddisk_out, seg3, src_lane_out, dest_lane_out, d3,
+      leg_keys, d_rep, d_lead, d_rl, leg_nz, leg_lane_keys);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4e's budgets.  full_of_compact null: no frontier (nb_sel == num_brokers).
+// gain_rep null: no topic budgets (the topic outputs unwritten).
+extern "C" int cc_frontier_budgets(int64_t nb_sel, int64_t num_brokers, int64_t num_topics,
+                                   const float* room, const float* slack,
+                                   const int32_t* full_of_compact, const float* gain_rep,
+                                   const float* shed_rep, const float* shed_lead,
+                                   float* room_out, float* slack_out, float* neg_slack_out,
+                                   float* gain_out, float* shed_out, float* lead_out,
+                                   float* hi_tb, float* lo_tb, cudaStream_t stream) {
+  if (nb_sel <= 0 || num_brokers <= 0 ||
+      (full_of_compact == nullptr && nb_sel != num_brokers))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n_tb = gain_rep != nullptr ? num_topics * nb_sel : 0;
+  const int64_t n = nb_sel * kChannels > n_tb ? nb_sel * kChannels : n_tb;
+  frontier_budgets_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+      nb_sel, num_brokers, num_topics, room, slack, full_of_compact, gain_rep, shed_rep,
+      shed_lead, room_out, slack_out, neg_slack_out, gain_out, shed_out, lead_out, hi_tb,
+      lo_tb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,7 @@ SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
            "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score",
            "detector_scores", "flight_row", "band_accepts", "shard_combine", "selection",
-           "step_graph")
+           "top_k", "group_rank", "step_graph")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,6 +82,10 @@ _ENTRIES = {
     "topic_round_sums": ("selection", "cc_topic_round_sums", "i" * 4 + "p" * 14),
     "net_viol": ("selection", "cc_net_viol", "i" + "p" * 6),
     "partition_claims": ("selection", "cc_partition_claims", "iii" + "p" * 9),
+    "select_legs": ("selection", "cc_select_legs", "i" * 7 + "p" * 39),
+    "frontier_budgets": ("selection", "cc_frontier_budgets", "iii" + "p" * 14),
+    "top_k": ("top_k", "cc_top_k", "iii" + "p" * 6 + "i"),
+    "group_rank": ("group_rank", "cc_group_rank", "ii" + "p" * 4 + "i"),
     # The step graphs' executables: no kernels, no launch counts.
     "step_graph_build": ("step_graph", "cc_step_graph_build", "hpph"),
     "step_graph_launch": ("step_graph", "cc_step_graph_launch", "h"),

@@ -1,9 +1,14 @@
 """Ordering primitives with the JAX package's exact tie semantics.
 
-- ``top_k`` matches ``jax.lax.top_k``: descending, ties keep the lower
-  index first, and floats compare in IEEE total order (+0.0 ranks above
-  -0.0).  ``torch.topk`` gives no order for ties, so this is a stable
-  descending sort of an order-preserving integer key, then a slice.
+- ``top_k`` matches ``jax.lax.top_k`` on float32 and int32: descending,
+  ties keep the lower index first, and floats compare in IEEE total order
+  (+0.0 ranks above -0.0).  ``torch.topk`` gives no order for ties, so the
+  plain twin ``top_k_plain`` is a stable descending sort of an
+  order-preserving integer key, then a slice; on CUDA tensors ``top_k`` and
+  ``masked_top_k`` (the live-lane compaction's form, with the mask and its
+  count in the call) launch ``cc_top_k`` (``csrc/top_k.cu``): a radix
+  select of the k-th key, an ordered compaction and a stable radix sort of
+  the winners, with the plain twin's result bit for bit.
 - ``argsort`` matches ``jnp.argsort(..., stable=True)``: ascending, stable,
   -0.0 equal to +0.0 (float keys are canonicalised before the sort).
 - ``lexsort2`` matches ``jnp.lexsort((minor, major))``.
@@ -27,7 +32,8 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,11 +48,106 @@ def _total_order_key(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ _I32_MAX, bits)
 
 
-def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, int32 indices) of the ``k`` largest entries of 1-D ``x``."""
+def top_k_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, int32 indices) of the ``k`` largest entries of 1-D ``x``: the
+    CPU path and ``cc_top_k``'s plain twin."""
     key = _total_order_key(x) if x.dtype == torch.float32 else x
     idx = torch.sort(key, descending=True, stable=True).indices[:k]
     return x[idx], idx.to(torch.int32)
+
+
+# cc_top_k's tiling (csrc/top_k.cu): entries a block handles a pass, the
+# most winners one block sorts alone, the select's state words.
+_TOPK_TILE = 4096
+_TOPK_SMALL = 2048
+_TOPK_STATE = 8 + 256
+
+
+def _top_k_work_words(n: int, k: int) -> int:
+    """int32 words of ``cc_top_k``'s scratch (0 for a one-block input)."""
+    if n <= _TOPK_SMALL:
+        return 0
+    tiles = lambda m: -(-m // _TOPK_TILE)  # noqa: E731
+    return _TOPK_STATE + tiles(n) + 4 * k + 256 * tiles(k)
+
+
+def _top_k_form(n: int, k: int) -> str:
+    """The kernel's path for these sizes: one block sorts the input
+    ("small"), every entry wins ("full"), or a select and compaction first
+    with one block ("select") or radix passes ("select,sort") sorting the
+    winners."""
+    if n <= _TOPK_SMALL:
+        return "small"
+    if k == n:
+        return "full"
+    return "select" if k <= _TOPK_SMALL else "select,sort"
+
+
+def _top_k_args(x: torch.Tensor, k: int, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if x.dtype not in (torch.float32, torch.int32) or x.dim() != 1:
+        raise TypeError(f"top_k takes 1-D float32 or int32, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    n = x.shape[0]
+    if not 0 < k <= n:
+        raise ValueError(f"top_k: k = {k} outside [1, {n}]")
+    x = x.contiguous()
+    if mask is not None:
+        if x.dtype != torch.float32:
+            raise TypeError("masked_top_k takes float32")
+        cuda.check(mask, "mask", torch.bool, (n,), x.device)
+    form = _top_k_form(n, k)
+    args = (x, k) if mask is None else (x, mask, k)
+    cuda.record("top_k", args)
+    cuda.record(f"top_k[{form}]", args)
+    if mask is not None:
+        cuda.record("top_k[mask]", args)
+    return x
+
+
+def _top_k_launch(x: torch.Tensor, k: int, mask: Optional[torch.Tensor]):
+    n = x.shape[0]
+    vals = torch.empty((k,), dtype=x.dtype, device=x.device)
+    idx = torch.empty((k,), dtype=torch.int32, device=x.device)
+    live = None if mask is None else torch.empty((), dtype=torch.int32, device=x.device)
+    words = _top_k_work_words(n, k)
+    work = torch.empty((words,), dtype=torch.int32, device=x.device) if words else None
+    cuda.launch("top_k", n, k, int(x.dtype == torch.int32), x, mask, vals, idx, live, work,
+                words)
+    top_k.launches += 1
+    return vals, idx, live
+
+
+@cuda.counted("top_k")
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 top-k.  Replaces ``jax.lax.top_k`` of the candidate builders
+    (``cruise_control_tpu/analyzer/candidates.py:111,117,195,200,312,460,
+    506,555,570,631,643``): (values[k], int32 indices) of the ``k`` largest
+    entries of 1-D ``x`` (1 <= k <= n; float32 in descending IEEE total
+    order, or int32: the room order's counts), ties to the lower index.
+    Bound on the card: bytes (n·4 read, k·8 written).  CPU tensors take
+    ``top_k_plain``; CUDA tensors launch ``cc_top_k`` (one block up to 2,048
+    entries; else a radix select, an ordered compaction and a stable radix
+    sort of the winners)."""
+    x = _top_k_args(x, k, None)
+    if cuda.on_cpu(x):
+        return top_k_plain(x, k)
+    vals, idx, _ = _top_k_launch(x, k, None)
+    return vals, idx
+
+
+def masked_top_k(x: torch.Tensor, mask: torch.Tensor, k: int):
+    """K6 top-k in the live-lane compaction's form (``cruise_control_tpu/
+    analyzer/optimizer.py:510-513``): ``top_k`` of ``where(mask, x, -inf)``
+    and the count of set ``mask`` entries (i32, 0-d) — (values, indices,
+    live).  Counted as ``top_k``'s launches.  Bound on the card: bytes (n·5
+    read, k·8 + 4 written).  CPU tensors take the plain twin's ops; CUDA
+    tensors launch ``cc_top_k`` with the mask."""
+    x = _top_k_args(x, k, mask)
+    if cuda.on_cpu(x):
+        live = mask.sum(dtype=torch.int32)
+        vals, idx = top_k_plain(torch.where(mask, x, -math.inf), k)
+        return vals, idx, live
+    return _top_k_launch(x, k, mask)
 
 
 def _canonical(x: torch.Tensor) -> torch.Tensor:

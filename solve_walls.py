@@ -9,7 +9,9 @@ with the full 15-goal stack as the service calls it,
 ``optimize(fused=True, donate_model=True)``, and the mid rung once more on
 the per-goal path (``pipeline=False, fuse_group_size=1``): per solve a
 warm-up run that captures the step graphs, then N timed runs (default 3;
-each wall printed, the median kept), and one more run under
+each wall printed, the median kept; the last run's proposals and a digest
+of its placement, to hold two checkouts' placements equal), and one more
+run under
 ``torch.profiler``: the device's busy share of the median wall, and the
 device ms a launch and in all of K1, ``segment_sum``, the row index, K3
 (by its kernels before and after its redesign), the ordered sum, K9's
@@ -33,6 +35,7 @@ checkouts, unpack the other one (``git archive``) into a directory and run
 this script for each in turns within one call: A, B, B, A.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -74,6 +77,7 @@ def main(argv) -> int:
     spec.loader.exec_module(cs)
     from cruise_control_tpu_torch.analyzer import graphs
     from cruise_control_tpu_torch.analyzer import optimizer as opt_mod
+    from cruise_control_tpu_torch.analyzer import proposals as props
     from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
     from cruise_control_tpu_torch.ops import cuda
 
@@ -114,7 +118,10 @@ def main(argv) -> int:
             walls.append(time.monotonic() - t0)
         wall = statistics.median(walls)
         steps = sum(g.steps for g in run.goal_results)
-        row = {"warm_up_s": warm, "walls_s": walls, "wall_s": wall, "steps": steps}
+        placement = hashlib.sha256(b"".join(getattr(run.model, f).cpu().numpy().tobytes()
+                                            for f in cs.PLACEMENT)).hexdigest()[:16]
+        row = {"warm_up_s": warm, "walls_s": walls, "wall_s": wall, "steps": steps,
+               "proposals": len(props.diff(model, run.model)), "placement_sha256": placement}
         # K8: the run's replays and gated-off replays, and one step graph
         # replayed gated off (mid: the graph chip_smoke.py's check_graphs
         # times; large: a distribution goal's dense graph), its event ms here.

@@ -389,3 +389,174 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="used disks"):
         sel.partition_claims(_t(e["keep"]), _t(e["p1"]), _t(e["p2"]), e["P"], None,
                              (_t(e["sd"]), _t(e["dd"]), _t(e["us"]), _t(e["ud"])))
+
+
+# ---------------------------------------------------------------------------
+# K4e: the leg build and the frontier budgets against numpy
+# ---------------------------------------------------------------------------
+
+def _np_legs(f, sel_idx, score, elig, lane, c_of_f, rtopic, rlead, nb, subrounds, legs):
+    """``optimizer.py:509-580`` in numpy (the compaction's gathers, the
+    frontier slots, ``_channel_deltas`` and the legs), with the layouts the
+    rounds read: [dest; src; dest] rows, the K3 (rep, lead) columns, the K2
+    keys."""
+    if sel_idx is not None:
+        f = {n: a[sel_idx] for n, a in f.items()}
+        score, elig, lane = score[sel_idx], elig[sel_idx], lane[sel_idx]
+    sb, db = f["src"], f["dest"]
+    if c_of_f is not None:
+        c = np.maximum(c_of_f, 0)
+        sb, db = c[sb], c[db]
+    dc = f["d_replica_count"].astype(np.float32)[:, None]
+    dl = f["d_leader_count"].astype(np.float32)[:, None]
+    dp = f["d_potential_nw_out"][:, None]
+    d_src = np.concatenate([f["delta_src"], -dc, -dl, -dp,
+                            -f["d_leader_bytes_in_src"][:, None]], 1)
+    d_dest = np.concatenate([f["delta_dest"], dc, dl, dp,
+                             f["d_leader_bytes_in_dest"][:, None]], 1)
+    out = dict(score=np.tile(score, max(2, legs)), eligible=elig, partition=f["partition"],
+               partition2=f["partition2"], src_disk=f["src_disk"], dest_disk=f["dest_disk"],
+               seg3=np.concatenate([db, sb, db]), src_lane=sb * subrounds + lane,
+               dest_lane=db * subrounds + lane, d3=np.concatenate([d_dest, d_src, d_dest]))
+    if not legs:
+        return out
+    at, r1 = f["action_type"], f["replica"]
+    zero = np.float32(0.0)
+    t1 = rtopic[r1]
+    r2 = np.where(f["dest_replica"] >= 0, f["dest_replica"], 0)
+    t2 = rtopic[r2]
+    moves_tb, swap = (at == 0) | (at == 3), at == 3
+    lead1 = ((at == 1) | (moves_tb & rlead[r1])).astype(np.float32)
+    if legs == 4:
+        same_t = swap & (t1 == t2)
+        rep1 = np.where(same_t, zero, moves_tb.astype(np.float32))
+        rep2 = np.where(same_t, zero, swap.astype(np.float32))
+        keys = np.stack([t1 * nb + sb, t1 * nb + db, t2 * nb + db, t2 * nb + sb])
+        d_rep = np.stack([-rep1, rep1, -rep2, rep2])
+        lead2 = (swap & rlead[r2]).astype(np.float32)
+        l1 = np.where(same_t, lead1 - lead2, lead1)
+        l2 = np.where(same_t, zero, lead2)
+        d_lead = np.stack([-l1, l1, -l2, l2])
+    else:
+        mv = moves_tb.astype(np.float32)
+        keys = np.stack([t1 * nb + sb, t1 * nb + db])
+        d_rep, d_lead = np.stack([-mv, mv]), np.stack([-lead1, lead1])
+    out.update(leg_keys=keys, d_rep=d_rep, d_lead=d_lead, d_rl=np.stack([d_rep, d_lead], -1),
+               leg_nz=(d_rep != 0) | (d_lead != 0), leg_lane_keys=keys * 16 + lane % 16)
+    return out
+
+
+def _same_bits(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if want.dtype == np.float32:
+        got, want = got.view(np.uint32), want.view(np.uint32)  # -0.0 apart from +0.0
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def _legs_case(jm, legs, compact, frontier, seed=0):
+    rng = np.random.default_rng(seed + 10 * legs + 2 * compact + frontier)
+    f = _candidates(rng, jm, K, legs == 4, True)
+    # Zero deltas on a share of the lanes: their negated channels are -0.0.
+    zero = rng.random(K) < 0.3
+    f["delta_src"][zero] = 0.0
+    f["d_potential_nw_out"][zero] = 0.0
+    f["d_leader_bytes_in_src"][zero] = 0.0
+    score = (rng.integers(1, 40, K) / 4.0).astype(np.float32)
+    elig = rng.random(K) < 0.7
+    lane = rng.integers(0, 8, K).astype(np.int32)
+    sel_idx = np.sort(rng.choice(K, K // 3, replace=False)).astype(np.int32)[::-1].copy() \
+        if compact else None
+    c_of_f = None
+    if frontier:
+        active = np.zeros(NB, bool)
+        active[rng.choice(NB, 5, replace=False)] = True
+        c_of_f = topt._build_frontier(active, 8).compact_of_full.numpy()
+    return f, sel_idx, score, elig, lane, c_of_f
+
+
+@pytest.mark.parametrize("frontier", [False, True], ids=["all-brokers", "frontier"])
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compacted"])
+@pytest.mark.parametrize("legs", [0, 2, 4], ids=["no-topic", "moves", "swaps"])
+def test_select_legs_plain(legs, compact, frontier, models):
+    jm, tm = models
+    f, sel_idx, score, elig, lane, c_of_f = _legs_case(jm, legs, compact, frontier)
+    nb = 8 if frontier else NB
+    rtopic, rlead = np.asarray(jm.replica_topic), np.asarray(jm.replica_is_leader)
+    want = _np_legs(f, sel_idx, score, elig, lane, c_of_f, rtopic, rlead, nb, 4, legs)
+    cand = Candidates(**{n: torch.from_numpy(a) for n, a in f.items()})
+    args = (cand, _t(sel_idx), _t(score), _t(elig), _t(lane), _t(c_of_f), tm.replica_topic,
+            tm.replica_is_leader, nb, 4, legs)
+    for fn in (sel.select_legs_plain, sel.select_legs):
+        got = fn(*args)
+        for name, w in want.items():
+            _same_bits(getattr(got, name).numpy(), w, name)
+        for name in ("leg_keys", "d_rep", "d_lead", "d_rl", "leg_nz", "leg_lane_keys"):
+            assert (getattr(got, name) is None) == (legs == 0), name
+        kc = K // 3 if compact else K
+        _same_bits(got.d_src.numpy(), want["d3"][kc:2 * kc], "d_src")
+        _same_bits(got.src_b.numpy(), want["seg3"][kc:2 * kc], "src_b")
+        # The rounds' views: [dest; src] sums, [src; dest] safe admits.
+        _same_bits(got.lane_score.numpy(), want["score"][:kc], "lane_score")
+        _same_bits(got.seg_both.numpy(), want["seg3"][:2 * kc], "seg_both")
+        _same_bits(got.d_both.numpy(), want["d3"][:2 * kc], "d_both")
+        _same_bits(got.seg_safe.numpy(), want["seg3"][kc:], "seg_safe")
+        _same_bits(got.d_safe.numpy(), want["d3"][kc:], "d_safe")
+        _same_bits(got.safe_score.numpy(), want["score"][:2 * kc], "safe_score")
+        if legs:
+            _same_bits(got.leg_score.numpy(), np.tile(want["score"][:kc], legs), "leg_score")
+    assert (np.asarray(want["d3"]).view(np.uint32) == 0x80000000).any()  # -0.0 lanes
+
+
+@pytest.mark.parametrize("topic", [False, True], ids=["no-topic", "topic"])
+@pytest.mark.parametrize("frontier", [False, True], ids=["all-brokers", "frontier"])
+def test_frontier_budgets_plain(frontier, topic):
+    rng = np.random.default_rng(3 + 2 * frontier + topic)
+    nb_full, T = 13, 5
+    room, slack = (_budgets(rng, (nb_full, 8), 6.0, 0.2) for _ in range(2))
+    slack[rng.random((nb_full, 8)) < 0.2] = 0.0  # -slack: -0.0
+    tb = tuple(_budgets(rng, T * nb_full, 4.0, 0.25).round() for _ in range(3)) if topic \
+        else None
+    foc = None
+    if frontier:
+        active = np.zeros(nb_full, bool)
+        active[[1, 4, 9, 12]] = True
+        foc = topt._build_frontier(active, 8).full_of_compact.numpy()  # -1 pads
+    gather = np.arange(nb_full) if foc is None else np.maximum(foc, 0)
+    want_topic = None if tb is None else tuple(
+        b.reshape(T, nb_full)[:, gather].reshape(-1) for b in tb)
+    for fn in (sel.frontier_budgets_plain, sel.frontier_budgets):
+        r, s, ns, tp, hi, lo = fn(_t(room), _t(slack), _t(foc), _tt(tb), T)
+        _same_bits(r.numpy(), room[gather], "room")
+        _same_bits(s.numpy(), slack[gather], "slack")
+        _same_bits(ns.numpy(), -slack[gather], "neg_slack")
+        if tb is None:
+            assert tp is None and hi is None and lo is None
+            continue
+        for g, w in zip(tp, want_topic):
+            _same_bits(g.numpy(), w, "topic budgets")
+        _same_bits(hi.numpy(), np.stack([want_topic[0], np.full_like(want_topic[0], np.inf)],
+                                        1), "hi_tb")
+        _same_bits(lo.numpy(), np.stack([-want_topic[1], -want_topic[2]], 1), "lo_tb")
+
+
+def test_k4e_wrappers_refuse_bad_inputs(models):
+    jm, tm = models
+    f, sel_idx, score, elig, lane, _ = _legs_case(jm, 2, True, False)
+    cand = Candidates(**{n: torch.from_numpy(a) for n, a in f.items()})
+    base = (cand, _t(sel_idx), _t(score), _t(elig), _t(lane), None, tm.replica_topic,
+            tm.replica_is_leader, NB, 4)
+    with pytest.raises(ValueError, match="legs"):
+        sel.select_legs(*base, 3)
+    with pytest.raises(ValueError, match="sel_idx"):
+        sel.select_legs(cand, _t(sel_idx).long(), *base[2:], 2)
+    with pytest.raises(ValueError, match="cand.delta_src"):
+        sel.select_legs(Candidates(**dict(vars(cand), delta_src=cand.delta_src[:, :3])),
+                        *base[1:], 2)
+    with pytest.raises(ValueError, match="eligible"):
+        sel.select_legs(cand, base[1], base[2], base[3][:-1], *base[4:], 2)
+    room = torch.zeros(NB, 8)
+    with pytest.raises(ValueError, match="room_dest"):
+        sel.frontier_budgets(room[:, :4], room, None, None, 1)
+    with pytest.raises(ValueError, match="gain_rep"):
+        sel.frontier_budgets(room, room, None, (torch.zeros(5),) * 3, 1)
