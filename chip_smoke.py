@@ -50,8 +50,9 @@ Phases, in order (any failure raises and the process exits non-zero):
    sequential per-goal path, ``optimize(fused=True, pipeline=False,
    donate_model=True)``: warm-up (captures), a timed run with the counters
    set to 0 just before — every hard goal satisfied, ``verify_run``, every
-   kernel of the path launched, at least one chunk compacted and one
-   speculative follow-up — per goal its chunks, buckets, replays (gated
+   kernel of the path launched (every call site of K6's argsort too:
+   ``argsort_sites``), at least one chunk compacted and one speculative
+   follow-up — per goal its chunks, buckets, replays (gated
    off), follow-ups (wasted), host fetches and wall; a repeat gives
    identical proposals; a profile gives the busy share and ops per step;
    every frontier mask the warm-up computed is held against the plain
@@ -61,7 +62,8 @@ Phases, in order (any failure raises and the process exits non-zero):
    argument — the inter-goal pipeline: warm-up, then a timed run with the
    counters set to 0 just before — every hard goal satisfied,
    ``verify_run``, every kernel of the path launched (K9 batch and K11
-   cross included), at least one opener dispatched; per goal whether it
+   cross included; every argsort call site), at least one opener
+   dispatched; per goal whether it
    adopted an opener, its boundary gap, openers dispatched and wasted,
    their replays (gated off), fused group, chunks, replays and wall; a
    repeat gives identical proposals; a profile, with the run's gated-off
@@ -271,7 +273,12 @@ Phases, in order (any failure raises and the process exits non-zero):
     their plain twins on the card and on CPU copies, identical over two
     launches and a graph replay, into canary-guarded buffers, timed beside
     the plain twin, the bound and, for K4b and K4d, one ``index_add_`` or
-    ``scatter_reduce_``;
+    ``scatter_reduce_``; and K4e, K6's top-k, group rank and argsorts
+    (``check_new_kernels``: ``cc_argsort`` and ``cc_row_argsort`` on every
+    form the mid and large warm-ups recorded, by call site, and on
+    ``argsort_edges`` / ``row_argsort_edges``) the same way, beside
+    ``torch.topk``, ``torch.sort`` with ``cummax`` and the stable
+    ``torch.sort``;
 22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last the result
     line ``{"ok": true, "device": {...}}``.
 
@@ -368,6 +375,11 @@ PROFILE_NAMES = {
     "top_k": ("topk_",),
     "group_rank": ("rank_count_kernel", "rank_scan_kernel", "rank_scatter_kernel",
                    "rank_count_above_kernel"),
+    # K6's argsort (a call is one launch up to 2,048 entries, else a memset
+    # and two launches a pass: the count here is of its kernels, its device
+    # ms a call comes from phase 4) and its row sort (one launch a call).
+    "argsort": ("argsort_",),
+    "row_argsort": ("row_sort_kernel",),
 }
 
 KERNELS = {
@@ -434,6 +446,13 @@ KERNELS = {
               "cruise_control_tpu/analyzer/candidates.py:111"),
     "group_rank": ("cruise_control_tpu_torch/csrc/group_rank.cu",
                    "cruise_control_tpu/analyzer/goals/kernels.py:791"),
+    # K6's argsorts: the matched builders' [R] sorts (candidates.py:177, 297,
+    # 319) with K3's score and regroup sorts (goals/kernels.py:1006-1007),
+    # and the builders' [T, B] row orders (candidates.py:280, 330, 331).
+    "argsort": ("cruise_control_tpu_torch/csrc/argsort.cu",
+                "cruise_control_tpu/analyzer/candidates.py:177"),
+    "row_argsort": ("cruise_control_tpu_torch/csrc/argsort.cu",
+                    "cruise_control_tpu/analyzer/candidates.py:280"),
 }
 # Kernels a path does not launch: the unfused path has no chunk gate and no
 # frontier count; only the pipelined path sweeps every goal's frontier (K9
@@ -479,7 +498,7 @@ def main(argv) -> int:
     from cruise_control_tpu_torch.analyzer.goals import kernels as gk
     from cruise_control_tpu_torch.analyzer.verifier import verify_run
     from cruise_control_tpu_torch.model.generator import ClusterSpec, generate_cluster
-    from cruise_control_tpu_torch.ops import cuda
+    from cruise_control_tpu_torch.ops import cuda, order
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -532,6 +551,19 @@ def main(argv) -> int:
     def read_counts():
         counts = cuda.launch_counts()
         return {n: counts[n] for n in wrappers}
+
+    def argsort_sites(label):
+        """K6's argsort launches of the run just timed, by call site: the
+        builders' broker, pair and topic sorts and [T, B] row sorts (the
+        latter three from TopicReplicaDistributionGoal), K3's score sorts and
+        its regroups above 4,096 segments; every site must have launched."""
+        counts = cuda.launch_counts()
+        sites = {m: counts[f"argsort[{m}]"] for m in order.ARGSORT_MODES}
+        log(f"{label} argsort launches by site: {sites}")
+        idle = [m for m, c in sites.items() if c == 0]
+        if not rehearse and idle:
+            raise RuntimeError(f"argsort sites not launched on the {label} run: {idle}")
+        return sites
 
     def check_launched(label, counts, path=None):
         skip = NOT_ON.get(path, ()) + EXECUTION_ONLY + tuple(DETECTION_KERNELS)
@@ -796,6 +828,7 @@ def main(argv) -> int:
     sweeps0 = dict(opt.SWEEP_COUNTERS)
     fetch0 = dict(opt.FETCH_COUNTERS)
     run_large, large_wall, large_counts = timed(lambda: fused_run(large, **per_goal))
+    argsort_sites("large per-goal")
     sweeps = {k: opt.SWEEP_COUNTERS[k] - sweeps0[k] for k in sweeps0}
     fetch_c = {k: opt.FETCH_COUNTERS[k] - fetch0[k] for k in fetch0}
     large_props = check_run("large", large, run_large, STACK)
@@ -835,6 +868,7 @@ def main(argv) -> int:
     sweeps0 = dict(opt.SWEEP_COUNTERS)
     fetch0 = dict(opt.FETCH_COUNTERS)
     run_pipe, pipe_wall, pipe_counts = timed(lambda: fused_run(large))
+    pipe_sites = argsort_sites("large pipelined")
     sweeps = {k: opt.SWEEP_COUNTERS[k] - sweeps0[k] for k in sweeps0}
     fetch_c = {k: opt.FETCH_COUNTERS[k] - fetch0[k] for k in fetch0}
     pipe_props = check_run("large-pipelined", large, run_pipe, STACK)
@@ -1085,7 +1119,8 @@ def main(argv) -> int:
     # 21. K1, segment_sum's modes and their row index at each rung's shapes,
     # K3 and the ordered sum on every case, after every profiler session
     # (see the docstring)
-    phase("K1 family, K3, ordered sum, K9, K8's flight row, K4, K4e, K6 top-k and group rank")
+    phase("K1 family, K3, ordered sum, K9, K8's flight row, K4, K4e, K6 top-k, group rank "
+          "and argsorts")
     for label in ("mid", "large", "xl250"):
         check_family_at(label)
     for name, r in check_k3(torch, np, log, timer, k3_inputs, rehearse).items():
@@ -1108,6 +1143,7 @@ def main(argv) -> int:
             launches_large_per_goal_256=multi_counts["per-goal"][name])
     new_rows = check_new_kernels(torch, np, log, timer, new_inputs, new_device, dev, rehearse)
     del new_inputs
+    new_rows["argsort"]["launches_by_site_large_pipelined"] = pipe_sites
     for name, r in new_rows.items():
         results[name] = {k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                                 "max_abs_err", "device_ms", "shape")}
@@ -6653,16 +6689,20 @@ def check_k4(torch, np, log, timer, inputs, rehearse):
 
 
 # ---------------------------------------------------------------------------
-# Phase 21: K4e and K6's top-k and group rank against their plain twins
+# Phase 21: K4e and K6's top-k, group rank and argsorts against their plain
+# twins
 # ---------------------------------------------------------------------------
 
-NEW_KERNELS = ("top_k", "select_legs", "frontier_budgets", "group_rank")
+NEW_KERNELS = ("top_k", "select_legs", "frontier_budgets", "group_rank", "argsort",
+               "row_argsort")
 # The form of each kernel whose numbers head its row in the kernels line:
 # the large pipelined warm-up's compaction, compacted leg build, frontier
-# budgets (with (topic, broker) budgets) and broker ranks.
+# budgets (with (topic, broker) budgets), broker ranks, K3's score sort and
+# the builders' row sorts.
 NEW_PRIMARY = {"top_k": "top_k[mask]", "select_legs": "select_legs[compact]",
                "frontier_budgets": "frontier_budgets[frontier,topic]",
-               "group_rank": "group_rank[broker]"}
+               "group_rank": "group_rank[broker]", "argsort": "argsort[score]",
+               "row_argsort": "row_argsort[rows]"}
 
 
 def new_kernel_inputs(kept):
@@ -6680,6 +6720,11 @@ def new_call(torch, name, args, plain=False):
     from cruise_control_tpu_torch.ops import order
     from cruise_control_tpu_torch.ops import selection as sel
     base = name.split("[")[0]
+    if base == "argsort":  # (keys, num_keys, mode); the launch counts no mode
+        x, num_keys, _ = args
+        return ((order.argsort_plain if plain else order.argsort)(x, num_keys=num_keys),)
+    if base == "row_argsort":
+        return ((order.argsort_plain if plain else order.argsort)(args[0], dim=1),)
     if base == "top_k":
         if len(args) == 2:
             return tuple((order.top_k_plain if plain else order.top_k)(*args))
@@ -6702,6 +6747,11 @@ def new_call(torch, name, args, plain=False):
 
 def _new_shape(name, args):
     base = name.split("[")[0]
+    if base in ("argsort", "row_argsort"):
+        from cruise_control_tpu_torch.ops import order
+        x, num_keys, mode = args
+        return dict(shape=list(x.shape), dtype=str(x.dtype).split(".")[-1], num_keys=num_keys,
+                    passes=order.argsort_passes(num_keys), mode=mode)
     if base == "top_k":
         return dict(n=args[0].shape[0], k=args[-1], dtype=str(args[0].dtype).split(".")[-1],
                     mask=len(args) == 3)
@@ -6722,6 +6772,8 @@ def _new_bytes(torch, name, args):
     score copies, third slot and delta rows and (rep, lead) columns, and
     ``hi_tb``'s copy of ``gain_rep`` beside a constant)."""
     base = name.split("[")[0]
+    if base in ("argsort", "row_argsort"):  # the keys read, the int64 indices written
+        return args[0].numel() * 12
     if base == "top_k":
         n, k = args[0].shape[0], args[-1]
         return n * 4 + (n + 4 if len(args) == 3 else 0) + k * 8
@@ -6769,8 +6821,13 @@ def _new_bytes(torch, name, args):
 def _new_library(torch, name, args):
     """One PyTorch call computing the same function, or None: ``torch.topk``
     (ties in no given order) for the top-k; ``torch.sort`` of the (group,
-    key, row) order and ``cummax`` for the group rank."""
+    key, row) order and ``cummax`` for the group rank; the stable
+    ``torch.sort`` of the keys (along dim 1 for the rows) for the argsorts."""
     base = name.split("[")[0]
+    if base == "argsort":
+        return lambda: torch.sort(args[0], stable=True)
+    if base == "row_argsort":
+        return lambda: torch.sort(args[0], dim=1, stable=True)
     if base == "top_k":
         x = args[0] if len(args) == 2 else torch.where(args[1], args[0], -float("inf"))
         return lambda: torch.topk(x, args[-1])
@@ -6860,6 +6917,67 @@ def group_rank_edges(torch, np, dev):
     ]
 
 
+def argsort_edges(torch, np, dev):
+    """Seeded argsort cases: (keys, num_keys, None) at the main path's
+    shapes and on the edges: n = 0, 1, 2,048, 2,049, 4,096 and 4,097, every
+    key equal, keys at ``num_keys - 1`` (the invalid rows' key), +0.0 /
+    -0.0, +inf / -inf and NaN of both signs, K3's regroup of the designated
+    cuts' 20,000 (topic, broker) keys and the xl250 pair keys."""
+    rng = np.random.default_rng(SEED + 2)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def floats(n):
+        x = rng.choice(np.array([0.0, -0.0, 1.5, -1.5, np.inf, -np.inf, 3.0], np.float32), n)
+        nan = rng.random(n) < 0.05
+        x[nan] = np.float32(np.nan)
+        x.view(np.uint32)[nan & (rng.random(n) < 0.5)] |= np.uint32(0x80000000)
+        return x
+
+    def brokers(n):
+        return rng.integers(0, 201, n).astype(np.int32)
+
+    r = 100371
+    invalid = np.where(rng.random(r) < 0.3, 200, rng.integers(0, 200, r)).astype(np.int32)
+    pairs = np.where(rng.random(r) < 0.2, 20000, rng.integers(0, 20000, r)).astype(np.int32)
+    ints = rng.integers(-2 ** 31, 2 ** 31 - 1, 9000, dtype=np.int64).astype(np.int32)
+    ints[:64] = np.iinfo(np.int32).min
+    cases = [(f"n = {n:,}", (t(brokers(n)), 201, None)) for n in (0, 1, 2048, 2049, 4096,
+                                                                 4097)]
+    return cases + [
+        ("every key equal", (t(np.full(10000, 7, np.int32)), 201, None)),
+        ("every key -0.0 / +0.0", (t(rng.choice(np.array([0.0, -0.0], np.float32), 3000)),
+                                   None, None)),
+        ("brokers 100,371, invalid rows at num_keys - 1", (t(invalid), 201, None)),
+        ("pairs 100,371, invalid rows at num_keys - 1", (t(pairs), 20001, None)),
+        ("xl250 pairs 250,863", (t(rng.integers(0, 200001, 250863).astype(np.int32)), 200001,
+                                 None)),
+        ("K3 regroup above 4,096 segments: 20,000 keys", (t(rng.integers(
+            0, 20001, 51200).astype(np.int32)), 20001, None)),
+        ("score 65,536: signed zeros, infinities, NaN of both signs", (t(floats(65536)), None,
+                                                                       None)),
+        ("score 1,500, one block", (t(floats(1500)), None, None)),
+        ("int32 without a range, INT32_MIN ties", (t(ints), None, None)),
+    ]
+
+
+def row_argsort_edges(torch, np, dev):
+    """Seeded row-sort cases (int32 [T, B], as the builders pass -donor_cap,
+    -deficit and -spare): the large shape, rows all equal, the xl250 [200,
+    1,000] shape, rows above 2,048 (two ``cc_argsort`` launches)."""
+    rng = np.random.default_rng(SEED + 3)
+
+    def t(a):
+        return (torch.from_numpy(np.ascontiguousarray(a)).to(dev), None, None)
+
+    return [("large [100, 200]", t(-rng.integers(0, 4, (100, 200)).astype(np.int32))),
+            ("rows all equal [100, 200]", t(np.zeros((100, 200), np.int32))),
+            ("xl250 [200, 1,000]", t(-rng.integers(0, 6, (200, 1000)).astype(np.int32))),
+            ("above 2,048 a row [3, 2,500]", t(rng.integers(-50, 50, (3, 2500))
+                                                .astype(np.int32)))]
+
+
 def k4e_edges(torch, name, args):
     """Seeded variants of a recorded K4e input: every zero delta negated to
     -0.0 on the src rows, no compaction, no frontier, 0, 2 and 4 legs (leg
@@ -6908,7 +7026,25 @@ def guarded_new(torch, cuda, name, args):
     from cruise_control_tpu_torch.ops import selection as sel
     base = name.split("[")[0]
     dev = (args[0] if base != "select_legs" else args[2]).device
-    if base == "top_k":
+    if base == "row_argsort" and args[0].shape[1] > order._RADIX_SMALL:
+        # Above 2,048 a row the wrapper's first launch: cc_argsort of every key.
+        name, base, args = "argsort", "argsort", (args[0].reshape(-1), None, None)
+    if base == "argsort":
+        x, num_keys = args[0], args[1]
+        n, words = x.shape[0], order.argsort_work_words(x.shape[0])
+        buf, guard, views = canary_views(torch, dev, [_even(2 * n), _even(max(words, 2))])
+        out = views[0][:2 * n].view(torch.int64)
+        cuda.launch("argsort", n, order.argsort_passes(num_keys), order.key_kind(x, num_keys), x,
+                    out, None, None, views[1][:words] if words else None, words)
+        got = (out,)
+    elif base == "row_argsort":
+        x = args[0]
+        T, B = x.shape
+        buf, guard, views = canary_views(torch, dev, [_even(2 * T * B)])
+        out = views[0][:2 * T * B].view(torch.int64).view(T, B)
+        cuda.launch("row_argsort", T, B, x, out)
+        got = (out,)
+    elif base == "top_k":
         x, k = args[0], args[-1]
         mask = args[1] if len(args) == 3 else None
         n, words = x.shape[0], order._top_k_work_words(x.shape[0], k)
@@ -6972,10 +7108,12 @@ def guarded_new(torch, cuda, name, args):
 
 
 def check_new_kernels(torch, np, log, timer, inputs, device, dev, rehearse):
-    """K4e (``select_legs``, ``frontier_budgets``), K6's top-k and group rank
-    on the inputs the mid and large warm-ups gave each of their forms (phase
-    3), on seeded variants of them (``k4e_edges``) and on seeded cases at the
-    main path's shapes and edges (``top_k_edges``, ``group_rank_edges``):
+    """K4e (``select_legs``, ``frontier_budgets``), K6's top-k, group rank
+    and argsorts (``argsort``, ``row_argsort``) on the inputs the mid and
+    large warm-ups gave each of their forms (phase 3), on seeded variants of
+    them (``k4e_edges``) and on seeded cases at the main path's shapes and
+    edges (``top_k_edges``, ``group_rank_edges``, ``argsort_edges``,
+    ``row_argsort_edges``; an empty input is held, not timed):
     bit for bit against the plain twin on the card and on CPU copies,
     identical over two launches and (the recorded forms and the seeded
     cases) a graph replay, through ``guarded_new``; the recorded forms and
@@ -7029,13 +7167,19 @@ def check_new_kernels(torch, np, log, timer, inputs, device, dev, rehearse):
                 f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
                 f"bound {r['bound_ms']:.6f}, device a call {r['device_ms']})")
     for name, cases in (("top_k[seeded]", top_k_edges(torch, np, dev)),
-                        ("group_rank[seeded]", group_rank_edges(torch, np, dev))):
+                        ("group_rank[seeded]", group_rank_edges(torch, np, dev)),
+                        ("argsort[seeded]", argsort_edges(torch, np, dev)),
+                        ("row_argsort[seeded]", row_argsort_edges(torch, np, dev))):
         for case, args in cases:
             if name.startswith("group_rank"):
                 args = args + ("seeded",)
+            checked += 1
+            if args[0].numel() == 0:  # nothing to launch, time or replay
+                hold(name, case, args, False)
+                log(f"{name} {case}: bit for bit (empty)")
+                continue
             r = hold(name, case, args, True)
             forms[("seeded", f"{name} {case}")] = r
-            checked += 1
             log(f"{name} {case} {r['shape']}: bit for bit; {r['ms']:.4f} ms (plain "
                 f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound {r['bound_ms']:.6f})")
     rows = {}
@@ -7048,7 +7192,7 @@ def check_new_kernels(torch, np, log, timer, inputs, device, dev, rehearse):
         rows[base] = dict(head, cases_checked=checked, forms={
             f"{a} {b}": {k: v for k, v in r.items() if k != "max_abs_err"}
             for (a, b), r in mine.items()})
-    log(f"K4e, K6 top-k and group rank: {checked} cases bit for bit")
+    log(f"K4e, K6 top-k, group rank and argsorts: {checked} cases bit for bit")
     return rows
 
 

@@ -18,8 +18,11 @@ their two non-library parts: ``transport_rank`` (each row's rank inside its
 group, from a stable sort's order) and ``transport_lookup`` (each slot's
 destination by a binary search of its window's prefix sums), with the plain
 twins ``transport_rank_plain`` and ``transport_lookup_plain``.  Every top-k
-is K6's hand-written ``cc_top_k`` on the card (``csrc/top_k.cu``); the
-stable argsorts of the matched builders are still torch's sort.
+is K6's hand-written ``cc_top_k`` on the card (``csrc/top_k.cu``) and every
+stable argsort of the matched builders K6's ``cc_argsort`` ([R] by broker,
+by (topic, broker) pair and by topic, each with its declared key range: the
+invalid rows' key is the range's last) or ``cc_row_argsort`` (the [T, B]
+donor, deficit and spare orders), in ``csrc/argsort.cu``.
 """
 
 from __future__ import annotations
@@ -238,7 +241,7 @@ def _matched_move_legs(spec, model, arrays, constraint, options, num_out: int,
 
     rb = model.replica_broker
     key = torch.where(model.replica_valid, rb, B)
-    rank = transport_rank(order.argsort(key), key, B)
+    rank = transport_rank(order.argsort(key, num_keys=B + 1, mode="broker"), key, B)
     is_src = model.replica_valid & (rank < src_n[rb])
 
     if relevance is None:
@@ -292,7 +295,7 @@ def _matched_topic_legs(spec, model, arrays, constraint, options, num_out: int,
     mid_t = (lower_t + upper_t) * 0.5
     donor_cap = torch.floor(torch.clamp(torch.minimum(tbc, upper_t[:, None])
                                         - mid_t[:, None], min=0.0)).to(torch.int32)
-    d_order = order.argsort(-donor_cap, dim=1)
+    d_order = order.argsort(-donor_cap, dim=1, mode="rows")
     d_sorted = torch.gather(donor_cap, 1, d_order)
     d_cum = torch.cumsum(d_sorted, dim=1, dtype=torch.int32)
     prev_cum = d_cum - d_sorted
@@ -305,7 +308,8 @@ def _matched_topic_legs(spec, model, arrays, constraint, options, num_out: int,
 
     pair = model.replica_topic * B + model.replica_broker
     key = torch.where(model.replica_valid, pair, T * B)
-    rank = transport_rank(order.argsort(key), key, T * B)
+    rank = transport_rank(order.argsort(key, num_keys=T * B + 1, mode="pair"), key,
+                          T * B)
     is_src = model.replica_valid & (rank < src_n.reshape(-1)[pair.clamp(max=T * B - 1)])
 
     if relevance is None:
@@ -316,10 +320,10 @@ def _matched_topic_legs(spec, model, arrays, constraint, options, num_out: int,
 
     t_src = model.replica_topic[src_replicas]
     t_key = torch.where(src_ok, t_src, T)
-    p_in_topic = transport_rank(order.argsort(t_key), t_key, T)
+    p_in_topic = transport_rank(order.argsort(t_key, num_keys=T + 1, mode="topic"), t_key, T)
 
-    def_order = order.argsort(-deficit, dim=1)
-    sp_order = order.argsort(-spare, dim=1)
+    def_order = order.argsort(-deficit, dim=1, mode="rows")
+    sp_order = order.argsort(-spare, dim=1, mode="rows")
     slot_vals = torch.cat([torch.gather(deficit, 1, def_order),
                            torch.gather(spare, 1, sp_order)], dim=1)
     slot_broker = torch.cat([def_order, sp_order], dim=1).to(torch.int32)

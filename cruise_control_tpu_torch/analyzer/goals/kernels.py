@@ -35,7 +35,7 @@ broker against its band, ``_disk_limits``).
   are not of a band kind (K9 batch, same source), with the plain twin
   ``frontier_active_batch_plain``.
 - ``prefix_cut_admit`` / ``prefix_admit_safe`` — the bounded repair (K3,
-  ``csrc/prefix_cut.cu``: one score sort, the row index's counting pass,
+  ``csrc/prefix_cut.cu``: one score sort by ``cc_argsort``, the counting pass,
   running totals rebuilt where they are tested), with the plain twin
   ``prefix_cut_admit_plain``.
 - ``accepts_band_batch`` — the band goals' ``accepts`` ANDed over a stack
@@ -574,28 +574,34 @@ def blend_row_index(seg_before: torch.Tensor, seg_after: Optional[torch.Tensor],
     valid row whose before-segment is s and every valid row whose
     after-segment is s and differs from its before-segment (none when
     ``seg_after`` is None), in increasing row order; ``rows`` may run on
-    past ``offsets[S]``.  Segments outside [0, S) hold no row.  One sort of
-    the keys ``segment * R + row`` (int32 where they fit); on the card the
-    keys and the CSR come from two small kernels around torch's sort, with
-    no host sync.  It orders row ids only and computes no part of K10's
-    sums."""
+    past ``offsets[S]``.  Segments outside [0, S) hold no row.  On the CPU
+    one sort of the keys ``segment * R + row`` (int32 where they fit); on
+    the card a kernel writes each row's segments as int32 keys interleaved
+    by row ([R, 2], a row outside every segment keyed S), K6's stable
+    ``cc_argsort`` (``num_keys = S + 1``) orders them, so each segment's
+    rows stay in increasing row order, and a kernel turns the sorted keys
+    and their positions into the CSR, with no host sync.  It orders row ids
+    only and computes no part of K10's sums."""
     R, S, dev = seg_before.shape[0], num_segments, seg_before.device
     if 2 * R >= 2 ** 31:
         raise ValueError(f"{R} rows: the row index holds at most 2**30 - 1")
     if R == 0:
         return (torch.zeros(S + 1, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev))
-    kd = torch.int32 if (S + 1) * R < 2 ** 31 else torch.int64
     if not cuda.on_cpu(seg_before):
-        keys = torch.empty(R if seg_after is None else 2 * R, dtype=kd, device=dev)
-        cuda.launch("blend_index_keys", R, S, kd == torch.int64, seg_before, seg_after, valid,
-                    keys)
-        keys = keys.sort().values
+        n = R if seg_after is None else 2 * R
+        keys = torch.empty(n, dtype=torch.int32, device=dev)
+        cuda.launch("blend_index_keys", R, S, seg_before, seg_after, valid, keys)
+        sorted_keys = torch.empty(n, dtype=torch.int32, device=dev)
+        rows = torch.empty(n, dtype=torch.int32, device=dev)
+        words = order.argsort_work_words(n)
+        work = torch.empty(words, dtype=torch.int32, device=dev) if words else None
+        order.argsort_into(keys, S + 1, None, work, out_idx32=rows, out_keys=sorted_keys)
         offsets = torch.empty(S + 1, dtype=torch.int32, device=dev)
-        rows = torch.empty(keys.shape[0], dtype=torch.int32, device=dev)
-        cuda.launch("blend_index_offsets", keys.shape[0], R, S, kd == torch.int64, keys,
+        cuda.launch("blend_index_offsets", n, S, int(seg_after is not None), sorted_keys,
                     offsets, rows)
         return offsets, rows
+    kd = torch.int32 if (S + 1) * R < 2 ** 31 else torch.int64
     segs = (seg_before[None] if seg_after is None
             else torch.stack([seg_before, seg_after])).to(kd)
     held = valid & (segs >= 0) & (segs < S)
@@ -1652,7 +1658,7 @@ def within_group_rank_plain(group: torch.Tensor, key_desc: torch.Tensor) -> torc
     """``_within_group_rank``'s plain twin: the JAX package's lexsort, the
     sorted groups' starts by ``cummax`` and the scatter back."""
     r = group.shape[0]
-    ordr = order.lexsort2(-key_desc, group)
+    ordr = order.lexsort2_plain(-key_desc, group)
     g_sorted = group[ordr]
     idx = torch.arange(r, dtype=torch.int32, device=group.device)
     is_start = torch.ones(r, dtype=torch.bool, device=group.device)
@@ -1735,7 +1741,7 @@ def frontier_mask_plain(metric, lower, upper, alive, valid, replica_count, eps: 
     total_deficit = order.ordered_sum(deficit)
 
     def leading(values, limit):
-        ordr = order.argsort(-values)
+        ordr = order.argsort_plain(-values)
         v_sorted = values[ordr]
         before = order.ordered_cumsum(v_sorted) - v_sorted
         out = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -1910,8 +1916,8 @@ def bisect_depth(n: int) -> int:
 def _prefix_order(score: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     """Segment-grouped, score-descending order: the JAX function's two
     stable argsorts (score descending, then segment)."""
-    o1 = order.argsort(-score)
-    o2 = order.argsort(seg[o1])
+    o1 = order.argsort_plain(-score)
+    o2 = order.argsort_plain(seg[o1])
     return o1[o2]
 
 
@@ -1971,11 +1977,11 @@ def prefix_cut_admit(score: torch.Tensor, seg: torch.Tensor, deltas: torch.Tenso
     (``cum_before`` plus the kept deltas) stay inside [lo, hi] at every
     position.  Segment ids lie in [0, S); a row outside is admitted nowhere.
     Bound on the card: bytes (K·(9+4C) + S·12C read, K written).  CPU
-    tensors take ``prefix_cut_admit_plain``; CUDA tensors sort once (the
-    stable ``torch.sort`` of the canonical score), group the score-ordered
-    rows by segment with the row index's counting pass
-    (``cc_segment_row_index`` over ``seg[by_score]``, every row; above
-    ``COUNTING_MAX_SEGMENTS`` a second stable sort and
+    tensors take ``prefix_cut_admit_plain``; CUDA tensors sort once (K6's
+    ``cc_argsort`` of the negated score), group the score-ordered rows by
+    segment with the row index's counting pass (``cc_segment_row_index``
+    over ``seg[by_score]``, every row; above ``COUNTING_MAX_SEGMENTS`` a
+    second ``cc_argsort``, over the segment ids, and
     ``cc_sorted_offsets``), and launch ``cc_prefix_cut``: the running
     totals in the order of ``ordered_cumsum`` rebuilt where they are
     tested, each segment cut at its first out-of-band position
@@ -2016,32 +2022,44 @@ def prefix_cut_scratch(K: int, S: int, C: int) -> list:
     alone: the sorted rows and their segment ids, the grouping's rows and
     offsets, the counting pass's counts (none above
     ``COUNTING_MAX_SEGMENTS``: the sort groups), the first bad positions,
-    then the in-block scans, the level-1 values and the segment bases
-    (float32)."""
-    index_words = 0
+    the in-block scans, the level-1 values and the segment bases (float32);
+    then a pad word that puts the next on an 8-byte boundary, the score
+    order (int64), ``cc_argsort``'s scratch (the score sort's, then the
+    regroup's), and above ``COUNTING_MAX_SEGMENTS`` the regroup's keys and
+    its sorted keys."""
+    index_words = regroup_words = 0
     if S <= COUNTING_MAX_SEGMENTS:
         index_words = S * sg.index_tiling(K, S)[2] + S
-    return [K, K, K, S + 1, index_words, S, K * C, C * -(-K // 16), S * C]
+    else:
+        regroup_words = K
+    sizes = [K, K, K, S + 1, index_words, S, K * C, C * -(-K // 16), S * C]
+    return sizes + [sum(sizes) & 1, 2 * K, order.argsort_work_words(K), regroup_words,
+                    regroup_words]
 
 
 def prefix_cut_launch(score, seg, deltas, kept, cum_before, lo, hi, num_segments: int,
                       parts, out) -> None:
     """K3's launches on the card into ``parts`` (views of the sizes of
-    ``prefix_cut_scratch``) and ``out``: the score sort, the grouping, and
-    ``cc_prefix_cut``."""
+    ``prefix_cut_scratch``) and ``out``: the score sort (``cc_argsort``),
+    the grouping (the counting pass, or above ``COUNTING_MAX_SEGMENTS`` a
+    second ``cc_argsort`` over the segment ids, which also writes the sorted
+    ids for ``cc_sorted_offsets``), and ``cc_prefix_cut``."""
     K, C = deltas.shape
     S = num_segments
-    ordr, sorted_seg, rows, offsets, index_scratch, first_bad, inblock, level1, base = parts
-    by_score = order.argsort(-score)
+    (ordr, sorted_seg, rows, offsets, index_scratch, first_bad, inblock, level1, base, _,
+     by_score, sort_work, keys, sorted_keys) = parts
+    by_score = by_score.view(torch.int64)
+    order.argsort_into(-score, None, by_score, sort_work, mode="score")
     if S <= COUNTING_MAX_SEGMENTS:
         warps, warp_rows, _ = sg.index_tiling(K, S)
         cuda.launch("segment_row_index", seg, None, by_score, K, S, warps, warp_rows,
                     offsets, rows, index_scratch)
     else:
-        keys = torch.where((seg >= 0) & (seg < S), seg, S)[by_score]
-        regroup = torch.sort(keys, stable=True)
-        rows.copy_(regroup.indices)
-        cuda.launch("sorted_offsets", regroup.values, offsets, K, S)
+        torch.index_select(torch.where((seg >= 0) & (seg < S), seg, S), 0, by_score,
+                           out=keys)
+        order.argsort_into(keys, S + 1, None, sort_work, out_idx32=rows, out_keys=sorted_keys,
+                           mode="regroup")
+        cuda.launch("sorted_offsets", sorted_keys, offsets, K, S)
     f32 = torch.float32
     cuda.launch("prefix_cut", by_score, rows, offsets, seg, deltas, kept, cum_before, lo,
                 hi, ordr, sorted_seg, inblock.view(f32), level1.view(f32), base.view(f32),

@@ -14,8 +14,10 @@
 // [0, P) before it indexes a mask, as the JAX package's gather clamps.
 //
 // cc_blend_aggregates: each blend's per-broker sums and counts.  The
-// wrapper hands it a per-broker row index built per call with torch ops
-// (kernels.blend_row_index, a CSR of offsets i32[B + 1] and rows): the rows
+// wrapper hands it a per-broker row index built per call
+// (kernels.blend_row_index: this file's index_keys_kernel, cc_argsort of
+// argsort.cu and index_offsets_kernel; a CSR of offsets i32[B + 1] and
+// rows): the rows
 // of broker s are every valid row whose before-broker is s and every valid
 // row whose after-broker is s and differs from its before-broker, in
 // increasing row order.  Whatever the mask, a valid row that blend c puts
@@ -343,36 +345,38 @@ __global__ void __launch_bounds__(256) blend_topic_counts_kernel(
   }
 }
 
-// The sort keys of a row index (kernels.blend_row_index): key i < r is row
-// i's before-segment * r + i, key r + i (with an after placement) its
-// after-segment's where that differs; an invalid row, a segment outside
-// [0, s) or an unmoved row's after side gets s * r + i, past every real key.
-template <class Key>
+// The sort keys of a row index (kernels.blend_row_index), interleaved by
+// row ([r, 2] row-major with an after placement, else [r]): row i's
+// before-segment, then its after-segment where that differs; an invalid
+// row, a segment outside [0, s) or an unmoved row's after side gets s, past
+// every real segment.  cc_argsort's stable order over these keys keeps each
+// segment's rows in increasing row order.
 __global__ void index_keys_kernel(const int32_t* __restrict__ seg_before,
                                   const int32_t* __restrict__ seg_after,
-                                  const uint8_t* __restrict__ valid, int64_t r, int64_t s,
-                                  int64_t n, Key* __restrict__ keys) {
+                                  const uint8_t* __restrict__ valid, int64_t s, int64_t n,
+                                  int shift, int32_t* __restrict__ keys) {
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t row = i < r ? i : i - r;
-    const int64_t seg = i < r ? seg_before[row] : seg_after[row];
-    const bool held = valid[row] && seg >= 0 && seg < s && (i < r || seg != seg_before[row]);
-    keys[i] = static_cast<Key>((held ? seg : s) * r + row);
+    const int64_t row = i >> shift;
+    const bool after = (i & shift) != 0;
+    const int64_t seg = after ? seg_after[row] : seg_before[row];
+    const bool held = valid[row] && seg >= 0 && seg < s && (!after || seg != seg_before[row]);
+    keys[i] = static_cast<int32_t>(held ? seg : s);
   }
 }
 
-// The CSR of the sorted keys: rows[i] = keys[i] % r, and offsets[t] the
-// first i whose key is at least t * r (t in [0, s]), written by the key
-// where the segment changes.
-template <class Key>
-__global__ void index_offsets_kernel(const Key* __restrict__ keys, int64_t n, int64_t r,
-                                     int64_t s, int32_t* __restrict__ offsets,
+// The CSR from the sorted keys and their positions: rows[i] = position >>
+// shift (the row of an interleaved key, in place), and offsets[t] the first
+// i whose key is at least t (t in [0, s]), written by the key where the
+// segment changes.
+__global__ void index_offsets_kernel(const int32_t* __restrict__ keys, int64_t n, int64_t s,
+                                     int shift, int32_t* __restrict__ offsets,
                                      int32_t* __restrict__ rows) {
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t key = keys[i], seg = key / r;
-    rows[i] = static_cast<int32_t>(key - seg * r);
-    const int64_t prev = i == 0 ? -1 : static_cast<int64_t>(keys[i - 1]) / r;
+    const int64_t seg = keys[i];
+    rows[i] >>= shift;
+    const int64_t prev = i == 0 ? -1 : static_cast<int64_t>(keys[i - 1]);
     for (int64_t t = prev + 1; t <= seg && t <= s; ++t) offsets[t] = static_cast<int32_t>(i);
     if (i == n - 1)
       for (int64_t t = seg + 1; t <= s; ++t) offsets[t] = static_cast<int32_t>(n);
@@ -547,31 +551,28 @@ static unsigned index_blocks(int64_t n) {
   return static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
 }
 
-extern "C" int cc_blend_index_keys(int64_t r, int64_t s, int64_t wide,
-                                   const int32_t* seg_before, const int32_t* seg_after,
-                                   const uint8_t* valid, void* keys, cudaStream_t stream) {
-  const int64_t n = seg_after != nullptr ? 2 * r : r;
+// The int32 keys of a row index over r rows (2 r with seg_after).
+extern "C" int cc_blend_index_keys(int64_t r, int64_t s, const int32_t* seg_before,
+                                   const int32_t* seg_after, const uint8_t* valid,
+                                   int32_t* keys, cudaStream_t stream) {
+  const int shift = seg_after != nullptr ? 1 : 0;
+  const int64_t n = r << shift;
   if (n <= 0) return 0;
-  if (s < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (wide)
-    index_keys_kernel<<<index_blocks(n), 256, 0, stream>>>(
-        seg_before, seg_after, valid, r, s, n, static_cast<int64_t*>(keys));
-  else
-    index_keys_kernel<<<index_blocks(n), 256, 0, stream>>>(
-        seg_before, seg_after, valid, r, s, n, static_cast<int32_t*>(keys));
+  if (s < 0 || s >= 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  index_keys_kernel<<<index_blocks(n), 256, 0, stream>>>(seg_before, seg_after, valid, s, n,
+                                                         shift, keys);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int cc_blend_index_offsets(int64_t n, int64_t r, int64_t s, int64_t wide,
-                                      const void* keys, int32_t* offsets, int32_t* rows,
-                                      cudaStream_t stream) {
-  if (n <= 0 || r <= 0 || s < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (wide)
-    index_offsets_kernel<<<index_blocks(n), 256, 0, stream>>>(
-        static_cast<const int64_t*>(keys), n, r, s, offsets, rows);
-  else
-    index_offsets_kernel<<<index_blocks(n), 256, 0, stream>>>(
-        static_cast<const int32_t*>(keys), n, r, s, offsets, rows);
+// offsets i32[s + 1] and rows (i32[n]: cc_argsort's positions on entry)
+// from the n sorted keys.
+extern "C" int cc_blend_index_offsets(int64_t n, int64_t s, int64_t shift, const int32_t* keys,
+                                      int32_t* offsets, int32_t* rows, cudaStream_t stream) {
+  if (n <= 0 || s < 0 || (shift != 0 && shift != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  index_offsets_kernel<<<index_blocks(n), 256, 0, stream>>>(keys, n, s,
+                                                            static_cast<int>(shift), offsets,
+                                                            rows);
   return static_cast<int>(cudaGetLastError());
 }
 

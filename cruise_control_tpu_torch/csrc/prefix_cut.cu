@@ -14,15 +14,16 @@
 // directly.
 //
 // The order is the JAX function's two stable argsorts (score descending,
-// then segment).  The wrapper sorts once (torch.sort of the canonical
-// score) and groups the score-ordered rows by segment with the stable
+// then segment).  The wrapper sorts once (cc_argsort of argsort.cu over the
+// negated score) and groups the score-ordered rows by segment with the stable
 // counting pass of broker_aggregates.cu (cc_segment_row_index over
 // seg[by_score[i]], every row kept): it gives the segment offsets and, for
 // sorted position p, the score position rows[p], that is row
 // by_score[rows[p]].  Above 4,096 segments (every block of the counting
 // pass scans all S counts: at 20,000 (topic, broker) keys one scatter
-// took 0.38 ms on an H100) the wrapper regroups with a second stable
-// torch.sort and cc_sorted_offsets instead.
+// took 0.38 ms on an H100) the wrapper regroups with a second cc_argsort,
+// over the segment ids (S + 1 keys: two 8-bit passes at 20,000), and
+// cc_sorted_offsets instead.
 //
 // cs must be the plain version's bits: ops/order.py ordered_cumsum, XLA's
 // CPU scan — blocks of 16 positions each scanned in order, plus the scan

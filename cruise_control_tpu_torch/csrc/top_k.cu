@@ -23,10 +23,12 @@
 //   2. an ordered compaction: a count pass a tile, then a scatter pass that
 //      keeps every d < T and the first `need` entries equal to T, at
 //      positions from a block scan in index order (no atomics);
-//   3. a stable LSD radix sort of the k winners by d, 8 bits a pass: one
-//      block in shared memory up to kSmall winners, else a histogram launch
-//      a pass (its last block scans the counts) and a scatter launch a pass
-//      whose blocks rank their tile's items stably by warp matching.
+//   3. a stable LSD radix sort of the k winners by d, 8 bits a pass (the
+//      stage of radix.cuh, shared with argsort.cu): one block in shared
+//      memory up to kSmall winners, else the one-sweep sort, a histogram
+//      launch for every pass and a launch a pass whose blocks rank their
+//      tile's items stably by warp matching from destinations found by a
+//      decoupled look-back.
 // Up to kSmall entries one block sorts the whole input (no select).  Ties
 // keep index order because the compaction keeps it and every sort pass is
 // stable.  Every launch runs on the given stream, allocates nothing and
@@ -36,27 +38,31 @@
 // and k values and indices written.  The select reads the input four times
 // and the compaction twice (from L2 at the main path's sizes, n <= 262,144),
 // so at these sizes the call is launch-bound: 7 launches and a memset up to
-// kSmall winners, 13 and a memset above, 1 for a small input.
+// kSmall winners, 11 and a memset above, 1 for a small input.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "radix.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using radix::block_exclusive_scan;
+using radix::kBins;
+using radix::kSmall;
+using radix::kThreads;
+
+// The select's and the compaction's tiles: a thread's kItems entries.
 constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;  // entries a block handles a pass
-constexpr int kBins = 256;
-constexpr int kSmall = 2048;              // one block sorts up to this many
+constexpr int kTile = kThreads * kItems;
+
+__host__ __device__ inline int64_t tiles(int64_t n) { return radix::tiles(n, kItems); }
 
 // The select's state words (cleared by one memset a call), then its
 // histogram.
 enum { kPrefix = 0, kWant = 1, kDone = 2, kLive = 3, kHistAt = 8 };
 constexpr int kStateWords = kHistAt + kBins;
-
-__host__ __device__ inline int64_t tiles(int64_t m) { return (m + kTile - 1) / kTile; }
 
 constexpr uint32_t kNegInf = 0xFF800000u;  // the bits of -inf
 
@@ -79,65 +85,43 @@ __device__ __forceinline__ uint32_t key_at(const uint32_t* x, const uint8_t* mas
   return desc_key(value_at(x, mask, i), is_int);
 }
 
-// Exclusive scan of one value a thread over the block (kThreads threads);
-// *total gets the block's sum.  Every thread must call it.
-__device__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* total) {
-  __shared__ uint32_t warp_sums[kWarps + 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t inc = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t t = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += t;
+// The sort's items: the compaction's (keys_in, idx_in), or straight from
+// the input (keys_in null: key d of entry i, id i).
+struct TopkLoad {
+  const uint32_t* keys_in;
+  const int32_t* idx_in;
+  const uint32_t* x;
+  const uint8_t* mask;
+  bool is_int;
+  __device__ uint32_t key(int64_t i) const {
+    return keys_in != nullptr ? keys_in[i] : key_at(x, mask, i, is_int);
   }
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const uint32_t w = lane < kWarps ? warp_sums[lane] : 0u;
-    uint32_t winc = w;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const uint32_t t = __shfl_up_sync(0xffffffffu, winc, o);
-      if (lane >= o) winc += t;
-    }
-    if (lane < kWarps) warp_sums[lane] = winc - w;
-    if (lane == kWarps - 1) warp_sums[kWarps] = winc;
+  __device__ int32_t id(int64_t i) const {
+    return keys_in != nullptr ? idx_in[i] : static_cast<int32_t>(i);
   }
-  __syncthreads();
-  const uint32_t out = warp_sums[warp] + inc - v;
-  *total = warp_sums[kWarps];
-  __syncthreads();  // warp_sums is reused by the next call
-  return out;
-}
+};
 
-// The stable destination of this round's item (one a thread, the round's
-// items in thread order) among the items of its digit: run[digit] (the
-// digit's next slot, shared) plus the same-digit items of earlier warps and
-// lanes of the round; advances run[] past the round.  wcount (shared,
-// kWarps x kBins) must be zero on entry and is zero again on exit.  An
-// invalid item (digit == kBins) gets no slot.  Every thread must call it.
-__device__ int round_rank(uint32_t digit, bool valid, int* run, int* wcount) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t d = valid ? digit : static_cast<uint32_t>(kBins);
-  const unsigned peers = __match_any_sync(0xffffffffu, d);
-  const int before = __popc(peers & ((1u << lane) - 1u));
-  if (valid && lane == __ffs(peers) - 1) wcount[warp * kBins + d] = __popc(peers);
-  __syncthreads();
-  int pos = -1;
-  if (valid) {
-    pos = run[d] + before;
-    for (int w = 0; w < warp; ++w) pos += wcount[w * kBins + d];
+// A pass's items: into (keys_out, idx_out) between passes; after the last
+// pass, the first k_out positions get their index and value.
+struct TopkStore {
+  bool last;
+  uint32_t* keys_out;
+  int32_t* idx_out;
+  const uint32_t* x;
+  const uint8_t* mask;
+  int64_t k_out;
+  uint32_t* out_val;
+  int32_t* out_idx;
+  __device__ void operator()(int64_t pos, uint32_t key, int32_t id) const {
+    if (!last) {
+      keys_out[pos] = key;
+      idx_out[pos] = id;
+    } else if (pos < k_out) {
+      out_idx[pos] = id;
+      out_val[pos] = value_at(x, mask, id);
+    }
   }
-  __syncthreads();
-  int tot = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    tot += wcount[w * kBins + threadIdx.x];
-    wcount[w * kBins + threadIdx.x] = 0;
-  }
-  run[threadIdx.x] += tot;
-  __syncthreads();
-  return pos;
-}
+};
 
 // ---------------------------------------------------------------------------
 // 1. The radix select: one launch a digit, most significant first.
@@ -270,146 +254,48 @@ __global__ void topk_block_sort_kernel(int64_t m, int64_t k_out,
                                        uint32_t* __restrict__ out_val,
                                        int32_t* __restrict__ out_idx,
                                        int32_t* __restrict__ live) {
-  __shared__ uint32_t keys[2][kSmall];
-  __shared__ int32_t idxs[2][kSmall];
-  __shared__ int run[kBins];
-  __shared__ int wcount[kWarps * kBins];
-  uint32_t lives = 0;
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    if (keys_in != nullptr) {
-      keys[0][i] = keys_in[i];
-      idxs[0][i] = idx_in[i];
-    } else {
-      keys[0][i] = key_at(x, mask, i, is_int);
-      idxs[0][i] = i;
-      if (mask != nullptr) lives += mask[i] != 0;
-    }
-  }
-  for (int w = 0; w < kWarps; ++w) wcount[w * kBins + threadIdx.x] = 0;
   if (live != nullptr) {
+    uint32_t lives = 0;
+    for (int i = threadIdx.x; i < m; i += kThreads) lives += mask[i] != 0;
     uint32_t total;
     block_exclusive_scan(lives, &total);
     if (threadIdx.x == 0) *live = static_cast<int32_t>(total);
   }
-  __syncthreads();
-  const int rounds = static_cast<int>((m + kThreads - 1) / kThreads);
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 8 * pass, src = pass & 1, dst = src ^ 1;
-    run[threadIdx.x] = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < m; i += kThreads)
-      atomicAdd(&run[(keys[src][i] >> shift) & 0xFFu], 1);
-    __syncthreads();
-    uint32_t total;
-    const uint32_t start = block_exclusive_scan(static_cast<uint32_t>(run[threadIdx.x]), &total);
-    run[threadIdx.x] = static_cast<int>(start);
-    __syncthreads();
-    for (int r = 0; r < rounds; ++r) {
-      const int i = r * kThreads + threadIdx.x;
-      const bool valid = i < m;
-      const uint32_t key = valid ? keys[src][i] : 0u;
-      const int pos = round_rank((key >> shift) & 0xFFu, valid, run, wcount);
-      if (!valid) continue;
-      const int32_t id = idxs[src][i];
-      if (pass < 3) {
-        keys[dst][pos] = key;
-        idxs[dst][pos] = id;
-      } else if (pos < k_out) {
-        out_idx[pos] = id;
-        out_val[pos] = value_at(x, mask, id);
-      }
-    }
-    __syncthreads();
-  }
+  radix::block_sort(static_cast<int>(m), 4, TopkLoad{keys_in, idx_in, x, mask, is_int},
+                    TopkStore{true, nullptr, nullptr, x, mask, k_out, out_val, out_idx});
 }
 
-// Above kSmall winners: a histogram launch a pass.  Each block counts its
-// tile's digits into column b of hist (kBins x tiles, digit-major); the last
-// block turns hist into each (digit, tile)'s first destination.
-__global__ void topk_hist_kernel(int pass, int64_t m, const uint32_t* __restrict__ keys_in,
+// Above kSmall winners: the one-sweep sort (radix.cuh); the winners' keys
+// come from the compaction, or from the input when every entry wins
+// (keys_in null).
+__global__ void topk_hist_kernel(int64_t m, const uint32_t* __restrict__ keys_in,
                                  const uint32_t* __restrict__ x, bool is_int,
-                                 const uint8_t* __restrict__ mask, uint32_t* hist,
-                                 uint32_t* state) {
-  __shared__ int counts[kBins];
-  __shared__ bool last;
-  const int shift = 8 * pass;
-  const int64_t nt = gridDim.x;
-  counts[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t lo = blockIdx.x * static_cast<int64_t>(kTile);
-  const int64_t hi = min(m, lo + kTile);
-  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const uint32_t d = keys_in != nullptr ? keys_in[i] : key_at(x, mask, i, is_int);
-    atomicAdd(&counts[(d >> shift) & 0xFFu], 1);
-  }
-  __syncthreads();
-  hist[threadIdx.x * nt + blockIdx.x] = counts[threadIdx.x];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&state[kDone], 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  uint32_t row = 0;
-  for (int64_t b = 0; b < nt; ++b) row += __ldcg(&hist[threadIdx.x * nt + b]);
-  uint32_t total;
-  uint32_t at = block_exclusive_scan(row, &total);
-  for (int64_t b = 0; b < nt; ++b) {
-    const uint32_t c = __ldcg(&hist[threadIdx.x * nt + b]);
-    hist[threadIdx.x * nt + b] = at;
-    at += c;
-  }
-  if (threadIdx.x == 0) state[kDone] = 0;
+                                 const uint8_t* __restrict__ mask, uint32_t* sweep) {
+  radix::sweep_hist(m, 4, TopkLoad{keys_in, nullptr, x, mask, is_int}, sweep);
 }
 
-// The pass's scatter: block b ranks its tile's items stably (in rounds of
-// kThreads, in index order) from its digits' first destinations; the last
-// pass writes the first k_out indices and their values.
+// A pass of the sweep; the last pass writes the first k_out indices and
+// their values.
 __global__ void topk_scatter_kernel(int pass, int64_t m, int64_t k_out,
                                     const uint32_t* __restrict__ keys_in,
                                     const int32_t* __restrict__ idx_in,
                                     const uint32_t* __restrict__ x, bool is_int,
-                                    const uint8_t* __restrict__ mask,
-                                    const uint32_t* __restrict__ hist,
+                                    const uint8_t* __restrict__ mask, uint32_t* sweep,
                                     uint32_t* __restrict__ keys_out,
                                     int32_t* __restrict__ idx_out,
                                     uint32_t* __restrict__ out_val,
                                     int32_t* __restrict__ out_idx) {
-  __shared__ int run[kBins];
-  __shared__ int wcount[kWarps * kBins];
-  const int shift = 8 * pass;
-  run[threadIdx.x] = static_cast<int>(hist[threadIdx.x * static_cast<int64_t>(gridDim.x) +
-                                           blockIdx.x]);
-  for (int w = 0; w < kWarps; ++w) wcount[w * kBins + threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t lo = blockIdx.x * static_cast<int64_t>(kTile);
-  for (int r = 0; r < kItems; ++r) {
-    const int64_t i = lo + r * kThreads + threadIdx.x;
-    const bool valid = i < m;
-    uint32_t key = 0;
-    int32_t id = 0;
-    if (valid) {
-      if (keys_in != nullptr) {
-        key = keys_in[i];
-        id = idx_in[i];
-      } else {
-        key = key_at(x, mask, i, is_int);
-        id = static_cast<int32_t>(i);
-      }
-    }
-    const int pos = round_rank((key >> shift) & 0xFFu, valid, run, wcount);
-    if (!valid) continue;
-    if (pass < 3) {
-      keys_out[pos] = key;
-      idx_out[pos] = id;
-    } else if (pos < k_out) {
-      out_idx[pos] = id;
-      out_val[pos] = value_at(x, mask, id);
-    }
-  }
+  radix::sweep_pass(pass, m, TopkLoad{keys_in, idx_in, x, mask, is_int}, sweep,
+                    TopkStore{pass == 3, keys_out, idx_out, x, mask, k_out, out_val, out_idx});
 }
 
+// The scratch, in words: the select's state, the sweep's words (above
+// kSmall winners), the compaction's tile counts, two buffers of keys and
+// indices.  One memset a call zeroes the state and the sweep's words.
+int64_t sweep_words(int64_t k) { return k > kSmall ? radix::sweep_words(k) : 0; }
+
 int64_t work_words(int64_t n, int64_t k) {
-  return kStateWords + tiles(n) + 4 * k + static_cast<int64_t>(kBins) * tiles(k);
+  return kStateWords + sweep_words(k) + tiles(n) + 4 * k;
 }
 
 }  // namespace
@@ -417,13 +303,16 @@ int64_t work_words(int64_t n, int64_t k) {
 // values (the entries' 32 bits) and indices i32[k] of the k largest of x[n]
 // (float32, or int32 with is_int; mask: u8[n] or null, float32 only, a
 // clear byte counting as -inf); live (i32[1] or null, with a mask): the
-// count of set mask bytes.  work: i32 scratch of at least kStateWords +
-// tiles(n) + 4 k + 256 tiles(k) words (tiles(m) = ceil(m / 4096)) above
-// kSmall entries, the wrapper's `_top_k_work_words`.
+// count of set mask bytes; k <= 2^30 - 1 above kSmall.  work (above kSmall
+// entries): i32 scratch of at least work_words(n, k) = kStateWords +
+// tiles(n) + 4 k words (tiles(n) = ceil(n / 4096)), plus
+// radix::sweep_words(k) = 1,032 + 1,024 ceil(k / 1024) above kSmall
+// winners: the wrapper's `_top_k_work_words`.
 extern "C" int cc_top_k(int64_t n, int64_t k, int64_t is_int, const uint32_t* x,
                         const uint8_t* mask, uint32_t* out_val, int32_t* out_idx, int32_t* live,
                         int32_t* work, int64_t work_size, cudaStream_t stream) {
-  if (k <= 0 || k > n || n > 0x7FFFFFFF || (is_int && mask != nullptr))
+  if (k <= 0 || k > n || n > 0x7FFFFFFF || (is_int && mask != nullptr) ||
+      (k > kSmall && k > radix::kSweepMax))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool as_int = is_int != 0;
   if (n <= kSmall) {
@@ -434,13 +323,13 @@ extern "C" int cc_top_k(int64_t n, int64_t k, int64_t is_int, const uint32_t* x,
   }
   if (work_size < work_words(n, k)) return static_cast<int>(cudaErrorInvalidValue);
   uint32_t* state = reinterpret_cast<uint32_t*>(work);
-  uint32_t* tile_counts = state + kStateWords;
+  uint32_t* sweep = state + kStateWords;
+  uint32_t* tile_counts = sweep + sweep_words(k);
   uint32_t* keys_a = tile_counts + tiles(n);
   int32_t* idx_a = reinterpret_cast<int32_t*>(keys_a + k);
   uint32_t* keys_b = reinterpret_cast<uint32_t*>(idx_a + k);
   int32_t* idx_b = reinterpret_cast<int32_t*>(keys_b + k);
-  uint32_t* hist = reinterpret_cast<uint32_t*>(idx_b + k);
-  cudaMemsetAsync(state, 0, sizeof(uint32_t) * kStateWords, stream);
+  cudaMemsetAsync(state, 0, sizeof(uint32_t) * (kStateWords + sweep_words(k)), stream);
   const uint32_t* keys_in = nullptr;  // null: the keys come from x (k == n)
   const int32_t* idx_in = nullptr;
   if (k < n) {
@@ -463,14 +352,13 @@ extern "C" int cc_top_k(int64_t n, int64_t k, int64_t is_int, const uint32_t* x,
                                                         out_val, out_idx, nullptr);
     return static_cast<int>(cudaGetLastError());
   }
-  const unsigned grid = static_cast<unsigned>(tiles(k));
+  const unsigned grid = static_cast<unsigned>(radix::sweep_tiles(k));
+  topk_hist_kernel<<<grid, kThreads, 0, stream>>>(k, keys_in, x, as_int, mask, sweep);
   for (int pass = 0; pass < 4; ++pass) {
     uint32_t* keys_out = (pass & 1) ? keys_a : keys_b;
     int32_t* idx_out = (pass & 1) ? idx_a : idx_b;
-    topk_hist_kernel<<<grid, kThreads, 0, stream>>>(pass, k, keys_in, x, as_int, mask, hist,
-                                                    state);
     topk_scatter_kernel<<<grid, kThreads, 0, stream>>>(pass, k, k, keys_in, idx_in, x, as_int,
-                                                       mask, hist, keys_out, idx_out, out_val,
+                                                       mask, sweep, keys_out, idx_out, out_val,
                                                        out_idx);
     keys_in = keys_out;
     idx_in = idx_out;

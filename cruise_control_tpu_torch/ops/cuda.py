@@ -33,7 +33,7 @@ SOURCES = ("broker_aggregates", "best_per_segment", "prefix_cut",
            "apply_actions", "goal_masks", "transport_match", "cluster_stats",
            "stack_sweep", "frontier_active", "chunk_gate", "ordered", "placement_score",
            "detector_scores", "flight_row", "band_accepts", "shard_combine", "selection",
-           "top_k", "group_rank", "step_graph")
+           "top_k", "group_rank", "argsort", "step_graph")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,8 +68,8 @@ _ENTRIES = {
     "chunk_touched": ("chunk_gate", "cc_chunk_touched", "ii" + "p" * 8),
     "blend_aggregates": ("placement_score", "cc_blend_aggregates", "i" * 4 + "p" * 19),
     "masks_by_partition": ("placement_score", "cc_masks_by_partition", "iipp"),
-    "blend_index_keys": ("placement_score", "cc_blend_index_keys", "iiipppp"),
-    "blend_index_offsets": ("placement_score", "cc_blend_index_offsets", "iiiippp"),
+    "blend_index_keys": ("placement_score", "cc_blend_index_keys", "iipppp"),
+    "blend_index_offsets": ("placement_score", "cc_blend_index_offsets", "iiippp"),
     "blend_disk_load": ("placement_score", "cc_blend_disk_load", "iii" + "p" * 11),
     "stack_sweep_batch": ("placement_score", "cc_stack_sweep_batch",
                           "i" * 8 + "p" * 31 + "ii" + "p" * 4),
@@ -86,6 +86,8 @@ _ENTRIES = {
     "frontier_budgets": ("selection", "cc_frontier_budgets", "iii" + "p" * 14),
     "top_k": ("top_k", "cc_top_k", "iii" + "p" * 6 + "i"),
     "group_rank": ("group_rank", "cc_group_rank", "ii" + "p" * 4 + "i"),
+    "argsort": ("argsort", "cc_argsort", "iii" + "p" * 5 + "i"),
+    "row_argsort": ("argsort", "cc_row_argsort", "iipp"),
     # The step graphs' executables: no kernels, no launch counts.
     "step_graph_build": ("step_graph", "cc_step_graph_build", "hpph"),
     "step_graph_launch": ("step_graph", "cc_step_graph_launch", "h"),

@@ -10,8 +10,15 @@
   select of the k-th key, an ordered compaction and a stable radix sort of
   the winners, with the plain twin's result bit for bit.
 - ``argsort`` matches ``jnp.argsort(..., stable=True)``: ascending, stable,
-  -0.0 equal to +0.0 (float keys are canonicalised before the sort).
-- ``lexsort2`` matches ``jnp.lexsort((minor, major))``.
+  -0.0 equal to +0.0, NaN last (float keys are canonicalised before the
+  sort).  The plain twin ``argsort_plain`` is torch's stable sort; on CUDA
+  tensors ``argsort`` launches ``cc_argsort`` (1-D) or ``cc_row_argsort``
+  (dim 1 of an int32 [T, B]), stable LSD radix sorts of an order-preserving
+  uint32 key (``csrc/argsort.cu``, on the radix stage of ``csrc/radix.cuh``
+  that ``cc_top_k`` shares), with a declared key range (``num_keys``)
+  cutting the passes.
+- ``lexsort2_plain`` matches ``jnp.lexsort((minor, major))`` in torch ops
+  on any device: the plain twins' lexsort.
 - ``ordered_sum`` matches a float32 ``jnp.sum`` along the leading axis as
   the JAX package's compiled CPU programs add: XLA splits a reduction over
   more than 32 elements into windows of 32 (the input padded with zeros to
@@ -56,19 +63,35 @@ def top_k_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return x[idx], idx.to(torch.int32)
 
 
-# cc_top_k's tiling (csrc/top_k.cu): entries a block handles a pass, the
-# most winners one block sorts alone, the select's state words.
+# The radix stage of csrc/radix.cuh that cc_top_k and cc_argsort share: the
+# most items one block sorts alone (kSmall); above, the one-sweep sort's
+# items a tile and digits a pass.
+_RADIX_SMALL = 2048
+_SWEEP_TILE = 1024
+_SWEEP_BINS = 256
+
+
+def _sweep_words(m: int) -> int:
+    """int32 words of the one-sweep sort's scratch for ``m`` items: the
+    passes' tile counters (8 words), their digit counts, their look-back
+    status (a word a pass, tile and digit)."""
+    return 8 + 4 * _SWEEP_BINS + 4 * _SWEEP_BINS * -(-m // _SWEEP_TILE)
+
+
+# cc_top_k's select (csrc/top_k.cu): entries a block handles a pass, its
+# state words.
 _TOPK_TILE = 4096
-_TOPK_SMALL = 2048
 _TOPK_STATE = 8 + 256
 
 
 def _top_k_work_words(n: int, k: int) -> int:
-    """int32 words of ``cc_top_k``'s scratch (0 for a one-block input)."""
-    if n <= _TOPK_SMALL:
+    """int32 words of ``cc_top_k``'s scratch (0 for a one-block input): the
+    select's state, the sweep's words above ``_RADIX_SMALL`` winners, the
+    compaction's tile counts and two buffers of keys and indices."""
+    if n <= _RADIX_SMALL:
         return 0
-    tiles = lambda m: -(-m // _TOPK_TILE)  # noqa: E731
-    return _TOPK_STATE + tiles(n) + 4 * k + 256 * tiles(k)
+    sweep = _sweep_words(k) if k > _RADIX_SMALL else 0
+    return _TOPK_STATE + sweep + -(-n // _TOPK_TILE) + 4 * k
 
 
 def _top_k_form(n: int, k: int) -> str:
@@ -76,11 +99,11 @@ def _top_k_form(n: int, k: int) -> str:
     ("small"), every entry wins ("full"), or a select and compaction first
     with one block ("select") or radix passes ("select,sort") sorting the
     winners."""
-    if n <= _TOPK_SMALL:
+    if n <= _RADIX_SMALL:
         return "small"
     if k == n:
         return "full"
-    return "select" if k <= _TOPK_SMALL else "select,sort"
+    return "select" if k <= _RADIX_SMALL else "select,sort"
 
 
 def _top_k_args(x: torch.Tensor, k: int, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -106,6 +129,8 @@ def _top_k_args(x: torch.Tensor, k: int, mask: Optional[torch.Tensor]) -> torch.
 
 def _top_k_launch(x: torch.Tensor, k: int, mask: Optional[torch.Tensor]):
     n = x.shape[0]
+    if k >= 2 ** 30:
+        raise ValueError(f"top_k on the card sorts fewer than 2**30 winners, got {k}")
     vals = torch.empty((k,), dtype=x.dtype, device=x.device)
     idx = torch.empty((k,), dtype=torch.int32, device=x.device)
     live = None if mask is None else torch.empty((), dtype=torch.int32, device=x.device)
@@ -154,16 +179,179 @@ def _canonical(x: torch.Tensor) -> torch.Tensor:
     return x + 0.0 if x.is_floating_point() else x  # -0.0 -> +0.0
 
 
-def argsort(x: torch.Tensor, dim: int = -1, descending: bool = False) -> torch.Tensor:
-    """Stable argsort (int64 indices) along ``dim``."""
+# cc_argsort's key kinds: float32, int32, int32 in a declared [0, num_keys).
+_KEY_FLOAT, _KEY_INT, _KEY_RANGED = 0, 1, 2
+# The call sites, each counted as ``argsort[<mode>]``: the matched builders'
+# [R] sorts by broker, by (topic, broker) pair and by topic and their [T, B]
+# row sorts; K3's score sort and its regroup above
+# ``COUNTING_MAX_SEGMENTS``.
+ARGSORT_MODES = ("broker", "pair", "topic", "rows", "score", "regroup")
+_ARGSORT_COUNTS = cuda.mode_counters("argsort", ARGSORT_MODES)
+
+
+def argsort_passes(num_keys: Optional[int]) -> int:
+    """The 8-bit radix passes ``cc_argsort`` runs: enough for the bits of
+    ``num_keys - 1`` (at least one) with a declared range, else 4."""
+    if num_keys is None:
+        return 4
+    return max(1, -(-(int(num_keys) - 1).bit_length() // 8))
+
+
+def argsort_work_words(n: int) -> int:
+    """int32 words of ``cc_argsort``'s scratch for ``n`` entries (0 for a
+    one-block input): the one-sweep's words and two buffers of keys and
+    indices."""
+    if n <= _RADIX_SMALL:
+        return 0
+    return _sweep_words(n) + 4 * n
+
+
+def key_kind(x: torch.Tensor, num_keys: Optional[int]) -> int:
+    """``cc_argsort``'s key kind of ``x``: float32, int32, or int32 in a
+    declared range."""
+    if x.dtype == torch.float32:
+        return _KEY_FLOAT
+    return _KEY_INT if num_keys is None else _KEY_RANGED
+
+
+def _check_num_keys(x: torch.Tensor, num_keys: Optional[int]) -> None:
+    """``num_keys`` declares int32 keys in [0, num_keys); checked against the
+    data on CPU tensors (a card's check would read back to the host)."""
+    if num_keys is None:
+        return
+    if x.dtype != torch.int32:
+        raise TypeError(f"argsort: num_keys takes int32 keys, got {x.dtype}")
+    if not 1 <= num_keys <= 2 ** 31:
+        raise ValueError(f"argsort: num_keys = {num_keys} outside [1, 2**31]")
+    if x.device.type == "cpu" and x.numel() and (int(x.min()) < 0
+                                                 or int(x.max()) >= num_keys):
+        raise ValueError(f"argsort: keys outside [0, {num_keys})")
+
+
+def _record(name: str, x: torch.Tensor, num_keys: Optional[int], mode: Optional[str]):
+    """Record a sort's inputs as ``name`` and ``name[mode]`` (``cuda.record``)."""
+    args = (x, num_keys, mode)
+    cuda.record(name, args)
+    if mode is not None:
+        cuda.record(f"{name}[{mode}]", args)
+
+
+def argsort_plain(x: torch.Tensor, dim: int = -1, descending: bool = False,
+                  num_keys: Optional[int] = None) -> torch.Tensor:
+    """Stable argsort (int64 indices) along ``dim``, -0.0 equal to +0.0 and
+    NaN last: the CPU path and ``cc_argsort``'s and ``cc_row_argsort``'s
+    plain twin."""
+    _check_num_keys(x, num_keys)
     return torch.sort(_canonical(x), dim=dim, descending=descending,
                       stable=True).indices
 
 
-def lexsort2(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
-    """Indices sorting by ``major`` then ``minor``, both ascending, stable."""
-    o1 = argsort(minor)
-    o2 = argsort(major[o1])
+def argsort_into(x: torch.Tensor, num_keys: Optional[int], out_idx: Optional[torch.Tensor],
+                 work: Optional[torch.Tensor], out_idx32: Optional[torch.Tensor] = None,
+                 out_keys: Optional[torch.Tensor] = None,
+                 mode: Optional[str] = None) -> None:
+    """One ``cc_argsort`` launch of 1-D CUDA ``x`` (float32 or int32) into
+    the given outputs: int64 indices ``out_idx``, int32 indices
+    ``out_idx32``, the sorted keys ``out_keys`` (int32 with ``num_keys``;
+    any may be None) and ``work`` (``argsort_work_words(n)`` int32 words).
+    Counted as ``argsort``'s launches and its ``mode``'s."""
+    if x.dim() != 1 or x.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"argsort takes 1-D float32 or int32 on the card, got {x.dtype} of "
+                        f"shape {tuple(x.shape)}")
+    n = x.shape[0]
+    if n >= 2 ** 30:
+        raise ValueError(f"argsort on the card takes fewer than 2**30 entries, got {n}")
+    _check_num_keys(x, num_keys)
+    x = x.contiguous()
+    for what, t, dtype in (("out_idx", out_idx, torch.int64),
+                           ("out_idx32", out_idx32, torch.int32),
+                           ("out_keys", out_keys, x.dtype)):
+        if t is not None:
+            cuda.check(t, what, dtype, (n,), x.device)
+    words = argsort_work_words(n)
+    if words and (work is None or work.dtype != torch.int32 or work.numel() < words):
+        raise ValueError(f"argsort: {n} entries need {words} int32 words of scratch")
+    _record("argsort", x, num_keys, mode)
+    if n == 0:
+        return
+    cuda.launch("argsort", n, argsort_passes(num_keys), key_kind(x, num_keys), x, out_idx,
+                out_idx32, out_keys, work if words else None, words)
+    argsort.launches += 1
+    if mode is not None:
+        _ARGSORT_COUNTS[mode].launches += 1
+
+
+@cuda.counted("row_argsort")
+def _row_argsort(x: torch.Tensor, mode: Optional[str]) -> torch.Tensor:
+    """``argsort`` along dim 1 of a CUDA int32 [T, B]: ``cc_row_argsort``
+    (one block a row) up to ``_RADIX_SMALL`` a row, else two ``cc_argsort``
+    launches in ``lexsort2_plain``'s order: by key, then stably by row."""
+    T, B = x.shape
+    if x.dtype != torch.int32:
+        raise TypeError(f"argsort along dim 1 takes int32 on the card, got {x.dtype}")
+    x = x.contiguous()
+    _record("row_argsort", x, None, mode)
+    out = torch.empty((T, B), dtype=torch.int64, device=x.device)
+    if T == 0 or B == 0:
+        return out
+    if mode is not None:
+        _ARGSORT_COUNTS[mode].launches += 1
+    if B > _RADIX_SMALL:
+        by_key = argsort(x.reshape(-1))
+        by_row = argsort((by_key // B).to(torch.int32), num_keys=T)
+        flat = by_key[by_row].reshape(T, B)
+        return flat - torch.arange(T, device=x.device)[:, None] * B
+    cuda.launch("row_argsort", T, B, x, out)
+    _row_argsort.launches += 1
+    return out
+
+
+@cuda.counted("argsort")
+def argsort(x: torch.Tensor, dim: int = -1, descending: bool = False,
+            num_keys: Optional[int] = None, mode: Optional[str] = None) -> torch.Tensor:
+    """K6 argsort.  Replaces the stable ``jnp.argsort`` of the matched
+    builders (``cruise_control_tpu/analyzer/candidates.py:177,280,297,319,
+    330,331``) and K3's sorts (``cruise_control_tpu/analyzer/goals/
+    kernels.py:1006-1007``): int64 indices sorting ``x`` ascending along
+    ``dim``, stable, -0.0 equal to +0.0, NaN of either sign last.
+    ``num_keys`` declares int32 keys in [0, num_keys) (checked on CPU
+    tensors): the kernel then runs ``argsort_passes(num_keys)`` radix passes.
+    ``mode`` names the call site for the launch counts (``ARGSORT_MODES``).
+    Bound on the card: bytes (n·4 read, n·8 written).  CPU tensors take
+    ``argsort_plain``; CUDA tensors launch ``cc_argsort`` (1-D float32 or
+    int32 of fewer than 2**30 entries: one block up to 2,048 entries, else a
+    memset, a histogram of every pass and a one-sweep launch a pass) or
+    ``cc_row_argsort`` (dim 1 of an int32 [T, B]); anything else, and
+    ``descending``, raises on the card (the call sites negate)."""
+    if mode is not None and mode not in ARGSORT_MODES:
+        raise ValueError(f"argsort: unknown mode {mode!r}")
+    if cuda.on_cpu(x):
+        if x.dim() == 1:
+            _record("argsort", x, num_keys, mode)
+        elif x.dim() == 2 and dim in (1, -1):
+            _record("row_argsort", x, None, mode)
+        return argsort_plain(x, dim, descending, num_keys)
+    if descending:
+        raise ValueError("argsort: the card sorts ascending only (negate the key)")
+    if x.dim() == 2 and dim in (1, -1) and num_keys is None:
+        return _row_argsort(x, mode)
+    if x.dim() != 1 or dim not in (0, -1):
+        raise ValueError(f"argsort on the card takes dim 0 of 1-D or dim 1 of 2-D int32, got "
+                         f"dim {dim} of shape {tuple(x.shape)}")
+    n = x.shape[0]
+    out = torch.empty((n,), dtype=torch.int64, device=x.device)
+    words = argsort_work_words(n)
+    work = torch.empty((words,), dtype=torch.int32, device=x.device) if words else None
+    argsort_into(x, num_keys, out, work, mode=mode)
+    return out
+
+
+def lexsort2_plain(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
+    """Indices sorting by ``major`` then ``minor``, both ascending, stable:
+    two ``argsort_plain`` calls (torch ops on any device, for the plain
+    twins)."""
+    o1 = argsort_plain(minor)
+    o2 = argsort_plain(major[o1])
     return o1[o2]
 
 

@@ -15,8 +15,9 @@ run under
 ``torch.profiler``: the device's busy share of the median wall, and the
 device ms a launch and in all of K1, ``segment_sum``, the row index, K3
 (by its kernels before and after its redesign), the ordered sum, K9's
-sweep, frontier mask and batch, K4's four kernels, torch's ``index_add_``
-and every sort kernel (chip_smoke.py's ``profile_mid``); then K3, the ordered sum and K9's three calls on the
+sweep, frontier mask and batch, K4's four kernels, K6's top-k and
+argsorts, torch's ``index_add_`` and every sort kernel (chip_smoke.py's
+``profile_mid``); then K3, the ordered sum and K9's three calls on the
 large warm-up's first inputs (K9's also on chip_smoke.py's 7,000-broker
 fleet): device ms a call, one call between two events and a call in a
 replayed graph, and the ordered sum at the band
@@ -151,7 +152,8 @@ def main(argv) -> int:
         family = ("broker_aggregates", "segment_sum", "segment_row_index", "prefix_cut",
                   "prefix_cut_before", "ordered_sum", "stack_sweep", "frontier_active",
                   "frontier_active_batch", "sorts", "select_mask", "topic_round_sums",
-                  "net_viol", "partition_claims", "index_add")
+                  "net_viol", "partition_claims", "index_add", "top_k", "argsort",
+                  "row_argsort")
         row.update(busy=prof["busy"], device_ms=prof["device_ms"],
                    device_ms_per_launch={k: prof["per_launch"].get(k) for k in family},
                    device_ms_total={k: prof["totals"].get(k) for k in family})

@@ -93,6 +93,7 @@ def test_top_k_plain_matches_jax(name):
 # ---------------------------------------------------------------------------
 
 TILE, SMALL, THREADS, ITEMS = 4096, 2048, 256, 16
+SWEEP_TILE = 1024  # the one-sweep sort's tile (csrc/radix.cuh)
 
 
 def _desc_key(v):
@@ -163,24 +164,26 @@ def _walk_rounds(keys, idx, shift, run, out_keys, out_idx, lo, hi):
 
 
 def _walk_sort(keys, idx):
-    """The LSD radix sort: one block up to SMALL items, else a histogram
-    launch a pass (column per tile, scanned digit-major) and a scatter
-    launch a pass."""
+    """The LSD radix sort: one block up to SMALL items, else the one-sweep
+    sort: every pass's digit counts from one histogram of the items, then a
+    launch a pass over tiles of SWEEP_TILE, each tile's destinations the
+    digit's base plus its count in the earlier tiles (the look-back)."""
     m = keys.size
+    counts = [np.bincount((keys >> np.uint32(8 * p)) & np.uint32(0xFF), minlength=256)
+              for p in range(4)]
     for p in range(4):
         shift = 8 * p
         dig = (keys >> np.uint32(shift)) & np.uint32(0xFF)
         out_keys, out_idx = np.zeros_like(keys), np.zeros_like(idx)
+        base = np.concatenate([[0], np.cumsum(counts[p])[:-1]])
         if m <= SMALL:
-            run = np.concatenate([[0], np.cumsum(np.bincount(dig, minlength=256))[:-1]])
-            _walk_rounds(keys, idx, shift, run, out_keys, out_idx, 0, m)
+            _walk_rounds(keys, idx, shift, base.copy(), out_keys, out_idx, 0, m)
         else:
-            starts = list(range(0, m, TILE))
-            hist = np.stack([np.bincount(dig[lo:lo + TILE], minlength=256) for lo in starts], 1)
-            flat = np.concatenate([[0], np.cumsum(hist.reshape(-1))[:-1]]).reshape(hist.shape)
-            for b, lo in enumerate(starts):
-                _walk_rounds(keys, idx, shift, flat[:, b].copy(), out_keys, out_idx, lo,
-                             min(m, lo + TILE))
+            before = np.zeros(256, np.int64)
+            for lo in range(0, m, SWEEP_TILE):
+                _walk_rounds(keys, idx, shift, base + before, out_keys, out_idx, lo,
+                             min(m, lo + SWEEP_TILE))
+                before += np.bincount(dig[lo:lo + SWEEP_TILE], minlength=256)
         keys, idx = out_keys, out_idx
     return keys, idx
 
@@ -233,7 +236,9 @@ def test_forms_and_scratch():
     assert order._top_k_form(65536, 2048) == "select"
     assert order._top_k_form(65536, 32768) == "select,sort"
     assert order._top_k_work_words(2048, 2048) == 0
-    assert order._top_k_work_words(65536, 32768) == 264 + 16 + 4 * 32768 + 256 * 8
+    assert order._top_k_work_words(65536, 2048) == 264 + 16 + 4 * 2048
+    assert order._top_k_work_words(65536, 32768) == (264 + 8 + 4 * 256 + 4 * 256 * 32 + 16
+                                                     + 4 * 32768)
 
 
 # ---------------------------------------------------------------------------
